@@ -1,0 +1,3 @@
+from .basic_layers import Dense, Dropout, Embedding, LayerNorm
+
+__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]

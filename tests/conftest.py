@@ -25,6 +25,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests excluded from the tier-1 "
         "'-m \"not slow\"' sweep (ci/run_ci.py runs them in the slow stage)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips, with its reason, "
+        "where torch.cuda.is_available() is false")
 
 
 @pytest.fixture(autouse=True)
