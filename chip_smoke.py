@@ -12,7 +12,7 @@ Phases (any failure raises, prints its traceback and exits non-zero):
 2. build — compile every kernel from ``incubator_mxnet_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card
-   at the main path's shapes, with the stated tolerances, and its time
+   at the main paths' shapes, with the stated tolerances, and its time
    beside the plain version's, one PyTorch library call's and the bound;
 4. BERT-base at full width in process — one forward at B=8, T=128 on
    the card against the same weights on the CPU through the port's
@@ -20,11 +20,21 @@ Phases (any failure raises, prints its traceback and exits non-zero):
 5. serve — export, ``InferenceServer`` on an ephemeral port with
    buckets 1,2,4,8, 8 HTTP predictions (3 in turn, 5 at once) each
    checked against a direct ``Predictor`` call;
-6. the kernels line (JSON), then the last line
+6. train BERT-base at full width (MLM + NSP, Adam) — (a) one step with
+   dropout 0 on the card against the same step through the port's CPU
+   path (B=4, T=128): the loss, every gradient, the update of every
+   weight whose gradient is large, and every weight after the update; (b) 10 steps with dropout 0.1 through ``Trainer.step`` at
+   B=16, T=128, whose loss must be finite and fall, with exactly 25
+   LayerNorm forward and backward and 2 cross-entropy forward and
+   backward launches a step; the median step time; one step profiled
+   by kernel family;
+7. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are set to 0 just before phase 4 and read after phase
-5, so the kernels line counts only the main path's launches.
+Each main path runs with the launch counters set to 0 just before it
+and read just after: serving from phase 4 to the end of phase 5,
+training over phase 6 (b).  The kernels line gives each kernel's
+launches summed over the paths it ran on.
 """
 import json
 import os
@@ -40,15 +50,53 @@ B, T = 8, 128
 BUCKETS = [1, 2, 4, 8]
 VALID = [128, 100, 77, 64, 33, 16, 5, 1]
 HIDDEN = 768
+# training: BERT-base at B=16, T=128 (2048 tokens a step)
+TRAIN_B, TRAIN_B_CPU, TRAIN_STEPS = 16, 4, 10
+ROWS = TRAIN_B * T
+# the LayerNorm forward at the serving shapes, then the training step's
 LN_SHAPES = [((B * T // 8, HIDDEN), "float32"),
              ((B * T // 4, HIDDEN), "float32"),
              ((B * T // 2, HIDDEN), "float32"),
              ((B * T, HIDDEN), "float32"),
              ((B * T, HIDDEN), "bfloat16"),
+             ((ROWS, HIDDEN), "float32"),
+             ((ROWS, HIDDEN), "bfloat16"),
              ((1000, 100), "float32"),
              ((3, 4096), "bfloat16")]
 LN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # on y; stats always 1e-5
 STAT_TOL = 1e-5
+
+VOCAB = 30522
+# Adam at 1e-4, not examples/train_bert.py's default 1e-3: that default
+# is tuned for the script's 128-unit model, not for BERT-base.
+LR = 1e-4
+LN_BWD_SHAPES = [((ROWS, HIDDEN), "float32"), ((ROWS, HIDDEN), "bfloat16"),
+                 ((1000, 100), "float32"), ((3, 4096), "bfloat16")]
+# dx: float32 1e-5 (sums in another order), bfloat16 2e-2 (one bf16 ulp
+# at |dx| ~ 2); dgamma/dbeta: float32 sums over all rows, 1e-5 of the
+# largest value
+LN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+PARAM_TOL = 1e-5
+XENT_SHAPES = [((ROWS, VOCAB), "float32"), ((ROWS, VOCAB), "bfloat16"),
+               ((TRAIN_B, 2), "float32"), ((1000, 100), "float32"),
+               ((3, 16385), "float32")]
+# loss and lse: float32 in both versions, 1e-5; dx: float32 rtol 1e-5,
+# atol 1e-6 (one float32 ulp of a row's logsumexp, about 15 here, moves
+# exp(x - lse) by about 1e-6 of itself), bfloat16 rtol 8e-3 (one bf16
+# ulp of each element, at most 2^-7 of it), atol 1e-6 (entries near 0)
+XENT_LOSS_TOL = 1e-5
+XENT_DX_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+               "bfloat16": dict(rtol=8e-3, atol=1e-6)}
+# card step vs CPU step: each gradient max|d| <= 1e-3 * max|g| of that
+# tensor (float32 sums over 12 layers in another order; the served
+# forward agreed to about 3e-5 of its largest value)
+GRAD_TOL = 1e-3
+# and the update each makes, w_after - w_before, within 1e-2 * lr on
+# every element whose gradient is above 1e-2 * max|g| of its tensor:
+# a first Adam step there is lr * g / (|g| + 3.2e-7), which the
+# gradients' agreement pins to far better than 1e-2 * lr, while a
+# skipped, halved or uncorrected update is off by 0.5 * lr or more
+UPDATE_TOL = 1e-2
 
 
 def phase(name):
@@ -113,8 +161,9 @@ def ln_inputs(torch, shape, dtype, seed, device):
 
 def check_layer_norm(torch, ln, dev):
     """Kernel against plain version at every shape; returns the max
-    |Δy| at the serving shape (B·T, 768) float32."""
-    serving_err = None
+    |Δy| over the main paths' float32 shapes, serving (B·T, 768) and
+    training (2048, 768)."""
+    path_err = 0.0
     for shape, dtype in LN_SHAPES:
         x, g, b = ln_inputs(torch, shape, dtype, 0, dev)
         y, mean, rstd = ln.layer_norm_fwd(x, g, b)
@@ -129,9 +178,27 @@ def check_layer_norm(torch, ln, dev):
               f"max|dmean|={(mean - rmean).abs().max().item():.3e} "
               f"max|drstd|={(rstd - rrstd).abs().max().item():.3e} "
               f"(tol {tol:g}) ok", flush=True)
-        if shape == (B * T, HIDDEN) and dtype == "float32":
-            serving_err = err
-    return serving_err
+        if shape in ((B * T, HIDDEN), (ROWS, HIDDEN)) and dtype == "float32":
+            path_err = max(path_err, err)
+    return path_err
+
+
+def report(label, times, nbytes, rate):
+    """Print the times and the bound of one kernel and return the kernels
+    line's numbers: each time is the profiler's device time per call,
+    or the CUDA-event stream time where the profiler saw none."""
+    bound = nbytes / rate * 1e3
+    print(f"{label}: bound_ms={bound:.6f} (bytes={nbytes}); per call, "
+          "device time from the profiler trace / CUDA-event stream time:",
+          flush=True)
+    out = {"bound_ms": bound}
+    for k, (device, stream) in times.items():
+        print(f"  {k}: device {device} stream {stream:.6f}", flush=True)
+        if device is None:
+            print(f"  {k}: profiler saw no device time; reporting CUDA-"
+                  "event time", flush=True)
+        out[k] = device if device is not None else stream
+    return out
 
 
 def time_layer_norm(torch, ln, dev, dtype, rate):
@@ -147,42 +214,358 @@ def time_layer_norm(torch, ln, dev, dtype, rate):
             x, (cols,), g, b, 1e-5), sets)}
     esize = sets[0][0].element_size()
     nbytes = rows * cols * 2 * esize + 2 * cols * esize + 2 * rows * 4
-    bound = nbytes / rate * 1e3
-    print(f"layer_norm ({rows}, {cols}) {dtype}: bound_ms={bound:.6f} "
-          f"(bytes={nbytes}); per call, device time from the profiler "
-          "trace / CUDA-event stream time:", flush=True)
-    for k, (device, stream) in times.items():
-        print(f"  {k}: device {device} stream {stream:.6f}", flush=True)
-    out = {"bound_ms": bound}
-    for k, (device, stream) in times.items():
-        if device is None:
-            print(f"  {k}: profiler saw no device time; reporting CUDA-"
-                  "event time", flush=True)
-        out[k] = device if device is not None else stream
-    return out
+    return report(f"layer_norm ({rows}, {cols}) {dtype}", times, nbytes, rate)
 
 
-def forward_breakdown(torch, pred, args, n):
-    """Device time of one ``Predictor`` call by kernel family, from the
-    profiler's trace, against the call's host-clock time."""
+def ln_bwd_inputs(torch, ln, shape, dtype, seed, dev):
+    """``(x, g, gamma, mean, rstd)``: gamma float32, as a parameter is,
+    and the statistics of the plain forward."""
+    x, gamma, beta = ln_inputs(torch, shape, dtype, seed, dev)
+    gamma = gamma.float()
+    g = (torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1))
+         .to(dev, x.dtype))
+    _, mean, rstd = ln.layer_norm_fwd_reference(x, gamma, beta)
+    return x, g, gamma, mean, rstd
+
+
+def check_layer_norm_bwd(torch, ln, dev):
+    """Backward kernel against its plain version at every shape; returns
+    the max |d dx| at the training shape, float32."""
+    train_err = None
+    for shape, dtype in LN_BWD_SHAPES:
+        args = ln_bwd_inputs(torch, ln, shape, dtype, 0, dev)
+        got = ln.layer_norm_bwd(*args)
+        want = ln.layer_norm_bwd_reference(*args)
+        torch.cuda.synchronize()
+        tol = LN_BWD_TOL[dtype]
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                                   atol=tol)
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+        for name, err, w in zip(("dgamma", "dbeta"), errs[1:], want[1:]):
+            scale = w.abs().max().item()
+            assert err <= PARAM_TOL * scale, (shape, dtype, name, err, scale)
+        print(f"layer_norm_bwd {shape} {dtype}: max|d dx|={errs[0]:.3e} "
+              f"(tol {tol:g}) max|d dgamma|={errs[1]:.3e} "
+              f"max|d dbeta|={errs[2]:.3e} (tol {PARAM_TOL:g} of max) ok",
+              flush=True)
+        if shape == (ROWS, HIDDEN) and dtype == "float32":
+            train_err = errs[0]
+    return train_err
+
+
+def time_layer_norm_bwd(torch, ln, dev, dtype, rate):
+    """Times at the training shape (2048, 768), cycling 24 input sets
+    (144 MiB of x and g in float32).  The library call is ATen's
+    LayerNorm backward on the statistics of ATen's own forward."""
+    rows, cols = ROWS, HIDDEN
+    sets = [ln_bwd_inputs(torch, ln, (rows, cols), dtype, s, dev)
+            for s in range(24)]
+    lib_sets = []
+    for x, g, gamma, _, _ in sets:
+        gam = gamma.to(x.dtype)
+        bet = torch.zeros_like(gam)
+        _, m, r = torch.native_layer_norm(x, [cols], gam, bet, 1e-5)
+        lib_sets.append((g, x, m, r, gam, bet))
+    times = {
+        "ms": time_ms(torch, ln.layer_norm_bwd, sets),
+        "plain_ms": time_ms(torch, ln.layer_norm_bwd_reference, sets),
+        "library_ms": time_ms(
+            torch, lambda g, x, m, r, gam, bet:
+            torch.ops.aten.native_layer_norm_backward(
+                g, x, [cols], m, r, gam, bet, [True, True, True]),
+            lib_sets)}
+    esize = sets[0][0].element_size()
+    # x and g read, dx written; gamma, mean and rstd read; dgamma and
+    # dbeta written (float32)
+    nbytes = 3 * rows * cols * esize + cols * 4 + 2 * rows * 4 + 2 * cols * 4
+    return report(f"layer_norm_bwd ({rows}, {cols}) {dtype}", times, nbytes,
+                  rate)
+
+
+def xent_inputs(torch, shape, dtype, seed, dev):
+    """``(logits, labels, g)``; labels hold -1 and C + 5 at the ends,
+    which both versions clip to 0 and C - 1."""
+    n, c = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(shape, generator=gen) * 3).to(dev, getattr(torch, dtype))
+    labels = torch.randint(0, c, (n,), generator=gen, dtype=torch.int32)
+    labels[0] = -1
+    labels[-1] = c + 5
+    g = torch.randn(n, generator=gen)
+    return x, labels.to(dev), g.to(dev)
+
+
+def check_softmax_xent(torch, sx, dev):
+    """Both kernels against their plain versions at every shape; returns
+    the max |d loss| and max |d dx| at the MLM shape, float32."""
+    errs_at_train = None
+    for shape, dtype in XENT_SHAPES:
+        x, labels, g = xent_inputs(torch, shape, dtype, 0, dev)
+        loss, lse = sx.softmax_xent_fwd(x, labels)
+        dx = sx.softmax_xent_bwd(x, labels, lse, g)
+        rloss, rlse = sx.softmax_xent_fwd_reference(x, labels)
+        rdx = sx.softmax_xent_bwd_reference(x, labels, rlse, g)
+        torch.cuda.synchronize()
+        tol = XENT_DX_TOL[dtype]
+        for a, b in ((loss, rloss), (lse, rlse)):
+            torch.testing.assert_close(a, b, rtol=XENT_LOSS_TOL,
+                                       atol=XENT_LOSS_TOL)
+        torch.testing.assert_close(dx.float(), rdx.float(), **tol)
+        e_loss = (loss - rloss).abs().max().item()
+        e_dx = (dx.float() - rdx.float()).abs().max().item()
+        print(f"softmax_xent {shape} {dtype}: max|d loss|={e_loss:.3e} "
+              f"max|d lse|={(lse - rlse).abs().max().item():.3e} "
+              f"(tol {XENT_LOSS_TOL:g}) max|d dx|={e_dx:.3e} (tol {tol}) "
+              "ok", flush=True)
+        if shape == (ROWS, VOCAB) and dtype == "float32":
+            errs_at_train = e_loss, e_dx
+    return errs_at_train
+
+
+def time_softmax_xent(torch, sx, dev, dtype, rate):
+    """Times at the MLM shape (2048, 30522), cycling 3 input sets of
+    250 MB each (five times L2).  The library calls are
+    ``F.cross_entropy(reduction="none")`` and, for the backward, the two
+    ATen ops its autograd runs (``nll_loss_backward`` and
+    ``_log_softmax_backward_data``) on its saved log-probabilities."""
+    import torch.nn.functional as F
+    rows, cols = ROWS, VOCAB
+    sets, fwd_sets, lib_sets = [], [], []
+    for s in range(3):
+        x, labels, g = xent_inputs(torch, (rows, cols), dtype, s, dev)
+        lse = sx.softmax_xent_fwd_reference(x, labels)[1]
+        sets.append((x, labels, lse, g))
+        fwd_sets.append((x, labels))
+        lib_sets.append((x, labels.long().clamp(0, cols - 1), g,
+                         torch.log_softmax(x, 1)))
+    zero = torch.zeros((), device=dev)
+    fwd_times = {
+        "ms": time_ms(torch, sx.softmax_xent_fwd, fwd_sets),
+        "plain_ms": time_ms(torch, sx.softmax_xent_fwd_reference, fwd_sets),
+        "library_ms": time_ms(torch, lambda x, lbl, g, lp: F.cross_entropy(
+            x, lbl, reduction="none"), lib_sets)}
+    bwd_times = {
+        "ms": time_ms(torch, sx.softmax_xent_bwd, sets),
+        "plain_ms": time_ms(torch, sx.softmax_xent_bwd_reference, sets),
+        "library_ms": time_ms(
+            torch, lambda x, lbl, g, lp:
+            torch.ops.aten._log_softmax_backward_data(
+                torch.ops.aten.nll_loss_backward(g, lp, lbl, None, 0, -100,
+                                                 zero),
+                lp, 1, x.dtype), lib_sets)}
+    esize = sets[0][0].element_size()
+    # forward: logits and labels read, loss and lse written; backward:
+    # logits, labels, lse and g read, dx written
+    fwd_bytes = rows * cols * esize + rows * 4 + 2 * rows * 4
+    bwd_bytes = 2 * rows * cols * esize + 3 * rows * 4
+    return (report(f"softmax_xent_fwd ({rows}, {cols}) {dtype}", fwd_times,
+                   fwd_bytes, rate),
+            report(f"softmax_xent_bwd ({rows}, {cols}) {dtype}", bwd_times,
+                   bwd_bytes, rate))
+
+
+_FAMILIES = (("layer_norm", ("layer_norm",)), ("xent", ("xent",)),
+             ("gemm", ("gemm", "splitk")), ("softmax", ("softmax",)),
+             ("memcpy", ("memcpy", "memset")))
+
+
+def device_families(prof):
+    """Device ms by kernel family from a profiler trace; kernels of no
+    named family count as "other" (elementwise, reductions, gathers;
+    in the optimizer's window, Adam's updates)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        pred(*args)
-        wall_ms = (time.monotonic() - t0) * 1e3
     fams = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        fam = next((f for f in ("layer_norm", "gemm", "softmax", "memcpy")
-                    if f in name), "other")
+        fam = next((f for f, keys in _FAMILIES
+                    if any(k in name for k in keys)), "other")
         fams[fam] = fams.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+    return fams
+
+
+def forward_breakdown(torch, pred, args, n):
+    """Device time of one ``Predictor`` call by kernel family, from the
+    profiler's trace, against the call's host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        pred(*args)
+        wall_ms = (time.monotonic() - t0) * 1e3
+    fams = device_families(prof)
     busy = sum(fams.values())
     print(f"  bucket {n} profile: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; by family "
           f"(ms): {({k: round(v, 4) for k, v in sorted(fams.items())})}",
+          flush=True)
+
+
+def bert_step_parts(torch, net, trainer, ce, batch):
+    """One training step in two parts, each ending in a synchronise:
+    forward + loss + backward, then the optimizer.  Returns the loss."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.examples.train_bert import pretraining_loss
+    x, y_mlm, y_nsp = batch
+
+    def fwd_bwd():
+        with autograd.record():
+            loss = pretraining_loss(net, ce, x, y_mlm, y_nsp)
+        autograd.backward(loss)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return loss
+
+    def update():
+        trainer.step(x.shape[0])
+        if x.is_cuda:
+            torch.cuda.synchronize()
+
+    return fwd_bwd, update
+
+
+def compare_step(torch, np, dev, cfg, batch_size, seq_len, tol, lr):
+    """One step of the same model, batch and Adam on the CPU and on
+    ``dev``: the loss, every gradient (max |d| <= tol · max |g| per
+    tensor), the update of every weight where its gradient is large
+    (``UPDATE_TOL``), and every weight after the update (atol 2·lr: a
+    first Adam step moves a weight by about lr·sign(g), so a gradient
+    near 0 whose sign rounds differently on the two devices moves it by
+    up to 2·lr).  Returns the worst gradient ratio max|d| / max|g|."""
+    import copy
+    from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.examples.train_bert import synthetic_batch
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    cpu = BERTModel(**cfg, dropout=0.0).initialize(
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    data = synthetic_batch(batch_size, seq_len, cfg["vocab_size"])
+    results = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        batch = [torch.from_numpy(a).to(where) for a in data]
+        trainer = Trainer(net.collect_params(), "adam", {"learning_rate": lr})
+        fwd_bwd, update = bert_step_parts(torch, net, trainer,
+                                          SoftmaxCrossEntropyLoss(), batch)
+        t0 = time.monotonic()
+        loss = fwd_bwd().item()
+        grads = grads_to_numpy(net)
+        before = params_to_numpy(net)
+        update()
+        after = params_to_numpy(net)
+        results.append((loss, grads, after,
+                        {k: after[k] - before[k] for k in after},
+                        time.monotonic() - t0))
+    ((l_cpu, g_cpu, w_cpu, d_cpu, s_cpu),
+     (l_card, g_card, w_card, d_card, s_card)) = results
+    print(f"step on the CPU {s_cpu:.2f} s, on the card {s_card:.3f} s "
+          f"(B={batch_size}, T={seq_len})", flush=True)
+    assert np.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), \
+        (l_card, l_cpu)
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        scale = np.abs(want).max()
+        err = np.abs(got - want).max()
+        assert err <= tol * max(scale, 1e-30), (name, err, scale)
+        if scale > 0 and err / scale > worst:
+            worst, worst_name = err / scale, name
+    w_err = max(np.abs(w_card[k] - w_cpu[k]).max() for k in w_cpu)
+    assert w_err <= 2 * lr, w_err
+    u_err, n_large = 0.0, 0
+    for name, g in g_cpu.items():
+        large = np.abs(g) > 1e-2 * np.abs(g).max()
+        if not large.any():
+            continue
+        n_large += int(large.sum())
+        err = np.abs(d_card[name] - d_cpu[name])[large].max()
+        assert err <= UPDATE_TOL * lr, (name, err)
+        u_err = max(u_err, err)
+    assert n_large > 0.01 * sum(g.size for g in g_cpu.values()), n_large
+    print(f"loss card {l_card:.7f} cpu {l_cpu:.7f}; {len(g_cpu)} gradients "
+          f"agree, worst max|d|/max|g| = {worst:.3e} ({worst_name}, tol "
+          f"{tol:g}); update w_after - w_before where |g| > 1e-2 max|g| "
+          f"({n_large} weights) max|d| = {u_err:.3e} (atol "
+          f"{UPDATE_TOL:g}*lr = {UPDATE_TOL * lr:g}); weights after Adam "
+          f"max|d| = {w_err:.3e} (atol 2*lr = {2 * lr:g})", flush=True)
+    return worst
+
+
+def train_bert_base(torch, np, dev):
+    """Phase 6; returns the training path's launch counts."""
+    from incubator_mxnet_tpu_torch.examples.train_bert import (
+        synthetic_batch, use_dropout_generator)
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
+    base = dict(vocab_size=VOCAB)      # every other argument at its default
+    compare_step(torch, np, dev, base, TRAIN_B_CPU, T, GRAD_TOL, LR)
+
+    net = BERTModel(**base).initialize(
+        device=dev, generator=torch.Generator().manual_seed(1))
+    use_dropout_generator(net, torch.Generator(device=dev).manual_seed(0))
+    trainer = Trainer(net.collect_params(), "adam", {"learning_rate": LR})
+    batch = [torch.from_numpy(a).to(dev)
+             for a in synthetic_batch(TRAIN_B, T, VOCAB)]
+    fwd_bwd, update = bert_step_parts(torch, net, trainer,
+                                      SoftmaxCrossEntropyLoss(), batch)
+    torch.cuda.synchronize()
+    ln.launches = ln.bwd_launches = 0   # training path starts here
+    sx.fwd_launches = sx.bwd_launches = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        loss = fwd_bwd()
+        update()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = {"layer_norm_fwd": ln.launches, "layer_norm_bwd": ln.bwd_launches,
+              "softmax_xent_fwd": sx.fwd_launches,
+              "softmax_xent_bwd": sx.bwd_launches}   # training path ends
+    print(f"{TRAIN_STEPS} steps at B={TRAIN_B}, T={T}, dropout 0.1, Adam "
+          f"lr {LR:g}: losses {[round(v, 4) for v in losses]}", flush=True)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    want = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+            "softmax_xent_fwd": 2, "softmax_xent_bwd": 2}
+    for k, n in want.items():
+        assert counts[k] == n * TRAIN_STEPS, (k, counts[k])
+    print(f"training path launches: {counts} ({want} a step)", flush=True)
+    print(f"step time, host clock around a synchronised step: median over "
+          f"steps 3-{TRAIN_STEPS} {statistics.median(step_ms[2:]):.3f} ms, "
+          f"min {min(step_ms[2:]):.3f} ms, all "
+          f"{[round(v, 3) for v in step_ms]}", flush=True)
+    step_breakdown(torch, fwd_bwd, update)
+    return counts
+
+
+def step_breakdown(torch, fwd_bwd, update):
+    """One more step under the profiler, in two windows (forward + loss
+    + backward, then the optimizer): wall and device-busy ms, idle share
+    and busy ms by kernel family.  The profiler's own host cost inflates
+    the wall times."""
+    from torch.profiler import ProfilerActivity, profile
+    total_wall = total_busy = 0.0
+    for name, part in (("fwd+bwd", fwd_bwd), ("optimizer", update)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            part()
+            wall = (time.monotonic() - t0) * 1e3
+        fams = device_families(prof)
+        busy = sum(fams.values())
+        total_wall += wall
+        total_busy += busy
+        print(f"  profiled step, {name}: wall {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; by family "
+              f"(ms): {({k: round(v, 4) for k, v in sorted(fams.items())})}",
+              flush=True)
+    print(f"  profiled step, whole: wall {total_wall:.3f} ms, device busy "
+          f"{total_busy:.3f} ms, idle share {1 - total_busy / total_wall:.3f}",
           flush=True)
 
 
@@ -208,6 +591,7 @@ def main():
     from incubator_mxnet_tpu_torch.deploy import export_model
     from incubator_mxnet_tpu_torch.models.bert import BERTModel
     from incubator_mxnet_tpu_torch.ops import _build, layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
     from incubator_mxnet_tpu_torch.serving.server import InferenceServer
 
     phase("1 device")
@@ -226,7 +610,7 @@ def main():
 
     phase("2 build")
     t0 = time.monotonic()
-    logs = _build.build(["layer_norm"])
+    logs = _build.build(_build.kernel_names())
     print(f"build: {time.monotonic() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})", flush=True)
     for log in logs.values():
@@ -235,10 +619,16 @@ def main():
                                          or "Compiling" in line):
                 print("  " + line.strip(), flush=True)
 
-    phase("3 kernel against plain version")
+    phase("3 kernels against plain versions")
     ln_err = check_layer_norm(torch, ln, dev)
     ln_times = time_layer_norm(torch, ln, dev, "float32", rate)
     time_layer_norm(torch, ln, dev, "bfloat16", rate)
+    ln_bwd_err = check_layer_norm_bwd(torch, ln, dev)
+    ln_bwd_times = time_layer_norm_bwd(torch, ln, dev, "float32", rate)
+    time_layer_norm_bwd(torch, ln, dev, "bfloat16", rate)
+    xent_fwd_err, xent_bwd_err = check_softmax_xent(torch, sx, dev)
+    xent_fwd_times, xent_bwd_times = time_softmax_xent(torch, sx, dev,
+                                                       "float32", rate)
 
     phase("4 BERT-base in process")
     model = BERTModel().initialize(
@@ -336,15 +726,33 @@ def main():
                 forward_breakdown(torch, pred, args, n)
         finally:
             server.shutdown()
-    launches = ln.launches              # main path ends here
+    serve_launches = ln.launches        # serving path ends here
+    print(f"serving path launches: layer_norm_fwd {serve_launches}",
+          flush=True)
 
-    phase("6 kernels")
-    print(json.dumps({"kernels": [dict(
-        name="layer_norm_fwd", route="cuda",
-        source="incubator_mxnet_tpu_torch/csrc/layer_norm.cu",
-        replaces="incubator_mxnet_tpu/ops/pallas_kernels.py:219",
-        launches=launches, max_abs_err=ln_err, bound_by="bytes",
-        **ln_times)]}), flush=True)
+    phase("6 train BERT-base")
+    train = train_bert_base(torch, np, dev)
+
+    phase("7 kernels")
+    pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
+    src = "incubator_mxnet_tpu_torch/csrc/"
+    print(json.dumps({"kernels": [
+        dict(name="layer_norm_fwd", route="cuda", source=src + "layer_norm.cu",
+             replaces=pk + ":219",
+             launches=serve_launches + train["layer_norm_fwd"],
+             max_abs_err=ln_err, bound_by="bytes", **ln_times),
+        dict(name="layer_norm_bwd", route="cuda", source=src + "layer_norm.cu",
+             replaces=pk + ":237", launches=train["layer_norm_bwd"],
+             max_abs_err=ln_bwd_err, bound_by="bytes", **ln_bwd_times),
+        dict(name="softmax_xent_fwd", route="cuda",
+             source=src + "softmax_xent.cu", replaces=pk + ":545",
+             launches=train["softmax_xent_fwd"], max_abs_err=xent_fwd_err,
+             bound_by="bytes", **xent_fwd_times),
+        dict(name="softmax_xent_bwd", route="cuda",
+             source=src + "softmax_xent.cu", replaces=pk + ":558",
+             launches=train["softmax_xent_bwd"], max_abs_err=xent_bwd_err,
+             bound_by="bytes", **xent_bwd_times),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

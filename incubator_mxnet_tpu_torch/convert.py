@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_numpy", "grads_to_numpy"]
 
 
 def params_from_jax(named, module):
@@ -37,3 +37,20 @@ def params_from_jax(named, module):
         state[name] = torch.tensor(arr, dtype=ref.dtype, device=ref.device)
     module.load_state_dict(state, strict=True)
     return state
+
+
+def params_to_numpy(module):
+    """``{name: numpy array}`` of every parameter of ``module``, copied to
+    the host — the shape ``params_from_jax`` takes."""
+    return {k: p.detach().cpu().numpy().copy()
+            for k, p in module.named_parameters()}
+
+
+def grads_to_numpy(module):
+    """``{name: numpy array}`` of every parameter's gradient, copied to
+    the host.  A parameter that ``backward()`` did not reach (``.grad``
+    is ``None``) reads as zeros, as the JAX package's zero-initialised
+    gradient buffer does."""
+    return {k: (np.zeros(tuple(p.shape), np.float32) if p.grad is None
+                else p.grad.detach().float().cpu().numpy().copy())
+            for k, p in module.named_parameters()}

@@ -1,7 +1,9 @@
-// LayerNorm forward over the last axis, written for Hopper (sm_90a).
+// LayerNorm over the last axis, forward and backward, written for
+// Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_ln_fwd_kernel`, launched by `_ln_fwd`
-// (incubator_mxnet_tpu/ops/pallas_kernels.py).  Per row of width D:
+// Forward.  Replaces the Pallas TPU kernel `_ln_fwd_kernel`, launched by
+// `_ln_fwd` (incubator_mxnet_tpu/ops/pallas_kernels.py).  Per row of
+// width D:
 //
 //   mean = sum(x) / D                       (float32)
 //   var  = sum((x - mean)^2) / D            (float32, second pass)
@@ -28,53 +30,38 @@
 // and then across warps through shared memory.  Threads stride over the
 // row, so neighbouring threads touch neighbouring addresses; the last
 // stride is masked by the loop bound.
+//
+// Backward.  Replaces `_ln_bwd_kernel`, launched by `_fused_ln_bwd`
+// (pallas_kernels.py).  Per row, with xhat = (x - mean) * rstd and
+// gg = g * gamma (float32):
+//
+//   m1 = sum(gg) / D,  m2 = sum(gg * xhat) / D
+//   dx = (gg - m1 - xhat * m2) * rstd          (written in x's type)
+//
+// and, as on the TPU, each block writes one float32 partial row of
+// dgamma = sum(g * xhat) and dbeta = sum(g) over its rows, giving
+// (blocks, D) partials that the wrapper sums (the TPU wrapper sums its
+// per-row-block partials the same way, outside the kernel).  No atomics,
+// so the result is the same from run to run.
+//
+// Bound: memory traffic again (x, g read once, dx written once; about
+// ten float operations an element).  A block takes a run of rows; its
+// threads stride over the columns, so each thread owns the same columns
+// in every row and keeps their dgamma/dbeta sums without sharing them.
+// The first pass stages xhat and g in shared memory beside those sums;
+// a row too wide for that (more than about 14k values) re-reads x and g
+// and keeps the sums in the partial row in device memory instead.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
+using mx::from_float;
+using mx::row_sum;
+using mx::to_float;
+
 constexpr int kSmallRow = 512;        // widest row that gets one warp
 constexpr int kWarpRowsBlock = 256;   // block size in one-warp-per-row mode
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch casts
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Sum over the threads of one row.  With a whole block per row the
-// warps' partials meet in `red`, and every warp then sums all of them,
-// so every thread gets the total.  The first barrier keeps a previous
-// call's readers of `red` ahead of this call's writers.
-__device__ __forceinline__ float row_sum(float v, float* red,
-                                         bool whole_block) {
-  v = warp_sum(v);
-  if (!whole_block) return v;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0.f;
-  return warp_sum(v);
-}
 
 template <typename T, bool kCache>
 __global__ void __launch_bounds__(1024)
@@ -124,10 +111,88 @@ layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   }
 }
 
+// One block per run of `rows_per_block` rows; see the note at the top.
+// Shared memory: 64 floats for the two row sums, then (kCache) the
+// dgamma and dbeta sums and the staged xhat and g, D floats each.
+template <typename T, bool kCache>
+__global__ void __launch_bounds__(1024)
+layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ rstd, T* __restrict__ dx,
+                      float* __restrict__ dgamma_part,
+                      float* __restrict__ dbeta_part, int64_t rows, int cols,
+                      int rows_per_block) {
+  extern __shared__ float smem[];
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const bool whole_block = nt > 32;
+  float* part_g = dgamma_part + static_cast<int64_t>(blockIdx.x) * cols;
+  float* part_b = dbeta_part + static_cast<int64_t>(blockIdx.x) * cols;
+  float* acc_g = kCache ? smem + 64 : part_g;
+  float* acc_b = kCache ? smem + 64 + cols : part_b;
+  float* xhat_c = smem + 64 + 2 * cols;
+  float* g_c = smem + 64 + 3 * cols;
+  for (int i = t; i < cols; i += nt) {
+    acc_g[i] = 0.f;
+    acc_b[i] = 0.f;
+  }
+  // Every row of the run exists (the wrapper sizes the grid so), and the
+  // bounds are the same for the whole block, so all threads meet every
+  // barrier.  Column i belongs to thread i % nt in every loop below, so
+  // the staged values and the sums need no barrier of their own.
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+  const int64_t last =
+      first + rows_per_block < rows ? first + rows_per_block : rows;
+  for (int64_t row = first; row < last; ++row) {
+    const T* xr = x + row * cols;
+    const T* gr = g + row * cols;
+    T* dxr = dx + row * cols;
+    const float mu = mean[row];
+    const float rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = t; i < cols; i += nt) {
+      const float xh = (to_float(xr[i]) - mu) * rs;
+      const float gv = to_float(gr[i]);
+      const float gg = gv * gamma[i];
+      if (kCache) {
+        xhat_c[i] = xh;
+        g_c[i] = gv;
+      }
+      s1 += gg;
+      s2 += gg * xh;
+    }
+    const float m1 = row_sum(s1, smem, whole_block) / cols;
+    const float m2 = row_sum(s2, smem + 32, whole_block) / cols;
+    for (int i = t; i < cols; i += nt) {
+      const float xh = kCache ? xhat_c[i] : (to_float(xr[i]) - mu) * rs;
+      const float gv = kCache ? g_c[i] : to_float(gr[i]);
+      const float gg = gv * gamma[i];
+      dxr[i] = from_float<T>((gg - m1 - xh * m2) * rs);
+      acc_g[i] += gv * xh;
+      acc_b[i] += gv;
+    }
+  }
+  if (kCache) {
+    for (int i = t; i < cols; i += nt) {
+      part_g[i] = acc_g[i];
+      part_b[i] = acc_b[i];
+    }
+  }
+}
+
+cudaError_t smem_optin(int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                device);
+}
+
 template <typename T>
-cudaError_t launch(int device, const void* x, const void* gamma,
-                   const void* beta, void* y, void* mean, void* rstd,
-                   int64_t rows, int cols, float eps, cudaStream_t stream) {
+cudaError_t launch_fwd(int device, const void* x, const void* gamma,
+                       const void* beta, void* y, void* mean, void* rstd,
+                       int64_t rows, int cols, float eps,
+                       cudaStream_t stream) {
   int threads_per_row, block;
   if (cols <= kSmallRow) {
     threads_per_row = 32;
@@ -141,12 +206,8 @@ cudaError_t launch(int device, const void* x, const void* gamma,
   const int64_t grid = (rows + rows_per_block - 1) / rows_per_block;
   if (grid > 0x7fffffff) return cudaErrorInvalidValue;
 
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  int smem_optin = 0;
-  err = cudaDeviceGetAttribute(&smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
+  int optin = 0;
+  cudaError_t err = smem_optin(device, &optin);
   if (err != cudaSuccess) return err;
 
   const T* xp = static_cast<const T*>(x);
@@ -157,7 +218,7 @@ cudaError_t launch(int device, const void* x, const void* gamma,
   float* rp = static_cast<float*>(rstd);
   const size_t cached =
       (32 + static_cast<size_t>(rows_per_block) * cols) * sizeof(float);
-  if (cached <= static_cast<size_t>(smem_optin)) {
+  if (cached <= static_cast<size_t>(optin)) {
     if (cached > 48 * 1024) {
       err = cudaFuncSetAttribute(layer_norm_fwd_kernel<T, true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -171,6 +232,50 @@ cudaError_t launch(int device, const void* x, const void* gamma,
     layer_norm_fwd_kernel<T, false>
         <<<static_cast<unsigned>(grid), block, 32 * sizeof(float), stream>>>(
             xp, gp, bp, yp, mp, rp, rows, cols, eps, threads_per_row);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(int device, const void* x, const void* g,
+                       const void* gamma, const void* mean, const void* rstd,
+                       void* dx, void* dgamma_part, void* dbeta_part,
+                       int64_t rows, int cols, int rows_per_block,
+                       cudaStream_t stream) {
+  if (rows_per_block <= 0) return cudaErrorInvalidValue;
+  const int64_t grid = (rows + rows_per_block - 1) / rows_per_block;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  // about two values of a row a thread, whole warps, at most 1024
+  const int want = ((cols + 1) / 2 + 31) / 32 * 32;
+  const int block = want < 1024 ? want : 1024;
+
+  int optin = 0;
+  cudaError_t err = smem_optin(device, &optin);
+  if (err != cudaSuccess) return err;
+
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(g);
+  const float* gam = static_cast<const float*>(gamma);
+  const float* mp = static_cast<const float*>(mean);
+  const float* rp = static_cast<const float*>(rstd);
+  T* dxp = static_cast<T*>(dx);
+  float* pg = static_cast<float*>(dgamma_part);
+  float* pb = static_cast<float*>(dbeta_part);
+  const size_t cached = (64 + 4 * static_cast<size_t>(cols)) * sizeof(float);
+  if (cached <= static_cast<size_t>(optin)) {
+    if (cached > 48 * 1024) {
+      err = cudaFuncSetAttribute(layer_norm_bwd_kernel<T, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(cached));
+      if (err != cudaSuccess) return err;
+    }
+    layer_norm_bwd_kernel<T, true>
+        <<<static_cast<unsigned>(grid), block, cached, stream>>>(
+            xp, gp, gam, mp, rp, dxp, pg, pb, rows, cols, rows_per_block);
+  } else {
+    layer_norm_bwd_kernel<T, false>
+        <<<static_cast<unsigned>(grid), block, 64 * sizeof(float), stream>>>(
+            xp, gp, gam, mp, rp, dxp, pg, pb, rows, cols, rows_per_block);
   }
   return cudaGetLastError();
 }
@@ -191,16 +296,41 @@ extern "C" int mx_layer_norm_fwd(int dtype, int device, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch<float>(device, x, gamma, beta, y, mean,
-                                            rstd, rows, cols, eps, s));
+      return static_cast<int>(launch_fwd<float>(device, x, gamma, beta, y,
+                                                mean, rstd, rows, cols, eps,
+                                                s));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(
+      return static_cast<int>(launch_fwd<__nv_bfloat16>(
           device, x, gamma, beta, y, mean, rstd, rows, cols, eps, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-extern "C" const char* mx_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// dtype as above.  x, g and dx are (rows, cols) in x's type, contiguous;
+// gamma is (cols,) float32; mean and rstd are (rows,) float32 from the
+// forward; dgamma_part and dbeta_part are (ceil(rows / rows_per_block),
+// cols) float32, one row per block, every element written.  Launches on
+// `stream` and returns the cudaError_t of the launch.
+extern "C" int mx_layer_norm_bwd(int dtype, int device, const void* x,
+                                 const void* g, const void* gamma,
+                                 const void* mean, const void* rstd,
+                                 void* dx, void* dgamma_part,
+                                 void* dbeta_part, long long rows, int cols,
+                                 int rows_per_block, void* stream) {
+  if (rows < 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(launch_bwd<float>(
+          device, x, g, gamma, mean, rstd, dx, dgamma_part, dbeta_part, rows,
+          cols, rows_per_block, s));
+    case 1:
+      return static_cast<int>(launch_bwd<__nv_bfloat16>(
+          device, x, g, gamma, mean, rstd, dx, dgamma_part, dbeta_part, rows,
+          cols, rows_per_block, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,4 +1,5 @@
-from . import nn
+from . import loss, nn
 from .block import HybridBlock
+from .trainer import Trainer
 
-__all__ = ["HybridBlock", "nn"]
+__all__ = ["HybridBlock", "Trainer", "loss", "nn"]

@@ -30,9 +30,10 @@ def as_dtype(dtype) -> torch.dtype:
 
 
 class HybridBlock(nn.Module):
-    """Base of every layer and model.  ``forward`` runs eagerly; a module
-    in ``train()`` mode applies dropout, one in ``eval()`` mode does not
-    (the JAX package's ``autograd.is_training()``)."""
+    """Base of every layer and model.  ``forward`` runs eagerly.  What a
+    layer computes depends on ``autograd.is_training()`` (dropout is on
+    only inside ``autograd.record()``), as in the JAX package, and not on
+    ``nn.Module.train()``/``eval()``."""
 
     def __init__(self):
         super().__init__()

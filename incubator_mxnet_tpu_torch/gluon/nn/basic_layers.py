@@ -1,6 +1,7 @@
 """Core layers (subset of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``)."""
 from __future__ import annotations
 
+from ... import autograd
 from ...ops import index_ops, nn_ops
 from ..block import HybridBlock
 
@@ -52,15 +53,22 @@ class Embedding(HybridBlock):
 
 
 class Dropout(HybridBlock):
+    """Inverted dropout, active only in train mode
+    (``autograd.is_training()``: inside ``autograd.record()``), as in the
+    JAX package; ``nn.Module.train()``/``eval()`` do not switch it.
+    Draws come from ``generator`` (a ``torch.Generator`` on the input's
+    device) when one is set, else from PyTorch's default generator."""
+
     def __init__(self, rate, axes=()):
         super().__init__()
         self._rate = rate
         self._axes = axes
+        self.generator = None
 
     def forward(self, x):
-        return nn_ops.dropout(x, self._rate,
-                              "training" if self.training else "predict",
-                              self._axes)
+        mode = "training" if autograd.is_training() else "predict"
+        return nn_ops.dropout(x, self._rate, mode, self._axes,
+                              generator=self.generator)
 
 
 class LayerNorm(HybridBlock):

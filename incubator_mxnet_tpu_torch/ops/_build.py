@@ -22,7 +22,7 @@ import threading
 from ..error import KernelError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path",
-           "library_path", "build", "load"]
+           "library_path", "kernel_names", "build", "load", "launcher"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_launchers: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
 
 
@@ -54,6 +55,11 @@ def _sources_digest() -> str:
 
 def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{_sources_digest()}.so")
+
+
+def kernel_names() -> list[str]:
+    """Every kernel source: the stem of each ``csrc/*.cu``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
 def build(names) -> dict[str, str]:
@@ -107,5 +113,31 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(path)
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
+            lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mx_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def launcher(name: str, symbol: str, argtypes):
+    """A callable for the C entry ``symbol`` of ``csrc/<name>.cu`` (built
+    and loaded at the first call, then kept).  The entry returns a
+    ``cudaError_t``; the callable raises :class:`KernelError` with its
+    text unless it is 0.  Every pointer and the stream must be declared
+    ``ctypes.c_void_p`` in ``argtypes``, or ctypes cuts them to 32
+    bits."""
+    launch = _launchers.get((name, symbol))
+    if launch is not None:
+        return launch
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+
+    def launch(*args):
+        err = fn(*args)
+        if err != 0:
+            text = lib.mx_cuda_error_string(err).decode()
+            raise KernelError(f"{symbol} launch failed: {text} "
+                              f"(cudaError {err})")
+    return _launchers.setdefault((name, symbol), launch)

@@ -1,12 +1,13 @@
-"""LayerNorm forward over the last axis: the CUDA kernel and its plain
-PyTorch version.
+"""LayerNorm over the last axis: the CUDA kernels, their plain PyTorch
+versions, and the autograd Function that joins them.
 
-Counterpart of ``fused_layer_norm``/``_ln_fwd`` in
-``incubator_mxnet_tpu/ops/pallas_kernels.py``.  :func:`layer_norm_fwd`
-dispatches on where ``x`` lies: a CPU tensor takes
-:func:`layer_norm_fwd_reference`; a CUDA tensor launches
-``csrc/layer_norm.cu`` or raises.  Nothing falls back from the card to
-the plain version.
+Counterpart of ``fused_layer_norm`` in
+``incubator_mxnet_tpu/ops/pallas_kernels.py``: :func:`layer_norm_fwd`
+ports ``_ln_fwd`` and :func:`layer_norm_bwd` ports ``_fused_ln_bwd``;
+:class:`LayerNormFunction` is the custom VJP that pairs them.  Each
+wrapper dispatches on where ``x`` lies: a CPU tensor takes the plain
+version; a CUDA tensor launches ``csrc/layer_norm.cu`` or raises.
+Nothing falls back from the card to the plain version.
 """
 from __future__ import annotations
 
@@ -15,18 +16,24 @@ import threading
 
 import torch
 
-from ..error import KernelError
 from . import _build
 
-__all__ = ["layer_norm_fwd", "layer_norm_fwd_reference", "launches"]
+__all__ = ["layer_norm_fwd", "layer_norm_fwd_reference", "layer_norm_bwd",
+           "layer_norm_bwd_reference", "LayerNormFunction", "launches",
+           "bwd_launches"]
 
-#: Kernel launches so far; :func:`layer_norm_fwd` adds one per launch
-#: and nothing else touches it (a caller may reset it to 0).
+#: Launches of the forward and the backward kernel so far; each wrapper
+#: adds one per launch and nothing else touches them (a caller may reset
+#: them to 0).
 launches = 0
+bwd_launches = 0
 
 _count_lock = threading.Lock()
-_fn = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_I, _P = ctypes.c_int, ctypes.c_void_p
+# the C entries' arguments (csrc/layer_norm.cu)
+_FWD_ARGS = [_I, _I] + [_P] * 6 + [ctypes.c_longlong, _I, ctypes.c_float, _P]
+_BWD_ARGS = [_I, _I] + [_P] * 8 + [ctypes.c_longlong, _I, _I, _P]
 
 
 def layer_norm_fwd_reference(x, gamma, beta, eps=1e-5):
@@ -46,18 +53,41 @@ def layer_norm_fwd_reference(x, gamma, beta, eps=1e-5):
     return y, mean[:, 0], rstd[:, 0]
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.load("layer_norm")
-        fn = lib.mx_layer_norm_fwd
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mx_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.mx_cuda_error_string)
-    return _fn
+def layer_norm_bwd_reference(x, g, gamma, mean, rstd):
+    """Plain PyTorch LayerNorm backward with the kernel's arithmetic, all
+    in float32: with xhat = (x - mean)·rstd and gg = g·gamma,
+    dx = (gg - mean(gg) - xhat·mean(gg·xhat))·rstd in x's dtype,
+    dgamma = Σ g·xhat and dbeta = Σ g over the rows in gamma's dtype."""
+    cols = x.shape[-1]
+    xf = x.reshape(-1, cols).float()
+    gf = g.reshape(-1, cols).float()
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    gg = gf * gamma.float()
+    m1 = gg.mean(dim=-1, keepdim=True)
+    m2 = (gg * xhat).mean(dim=-1, keepdim=True)
+    dx = ((gg - m1 - xhat * m2) * rstd[:, None]).to(x.dtype).reshape(x.shape)
+    dgamma = (gf * xhat).sum(dim=0).to(gamma.dtype)
+    dbeta = gf.sum(dim=0).to(gamma.dtype)
+    return dx, dgamma, dbeta
+
+
+def _check(name, x, cols, **vectors):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        "(float32, bfloat16)")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    if x.dim() < 1 or cols == 0:
+        raise ValueError(f"{name}: bad shape {tuple(x.shape)}")
+    for vname, (p, length) in vectors.items():
+        if tuple(p.shape) != (length,):
+            raise ValueError(f"{name}: {vname} shape {tuple(p.shape)} != "
+                             f"({length},)")
+        if p.device != x.device:
+            raise ValueError(f"{name}: {vname} on {p.device}, x on "
+                             f"{x.device}")
 
 
 def layer_norm_fwd(x, gamma, beta, eps=1e-5):
@@ -69,23 +99,8 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     the TPU wrapper does.  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return layer_norm_fwd_reference(x, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm_fwd: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"layer_norm_fwd: dtype {x.dtype} not supported "
-                        "(float32, bfloat16)")
-    if not x.is_contiguous():
-        raise ValueError("layer_norm_fwd: x must be contiguous")
-    if x.dim() < 1 or x.shape[-1] == 0:
-        raise ValueError(f"layer_norm_fwd: bad shape {tuple(x.shape)}")
-    cols = x.shape[-1]
-    for name, p in (("gamma", gamma), ("beta", beta)):
-        if tuple(p.shape) != (cols,):
-            raise ValueError(f"layer_norm_fwd: {name} shape "
-                             f"{tuple(p.shape)} != ({cols},)")
-        if p.device != x.device:
-            raise ValueError(f"layer_norm_fwd: {name} on {p.device}, "
-                             f"x on {x.device}")
+    cols = x.shape[-1] if x.dim() else 0
+    _check("layer_norm_fwd", x, cols, gamma=(gamma, cols), beta=(beta, cols))
     gamma = gamma.to(x.dtype).contiguous()
     beta = beta.to(x.dtype).contiguous()
     rows = x.numel() // cols
@@ -94,17 +109,87 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return y, mean, rstd
-    fn, err_str = _kernel()
+    fn = _build.launcher("layer_norm", "mx_layer_norm_fwd", _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODES[x.dtype], x.device.index, x.data_ptr(),
-                 gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                 mean.data_ptr(), rstd.data_ptr(), rows, cols, float(eps),
-                 stream)
-    if err != 0:
-        raise KernelError(f"layer_norm kernel launch failed: "
-                          f"{err_str(err).decode()} (cudaError {err})")
+        fn(_DTYPE_CODES[x.dtype], x.device.index, x.data_ptr(),
+           gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
+           rstd.data_ptr(), rows, cols, float(eps), stream)
     global launches
     with _count_lock:
         launches += 1
     return y, mean, rstd
+
+
+def _rows_per_block(rows, device):
+    """Rows each backward block takes: enough blocks for about four on
+    every SM, so that loads overlap, and no more, since each block
+    writes one partial row of dgamma and dbeta that the wrapper sums."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, -(-rows // (4 * sms)))
+
+
+def layer_norm_bwd(x, g, gamma, mean, rstd):
+    """Gradient of :func:`layer_norm_fwd` → ``(dx, dgamma, dbeta)``.
+
+    ``x`` is the forward's input and ``mean``/``rstd`` its float32
+    statistics; ``g`` is the gradient of y (x's shape and dtype).  dx
+    comes out in x's dtype, dgamma and dbeta in gamma's.  On a CUDA
+    tensor: the hand-written kernel, which writes per-block partial rows
+    of dgamma and dbeta that this wrapper sums, as the TPU wrapper sums
+    its per-row-block partials.  On a CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return layer_norm_bwd_reference(x, g, gamma, mean, rstd)
+    cols = x.shape[-1] if x.dim() else 0
+    rows = x.numel() // cols if cols else 0
+    _check("layer_norm_bwd", x, cols, gamma=(gamma, cols), mean=(mean, rows),
+           rstd=(rstd, rows))
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"layer_norm_bwd: g {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device} does not match x {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    if mean.dtype != torch.float32 or rstd.dtype != torch.float32:
+        raise TypeError("layer_norm_bwd: mean and rstd must be float32")
+    g = g.contiguous()
+    gamma32 = gamma.float().contiguous()
+    mean = mean.contiguous()
+    rstd = rstd.contiguous()
+    dx = torch.empty_like(x)
+    if rows == 0:
+        zeros = torch.zeros(cols, dtype=gamma.dtype, device=x.device)
+        return dx, zeros, zeros.clone()
+    per_block = _rows_per_block(rows, x.device)
+    blocks = -(-rows // per_block)
+    parts = torch.empty(2, blocks, cols, dtype=torch.float32, device=x.device)
+    fn = _build.launcher("layer_norm", "mx_layer_norm_bwd", _BWD_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        fn(_DTYPE_CODES[x.dtype], x.device.index, x.data_ptr(),
+           g.data_ptr(), gamma32.data_ptr(), mean.data_ptr(),
+           rstd.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+           parts[1].data_ptr(), rows, cols, per_block, stream)
+    global bwd_launches
+    with _count_lock:
+        bwd_launches += 1
+    sums = parts.sum(dim=1).to(gamma.dtype)
+    return dx, sums[0], sums[1]
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm over the last axis with its own backward: the
+    counterpart of the JAX package's ``fused_layer_norm`` custom VJP.
+    The forward saves x, gamma and the float32 statistics, as
+    ``_fused_ln_fwd`` does; the backward is :func:`layer_norm_bwd`.  Both
+    run the kernels on the card and the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_bwd(x, gy, gamma, mean, rstd)
+        return dx, dgamma, dbeta, None

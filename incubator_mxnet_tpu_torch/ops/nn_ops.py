@@ -1,18 +1,22 @@
 """Neural-network ops (subset of ``incubator_mxnet_tpu/ops/nn_ops.py``).
 
 Plain functions on tensors.  Where the JAX package left an op to XLA,
-the port leaves it to PyTorch; :func:`layer_norm` goes through the
-hand-written kernel (``layer_norm.layer_norm_fwd``).
+the port leaves it to PyTorch.  :func:`layer_norm` and
+:func:`softmax_xent` go through the hand-written kernels, forward and
+backward, by way of their autograd Functions
+(``layer_norm.LayerNormFunction``, ``softmax_xent.SoftmaxXentFunction``)
+on every device, so the CPU tests run the same Functions as the card.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layer_norm import layer_norm_fwd
+from .layer_norm import LayerNormFunction
+from .softmax_xent import SoftmaxXentFunction
 
 __all__ = ["fully_connected", "layer_norm", "dot_product_attention",
-           "activation", "dropout"]
+           "activation", "dropout", "log_softmax", "softmax_xent"]
 
 
 def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
@@ -24,11 +28,12 @@ def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
-    """LayerNorm over ``axis`` with 1-D gamma and beta.  The axis is
-    moved last for the kernel and back afterwards."""
+    """LayerNorm over ``axis`` with 1-D gamma and beta, differentiable in
+    all three.  The axis is moved last for the kernels and back
+    afterwards."""
     last = axis in (-1, x.dim() - 1)
     xm = x if last else x.movedim(axis, -1)
-    y = layer_norm_fwd(xm.contiguous(), gamma, beta, float(eps))[0]
+    y = LayerNormFunction.apply(xm.contiguous(), gamma, beta, float(eps))
     return y if last else y.movedim(-1, axis)
 
 
@@ -75,3 +80,19 @@ def dropout(x, p=0.5, mode="training", axes=(), generator=None):
     keep = torch.rand(shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
+
+
+def log_softmax(x, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.log_softmax(x, dim=axis)
+
+
+def softmax_xent(logits, labels):
+    """Softmax cross-entropy per row of ``logits`` (N, C): logsumexp(x) -
+    x[clip(label, 0, C - 1)], through the hand-written kernels (forward
+    and backward).  Labels go to int32; the loss, float32 inside, comes
+    out in the logits' dtype, as in the JAX package."""
+    lbl = labels.to(torch.int32)
+    return SoftmaxXentFunction.apply(logits.contiguous(), lbl).to(
+        logits.dtype)

@@ -8,11 +8,25 @@ The file imports no JAX, so it also runs where JAX is not installed:
 
 Tolerances: float32 1e-5 (the sums run in another order); bfloat16 y
 rtol=atol=1e-2 (one bf16 ulp at |y| ~ 1); the float32 statistics 1e-5.
+LayerNorm backward: dx float32 1e-5, bfloat16 rtol=atol=2e-2 (one
+bf16 ulp of dx at |dx| ~ 2); dgamma/dbeta 1e-5 relative to the largest
+value (float32 sums of all rows in another order).  Cross-entropy: loss
+1e-5 (float32 in both versions); dx float32 rtol=1e-5, atol=1e-6 (one
+float32 ulp of a row's logsumexp, about 15 here, moves exp(x - lse) by
+about 1e-6 of itself) and bfloat16 rtol=8e-3 (one bf16 ulp of each
+element, at most 2^-7 of it), atol=1e-6 (entries near 0).
 """
 import pytest
 import torch
 
+from incubator_mxnet_tpu_torch import autograd
+from incubator_mxnet_tpu_torch.examples.train_bert import (pretraining_loss,
+                                                           synthetic_batch)
+from incubator_mxnet_tpu_torch.gluon import Trainer
+from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.models.bert import BERTModel
 from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
 
 pytestmark = pytest.mark.cuda
 
@@ -39,6 +53,7 @@ def _inputs(shape, dtype, dev, seed=0):
 @pytest.mark.parametrize("shape,dtype", [
     ((1024, 768), "float32"),     # BERT-base serving batch, B=8 T=128
     ((1024, 768), "bfloat16"),
+    ((2048, 768), "float32"),     # BERT-base training batch, B=16 T=128
     ((1000, 100), "float32"),     # one warp per row, ragged last block
     ((3, 4096), "bfloat16"),      # one block per row
     ((8, 3, 513), "float32"),     # just past the one-warp width
@@ -69,3 +84,92 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):
         ln.layer_norm_fwd(x, g.cpu(), b)
     y, mean, rstd = ln.layer_norm_fwd(x[:0], g, b)
     assert y.shape == (0, 64) and mean.shape == (0,)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2048, 768), "float32"),     # BERT-base training batch, B=16 T=128
+    ((2048, 768), "bfloat16"),
+    ((1000, 100), "float32"),     # ragged: two warps a row
+    ((3, 4096), "bfloat16"),      # one row a block
+    ((5, 20000), "float32"),      # too wide for shared memory: re-reads
+])
+def test_layer_norm_bwd_kernel_matches_plain(dev, shape, dtype):
+    x, gamma, beta = _inputs(shape, dtype, dev, seed=1)
+    gamma = gamma.float()
+    g = (torch.randn(shape, generator=torch.Generator().manual_seed(2))
+         .to(dev, x.dtype))
+    _, mean, rstd = ln.layer_norm_fwd_reference(x, gamma, beta)
+    before = ln.bwd_launches
+    dx, dg, db = ln.layer_norm_bwd(x, g, gamma, mean, rstd)
+    rdx, rdg, rdb = ln.layer_norm_bwd_reference(x, g, gamma, mean, rstd)
+    torch.cuda.synchronize()
+    assert ln.bwd_launches == before + 1
+    assert dx.dtype == x.dtype and dg.dtype == db.dtype == torch.float32
+    tol = {"float32": dict(rtol=1e-5, atol=1e-5),
+           "bfloat16": dict(rtol=2e-2, atol=2e-2)}[dtype]
+    torch.testing.assert_close(dx.float(), rdx.float(), **tol)
+    for got, want in ((dg, rdg), (db, rdb)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _xent_inputs(shape, dtype, dev, seed=0):
+    n, c = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(shape, generator=gen) * 3).to(dev, getattr(torch, dtype))
+    labels = torch.randint(0, c, (n,), generator=gen, dtype=torch.int32)
+    labels[0] = -1
+    labels[-1] = c + 5
+    g = torch.randn(n, generator=gen)
+    return x, labels.to(dev), g.to(dev)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2048, 30522), "float32"),   # BERT-base MLM head, B=16 T=128
+    ((2048, 30522), "bfloat16"),
+    ((16, 2), "float32"),         # NSP head
+    ((1000, 100), "float32"),
+    ((3, 16385), "float32"),      # past the TPU kernel's width limit
+])
+def test_softmax_xent_kernels_match_plain(dev, shape, dtype):
+    x, labels, g = _xent_inputs(shape, dtype, dev)
+    before = (sx.fwd_launches, sx.bwd_launches)
+    loss, lse = sx.softmax_xent_fwd(x, labels)
+    dx = sx.softmax_xent_bwd(x, labels, lse, g)
+    rloss, rlse = sx.softmax_xent_fwd_reference(x, labels)
+    rdx = sx.softmax_xent_bwd_reference(x, labels, rlse, g)
+    torch.cuda.synchronize()
+    assert (sx.fwd_launches, sx.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    torch.testing.assert_close(loss, rloss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=8e-3, atol=1e-6))
+    torch.testing.assert_close(dx.float(), rdx.float(), **tol)
+
+
+def test_small_bert_gets_every_gradient_on_the_card(dev):
+    """On the card, backward reaches every parameter through the
+    LayerNorm and cross-entropy Functions (the kernels' outputs have a
+    grad_fn), and a Trainer step leaves finite weights."""
+    net = BERTModel(vocab_size=100, num_layers=2, units=64, hidden_size=128,
+                    num_heads=4, max_length=16).initialize(
+        device=dev, generator=torch.Generator().manual_seed(0))
+    x, y_mlm, y_nsp = (torch.from_numpy(a).to(dev)
+                       for a in synthetic_batch(4, 16, 100))
+    trainer = Trainer(net.collect_params(), "adam", {"learning_rate": 1e-3})
+    before = (ln.launches, ln.bwd_launches, sx.fwd_launches, sx.bwd_launches)
+    with autograd.record():
+        loss = pretraining_loss(net, SoftmaxCrossEntropyLoss(), x, y_mlm,
+                                y_nsp)
+    autograd.backward(loss)
+    torch.cuda.synchronize()
+    after = (ln.launches, ln.bwd_launches, sx.fwd_launches, sx.bwd_launches)
+    assert [a - b for a, b in zip(after, before)] == [5, 5, 2, 2]
+    for name, p in net.named_parameters():
+        if name == "token_type_embed.weight":   # no token types passed
+            assert p.grad is None
+            continue
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+    trainer.step(4)
+    assert all(torch.isfinite(p).all() for p in net.parameters())

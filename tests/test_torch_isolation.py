@@ -19,6 +19,7 @@ import torch
 from incubator_mxnet_tpu_torch import context
 from incubator_mxnet_tpu_torch.deploy import load_predictor
 from incubator_mxnet_tpu_torch.error import DeviceUnavailableError
+from incubator_mxnet_tpu_torch.examples import train_bert
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
 from incubator_mxnet_tpu_torch.serving.model_repository import ModelRepository
 from incubator_mxnet_tpu_torch.serving.server import InferenceServer, main
@@ -50,12 +51,16 @@ def test_importing_the_port_loads_no_jax():
         "m.startswith(('jax.', 'jaxlib')) or m == 'incubator_mxnet_tpu' "
         "or m.startswith('incubator_mxnet_tpu.'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    for mod in ("autograd", "optimizer.optimizer", "gluon.trainer",
+                "gluon.loss", "ops.softmax_xent", "examples.train_bert"):
+        assert "incubator_mxnet_tpu_torch." + mod in names, mod
 
 
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+([\w.]+)", re.M)
@@ -86,6 +91,8 @@ def no_cuda(monkeypatch):
     lambda: main(["--port", "0"]),
     lambda: BERTModel(vocab_size=10, num_layers=1, units=8, hidden_size=8,
                       num_heads=2, max_length=4).initialize(),
+    lambda: train_bert.main([]),
+    lambda: train_bert.main(["--smoke"]),
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):

@@ -127,3 +127,89 @@ def test_library_is_keyed_on_sources(monkeypatch):
     assert path == _build.library_path("layer_norm")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path("layer_norm") != path
+
+
+# ---------------------------------------------------------------------------
+# backward: LayerNormFunction against fused_layer_norm's custom VJP
+# ---------------------------------------------------------------------------
+
+# ragged on purpose: widths not a multiple of 128, rows not a multiple of 8
+GRAD_SHAPES = [(7, 100), (13, 200), (3, 5, 130)]
+# gradients: float32 1e-4 relative to the largest |value| (sums of up to
+# 65 rows and 200 columns taken in another order); bfloat16 dx 2e-2
+# (one bf16 ulp of dx plus the rounding of the bf16 cotangent's
+# products), dgamma/dbeta are float32 sums in both dtypes: 1e-4 in
+# float32 and 1e-3 for bf16 inputs (the rounded x and g of each row).
+GRAD_TOL = {"float32": dict(dx=1e-4, params=1e-4),
+            "bfloat16": dict(dx=2e-2, params=1e-3)}
+
+
+def _close_scaled(got, want, tol, what):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, what
+    err = np.abs(got - want).max()
+    assert err <= tol * max(np.abs(want).max(), 1e-30), (what, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_function_grads_match_fused_layer_norm_vjp(shape, dtype, monkeypatch):
+    import jax
+
+    monkeypatch.setenv("MXNET_USE_PALLAS", "1")
+    x, gamma, beta = _inputs(shape, seed=3)
+    cot = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+    tx, jx = _both(x, dtype)
+    tcot, jcot = _both(cot, dtype)
+    jg, jb = jnp.asarray(gamma), jnp.asarray(beta)
+    jy, vjp = jax.vjp(lambda a, g, b: pk.fused_layer_norm(a, g, b, 1e-5),
+                      jx, jg, jb)
+    jdx, jdg, jdb = vjp(jcot)
+
+    tx.requires_grad_(True)
+    tg = torch.from_numpy(gamma).requires_grad_(True)
+    tb = torch.from_numpy(beta).requires_grad_(True)
+    before = (ln.launches, ln.bwd_launches)
+    y = ln.LayerNormFunction.apply(tx, tg, tb, 1e-5)
+    y.backward(tcot)
+    assert (ln.launches, ln.bwd_launches) == before   # CPU: plain versions
+    assert y.dtype == tx.dtype and tx.grad.dtype == tx.dtype
+    assert tg.grad.dtype == tb.grad.dtype == torch.float32
+    np.testing.assert_allclose(y.detach().float().numpy(),
+                               np.asarray(jy.astype(jnp.float32)),
+                               **TOL[dtype])
+    tol = GRAD_TOL[dtype]
+    _close_scaled(tx.grad.float().numpy(), jdx.astype(jnp.float32),
+                  tol["dx"], "dx")
+    _close_scaled(tg.grad.numpy(), jdg, tol["params"], "dgamma")
+    _close_scaled(tb.grad.numpy(), jdb, tol["params"], "dbeta")
+
+
+def test_bwd_plain_matches_autograd_of_plain_forward():
+    """The hand-derived backward against PyTorch's own derivative of
+    the plain forward, float32 1e-5 relative."""
+    x, gamma, beta = _inputs((9, 70), seed=5)
+    cot = torch.from_numpy(
+        np.random.default_rng(6).standard_normal((9, 70)).astype(np.float32))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tg = torch.from_numpy(gamma).requires_grad_(True)
+    tb = torch.from_numpy(beta).requires_grad_(True)
+    y, mean, rstd = ln.layer_norm_fwd_reference(tx, tg, tb)
+    y.backward(cot)
+    dx, dg, db = ln.layer_norm_bwd_reference(tx.detach(), cot, tg.detach(),
+                                             mean.detach(), rstd.detach())
+    for got, want in ((dx, tx.grad), (dg, tg.grad), (db, tb.grad)):
+        _close_scaled(got.numpy(), want.numpy(), 1e-5, "grad")
+
+
+def test_op_output_has_the_function_as_grad_fn():
+    """``nn_ops.layer_norm`` is on the Function (the card has no other
+    differentiable path), and every input gets a gradient."""
+    x, gamma, beta = (torch.from_numpy(a).requires_grad_(True)
+                      for a in _inputs((4, 32)))
+    y = nn_ops.layer_norm(x, gamma, beta)
+    assert isinstance(y.grad_fn, ln.LayerNormFunction._backward_cls)
+    y.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (x, gamma, beta))

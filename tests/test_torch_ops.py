@@ -90,3 +90,64 @@ def test_dropout_identity_unless_training():
     y2 = nn_ops.dropout(torch.ones(64, 8), 0.5, axes=(1,),
                         generator=torch.Generator().manual_seed(1))
     assert ((y2 == 0).all(1) | (y2 != 0).all(1)).all()
+
+
+def test_log_softmax_and_pick_match_jax():
+    x = _rand(4, 6, 5, seed=10)
+    # 7 and -9 clamp, -2 counts from the end, as in jnp.take_along_axis
+    idx = np.array([[0, 4, 7, -2, -9, 1]] * 4, np.int32)
+    lp = nn_ops.log_softmax(torch.from_numpy(x), axis=-1, temperature=2.0)
+    want_lp = invoke("log_softmax", nd.array(x), axis=-1, temperature=2.0)
+    np.testing.assert_allclose(lp.numpy(), want_lp.asnumpy(), **TOL)
+    for keepdims in (False, True):
+        got = index_ops.pick(lp, torch.from_numpy(idx), axis=-1,
+                             keepdims=keepdims)
+        want = jax_index_ops.pick(jnp.asarray(want_lp.asnumpy()),
+                                  jnp.asarray(idx), axis=-1,
+                                  keepdims=keepdims)
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="not ported"):
+        index_ops.pick(lp, torch.from_numpy(idx), mode="wrap")
+
+
+@pytest.mark.parametrize("case", ["fused", "axis0", "dense", "from_logits",
+                                  "weighted"])
+def test_softmax_ce_loss_matches_jax(case):
+    """Both branches of ``SoftmaxCrossEntropyLoss`` and their gradients
+    against the JAX loss (float32 1e-5)."""
+    from incubator_mxnet_tpu import autograd as jax_autograd
+    from incubator_mxnet_tpu import gluon as jax_gluon
+
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    x = _rand(5, 7, seed=11)
+    label = np.array([0, 6, 3, 9, -1], np.int32)
+    kw, weight = {}, None
+    if case == "axis0":
+        kw = dict(axis=0)
+        label = np.array([0, 4, 3, 2, 1, 4, 0], np.int32)
+    elif case == "dense":
+        kw = dict(sparse_label=False)
+        label = np.abs(_rand(5, 7, seed=12))
+    elif case == "from_logits":
+        kw = dict(from_logits=True)
+        x = np.array(jax.nn.log_softmax(jnp.asarray(x)))
+        label = np.clip(label, 0, 6)
+    elif case == "weighted":
+        kw = dict(weight=0.5)
+        weight = _rand(5, 1, seed=13)
+    jloss_fn = jax_gluon.loss.SoftmaxCrossEntropyLoss(**kw)
+    jx = nd.array(x)
+    jx.attach_grad()
+    with jax_autograd.record():
+        jl = jloss_fn(jx, nd.array(label), *(
+            [nd.array(weight)] if weight is not None else []))
+    jl.backward()
+    tx = torch.from_numpy(x).requires_grad_(True)
+    loss = SoftmaxCrossEntropyLoss(**kw)(
+        tx, torch.from_numpy(label),
+        *([torch.from_numpy(weight)] if weight is not None else []))
+    loss.backward(torch.ones_like(loss))
+    np.testing.assert_allclose(loss.detach().numpy(), jl.asnumpy(), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), jx.grad.asnumpy(), **TOL)
