@@ -28,14 +28,29 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    LayerNorm forward and backward and 2 cross-entropy forward and
    backward launches a step; the median step time; one step profiled
    by kernel family;
-7. the kernels line (JSON), then the last line
+7. train ResNet-50 v1 (NHWC, fused bottleneck, float32, SGD with
+   momentum) — (a) one step at B=4, 224x224, 1000 classes on the card
+   against the same step on the CPU: the loss, the logits, every moving
+   statistic and every gradient, at a tolerance set above the CPU path's
+   own response to a 1e-6 move of its input (measured and printed
+   first); and one full-width bottleneck of each kind (stage-1 identity,
+   stage-2 projection), every gradient at 1e-4 of its largest value;
+   (b) 10 steps of ``examples/train_resnet_fused.py``'s loop at B=128,
+   whose loss must be finite and drop below the first step's, with
+   exactly 36 launches of each fused matmul + BatchNorm kernel and one
+   of each cross-entropy kernel a step; the median step time, img/s, the
+   peak device memory and one step profiled by kernel family;
+8. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
 and read just after: serving from phase 4 to the end of phase 5,
-training over phase 6 (b).  The kernels line gives each kernel's
-launches summed over the paths it ran on.
+BERT training over phase 6 (b), ResNet training over phase 7 (b).  The
+kernels line gives each kernel's launches summed over the paths it ran
+on.
 """
+import copy
+import gc
 import json
 import os
 import statistics
@@ -97,6 +112,46 @@ GRAD_TOL = 1e-3
 # gradients' agreement pins to far better than 1e-2 * lr, while a
 # skipped, halved or uncorrected update is off by 0.5 * lr or more
 UPDATE_TOL = 1e-2
+
+# ResNet-50 v1 training: B=128 (bench.py's first batch), 224x224, 1000
+# classes; the card-vs-CPU step at B=4
+RESNET_B, RESNET_B_CPU, RESNET_STEPS, IMAGE, CLASSES = 128, 4, 10, 224, 1000
+# fused matmul + BN (kernels 10-12) against their plain versions, each
+# output's max |kernel - plain| over the largest |plain| of that tensor:
+# float32 1e-5 (the same products summed in another order); bfloat16
+# 2e-2 (y, dx, dw rounded to bf16: an f32 sum in another order lands one
+# bf16 ulp, 2^-8 of a value, away).  The column sums s1, s2, dscale and
+# dbias are float32 sums over M rows; held to the same share of their
+# largest value, the allowance grows with M as they do.
+FMM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the shapes of the JAX package's tests/test_fused_block.py and its
+# ragged one, each with and without the prologue
+FMM_TEST_SHAPES = [(256, 128, 128), (200, 96, 72), (1024, 256, 64),
+                   (512, 64, 256)]
+# the representative launch: stage 1's c3 at B=128, with the prologue
+FMM_REP = (RESNET_B * 56 * 56, 64, 256, True)
+FP32_PEAK = 67e12      # FLOP/s of float32 FMA outside the tensor cores
+BF16_PEAK = 989e12     # dense bf16 tensor-core FLOP/s
+# card step vs CPU step, ResNet-50 at B=4.  ResNet-50's float32
+# forward and backward at a tiny batch amplify rounding: moving the
+# input by 1e-6 (a few ulps) moves the CPU path's own logits by about
+# 4e-5 of their largest value and each gradient tensor by about 2-3 % of
+# its norm (up to 15 % of its largest element), measured at 224x224,
+# B=4 (the JAX package's tests/test_fused_block.py reports the same for
+# its plain path).  Card and CPU round differently at every operation,
+# so they can agree no better.  The script measures that response first
+# and requires each bound to sit above it: loss 1e-5 relative; logits
+# and moving statistics max|d| <= RESNET_FWD_TOL * max|ref| with the
+# CPU's own response at most a tenth of it; each gradient
+# ||d|| <= RESNET_GRAD_TOL * ||g|| with the CPU's own worst response at
+# most a quarter of it.  The sharp checks are the kernels' (phase 3) and
+# the full-width bottlenecks' below.
+RESNET_FWD_TOL = 1e-3
+RESNET_GRAD_TOL = 0.25
+# one bottleneck, card vs CPU: output and moving statistics 1e-5, every
+# gradient 1e-4 of its largest value (BN over 12,544 or 3,136 rows is
+# well conditioned: the gradient is sharp)
+BLOCK_TOL, BLOCK_GRAD_TOL = 1e-5, 1e-4
 
 
 def phase(name):
@@ -183,15 +238,20 @@ def check_layer_norm(torch, ln, dev):
     return path_err
 
 
-def report(label, times, nbytes, rate):
+def report(label, times, nbytes, rate, flops=0, peak=FP32_PEAK):
     """Print the times and the bound of one kernel and return the kernels
     line's numbers: each time is the profiler's device time per call,
-    or the CUDA-event stream time where the profiler saw none."""
-    bound = nbytes / rate * 1e3
-    print(f"{label}: bound_ms={bound:.6f} (bytes={nbytes}); per call, "
+    or the CUDA-event stream time where the profiler saw none.  The
+    bound is the larger of ``nbytes`` at the memory rate and ``flops`` at
+    ``peak``; ``bound_by`` says which."""
+    byte_ms, op_ms = nbytes / rate * 1e3, flops / peak * 1e3
+    bound = max(byte_ms, op_ms)
+    bound_by = "bytes" if byte_ms >= op_ms else "operations"
+    print(f"{label}: bound_ms={bound:.6f} by {bound_by} (bytes={nbytes} -> "
+          f"{byte_ms:.6f} ms; flops={flops} -> {op_ms:.6f} ms); per call, "
           "device time from the profiler trace / CUDA-event stream time:",
           flush=True)
-    out = {"bound_ms": bound}
+    out = {"bound_ms": bound, "bound_by": bound_by}
     for k, (device, stream) in times.items():
         print(f"  {k}: device {device} stream {stream:.6f}", flush=True)
         if device is None:
@@ -365,12 +425,159 @@ def time_softmax_xent(torch, sx, dev, dtype, rate):
                    bwd_bytes, rate))
 
 
+def resnet_fmm_shapes(batch):
+    """``(M, K, N, prologue)`` of every fused matmul + BN call in one
+    ResNet-50 v1 forward at ``batch`` (224x224 input), in order: per
+    bottleneck c1 (no prologue), c3 (bn2's prologue) and, in a stage's
+    first block, the projection (no prologue)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        resnet_spec)
+    _, layers, channels = resnet_spec[50]
+    shapes, cin, side = [], channels[0], IMAGE // 4
+    for i, (n_blocks, ch) in enumerate(zip(layers, channels[1:])):
+        side = side if i == 0 else side // 2
+        m = batch * side * side
+        for b in range(n_blocks):
+            k_in = cin if b == 0 else ch
+            shapes += [(m, k_in, ch // 4, False), (m, ch // 4, ch, True)]
+            if b == 0:
+                shapes.append((m, k_in, ch, False))
+        cin = ch
+    return shapes
+
+
+def fmm_inputs(torch, m, k, n, dtype, dev, seed):
+    """``(x, w, scale, bias, dy, ds1, ds2)`` made on the card from a
+    seed: x, w and dy in ``dtype``, the rest float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = (rnd(m, k) * 0.5).to(dt)
+    w = (rnd(k, n) * k ** -0.5).to(dt)
+    scale = torch.rand(k, generator=g, device=dev) + 0.5
+    bias = rnd(k) * 0.2
+    dy = (rnd(m, n) * 0.1).to(dt)
+    return x, w, scale, bias, dy, rnd(n) * 0.01, rnd(n) * 0.001
+
+
+def check_fused_matmul_bn(torch, fb, dev):
+    """Kernels 10-12 against their plain versions at every shape the
+    ResNet-50 path gives them at B=128 and at the JAX tests' shapes, in
+    float32 and bfloat16, with nonzero ds1/ds2.  Returns the max |d| of
+    y, dx and dw over the path's float32 shapes."""
+    path = list(dict.fromkeys(resnet_fmm_shapes(RESNET_B)))
+    cases = [(shape, dt) for shape in path for dt in FMM_TOL]
+    cases += [((m, k, n, pro), dt) for m, k, n in FMM_TEST_SHAPES
+              for pro in (False, True) for dt in FMM_TOL]
+    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    for (m, k, n, pro), dtype in cases:
+        x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
+                                                     dev, 0)
+        if not pro:
+            scale = bias = None
+        got = dict(zip(("y", "s1", "s2"),
+                       fb.fused_matmul_bn_fwd(x, w, scale, bias)))
+        want = dict(zip(("y", "s1", "s2"),
+                        fb.matmul_bn_reference(x, w, scale, bias)))
+        args = (x, w, scale, bias, want["y"], dy, ds1, ds2)
+        got.update(zip(("dx", "dscale", "dbias"), fb.fused_matmul_bn_dx(*args)))
+        want.update(zip(("dx", "dscale", "dbias"),
+                        fb.matmul_bn_dx_reference(*args)))
+        got["dw"] = fb.fused_matmul_bn_dw(*args)
+        want["dw"] = fb.matmul_bn_dw_reference(*args)
+        torch.cuda.synchronize()
+        tol = FMM_TOL[dtype]
+        ratios, abs_err = {}, {}
+        for name, ref in want.items():
+            if ref is None:
+                assert got[name] is None, name
+                continue
+            assert got[name].dtype == ref.dtype, (name, got[name].dtype)
+            err = (got[name].float() - ref.float()).abs().max().item()
+            scale_ = ref.float().abs().max().item()
+            assert err <= tol * max(scale_, 1e-30), (
+                (m, k, n, pro), dtype, name, err, scale_)
+            ratios[name], abs_err[name] = err / max(scale_, 1e-30), err
+        print(f"fused_matmul_bn ({m}, {k}, {n}) prologue={pro} {dtype}: "
+              f"max|d|/max|ref| " + " ".join(
+                  f"{k_}={v:.2e}" for k_, v in ratios.items())
+              + f" (tol {tol:g}) ok", flush=True)
+        if (m, k, n, pro) in path and dtype == "float32":
+            for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
+                path_err[key] = max(path_err[key], abs_err[name])
+        del x, w, dy, got, want, args
+    return path_err
+
+
+def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
+    """Times of kernels 10, 11 and 12 at the representative launch
+    (stage 1's c3 at B=128, with the prologue), cycling 2 input sets of
+    about 0.9 GB each in float32.  The library call for each is cuBLAS's
+    product alone (``torch.matmul``): no PyTorch call computes the fused
+    function."""
+    m, k, n, _ = FMM_REP
+    sets = [fmm_inputs(torch, m, k, n, dtype, dev, s) for s in range(2)]
+    fwd_sets = [a[:4] for a in sets]
+    bwd_sets = [a[:4] + (fb.matmul_bn_reference(*a[:4])[0],) + a[4:]
+                for a in sets]
+    kw = dict(iters=50, warmup=5)
+    fwd = {"ms": time_ms(torch, fb.fused_matmul_bn_fwd, fwd_sets, **kw),
+           "plain_ms": time_ms(torch, fb.matmul_bn_reference, fwd_sets, **kw),
+           "library_ms": time_ms(torch, lambda x, w, sc, bi: torch.matmul(
+               x, w), fwd_sets, **kw)}
+    dx = {"ms": time_ms(torch, fb.fused_matmul_bn_dx, bwd_sets, **kw),
+          "plain_ms": time_ms(torch, fb.matmul_bn_dx_reference, bwd_sets,
+                              **kw),
+          "library_ms": time_ms(torch, lambda x, w, sc, bi, y, dy, a, b:
+                                torch.matmul(dy, w.t()), bwd_sets, **kw)}
+    dw = {"ms": time_ms(torch, fb.fused_matmul_bn_dw, bwd_sets, **kw),
+          "plain_ms": time_ms(torch, fb.matmul_bn_dw_reference, bwd_sets,
+                              **kw),
+          "library_ms": time_ms(torch, lambda x, w, sc, bi, y, dy, a, b:
+                                torch.matmul(x.t(), dy), bwd_sets, **kw)}
+    es = sets[0][0].element_size()
+    flops = 2 * m * k * n
+    peak = FP32_PEAK if dtype == "float32" else BF16_PEAK
+    # each input read once, each output written once; scale, bias, ds1,
+    # ds2 and the column sums are float32
+    fwd_bytes = (m * k + k * n + m * n) * es + 2 * k * 4 + 2 * n * 4
+    dx_bytes = (2 * m * n + k * n + 2 * m * k) * es + 4 * k * 4 + 2 * n * 4
+    dw_bytes = (m * k + 2 * m * n + k * n) * es + 2 * k * 4 + 2 * n * 4
+    label = f"({m}, {k}, {n}) prologue {dtype}"
+    out = (report(f"fused_matmul_bn_fwd {label}", fwd, fwd_bytes, rate,
+                  flops, peak),
+           report(f"fused_matmul_bn_dx {label}", dx, dx_bytes, rate, flops,
+                  peak),
+           report(f"fused_matmul_bn_dw {label}", dw, dw_bytes, rate, flops,
+                  peak))
+    del sets, fwd_sets, bwd_sets
+    return out
+
+
 _FAMILIES = (("layer_norm", ("layer_norm",)), ("xent", ("xent",)),
              ("gemm", ("gemm", "splitk")), ("softmax", ("softmax",)),
              ("memcpy", ("memcpy", "memset")))
 
 
-def device_families(prof):
+# ResNet-50's kernels: cuDNN's convolutions (their names carry fprop,
+# dgrad or wgrad) are matched before cuBLAS's products, since both may
+# say "gemm"; BatchNorm's statistics and folds are reductions and
+# elementwise kernels
+_RESNET_FAMILIES = (
+    ("fused_matmul_bn_fwd", ("fused_matmul_bn_fwd",)),
+    ("fused_matmul_bn_dx", ("fused_matmul_bn_dx",)),
+    ("fused_matmul_bn_dw", ("fused_matmul_bn_dw",)),
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "winograd")),
+    ("gemm", ("gemm", "splitk", "cutlass")), ("xent", ("xent",)),
+    ("pooling", ("pool",)),
+    ("bn_elementwise", ("elementwise", "reduce", "batch_norm")),
+    ("memcpy", ("memcpy", "memset")))
+
+
+def device_families(prof, families=_FAMILIES):
     """Device ms by kernel family from a profiler trace; kernels of no
     named family count as "other" (elementwise, reductions, gathers;
     in the optimizer's window, Adam's updates)."""
@@ -380,7 +587,7 @@ def device_families(prof):
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        fam = next((f for f, keys in _FAMILIES
+        fam = next((f for f, keys in families
                     if any(k in name for k in keys)), "other")
         fams[fam] = fams.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
     return fams
@@ -544,7 +751,7 @@ def train_bert_base(torch, np, dev):
     return counts
 
 
-def step_breakdown(torch, fwd_bwd, update):
+def step_breakdown(torch, fwd_bwd, update, families=_FAMILIES):
     """One more step under the profiler, in two windows (forward + loss
     + backward, then the optimizer): wall and device-busy ms, idle share
     and busy ms by kernel family.  The profiler's own host cost inflates
@@ -556,7 +763,7 @@ def step_breakdown(torch, fwd_bwd, update):
             t0 = time.monotonic()
             part()
             wall = (time.monotonic() - t0) * 1e3
-        fams = device_families(prof)
+        fams = device_families(prof, families)
         busy = sum(fams.values())
         total_wall += wall
         total_busy += busy
@@ -567,6 +774,214 @@ def step_breakdown(torch, fwd_bwd, update):
     print(f"  profiled step, whole: wall {total_wall:.3f} ms, device busy "
           f"{total_busy:.3f} ms, idle share {1 - total_busy / total_wall:.3f}",
           flush=True)
+
+
+def resnet_forward_backward(torch, net, x, y):
+    """Forward, loss and backward of one training step → ``(loss,
+    logits)``; the gradients land in ``.grad``."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    net.zero_grad(set_to_none=True)
+    with autograd.record():
+        logits = net(x)
+        loss = SoftmaxCrossEntropyLoss()(logits, y)
+    autograd.backward(loss)
+    return loss, logits
+
+
+def resnet_state(torch, net, x, y, where):
+    """One forward + backward on ``where`` → loss, logits, every gradient
+    and every moving statistic, as numpy."""
+    from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
+                                                   params_to_numpy)
+    loss, logits = resnet_forward_backward(
+        torch, net, torch.from_numpy(x).to(where), torch.from_numpy(y).to(where))
+    return dict(loss=loss.detach().cpu().numpy(),
+                logits=logits.detach().cpu().numpy(),
+                grads={k: v for k, v in grads_to_numpy(net).items()
+                       if "running" not in k},
+                running={k: v for k, v in params_to_numpy(net).items()
+                         if "running" in k})
+
+
+def worst_ratio(np, got, want, norm=False):
+    """``(worst ratio over tensors, its name)``: max|got - want| /
+    max|want| per tensor, or ||got - want|| / ||want|| with ``norm``."""
+    worst, name = 0.0, None
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and np.isfinite(g).all(), k
+        if norm:
+            r = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
+        else:
+            r = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        if r >= worst:
+            worst, name = float(r), k
+    return worst, name
+
+
+def resnet_errors(np, got, want):
+    """Logits, moving statistics (max-relative) and gradients (max- and
+    norm-relative) of one ResNet state against another."""
+    return dict(
+        logits=worst_ratio(np, {"logits": got["logits"]},
+                           {"logits": want["logits"]}),
+        running=worst_ratio(np, got["running"], want["running"]),
+        grad_max=worst_ratio(np, got["grads"], want["grads"]),
+        grad_norm=worst_ratio(np, got["grads"], want["grads"], norm=True))
+
+
+def _fmt(errs):
+    return ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n) in errs.items())
+
+
+def compare_resnet_step(torch, np, dev):
+    """Phase 7 (a): ResNet-50's forward + backward at B=4 on the card
+    against the CPU path on the same weights and batch, after measuring
+    how far the CPU path moves under a 1e-6 move of its input."""
+    from incubator_mxnet_tpu_torch.examples.train_resnet_fused import (
+        synthetic_batch)
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        resnet50_v1)
+    base = resnet50_v1(classes=CLASSES, layout="NHWC", fused=True).initialize(
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    x, y = synthetic_batch(RESNET_B_CPU, IMAGE, CLASSES)
+    t0 = time.monotonic()
+    cpu = resnet_state(torch, copy.deepcopy(base), x, y, "cpu")
+    t_cpu = time.monotonic() - t0
+    moved = resnet_state(torch, copy.deepcopy(base), x + np.float32(1e-6), y,
+                         "cpu")
+    noise = resnet_errors(np, moved, cpu)
+    print(f"CPU path against itself, input moved by 1e-6: {_fmt(noise)}; "
+          f"loss moved {abs(float(moved['loss'].mean() - cpu['loss'].mean())):.3e}",
+          flush=True)
+    assert noise["logits"][0] * 10 <= RESNET_FWD_TOL, noise
+    assert noise["running"][0] * 10 <= RESNET_FWD_TOL, noise
+    assert noise["grad_norm"][0] * 4 <= RESNET_GRAD_TOL, noise
+    t0 = time.monotonic()
+    card = resnet_state(torch, copy.deepcopy(base).to(dev), x, y, dev)
+    t_card = time.monotonic() - t0
+    l_cpu, l_card = float(cpu["loss"].mean()), float(card["loss"].mean())
+    errs = resnet_errors(np, card, cpu)
+    print(f"ResNet-50 step, B={RESNET_B_CPU}, {IMAGE}x{IMAGE}: CPU "
+          f"{t_cpu:.2f} s, card {t_card:.2f} s (first call); loss card "
+          f"{l_card:.7f} cpu {l_cpu:.7f}; card against CPU: {_fmt(errs)} "
+          f"over {len(cpu['running'])} moving statistics and "
+          f"{len(cpu['grads'])} gradients (tol: loss 1e-5, logits and "
+          f"moving statistics {RESNET_FWD_TOL:g}, gradient norms "
+          f"{RESNET_GRAD_TOL:g})", flush=True)
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), (l_card, l_cpu)
+    assert errs["logits"][0] <= RESNET_FWD_TOL, errs
+    assert errs["running"][0] <= RESNET_FWD_TOL, errs
+    assert errs["grad_norm"][0] <= RESNET_GRAD_TOL, errs
+    return errs, noise
+
+
+def compare_bottlenecks(torch, np, dev):
+    """Phase 7 (a): one full-width bottleneck of each kind, training
+    forward + backward of (out*out).mean() on the card against the CPU."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        BottleneckV1)
+    worst = 0.0
+    for label, ch, stride, down in (("stage-1 identity", 256, 1, False),
+                                    ("stage-2 projection", 512, 2, True)):
+        base = BottleneckV1(ch, stride, down, in_channels=256, layout="NHWC",
+                            fused=True).initialize(
+            device="cpu", generator=torch.Generator().manual_seed(1))
+        x = np.random.RandomState(1).rand(RESNET_B_CPU, 56, 56, 256).astype(
+            np.float32)
+        res = []
+        for where in ("cpu", dev):
+            blk = copy.deepcopy(base).to(where)
+            with autograd.record():
+                out = blk(torch.from_numpy(x).to(where))
+                loss = (out * out).mean()
+            autograd.backward(loss)
+            res.append((out.detach().cpu().numpy(),
+                        {k: v for k, v in grads_to_numpy(blk).items()
+                         if "running" not in k},
+                        {k: v for k, v in params_to_numpy(blk).items()
+                         if "running" in k}))
+        (o_cpu, g_cpu, r_cpu), (o_card, g_card, r_card) = res
+        out_r = worst_ratio(np, {"out": o_card}, {"out": o_cpu})
+        run_r = worst_ratio(np, r_card, r_cpu)
+        grad_r = worst_ratio(np, g_card, g_cpu)
+        assert out_r[0] <= BLOCK_TOL and run_r[0] <= BLOCK_TOL, (out_r, run_r)
+        assert grad_r[0] <= BLOCK_GRAD_TOL, grad_r
+        worst = max(worst, grad_r[0])
+        print(f"bottleneck {label} ({RESNET_B_CPU}, 56, 56, 256) -> "
+              f"{o_card.shape}: out max|d|/max = {out_r[0]:.3e}, moving "
+              f"statistics {run_r[0]:.3e} (tol {BLOCK_TOL:g}); "
+              f"{len(g_cpu)} gradients worst {grad_r[0]:.3e} ({grad_r[1]}) "
+              f"(tol {BLOCK_GRAD_TOL:g})", flush=True)
+    return worst
+
+
+def train_resnet50(torch, np, dev):
+    """Phase 7; returns the ResNet training path's launch counts."""
+    from incubator_mxnet_tpu_torch.examples.train_resnet_fused import (
+        build, synthetic_batch, train_step)
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
+    compare_resnet_step(torch, np, dev)
+    compare_bottlenecks(torch, np, dev)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    net, trainer, loss_fn = build(CLASSES, dev)
+    x, y = (torch.from_numpy(a).to(dev)
+            for a in synthetic_batch(RESNET_B, IMAGE, CLASSES))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fb.fwd_launches = fb.dx_launches = fb.dw_launches = 0  # path starts
+    sx.fwd_launches = sx.bwd_launches = 0
+    losses, step_ms = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.monotonic()
+        loss = train_step(net, trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(loss.mean().item())
+    counts = {"fused_matmul_bn_fwd": fb.fwd_launches,
+              "fused_matmul_bn_dx": fb.dx_launches,
+              "fused_matmul_bn_dw": fb.dw_launches,
+              "softmax_xent_fwd": sx.fwd_launches,
+              "softmax_xent_bwd": sx.bwd_launches}   # path ends
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{RESNET_STEPS} steps at B={RESNET_B}, {IMAGE}x{IMAGE}, "
+          f"{CLASSES} classes, SGD lr 0.01 momentum 0.9: losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    assert np.isfinite(losses).all() and min(losses[1:]) < losses[0], losses
+    per_step = len(resnet_fmm_shapes(RESNET_B))
+    want = {"fused_matmul_bn_fwd": per_step, "fused_matmul_bn_dx": per_step,
+            "fused_matmul_bn_dw": per_step, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1}
+    for k, n in want.items():
+        assert counts[k] == n * RESNET_STEPS, (k, counts[k])
+    med = statistics.median(step_ms[2:])
+    print(f"training path launches: {counts} ({want} a step)", flush=True)
+    print(f"step time, host clock around a synchronised step: median over "
+          f"steps 3-{RESNET_STEPS} {med:.3f} ms ({RESNET_B / med * 1e3:.2f} "
+          f"img/s), min {min(step_ms[2:]):.3f} ms, all "
+          f"{[round(v, 3) for v in step_ms]}; peak device memory "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+
+    def fwd_bwd():
+        from incubator_mxnet_tpu_torch import autograd
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+
+    def update():
+        trainer.step(RESNET_B)
+        torch.cuda.synchronize()
+
+    step_breakdown(torch, fwd_bwd, update, _RESNET_FAMILIES)
+    return counts
 
 
 def post(port, body):
@@ -591,6 +1006,7 @@ def main():
     from incubator_mxnet_tpu_torch.deploy import export_model
     from incubator_mxnet_tpu_torch.models.bert import BERTModel
     from incubator_mxnet_tpu_torch.ops import _build, layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
     from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
     from incubator_mxnet_tpu_torch.serving.server import InferenceServer
 
@@ -629,6 +1045,11 @@ def main():
     xent_fwd_err, xent_bwd_err = check_softmax_xent(torch, sx, dev)
     xent_fwd_times, xent_bwd_times = time_softmax_xent(torch, sx, dev,
                                                        "float32", rate)
+    fmm_err = check_fused_matmul_bn(torch, fb, dev)
+    fmm_times = time_fused_matmul_bn(torch, fb, dev, "float32", rate)
+    time_fused_matmul_bn(torch, fb, dev, "bfloat16", rate)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase("4 BERT-base in process")
     model = BERTModel().initialize(
@@ -733,25 +1154,36 @@ def main():
     phase("6 train BERT-base")
     train = train_bert_base(torch, np, dev)
 
-    phase("7 kernels")
+    phase("7 train ResNet-50")
+    resnet = train_resnet50(torch, np, dev)
+
+    phase("8 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
+    fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     src = "incubator_mxnet_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         dict(name="layer_norm_fwd", route="cuda", source=src + "layer_norm.cu",
              replaces=pk + ":219",
              launches=serve_launches + train["layer_norm_fwd"],
-             max_abs_err=ln_err, bound_by="bytes", **ln_times),
+             max_abs_err=ln_err, **ln_times),
         dict(name="layer_norm_bwd", route="cuda", source=src + "layer_norm.cu",
              replaces=pk + ":237", launches=train["layer_norm_bwd"],
-             max_abs_err=ln_bwd_err, bound_by="bytes", **ln_bwd_times),
+             max_abs_err=ln_bwd_err, **ln_bwd_times),
         dict(name="softmax_xent_fwd", route="cuda",
              source=src + "softmax_xent.cu", replaces=pk + ":545",
-             launches=train["softmax_xent_fwd"], max_abs_err=xent_fwd_err,
-             bound_by="bytes", **xent_fwd_times),
+             launches=train["softmax_xent_fwd"] + resnet["softmax_xent_fwd"],
+             max_abs_err=xent_fwd_err, **xent_fwd_times),
         dict(name="softmax_xent_bwd", route="cuda",
              source=src + "softmax_xent.cu", replaces=pk + ":558",
-             launches=train["softmax_xent_bwd"], max_abs_err=xent_bwd_err,
-             bound_by="bytes", **xent_bwd_times),
+             launches=train["softmax_xent_bwd"] + resnet["softmax_xent_bwd"],
+             max_abs_err=xent_bwd_err, **xent_bwd_times),
+    ] + [
+        dict(name=f"fused_matmul_bn_{part}", route="cuda",
+             source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:{line}",
+             launches=resnet[f"fused_matmul_bn_{part}"],
+             max_abs_err=fmm_err[part], **times)
+        for part, line, times in zip(("fwd", "dx", "dw"), (83, 154, 181),
+                                     fmm_times)
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

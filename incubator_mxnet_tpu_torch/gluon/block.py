@@ -16,7 +16,7 @@ from torch import nn
 from .. import initializer as init_mod
 from ..context import resolve_device
 
-__all__ = ["HybridBlock", "as_dtype"]
+__all__ = ["HybridBlock", "as_dtype", "register_state_update"]
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -27,6 +27,16 @@ def as_dtype(dtype) -> torch.dtype:
     if not isinstance(out, torch.dtype):
         raise TypeError(f"unknown dtype {dtype!r}")
     return out
+
+
+def register_state_update(param, new_value):
+    """BatchNorm's moving-statistic update: copy ``new_value`` into
+    ``param`` in place, under ``torch.no_grad()``, so the update is not
+    recorded.  The JAX package defers the update while it traces a
+    hybridized graph; the port runs eagerly, so it always applies it at
+    once."""
+    with torch.no_grad():
+        param.copy_(new_value)
 
 
 class HybridBlock(nn.Module):

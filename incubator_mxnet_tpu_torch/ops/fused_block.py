@@ -1,0 +1,433 @@
+"""Fused 1x1-conv (matrix product) + BatchNorm for bottleneck ResNets: the
+CUDA kernels, their plain PyTorch versions, the autograd Function that
+joins them, and the fused bottleneck built on it.
+
+Counterpart of ``incubator_mxnet_tpu/ops/fused_block.py``.  A 1x1
+convolution over NHWC is a matrix product over the flattened N*H*W
+rows, x (M, K) @ w (K, N).  :func:`fused_matmul_bn` computes
+
+    y = [relu(x*scale + bias)] @ w,  s1 = sum_M y,  s2 = sum_M y^2
+
+so a BatchNorm's batch statistics come out of the product's epilogue
+and the previous BatchNorm's normalize + ReLU runs in its prologue; the
+normalized activation is never stored.  Its backward keeps the same
+property: the dx product recomputes the prologue and carries the ReLU /
+normalize backward and the dscale, dbias sums as its epilogue; the dw
+product recomputes the prologue too.
+
+Three kernels (``csrc/fused_matmul_bn.cu``), one wrapper each:
+:func:`fused_matmul_bn_fwd` (kernel 10), :func:`fused_matmul_bn_dx`
+(11) and :func:`fused_matmul_bn_dw` (12), each with a launch counter.
+Each wrapper dispatches on where x lies: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.  Nothing falls
+back from the card to the plain version.
+
+Numerics, as the TPU kernels': operands in the input dtype (float32 or
+bfloat16), float32 accumulation, the prologue and the stats-adjusted
+cotangent dyt = dy + ds1 + 2*y*ds2 in float32 rounded to the input dtype
+before the product, statistics from the *rounded* y.  The column sums
+cross M: the kernels write float32 partial rows (dw: float32 partial
+tiles over runs of M) and the wrappers sum them in a fixed order.
+
+The bottleneck (:func:`fused_bottleneck_v1` and ``_proj``) runs its
+3x3 convolution through ``fused_conv.conv3_bn_composed``, the JAX
+package's ``MXNET_FUSED_CONV3=0`` configuration.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from . import _build
+from .fused_conv import conv3_bn_composed
+
+__all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
+           "matmul_bn_dw_reference", "matmul_bn_bwd_reference",
+           "fused_matmul_bn_fwd", "fused_matmul_bn_dx", "fused_matmul_bn_dw",
+           "FusedMatmulBNFunction", "fused_matmul_bn", "bn_consts",
+           "fused_bottleneck_v1", "fused_bottleneck_v1_proj",
+           "fwd_launches", "dx_launches", "dw_launches"]
+
+#: Launches of kernels 10, 11 and 12 so far; each wrapper adds one per
+#: launch and nothing else touches them (a caller may reset them to 0).
+fwd_launches = 0
+dx_launches = 0
+dw_launches = 0
+
+_count_lock = threading.Lock()
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+# the C entries' arguments (csrc/fused_matmul_bn.cu)
+_FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L, _L, _I, _I, _P]
+_DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L, _L, _I, _I, _P]
+_DW_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 5 + [_L, _I, _I, _L, _L, _P]
+# rows of M a kernel block owns (csrc BI): the forward and dx write one
+# partial row per block, and the kernels refuse any other count
+_BLOCK_ROWS = 128
+# dw splits M so that about this many blocks cover the card, each split
+# at least _MIN_SPLIT_ROWS rows (a multiple of the kernel's depth of 8)
+_DW_BLOCKS_PER_SM = 4
+_MIN_SPLIT_ROWS = 256
+
+
+def _acc(t):
+    """The plain versions compute in float32 (float64 stays float64, for
+    ``gradcheck``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _prologue(x, scale, bias):
+    """relu(x*scale + bias) computed wide, rounded to x's dtype, widened
+    again; or x itself, widened, when there is no prologue."""
+    if scale is None:
+        return _acc(x)
+    z = _acc(x) * _acc(scale) + _acc(bias)
+    return _acc(torch.relu(z).to(x.dtype))
+
+
+def _dyt(y, dy, ds1, ds2):
+    """dy + ds1 + 2*y*ds2 computed wide, rounded to dy's dtype, widened
+    again."""
+    t = _acc(dy) + _acc(ds1) + 2.0 * _acc(y) * _acc(ds2)
+    return _acc(t.to(dy.dtype))
+
+
+def matmul_bn_reference(x, w, scale=None, bias=None):
+    """Plain PyTorch forward, counterpart of the JAX package's
+    ``xla_matmul_bn`` → ``(y, s1, s2)``: y in x's dtype, s1 and s2
+    float32 ``(N,)``.  The product is taken in float32 on the operands
+    rounded to x's dtype, as the kernel takes it."""
+    y = (_prologue(x, scale, bias) @ _acc(w)).to(x.dtype)
+    yf = _acc(y)
+    return y, yf.sum(dim=0), (yf * yf).sum(dim=0)
+
+
+def matmul_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2):
+    """Plain dx with the kernel's formulas → ``(dx, dscale, dbias)``; the
+    last two are float32 ``(K,)``, or None without a prologue."""
+    dxn = _dyt(y, dy, ds1, ds2) @ _acc(w).t()
+    if scale is None:
+        return dxn.to(x.dtype), None, None
+    xf, sc = _acc(x), _acc(scale)
+    dz = torch.where(xf * sc + _acc(bias) > 0, dxn, torch.zeros_like(dxn))
+    return (dz * sc).to(x.dtype), (dz * xf).sum(dim=0), dz.sum(dim=0)
+
+
+def matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2):
+    """Plain dw with the kernel's formulas: the prologue recomputed,
+    summed over M in float32, cast to w's dtype."""
+    return (_prologue(x, scale, bias).t() @ _dyt(y, dy, ds1, ds2)).to(w.dtype)
+
+
+def matmul_bn_bwd_reference(x, w, scale, bias, y, dy, ds1, ds2):
+    """The plain VJP of :func:`matmul_bn_reference` for the cotangents
+    ``(dy, ds1, ds2)`` → ``(dx, dw, dscale, dbias)``."""
+    dx, dsc, dbi = matmul_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    dw = matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    return dx, dw, dsc, dbi
+
+
+def _check(name, x, w, scale, bias, **more):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        "(float32, bfloat16)")
+    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "must be (M, K) and (K, N)")
+    m, k = x.shape
+    n = w.shape[1]
+    if k == 0 or n == 0:
+        raise ValueError(f"{name}: K and N must be positive, got {k}, {n}")
+    if (scale is None) != (bias is None):
+        raise ValueError(f"{name}: give both scale and bias, or neither")
+    want = {"w": ((k, n), x.dtype)}
+    if scale is not None:
+        want.update(scale=((k,), None), bias=((k,), None))
+    for vname in more:
+        want[vname] = (((m, n), x.dtype) if vname in ("y", "dy")
+                       else ((n,), None))
+    tensors = dict(w=w, scale=scale, bias=bias, **more)
+    for vname, (shape, dtype) in want.items():
+        t = tensors[vname]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {vname} shape {tuple(t.shape)} != "
+                             f"{shape}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: {vname} is {t.dtype}, x is {x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: {vname} on {t.device}, x on "
+                             f"{x.device}")
+    return m, k, n
+
+
+def _f32(t):
+    return None if t is None else t.float().contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _count(which):
+    global fwd_launches, dx_launches, dw_launches
+    with _count_lock:
+        if which == "fwd":
+            fwd_launches += 1
+        elif which == "dx":
+            dx_launches += 1
+        else:
+            dw_launches += 1
+
+
+def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
+    """``y = [relu(x*scale + bias)] @ w`` with its column sums →
+    ``(y, s1, s2)``.
+
+    x (M, K) and w (K, N) in one dtype, float32 or bfloat16; scale and
+    bias ``(K,)`` (cast to float32), both or neither.  On a CUDA tensor:
+    kernel 10 on the current stream, then the sum of its (ceil(M / 128),
+    N) partial rows.  On a CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return matmul_bn_reference(x, w, scale, bias)
+    m, k, n = _check("fused_matmul_bn_fwd", x, w, scale, bias)
+    x, w = x.contiguous(), w.contiguous()
+    scale, bias = _f32(scale), _f32(bias)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    rows = -(-m // _BLOCK_ROWS)
+    parts = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        zeros = torch.zeros(n, dtype=torch.float32, device=x.device)
+        return y, zeros, zeros.clone()
+    fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_fwd",
+                         _FWD_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), _ptr(scale),
+           _ptr(bias), int(scale is not None), y.data_ptr(),
+           parts[0].data_ptr(), parts[1].data_ptr(), rows, m, k, n, stream)
+    _count("fwd")
+    sums = parts.sum(dim=1)
+    return y, sums[0], sums[1]
+
+
+def _bwd_operands(name, x, w, scale, bias, y, dy, ds1, ds2):
+    m, k, n = _check(name, x, w, scale, bias, y=y, dy=dy, ds1=ds1, ds2=ds2)
+    return (m, k, n, x.contiguous(), w.contiguous(), _f32(scale), _f32(bias),
+            y.contiguous(), dy.contiguous(), _f32(ds1), _f32(ds2))
+
+
+def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
+    """dx of :func:`fused_matmul_bn_fwd` for the cotangents ``(dy, ds1,
+    ds2)`` of ``(y, s1, s2)`` → ``(dx, dscale, dbias)``.
+
+    dx comes out in x's dtype; dscale and dbias are float32 ``(K,)``
+    with a prologue (scale given), else None.  On a CUDA tensor: kernel
+    11, then the sum of its partial rows.  On a CPU tensor: the plain
+    version."""
+    if x.device.type == "cpu":
+        return matmul_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    m, k, n, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
+        "fused_matmul_bn_dx", x, w, scale, bias, y, dy, ds1, ds2)
+    prologue = scale is not None
+    dx = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    rows = -(-m // _BLOCK_ROWS)
+    parts = (torch.empty((2, rows, k), dtype=torch.float32, device=x.device)
+             if prologue else None)
+    if m == 0:
+        zeros = torch.zeros(k, dtype=torch.float32, device=x.device)
+        return (dx, zeros, zeros.clone()) if prologue else (dx, None, None)
+    fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_dx",
+                         _DX_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), _ptr(scale),
+           _ptr(bias), int(prologue), y.data_ptr(), dy.data_ptr(),
+           ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
+           parts[0].data_ptr() if prologue else None,
+           parts[1].data_ptr() if prologue else None, rows, m, k, n, stream)
+    _count("dx")
+    if not prologue:
+        return dx, None, None
+    sums = parts.sum(dim=1)
+    return dx, sums[0], sums[1]
+
+
+def _dw_split(m, k, n, device):
+    """``(split_rows, splits)``: dw's runs of M.  Enough runs that about
+    ``_DW_BLOCKS_PER_SM`` blocks of 128x128 output cover every SM, none
+    shorter than ``_MIN_SPLIT_ROWS`` rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-k // 128) * -(-n // 128)
+    want = max(1, -(-_DW_BLOCKS_PER_SM * sms // tiles))
+    rows = max(_MIN_SPLIT_ROWS, -(-m // want))
+    rows = -(-rows // 8) * 8
+    return rows, -(-m // rows)
+
+
+def fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
+    """dw of :func:`fused_matmul_bn_fwd` for the cotangents ``(dy, ds1,
+    ds2)`` → dw ``(K, N)`` in w's dtype, summed over M in float32.
+
+    On a CUDA tensor: kernel 12 over runs of M, each writing a float32
+    (K, N) partial, then their sum in a fixed order.  On a CPU tensor:
+    the plain version."""
+    if x.device.type == "cpu":
+        return matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    m, k, n, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
+        "fused_matmul_bn_dw", x, w, scale, bias, y, dy, ds1, ds2)
+    if m == 0:
+        return torch.zeros((k, n), dtype=w.dtype, device=x.device)
+    split_rows, splits = _dw_split(m, k, n, x.device)
+    parts = torch.empty((splits, k, n), dtype=torch.float32, device=x.device)
+    fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_dw",
+                         _DW_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), _ptr(scale),
+           _ptr(bias), int(scale is not None), y.data_ptr(), dy.data_ptr(),
+           ds1.data_ptr(), ds2.data_ptr(), parts.data_ptr(), m, k, n,
+           split_rows, splits, stream)
+    _count("dw")
+    return parts.sum(dim=0).to(w.dtype)
+
+
+class FusedMatmulBNFunction(torch.autograd.Function):
+    """``apply(x, w, scale, bias)`` → ``(y, s1, s2)``, with its own
+    backward: the counterpart of the JAX package's ``_fmm`` custom VJP.
+    scale and bias are both None (no prologue) or both ``(K,)``.  The
+    forward saves x, w, scale, bias and y, as ``_fmm_fwd`` does; the
+    backward takes ``(dy, ds1, ds2)``, reads a None as zeros, runs
+    :func:`fused_matmul_bn_dx` and :func:`fused_matmul_bn_dw`, and
+    returns gradients for scale and bias only with a prologue."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        y, s1, s2 = fused_matmul_bn_fwd(x, w, scale, bias)
+        ctx.save_for_backward(x, w, scale, bias, y)
+        ctx.set_materialize_grads(False)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2):
+        x, w, scale, bias, y = ctx.saved_tensors
+        n = w.shape[1]
+        if dy is None:
+            dy = torch.zeros_like(y)
+        zeros = functools.partial(torch.zeros, n, dtype=_acc(y).dtype,
+                                  device=y.device)
+        ds1 = zeros() if ds1 is None else ds1
+        ds2 = zeros() if ds2 is None else ds2
+        dy = dy.to(y.dtype)
+        dx, dsc, dbi = fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2)
+        dw = fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
+        return dx, dw, dsc, dbi
+
+
+def fused_matmul_bn(x, w, scale=None, bias=None):
+    """``y = [relu(x*scale + bias)] @ w`` with BN batch statistics in the
+    epilogue → ``(y, s1, s2)``, differentiable in every input.
+
+    x (M, K) activations (rows = flattened N*H*W); w (K, N), a 1x1 conv
+    kernel reshaped; scale and bias optional per-K normalize constants
+    (cast to float32).  ``mean = s1 / M`` and ``var = s2 / M - mean²``
+    (one-pass BN)."""
+    if scale is not None:
+        scale, bias = _acc(scale), _acc(bias)
+    return FusedMatmulBNFunction.apply(x, w, scale, bias)
+
+
+def bn_consts(s1, s2, m, gamma, beta, eps=1e-5):
+    """Fold kernel statistics into per-channel normalize constants →
+    ``(scale, bias, mean, var)``, all float32, with y_norm = y*scale +
+    bias.  Differentiable: gradients flow back into s1 and s2, which the
+    kernels' backward folds into dyt."""
+    mean = s1 / float(m)
+    var = torch.clamp(s2 / float(m) - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    scale = gamma.float() * rstd
+    bias = beta.float() - mean * scale
+    return scale, bias, mean, var
+
+
+def _bottleneck_core(x, w1, g1, b1, w2, g2, b2, w3, g3, b3, wsc, gsc, bsc,
+                     stride, eps):
+    """Bottleneck-V1 body on the fused kernels (NHWC).
+
+    Weights are the zoo's NHWC kernels (O, kh, kw, I).  The 1x1 convs are
+    :func:`fused_matmul_bn` calls (statistics from the epilogue; bn2's
+    normalize + ReLU in c3's prologue); the 3x3 is
+    ``conv3_bn_composed``, with bn1's normalize + ReLU in front of it.
+    Returns the block output and every BN's batch mean and variance, for
+    the layer to update its moving statistics."""
+    n = x.shape[0]
+    s = int(stride)
+    xs = x[:, ::s, ::s, :] if s > 1 else x
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def mm(w4):  # (O, 1, 1, I) -> (I, O)
+        return w4.reshape(w4.shape[0], -1).t()
+
+    hs, ws = xs.shape[1], xs.shape[2]  # ::s keeps ceil(h / s) rows
+    y1, a1, c1 = fused_matmul_bn(flat(xs), mm(w1))
+    m1 = y1.shape[0]
+    sc1, of1, mean1, var1 = bn_consts(a1, c1, m1, g1, b1, eps)
+    cm = y1.shape[-1]
+
+    y2, a2, c2 = conv3_bn_composed(y1.reshape(n, hs, ws, cm),
+                                   w2.permute(1, 2, 3, 0), sc1, of1)
+    sc2, of2, mean2, var2 = bn_consts(a2, c2, m1, g2, b2, eps)
+
+    y3, a3, c3 = fused_matmul_bn(flat(y2), mm(w3), sc2, of2)
+    sc3, of3, mean3, var3 = bn_consts(a3, c3, y3.shape[0], g3, b3, eps)
+
+    if wsc is not None:
+        ysc, asc, csc = fused_matmul_bn(flat(xs), mm(wsc))
+        sccs, ofcs, meansc, varsc = bn_consts(asc, csc, ysc.shape[0], gsc,
+                                              bsc, eps)
+        short = ysc * sccs.to(x.dtype) + ofcs.to(x.dtype)
+    else:
+        short = flat(xs)
+    out = torch.relu(y3 * sc3.to(x.dtype) + of3.to(x.dtype) + short)
+    out = out.reshape(n, hs, ws, y3.shape[-1])
+    stats = (mean1, var1, mean2, var2, mean3, var3)
+    if wsc is not None:
+        stats = stats + (meansc, varsc)
+    return (out,) + stats
+
+
+def _blend(momentum, old, new):
+    return momentum * old + (1.0 - momentum) * new.to(old.dtype)
+
+
+def fused_bottleneck_v1(x, w1, g1, b1, rm1, rv1, w2, g2, b2, rm2, rv2,
+                        w3, g3, b3, rm3, rv3, stride=1, eps=1e-5,
+                        momentum=0.9):
+    """Identity-shortcut fused bottleneck (see :func:`_bottleneck_core`)
+    → ``(out, new_rm1, new_rv1, new_rm2, new_rv2, new_rm3, new_rv3)``:
+    the batch statistics blended into the moving ones, as the BatchNorm
+    op returns them; the layer writes them back."""
+    out, m1, v1, m2, v2, m3, v3 = _bottleneck_core(
+        x, w1, g1, b1, w2, g2, b2, w3, g3, b3, None, None, None, stride, eps)
+    b = functools.partial(_blend, momentum)
+    return (out, b(rm1, m1), b(rv1, v1), b(rm2, m2), b(rv2, v2),
+            b(rm3, m3), b(rv3, v3))
+
+
+def fused_bottleneck_v1_proj(x, w1, g1, b1, rm1, rv1, w2, g2, b2, rm2, rv2,
+                             w3, g3, b3, rm3, rv3, wsc, gsc, bsc, rmsc, rvsc,
+                             stride=1, eps=1e-5, momentum=0.9):
+    """Projection-shortcut fused bottleneck; as
+    :func:`fused_bottleneck_v1`, plus the shortcut BN's moving
+    statistics."""
+    out, m1, v1, m2, v2, m3, v3, msc, vsc = _bottleneck_core(
+        x, w1, g1, b1, w2, g2, b2, w3, g3, b3, wsc, gsc, bsc, stride, eps)
+    b = functools.partial(_blend, momentum)
+    return (out, b(rm1, m1), b(rv1, v1), b(rm2, m2), b(rv2, v2),
+            b(rm3, m3), b(rv3, v3), b(rmsc, msc), b(rvsc, vsc))

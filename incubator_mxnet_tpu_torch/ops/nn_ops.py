@@ -1,7 +1,10 @@
 """Neural-network ops (subset of ``incubator_mxnet_tpu/ops/nn_ops.py``).
 
 Plain functions on tensors.  Where the JAX package left an op to XLA,
-the port leaves it to PyTorch.  :func:`layer_norm` and
+the port leaves it to PyTorch: :func:`convolution`, :func:`pooling` and
+:func:`batch_norm` keep the JAX package's layouts and numerics (NHWC
+weights ``(O, *K, I)``; float32 accumulation of low-precision average
+pooling; one-pass float32 BatchNorm statistics) around PyTorch's calls.  :func:`layer_norm` and
 :func:`softmax_xent` go through the hand-written kernels, forward and
 backward, by way of their autograd Functions
 (``layer_norm.LayerNormFunction``, ``softmax_xent.SoftmaxXentFunction``)
@@ -15,8 +18,13 @@ import torch.nn.functional as F
 from .layer_norm import LayerNormFunction
 from .softmax_xent import SoftmaxXentFunction
 
-__all__ = ["fully_connected", "layer_norm", "dot_product_attention",
-           "activation", "dropout", "log_softmax", "softmax_xent"]
+__all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
+           "layer_norm", "dot_product_attention", "activation", "dropout",
+           "log_softmax", "softmax_xent"]
+
+
+def _tuple(v, n):
+    return (v,) * n if isinstance(v, int) else tuple(v)
 
 
 def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
@@ -25,6 +33,113 @@ def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     return F.linear(x, weight, None if no_bias else bias)
+
+
+def _channel_minor(layout):
+    return layout is not None and layout.endswith("C")
+
+
+def convolution(x, weight, bias=None, kernel=None, stride=None, dilate=None,
+                pad=None, num_filter=None, num_group=1, no_bias=False,
+                layout=None):
+    """N-D convolution (N = 1, 2, 3).  The weight is ``(O, I/group, *K)``
+    in the default channel-major layout, or ``(O, *K, I/group)`` for a
+    channel-minor ``layout`` such as ``"NHWC"``, as in the JAX package.
+    Channel-minor operands are handed to PyTorch as permuted views (its
+    channels-last path); y comes out in x's layout and dtype, and the
+    bias is added after the convolution."""
+    nd = x.dim() - 2
+    stride = _tuple(stride or 1, nd)
+    dilate = _tuple(dilate or 1, nd)
+    pad = _tuple(pad or 0, nd)
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[nd]
+    last = _channel_minor(layout)
+    if last:
+        x_, w_ = x.movedim(-1, 1), weight.movedim(-1, 1)
+    else:
+        x_, w_ = x, weight
+    y = conv(x_, w_, None, stride, pad, dilate, num_group).to(x.dtype)
+    if last:
+        y = y.movedim(1, -1)
+    if bias is not None and not no_bias:
+        bshape = (1,) * (nd + 1) + (-1,) if last else (1, -1) + (1,) * nd
+        y = y + bias.reshape(bshape)
+    return y
+
+
+def pooling(x, kernel=None, pool_type="max", global_pool=False, stride=None,
+            pad=None, count_include_pad=True, pooling_convention="valid",
+            layout=None):
+    """Max or average pooling, windowed or global, channel-major or
+    channel-minor (``layout="NHWC"``).  Padding counts as -inf for max
+    and as 0 for average; ``count_include_pad=False`` divides by the
+    window's in-image size instead of its full size.  Average pooling of
+    a low-precision input accumulates in float32 and returns x's dtype,
+    as the JAX package does.  ``pooling_convention`` other than
+    ``"valid"`` and ``pool_type`` other than max and avg are not
+    ported."""
+    if pool_type not in ("max", "avg"):
+        raise ValueError(f"pool_type {pool_type!r} is not ported (max, avg)")
+    if pooling_convention != "valid":
+        raise ValueError("pooling_convention must be 'valid'")
+    nd = x.dim() - 2
+    last = _channel_minor(layout)
+    low = x.dtype in (torch.float16, torch.bfloat16)
+    if global_pool:
+        axes = tuple(range(1, x.dim() - 1)) if last else tuple(range(2, x.dim()))
+        if pool_type == "max":
+            return x.amax(dim=axes, keepdim=True)
+        xs = x.float() if low else x
+        return xs.mean(dim=axes, keepdim=True).to(x.dtype)
+    kernel = _tuple(kernel, nd)
+    stride = _tuple(stride or kernel, nd)
+    pad = _tuple(pad or 0, nd)
+    x_ = x.movedim(-1, 1) if last else x
+    if pool_type == "max":
+        y = getattr(F, f"max_pool{nd}d")(x_, kernel, stride, pad)
+    else:
+        xs = x_.float() if low else x_
+        y = getattr(F, f"avg_pool{nd}d")(
+            xs, kernel, stride, pad,
+            count_include_pad=count_include_pad).to(x.dtype)
+    return y.movedim(1, -1) if last else y
+
+
+def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               axis=1, training=False):
+    """BatchNorm over every axis but ``axis``.  In training (and without
+    ``use_global_stats``) → ``(out, new_moving_mean, new_moving_var)``:
+    one-pass float32 statistics, var = E[x²] - mean² clipped at 0 (the
+    square taken in x's dtype), blended into the moving ones with
+    ``momentum``; otherwise → out from the moving statistics.  The
+    normalize is folded into a per-channel scale and bias computed in
+    float32 and cast to x's dtype, as in the JAX package.  The layer
+    writes the moving statistics back."""
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    ax = axis % x.dim()
+    axes = tuple(i for i in range(x.dim()) if i != ax)
+    bshape = [1] * x.dim()
+    bshape[ax] = x.shape[ax]
+    g32 = gamma.float()
+    if training and not use_global_stats:
+        mean = x.float().mean(dim=axes)
+        meansq = (x * x).float().mean(dim=axes)
+        var = torch.clamp(meansq - mean * mean, min=0.0)
+        new_mean = (momentum * moving_mean
+                    + (1 - momentum) * mean.to(moving_mean.dtype))
+        new_var = (momentum * moving_var
+                   + (1 - momentum) * var.to(moving_var.dtype))
+        rstd = torch.rsqrt(var + eps)
+        scale = (g32 * rstd).to(x.dtype)
+        bias = (beta.float() - mean * g32 * rstd).to(x.dtype)
+        out = x * scale.reshape(bshape) + bias.reshape(bshape)
+        return out, new_mean, new_var
+    rstd = torch.rsqrt(moving_var.float() + eps)
+    scale = (g32 * rstd).to(x.dtype)
+    bias = (beta.float() - moving_mean.float() * g32 * rstd).to(x.dtype)
+    return x * scale.reshape(bshape) + bias.reshape(bshape)
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):

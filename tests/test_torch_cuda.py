@@ -14,17 +14,33 @@ value (float32 sums of all rows in another order).  Cross-entropy: loss
 1e-5 (float32 in both versions); dx float32 rtol=1e-5, atol=1e-6 (one
 float32 ulp of a row's logsumexp, about 15 here, moves exp(x - lse) by
 about 1e-6 of itself) and bfloat16 rtol=8e-3 (one bf16 ulp of each
-element, at most 2^-7 of it), atol=1e-6 (entries near 0).
+element, at most 2^-7 of it), atol=1e-6 (entries near 0).  Fused
+matmul + BatchNorm (kernels 10-12), each output's max |kernel - plain|
+against the largest |plain| value of that tensor: float32 1e-5 (the
+same products summed in another order), bfloat16 2e-2 (y, dx and dw
+are rounded to bf16, so an f32 sum in another order can land one bf16
+ulp, 2^-8 of a value, away); the float32 column sums s1, s2, dscale and
+dbias take the same share of their largest value.  The small fused
+ResNet, card step against CPU step: loss 1e-5 relative, every gradient
+1e-3 of its largest value (50 layers of float32 sums in another order;
+both TF32 switches off).
 """
+import copy
+
+import numpy as np
 import pytest
 import torch
 
 from incubator_mxnet_tpu_torch import autograd
+from incubator_mxnet_tpu_torch.convert import grads_to_numpy
 from incubator_mxnet_tpu_torch.examples.train_bert import (pretraining_loss,
                                                            synthetic_batch)
 from incubator_mxnet_tpu_torch.gluon import Trainer
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+    BottleneckV1, ResNetV1)
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
+from incubator_mxnet_tpu_torch.ops import fused_block as fb
 from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
 
@@ -173,3 +189,128 @@ def test_small_bert_gets_every_gradient_on_the_card(dev):
         assert torch.isfinite(p.grad).all(), name
     trainer.step(4)
     assert all(torch.isfinite(p).all() for p in net.parameters())
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 stays float32 in cuBLAS and cuDNN while a test runs."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _fmm_inputs(m, k, n, dtype, dev, seed=0):
+    """``(x, w, scale, bias, dy, ds1, ds2)`` made on the card from a
+    seed: x and dy in ``dtype``, the rest float32 (w in ``dtype``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = (rnd(m, k) * 0.5).to(dt)
+    w = (rnd(k, n) * k ** -0.5).to(dt)
+    scale = torch.rand(k, generator=g, device=dev) + 0.5
+    bias = rnd(k) * 0.2
+    dy = (rnd(m, n) * 0.1).to(dt)
+    return x, w, scale, bias, dy, rnd(n) * 0.01, rnd(n) * 0.001
+
+
+def _within(got, want, tol, what):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape, what
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= tol * max(scale, 1e-30), (what, err, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n", [
+    (200, 96, 72),       # ragged in every dimension
+    (1024, 256, 64),     # narrow output: one column tile, half used
+    (512, 64, 256),
+    (12544, 64, 256),    # ResNet-50 stage 1 c3 at B=4
+    (1568, 1024, 512),   # stage 4 c1 at B=32: dw split into many runs
+])
+def test_fused_matmul_bn_kernels_match_plain(dev, no_tf32, dtype, prologue,
+                                             m, k, n):
+    x, w, scale, bias, dy, ds1, ds2 = _fmm_inputs(m, k, n, dtype, dev)
+    if not prologue:
+        scale = bias = None
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    before = (fb.fwd_launches, fb.dx_launches, fb.dw_launches)
+    y, s1, s2 = fb.fused_matmul_bn_fwd(x, w, scale, bias)
+    ry, rs1, rs2 = fb.matmul_bn_reference(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and s1.dtype == torch.float32
+    for what, got, want in (("y", y, ry), ("s1", s1, rs1), ("s2", s2, rs2)):
+        _within(got, want, tol, what)
+    # the backward on the plain forward's y, so both see the same input
+    args = (x, w, scale, bias, ry, dy, ds1, ds2)
+    dx, dsc, dbi = fb.fused_matmul_bn_dx(*args)
+    dw = fb.fused_matmul_bn_dw(*args)
+    rdx, rdsc, rdbi = fb.matmul_bn_dx_reference(*args)
+    rdw = fb.matmul_bn_dw_reference(*args)
+    torch.cuda.synchronize()
+    assert (fb.fwd_launches, fb.dx_launches, fb.dw_launches) == tuple(
+        b + 1 for b in before)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    _within(dx, rdx, tol, "dx")
+    _within(dw, rdw, tol, "dw")
+    if prologue:
+        _within(dsc, rdsc, tol, "dscale")
+        _within(dbi, rdbi, tol, "dbias")
+    else:
+        assert dsc is None and dbi is None
+
+
+def test_fused_matmul_bn_rejects_what_it_does_not_take(dev):
+    x, w, scale, bias, dy, ds1, ds2 = _fmm_inputs(64, 16, 8, "float32", dev)
+    with pytest.raises(TypeError, match="dtype"):
+        fb.fused_matmul_bn_fwd(x.half(), w.half())
+    with pytest.raises(TypeError, match="w is"):
+        fb.fused_matmul_bn_fwd(x, w.bfloat16())
+    with pytest.raises(ValueError, match="must be"):
+        fb.fused_matmul_bn_fwd(x, w.t())
+    with pytest.raises(ValueError, match="both"):
+        fb.fused_matmul_bn_fwd(x, w, scale, None)
+    with pytest.raises(ValueError, match="cpu"):
+        fb.fused_matmul_bn_fwd(x, w.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        fb.fused_matmul_bn_dx(x, w, scale, bias, dy[:3], dy, ds1, ds2)
+    y, s1, s2 = fb.fused_matmul_bn_fwd(x[:0], w)
+    assert y.shape == (0, 8) and s1.abs().sum() == 0
+
+
+def test_small_fused_resnet_step_on_the_card_matches_cpu(dev, no_tf32):
+    """A fused ResNet (one bottleneck a stage, each with a projection)
+    on the card against the same weights and batch on the CPU: 12 launches
+    of each fused kernel (c1, c3 and the projection of each block), the
+    loss and every gradient."""
+    cpu = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                   classes=10, layout="NHWC", fused=True).initialize(
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, 4).astype(np.int32))
+    out = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        before = (fb.fwd_launches, fb.dx_launches, fb.dw_launches)
+        with autograd.record():
+            loss = SoftmaxCrossEntropyLoss()(net(x.to(where)), y.to(where))
+        autograd.backward(loss)
+        launched = [a - b for a, b in zip(
+            (fb.fwd_launches, fb.dx_launches, fb.dw_launches), before)]
+        out.append((loss.mean().item(), grads_to_numpy(net), launched))
+    (l_cpu, g_cpu, n_cpu), (l_card, g_card, n_card) = out
+    assert n_cpu == [0, 0, 0] and n_card == [12, 12, 12]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), (l_card, l_cpu)
+    for name, want in g_cpu.items():
+        err = np.abs(g_card[name] - want).max()
+        assert err <= 1e-3 * np.abs(want).max(), (name, err)

@@ -1,0 +1,220 @@
+"""The port's fused 1x1-conv + BatchNorm against the JAX package's, on the
+CPU (``incubator_mxnet_tpu_torch/ops/fused_block.py`` against
+``incubator_mxnet_tpu/ops/fused_block.py``).
+
+On the CPU the port's wrappers run their plain versions, and
+``FusedMatmulBNFunction`` joins them; on the JAX side ``_fmm`` runs the
+Pallas kernels in interpret mode (``MXNET_USE_PALLAS=1``) and
+``xla_matmul_bn`` is the XLA composition.  Inputs are made with numpy
+from a seed and handed to both.
+
+* forward ``(y, s1, s2)`` and the VJP ``(dx, dw, dscale, dbias)`` for
+  nonzero cotangents of all three outputs, at the shapes of the JAX
+  package's own test (``tests/test_fused_block.py``), with and without
+  the prologue, in float32 and bfloat16;
+* the ds1/ds2 cotangent chain through ``bn_consts`` (a 1x1, its BN's
+  constants, a 1x1 with that prologue), as a bottleneck uses it;
+* ``torch.autograd.gradcheck`` of the Function in float64;
+* stat cotangents that are None read as zeros.
+
+Tolerances, each max |port - JAX| against the largest |JAX| value of the
+tensor: float32 1e-5 (the same formulas, sums in another order);
+bfloat16 2e-2 (one bf16 ulp, 2^-7 of a value, where an f32 sum in
+another order rounds to the other neighbour).  The column sums s1, s2,
+dscale, dbias and dw are sums over M, held to the same share of their
+largest value.  The chain: loss 1e-5 relative, gradients 1e-4 of the
+largest (two products and a BN fold in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from incubator_mxnet_tpu.ops import fused_block as jfb
+from incubator_mxnet_tpu_torch.ops import fused_block as fb
+
+SHAPES = [(256, 128, 128),   # whole TPU tiles
+          (200, 96, 72),     # ragged in every dimension
+          (1024, 256, 64),   # tall and narrow, like a c1
+          (512, 64, 256)]    # widening, like a c3
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def _pallas_interpret(monkeypatch):
+    monkeypatch.setenv("MXNET_USE_PALLAS", "1")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Small CPU products run faster on one thread than on many that
+    other processes share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(m, k, n, seed=0):
+    rng = np.random.RandomState(seed)
+    return dict(x=(rng.randn(m, k) * 0.5).astype(np.float32),
+                w=(rng.randn(k, n) * k ** -0.5).astype(np.float32),
+                scale=(rng.rand(k) + 0.5).astype(np.float32),
+                bias=(rng.randn(k) * 0.2).astype(np.float32),
+                dy=(rng.randn(m, n) * 0.1).astype(np.float32),
+                ds1=(rng.randn(n) * 0.01).astype(np.float32),
+                ds2=(rng.randn(n) * 0.001).astype(np.float32))
+
+
+def _to_jax(a, dtype):
+    return {k: jnp.asarray(v, JNP[dtype] if k in ("x", "w", "dy")
+                           else jnp.float32) for k, v in a.items()}
+
+
+def _to_torch(a, dtype):
+    return {k: torch.from_numpy(v).to(TORCH[dtype] if k in ("x", "w", "dy")
+                                      else torch.float32)
+            for k, v in a.items()}
+
+
+def _close(got, want, tol, what):
+    got = np.asarray(torch.as_tensor(got).float().detach().numpy()
+                     if isinstance(got, torch.Tensor) else got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = max(np.abs(want).max(), 1e-30)
+    err = np.abs(got - want).max()
+    assert err <= tol * scale, f"{what}: max|d| {err:.3e} > {tol} * {scale:.3e}"
+
+
+def _jax_vjp(fn, j, prologue):
+    ones = jnp.ones(j["x"].shape[1], jnp.float32)
+    zeros = jnp.zeros(j["x"].shape[1], jnp.float32)
+
+    def f(x, w, scale, bias):
+        return fn(x, w, scale, bias)
+
+    sc = j["scale"] if prologue else ones
+    bi = j["bias"] if prologue else zeros
+    out, vjp = jax.vjp(f, j["x"], j["w"], sc, bi)
+    return out, vjp((j["dy"], j["ds1"], j["ds2"]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_forward_and_vjp_match_jax(dtype, m, k, n, prologue):
+    a = _inputs(m, k, n, seed=m + k + n)
+    j, t = _to_jax(a, dtype), _to_torch(a, dtype)
+    tol = TOL[dtype]
+    pallas = _jax_vjp(lambda x, w, s, b: jfb._fmm(x, w, s, b, prologue), j,
+                      prologue)
+    xla = _jax_vjp(lambda x, w, s, b: jfb.xla_matmul_bn(
+        x, w, s if prologue else None, b if prologue else None), j, prologue)
+
+    leaves = {k_: t[k_].clone().requires_grad_(True)
+              for k_ in ("x", "w", "scale", "bias")}
+    sc = leaves["scale"] if prologue else None
+    bi = leaves["bias"] if prologue else None
+    y, s1, s2 = fb.fused_matmul_bn(leaves["x"], leaves["w"], sc, bi)
+    assert y.dtype == TORCH[dtype] and s1.dtype == s2.dtype == torch.float32
+    torch.autograd.backward([y, s1, s2], [t["dy"], t["ds1"], t["ds2"]])
+    got_out = (y, s1, s2)
+    got_grads = [leaves["x"].grad, leaves["w"].grad]
+    if prologue:
+        got_grads += [leaves["scale"].grad, leaves["bias"].grad]
+    else:
+        assert leaves["scale"].grad is None and leaves["bias"].grad is None
+
+    # the plain VJP called directly, on the forward's y
+    plain = [g for g in fb.matmul_bn_bwd_reference(
+        t["x"], t["w"], t["scale"] if prologue else None,
+        t["bias"] if prologue else None, y.detach(), t["dy"], t["ds1"],
+        t["ds2"]) if g is not None]
+    for ref_name, (out, grads) in (("_fmm", pallas), ("xla", xla)):
+        for name, g, r in zip(("y", "s1", "s2"), got_out, out):
+            _close(g, r.astype(jnp.float32), tol, f"{ref_name} {name}")
+        for name, g, p, r in zip(("dx", "dw", "dscale", "dbias"), got_grads,
+                                 plain, grads):
+            _close(g, r.astype(jnp.float32), tol, f"{ref_name} {name}")
+            _close(p, r.astype(jnp.float32), tol, f"plain vs {ref_name} {name}")
+
+
+def test_bn_consts_chain_matches_jax():
+    """fmm → bn_consts → prologue fmm → loss, through the stats
+    cotangents, as in ``test_bn_consts_chain_grad`` of the JAX tests."""
+    m, k, n1, n2 = 128, 64, 96, 80
+    rng = np.random.RandomState(3)
+    x = (rng.randn(m, k) * 0.5).astype(np.float32)
+    w1 = (rng.randn(k, n1) * k ** -0.5).astype(np.float32)
+    w2 = (rng.randn(n1, n2) * n1 ** -0.5).astype(np.float32)
+    gamma = (rng.rand(n1) + 0.5).astype(np.float32)
+    beta = rng.randn(n1).astype(np.float32)
+
+    def jax_chain(x, w1, w2, gamma, beta):
+        y1, s1, s2 = jfb._fmm(x, w1, jnp.ones((k,), jnp.float32),
+                              jnp.zeros((k,), jnp.float32), False)
+        sc, bi, _, _ = jfb.bn_consts(s1, s2, m, gamma, beta)
+        y2, t1, t2 = jfb._fmm(y1, w2, sc, bi, True)
+        return jnp.sum(jnp.square(y2)) + jnp.sum(t1) + jnp.sum(t2)
+
+    want_v, want_g = jax.value_and_grad(jax_chain, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (x, w1, w2, gamma, beta)))
+
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, w1, w2, gamma, beta)]
+    tx, tw1, tw2, tg, tb = leaves
+    y1, s1, s2 = fb.fused_matmul_bn(tx, tw1)
+    sc, bi, _, _ = fb.bn_consts(s1, s2, m, tg, tb)
+    y2, t1, t2 = fb.fused_matmul_bn(y1, tw2, sc, bi)
+    v = (y2 * y2).sum() + t1.sum() + t2.sum()
+    v.backward()
+    assert abs(v.item() - float(want_v)) <= 1e-5 * abs(float(want_v))
+    for name, leaf, want in zip(("x", "w1", "w2", "gamma", "beta"), leaves,
+                                want_g):
+        _close(leaf.grad, want, 1e-4, name)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_function_gradcheck_float64(prologue):
+    rng = np.random.RandomState(7)
+    m, k, n = 13, 6, 5
+    args = [torch.from_numpy(rng.randn(m, k)), torch.from_numpy(rng.randn(k, n))]
+    if prologue:
+        args += [torch.from_numpy(rng.rand(k) + 0.5),
+                 torch.from_numpy(rng.randn(k) * 0.2)]
+    else:
+        args += [None, None]
+    args = [a.requires_grad_(True) if a is not None else None for a in args]
+    assert torch.autograd.gradcheck(fb.FusedMatmulBNFunction.apply,
+                                    tuple(args), eps=1e-6, atol=1e-7)
+
+
+def test_none_stat_cotangents_read_as_zeros():
+    a = _inputs(64, 16, 24, seed=5)
+    t = _to_torch(a, "float32")
+
+    def grads(use_stats):
+        x = t["x"].clone().requires_grad_(True)
+        w = t["w"].clone().requires_grad_(True)
+        sc = t["scale"].clone().requires_grad_(True)
+        y, s1, s2 = fb.fused_matmul_bn(x, w, sc, t["bias"])
+        if use_stats:
+            torch.autograd.backward([y, s1, s2], [t["dy"], torch.zeros(24),
+                                                  torch.zeros(24)])
+        else:
+            y.backward(t["dy"])
+        return x.grad, w.grad, sc.grad
+
+    for got, want in zip(grads(False), grads(True)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_wrappers_take_only_cpu_or_cuda_tensors():
+    meta = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        fb.fused_matmul_bn_fwd(meta, torch.empty(3, 2, device="meta"))

@@ -19,7 +19,7 @@ import torch
 from incubator_mxnet_tpu_torch import context
 from incubator_mxnet_tpu_torch.deploy import load_predictor
 from incubator_mxnet_tpu_torch.error import DeviceUnavailableError
-from incubator_mxnet_tpu_torch.examples import train_bert
+from incubator_mxnet_tpu_torch.examples import train_bert, train_resnet_fused
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
 from incubator_mxnet_tpu_torch.serving.model_repository import ModelRepository
 from incubator_mxnet_tpu_torch.serving.server import InferenceServer, main
@@ -59,7 +59,10 @@ def test_importing_the_port_loads_no_jax():
     names = set(out.stdout.split())
     assert len(names) >= 20
     for mod in ("autograd", "optimizer.optimizer", "gluon.trainer",
-                "gluon.loss", "ops.softmax_xent", "examples.train_bert"):
+                "gluon.loss", "ops.softmax_xent", "examples.train_bert",
+                "ops.fused_block", "ops.fused_conv", "gluon.nn.conv_layers",
+                "gluon.model_zoo.vision.resnet",
+                "examples.train_resnet_fused"):
         assert "incubator_mxnet_tpu_torch." + mod in names, mod
 
 
@@ -93,6 +96,8 @@ def no_cuda(monkeypatch):
                       num_heads=2, max_length=4).initialize(),
     lambda: train_bert.main([]),
     lambda: train_bert.main(["--smoke"]),
+    lambda: train_resnet_fused.main([]),
+    lambda: train_resnet_fused.main(["--batch", "1", "--steps", "1"]),
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
