@@ -21,7 +21,9 @@ def params_from_jax(named, module):
     Every name of the module must be present with its shape, and no
     other name may be: anything missing, extra or misshapen raises
     ``ValueError`` before the module is touched.  Values are converted
-    to each parameter's dtype and device."""
+    to each parameter's dtype and device; a bfloat16 array (numpy's
+    ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses) goes through
+    float32, which holds every bfloat16 value exactly."""
     own = module.state_dict()
     missing = sorted(set(own) - set(named))
     extra = sorted(set(named) - set(own))
@@ -34,6 +36,8 @@ def params_from_jax(named, module):
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
                              f"{tuple(ref.shape)}")
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
         state[name] = torch.tensor(arr, dtype=ref.dtype, device=ref.device)
     module.load_state_dict(state, strict=True)
     return state

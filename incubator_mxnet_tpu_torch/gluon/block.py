@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from .. import initializer as init_mod
+from ..amp import amp as amp_mod
 from ..context import resolve_device
 
 __all__ = ["HybridBlock", "as_dtype", "register_state_update"]
@@ -43,11 +44,19 @@ class HybridBlock(nn.Module):
     """Base of every layer and model.  ``forward`` runs eagerly.  What a
     layer computes depends on ``autograd.is_training()`` (dropout is on
     only inside ``autograd.record()``), as in the JAX package, and not on
-    ``nn.Module.train()``/``eval()``."""
+    ``nn.Module.train()``/``eval()``.  A block converted by
+    ``amp.convert_block`` runs its forward under its AMP policy."""
 
     def __init__(self):
         super().__init__()
         self._inits: dict[str, init_mod.Initializer | None] = {}
+
+    def __call__(self, *args, **kwargs):
+        policy = getattr(self, "_amp_policy", None)
+        if policy is None:
+            return super().__call__(*args, **kwargs)
+        with amp_mod.policy_scope(policy):
+            return super().__call__(*args, **kwargs)
 
     def new_param(self, name, shape, init=None, dtype="float32",
                   requires_grad=True):

@@ -1,6 +1,7 @@
 """Losses (subset of ``incubator_mxnet_tpu/gluon/loss.py``)."""
 from __future__ import annotations
 
+from ..amp.amp import cast_args
 from ..ops import index_ops, nn_ops
 from .block import HybridBlock
 
@@ -32,7 +33,10 @@ class Loss(HybridBlock):
 
     def _mean(self, loss):
         axes = [i for i in range(loss.dim()) if i != self._batch_axis]
-        return loss.mean(dim=axes) if axes else loss
+        if not axes:
+            return loss
+        (loss,) = cast_args("mean", loss)
+        return loss.mean(dim=axes)
 
 
 class SoftmaxCrossEntropyLoss(Loss):

@@ -6,10 +6,10 @@
 each :class:`BottleneckV1` runs ``ops/fused_block.fused_bottleneck_v1``
 (or ``_proj``): its 1x1 convolutions are the fused matmul + BatchNorm
 kernels, with the BN batch statistics from their epilogues and the
-previous BN's normalize + ReLU in their prologues; its 3x3 goes through
-``fused_conv.conv3_bn_composed``.  The moving statistics are written
-back through ``register_state_update``, as the layers do.  Outside train
-mode the block runs its layers.
+previous BN's normalize + ReLU in their prologues; its 3x3 is the fused
+3x3 conv + BatchNorm kernels (``ops/fused_conv.fused_conv3_bn``).  The
+moving statistics are written back through ``register_state_update``,
+as the layers do.  Outside train mode the block runs its layers.
 
 The port has no deferred initialisation, so every block is given its
 ``in_channels``; parameter names match the JAX model's one for one
@@ -21,6 +21,7 @@ later slices of the port.
 from __future__ import annotations
 
 from .... import autograd
+from ....amp.amp import cast_args
 from ....ops import fused_block
 from ... import nn
 from ...block import HybridBlock, register_state_update
@@ -68,12 +69,14 @@ def _bns_uniform(bns):
 def _invoke_fused_bottleneck(x, fn, pairs, extra_args, state_bns, stride):
     """Call a fused bottleneck function with ``(x, [w_i, bn_i
     params]..., extra)`` and write the moving statistics it returns into
-    ``state_bns``."""
+    ``state_bns``.  The arguments go through the AMP cast under the JAX
+    package's op name (``_fused_bottleneck_v1[_proj]``, in no list)."""
     args = [x]
     for conv, bn in pairs:
         args.append(conv.weight)
         args.extend(_bn_args(bn))
     args.extend(extra_args)
+    args = cast_args("_" + fn.__name__, *args)
     outs = fn(*args, stride=stride, eps=pairs[0][1]._epsilon,
               momentum=pairs[0][1]._momentum)
     for i, bn in enumerate(state_bns):

@@ -6,7 +6,7 @@ from ...ops import index_ops, nn_ops
 from ..block import HybridBlock, register_state_update
 
 __all__ = ["HybridSequential", "Dense", "Embedding", "Dropout",
-           "Activation", "BatchNorm", "LayerNorm"]
+           "Activation", "BatchNorm", "LayerNorm", "Flatten"]
 
 
 def _need(value, what, layer):
@@ -152,3 +152,10 @@ class LayerNorm(HybridBlock):
     def forward(self, x):
         return nn_ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                                  eps=self._epsilon)
+
+
+class Flatten(HybridBlock):
+    """Folds every axis after the first: ``(N, ...)`` → ``(N, -1)``."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)

@@ -30,19 +30,21 @@ cross M: the kernels write float32 partial rows (dw: float32 partial
 tiles over runs of M) and the wrappers sum them in a fixed order.
 
 The bottleneck (:func:`fused_bottleneck_v1` and ``_proj``) runs its
-3x3 convolution through ``fused_conv.conv3_bn_composed``, the JAX
-package's ``MXNET_FUSED_CONV3=0`` configuration.
+3x3 convolution through ``fused_conv.fused_conv3_bn``, the fused 3x3
+kernels with bn1's normalize + ReLU as their prologue: the JAX
+package's default configuration (``MXNET_FUSED_CONV3`` unset), with no
+switch and no geometry gate.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
 from . import _build
-from .fused_conv import conv3_bn_composed
+from . import _fused_common as _fc
+from .fused_conv import fused_conv3_bn
 
 __all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
            "matmul_bn_dw_reference", "matmul_bn_bwd_reference",
@@ -57,42 +59,11 @@ fwd_launches = 0
 dx_launches = 0
 dw_launches = 0
 
-_count_lock = threading.Lock()
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # the C entries' arguments (csrc/fused_matmul_bn.cu)
 _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L, _L, _I, _I, _P]
 _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L, _L, _I, _I, _P]
 _DW_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 5 + [_L, _I, _I, _L, _L, _P]
-# rows of M a kernel block owns (csrc BI): the forward and dx write one
-# partial row per block, and the kernels refuse any other count
-_BLOCK_ROWS = 128
-# dw splits M so that about this many blocks cover the card, each split
-# at least _MIN_SPLIT_ROWS rows (a multiple of the kernel's depth of 8)
-_DW_BLOCKS_PER_SM = 4
-_MIN_SPLIT_ROWS = 256
-
-
-def _acc(t):
-    """The plain versions compute in float32 (float64 stays float64, for
-    ``gradcheck``)."""
-    return t.to(torch.promote_types(t.dtype, torch.float32))
-
-
-def _prologue(x, scale, bias):
-    """relu(x*scale + bias) computed wide, rounded to x's dtype, widened
-    again; or x itself, widened, when there is no prologue."""
-    if scale is None:
-        return _acc(x)
-    z = _acc(x) * _acc(scale) + _acc(bias)
-    return _acc(torch.relu(z).to(x.dtype))
-
-
-def _dyt(y, dy, ds1, ds2):
-    """dy + ds1 + 2*y*ds2 computed wide, rounded to dy's dtype, widened
-    again."""
-    t = _acc(dy) + _acc(ds1) + 2.0 * _acc(y) * _acc(ds2)
-    return _acc(t.to(dy.dtype))
 
 
 def matmul_bn_reference(x, w, scale=None, bias=None):
@@ -100,26 +71,27 @@ def matmul_bn_reference(x, w, scale=None, bias=None):
     ``xla_matmul_bn`` → ``(y, s1, s2)``: y in x's dtype, s1 and s2
     float32 ``(N,)``.  The product is taken in float32 on the operands
     rounded to x's dtype, as the kernel takes it."""
-    y = (_prologue(x, scale, bias) @ _acc(w)).to(x.dtype)
-    yf = _acc(y)
+    y = (_fc.prologue(x, scale, bias) @ _fc.acc(w)).to(x.dtype)
+    yf = _fc.acc(y)
     return y, yf.sum(dim=0), (yf * yf).sum(dim=0)
 
 
 def matmul_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2):
     """Plain dx with the kernel's formulas → ``(dx, dscale, dbias)``; the
     last two are float32 ``(K,)``, or None without a prologue."""
-    dxn = _dyt(y, dy, ds1, ds2) @ _acc(w).t()
+    dxn = _fc.dyt(y, dy, ds1, ds2) @ _fc.acc(w).t()
     if scale is None:
         return dxn.to(x.dtype), None, None
-    xf, sc = _acc(x), _acc(scale)
-    dz = torch.where(xf * sc + _acc(bias) > 0, dxn, torch.zeros_like(dxn))
+    xf, sc = _fc.acc(x), _fc.acc(scale)
+    dz = torch.where(xf * sc + _fc.acc(bias) > 0, dxn, torch.zeros_like(dxn))
     return (dz * sc).to(x.dtype), (dz * xf).sum(dim=0), dz.sum(dim=0)
 
 
 def matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2):
     """Plain dw with the kernel's formulas: the prologue recomputed,
     summed over M in float32, cast to w's dtype."""
-    return (_prologue(x, scale, bias).t() @ _dyt(y, dy, ds1, ds2)).to(w.dtype)
+    xn = _fc.prologue(x, scale, bias)
+    return (xn.t() @ _fc.dyt(y, dy, ds1, ds2)).to(w.dtype)
 
 
 def matmul_bn_bwd_reference(x, w, scale, bias, y, dy, ds1, ds2):
@@ -133,7 +105,7 @@ def matmul_bn_bwd_reference(x, w, scale, bias, y, dy, ds1, ds2):
 def _check(name, x, w, scale, bias, **more):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in _fc.DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         "(float32, bfloat16)")
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
@@ -165,17 +137,9 @@ def _check(name, x, w, scale, bias, **more):
     return m, k, n
 
 
-def _f32(t):
-    return None if t is None else t.float().contiguous()
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _count(which):
     global fwd_launches, dx_launches, dw_launches
-    with _count_lock:
+    with _fc.count_lock:
         if which == "fwd":
             fwd_launches += 1
         elif which == "dx":
@@ -196,9 +160,9 @@ def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
         return matmul_bn_reference(x, w, scale, bias)
     m, k, n = _check("fused_matmul_bn_fwd", x, w, scale, bias)
     x, w = x.contiguous(), w.contiguous()
-    scale, bias = _f32(scale), _f32(bias)
+    scale, bias = _fc.f32(scale), _fc.f32(bias)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rows = -(-m // _BLOCK_ROWS)
+    rows = -(-m // _fc.BLOCK_ROWS)
     parts = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
     if m == 0:
         zeros = torch.zeros(n, dtype=torch.float32, device=x.device)
@@ -207,9 +171,10 @@ def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
                          _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), _ptr(scale),
-           _ptr(bias), int(scale is not None), y.data_ptr(),
-           parts[0].data_ptr(), parts[1].data_ptr(), rows, m, k, n, stream)
+        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+           _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
+           y.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows, m,
+           k, n, stream)
     _count("fwd")
     sums = parts.sum(dim=1)
     return y, sums[0], sums[1]
@@ -217,8 +182,9 @@ def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
 
 def _bwd_operands(name, x, w, scale, bias, y, dy, ds1, ds2):
     m, k, n = _check(name, x, w, scale, bias, y=y, dy=dy, ds1=ds1, ds2=ds2)
-    return (m, k, n, x.contiguous(), w.contiguous(), _f32(scale), _f32(bias),
-            y.contiguous(), dy.contiguous(), _f32(ds1), _f32(ds2))
+    return (m, k, n, x.contiguous(), w.contiguous(), _fc.f32(scale),
+            _fc.f32(bias), y.contiguous(), dy.contiguous(), _fc.f32(ds1),
+            _fc.f32(ds2))
 
 
 def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
@@ -235,7 +201,7 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
         "fused_matmul_bn_dx", x, w, scale, bias, y, dy, ds1, ds2)
     prologue = scale is not None
     dx = torch.empty((m, k), dtype=x.dtype, device=x.device)
-    rows = -(-m // _BLOCK_ROWS)
+    rows = -(-m // _fc.BLOCK_ROWS)
     parts = (torch.empty((2, rows, k), dtype=torch.float32, device=x.device)
              if prologue else None)
     if m == 0:
@@ -245,9 +211,9 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
                          _DX_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), _ptr(scale),
-           _ptr(bias), int(prologue), y.data_ptr(), dy.data_ptr(),
-           ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
+        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+           _fc.ptr(scale), _fc.ptr(bias), int(prologue), y.data_ptr(),
+           dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
            parts[0].data_ptr() if prologue else None,
            parts[1].data_ptr() if prologue else None, rows, m, k, n, stream)
     _count("dx")
@@ -255,18 +221,6 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
         return dx, None, None
     sums = parts.sum(dim=1)
     return dx, sums[0], sums[1]
-
-
-def _dw_split(m, k, n, device):
-    """``(split_rows, splits)``: dw's runs of M.  Enough runs that about
-    ``_DW_BLOCKS_PER_SM`` blocks of 128x128 output cover every SM, none
-    shorter than ``_MIN_SPLIT_ROWS`` rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-k // 128) * -(-n // 128)
-    want = max(1, -(-_DW_BLOCKS_PER_SM * sms // tiles))
-    rows = max(_MIN_SPLIT_ROWS, -(-m // want))
-    rows = -(-rows // 8) * 8
-    return rows, -(-m // rows)
 
 
 def fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
@@ -282,16 +236,16 @@ def fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
         "fused_matmul_bn_dw", x, w, scale, bias, y, dy, ds1, ds2)
     if m == 0:
         return torch.zeros((k, n), dtype=w.dtype, device=x.device)
-    split_rows, splits = _dw_split(m, k, n, x.device)
+    split_rows, splits = _fc.dw_split(m, k, n, x.device)
     parts = torch.empty((splits, k, n), dtype=torch.float32, device=x.device)
     fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_dw",
                          _DW_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), _ptr(scale),
-           _ptr(bias), int(scale is not None), y.data_ptr(), dy.data_ptr(),
-           ds1.data_ptr(), ds2.data_ptr(), parts.data_ptr(), m, k, n,
-           split_rows, splits, stream)
+        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+           _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
+           y.data_ptr(), dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
+           parts.data_ptr(), m, k, n, split_rows, splits, stream)
     _count("dw")
     return parts.sum(dim=0).to(w.dtype)
 
@@ -318,7 +272,7 @@ class FusedMatmulBNFunction(torch.autograd.Function):
         n = w.shape[1]
         if dy is None:
             dy = torch.zeros_like(y)
-        zeros = functools.partial(torch.zeros, n, dtype=_acc(y).dtype,
+        zeros = functools.partial(torch.zeros, n, dtype=_fc.acc(y).dtype,
                                   device=y.device)
         ds1 = zeros() if ds1 is None else ds1
         ds2 = zeros() if ds2 is None else ds2
@@ -337,7 +291,7 @@ def fused_matmul_bn(x, w, scale=None, bias=None):
     (cast to float32).  ``mean = s1 / M`` and ``var = s2 / M - mean²``
     (one-pass BN)."""
     if scale is not None:
-        scale, bias = _acc(scale), _acc(bias)
+        scale, bias = _fc.acc(scale), _fc.acc(bias)
     return FusedMatmulBNFunction.apply(x, w, scale, bias)
 
 
@@ -361,7 +315,8 @@ def _bottleneck_core(x, w1, g1, b1, w2, g2, b2, w3, g3, b3, wsc, gsc, bsc,
     Weights are the zoo's NHWC kernels (O, kh, kw, I).  The 1x1 convs are
     :func:`fused_matmul_bn` calls (statistics from the epilogue; bn2's
     normalize + ReLU in c3's prologue); the 3x3 is
-    ``conv3_bn_composed``, with bn1's normalize + ReLU in front of it.
+    :func:`~.fused_conv.fused_conv3_bn`, with bn1's normalize + ReLU as
+    its prologue.
     Returns the block output and every BN's batch mean and variance, for
     the layer to update its moving statistics."""
     n = x.shape[0]
@@ -380,8 +335,8 @@ def _bottleneck_core(x, w1, g1, b1, w2, g2, b2, w3, g3, b3, wsc, gsc, bsc,
     sc1, of1, mean1, var1 = bn_consts(a1, c1, m1, g1, b1, eps)
     cm = y1.shape[-1]
 
-    y2, a2, c2 = conv3_bn_composed(y1.reshape(n, hs, ws, cm),
-                                   w2.permute(1, 2, 3, 0), sc1, of1)
+    y2, a2, c2 = fused_conv3_bn(y1.reshape(n, hs, ws, cm),
+                                w2.permute(1, 2, 3, 0), sc1, of1)
     sc2, of2, mean2, var2 = bn_consts(a2, c2, m1, g2, b2, eps)
 
     y3, a3, c3 = fused_matmul_bn(flat(y2), mm(w3), sc2, of2)

@@ -1,38 +1,341 @@
-"""The 3x3 convolution + BatchNorm statistics of the fused bottleneck.
+"""Fused 3x3 convolution + BatchNorm for the bottleneck's stage convs: the
+CUDA kernels, their plain PyTorch versions and the autograd Function
+that joins them.
 
-Counterpart of ``incubator_mxnet_tpu/ops/fused_conv.py``, of its
-composition ``xla_conv3_bn`` only.  The JAX package runs the 3x3 of a
-fused bottleneck either through its Pallas conv kernels (kernels 13-16)
-or, with ``MXNET_FUSED_CONV3=0``, through this composition, while the
-1x1 kernels keep running.  The port's bottleneck calls
-:func:`conv3_bn_composed` directly: that configuration, with no
-environment switch and no kernel gate.  The conv kernels are a later
-slice of the port; there this call moves to them.
+Counterpart of ``incubator_mxnet_tpu/ops/fused_conv.py``.  A 3x3 /
+stride 1 / pad 1 NHWC convolution is nine shifted products over the
+flattened N*H*W rows; :func:`fused_conv3_bn` computes
+
+    y = conv3x3([relu(x*scale + bias)], w),  s1 = sum y,  s2 = sum y^2
+
+so the previous BatchNorm's normalize + ReLU runs in the convolution's
+prologue (the normalized activation is never stored) and the next
+BatchNorm's batch statistics come out of its epilogue.  An out-of-image
+neighbour contributes 0: the zero padding is of the normalized input.
+The backward keeps the property: dx is the nine-tap transposed
+convolution of the stats-adjusted cotangent with the ReLU / normalize
+backward and the dscale, dbias sums as its epilogue; dw recomputes the
+prologue.
+
+Three kernels (``csrc/fused_conv3_bn.cu``), one wrapper each:
+:func:`fused_conv3_bn_fwd` (TPU kernel 13), :func:`fused_conv3_bn_dx`
+(kernels 14 and 15: the TPU's split of C_out into blocks, a VMEM limit,
+has no counterpart) and :func:`fused_conv3_bn_dw` (16), each with a
+launch counter.  Each wrapper dispatches on where x lies: a CPU tensor
+takes the plain version; a CUDA tensor launches the kernel or raises.
+Nothing falls back, and there is no switch: on the card every 3x3 of the
+fused bottleneck runs on the kernels, whatever its geometry.
+
+Numerics, as the TPU kernels' and ``fused_block.py``'s: operands in the
+input dtype (float32 or bfloat16), float32 accumulation, the prologue
+and dyt = dy + ds1 + 2*y*ds2 in float32 rounded to the input dtype
+before the product, statistics from the *rounded* y.  The sums across M
+come from float32 partials that the wrappers sum in a fixed order.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv3_bn_composed"]
+from . import _build
+from . import _fused_common as _fc
+
+__all__ = ["conv3_bn_reference", "conv3_bn_dx_reference",
+           "conv3_bn_dw_reference", "conv3_bn_bwd_reference",
+           "fused_conv3_bn_fwd", "fused_conv3_bn_dx", "fused_conv3_bn_dw",
+           "FusedConv3BNFunction", "fused_conv3_bn",
+           "fwd_launches", "dx_launches", "dw_launches"]
+
+#: Launches of the forward, dx and dw kernels so far; each wrapper adds
+#: one per launch and nothing else touches them (a caller may reset them
+#: to 0).
+fwd_launches = 0
+dx_launches = 0
+dw_launches = 0
+
+_I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+# the C entries' arguments (csrc/fused_conv3_bn.cu)
+_SHAPE = [_L, _I, _I, _I, _I]   # N, H, W, C, C_out
+_FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L] + _SHAPE + [_P]
+_DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L] + _SHAPE + [_P]
+_DW_ARGS = [_I] + [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _P]
 
 
-def conv3_bn_composed(x, w, scale=None, bias=None):
-    """3x3 / stride 1 / pad 1 NHWC convolution with the BatchNorm
-    statistics of its output → ``(y, s1, s2)``.
+_TAPS = [(dh, dw) for dh in (-1, 0, 1) for dw in (-1, 0, 1)]
 
-    x (N, H, W, C); w (3, 3, C, C_out) HWIO, as in the JAX package.
-    With ``scale`` and ``bias`` (per-C float32 constants), the input is
-    relu(x*scale + bias) in float32, rounded to x's dtype.  y comes out
-    in x's dtype; ``s1 = sum(y)`` and ``s2 = sum(y²)`` are float32 per
-    output channel over N*H*W, taken from the rounded y.  The product is
-    PyTorch's convolution (cuDNN on the card), as XLA computes it in the
-    JAX package."""
+
+def _taps(a, sgn=1):
+    """The nine tap views of ``a`` (N, H, W, C) as (N*H*W, C) matrices:
+    tap (dh, dw) holds a at (h + sgn*dh, w + sgn*dw), zero where that
+    lies outside the image (the zero padding of ``a`` itself)."""
+    n, h, w, c = a.shape
+    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
+    for t, (dh, dw) in enumerate(_TAPS):
+        dh, dw = sgn * dh, sgn * dw
+        yield t, ap[:, 1 + dh:1 + dh + h, 1 + dw:1 + dw + w].reshape(-1, c)
+
+
+def conv3_bn_reference(x, w, scale=None, bias=None):
+    """Plain PyTorch forward, counterpart of the JAX package's
+    ``xla_conv3_bn`` → ``(y, s1, s2)``.
+
+    x (N, H, W, C); w (3, 3, C, C_out) HWIO; with ``scale`` and ``bias``
+    (per-C) the input is relu(x*scale + bias) in float32, rounded to x's
+    dtype.  The convolution is the kernel's nine shifted products, taken
+    in float32 on the operands rounded to x's dtype; y comes out in x's
+    dtype and s1, s2 are float32 ``(C_out,)`` sums of the rounded y."""
+    n, h, wd, _ = x.shape
+    wt = _fc.acc(w).reshape(9, w.shape[2], w.shape[3])
+    y = sum(tap @ wt[t] for t, tap in _taps(_fc.prologue(x, scale, bias)))
+    y = y.to(x.dtype)
+    yf = _fc.acc(y)
+    return (y.reshape(n, h, wd, -1), yf.sum(dim=0), (yf * yf).sum(dim=0))
+
+
+def conv3_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2):
+    """Plain dx with the kernel's formulas → ``(dx, dscale, dbias)``:
+    the nine-tap transposed convolution of the rounded dyt, then, with a
+    prologue, the ReLU / normalize backward.  dscale and dbias are
+    float32 ``(C,)``, zeros without a prologue."""
+    wt = _fc.acc(w).reshape(9, w.shape[2], w.shape[3])
+    dxn = sum(tap @ wt[t].t()
+              for t, tap in _taps(_fc.dyt(y, dy, ds1, ds2), sgn=-1))
+    dxn = dxn.reshape(x.shape)
+    if scale is None:
+        zeros = torch.zeros(x.shape[-1], dtype=torch.float32,
+                            device=x.device)
+        return dxn.to(x.dtype), zeros, zeros.clone()
+    xf, sc = _fc.acc(x), _fc.acc(scale)
+    dz = torch.where(xf * sc + _fc.acc(bias) > 0, dxn, torch.zeros_like(dxn))
+    return ((dz * sc).to(x.dtype), (dz * xf).sum(dim=(0, 1, 2)),
+            dz.sum(dim=(0, 1, 2)))
+
+
+def conv3_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2):
+    """Plain dw with the kernel's formulas: per tap, the shifted
+    prologue (recomputed) against dyt, summed over N*H*W in float32;
+    (3, 3, C, C_out) in w's dtype."""
+    d = _fc.dyt(y, dy, ds1, ds2).reshape(-1, dy.shape[-1])
+    dw = torch.stack([tap.t() @ d for _, tap in
+                      _taps(_fc.prologue(x, scale, bias))])
+    return dw.reshape(w.shape).to(w.dtype)
+
+
+def conv3_bn_bwd_reference(x, w, scale, bias, y, dy, ds1, ds2):
+    """The plain VJP of :func:`conv3_bn_reference` for the cotangents
+    ``(dy, ds1, ds2)`` → ``(dx, dw, dscale, dbias)``."""
+    dx, dsc, dbi = conv3_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    dw = conv3_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    return dx, dw, dsc, dbi
+
+
+def _check(name, x, w, scale, bias, **more):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in _fc.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        "(float32, bfloat16)")
+    if (x.dim() != 4 or w.dim() != 4
+            or tuple(w.shape[:3]) != (3, 3, x.shape[3])):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "must be (N, H, W, C) and (3, 3, C, C_out)")
+    n, h, wd, c = x.shape
+    co = w.shape[3]
+    if min(h, wd, c, co) == 0:
+        raise ValueError(f"{name}: H, W, C and C_out must be positive, got "
+                         f"{h}, {wd}, {c}, {co}")
+    if (scale is None) != (bias is None):
+        raise ValueError(f"{name}: give both scale and bias, or neither")
+    want = {"w": ((3, 3, c, co), x.dtype)}
     if scale is not None:
-        xn = torch.relu(x.float() * scale.float() + bias.float()).to(x.dtype)
-    else:
-        xn = x
-    y = F.conv2d(xn.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
-    y = y.permute(0, 2, 3, 1).to(x.dtype)
-    yf = y.float()
-    return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+        want.update(scale=((c,), None), bias=((c,), None))
+    for vname in more:
+        want[vname] = (((n, h, wd, co), x.dtype) if vname in ("y", "dy")
+                       else ((co,), None))
+    tensors = dict(w=w, scale=scale, bias=bias, **more)
+    for vname, (shape, dtype) in want.items():
+        t = tensors[vname]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {vname} shape {tuple(t.shape)} != "
+                             f"{shape}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: {vname} is {t.dtype}, x is {x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: {vname} on {t.device}, x on "
+                             f"{x.device}")
+    return n, h, wd, c, co
+
+
+def _count(which):
+    global fwd_launches, dx_launches, dw_launches
+    with _fc.count_lock:
+        if which == "fwd":
+            fwd_launches += 1
+        elif which == "dx":
+            dx_launches += 1
+        else:
+            dw_launches += 1
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def fused_conv3_bn_fwd(x, w, scale=None, bias=None):
+    """``y = conv3x3([relu(x*scale + bias)], w)`` with its per-channel
+    sums → ``(y, s1, s2)``.
+
+    x (N, H, W, C) and w (3, 3, C, C_out) in one dtype, float32 or
+    bfloat16; scale and bias ``(C,)`` (cast to float32), both or neither.
+    On a CUDA tensor: the forward kernel on the current stream, then the
+    sum of its (ceil(N*H*W / 128), C_out) partial rows.  On a CPU tensor:
+    the plain version."""
+    if x.device.type == "cpu":
+        return conv3_bn_reference(x, w, scale, bias)
+    n, h, wd, c, co = _check("fused_conv3_bn_fwd", x, w, scale, bias)
+    x, w = x.contiguous(), w.contiguous()
+    scale, bias = _fc.f32(scale), _fc.f32(bias)
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    m = n * h * wd
+    if m == 0:
+        zeros = torch.zeros(co, dtype=torch.float32, device=x.device)
+        return y, zeros, zeros.clone()
+    rows = -(-m // _fc.BLOCK_ROWS)
+    parts = torch.empty((2, rows, co), dtype=torch.float32, device=x.device)
+    fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_fwd",
+                         _FWD_ARGS)
+    with torch.cuda.device(x.device):
+        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+           _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
+           y.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows,
+           n, h, wd, c, co, _stream(x.device))
+    _count("fwd")
+    sums = parts.sum(dim=1)
+    return y, sums[0], sums[1]
+
+
+def _bwd_operands(name, x, w, scale, bias, y, dy, ds1, ds2):
+    shape = _check(name, x, w, scale, bias, y=y, dy=dy, ds1=ds1, ds2=ds2)
+    return shape + (x.contiguous(), w.contiguous(), _fc.f32(scale),
+                    _fc.f32(bias), y.contiguous(), dy.contiguous(),
+                    _fc.f32(ds1), _fc.f32(ds2))
+
+
+def fused_conv3_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
+    """dx of :func:`fused_conv3_bn_fwd` for the cotangents ``(dy, ds1,
+    ds2)`` of ``(y, s1, s2)`` → ``(dx, dscale, dbias)``.
+
+    dx comes out in x's dtype; dscale and dbias are float32 ``(C,)``,
+    zeros without a prologue (scale None), as the JAX package returns
+    them.  On a CUDA tensor: the dx kernel, then the sum of its partial
+    rows.  On a CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return conv3_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    n, h, wd, c, co, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
+        "fused_conv3_bn_dx", x, w, scale, bias, y, dy, ds1, ds2)
+    prologue = scale is not None
+    dx = torch.empty_like(x)
+    m = n * h * wd
+    rows = -(-m // _fc.BLOCK_ROWS)
+    if m == 0 or not prologue:
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        if m == 0:
+            return dx, zeros, zeros.clone()
+    parts = (torch.empty((2, rows, c), dtype=torch.float32, device=x.device)
+             if prologue else None)
+    fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dx", _DX_ARGS)
+    with torch.cuda.device(x.device):
+        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+           _fc.ptr(scale), _fc.ptr(bias), int(prologue), y.data_ptr(),
+           dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
+           parts[0].data_ptr() if prologue else None,
+           parts[1].data_ptr() if prologue else None, rows, n, h, wd, c, co,
+           _stream(x.device))
+    _count("dx")
+    if not prologue:
+        return dx, zeros, zeros.clone()
+    sums = parts.sum(dim=1)
+    return dx, sums[0], sums[1]
+
+
+def fused_conv3_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
+    """dw of :func:`fused_conv3_bn_fwd` for the cotangents ``(dy, ds1,
+    ds2)`` → dw ``(3, 3, C, C_out)`` in w's dtype, summed over N*H*W in
+    float32.
+
+    On a CUDA tensor: the dw kernel over runs of N*H*W, each writing a
+    float32 partial of the whole gradient, then their sum in a fixed
+    order.  On a CPU tensor: the plain version."""
+    if x.device.type == "cpu":
+        return conv3_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    n, h, wd, c, co, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
+        "fused_conv3_bn_dw", x, w, scale, bias, y, dy, ds1, ds2)
+    m = n * h * wd
+    if m == 0:
+        return torch.zeros((3, 3, c, co), dtype=w.dtype, device=x.device)
+    split_rows, splits = _fc.dw_split(m, 9 * c, co, x.device)
+    parts = torch.empty((splits, 3, 3, c, co), dtype=torch.float32,
+                        device=x.device)
+    fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dw", _DW_ARGS)
+    with torch.cuda.device(x.device):
+        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), _fc.ptr(scale),
+           _fc.ptr(bias), int(scale is not None), y.data_ptr(),
+           dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), parts.data_ptr(),
+           n, h, wd, c, co, split_rows, splits, _stream(x.device))
+    _count("dw")
+    return parts.sum(dim=0).to(w.dtype)
+
+
+class FusedConv3BNFunction(torch.autograd.Function):
+    """``apply(x, w, scale, bias)`` → ``(y, s1, s2)``, with its own
+    backward: the counterpart of the JAX package's ``_fc3`` custom VJP.
+    scale and bias are both None (no prologue) or both ``(C,)``.  The
+    forward saves x, w, scale, bias and y, as ``_fc3_fwd`` does; the
+    backward takes ``(dy, ds1, ds2)``, reads a None as zeros, runs
+    :func:`fused_conv3_bn_dx` and :func:`fused_conv3_bn_dw`, and returns
+    gradients for scale and bias only with a prologue."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        y, s1, s2 = fused_conv3_bn_fwd(x, w, scale, bias)
+        ctx.save_for_backward(x, w, scale, bias, y)
+        ctx.set_materialize_grads(False)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2):
+        x, w, scale, bias, y = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        zeros = functools.partial(torch.zeros, w.shape[-1],
+                                  dtype=_fc.acc(y).dtype, device=y.device)
+        ds1 = zeros() if ds1 is None else ds1
+        ds2 = zeros() if ds2 is None else ds2
+        dy = dy.to(y.dtype)
+        dx, dsc, dbi = fused_conv3_bn_dx(x, w, scale, bias, y, dy, ds1, ds2)
+        dw = fused_conv3_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
+        if scale is None:
+            return dx, dw, None, None
+        return dx, dw, dsc, dbi
+
+
+def fused_conv3_bn(x, w, scale=None, bias=None):
+    """3x3 / stride 1 / pad 1 NHWC convolution with the BatchNorm
+    statistics of its output and an optional normalize + ReLU prologue →
+    ``(y, s1, s2)``, differentiable in every input.
+
+    x (N, H, W, C) activations; w (3, 3, C, C_out) HWIO; scale and bias
+    optional per-C normalize constants (cast to float32), applied as
+    relu(x*scale + bias) and never stored.  y is (N, H, W, C_out) in x's
+    dtype; ``s1 = sum(y)`` and ``s2 = sum(y²)`` are float32 per output
+    channel over N*H*W (one-pass BN: mean = s1 / M, var = s2 / M -
+    mean²)."""
+    if w.dim() != 4 or w.shape[0] != 3 or w.shape[1] != 3:
+        raise ValueError(f"fused_conv3_bn needs a 3x3 HWIO kernel, got "
+                         f"{tuple(w.shape)}")
+    if scale is not None:
+        scale, bias = _fc.acc(scale), _fc.acc(bias)
+    return FusedConv3BNFunction.apply(x, w, scale, bias)

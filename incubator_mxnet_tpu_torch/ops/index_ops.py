@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..amp.amp import cast_args
+
 __all__ = ["embedding", "pick"]
 
 
@@ -12,6 +14,7 @@ def embedding(data, weight):
     row 0 and one past the table reads the last row, as ``jnp.take``
     does in the JAX package.  ``F.embedding`` itself would raise on the
     CPU and fault on the card for such an id."""
+    data, weight = cast_args("Embedding", data, weight)
     ids = data.long().clamp(0, weight.shape[0] - 1)
     return F.embedding(ids, weight)
 
@@ -24,6 +27,7 @@ def pick(data, index, axis=-1, keepdims=False, mode="clip"):
     negative label to 0 instead.)  ``"clip"`` is the only mode ported."""
     if mode != "clip":
         raise ValueError(f"pick: mode {mode!r} is not ported; have 'clip'")
+    data, index = cast_args("pick", data, index)
     n = data.shape[axis]
     idx = index.long()
     idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)

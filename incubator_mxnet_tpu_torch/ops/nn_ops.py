@@ -9,12 +9,16 @@ pooling; one-pass float32 BatchNorm statistics) around PyTorch's calls.  :func:`
 backward, by way of their autograd Functions
 (``layer_norm.LayerNormFunction``, ``softmax_xent.SoftmaxXentFunction``)
 on every device, so the CPU tests run the same Functions as the card.
+Each op casts its floating inputs through ``amp.cast_args`` under its
+registry name in the JAX package, so a block converted by
+``amp.convert_block`` runs each op in the dtype the AMP lists give it.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..amp.amp import cast_args
 from .layer_norm import LayerNormFunction
 from .softmax_xent import SoftmaxXentFunction
 
@@ -30,6 +34,7 @@ def _tuple(v, n):
 def fully_connected(x, weight, bias=None, no_bias=False, flatten=True):
     """y = x @ W^T + b, with W laid out ``(num_hidden, in_units)``.
     ``flatten`` folds every axis after the first into the input axis."""
+    x, weight, bias = cast_args("FullyConnected", x, weight, bias)
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     return F.linear(x, weight, None if no_bias else bias)
@@ -48,6 +53,7 @@ def convolution(x, weight, bias=None, kernel=None, stride=None, dilate=None,
     Channel-minor operands are handed to PyTorch as permuted views (its
     channels-last path); y comes out in x's layout and dtype, and the
     bias is added after the convolution."""
+    x, weight, bias = cast_args("Convolution", x, weight, bias)
     nd = x.dim() - 2
     stride = _tuple(stride or 1, nd)
     dilate = _tuple(dilate or 1, nd)
@@ -82,6 +88,7 @@ def pooling(x, kernel=None, pool_type="max", global_pool=False, stride=None,
         raise ValueError(f"pool_type {pool_type!r} is not ported (max, avg)")
     if pooling_convention != "valid":
         raise ValueError("pooling_convention must be 'valid'")
+    (x,) = cast_args("Pooling", x)
     nd = x.dim() - 2
     last = _channel_minor(layout)
     low = x.dtype in (torch.float16, torch.bfloat16)
@@ -116,6 +123,8 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     normalize is folded into a per-channel scale and bias computed in
     float32 and cast to x's dtype, as in the JAX package.  The layer
     writes the moving statistics back."""
+    x, gamma, beta, moving_mean, moving_var = cast_args(
+        "BatchNorm", x, gamma, beta, moving_mean, moving_var)
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     ax = axis % x.dim()
@@ -146,6 +155,7 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     """LayerNorm over ``axis`` with 1-D gamma and beta, differentiable in
     all three.  The axis is moved last for the kernels and back
     afterwards."""
+    x, gamma, beta = cast_args("LayerNorm", x, gamma, beta)
     last = axis in (-1, x.dim() - 1)
     xm = x if last else x.movedim(axis, -1)
     y = LayerNormFunction.apply(xm.contiguous(), gamma, beta, float(eps))
@@ -157,6 +167,7 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False):
     softmax are float32, the probabilities are cast to q's dtype; keys
     where ``mask`` is false get -inf, so a row with no valid key is NaN,
     as in the JAX package."""
+    q, k, v = cast_args("dot_product_attention", q, k, v)
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -175,6 +186,7 @@ _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
 
 
 def activation(x, act_type="relu"):
+    (x,) = cast_args("Activation", x)
     try:
         fn = _ACTIVATIONS[act_type]
     except KeyError:
@@ -187,6 +199,7 @@ def dropout(x, p=0.5, mode="training", axes=(), generator=None):
     """Inverted dropout.  Identity when ``mode`` is not ``"training"``
     or ``p`` is 0; otherwise keeps each element (or each slice along
     ``axes``, which share one draw) with probability ``1 - p``."""
+    (x,) = cast_args("Dropout", x)
     if p <= 0.0 or mode != "training":
         return x
     shape = list(x.shape)
@@ -198,6 +211,7 @@ def dropout(x, p=0.5, mode="training", axes=(), generator=None):
 
 
 def log_softmax(x, axis=-1, temperature=None):
+    (x,) = cast_args("log_softmax", x)
     if temperature is not None and temperature != 1.0:
         x = x / temperature
     return torch.log_softmax(x, dim=axis)
@@ -208,6 +222,7 @@ def softmax_xent(logits, labels):
     x[clip(label, 0, C - 1)], through the hand-written kernels (forward
     and backward).  Labels go to int32; the loss, float32 inside, comes
     out in the logits' dtype, as in the JAX package."""
+    logits, labels = cast_args("softmax_xent", logits, labels)
     lbl = labels.to(torch.int32)
     return SoftmaxXentFunction.apply(logits.contiguous(), lbl).to(
         logits.dtype)

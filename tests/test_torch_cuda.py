@@ -20,10 +20,15 @@ against the largest |plain| value of that tensor: float32 1e-5 (the
 same products summed in another order), bfloat16 2e-2 (y, dx and dw
 are rounded to bf16, so an f32 sum in another order can land one bf16
 ulp, 2^-8 of a value, away); the float32 column sums s1, s2, dscale and
-dbias take the same share of their largest value.  The small fused
-ResNet, card step against CPU step: loss 1e-5 relative, every gradient
-1e-3 of its largest value (50 layers of float32 sums in another order;
-both TF32 switches off).
+dbias take the same share of their largest value.  The fused 3x3
+conv + BatchNorm kernels take the same tolerances, for the same
+reasons.  The small fused ResNet, card step against CPU step: loss 1e-5
+relative, every gradient 1e-3 of its largest value (50 layers of
+float32 sums in another order; both TF32 switches off).  Its
+``FusedTrainStep`` by CUDA-graph replay against the same step run
+eagerly: every loss and state tensor within 1e-6 of the largest value
+(the same kernels on the same inputs, cuDNN deterministic: they agree
+bit for bit unless a library picks another algorithm under capture).
 """
 import copy
 
@@ -31,16 +36,18 @@ import numpy as np
 import pytest
 import torch
 
-from incubator_mxnet_tpu_torch import autograd
+from incubator_mxnet_tpu_torch import amp, autograd
 from incubator_mxnet_tpu_torch.convert import grads_to_numpy
 from incubator_mxnet_tpu_torch.examples.train_bert import (pretraining_loss,
                                                            synthetic_batch)
-from incubator_mxnet_tpu_torch.gluon import Trainer
+from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
+from incubator_mxnet_tpu_torch.gluon import Trainer, nn
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
     BottleneckV1, ResNetV1)
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
 from incubator_mxnet_tpu_torch.ops import fused_block as fb
+from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
 
@@ -314,3 +321,151 @@ def test_small_fused_resnet_step_on_the_card_matches_cpu(dev, no_tf32):
     for name, want in g_cpu.items():
         err = np.abs(g_card[name] - want).max()
         assert err <= 1e-3 * np.abs(want).max(), (name, err)
+
+
+def _conv_inputs(n, h, w, c, co, dtype, dev, seed=0):
+    """``(x, w, scale, bias, dy, ds1, ds2)`` for the fused 3x3, made on the
+    card from a seed: x, w and dy in ``dtype``, the rest float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = (rnd(n, h, w, c) * 0.5).to(dt)
+    k = (rnd(3, 3, c, co) * (9 * c) ** -0.5).to(dt)
+    scale = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = rnd(c) * 0.2
+    dy = (rnd(n, h, w, co) * 0.1).to(dt)
+    return x, k, scale, bias, dy, rnd(co) * 0.01, rnd(co) * 0.001
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (2, 5, 9, 16, 8),       # non-square, ragged in every dimension
+    (3, 6, 6, 16, 16),      # images smaller than a block of rows
+    (16, 6, 6, 16, 260),    # the JAX package's multi-N-block geometry
+    (4, 56, 56, 64, 64),    # ResNet-50 stage 1 at B=4
+    (8, 7, 7, 512, 512),    # stage 4 at B=8: dw split into many runs
+])
+def test_fused_conv3_bn_kernels_match_plain(dev, no_tf32, dtype, prologue,
+                                            n, h, w, c, co):
+    x, k, scale, bias, dy, ds1, ds2 = _conv_inputs(n, h, w, c, co, dtype, dev)
+    if not prologue:
+        scale = bias = None
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    before = (fc.fwd_launches, fc.dx_launches, fc.dw_launches)
+    y, s1, s2 = fc.fused_conv3_bn_fwd(x, k, scale, bias)
+    ry, rs1, rs2 = fc.conv3_bn_reference(x, k, scale, bias)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and s1.dtype == torch.float32
+    for what, got, want in (("y", y, ry), ("s1", s1, rs1), ("s2", s2, rs2)):
+        _within(got, want, tol, what)
+    # the backward on the plain forward's y, so both see the same input
+    args = (x, k, scale, bias, ry, dy, ds1, ds2)
+    dx, dsc, dbi = fc.fused_conv3_bn_dx(*args)
+    dw = fc.fused_conv3_bn_dw(*args)
+    rdx, rdsc, rdbi = fc.conv3_bn_dx_reference(*args)
+    rdw = fc.conv3_bn_dw_reference(*args)
+    torch.cuda.synchronize()
+    assert (fc.fwd_launches, fc.dx_launches, fc.dw_launches) == tuple(
+        b + 1 for b in before)
+    assert dx.dtype == x.dtype and dw.dtype == k.dtype
+    _within(dx, rdx, tol, "dx")
+    _within(dw, rdw, tol, "dw")
+    if prologue:
+        _within(dsc, rdsc, tol, "dscale")
+        _within(dbi, rdbi, tol, "dbias")
+    else:
+        assert dsc.abs().sum() == 0 and dbi.abs().sum() == 0
+
+
+def test_fused_conv3_bn_pads_the_normalized_input(dev, no_tf32):
+    """With a positive bias an out-of-image neighbour must read 0, not
+    relu(bias): a zero input and a prologue of relu(0 * 1 + 1) = 1
+    give y = the sum of the in-image taps, smaller at the borders."""
+    x = torch.zeros(1, 4, 4, 1, device=dev)
+    k = torch.ones(3, 3, 1, 1, device=dev)
+    one = torch.ones(1, device=dev)
+    y, _, _ = fc.fused_conv3_bn_fwd(x, k, one, one)
+    want = torch.tensor([[4., 6, 6, 4], [6, 9, 9, 6], [6, 9, 9, 6],
+                         [4, 6, 6, 4]], device=dev)
+    assert torch.equal(y[0, :, :, 0], want)
+
+
+def test_fused_conv3_bn_rejects_what_it_does_not_take(dev):
+    x, k, scale, bias, dy, ds1, ds2 = _conv_inputs(2, 4, 4, 8, 8, "float32",
+                                                   dev)
+    with pytest.raises(TypeError, match="dtype"):
+        fc.fused_conv3_bn_fwd(x.half(), k.half())
+    with pytest.raises(TypeError, match="w is"):
+        fc.fused_conv3_bn_fwd(x, k.bfloat16())
+    with pytest.raises(ValueError, match="must be"):
+        fc.fused_conv3_bn_fwd(x, k[:, :, :4])
+    with pytest.raises(ValueError, match="both"):
+        fc.fused_conv3_bn_fwd(x, k, scale, None)
+    with pytest.raises(ValueError, match="cpu"):
+        fc.fused_conv3_bn_fwd(x, k.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        fc.fused_conv3_bn_dx(x, k, scale, bias, dy[:1], dy, ds1, ds2)
+    y, s1, s2 = fc.fused_conv3_bn_fwd(x[:0], k)
+    assert y.shape == (0, 4, 4, 8) and s1.abs().sum() == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_train_step_replay_matches_eager(dev, no_tf32, dtype):
+    """The small fused ResNet's ``FusedTrainStep``: 4 calls (an eager
+    warm-up that captures the graph, then 3 replays) against 4 eager
+    runs of the same step code from the same weights; the capture holds
+    one step's launches (12 of each fused 1x1, 4 of each fused 3x3, one
+    of each cross-entropy kernel)."""
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                   classes=10, layout="NHWC", fused=True).initialize(
+        device=dev, generator=torch.Generator().manual_seed(0))
+    if dtype == "bfloat16":
+        amp.convert_block(net, "bfloat16")
+    params = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    graph = make_fused_train_step(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                  dict(params), device=dev)
+    eager = make_fused_train_step(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                  dict(params), device=dev)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32)).to(
+        dev, getattr(torch, dtype))
+    y = torch.from_numpy(rng.randint(0, 10, 4).astype(np.int32)).to(dev)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        by_graph = [graph(x, y) for _ in range(4)]
+        by_eager = [eager.step_fn(x, y) for _ in range(4)]
+    finally:
+        torch.backends.cudnn.deterministic = old
+    (captured,) = graph.capture_launches.values()
+    assert captured == {"fused_block.fwd_launches": 12,
+                        "fused_block.dx_launches": 12,
+                        "fused_block.dw_launches": 12,
+                        "fused_conv.fwd_launches": 4,
+                        "fused_conv.dx_launches": 4,
+                        "fused_conv.dw_launches": 4,
+                        "softmax_xent.fwd_launches": 1,
+                        "softmax_xent.bwd_launches": 1}
+    assert not eager._graphs
+    for a, b in zip(by_graph, by_eager):
+        assert a.dtype == b.dtype and torch.isfinite(a)
+        _within(a, b, 1e-6, "loss")
+    for name, want in {**eager.params, **eager.aux}.items():
+        got = {**graph.params, **graph.aux}[name]
+        assert got.dtype == want.dtype, name
+        _within(got, want, 1e-6, name)
+    for name, want in eager.opt_state["mom"].items():
+        _within(graph.opt_state["mom"][name], want, 1e-6, "mom " + name)
+    assert (graph.params["output.weight"] != net.output.weight).any()
+
+
+def test_fused_train_step_refuses_dropout_on_the_card(dev):
+    net = nn.HybridSequential()
+    net.add(nn.Dense(4, in_units=3), nn.Dropout(0.1))
+    with pytest.raises(ValueError, match="Dropout"):
+        make_fused_train_step(net.initialize(device=dev),
+                              SoftmaxCrossEntropyLoss(), device=dev)

@@ -16,10 +16,13 @@ import sys
 import pytest
 import torch
 
-from incubator_mxnet_tpu_torch import context
+from incubator_mxnet_tpu_torch import bench, context
 from incubator_mxnet_tpu_torch.deploy import load_predictor
 from incubator_mxnet_tpu_torch.error import DeviceUnavailableError
 from incubator_mxnet_tpu_torch.examples import train_bert, train_resnet_fused
+from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
+from incubator_mxnet_tpu_torch.gluon import nn
+from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
 from incubator_mxnet_tpu_torch.serving.model_repository import ModelRepository
 from incubator_mxnet_tpu_torch.serving.server import InferenceServer, main
@@ -62,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
                 "gluon.loss", "ops.softmax_xent", "examples.train_bert",
                 "ops.fused_block", "ops.fused_conv", "gluon.nn.conv_layers",
                 "gluon.model_zoo.vision.resnet",
-                "examples.train_resnet_fused"):
+                "examples.train_resnet_fused", "ops._fused_common",
+                "amp", "amp.amp", "amp.lists", "fuse", "bench"):
         assert "incubator_mxnet_tpu_torch." + mod in names, mod
 
 
@@ -98,6 +102,10 @@ def no_cuda(monkeypatch):
     lambda: train_bert.main(["--smoke"]),
     lambda: train_resnet_fused.main([]),
     lambda: train_resnet_fused.main(["--batch", "1", "--steps", "1"]),
+    lambda: make_fused_train_step(nn.Dense(2, in_units=2),
+                                  SoftmaxCrossEntropyLoss(), "sgd"),
+    lambda: bench.main([]),
+    lambda: bench.measure(batch=1, image=32, classes=2, steps=1),
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):

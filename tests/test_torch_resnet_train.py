@@ -8,11 +8,13 @@ JAX from a seed; its weights go across with ``params_from_jax``.
 Compared: the predict-mode logits, then 3 steps of SGD with momentum
 (lr 0.01, momentum 0.9, as ``examples/train_resnet_fused.py``) on one
 numpy batch: the loss, every gradient and every moving statistic at
-each step.  The JAX model is hybridized and runs its 1x1 convolutions
-through the XLA composition ``xla_matmul_bn`` (``MXNET_USE_PALLAS=0``,
-``MXNET_FUSED_CONV3=0``): the same function as its Pallas kernels,
-which ``tests/test_torch_fused_block.py`` and the bottleneck test hold
-the port against in interpret mode, at a fraction of the time.
+each step.  The JAX model is hybridized and runs its 1x1 and 3x3
+convolutions through the XLA compositions ``xla_matmul_bn`` and
+``xla_conv3_bn`` (``MXNET_USE_PALLAS=0``, ``MXNET_FUSED_CONV3=0``): the
+same functions as its Pallas kernels, which
+``tests/test_torch_fused_block.py``, ``tests/test_torch_fused_conv.py``
+and the bottleneck test hold the port against in interpret mode, at a
+fraction of the time.
 
 Tolerances, max |port - JAX| over the largest |JAX| value of each
 tensor, float32: logits 1e-5 and loss 1e-5 relative (forwards in
