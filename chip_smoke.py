@@ -12,8 +12,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
 2. build — compile every kernel from ``incubator_mxnet_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card
-   at the main paths' shapes, with the stated tolerances, and its time
-   beside the plain version's, one PyTorch library call's and the bound;
+   at the main paths' shapes (and, for the row kernels 3-4 and 8-9, at
+   ragged widths, a width past 16384 and a row with -inf entries), with
+   the stated tolerances, and its time beside the plain version's, one
+   PyTorch library call's and the bound;
 4. BERT-base at full width in process — one forward at B=8, T=128 on
    the card against the same weights on the CPU through the port's
    plain path, and the LayerNorm launch count of that forward;
@@ -53,13 +55,25 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    finite and fall below the first step's, the median step time, img/s,
    ``mfu_pct`` and the peak device memory, and one replay profiled by
    kernel family;
-9. the kernels line (JSON), then the last line
+9. train the TransformerLM (``models/transformer.py``, attention
+   "gspmd", SGD lr 1e-3) — (a) one float32 step at full width (vocab
+   32000, d_model 512, 8 heads, 4 layers) at B=2, T=129 on the card
+   against the same step on the CPU: the loss and every gradient;
+   (b) the default config (bfloat16) at B=32, T=1025: one step with
+   exactly 4 / 4 / 9 / 9 / 1 / 1 launches of the softmax forward and
+   backward, the RMSNorm forward and backward and the cross-entropy
+   forward and backward kernels, then (c) 10 more steps on fresh tokens,
+   every loss finite and the first within 0.5 of ln 32000; the median
+   step time, tokens/s, the peak device memory and one step profiled by
+   kernel family;
+10. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
 and read just after: serving from phase 4 to the end of phase 5,
 BERT training over phase 6 (b), ResNet training over phase 7 (b), the
-bench path over phase 8 (b)'s warm-up and timed steps.  A graph replay
+bench path over phase 8 (b)'s warm-up and timed steps, the
+TransformerLM over phase 9 (b) and (c).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
@@ -190,6 +204,28 @@ BENCH_B, BENCH_WARMUP, BENCH_STEPS = 128, 2, 10
 # moves the 3x3's weight gradient by 2.3e-3 of its largest value in the
 # CPU path itself (measured on the CPU with the parent's 3x3 as well)
 BLOCK_TOL, BLOCK_GRAD_TOL = 1e-5, 1e-4
+# the TransformerLM (phase 9): TransformerConfig() (vocab 32000, d_model
+# 512, 8 heads, 4 layers, d_ff 2048, bfloat16) at B=32, T=1025, the JAX
+# example's full size; the card-vs-CPU step in float32 at B=2, T=129
+TF_B, TF_T, TF_STEPS, TF_VOCAB, TF_D, TF_H = 32, 1025, 10, 32000, 512, 8
+TF_B_CPU, TF_T_CPU = 2, 129
+# kernels 3-4 at the attention rows (B·H·T, T), float32, and 8-9 at the
+# RMSNorm rows (B·T, D), bfloat16; then ragged widths and one past the
+# TPU kernels' 16384, a few rows each, in both dtypes
+SM_PATH = (TF_B * TF_H * (TF_T - 1), TF_T - 1)
+RMS_PATH = (TF_B * (TF_T - 1), TF_D)
+ROW_WIDTHS = [1, 7, 300, 1000, 1024, 16385]
+# kernel against plain version, each output: float32 max|d| <= 1e-6 of
+# the largest |plain| value (the same float32 arithmetic, sums in
+# another order); bfloat16 within one bf16 ulp of each value (the same
+# float32 value rounded once may land on a neighbouring bf16 value)
+# plus that float32 allowance.  RMSNorm's dx is a difference of two
+# terms that cancel (at width 1 all but eps/x² of them), so its float32
+# allowance is 1e-6 of the largest term, max|rrms·g·gamma|
+ROW_TOL = 1e-6
+# card step vs CPU step, float32, TF32 off: loss 1e-5 relative, every
+# gradient max|d| <= 1e-4 of its tensor's largest value
+TF_LOSS_TOL, TF_GRAD_TOL = 1e-5, 1e-4
 
 
 def phase(name):
@@ -461,6 +497,170 @@ def time_softmax_xent(torch, sx, dev, dtype, rate):
                    fwd_bytes, rate),
             report(f"softmax_xent_bwd ({rows}, {cols}) {dtype}", bwd_times,
                    bwd_bytes, rate))
+
+
+def row_err(torch, got, want, scale=None):
+    """``(max|d| / scale, ok)`` of a row kernel's output against its plain
+    version at ROW_TOL of ``scale`` (default max|want|); bfloat16 may
+    differ by one bf16 ulp of each value more."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    bf16 = want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    if scale is None:
+        scale = want.abs().max().item()
+    d = (got - want).abs()
+    bound = torch.full_like(want, ROW_TOL * scale)
+    if bf16:
+        bound += torch.ldexp(torch.ones_like(want),
+                             torch.frexp(want.abs())[1] - 8)
+    return d.max().item() / max(scale, 1e-30), bool((d <= bound).all())
+
+
+def row_cases(path):
+    """``(rows, cols, dtype)``: the path's shape, then 64 rows at each of
+    ROW_WIDTHS (3 past 16384), each in both dtypes."""
+    return [(rows, cols, dt) for rows, cols in
+            [path] + [(3 if c > 16384 else 64, c) for c in ROW_WIDTHS]
+            for dt in ("float32", "bfloat16")]
+
+
+def softmax_inputs(torch, rows, cols, dtype, dev, seed):
+    """``(x, g)`` on the card: x ~ 3·N(0, 1) with the second half of row
+    0 at -inf (what the ``length`` mask makes), g ~ N(0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (torch.randn(rows, cols, generator=gen, device=dev) * 3).to(dt)
+    x[0, max(1, cols // 2):] = float("-inf")
+    return x, torch.randn(rows, cols, generator=gen, device=dev).to(dt)
+
+
+def check_softmax(torch, sm, dev):
+    """Kernels 3 and 4 against their plain versions at every case; returns
+    the max |d y| and |d dx| at the path's shape, float32."""
+    path_err = None
+    for rows, cols, dtype in row_cases(SM_PATH):
+        x, g = softmax_inputs(torch, rows, cols, dtype, dev, 0)
+        y = sm.softmax_fwd(x)
+        dx = sm.softmax_bwd(y, g)
+        ry = sm.softmax_fwd_reference(x)
+        rdx = sm.softmax_bwd_reference(y, g)
+        torch.cuda.synchronize()
+        (ey, oky), (edx, okdx) = row_err(torch, y, ry), row_err(torch, dx, rdx)
+        print(f"softmax ({rows}, {cols}) {dtype}: max|d|/max|ref| y={ey:.2e} "
+              f"dx={edx:.2e} (tol {ROW_TOL:g} of max"
+              f"{', + 1 bf16 ulp' if dtype == 'bfloat16' else ''})",
+              flush=True)
+        assert oky and okdx, ((rows, cols, dtype), ey, edx)
+        if (rows, cols) == SM_PATH and dtype == "float32":
+            path_err = ((y.float() - ry.float()).abs().max().item(),
+                        (dx.float() - rdx.float()).abs().max().item())
+        del x, g, y, dx, ry, rdx
+    return path_err
+
+
+def time_softmax(torch, sm, dev, rate):
+    """Times of kernels 3 and 4 at the attention rows (262144, 1024)
+    float32, cycling 2 input sets of 1 GiB each (x; y and g for the
+    backward).  The library calls are ``torch.softmax`` and
+    ``torch._softmax_backward_data``."""
+    rows, cols = SM_PATH
+    fwd_sets, bwd_sets = [], []
+    for s in range(2):
+        x, g = softmax_inputs(torch, rows, cols, "float32", dev, s)
+        fwd_sets.append((x,))
+        bwd_sets.append((sm.softmax_fwd_reference(x), g))
+    fwd = {"ms": time_ms(torch, sm.softmax_fwd, fwd_sets),
+           "plain_ms": time_ms(torch, sm.softmax_fwd_reference, fwd_sets),
+           "library_ms": time_ms(torch, lambda x: torch.softmax(x, -1),
+                                 fwd_sets)}
+    bwd = {"ms": time_ms(torch, sm.softmax_bwd, bwd_sets),
+           "plain_ms": time_ms(torch, sm.softmax_bwd_reference, bwd_sets),
+           "library_ms": time_ms(
+               torch, lambda y, g: torch._softmax_backward_data(
+                   g, y, -1, y.dtype), bwd_sets)}
+    # forward: x read, y written; backward: y and g read, dx written
+    n = rows * cols * 4
+    out = (report(f"softmax_fwd ({rows}, {cols}) float32", fwd, 2 * n, rate),
+           report(f"softmax_bwd ({rows}, {cols}) float32", bwd, 3 * n, rate))
+    del fwd_sets, bwd_sets
+    return out
+
+
+def rms_inputs(torch, rows, cols, dtype, dev, seed):
+    """``(x, gamma, g)`` on the card in ``dtype``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (torch.randn(rows, cols, generator=gen, device=dev) * 2 + 0.3).to(dt)
+    gamma = (torch.rand(cols, generator=gen, device=dev) + 0.5).to(dt)
+    return x, gamma, torch.randn(rows, cols, generator=gen,
+                                 device=dev).to(dt)
+
+
+def check_rms_norm(torch, rn, dev):
+    """Kernels 8 and 9 against their plain versions at every case; returns
+    the max |d y| and |d dx| at the path's shape, bfloat16 (the path's
+    dtype)."""
+    path_err = None
+    for rows, cols, dtype in row_cases(RMS_PATH):
+        x, gamma, g = rms_inputs(torch, rows, cols, dtype, dev, 0)
+        y, rrms = rn.rms_norm_fwd(x, gamma)
+        dx, dgamma = rn.rms_norm_bwd(x, g, gamma, rrms)
+        ry, rrrms = rn.rms_norm_fwd_reference(x, gamma)
+        rdx, rdgamma = rn.rms_norm_bwd_reference(x, g, gamma, rrrms)
+        torch.cuda.synchronize()
+        # dx = rrms·gg − rrms³·x·Σ(gg·x)/n: held at the size of its terms,
+        # which cancel (entirely at width 1, where dx is eps/x² of them)
+        terms = (rrrms[:, None] * g.float() * gamma.float()).abs().max()
+        errs = {k: row_err(torch, a, b) for k, a, b in (
+            ("y", y, ry), ("rrms", rrms, rrrms), ("dgamma", dgamma, rdgamma))}
+        errs["dx"] = row_err(torch, dx, rdx, terms.item())
+        print(f"rms_norm ({rows}, {cols}) {dtype}: max|d|/max|ref| "
+              + " ".join(f"{k}={e:.2e}" for k, (e, _) in errs.items())
+              + f" (tol {ROW_TOL:g} of max"
+              f"{', + 1 bf16 ulp' if dtype == 'bfloat16' else ''})",
+              flush=True)
+        assert all(ok for _, ok in errs.values()), ((rows, cols, dtype), errs)
+        if (rows, cols) == RMS_PATH and dtype == "bfloat16":
+            path_err = ((y.float() - ry.float()).abs().max().item(),
+                        (dx.float() - rdx.float()).abs().max().item())
+    return path_err
+
+
+def time_rms_norm(torch, rn, dev, rate):
+    """Times of kernels 8 and 9 at the RMSNorm rows (32768, 512) bfloat16,
+    cycling 8 input sets (256 MiB of x and g).  The library calls are
+    ``F.rms_norm`` and its autograd backward (``torch.autograd.grad`` of
+    a kept graph)."""
+    import torch.nn.functional as F
+    rows, cols = RMS_PATH
+    fwd_sets, bwd_sets, lib_sets = [], [], []
+    for s in range(8):
+        x, gamma, g = rms_inputs(torch, rows, cols, "bfloat16", dev, s)
+        fwd_sets.append((x, gamma))
+        bwd_sets.append((x, g, gamma, rn.rms_norm_fwd_reference(x, gamma)[1]))
+        xr, gr = x.clone().requires_grad_(True), gamma.clone().requires_grad_(
+            True)
+        lib_sets.append((F.rms_norm(xr, (cols,), gr, 1e-6), xr, gr, g))
+    fwd = {"ms": time_ms(torch, rn.rms_norm_fwd, fwd_sets),
+           "plain_ms": time_ms(torch, rn.rms_norm_fwd_reference, fwd_sets),
+           "library_ms": time_ms(torch, lambda x, gamma: F.rms_norm(
+               x, (cols,), gamma, 1e-6), fwd_sets)}
+    bwd = {"ms": time_ms(torch, rn.rms_norm_bwd, bwd_sets),
+           "plain_ms": time_ms(torch, rn.rms_norm_bwd_reference, bwd_sets),
+           "library_ms": time_ms(torch, lambda y, x, gamma, g:
+                                 torch.autograd.grad(y, (x, gamma), g,
+                                                     retain_graph=True),
+                                 lib_sets)}
+    n = rows * cols * 2
+    # forward: x and gamma read, y and rrms written; backward: x, g,
+    # gamma and rrms read, dx and dgamma written
+    out = (report(f"rms_norm_fwd ({rows}, {cols}) bfloat16", fwd,
+                  2 * n + cols * 2 + rows * 4, rate),
+           report(f"rms_norm_bwd ({rows}, {cols}) bfloat16", bwd,
+                  3 * n + 2 * cols * 2 + rows * 4, rate))
+    del fwd_sets, bwd_sets, lib_sets
+    return out
 
 
 def resnet_fmm_shapes(batch):
@@ -781,6 +981,23 @@ _RESNET_FAMILIES = (
     ("memcpy", ("memcpy", "memset")))
 
 
+# the TransformerLM's kernels: the port's own (the cross-entropy pair
+# before the softmax pair, whose names both say softmax), then cuBLAS's
+# products (bf16 "nvjet" kernels on Hopper, float32 SIMT ones for the
+# attention logits), then PyTorch's elementwise kernels and reductions
+# (the casts, the scale and mask of the logits, GELU, residual adds, the
+# SGD update) and its embedding gather and scatter
+_TF_FAMILIES = (
+    ("xent", ("xent",)), ("softmax_fwd", ("softmax_fwd",)),
+    ("softmax_bwd", ("softmax_bwd",)), ("rms_norm_fwd", ("rms_fwd",)),
+    ("rms_norm_bwd", ("rms_bwd",)),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "splitk")),
+    ("embedding", ("embedding", "index", "gather", "scatter", "sort",
+                   "radix")),
+    ("elementwise", ("elementwise", "reduce", "fill", "copy", "gelu")),
+    ("memcpy", ("memcpy", "memset")))
+
+
 def device_families(prof, families=_FAMILIES):
     """Device ms by kernel family from a profiler trace; kernels of no
     named family count as "other" (elementwise, reductions, gathers;
@@ -960,24 +1177,41 @@ def step_breakdown(torch, fwd_bwd, update, families=_FAMILIES):
     + backward, then the optimizer): wall and device-busy ms, idle share
     and busy ms by kernel family.  The profiler's own host cost inflates
     the wall times."""
-    from torch.profiler import ProfilerActivity, profile
     total_wall = total_busy = 0.0
     for name, part in (("fwd+bwd", fwd_bwd), ("optimizer", update)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            part()
-            wall = (time.monotonic() - t0) * 1e3
-        fams = device_families(prof, families)
-        busy = sum(fams.values())
+        wall, busy = profile_window(torch, name, part, families)
         total_wall += wall
         total_busy += busy
-        print(f"  profiled step, {name}: wall {wall:.3f} ms, device busy "
-              f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; by family "
-              f"(ms): {({k: round(v, 4) for k, v in sorted(fams.items())})}",
-              flush=True)
     print(f"  profiled step, whole: wall {total_wall:.3f} ms, device busy "
           f"{total_busy:.3f} ms, idle share {1 - total_busy / total_wall:.3f}",
           flush=True)
+
+
+def profile_window(torch, name, part, families):
+    """Run ``part()`` (which ends in a synchronise) under the profiler and
+    print its wall and device-busy ms, idle share, busy ms by kernel
+    family and the six device kernels (or copies) that took longest, by
+    name; returns ``(wall, busy)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        part()
+        wall = (time.monotonic() - t0) * 1e3
+    fams = device_families(prof, families)
+    busy = sum(fams.values())
+    print(f"  profiled step, {name}: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; by family "
+          f"(ms): {({k: round(v, 4) for k, v in sorted(fams.items())})}",
+          flush=True)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    for k, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"    {ms:.4f} ms in {n} x {k[:110]}", flush=True)
+    return wall, busy
 
 
 def resnet_forward_backward(torch, net, x, y):
@@ -1145,7 +1379,11 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
     "fused_conv3_bn_dx": "fused_conv.dx_launches",
     "fused_conv3_bn_dw": "fused_conv.dw_launches",
     "softmax_xent_fwd": "softmax_xent.fwd_launches",
-    "softmax_xent_bwd": "softmax_xent.bwd_launches"}
+    "softmax_xent_bwd": "softmax_xent.bwd_launches",
+    "softmax_fwd": "softmax.fwd_launches",
+    "softmax_bwd": "softmax.bwd_launches",
+    "rms_norm_fwd": "rms_norm.fwd_launches",
+    "rms_norm_bwd": "rms_norm.bwd_launches"}
 
 
 def zero_launches():
@@ -1194,7 +1432,8 @@ def train_resnet50(torch, np, dev):
         step_ms.append((time.monotonic() - t0) * 1e3)
         losses.append(loss.mean().item())
     launched = kernel_launches()                        # path ends
-    counts = {k: launched[v] for k, v in _KERNEL_COUNTERS.items()}
+    counts = {k: launched[_KERNEL_COUNTERS[k]]
+              for k in resnet_step_launches()}
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"{RESNET_STEPS} steps at B={RESNET_B}, {IMAGE}x{IMAGE}, "
           f"{CLASSES} classes, SGD lr 0.01 momentum 0.9: losses "
@@ -1291,7 +1530,8 @@ def bench_path(torch, np, dev, smi):
     zero_launches()                                     # path starts
     res = bench.timed(step, x, y, BENCH_STEPS, BENCH_WARMUP)
     launched = kernel_launches()                        # path ends
-    counts = {k: launched[v] for k, v in _KERNEL_COUNTERS.items()}
+    counts = {k: launched[_KERNEL_COUNTERS[k]]
+              for k in resnet_step_launches()}
     (captured,) = step.capture_launches.values()
     print(f"capture's launches {captured}", flush=True)
     assert captured == want, (captured, want)
@@ -1329,6 +1569,113 @@ def bench_path(torch, np, dev, smi):
     return counts
 
 
+def compare_transformer_step(torch, np, dev):
+    """Phase 9 (a): one float32 SGD step of the TransformerLM at full
+    width, B=2, T=129, on the card against the CPU path from the same
+    weights and tokens: the loss and every gradient."""
+    from incubator_mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    cpu = TransformerLM(TransformerConfig(dtype="float32")).init(
+        torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    tokens = torch.randint(0, TF_VOCAB, (TF_B_CPU, TF_T_CPU),
+                           generator=torch.Generator().manual_seed(1))
+    res = []
+    for model in (cpu, card):
+        params = list(model.parameters())
+        t0 = time.monotonic()
+        loss = model.loss(tokens.to(params[0].device))
+        grads = torch.autograd.grad(loss, params)
+        res.append((loss.item(), [g.cpu().numpy() for g in grads],
+                    time.monotonic() - t0))
+    (l_cpu, g_cpu, t_cpu), (l_card, g_card, t_card) = res
+    names = [n for n, _ in cpu.named_parameters()]
+    worst = worst_ratio(np, dict(zip(names, g_card)), dict(zip(names, g_cpu)))
+    print(f"TransformerLM float32 step, B={TF_B_CPU}, T={TF_T_CPU}: CPU "
+          f"{t_cpu:.2f} s, card {t_card:.2f} s (first call); loss card "
+          f"{l_card:.7f} cpu {l_cpu:.7f} (tol {TF_LOSS_TOL:g} relative); "
+          f"{len(names)} gradients, worst max|d|/max|g| {worst[0]:.3e} "
+          f"({worst[1]}, tol {TF_GRAD_TOL:g})", flush=True)
+    assert np.isfinite(l_card) and abs(l_card - l_cpu) <= TF_LOSS_TOL * abs(
+        l_cpu), (l_card, l_cpu)
+    assert worst[0] <= TF_GRAD_TOL, worst
+    return worst[0]
+
+
+def transformer_step_launches():
+    """Launches of each kernel in one TransformerLM step at the default
+    config: one attention softmax a layer and two RMSNorms a layer plus
+    ln_f, forward and backward, and one cross-entropy pair."""
+    layers = 4
+    return {"softmax_fwd": layers, "softmax_bwd": layers,
+            "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+
+
+def train_transformer(torch, np, dev, smi):
+    """Phase 9; returns the TransformerLM path's launch counts."""
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.models.transformer import TransformerLM
+    compare_transformer_step(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = TransformerLM().init(torch.Generator().manual_seed(0), dev)
+    step = model.make_train_step(lr=1e-3)
+    gen = torch.Generator().manual_seed(1)
+    batches = [torch.randint(0, TF_VOCAB, (TF_B, TF_T), generator=gen).to(dev)
+               for _ in range(TF_STEPS + 2)]
+    want = transformer_step_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()                                     # path starts
+    losses, step_ms = [], []
+    for i in range(TF_STEPS + 1):
+        t0 = time.monotonic()
+        losses.append(step(batches[i]).item())
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        if i == 0:
+            first = kernel_launches()
+            one = {k: first[v] for k, v in _KERNEL_COUNTERS.items()
+                   if k in want}
+            print(f"one bfloat16 step at B={TF_B}, T={TF_T}: launches {one}",
+                  flush=True)
+            assert one == want, (one, want)
+    launched = kernel_launches()                        # path ends
+    counts = {k: launched[_KERNEL_COUNTERS[k]] for k in want}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{TF_STEPS + 1} steps, SGD lr 1e-3, fresh tokens each step: "
+          f"losses {[round(v, 4) for v in losses]}", flush=True)
+    assert np.isfinite(losses).all(), losses
+    assert abs(losses[0] - np.log(TF_VOCAB)) < 0.5, losses[0]
+    for k, n in want.items():
+        assert counts[k] == n * (TF_STEPS + 1), (k, counts[k])
+    tokens = TF_B * (TF_T - 1)
+    # matrix products a token (forward): qkv, out, the two FFN layers and
+    # the tied head, plus q·kᵀ and p·v over all T keys; backward twice
+    flops_tok = 3 * 2 * (4 * (3 * TF_D * TF_D + TF_D * TF_D
+                              + 2 * TF_D * 2048 + 2 * (TF_T - 1) * TF_D)
+                         + TF_D * TF_VOCAB)
+    med = statistics.median(step_ms[2:])
+    print(f"training path launches: {counts} ({want} a step)", flush=True)
+    print(f"step time, host clock around a step and the loss's .item(): "
+          f"median over steps 3-{TF_STEPS + 1} {med:.3f} ms "
+          f"({tokens / med * 1e3:.0f} tokens/s), min "
+          f"{min(step_ms[2:]):.3f} ms, all {[round(v, 3) for v in step_ms]}; "
+          f"{flops_tok * tokens / 1e12:.3f} TFLOP of matrix products a step "
+          f"({flops_tok / 1e6:.1f} MFLOP a token), "
+          f"{flops_tok * tokens / med / 1e9:.1f} TFLOP/s achieved, bf16 "
+          f"floor {flops_tok * tokens / BF16_PEAK * 1e3:.3f} ms; peak device "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB); {smi}", flush=True)
+
+    def whole():
+        step(batches[-1])
+        torch.cuda.synchronize()
+
+    profile_window(torch, "TransformerLM step", whole, _TF_FAMILIES)
+    return counts
+
+
 def post(port, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/models/bert:predict",
@@ -1353,6 +1700,8 @@ def main():
     from incubator_mxnet_tpu_torch.ops import _build, layer_norm as ln
     from incubator_mxnet_tpu_torch.ops import fused_block as fb
     from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+    from incubator_mxnet_tpu_torch.ops import rms_norm as rn
+    from incubator_mxnet_tpu_torch.ops import softmax as sm
     from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
     from incubator_mxnet_tpu_torch.serving.server import InferenceServer
 
@@ -1397,6 +1746,12 @@ def main():
     conv_err = check_fused_conv3_bn(torch, fc, dev)
     conv_times = time_fused_conv3_bn(torch, fc, dev, "float32", rate)
     time_fused_conv3_bn(torch, fc, dev, "bfloat16", rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm_err = check_softmax(torch, sm, dev)
+    sm_times = time_softmax(torch, sm, dev, rate)
+    rms_err = check_rms_norm(torch, rn, dev)
+    rms_times = time_rms_norm(torch, rn, dev, rate)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1512,7 +1867,13 @@ def main():
     bench = bench_path(torch, np, dev, smi)
     resnet = {k: v + bench[k] for k, v in resnet.items()}
 
-    phase("9 kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("9 train the TransformerLM")
+    tf = train_transformer(torch, np, dev, smi)
+
+    phase("10 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"
@@ -1527,12 +1888,26 @@ def main():
              max_abs_err=ln_bwd_err, **ln_bwd_times),
         dict(name="softmax_xent_fwd", route="cuda",
              source=src + "softmax_xent.cu", replaces=pk + ":545",
-             launches=train["softmax_xent_fwd"] + resnet["softmax_xent_fwd"],
+             launches=train["softmax_xent_fwd"] + resnet["softmax_xent_fwd"]
+             + tf["softmax_xent_fwd"],
              max_abs_err=xent_fwd_err, **xent_fwd_times),
         dict(name="softmax_xent_bwd", route="cuda",
              source=src + "softmax_xent.cu", replaces=pk + ":558",
-             launches=train["softmax_xent_bwd"] + resnet["softmax_xent_bwd"],
+             launches=train["softmax_xent_bwd"] + resnet["softmax_xent_bwd"]
+             + tf["softmax_xent_bwd"],
              max_abs_err=xent_bwd_err, **xent_bwd_times),
+        dict(name="softmax_fwd", route="cuda", source=src + "softmax.cu",
+             replaces=pk + ":127", launches=tf["softmax_fwd"],
+             max_abs_err=sm_err[0], **sm_times[0]),
+        dict(name="softmax_bwd", route="cuda", source=src + "softmax.cu",
+             replaces=pk + ":137", launches=tf["softmax_bwd"],
+             max_abs_err=sm_err[1], **sm_times[1]),
+        dict(name="rms_norm_fwd", route="cuda", source=src + "rms_norm.cu",
+             replaces=pk + ":657", launches=tf["rms_norm_fwd"],
+             max_abs_err=rms_err[0], **rms_times[0]),
+        dict(name="rms_norm_bwd", route="cuda", source=src + "rms_norm.cu",
+             replaces=pk + ":669", launches=tf["rms_norm_bwd"],
+             max_abs_err=rms_err[1], **rms_times[1]),
     ] + [
         dict(name=f"fused_matmul_bn_{part}", route="cuda",
              source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:{line}",

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy", "grads_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "grads_to_numpy",
+           "transformer_params_from_jax", "transformer_params_to_numpy"]
 
 
 def params_from_jax(named, module):
@@ -58,3 +59,38 @@ def grads_to_numpy(module):
     return {k: (np.zeros(tuple(p.shape), np.float32) if p.grad is None
                 else p.grad.detach().float().cpu().numpy().copy())
             for k, p in module.named_parameters()}
+
+
+def transformer_params_from_jax(tree, model):
+    """Load the JAX ``TransformerLM``'s parameter pytree — ``{"embed",
+    "pos_embed", "layers": {"wqkv", ...}, "ln_f"}`` of numpy arrays,
+    bfloat16 included — into the port's initialised ``TransformerLM``
+    (``models/transformer.py``), and return the state dict that was
+    loaded.  ``tree["layers"]["wqkv"]`` is the module's ``layers.wqkv``;
+    shapes and layouts are the same, and the checks are
+    :func:`params_from_jax`'s."""
+    if any(p.is_meta for p in model.parameters()):
+        raise ValueError("the model's parameters are empty: call "
+                         "init(device=...) first, which places them")
+    named = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            named.update({f"{key}.{k}": v for k, v in value.items()})
+        else:
+            named[key] = value
+    return params_from_jax(named, model)
+
+
+def transformer_params_to_numpy(model):
+    """The port's ``TransformerLM`` parameters nested as the JAX pytree is,
+    copied to the host as float32 numpy arrays (a bfloat16 value widens
+    exactly)."""
+    out = {}
+    for name, p in model.named_parameters():
+        arr = p.detach().float().cpu().numpy().copy()
+        head, _, leaf = name.partition(".")
+        if leaf:
+            out.setdefault(head, {})[leaf] = arr
+        else:
+            out[name] = arr
+    return out

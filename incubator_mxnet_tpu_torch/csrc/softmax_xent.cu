@@ -41,62 +41,13 @@
 namespace {
 
 using mx::from_float;
+using mx::ms_add;
+using mx::row_ms;
 using mx::to_float;
 
 constexpr int kSmallRow = 1024;       // widest row that gets one warp
 constexpr int kWarpRowsBlock = 256;   // block size in one-warp-per-row mode
 constexpr int kWideBlock = 512;       // block size for a wider row
-
-// Adds value v to a running (max m, sum s of exp(x - m)).  A -inf logit
-// adds nothing; a NaN makes the sum NaN.
-__device__ __forceinline__ void ms_add(float& m, float& s, float v) {
-  if (v == -INFINITY) return;
-  if (v > m) {
-    s = s * expf(m - v) + 1.f;  // m = -inf at first: s is 0, expf gives 0
-    m = v;
-  } else {
-    s += expf(v - m);
-  }
-}
-
-// Merges the pair (m2, s2) into (m, s).
-__device__ __forceinline__ void ms_merge(float& m, float& s, float m2,
-                                         float s2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;  // both empty
-  s = s * expf(m - mn) + s2 * expf(m2 - mn);
-  m = mn;
-}
-
-// Merges the pairs of all threads of a row; every thread gets the
-// result.  `red` holds 64 floats.  See mx::row_sum for the barriers.
-__device__ __forceinline__ void row_ms(float& m, float& s, float* red,
-                                       bool whole_block) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    ms_merge(m, s, m2, s2);
-  }
-  if (!whole_block) return;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    red[warp] = m;
-    red[32 + warp] = s;
-  }
-  __syncthreads();
-  const bool live = lane < static_cast<int>(blockDim.x >> 5);
-  m = live ? red[lane] : -INFINITY;
-  s = live ? red[32 + lane] : 0.f;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    ms_merge(m, s, m2, s2);
-  }
-}
 
 __device__ __forceinline__ int clip_label(int l, int cols) {
   return l < 0 ? 0 : (l >= cols ? cols - 1 : l);

@@ -7,8 +7,10 @@ weights ``(O, *K, I)``; float32 accumulation of low-precision average
 pooling; one-pass float32 BatchNorm statistics) around PyTorch's calls.  :func:`layer_norm` and
 :func:`softmax_xent` go through the hand-written kernels, forward and
 backward, by way of their autograd Functions
-(``layer_norm.LayerNormFunction``, ``softmax_xent.SoftmaxXentFunction``)
-on every device, so the CPU tests run the same Functions as the card.
+(``layer_norm.LayerNormFunction``, ``softmax_xent.SoftmaxXentFunction``),
+and so do :func:`softmax` and the trailing-axis :func:`rms_norm`
+(``softmax.SoftmaxFunction``, ``rms_norm.RMSNormFunction``), on every
+device, so the CPU tests run the same Functions as the card.
 Each op casts its floating inputs through ``amp.cast_args`` under its
 registry name in the JAX package, so a block converted by
 ``amp.convert_block`` runs each op in the dtype the AMP lists give it.
@@ -20,11 +22,13 @@ import torch.nn.functional as F
 
 from ..amp.amp import cast_args
 from .layer_norm import LayerNormFunction
+from .rms_norm import RMSNormFunction
+from .softmax import SoftmaxFunction
 from .softmax_xent import SoftmaxXentFunction
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "layer_norm", "dot_product_attention", "activation", "dropout",
-           "log_softmax", "softmax_xent"]
+           "layer_norm", "rms_norm", "dot_product_attention", "activation",
+           "dropout", "softmax", "log_softmax", "softmax_xent"]
 
 
 def _tuple(v, n):
@@ -162,6 +166,20 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     return y if last else y.movedim(-1, axis)
 
 
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """RMSNorm over ``axis`` with a 1-D gamma.  Over the trailing axis it
+    goes through the kernels, forward and backward, and y comes out in
+    x's dtype.  Over another axis it is the JAX package's plain formula:
+    y = x·rsqrt(mean(x²) + eps) in float32, rounded to x's dtype, then
+    ``y * gamma`` with broadcasting and type promotion."""
+    x, gamma = cast_args("RMSNorm", x, gamma)
+    if axis in (-1, x.dim() - 1):
+        return RMSNormFunction.apply(x.contiguous(), gamma, float(eps))
+    xf = x.float()
+    ms = (xf * xf).mean(dim=axis, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * gamma
+
+
 def dot_product_attention(q, k, v, mask=None, scale=None, causal=False):
     """(B, H, T, D) scaled dot-product attention.  The logits and the
     softmax are float32, the probabilities are cast to q's dtype; keys
@@ -208,6 +226,26 @@ def dropout(x, p=0.5, mode="training", axes=(), generator=None):
     keep = torch.rand(shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
+
+
+def softmax(x, axis=-1, temperature=None, length=None):
+    """Softmax along ``axis`` through the kernels, forward and backward.
+    ``temperature`` divides x first, rounded to x's dtype as JAX rounds a
+    Python scalar; ``length`` (x's shape without ``axis``, integers)
+    keeps the first ``length`` entries along the axis and sets the rest
+    to -inf, so a row of length 0 is NaN, as ``jax.nn.softmax`` gives
+    it."""
+    (x,) = cast_args("softmax", x)
+    if temperature is not None and temperature != 1.0:
+        x = x / torch.tensor(temperature, dtype=x.dtype, device=x.device)
+    if length is not None:
+        ax = axis % x.dim()
+        shape = [1] * x.dim()
+        shape[ax] = x.shape[ax]
+        idx = torch.arange(x.shape[ax], device=x.device).reshape(shape)
+        keep = idx < length.to(x.device).unsqueeze(ax)
+        x = x.masked_fill(~keep, float("-inf"))
+    return SoftmaxFunction.apply(x, axis)
 
 
 def log_softmax(x, axis=-1, temperature=None):

@@ -29,6 +29,13 @@ float32 sums in another order; both TF32 switches off).  Its
 eagerly: every loss and state tensor within 1e-6 of the largest value
 (the same kernels on the same inputs, cuDNN deterministic: they agree
 bit for bit unless a library picks another algorithm under capture).
+Softmax and RMSNorm (kernels 3-4 and 8-9), each output against its
+plain version: float32 max|d| <= 1e-6 of the largest |plain| value (the
+same float32 arithmetic, with sums in another order); bfloat16 within
+one bf16 ulp of each value (2^-8 of it: the same float32 value rounded
+once may land on a neighbouring bf16 value) plus that float32 allowance.
+The small TransformerLM, card step against CPU step in float32 (TF32
+off): loss 1e-5 relative, every gradient 1e-4 of its largest value.
 """
 import copy
 
@@ -46,9 +53,13 @@ from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
     BottleneckV1, ResNetV1)
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
+from incubator_mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                          TransformerLM)
 from incubator_mxnet_tpu_torch.ops import fused_block as fb
 from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+from incubator_mxnet_tpu_torch.ops import rms_norm as rn
+from incubator_mxnet_tpu_torch.ops import softmax as sm
 from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
 
 pytestmark = pytest.mark.cuda
@@ -469,3 +480,103 @@ def test_fused_train_step_refuses_dropout_on_the_card(dev):
     with pytest.raises(ValueError, match="Dropout"):
         make_fused_train_step(net.initialize(device=dev),
                               SoftmaxCrossEntropyLoss(), device=dev)
+
+
+def _row_close(got, want, what):
+    """Kernels 3-4 and 8-9 against their plain versions: float32 1e-6 of
+    the largest |want|; bfloat16 one bf16 ulp of each value more."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    bf16 = want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all() and torch.isfinite(want).all(), what
+    bound = torch.full_like(want, 1e-6 * want.abs().max().item())
+    if bf16:
+        bound += torch.ldexp(torch.ones_like(want),
+                             torch.frexp(want.abs())[1] - 8)
+    assert ((got - want).abs() <= bound).all(), (
+        what, ((got - want).abs() - bound).max().item())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols", [
+    (4096, 1024),      # the attention rows' width (T = 1024)
+    (1000, 1), (1000, 7), (1000, 300), (100, 1000),   # ragged warp rows
+    (8, 1025),         # just past the one-warp width
+    (3, 16385),        # past the TPU kernel's width limit
+    (2, 70000),        # a wide streamed row
+])
+def test_softmax_kernels_match_plain(dev, dtype, rows, cols):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.randn(rows, cols, generator=g, device=dev) * 3).to(
+        getattr(torch, dtype))
+    x[0, max(1, cols // 2):] = float("-inf")  # a row the length mask cut
+    gy = torch.randn(rows, cols, generator=g, device=dev).to(x.dtype)
+    before = (sm.fwd_launches, sm.bwd_launches)
+    y = sm.softmax_fwd(x)
+    dx = sm.softmax_bwd(y, gy)
+    ry = sm.softmax_fwd_reference(x)
+    rdx = sm.softmax_bwd_reference(y, gy)
+    torch.cuda.synchronize()
+    assert (sm.fwd_launches, sm.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    _row_close(y, ry, "y")
+    _row_close(dx, rdx, "dx")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols", [
+    (32768, 512),      # the TransformerLM's rows, B=32 T=1024
+    (1000, 7), (10, 300), (6, 129), (100, 1000),
+    (64, 1025),        # just past the one-warp width
+    (3, 16385), (2, 70000),
+])
+def test_rms_norm_kernels_match_plain(dev, dtype, rows, cols):
+    g = torch.Generator(device=dev).manual_seed(1)
+    dt = getattr(torch, dtype)
+    x = (torch.randn(rows, cols, generator=g, device=dev) * 2 + 0.3).to(dt)
+    gamma = (torch.rand(cols, generator=g, device=dev) + 0.5).to(dt)
+    gy = torch.randn(rows, cols, generator=g, device=dev).to(dt)
+    before = (rn.fwd_launches, rn.bwd_launches)
+    y, rrms = rn.rms_norm_fwd(x, gamma)
+    dx, dgamma = rn.rms_norm_bwd(x, gy, gamma, rrms)
+    ry, rrrms = rn.rms_norm_fwd_reference(x, gamma)
+    rdx, rdgamma = rn.rms_norm_bwd_reference(x, gy, gamma, rrrms)
+    torch.cuda.synchronize()
+    assert (rn.fwd_launches, rn.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    _row_close(y, ry, "y")
+    _row_close(rrms, rrrms, "rrms")
+    _row_close(dx, rdx, "dx")
+    _row_close(dgamma, rdgamma, "dgamma")
+
+
+def test_small_transformer_step_on_the_card_matches_cpu(dev, no_tf32):
+    """The example's --smoke config (2 layers), one SGD step on the card
+    against the same step on the CPU, with each new kernel's launches."""
+    from incubator_mxnet_tpu_torch.examples.train_transformer_lm import (
+        config)
+    cfg, batch, seq = config(smoke=True)
+    cpu = TransformerLM(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(1))
+    got = {}
+    for where, model in (("cpu", cpu), ("card", card)):
+        params = list(model.parameters())
+        before = (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
+                  rn.bwd_launches, sx.fwd_launches, sx.bwd_launches)
+        loss = model.loss(tokens.to(params[0].device))
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        after = (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
+                 rn.bwd_launches, sx.fwd_launches, sx.bwd_launches)
+        got[where] = (loss.item(), [g.cpu() for g in grads],
+                      [a - b for a, b in zip(after, before)])
+    (l_cpu, g_cpu, n_cpu), (l_card, g_card, n_card) = got["cpu"], got["card"]
+    assert n_cpu == [0] * 6 and n_card == [2, 2, 5, 5, 1, 1]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for (name, _), a, b in zip(cpu.named_parameters(), g_card, g_cpu):
+        _within(a, b, 1e-4, name)
+    step = card.make_train_step()
+    losses = [step(tokens.to(dev)).item() for _ in range(3)]
+    assert all(abs(v - l_card) < 0.5 for v in losses)

@@ -19,11 +19,15 @@ import torch
 from incubator_mxnet_tpu_torch import bench, context
 from incubator_mxnet_tpu_torch.deploy import load_predictor
 from incubator_mxnet_tpu_torch.error import DeviceUnavailableError
-from incubator_mxnet_tpu_torch.examples import train_bert, train_resnet_fused
+from incubator_mxnet_tpu_torch.examples import (train_bert,
+                                                train_resnet_fused,
+                                                train_transformer_lm)
 from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
 from incubator_mxnet_tpu_torch.gluon import nn
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
+from incubator_mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                          TransformerLM)
 from incubator_mxnet_tpu_torch.serving.model_repository import ModelRepository
 from incubator_mxnet_tpu_torch.serving.server import InferenceServer, main
 
@@ -66,7 +70,9 @@ def test_importing_the_port_loads_no_jax():
                 "ops.fused_block", "ops.fused_conv", "gluon.nn.conv_layers",
                 "gluon.model_zoo.vision.resnet",
                 "examples.train_resnet_fused", "ops._fused_common",
-                "amp", "amp.amp", "amp.lists", "fuse", "bench"):
+                "amp", "amp.amp", "amp.lists", "fuse", "bench",
+                "ops.softmax", "ops.rms_norm", "models.transformer",
+                "examples.train_transformer_lm"):
         assert "incubator_mxnet_tpu_torch." + mod in names, mod
 
 
@@ -106,6 +112,11 @@ def no_cuda(monkeypatch):
                                   SoftmaxCrossEntropyLoss(), "sgd"),
     lambda: bench.main([]),
     lambda: bench.measure(batch=1, image=32, classes=2, steps=1),
+    lambda: train_transformer_lm.main([]),
+    lambda: train_transformer_lm.main(["--smoke"]),
+    lambda: TransformerLM(TransformerConfig(
+        vocab_size=8, d_model=8, n_heads=2, n_layers=1, d_ff=8,
+        max_len=4)).init(),
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
