@@ -13,9 +13,11 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    with ``nvcc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (and, for the row kernels 3-4 and 8-9, at
-   ragged widths, a width past 16384 and a row with -inf entries), with
-   the stated tolerances, and its time beside the plain version's, one
-   PyTorch library call's and the bound;
+   ragged widths, a width past 16384 and a row with -inf entries; for
+   flash attention, kernel 5 and its dk/dv and dq kernels, at one row,
+   cross lengths, ragged tiles, T = 1025, head widths 16 to 128 and
+   B·H = 1, in both dtypes), with the stated tolerances, and its time
+   beside the plain version's, one PyTorch library call's and the bound;
 4. BERT-base at full width in process — one forward at B=8, T=128 on
    the card against the same weights on the CPU through the port's
    plain path, and the LayerNorm launch count of that forward;
@@ -66,14 +68,22 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    every loss finite and the first within 0.5 of ln 32000; the median
    step time, tokens/s, the peak device memory and one step profiled by
    kernel family;
-10. the kernels line (JSON), then the last line
+10. train the TransformerLM with ``attention="flash"`` — the same three
+   parts: (a) the float32 step at B=2, T=129, card against CPU; (b) one
+   bfloat16 step at B=32, T=1025 with exactly 4 / 4 / 4 launches of the
+   flash forward, dk/dv and dq kernels, 0 / 0 of the softmax kernels and
+   9 / 9 / 1 / 1 of RMSNorm and cross-entropy; (c) 10 more steps, every
+   loss finite and the first within 0.5 of ln 32000, with the median
+   step time, tokens/s, peak memory and one step profiled by family;
+11. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
 and read just after: serving from phase 4 to the end of phase 5,
 BERT training over phase 6 (b), ResNet training over phase 7 (b), the
 bench path over phase 8 (b)'s warm-up and timed steps, the
-TransformerLM over phase 9 (b) and (c).  A graph replay
+TransformerLM over phase 9 (b) and (c) and, with flash attention, over
+phase 10 (b) and (c).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
@@ -226,6 +236,24 @@ ROW_TOL = 1e-6
 # card step vs CPU step, float32, TF32 off: loss 1e-5 relative, every
 # gradient max|d| <= 1e-4 of its tensor's largest value
 TF_LOSS_TOL, TF_GRAD_TOL = 1e-5, 1e-4
+# flash attention (kernel 5 and its dk/dv and dq kernels, phase 3) at the
+# TransformerLM's attention, (B, H, T, D) = (32, 8, 1024, 64) causal,
+# then ragged cases (B, H, Tq, Tk, D, causal): one row; cross lengths;
+# ragged tiles; the model's T = 1025; every head width class; B·H = 1
+FLASH_PATH = (TF_B, TF_H, TF_T - 1, TF_T - 1, TF_D // TF_H, True)
+FLASH_CASES = [(2, 2, 1, 1, 64, True), (2, 3, 70, 150, 32, False),
+               (2, 3, 200, 200, 64, True), (1, 4, 1025, 1025, 64, True),
+               (2, 2, 300, 300, 16, True), (2, 2, 300, 300, 32, False),
+               (2, 2, 300, 300, 128, True), (1, 1, 129, 129, 64, False)]
+# each output against its plain version on the same inputs (the
+# backward's from the kernel's own float32 output and lse): float32
+# max|d| <= 1e-5 of the largest |plain| value (the same float32 products,
+# summed in another order over up to 1025 keys); dq and dk at 1e-5 of
+# the size of the two terms whose difference ds = p·(dp − delta)·scale is,
+# scale·max|delta|·max|k| (|q| for dk), where that is larger: with one
+# key they cancel exactly and dq, dk are rounding noise; bfloat16 within
+# one bf16 ulp of each value (2^-8 of it) plus that allowance
+FLASH_TOL = 1e-5
 
 
 def phase(name):
@@ -499,9 +527,9 @@ def time_softmax_xent(torch, sx, dev, dtype, rate):
                    bwd_bytes, rate))
 
 
-def row_err(torch, got, want, scale=None):
-    """``(max|d| / scale, ok)`` of a row kernel's output against its plain
-    version at ROW_TOL of ``scale`` (default max|want|); bfloat16 may
+def row_err(torch, got, want, scale=None, tol=ROW_TOL):
+    """``(max|d| / scale, ok)`` of a kernel's output against its plain
+    version at ``tol`` of ``scale`` (default max|want|); bfloat16 may
     differ by one bf16 ulp of each value more."""
     assert got.dtype == want.dtype and got.shape == want.shape
     bf16 = want.dtype == torch.bfloat16
@@ -510,7 +538,7 @@ def row_err(torch, got, want, scale=None):
     if scale is None:
         scale = want.abs().max().item()
     d = (got - want).abs()
-    bound = torch.full_like(want, ROW_TOL * scale)
+    bound = torch.full_like(want, tol * scale)
     if bf16:
         bound += torch.ldexp(torch.ones_like(want),
                              torch.frexp(want.abs())[1] - 8)
@@ -584,6 +612,169 @@ def time_softmax(torch, sm, dev, rate):
     out = (report(f"softmax_fwd ({rows}, {cols}) float32", fwd, 2 * n, rate),
            report(f"softmax_bwd ({rows}, {cols}) float32", bwd, 3 * n, rate))
     del fwd_sets, bwd_sets
+    return out
+
+
+def flash_inputs(torch, case, dtype, dev, seed):
+    """``(q, k, v, g)`` on the card as the model's heads are: (B, H, T,
+    D) transposed views of (B, T, H, D) tensors; q, k ~ 0.5·N(0, 1), v
+    and g ~ N(0, 1)."""
+    b, h, tq, tk, d, _ = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    out = []
+    for t, mul in ((tq, 0.5), (tk, 0.5), (tk, 1.0), (tq, 1.0)):
+        x = torch.randn(b, t, h, d, generator=gen, device=dev) * mul
+        out.append(x.to(dt).transpose(1, 2))
+    return out
+
+
+def check_flash(torch, fa, dev):
+    """Kernel 5 and its backward kernels against their plain versions at
+    every case in both dtypes; returns the max |d| of o, of dk and dv,
+    and of dq at the path's shape in bfloat16 (the path's dtype)."""
+    path_err = None
+    for case in [FLASH_PATH] + FLASH_CASES:
+        causal = case[5]
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, g = flash_inputs(torch, case, dtype, dev, 0)
+            o, lse = fa.flash_fwd(q, k, v, causal=causal,
+                                  out_dtype=torch.float32)
+            o_low, _ = fa.flash_fwd(q, k, v, causal=causal)
+            dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, g, causal=causal)
+            ro, rlse = fa.flash_fwd_reference(q, k, v, causal=causal,
+                                              out_dtype=torch.float32)
+            rdq, rdk, rdv = fa.flash_bwd_reference(q, k, v, o, lse, g,
+                                                   causal=causal)
+            torch.cuda.synchronize()
+            # ds = p·(dp − delta)·scale: dq and dk at the size of the
+            # terms that cancel (FLASH_TOL's note)
+            delta = (g.float() * o).sum(-1).abs().max().item() \
+                * case[4] ** -0.5
+            errs = {name: row_err(torch, a, b, max(
+                b.float().abs().max().item(), t), FLASH_TOL)
+                for name, a, b, t in (
+                ("o_f32", o, ro, 0.0), ("o", o_low, ro.to(q.dtype), 0.0),
+                ("lse", lse, rlse, 0.0),
+                ("dq", dq, rdq, delta * k.float().abs().max().item()),
+                ("dk", dk, rdk, delta * q.float().abs().max().item()),
+                ("dv", dv, rdv, 0.0))}
+            print(f"flash_attention {case} {dtype}: max|d|/max|ref| "
+                  + " ".join(f"{n}={e:.2e}" for n, (e, _) in errs.items())
+                  + f" (tol {FLASH_TOL:g} of max"
+                  f"{', + 1 bf16 ulp' if dtype == 'bfloat16' else ''})",
+                  flush=True)
+            assert all(ok for _, ok in errs.values()), (case, dtype, errs)
+            if case == FLASH_PATH and dtype == "bfloat16":
+                path_err = tuple(
+                    max((a.float() - b.float()).abs().max().item()
+                        for a, b in pairs) for pairs in (
+                        [(o_low, ro.to(q.dtype))],
+                        [(dk, rdk), (dv, rdv)], [(dq, rdq)]))
+            del q, k, v, g, o, lse, o_low, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+    return path_err
+
+
+def time_by_kernel(torch, fn, argsets, keys, iters=50, warmup=5):
+    """``{key: device ms per call}`` of the kernels whose names hold each
+    key, and ``"*"`` for every kernel of the calls, from the profiler's
+    device trace over ``iters`` calls of ``fn`` cycling ``argsets``; plus
+    ``"stream"``, the CUDA-event time per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    device_ms, stream_ms = time_ms(torch, fn, argsets, iters, warmup)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*argsets[i % len(argsets)])
+        torch.cuda.synchronize()
+    out = {key: None for key in keys}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for key in keys:
+                if key in e.name:
+                    out[key] = (out[key] or 0.0) + \
+                        e.time_range.elapsed_us() / 1e3 / iters
+    out["*"], out["stream"] = device_ms, stream_ms
+    return out
+
+
+def time_flash(torch, fa, dev, rate):
+    """Times of kernel 5 and its two backward kernels at the path's shape
+    in bfloat16, as the path calls them (the forward writes the float32
+    output it keeps for delta), cycling 2 input sets (128 MiB each).
+    The plain versions compute the whole forward and the whole backward;
+    the library calls are ``F.scaled_dot_product_attention(is_causal=
+    True)`` and its autograd backward, timed only (the port never calls
+    them).  Bounds: each input read once and each output written once at
+    the memory rate; the products this run's causal mask keeps (T(T+1)/2
+    (q, k) pairs a head, 2·D FLOP a pair a product) at the bf16 tensor-
+    core peak, with the float32-FMA time of the same FLOPs beside it."""
+    import torch.nn.functional as F
+    b, h, t, _, d, causal = FLASH_PATH
+    sets, bwd_sets, lib_sets = [], [], []
+    for s in range(2):
+        q, k, v, g = flash_inputs(torch, FLASH_PATH, "bfloat16", dev, s)
+        o, lse = fa.flash_fwd(q, k, v, causal=causal,
+                              out_dtype=torch.float32)
+        sets.append((q, k, v))
+        bwd_sets.append((q, k, v, o, lse, g))
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        lib_sets.append((F.scaled_dot_product_attention(
+            *leaves, is_causal=True), *leaves, g))
+
+    def fwd(q, k, v):
+        return fa.flash_fwd(q, k, v, causal=causal, out_dtype=torch.float32)
+
+    def fwd_plain(q, k, v):
+        return fa.flash_fwd_reference(q, k, v, causal=causal,
+                                      out_dtype=torch.float32)
+
+    def bwd(q, k, v, o, lse, g):
+        return fa.flash_bwd(q, k, v, o, lse, g, causal=causal)
+
+    def bwd_plain(q, k, v, o, lse, g):
+        return fa.flash_bwd_reference(q, k, v, o, lse, g, causal=causal)
+
+    def lib_bwd(o, q, k, v, g):
+        return torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+
+    fwd_t = time_by_kernel(torch, fwd, sets, ["flash_fwd"])
+    bwd_t = time_by_kernel(torch, bwd, bwd_sets,
+                           ["flash_bwd_dkdv", "flash_bwd_dq"])
+    plain_f = time_ms(torch, fwd_plain, sets, iters=10, warmup=2)
+    plain_b = time_ms(torch, bwd_plain, bwd_sets, iters=10, warmup=2)
+    lib_f = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), sets, iters=50, warmup=5)
+    lib_b = time_ms(torch, lib_bwd, lib_sets, iters=50, warmup=5)
+    print(f"flash_bwd wrapper per call: kernels dkdv "
+          f"{bwd_t['flash_bwd_dkdv']} + dq {bwd_t['flash_bwd_dq']} ms of "
+          f"{bwd_t['*']} ms device time (the rest: delta = Σ dO·O), stream "
+          f"{bwd_t['stream']:.6f} ms; forward kernel {fwd_t['flash_fwd']} "
+          f"ms of {fwd_t['*']} ms", flush=True)
+    pairs = b * h * t * (t + 1) // 2
+    n = b * h * t * d                    # elements of one (B, H, T, D)
+    lse_b = b * h * t * 4
+    label = f"{FLASH_PATH} bfloat16"
+    out = []
+    for name, key, products, nbytes, plain, lib in (
+            # q, k, v read, o (float32) and lse written
+            ("flash_attention_fwd", "flash_fwd", 2, 3 * n * 2 + n * 4 + lse_b,
+             plain_f, lib_f),
+            # q, k, v, dO, lse, delta read; dk, dv written
+            ("flash_attention_bwd_dkdv", "flash_bwd_dkdv", 4,
+             6 * n * 2 + 2 * lse_b, plain_b, lib_b),
+            # q, k, v, dO, lse, delta read; dq written
+            ("flash_attention_bwd_dq", "flash_bwd_dq", 3,
+             5 * n * 2 + 2 * lse_b, plain_b, lib_b)):
+        times = fwd_t if key == "flash_fwd" else bwd_t
+        flops = products * 2 * pairs * d
+        print(f"{name}: {flops} FLOP take {flops / FP32_PEAK * 1e3:.6f} ms "
+              f"at the float32-FMA rate (67 TFLOP/s), the rate of this "
+              f"kernel's products", flush=True)
+        out.append(report(f"{name} {label}", {
+            "ms": (times[key], times["stream"]), "plain_ms": plain,
+            "library_ms": lib}, nbytes, rate, flops, BF16_PEAK))
+    del sets, bwd_sets, lib_sets
     return out
 
 
@@ -981,13 +1172,16 @@ _RESNET_FAMILIES = (
     ("memcpy", ("memcpy", "memset")))
 
 
-# the TransformerLM's kernels: the port's own (the cross-entropy pair
-# before the softmax pair, whose names both say softmax), then cuBLAS's
+# the TransformerLM's kernels: the port's own (the flash-attention
+# kernels; the cross-entropy pair before the softmax pair, whose names
+# both say softmax), then cuBLAS's
 # products (bf16 "nvjet" kernels on Hopper, float32 SIMT ones for the
 # attention logits), then PyTorch's elementwise kernels and reductions
 # (the casts, the scale and mask of the logits, GELU, residual adds, the
 # SGD update) and its embedding gather and scatter
 _TF_FAMILIES = (
+    ("flash_fwd", ("flash_fwd",)), ("flash_bwd_dkdv", ("flash_bwd_dkdv",)),
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("xent", ("xent",)), ("softmax_fwd", ("softmax_fwd",)),
     ("softmax_bwd", ("softmax_bwd",)), ("rms_norm_fwd", ("rms_fwd",)),
     ("rms_norm_bwd", ("rms_bwd",)),
@@ -1383,7 +1577,10 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
     "softmax_fwd": "softmax.fwd_launches",
     "softmax_bwd": "softmax.bwd_launches",
     "rms_norm_fwd": "rms_norm.fwd_launches",
-    "rms_norm_bwd": "rms_norm.bwd_launches"}
+    "rms_norm_bwd": "rms_norm.bwd_launches",
+    "flash_attention_fwd": "flash_attention.fwd_launches",
+    "flash_attention_bwd_dkdv": "flash_attention.bwd_dkdv_launches",
+    "flash_attention_bwd_dq": "flash_attention.bwd_dq_launches"}
 
 
 def zero_launches():
@@ -1569,13 +1766,14 @@ def bench_path(torch, np, dev, smi):
     return counts
 
 
-def compare_transformer_step(torch, np, dev):
-    """Phase 9 (a): one float32 SGD step of the TransformerLM at full
-    width, B=2, T=129, on the card against the CPU path from the same
-    weights and tokens: the loss and every gradient."""
+def compare_transformer_step(torch, np, dev, attention):
+    """Phases 9 and 10 (a): one float32 SGD step of the TransformerLM at
+    full width, B=2, T=129, on the card against the CPU path from the
+    same weights and tokens: the loss and every gradient."""
     from incubator_mxnet_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM)
-    cpu = TransformerLM(TransformerConfig(dtype="float32")).init(
+    cpu = TransformerLM(TransformerConfig(
+        dtype="float32", attention=attention)).init(
         torch.Generator().manual_seed(0), "cpu")
     card = copy.deepcopy(cpu).to(dev)
     tokens = torch.randint(0, TF_VOCAB, (TF_B_CPU, TF_T_CPU),
@@ -1591,7 +1789,8 @@ def compare_transformer_step(torch, np, dev):
     (l_cpu, g_cpu, t_cpu), (l_card, g_card, t_card) = res
     names = [n for n, _ in cpu.named_parameters()]
     worst = worst_ratio(np, dict(zip(names, g_card)), dict(zip(names, g_cpu)))
-    print(f"TransformerLM float32 step, B={TF_B_CPU}, T={TF_T_CPU}: CPU "
+    print(f"TransformerLM ({attention}) float32 step, B={TF_B_CPU}, "
+          f"T={TF_T_CPU}: CPU "
           f"{t_cpu:.2f} s, card {t_card:.2f} s (first call); loss card "
           f"{l_card:.7f} cpu {l_cpu:.7f} (tol {TF_LOSS_TOL:g} relative); "
           f"{len(names)} gradients, worst max|d|/max|g| {worst[0]:.3e} "
@@ -1602,30 +1801,38 @@ def compare_transformer_step(torch, np, dev):
     return worst[0]
 
 
-def transformer_step_launches():
+def transformer_step_launches(attention):
     """Launches of each kernel in one TransformerLM step at the default
-    config: one attention softmax a layer and two RMSNorms a layer plus
-    ln_f, forward and backward, and one cross-entropy pair."""
+    config: one attention a layer (the softmax pair for "gspmd", the
+    flash forward, dk/dv and dq kernels for "flash", none of the other)
+    and two RMSNorms a layer plus ln_f, forward and backward, and one
+    cross-entropy pair."""
     layers = 4
-    return {"softmax_fwd": layers, "softmax_bwd": layers,
+    soft, flash = (layers, 0) if attention == "gspmd" else (0, layers)
+    return {"softmax_fwd": soft, "softmax_bwd": soft,
+            "flash_attention_fwd": flash, "flash_attention_bwd_dkdv": flash,
+            "flash_attention_bwd_dq": flash,
             "rms_norm_fwd": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
             "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
 
 
-def train_transformer(torch, np, dev, smi):
-    """Phase 9; returns the TransformerLM path's launch counts."""
+def train_transformer(torch, np, dev, smi, attention):
+    """Phase 9 ("gspmd") or 10 ("flash"); returns the path's launch
+    counts."""
     from incubator_mxnet_tpu_torch.fuse import kernel_launches
-    from incubator_mxnet_tpu_torch.models.transformer import TransformerLM
-    compare_transformer_step(torch, np, dev)
+    from incubator_mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    compare_transformer_step(torch, np, dev, attention)
     gc.collect()
     torch.cuda.empty_cache()
 
-    model = TransformerLM().init(torch.Generator().manual_seed(0), dev)
+    model = TransformerLM(TransformerConfig(attention=attention)).init(
+        torch.Generator().manual_seed(0), dev)
     step = model.make_train_step(lr=1e-3)
     gen = torch.Generator().manual_seed(1)
     batches = [torch.randint(0, TF_VOCAB, (TF_B, TF_T), generator=gen).to(dev)
                for _ in range(TF_STEPS + 2)]
-    want = transformer_step_launches()
+    want = transformer_step_launches(attention)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches()                                     # path starts
@@ -1638,8 +1845,8 @@ def train_transformer(torch, np, dev, smi):
             first = kernel_launches()
             one = {k: first[v] for k, v in _KERNEL_COUNTERS.items()
                    if k in want}
-            print(f"one bfloat16 step at B={TF_B}, T={TF_T}: launches {one}",
-                  flush=True)
+            print(f"one bfloat16 step ({attention}) at B={TF_B}, T={TF_T}: "
+                  f"launches {one}", flush=True)
             assert one == want, (one, want)
     launched = kernel_launches()                        # path ends
     counts = {k: launched[_KERNEL_COUNTERS[k]] for k in want}
@@ -1672,7 +1879,9 @@ def train_transformer(torch, np, dev, smi):
         step(batches[-1])
         torch.cuda.synchronize()
 
-    profile_window(torch, "TransformerLM step", whole, _TF_FAMILIES)
+    profile_window(torch, f"TransformerLM step ({attention})", whole,
+                   _TF_FAMILIES)
+    del model, step, batches
     return counts
 
 
@@ -1698,6 +1907,7 @@ def main():
     from incubator_mxnet_tpu_torch.deploy import export_model
     from incubator_mxnet_tpu_torch.models.bert import BERTModel
     from incubator_mxnet_tpu_torch.ops import _build, layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
     from incubator_mxnet_tpu_torch.ops import fused_block as fb
     from incubator_mxnet_tpu_torch.ops import fused_conv as fc
     from incubator_mxnet_tpu_torch.ops import rms_norm as rn
@@ -1752,6 +1962,12 @@ def main():
     sm_times = time_softmax(torch, sm, dev, rate)
     rms_err = check_rms_norm(torch, rn, dev)
     rms_times = time_rms_norm(torch, rn, dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_err = check_flash(torch, fa, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_times = time_flash(torch, fa, dev, rate)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1871,9 +2087,15 @@ def main():
     torch.cuda.empty_cache()
 
     phase("9 train the TransformerLM")
-    tf = train_transformer(torch, np, dev, smi)
+    tf = train_transformer(torch, np, dev, smi, "gspmd")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    phase("10 kernels")
+    phase("10 train the TransformerLM, flash attention")
+    tf_flash = train_transformer(torch, np, dev, smi, "flash")
+    tf = {k: v + tf_flash[k] for k, v in tf.items()}
+
+    phase("11 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"
@@ -1908,6 +2130,14 @@ def main():
         dict(name="rms_norm_bwd", route="cuda", source=src + "rms_norm.cu",
              replaces=pk + ":669", launches=tf["rms_norm_bwd"],
              max_abs_err=rms_err[1], **rms_times[1]),
+    ] + [
+        dict(name=name, route="cuda", source=src + "flash_attention.cu",
+             replaces=where, launches=tf[name], max_abs_err=err, **times)
+        for name, where, err, times in zip(
+            ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq"),
+            (pk + ":348", pk + ":419 (XLA backward)",
+             pk + ":419 (XLA backward)"), flash_err, flash_times)
     ] + [
         dict(name=f"fused_matmul_bn_{part}", route="cuda",
              source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:{line}",

@@ -6,6 +6,8 @@ Usage:
         --smoke --device cpu
     python -m incubator_mxnet_tpu_torch.examples.train_transformer_lm \\
         --steps 20
+    python -m incubator_mxnet_tpu_torch.examples.train_transformer_lm \\
+        --attention flash
 
 The configuration is the JAX example's: ``TransformerConfig()`` (vocab
 32000, d_model 512, 8 heads, 4 layers, d_ff 2048, bfloat16) at B=32,
@@ -14,8 +16,10 @@ B=8, T=33 for 3 steps.  Runs on ``cuda`` unless given ``--device cpu``,
 and raises ``DeviceUnavailableError`` without a CUDA device.  The
 weights come from a ``torch.Generator`` seeded with ``--seed``, and each
 step draws fresh tokens from a second one seeded with ``--seed`` + 1,
-as the JAX example draws them from its key.  The device mesh flags
-(``--dp/--tp/--pp/--sp``) must be 1: distribution is not ported yet.
+as the JAX example draws them from its key.  ``--attention`` is
+``gspmd`` (the default) or ``flash`` (the flash-attention kernels);
+``ring`` and the device mesh flags (``--dp/--tp/--pp/--sp`` other than
+1) raise: distribution is not ported yet.
 """
 from __future__ import annotations
 

@@ -39,7 +39,7 @@ __all__ = ["FusedTrainStep", "make_fused_train_step", "sgd_init",
 
 # modules whose kernel wrappers keep launch counters (``*launches``)
 _KERNEL_MODULES = ("layer_norm", "softmax_xent", "fused_block",
-                   "fused_conv", "softmax", "rms_norm")
+                   "fused_conv", "softmax", "rms_norm", "flash_attention")
 
 
 def kernel_launches():

@@ -16,13 +16,16 @@ low-precision q and k are float32 (the JAX einsum's
 ``preferred_element_type``; here q and k are widened first, which
 computes the same exact products), divided by sqrt(head_dim), filled with
 -1e30 above the diagonal, and the float32 softmax is cast to the model's
-dtype before the product with v.  GELU is the tanh form, the default of
-``jax.nn.gelu``.
+dtype before the product with v.  ``attention="flash"`` runs the JAX
+model's flash branch instead: the flash-attention kernels, forward and
+backward (``ops/flash_attention.py``), which keep the logits, the
+probabilities and both products in float32 and never write the (T, T)
+logits to memory, so the two forms round differently in bfloat16.  GELU
+is the tanh form, the default of ``jax.nn.gelu``.
 
 Not ported yet (they raise ``NotImplementedError``): a device mesh,
 ``apply_pipelined``, ring attention and MoE (ROADMAP item 11,
-distribution), and ``attention="flash"`` (flash-attention kernel, slice
-4b).
+distribution).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..context import resolve_device
+from ..ops.flash_attention import flash_attention
 from ..ops.nn_ops import rms_norm, softmax
 from ..ops.softmax_xent import SoftmaxXentFunction
 
@@ -54,7 +58,7 @@ class TransformerConfig:
     dtype: str = "bfloat16"
     use_moe: bool = False
     n_experts: int = 8
-    attention: str = "gspmd"  # 'gspmd' | 'ring' | 'flash' (pallas kernel)
+    attention: str = "gspmd"  # 'gspmd' | 'ring' | 'flash' (kernel 5)
 
     @property
     def head_dim(self):
@@ -82,11 +86,7 @@ class TransformerLM(nn.Module):
         if cfg.use_moe:
             raise NotImplementedError(f"use_moe=True (parallel/moe) "
                                       f"{_DISTRIBUTION}")
-        if cfg.attention == "flash":
-            raise NotImplementedError(
-                "attention='flash' needs the flash-attention kernel "
-                "(pallas_kernels.py kernel 5), which slice 4b ports")
-        if cfg.attention != "gspmd":
+        if cfg.attention not in ("gspmd", "flash"):
             raise NotImplementedError(f"attention={cfg.attention!r} "
                                       f"{_DISTRIBUTION}")
         self.cfg = cfg
@@ -138,6 +138,8 @@ class TransformerLM(nn.Module):
 
     # -- forward ----------------------------------------------------------
     def _attention(self, q, k, v):
+        if self.cfg.attention == "flash":
+            return flash_attention(q, k, v, causal=True).to(q.dtype)
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         # in place: neither step's backward reads the logits
         logits.div_(self.cfg.head_dim ** 0.5)

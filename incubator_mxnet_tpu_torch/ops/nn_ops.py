@@ -224,8 +224,10 @@ def dropout(x, p=0.5, mode="training", axes=(), generator=None):
     for a in axes:
         shape[a] = 1
     keep = torch.rand(shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
-                                                         device=x.device))
+    # 1 - p rounded to x's dtype first, as JAX rounds the weak-typed scalar
+    kept = x / torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
 
 
 def softmax(x, axis=-1, temperature=None, length=None):
@@ -249,9 +251,11 @@ def softmax(x, axis=-1, temperature=None, length=None):
 
 
 def log_softmax(x, axis=-1, temperature=None):
+    """Log-softmax along ``axis``; ``temperature`` divides x first,
+    rounded to x's dtype as in :func:`softmax`."""
     (x,) = cast_args("log_softmax", x)
     if temperature is not None and temperature != 1.0:
-        x = x / temperature
+        x = x / torch.tensor(temperature, dtype=x.dtype, device=x.device)
     return torch.log_softmax(x, dim=axis)
 
 

@@ -36,6 +36,14 @@ one bf16 ulp of each value (2^-8 of it: the same float32 value rounded
 once may land on a neighbouring bf16 value) plus that float32 allowance.
 The small TransformerLM, card step against CPU step in float32 (TF32
 off): loss 1e-5 relative, every gradient 1e-4 of its largest value.
+Flash attention (kernel 5 and its dk/dv and dq kernels), each output
+against its plain version on the same inputs (the backward's from the
+kernel's own float32 output and lse): float32 within 1e-5 of the
+largest |plain| value (the same float32 products summed in another
+order, over up to 1025 keys); dq and dk within 1e-5 of the size of the
+two terms whose difference ds is (scale·max|delta|·max|k| or |q|) where
+that is larger: with one key they cancel exactly; bfloat16 one bf16 ulp
+of each value more.
 """
 import copy
 
@@ -55,6 +63,7 @@ from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
 from incubator_mxnet_tpu_torch.models.transformer import (TransformerConfig,
                                                           TransformerLM)
+from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 from incubator_mxnet_tpu_torch.ops import fused_block as fb
 from incubator_mxnet_tpu_torch.ops import fused_conv as fc
 from incubator_mxnet_tpu_torch.ops import layer_norm as ln
@@ -482,14 +491,16 @@ def test_fused_train_step_refuses_dropout_on_the_card(dev):
                               SoftmaxCrossEntropyLoss(), device=dev)
 
 
-def _row_close(got, want, what):
-    """Kernels 3-4 and 8-9 against their plain versions: float32 1e-6 of
-    the largest |want|; bfloat16 one bf16 ulp of each value more."""
+def _row_close(got, want, what, tol=1e-6, terms=0.0):
+    """Kernels 3-5 and 8-9 against their plain versions: float32 ``tol``
+    of the largest |want|, or of ``terms`` where larger; bfloat16 one
+    bf16 ulp of each value more."""
     assert got.dtype == want.dtype and got.shape == want.shape, what
     bf16 = want.dtype == torch.bfloat16
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all() and torch.isfinite(want).all(), what
-    bound = torch.full_like(want, 1e-6 * want.abs().max().item())
+    scale = max(want.abs().max().item(), terms)
+    bound = torch.full_like(want, tol * scale)
     if bf16:
         bound += torch.ldexp(torch.ones_like(want),
                              torch.frexp(want.abs())[1] - 8)
@@ -553,9 +564,19 @@ def test_rms_norm_kernels_match_plain(dev, dtype, rows, cols):
 def test_small_transformer_step_on_the_card_matches_cpu(dev, no_tf32):
     """The example's --smoke config (2 layers), one SGD step on the card
     against the same step on the CPU, with each new kernel's launches."""
+    _small_transformer_step(dev, "gspmd", [2, 2, 5, 5, 1, 1, 0, 0, 0])
+
+
+def test_small_flash_transformer_step_on_the_card_matches_cpu(dev, no_tf32):
+    """The same with ``attention="flash"``: the flash kernels in place of
+    the softmax kernels, two of each a step."""
+    _small_transformer_step(dev, "flash", [0, 0, 5, 5, 1, 1, 2, 2, 2])
+
+
+def _small_transformer_step(dev, attention, want_launches):
     from incubator_mxnet_tpu_torch.examples.train_transformer_lm import (
         config)
-    cfg, batch, seq = config(smoke=True)
+    cfg, batch, seq = config(smoke=True, attention=attention)
     cpu = TransformerLM(cfg).init(torch.Generator().manual_seed(0), "cpu")
     card = copy.deepcopy(cpu).to(dev)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
@@ -563,20 +584,87 @@ def test_small_transformer_step_on_the_card_matches_cpu(dev, no_tf32):
     got = {}
     for where, model in (("cpu", cpu), ("card", card)):
         params = list(model.parameters())
-        before = (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
-                  rn.bwd_launches, sx.fwd_launches, sx.bwd_launches)
+        before = _tf_launches()
         loss = model.loss(tokens.to(params[0].device))
         grads = torch.autograd.grad(loss, params)
         torch.cuda.synchronize()
-        after = (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
-                 rn.bwd_launches, sx.fwd_launches, sx.bwd_launches)
         got[where] = (loss.item(), [g.cpu() for g in grads],
-                      [a - b for a, b in zip(after, before)])
+                      [a - b for a, b in zip(_tf_launches(), before)])
     (l_cpu, g_cpu, n_cpu), (l_card, g_card, n_card) = got["cpu"], got["card"]
-    assert n_cpu == [0] * 6 and n_card == [2, 2, 5, 5, 1, 1]
+    assert n_cpu == [0] * 9 and n_card == want_launches
     assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
     for (name, _), a, b in zip(cpu.named_parameters(), g_card, g_cpu):
         _within(a, b, 1e-4, name)
     step = card.make_train_step()
     losses = [step(tokens.to(dev)).item() for _ in range(3)]
     assert all(abs(v - l_card) < 0.5 for v in losses)
+
+
+def _tf_launches():
+    return (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
+            rn.bwd_launches, sx.fwd_launches, sx.bwd_launches,
+            fa.fwd_launches, fa.bwd_dkdv_launches, fa.bwd_dq_launches)
+
+
+# kernel 5 and its backward: the same float32 products summed in another
+# order over up to 1025 keys
+FLASH_TOL = 1e-5
+
+
+def _bthd(b, h, t, d, dtype, dev, gen, mul=1.0):
+    """(B, H, T, D) as the model's heads are: a transposed view of a
+    (B, T, H, D) tensor."""
+    x = torch.randn(b, t, h, d, generator=gen, device=dev) * mul
+    return x.to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,tq,tk,d,causal", [
+    (1, 1, 1, 1, 64, True), (2, 3, 64, 64, 32, False),
+    (1, 2, 70, 150, 32, False), (1, 2, 70, 150, 32, True),
+    (1, 2, 150, 70, 32, True), (2, 2, 200, 200, 64, True),
+    (1, 1, 1025, 1025, 64, True),          # the TransformerLM's T
+    (1, 2, 130, 130, 16, True), (1, 2, 130, 130, 128, False),
+    (1, 1, 65, 65, 1, True)])
+def test_flash_attention_kernels_match_plain(dev, no_tf32, dtype, b, h, tq,
+                                             tk, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, dtype)
+    q = _bthd(b, h, tq, d, dt, dev, gen, 0.5)
+    k = _bthd(b, h, tk, d, dt, dev, gen, 0.5)
+    v = _bthd(b, h, tk, d, dt, dev, gen)
+    g = _bthd(b, h, tq, d, dt, dev, gen)
+    before = (fa.fwd_launches, fa.bwd_dkdv_launches, fa.bwd_dq_launches)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, out_dtype=torch.float32)
+    o_low, lse_low = fa.flash_fwd(q, k, v, causal=causal)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, g, causal=causal)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, causal=causal,
+                                      out_dtype=torch.float32)
+    rdq, rdk, rdv = fa.flash_bwd_reference(q, k, v, o, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_dkdv_launches, fa.bwd_dq_launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    _row_close(o, ro, "o float32", FLASH_TOL)
+    _row_close(o_low, ro.to(dt), "o", FLASH_TOL)
+    _row_close(lse, rlse, "lse", FLASH_TOL)
+    assert torch.equal(lse, lse_low)
+    # ds = p·(dp − delta)·scale subtracts two terms that cancel (entirely
+    # with one key: p = 1 and dp = delta), so dq and dk are held at the
+    # size of those terms, scale·max|delta|·max|k| (|q| for dk)
+    delta = (g.float() * o).sum(-1).abs().max().item() * d ** -0.5
+    _row_close(dq, rdq, "dq", FLASH_TOL, delta * k.float().abs().max().item())
+    _row_close(dk, rdk, "dk", FLASH_TOL, delta * q.float().abs().max().item())
+    _row_close(dv, rdv, "dv", FLASH_TOL)
+
+
+def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 1, 4, 129, device=dev)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fa.flash_fwd(q, q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_fwd(q[..., :64], q[..., :64].bfloat16(), q[..., :64])
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_fwd(q[..., :64].half(), q[..., :64].half(),
+                     q[..., :64].half())
+    with pytest.raises(ValueError, match="cuda"):
+        fa.flash_fwd(q[..., :64], q[..., :64].cpu(), q[..., :64])

@@ -1,0 +1,173 @@
+"""Flash attention of the PyTorch port against the JAX package's.
+
+The port's plain versions (what its wrappers run on CPU tensors), by
+way of ``flash_attention`` and its autograd Function, are held against
+``pk.flash_attention`` run as ``tests/test_pallas.py`` runs it: the
+Pallas forward kernel in interpret mode on the CPU, and its custom VJP,
+``_attn_bwd_reference``.  The CUDA kernels run only on the card
+(``tests/test_torch_cuda.py``).
+
+Tolerances.  float32: the output within 1e-6 absolute plus 1e-5 of
+itself (both sides compute the same float32 products and exps, summed
+in another order and, in JAX, over 128-wide blocks with an online
+rescale); the lse within 1e-5 absolute of a float64 numpy logsumexp of
+the masked, scaled logits (float32 rounding of values about log T);
+each gradient within 1e-5 of its tensor's largest value (float32 sums of
+up to 96 terms of p·(dp − delta), whose two parts cancel).  bfloat16:
+both sides widen the same bf16 values and compute in float32, then round
+once, so each value may land one bf16 ulp away (2^-8 of it), plus the
+float32 allowance.  The bf16 gradients take the cotangent 2·o from the
+JAX side, so both backwards see the same bits (a one-ulp difference in
+o would otherwise move the cotangent of ``(o ** 2).sum()``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from incubator_mxnet_tpu.ops import pallas_kernels as pk
+
+from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+
+# (B, H, Tq, Tk, D, causal): test_pallas.py's shapes, its cross lengths,
+# and a 16-wide head
+CASES = [(2, 3, 64, 64, 32, False), (2, 3, 64, 64, 32, True),
+         (2, 3, 200, 200, 64, False), (2, 3, 200, 200, 64, True),
+         (1, 2, 70, 150, 32, False), (1, 2, 50, 50, 16, True)]
+F32_ATOL, F32_RTOL = 1e-6, 1e-5
+LSE_ATOL = 1e-5
+GRAD_TOL = 1e-5
+
+
+def _inputs(b, h, tq, tk, d, seed=0):
+    """q, k ~ 0.5·N(0, 1), v ~ N(0, 1), as test_pallas.py draws them."""
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, h, tq, d).astype(np.float32) * 0.5,
+            rs.randn(b, h, tk, d).astype(np.float32) * 0.5,
+            rs.randn(b, h, tk, d).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    """The same values as JAX arrays and as torch tensors in ``dtype``;
+    in bfloat16 both sides get the bf16 rounding JAX makes."""
+    jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        getattr(torch, dtype)) for a in jx]
+    return jx, tx
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a.astype(jnp.float32))
+
+
+def _close(got, want, dtype, atol, rtol=0.0):
+    bound = atol + rtol * np.abs(want)
+    if dtype == "bfloat16":
+        bound = bound + np.ldexp(1.0, np.frexp(np.abs(want))[1] - 8)
+    excess = np.abs(got - want) - bound
+    assert np.all(excess <= 0), excess.max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_forward_matches_pallas_kernel(case, dtype):
+    b, h, tq, tk, d, causal = case
+    (jq, jk, jv), (tq_, tk_, tv) = _both(_inputs(b, h, tq, tk, d), dtype)
+    want = _np(pk.flash_attention(jq, jk, jv, causal=causal))
+    got = fa.flash_attention(tq_, tk_, tv, causal=causal)
+    assert got.dtype == tq_.dtype and tuple(got.shape) == (b, h, tq, d)
+    _close(_np(got), want, dtype, F32_ATOL, F32_RTOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_lse_matches_numpy_logsumexp(case, dtype):
+    b, h, tq, tk, d, causal = case
+    _, (q, k, v) = _both(_inputs(b, h, tq, tk, d, seed=1), dtype)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, tq)
+    s = np.einsum("bhqd,bhkd->bhqk", q.double().numpy(),
+                  k.double().numpy()) * d ** -0.5
+    if causal:
+        s = np.where(np.tril(np.ones((tq, tk), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_gradients_match_attn_bwd_reference(causal, dtype):
+    """Gradients of ``(o ** 2).sum()`` at test_pallas.py's (1, 2, 96, 32)
+    against ``jax.vjp`` of ``pk.flash_attention``, whose backward is
+    ``_attn_bwd_reference``."""
+    (jq, jk, jv), (tq_, tk_, tv) = _both(_inputs(1, 2, 96, 96, 32, seed=14),
+                                         dtype)
+    o_j, vjp = jax.vjp(lambda q, k, v: pk.flash_attention(
+        q, k, v, causal=causal), jq, jk, jv)
+    want = [_np(g) for g in vjp(2 * o_j)]
+    leaves = [t.clone().requires_grad_(True) for t in (tq_, tk_, tv)]
+    o = fa.flash_attention(*leaves, causal=causal)
+    if dtype == "float32":
+        got = torch.autograd.grad((o ** 2).sum(), leaves)
+    else:
+        ct = torch.from_numpy(_np(2 * o_j)).to(o.dtype)
+        got = torch.autograd.grad(o, leaves, ct)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == tq_.dtype, name
+        _close(_np(g), w, dtype, GRAD_TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_matches_attn_bwd_reference_cross_lengths(causal, dtype):
+    """``flash_bwd`` from the forward's float32 output and lse against
+    ``_attn_bwd_reference`` called directly, at Tq = 70, Tk = 150 (causal
+    aligned top-left: the last 80 keys get no gradient)."""
+    (jq, jk, jv), (q, k, v) = _both(_inputs(1, 2, 70, 150, 32, seed=3),
+                                    dtype)
+    g = np.random.RandomState(4).randn(1, 2, 70, 32).astype(np.float32)
+    (jg,), (tg,) = _both([g], dtype)
+    scale = 32 ** -0.5
+    want = [_np(a) for a in pk._attn_bwd_reference(jq, jk, jv, scale, causal,
+                                                   jg)]
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, out_dtype=torch.float32)
+    got = fa.flash_bwd(q, k, v, o, lse, tg, causal=causal)
+    for name, a, w in zip("qkv", got, want):
+        _close(_np(a), w, dtype, GRAD_TOL * np.abs(w).max())
+    if causal:
+        assert not got[1][:, :, 70:].any() and not got[2][:, :, 70:].any()
+
+
+def test_residual_is_the_float32_output():
+    """With a gradient wanted, the forward keeps O in float32 and returns
+    its bf16 rounding, which is the output the kernel writes in bf16."""
+    _, (q, k, v) = _both(_inputs(1, 2, 40, 40, 16, seed=5), "bfloat16")
+    o32, lse32 = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
+    o16, lse16 = fa.flash_fwd(q, k, v, causal=True)
+    assert o32.dtype == torch.float32 and o16.dtype == torch.bfloat16
+    assert torch.equal(o32.to(torch.bfloat16), o16)
+    assert torch.equal(lse32, lse16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    assert torch.equal(out, o16)
+    saved = out.grad_fn.saved_tensors
+    assert any(t.dtype == torch.float32 and torch.equal(t, o32)
+               for t in saved)
+
+
+def test_scale_defaults_to_head_dim_and_cpu_launches_nothing():
+    _, (q, k, v) = _both(_inputs(1, 1, 20, 30, 8, seed=6), "float32")
+    before = (fa.fwd_launches, fa.bwd_dkdv_launches, fa.bwd_dq_launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    out.sum().backward()
+    explicit = fa.flash_attention(q, k, v, sm_scale=8 ** -0.5)
+    assert torch.equal(out.detach(), explicit)
+    assert not torch.equal(explicit, fa.flash_attention(q, k, v,
+                                                        sm_scale=0.5))
+    assert (fa.fwd_launches, fa.bwd_dkdv_launches,
+            fa.bwd_dq_launches) == before          # CPU: plain versions

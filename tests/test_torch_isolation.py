@@ -72,7 +72,7 @@ def test_importing_the_port_loads_no_jax():
                 "examples.train_resnet_fused", "ops._fused_common",
                 "amp", "amp.amp", "amp.lists", "fuse", "bench",
                 "ops.softmax", "ops.rms_norm", "models.transformer",
-                "examples.train_transformer_lm"):
+                "examples.train_transformer_lm", "ops.flash_attention"):
         assert "incubator_mxnet_tpu_torch." + mod in names, mod
 
 

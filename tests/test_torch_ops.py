@@ -1,7 +1,8 @@
 """The PyTorch port's plain ops against the JAX package's, on the CPU.
 
-Float32 throughout; tolerance 1e-5 relative and absolute, for sums
-taken in another order.
+Float32, tolerance 1e-5 relative and absolute, for sums taken in
+another order; the bfloat16 tests of ``log_softmax`` and ``dropout``
+state theirs.
 """
 import numpy as np
 import pytest
@@ -109,6 +110,47 @@ def test_log_softmax_and_pick_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     with pytest.raises(ValueError, match="not ported"):
         index_ops.pick(lp, torch.from_numpy(idx), mode="wrap")
+
+
+def test_log_softmax_bfloat16_rounds_the_temperature_like_jax():
+    """bfloat16 at an inexact temperature: both divide by the temperature
+    rounded to bf16 (JAX rounds the weak-typed scalar), so x / T is the
+    same bf16 array on both sides; each library's own log_softmax may
+    then round one bf16 ulp apart (measured: 3187 of 19200 elements,
+    none by more).  Dividing by the unrounded 0.3 moves 2640 elements
+    further than that."""
+    x = (4 * np.random.RandomState(0).standard_normal((64, 300))).astype(
+        np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = nn_ops.log_softmax(tx, axis=-1, temperature=0.3)
+    want = np.asarray(jax_nn_ops.log_softmax.fn(
+        jx, axis=-1, temperature=0.3).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(got), np.abs(want)))[1]
+                   - 8)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.3])
+def test_dropout_bfloat16_scales_like_jax(p):
+    """The kept elements equal the JAX expression ``x / (1.0 - p)`` on the
+    same bf16 values bit for bit: 1 - p is rounded to bf16 first (bf16(0.9)
+    = 0.8984375).  The two packages draw different masks, so only the kept
+    elements are compared."""
+    jx = jnp.asarray(np.linspace(-3, 3, 1001, dtype=np.float32)).astype(
+        jnp.bfloat16)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        torch.bfloat16)
+    y = nn_ops.dropout(tx, p, generator=torch.Generator().manual_seed(0))
+    assert y.dtype == torch.bfloat16
+    y = y.float().numpy()
+    want = np.asarray((jx / (1.0 - p)).astype(jnp.float32))
+    kept = y != 0
+    assert 0.5 * (1 - p) < kept.mean() < 1.0
+    np.testing.assert_array_equal(y[kept], want[kept])
 
 
 @pytest.mark.parametrize("case", ["fused", "axis0", "dense", "from_logits",

@@ -37,6 +37,7 @@ from incubator_mxnet_tpu_torch.convert import (transformer_params_from_jax,
 from incubator_mxnet_tpu_torch.examples import train_transformer_lm
 from incubator_mxnet_tpu_torch.models.transformer import (TransformerConfig,
                                                           TransformerLM)
+from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 from incubator_mxnet_tpu_torch.ops import rms_norm as rn
 from incubator_mxnet_tpu_torch.ops import softmax as sm
 
@@ -130,16 +131,20 @@ def test_weights_carry_across_one_for_one(smoke_params):
     assert model.layers["wqkv"].shape == (2, 64, 192)
 
 
-def test_float32_step_matches_jax(smoke_params):
-    params = smoke_params["float32"]
+def _launches():
+    return (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
+            rn.bwd_launches, fa.fwd_launches, fa.bwd_dkdv_launches,
+            fa.bwd_dq_launches)
+
+
+def _check_float32_step(params, attention):
     tokens = _tokens(8, 33, 256)
-    want = _jax_run(dict(SMOKE, dtype="float32"), params, tokens)
-    model = _port(dict(SMOKE, dtype="float32"), params)
-    before = (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
-              rn.bwd_launches)
+    cfg = dict(SMOKE, dtype="float32", attention=attention)
+    want = _jax_run(cfg, params, tokens)
+    model = _port(cfg, params)
+    before = _launches()
     got = _port_run(model, tokens)
-    assert before == (sm.fwd_launches, sm.bwd_launches, rn.fwd_launches,
-                      rn.bwd_launches)          # CPU: the plain versions
+    assert before == _launches()                # CPU: the plain versions
     np.testing.assert_allclose(got["logits"], want["logits"], rtol=0,
                                atol=1e-5)
     assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
@@ -153,13 +158,26 @@ def test_float32_step_matches_jax(smoke_params):
                                    err_msg=k)
 
 
-def test_bfloat16_step_matches_jax(smoke_params):
-    params = smoke_params["bfloat16"]
+def test_float32_step_matches_jax(smoke_params):
+    _check_float32_step(smoke_params["float32"], "gspmd")
+
+
+def test_flash_float32_step_matches_jax(smoke_params):
+    """``attention="flash"``: the port's flash Function (plain versions)
+    against the JAX model's flash branch, ``pk.flash_attention`` in
+    interpret mode with ``_attn_bwd_reference`` as its backward."""
+    _check_float32_step(smoke_params["float32"], "flash")
+
+
+def _check_bfloat16_step(params, attention):
     tokens = _tokens(8, 33, 256, seed=1)
-    want = _jax_run(dict(SMOKE, dtype="bfloat16"), params, tokens)
-    exact = _jax_run(dict(SMOKE, dtype="float32"), jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32), params), tokens)
-    got = _port_run(_port(dict(SMOKE, dtype="bfloat16"), params), tokens)
+    want = _jax_run(dict(SMOKE, dtype="bfloat16", attention=attention),
+                    params, tokens)
+    exact = _jax_run(dict(SMOKE, dtype="float32", attention=attention),
+                     jax.tree_util.tree_map(
+                         lambda a: a.astype(jnp.float32), params), tokens)
+    got = _port_run(_port(dict(SMOKE, dtype="bfloat16",
+                               attention=attention), params), tokens)
 
     def dist(a, b):
         return np.abs(a - b).max()
@@ -175,6 +193,36 @@ def test_bfloat16_step_matches_jax(smoke_params):
         bound = (np.ldexp(1.0, np.frexp(np.abs(w))[1] - 8)
                  + LR * np.abs(got["grads"][k] - g))
         assert np.all(np.abs(got["after"][k] - w) <= bound), k
+
+
+def test_bfloat16_step_matches_jax(smoke_params):
+    _check_bfloat16_step(smoke_params["bfloat16"], "gspmd")
+
+
+def test_flash_bfloat16_step_matches_jax(smoke_params):
+    _check_bfloat16_step(smoke_params["bfloat16"], "flash")
+
+
+def test_flash_model_matches_gspmd_model(smoke_params):
+    """The port's two attention forms from the same float32 weights, as
+    the JAX package's test_pallas.py holds its two: logits, loss and every
+    gradient within float32 rounding of each other (the same function;
+    the flash form sums over keys in another order)."""
+    tokens = torch.from_numpy(_tokens(4, 33, 256, seed=3))
+    out = {}
+    for attention in ("gspmd", "flash"):
+        model = _port(dict(SMOKE, dtype="float32", attention=attention),
+                      smoke_params["float32"])
+        with torch.no_grad():
+            logits = model(tokens[:, :-1])
+        loss = model.loss(tokens)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[attention] = (logits, loss.item(), grads)
+    (lg, ll, gg), (lf, lf_loss, gf) = out["gspmd"], out["flash"]
+    torch.testing.assert_close(lf, lg, rtol=0, atol=1e-5)
+    assert abs(lf_loss - ll) <= 1e-6 * abs(ll)
+    for a, b in zip(gf, gg):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
 
 
 def test_default_config_forward_and_loss():
@@ -212,16 +260,34 @@ def test_example_smoke_runs_on_the_cpu():
     assert all(abs(v - np.log(256)) < 0.5 for v in losses)
 
 
-@pytest.mark.parametrize("kwargs", [dict(attention="flash"),
-                                    dict(attention="ring"),
+def test_example_trains_with_flash_attention_on_the_cpu():
+    """``--attention flash`` trains the same three steps as the gspmd
+    form, to float32 rounding (the same function, the same tokens)."""
+    flash = train_transformer_lm.main(["--smoke", "--device", "cpu",
+                                       "--attention", "flash"])
+    gspmd = train_transformer_lm.main(["--smoke", "--device", "cpu"])
+    assert len(flash) == 3 and np.isfinite(flash).all()
+    np.testing.assert_allclose(flash, gspmd, rtol=1e-6)
+
+
+def test_flash_config_builds_on_its_kernel():
+    cfg = TransformerConfig(**SMOKE, attention="flash")
+    model = TransformerLM(cfg).init(device="cpu")
+    assert model.cfg.attention == "flash"
+    before = _launches()
+    loss = model.loss(torch.from_numpy(_tokens(2, 9, 256, seed=4)))
+    loss.backward()
+    assert torch.isfinite(loss) and before == _launches()
+
+
+@pytest.mark.parametrize("kwargs", [dict(attention="ring"),
                                     dict(use_moe=True)])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         TransformerLM(TransformerConfig(**SMOKE, **kwargs))
 
 
-@pytest.mark.parametrize("flags", [["--attention", "flash"],
-                                   ["--attention", "ring"], ["--dp", "2"],
+@pytest.mark.parametrize("flags", [["--attention", "ring"], ["--dp", "2"],
                                    ["--tp", "2"], ["--pp", "2"],
                                    ["--sp", "2"]])
 def test_example_refuses_unported_flags(flags):
