@@ -75,7 +75,28 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    9 / 9 / 1 / 1 of RMSNorm and cross-entropy; (c) 10 more steps, every
    loss finite and the first within 0.5 of ln 32000, with the median
    step time, tokens/s, peak memory and one step profiled by family;
-11. the kernels line (JSON), then the last line
+11. run-time-compiled CUDA C (``rtc.CudaModule``, NVRTC to a cubin,
+   ``cuLaunchKernel``; kernel row 17) — user kernels compiled and
+   launched as reference MXNet's rtc is used: an ``extern "C"`` saxpy
+   at n = 2^26 + 3 on the current stream and on a side stream, a
+   template through ``exports`` for float and ``__half``, a block sum
+   with 64 KiB of dynamic shared memory on a ragged length and an
+   ``int64_t`` scalar; each against its plain version, then a syntax
+   error, a CPU tensor, a wrong dtype, a wrong argument count, a
+   non-contiguous tensor and a mangled name without exports, each of
+   which must raise, and ``PallasModule`` kernels on the card against
+   the CPU; saxpy's time beside its bound, its plain version and
+   ``torch.add``, and the host time of one launch;
+12. LeNet (``examples/train_mnist.py``'s network at full size, float32)
+   — (a) one Adam step on the card against the same step on the CPU,
+   the card's layers deferred and given the CPU model's weights by
+   ``params_from_jax``; (b) the script's loop, 2 epochs of 128 steps at
+   B=64 on its synthetic data, with exactly one launch of each
+   cross-entropy kernel a step and every loss finite, the median step
+   time, samples/s and 5 steps profiled by kernel family; (c) 60 Adam
+   steps on one fixed batch, whose loss must fall from about ln 10 to
+   below 1.0 and whose training accuracy must pass 0.9;
+13. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -83,7 +104,8 @@ and read just after: serving from phase 4 to the end of phase 5,
 BERT training over phase 6 (b), ResNet training over phase 7 (b), the
 bench path over phase 8 (b)'s warm-up and timed steps, the
 TransformerLM over phase 9 (b) and (c) and, with flash attention, over
-phase 10 (b) and (c).  A graph replay
+phase 10 (b) and (c), the user kernels over phase 11's compiles and
+launches, and LeNet over phase 12 (b).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
@@ -92,6 +114,7 @@ paths it ran on.
 import copy
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -254,6 +277,76 @@ FLASH_CASES = [(2, 2, 1, 1, 64, True), (2, 3, 70, 150, 32, False),
 # key they cancel exactly and dq, dk are rounding noise; bfloat16 within
 # one bf16 ulp of each value (2^-8 of it) plus that allowance
 FLASH_TOL = 1e-5
+# run-time-compiled CUDA C (phase 11, kernel row 17): the user's saxpy,
+# y = alpha·x + y in place, at n = 2^26 + 3 float32 with a grid-stride
+# loop.  NVRTC contracts alpha·x + y into one FMA (one rounding), so the
+# kernel is held to the plain version computed in float64 and rounded
+# once to float32: within one float32 ulp of each value (the two differ
+# only where rounding twice, through float64, lands on the other
+# neighbour).  The __half axpy may round the product and the sum apart:
+# one half ulp of each value plus one of alpha·x.  The block sums (64 KiB
+# of shared memory a block) against torch.sum over the same blocks:
+# 1e-5 of each block's sum of |x| (float32 sums of 16384 terms in another
+# order; the worst case of the kernel's order is about 4.3e-6)
+RTC_N, RTC_ALPHA = 2 ** 26 + 3, 1.7
+RTC_CHUNK = 16384                       # floats a block: 64 KiB
+RTC_SUM_N = 37 * RTC_CHUNK + 1234       # ragged: the last block is short
+RTC_SUM_TOL = 1e-5
+RTC_SAXPY = r"""
+extern "C" __global__ void saxpy(const float *x, float *y, float alpha,
+                                 int n) {
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += gridDim.x * blockDim.x)
+        y[i] = alpha * x[i] + y[i];
+}
+"""
+RTC_AXPY = r"""
+#include <cuda_fp16.h>
+template <typename T>
+__global__ void axpy(const T *x, T *y, T alpha, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = alpha * x[i] + y[i];
+}
+"""
+RTC_BLOCK_SUM = r"""
+extern "C" __global__ void block_sum(const float *x, float *out, int n,
+                                     int chunk) {
+    extern __shared__ float buf[];
+    long long base = (long long)blockIdx.x * chunk;
+    for (int i = threadIdx.x; i < chunk; i += blockDim.x)
+        buf[i] = base + i < n ? x[base + i] : 0.0f;
+    __syncthreads();
+    float s = 0.0f;
+    for (int i = threadIdx.x; i < chunk; i += blockDim.x) s += buf[i];
+    __syncthreads();
+    buf[threadIdx.x] = s;
+    __syncthreads();
+    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+        if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) out[blockIdx.x] = buf[0];
+}
+"""
+RTC_IOTA64 = r"""
+extern "C" __global__ void iota64(long long *out, long long start, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = start + 3LL * i;
+}
+"""
+RTC_MANGLED = "__global__ void scale(float *x) { x[threadIdx.x] *= 2.0f; }\n"
+RTC_BROKEN = 'extern "C" __global__ void broken(float *x) { x[0] = 1.0f }\n'
+# LeNet (phase 12): examples/train_mnist.py's network and loop at full
+# size (28x28, B=64, Adam lr 3e-3); (a) one step card vs CPU, float32
+# with TF32 off: loss 1e-5 relative, every gradient max|d| <= 1e-4 of its
+# tensor's largest value (the same float32 convolutions and products
+# summed in another order), updates and weights as phase 6's;
+# (b) the script's 2 epochs of 8192 samples (128 steps each); (c) 60
+# steps on one fixed batch, the overfit drive: the loss from about
+# ln 10 to below 1.0, training accuracy above 0.9
+MNIST_B, MNIST_LR, MNIST_N, MNIST_EPOCHS = 64, 3e-3, 8192, 2
+MNIST_GRAD_TOL = 1e-4
+OVERFIT_STEPS, OVERFIT_LOSS, OVERFIT_ACC = 60, 1.0, 0.9
 
 
 def phase(name):
@@ -1247,6 +1340,47 @@ def bert_step_parts(torch, net, trainer, ce, batch):
     return fwd_bwd, update
 
 
+def check_step(np, results, tol, lr):
+    """Hold one training step on the card to the same step on the CPU:
+    ``results`` is ``[(loss, grads, weights after, updates, seconds)]``
+    for the CPU, then the card.  The loss within 1e-5 relative, every
+    gradient max |d| <= tol · max |g| per tensor, the update of every
+    weight where its gradient is large (``UPDATE_TOL``), every weight
+    after the update within 2·lr.  Returns the worst gradient ratio."""
+    ((l_cpu, g_cpu, w_cpu, d_cpu, _),
+     (l_card, g_card, w_card, d_card, _)) = results
+    assert np.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), \
+        (l_card, l_cpu)
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        scale = np.abs(want).max()
+        err = np.abs(got - want).max()
+        assert err <= tol * max(scale, 1e-30), (name, err, scale)
+        if scale > 0 and err / scale > worst:
+            worst, worst_name = err / scale, name
+    w_err = max(np.abs(w_card[k] - w_cpu[k]).max() for k in w_cpu)
+    assert w_err <= 2 * lr, w_err
+    u_err, n_large = 0.0, 0
+    for name, g in g_cpu.items():
+        large = np.abs(g) > 1e-2 * np.abs(g).max()
+        if not large.any():
+            continue
+        n_large += int(large.sum())
+        err = np.abs(d_card[name] - d_cpu[name])[large].max()
+        assert err <= UPDATE_TOL * lr, (name, err)
+        u_err = max(u_err, err)
+    assert n_large > 0.01 * sum(g.size for g in g_cpu.values()), n_large
+    print(f"loss card {l_card:.7f} cpu {l_cpu:.7f}; {len(g_cpu)} gradients "
+          f"agree, worst max|d|/max|g| = {worst:.3e} ({worst_name}, tol "
+          f"{tol:g}); update w_after - w_before where |g| > 1e-2 max|g| "
+          f"({n_large} weights) max|d| = {u_err:.3e} (atol "
+          f"{UPDATE_TOL:g}*lr = {UPDATE_TOL * lr:g}); weights after Adam "
+          f"max|d| = {w_err:.3e} (atol 2*lr = {2 * lr:g})", flush=True)
+    return worst
+
+
 def compare_step(torch, np, dev, cfg, batch_size, seq_len, tol, lr):
     """One step of the same model, batch and Adam on the CPU and on
     ``dev``: the loss, every gradient (max |d| <= tol · max |g| per
@@ -1281,40 +1415,9 @@ def compare_step(torch, np, dev, cfg, batch_size, seq_len, tol, lr):
         results.append((loss, grads, after,
                         {k: after[k] - before[k] for k in after},
                         time.monotonic() - t0))
-    ((l_cpu, g_cpu, w_cpu, d_cpu, s_cpu),
-     (l_card, g_card, w_card, d_card, s_card)) = results
-    print(f"step on the CPU {s_cpu:.2f} s, on the card {s_card:.3f} s "
-          f"(B={batch_size}, T={seq_len})", flush=True)
-    assert np.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), \
-        (l_card, l_cpu)
-    worst, worst_name = 0.0, None
-    for name, want in g_cpu.items():
-        got = g_card[name]
-        assert got.shape == want.shape and np.isfinite(got).all(), name
-        scale = np.abs(want).max()
-        err = np.abs(got - want).max()
-        assert err <= tol * max(scale, 1e-30), (name, err, scale)
-        if scale > 0 and err / scale > worst:
-            worst, worst_name = err / scale, name
-    w_err = max(np.abs(w_card[k] - w_cpu[k]).max() for k in w_cpu)
-    assert w_err <= 2 * lr, w_err
-    u_err, n_large = 0.0, 0
-    for name, g in g_cpu.items():
-        large = np.abs(g) > 1e-2 * np.abs(g).max()
-        if not large.any():
-            continue
-        n_large += int(large.sum())
-        err = np.abs(d_card[name] - d_cpu[name])[large].max()
-        assert err <= UPDATE_TOL * lr, (name, err)
-        u_err = max(u_err, err)
-    assert n_large > 0.01 * sum(g.size for g in g_cpu.values()), n_large
-    print(f"loss card {l_card:.7f} cpu {l_cpu:.7f}; {len(g_cpu)} gradients "
-          f"agree, worst max|d|/max|g| = {worst:.3e} ({worst_name}, tol "
-          f"{tol:g}); update w_after - w_before where |g| > 1e-2 max|g| "
-          f"({n_large} weights) max|d| = {u_err:.3e} (atol "
-          f"{UPDATE_TOL:g}*lr = {UPDATE_TOL * lr:g}); weights after Adam "
-          f"max|d| = {w_err:.3e} (atol 2*lr = {2 * lr:g})", flush=True)
-    return worst
+    print(f"step on the CPU {results[0][4]:.2f} s, on the card "
+          f"{results[1][4]:.3f} s (B={batch_size}, T={seq_len})", flush=True)
+    return check_step(np, results, tol, lr)
 
 
 def train_bert_base(torch, np, dev):
@@ -1584,13 +1687,15 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
 
 
 def zero_launches():
-    """Set every kernel wrapper's launch counter to 0."""
+    """Set every kernel wrapper's launch counter to 0, and ``rtc``'s."""
     import importlib
+    from incubator_mxnet_tpu_torch import rtc
     from incubator_mxnet_tpu_torch.fuse import kernel_launches
     for key in kernel_launches():
         mod, attr = key.split(".")
         setattr(importlib.import_module(
             f"incubator_mxnet_tpu_torch.ops.{mod}"), attr, 0)
+    rtc.launches = 0
 
 
 def resnet_step_launches():
@@ -1885,6 +1990,403 @@ def train_transformer(torch, np, dev, smi, attention):
     return counts
 
 
+def ulp(torch, v):
+    """The spacing of ``v``'s floating type at each |v|."""
+    a = v.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def rtc_saxpy_inputs(torch, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(RTC_N, generator=g, device=dev),
+            torch.randn(RTC_N, generator=g, device=dev))
+
+
+def rtc_main_path(torch, rtc, dev):
+    """Phase 11's main path: a user's CUDA C compiled by ``CudaModule``
+    and launched on tensors, as reference MXNet's rtc is used; returns
+    the outputs for the checks, which run after the counter is read."""
+    from incubator_mxnet_tpu_torch import context
+    from incubator_mxnet_tpu_torch._cuda_driver import (nvrtc_path,
+                                                        nvrtc_version)
+    t0 = time.perf_counter()
+    saxpy_mod = rtc.CudaModule(RTC_SAXPY)
+    print(f"NVRTC {nvrtc_version()} loaded from {nvrtc_path()}; the first "
+          f"module (library load included) in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    mods = {"saxpy": saxpy_mod,
+            "axpy": rtc.CudaModule(RTC_AXPY,
+                                   exports=["axpy<float>", "axpy<__half>"]),
+            "block_sum": rtc.CudaModule(RTC_BLOCK_SUM),
+            "iota64": rtc.CudaModule(RTC_IOTA64)}
+    for name, mod in mods.items():
+        print(f"NVRTC compile of {name}: {mod.compile_seconds * 1e3:.1f} ms "
+              f"(cubin {len(mod._cubin)} bytes)", flush=True)
+    saxpy = saxpy_mod.get_kernel(
+        "saxpy", "const float *x, float *y, float alpha, int n")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid, block = (sms * 32,), (256,)
+    out = {}
+    # (a) on the current stream, then on a side stream; a torch op reads
+    # each result on the stream that launched it, with no synchronise
+    x, y = rtc_saxpy_inputs(torch, dev, 0)
+    y0 = y.clone()
+    saxpy.launch([x, y, RTC_ALPHA, RTC_N], context.gpu(dev.index), grid,
+                 block)
+    out["saxpy"] = (x, y0, y.clone())
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ys = y0.clone()
+        saxpy.launch([x, ys, RTC_ALPHA, RTC_N], dev, grid, block)
+        out["saxpy_side"] = ys * 1.0
+    torch.cuda.current_stream(dev).wait_stream(side)
+    # (b) a template through exports, float and __half
+    n = 1 << 20
+    for ctype, dtype in (("float", torch.float32), ("__half", torch.float16)):
+        g = torch.Generator(device=dev).manual_seed(1)
+        xa = torch.randn(n, generator=g, device=dev).to(dtype)
+        ya = torch.randn(n, generator=g, device=dev).to(dtype)
+        ya0 = ya.clone()
+        k = mods["axpy"].get_kernel(
+            f"axpy<{ctype}>", f"const {ctype} *x, {ctype} *y, {ctype} alpha, "
+            "int n")
+        k.launch([xa, ya, RTC_ALPHA, n], dev, ((n + 255) // 256,), (256,))
+        out[f"axpy<{ctype}>"] = (xa, ya0, ya)
+    # (c) 64 KiB of dynamic shared memory a block, on a ragged length
+    g = torch.Generator(device=dev).manual_seed(2)
+    xs = torch.randn(RTC_SUM_N, generator=g, device=dev)
+    blocks = -(-RTC_SUM_N // RTC_CHUNK)
+    sums = torch.empty(blocks, device=dev)
+    mods["block_sum"].get_kernel(
+        "block_sum", "const float *x, float *out, int n, int chunk").launch(
+        [xs, sums, RTC_SUM_N, RTC_CHUNK], dev, (blocks,), (256,),
+        shared_mem=RTC_CHUNK * 4)
+    out["block_sum"] = (xs, sums)
+    # (d) an int64_t scalar above 2^32
+    start, m = 3 * 2 ** 33 + 5, 1000
+    iota = torch.empty(m, dtype=torch.int64, device=dev)
+    mods["iota64"].get_kernel(
+        "iota64", "int64_t *out, int64_t start, int n").launch(
+        [iota, start, m], dev, (4,), (256,))
+    out["iota64"] = (start, iota)
+    return mods, saxpy, grid, block, out
+
+
+def check_rtc(torch, rtc, mods, saxpy, grid, block, out, dev):
+    """Phase 11's checks: each user kernel against its plain version,
+    the errors that must raise, and ``PallasModule`` on the card against
+    the CPU.  Returns saxpy's max |kernel - plain|."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.error import KernelError
+    torch.cuda.synchronize()
+    x, y0, y = out["saxpy"]
+    # the kernel's alpha is the float32 rounding of RTC_ALPHA (its __half
+    # rounding in axpy<__half>)
+    a32 = torch.tensor(RTC_ALPHA, dtype=torch.float32).double().item()
+    want = (a32 * x.double() + y0.double()).float()
+    err = (y - want).abs()
+    ulps = (err / ulp(torch, want)).max().item()
+    two_round = (RTC_ALPHA * x + y0 - y).abs().max().item()
+    assert ulps <= 1.0, ulps
+    assert torch.equal(out["saxpy_side"], y), "side stream differs"
+    max_err = err.max().item()
+    print(f"saxpy n={RTC_N} float32, grid {grid[0]}x{block[0]}: within "
+          f"{ulps:.3f} ulp of alpha*x + y rounded once (max|d| "
+          f"{max_err:.3e}; {(err > 0).sum().item()} of {RTC_N} values "
+          f"differ), max|d| {two_round:.3e} against alpha*x + y in float32 "
+          "(two roundings); the side stream's result equal bit for bit",
+          flush=True)
+    for ctype, dtype in (("float", torch.float32), ("__half", torch.float16)):
+        xa, ya0, ya = (t.cpu() for t in out[f"axpy<{ctype}>"])
+        a = torch.tensor(RTC_ALPHA, dtype=dtype).double().item()
+        want = (a * xa.double() + ya0.double()).to(dtype)
+        allow = ulp(torch, want).double()
+        if dtype == torch.float16:
+            allow = allow + ulp(torch, (a * xa.double()).to(dtype)).double()
+        worst = ((ya.double() - want.double()).abs() / allow).max().item()
+        assert worst <= 1.0, (ctype, worst)
+        print(f"axpy<{ctype}> through exports: worst |d| / allowance "
+              f"{worst:.3f}", flush=True)
+    xs, sums = out["block_sum"]
+    pad = sums.numel() * RTC_CHUNK - RTC_SUM_N
+    blocked = F.pad(xs, (0, pad)).reshape(-1, RTC_CHUNK)
+    want = blocked.sum(1)
+    scale = blocked.abs().sum(1)
+    worst = ((sums - want).abs() / scale).max().item()
+    assert worst <= RTC_SUM_TOL, worst
+    print(f"block_sum n={RTC_SUM_N} ({sums.numel()} blocks, the "
+          f"last of {RTC_SUM_N % RTC_CHUNK}) with {RTC_CHUNK * 4} B of "
+          f"shared memory a block: worst |d| / sum|x| {worst:.3e} (tol "
+          f"{RTC_SUM_TOL:g})", flush=True)
+    start, iota = out["iota64"]
+    assert torch.equal(iota.cpu(), start + 3 * torch.arange(iota.numel())), \
+        "iota64"
+    print(f"iota64 with an int64_t scalar {start}: exact", flush=True)
+    # (e)-(f) what must raise; none of it launches
+    before = rtc.launches
+    try:
+        rtc.CudaModule(RTC_BROKEN)
+        raise AssertionError("a syntax error compiled")
+    except KernelError as e:
+        msg = str(e)
+        assert "nvrtcCompileProgram" in msg and "error" in msg, msg
+        print("syntax error raises KernelError with NVRTC's log: "
+              + " | ".join(msg.splitlines()[1:3]), flush=True)
+    xt, yt = x[:1024], y[:1024].clone()
+    bad = {"a CPU tensor": ([xt.cpu(), yt, 1.0, 1024], ValueError),
+           "a wrong dtype": ([xt.double(), yt, 1.0, 1024], TypeError),
+           "a wrong argument count": ([xt, yt, 1.0], ValueError),
+           "a non-contiguous tensor": ([x[:2048:2], yt, 1.0, 1024],
+                                       ValueError),
+           "a tensor for a scalar": ([xt, yt, xt, 1024], TypeError)}
+    for what, (args, exc) in bad.items():
+        try:
+            saxpy.launch(args, dev, (4,), (256,))
+            raise AssertionError(f"{what} launched")
+        except exc as e:
+            print(f"{what} raises {type(e).__name__}: {e}", flush=True)
+    try:
+        rtc.CudaModule(RTC_MANGLED).get_kernel("scale", "float *x").launch(
+            [yt], dev, (1,), (32,))
+        raise AssertionError("a mangled name was found")
+    except KernelError as e:
+        print(f"a C++ name without exports raises: {e}", flush=True)
+    assert rtc.launches == before, "a refused launch was counted"
+    # (g) PallasModule on the card against the same on the CPU
+    def saxpy_ref(x_ref, y_ref, o_ref, *, alpha):
+        o_ref[...] = x_ref[...] * alpha + y_ref[...]
+
+    def rows(x_ref, o_ref):
+        i = rtc.program_id(0)
+        o_ref[i] = x_ref[i] * (i + 1) + rtc.num_programs(0)
+
+    g = torch.Generator().manual_seed(3)
+    xp, yp = torch.randn(8, 128, generator=g), torch.randn(8, 128, generator=g)
+    k1 = rtc.PallasModule(saxpy_ref, num_inputs=2,
+                          static_args=("alpha",)).get_kernel(
+        "saxpy_ref", alpha=RTC_ALPHA)
+    k2 = rtc.CudaModule(rows).get_kernel("rows")
+    for name, run in (("saxpy", lambda d: k1.launch([xp.to(d), yp.to(d)])),
+                      ("grid of 8 with program_id",
+                       lambda d: k2.launch([xp.to(d)], grid_dims=(8,)))):
+        got, want = run(dev).cpu(), run("cpu")
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        print(f"PallasModule {name}: card equals CPU to 1e-6 (max|d| "
+              f"{(got - want).abs().max().item():.3e})", flush=True)
+    return max_err
+
+
+def time_rtc(torch, saxpy, grid, block, dev, rate):
+    """saxpy's times at n = 2^26 + 3 (two input pairs of 537 MB, ten
+    times L2), against its plain version ``alpha * x + y`` and
+    ``torch.add(y, x, alpha=alpha)``; then the host time of one launch
+    of a one-block grid, against one small ``torch.add``."""
+    sets = [rtc_saxpy_inputs(torch, dev, s) for s in (4, 5)]
+    times = {
+        "ms": time_ms(torch, lambda x, y: saxpy.launch(
+            [x, y, RTC_ALPHA, RTC_N], dev, grid, block), sets),
+        "plain_ms": time_ms(torch, lambda x, y: RTC_ALPHA * x + y, sets),
+        "library_ms": time_ms(torch, lambda x, y: torch.add(
+            y, x, alpha=RTC_ALPHA), sets)}
+    xt, yt = sets[0][0][:32], sets[0][1][:32].clone()
+    host = {}
+    for name, fn in (("saxpy launch", lambda: saxpy.launch(
+            [xt, yt, RTC_ALPHA, 32], dev, (1,), (32,))),
+                     ("torch.add", lambda: torch.add(yt, xt,
+                                                     alpha=RTC_ALPHA))):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        host[name] = (time.perf_counter() - t0) / 2000 * 1e3
+        torch.cuda.synchronize()
+    print(f"host time of one call of a one-block grid (2000 calls, no "
+          f"synchronise): saxpy through rtc {host['saxpy launch']:.4f} ms, "
+          f"torch.add {host['torch.add']:.4f} ms", flush=True)
+    del sets
+    # x and y read, y written, float32; 2 FLOP an element
+    return report(f"rtc saxpy n={RTC_N} float32", times, 3 * 4 * RTC_N, rate,
+                  2 * RTC_N)
+
+
+def rtc_phase(torch, dev, rate):
+    """Phase 11: returns (saxpy's kernels-line numbers, max error, the
+    main path's launches)."""
+    from incubator_mxnet_tpu_torch import rtc
+    zero_launches()                                     # main path starts
+    mods, saxpy, grid, block, out = rtc_main_path(torch, rtc, dev)
+    torch.cuda.synchronize()
+    launched = rtc.launches                             # main path ends
+    assert launched == 6, f"{launched} rtc launches, want 6"
+    print(f"rtc main path: {launched} launches (saxpy on two streams, "
+          "axpy<float>, axpy<__half>, block_sum, iota64)", flush=True)
+    err = check_rtc(torch, rtc, mods, saxpy, grid, block, out, dev)
+    del out
+    times = time_rtc(torch, saxpy, grid, block, dev, rate)
+    return times, err, launched
+
+
+_LENET_FAMILIES = (
+    ("xent", ("xent",)),
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "winograd",
+              "implicit", "fft")),
+    ("gemm", ("gemm", "splitk", "cutlass", "nvjet", "xmma")),
+    ("pooling", ("pool",)),
+    ("elementwise", ("elementwise", "reduce", "fill", "copy")),
+    ("memcpy", ("memcpy", "memset")))
+
+
+def compare_lenet_step(torch, np, dev):
+    """Phase 12 (a): one Adam step of LeNet on the CPU and on the card,
+    from the same weights (carried by ``params_from_jax`` into the
+    card's still-deferred layers) and batch."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
+                                                   params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.examples.train_mnist import (
+        lenet, synthetic_data)
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    x, y = (torch.from_numpy(a) for a in synthetic_data(MNIST_B, seed=7))
+    cpu = lenet()
+    cpu.initialize(device="cpu", generator=torch.Generator().manual_seed(0))
+    with autograd.pause():
+        cpu(x)                                  # materialise the weights
+    card = lenet()
+    card.initialize(device=dev)
+    params_from_jax(params_to_numpy(cpu), card)
+    results = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        trainer = Trainer(net.collect_params(), "adam",
+                          {"learning_rate": MNIST_LR}, kvstore="device")
+        xb, yb = x.to(where), y.to(where)
+        t0 = time.monotonic()
+        with autograd.record():
+            loss = SoftmaxCrossEntropyLoss()(net(xb), yb).mean()
+        autograd.backward(loss)
+        grads = grads_to_numpy(net)
+        before = params_to_numpy(net)
+        trainer.step(MNIST_B)
+        after = params_to_numpy(net)
+        results.append((loss.item(), grads, after,
+                        {k: after[k] - before[k] for k in after},
+                        time.monotonic() - t0))
+    return check_step(np, results, MNIST_GRAD_TOL, MNIST_LR)
+
+
+def lenet_phase(torch, np, dev):
+    """Phase 12 (b)-(c); returns the LeNet path's launch counts."""
+    from incubator_mxnet_tpu_torch import random
+    from incubator_mxnet_tpu_torch.examples import train_mnist as tm
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.gluon import Trainer, data, metric
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    random.seed(0)
+    net = tm.lenet()
+    net.initialize(device=dev)
+    images, labels = tm.synthetic_data(MNIST_N)
+    loader = data.DataLoader(data.ArrayDataset(images, labels),
+                             batch_size=MNIST_B, shuffle=True,
+                             last_batch="discard", pin_memory=True)
+    trainer = Trainer(net.collect_params(), "adam",
+                      {"learning_rate": MNIST_LR}, kvstore="device")
+    loss_fn = SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    xent = ("softmax_xent.fwd_launches", "softmax_xent.bwd_launches")
+    stamps, losses, bad = [], [], []
+    last = {}
+
+    def on_step(loss, out):
+        now = kernel_launches()
+        step = {k: now[k] - last.get(k, 0) for k in xent}
+        if step != {k: 1 for k in xent}:
+            bad.append(step)
+        last.update(now)
+        losses.append(loss.mean().item())
+        stamps.append(time.perf_counter())
+
+    zero_launches()                                     # main path starts
+    last.update(kernel_launches())
+    epochs = []
+    for _ in range(MNIST_EPOCHS):
+        acc.reset()
+        stamps.append(time.perf_counter())
+        t0 = time.perf_counter()
+        tm.run_epoch(net, loader, trainer, loss_fn, acc, dev, MNIST_B,
+                     on_step)
+        torch.cuda.synchronize()
+        epochs.append((time.perf_counter() - t0, acc.get()[1]))
+    launched = kernel_launches()                        # main path ends
+    steps = MNIST_EPOCHS * (MNIST_N // MNIST_B)
+    assert len(losses) == steps, len(losses)
+    assert not bad, f"cross-entropy launches a step: {bad[:3]}"
+    assert all(np.isfinite(losses)), "a loss is not finite"
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])
+               if b > a]
+    med = statistics.median(step_ms)
+    print(f"LeNet, examples/train_mnist.py's loop: {MNIST_EPOCHS} epochs x "
+          f"{MNIST_N // MNIST_B} steps at B={MNIST_B}; 1/1 cross-entropy "
+          f"launches every step; losses finite, first {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f}; epochs (s, accuracy): "
+          f"{[(round(t, 3), round(a, 4)) for t, a in epochs]}", flush=True)
+    print(f"LeNet step: median {med:.3f} ms (host clock, data loading and "
+          f"the metric included), {MNIST_B / med * 1e3:.0f} samples/s; "
+          f"epoch samples/s {[round(MNIST_N / t) for t, _ in epochs]}",
+          flush=True)
+    batches = iter(loader)
+
+    def five_steps():
+        for _ in range(5):
+            xb, yb = next(batches)
+            tm.run_epoch(net, [(xb, yb)], trainer, loss_fn, acc, dev,
+                         MNIST_B)
+        torch.cuda.synchronize()
+
+    profile_window(torch, "5 LeNet steps", five_steps, _LENET_FAMILIES)
+    # (c) the overfit drive: one fixed batch, 60 steps
+    random.seed(1)
+    net = tm.lenet()
+    net.initialize(device=dev)
+    trainer = Trainer(net.collect_params(), "adam",
+                      {"learning_rate": MNIST_LR}, kvstore="device")
+    x = random.uniform(shape=(MNIST_B, 1, 28, 28), device=dev)
+    y = random.randint(0, 10, shape=(MNIST_B,), device=dev).float()
+    fit = [tm.train_step(net, trainer, loss_fn, x, y, MNIST_B)[0].mean()
+           .item() for _ in range(OVERFIT_STEPS)]
+    acc.reset()
+    acc.update([y], [net(x)])
+    train_acc = acc.get()[1]
+    print(f"overfit one batch, {OVERFIT_STEPS} steps: loss {fit[0]:.4f} -> "
+          f"{fit[-1]:.4f} (must fall below {OVERFIT_LOSS}), training "
+          f"accuracy {train_acc:.3f} (above {OVERFIT_ACC})", flush=True)
+    assert abs(fit[0] - math.log(10)) < 0.5 and fit[-1] < OVERFIT_LOSS, fit
+    assert train_acc > OVERFIT_ACC, train_acc
+    return {name: launched[key] for name, key in _KERNEL_COUNTERS.items()}
+
+
+def time_lenet_xent(torch, sx, dev):
+    """The cross-entropy kernels at LeNet's (64, 10) float32 logits,
+    against ``F.cross_entropy``: launch-bound times."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(8)
+    sets = []
+    for _ in range(3):
+        x = torch.randn(MNIST_B, 10, generator=g, device=dev)
+        lbl = torch.randint(0, 10, (MNIST_B,), generator=g, device=dev)
+        sets.append((x, lbl))
+    fwd = time_ms(torch, sx.softmax_xent_fwd, sets)
+    lib = time_ms(torch, lambda x, lbl: F.cross_entropy(x, lbl.long(),
+                                                        reduction="none"),
+                  sets)
+    print(f"softmax_xent_fwd at ({MNIST_B}, 10) float32: device {fwd[0]} "
+          f"stream {fwd[1]:.6f} ms; F.cross_entropy device {lib[0]} stream "
+          f"{lib[1]:.6f} ms", flush=True)
+
+
 def post(port, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/models/bert:predict",
@@ -2095,12 +2597,30 @@ def main():
     tf_flash = train_transformer(torch, np, dev, smi, "flash")
     tf = {k: v + tf_flash[k] for k, v in tf.items()}
 
-    phase("11 kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("11 run-time-compiled CUDA C (rtc)")
+    rtc_times, rtc_err, rtc_launches = rtc_phase(torch, dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("12 LeNet (examples/train_mnist.py)")
+    compare_lenet_step(torch, np, dev)
+    lenet = lenet_phase(torch, np, dev)
+    tf = {k: v + lenet[k] for k, v in tf.items()}
+    time_lenet_xent(torch, sx, dev)
+
+    phase("13 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"
     src = "incubator_mxnet_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
+        dict(name="rtc_launch", route="cuda",
+             source="incubator_mxnet_tpu_torch/rtc.py",
+             replaces="incubator_mxnet_tpu/rtc.py:71", launches=rtc_launches,
+             max_abs_err=rtc_err, **rtc_times),
         dict(name="layer_norm_fwd", route="cuda", source=src + "layer_norm.cu",
              replaces=pk + ":219",
              launches=serve_launches + train["layer_norm_fwd"],

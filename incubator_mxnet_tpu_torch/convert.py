@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.nn.parameter import UninitializedParameter
 
 __all__ = ["params_from_jax", "params_to_numpy", "grads_to_numpy",
            "transformer_params_from_jax", "transformer_params_to_numpy"]
@@ -24,24 +25,45 @@ def params_from_jax(named, module):
     ``ValueError`` before the module is touched.  Values are converted
     to each parameter's dtype and device; a bfloat16 array (numpy's
     ``ml_dtypes.bfloat16``, which ``torch.tensor`` refuses) goes through
-    float32, which holds every bfloat16 value exactly."""
-    own = module.state_dict()
+    float32, which holds every bfloat16 value exactly.
+
+    A deferred parameter (still uninitialized: no forward has run) takes
+    the array's shape where its layer left the size open, and is
+    materialised at that shape before the values are loaded."""
+    own = module.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(named))
     extra = sorted(set(named) - set(own))
     if missing or extra:
         raise ValueError(f"parameter names differ: missing {missing}, "
                          f"extra {extra}")
+    deferred = _deferred_shapes(module)
+    for name, ref in own.items():
+        arr = np.asarray(named[name])
+        want = deferred[name] if name in deferred else tuple(ref.shape)
+        if len(arr.shape) != len(want) or any(
+                w and w != a for w, a in zip(want, arr.shape)):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != {want}")
+    for name in deferred:
+        own[name].materialize(tuple(np.shape(named[name])))
     state = {}
     for name, ref in own.items():
         arr = np.asarray(named[name])
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
-                             f"{tuple(ref.shape)}")
         if arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
         state[name] = torch.tensor(arr, dtype=ref.dtype, device=ref.device)
     module.load_state_dict(state, strict=True)
     return state
+
+
+def _deferred_shapes(module):
+    """``{state-dict name: shape with 0 where the input decides}`` of
+    every parameter of ``module`` that is still uninitialized."""
+    out = {}
+    for prefix, mod in module.named_modules():
+        for name, shape in getattr(mod, "_deferred", {}).items():
+            if isinstance(getattr(mod, name), UninitializedParameter):
+                out[f"{prefix}.{name}" if prefix else name] = shape
+    return out
 
 
 def params_to_numpy(module):

@@ -1,5 +1,5 @@
-from . import loss, nn
+from . import data, loss, metric, nn
 from .block import HybridBlock
 from .trainer import Trainer
 
-__all__ = ["HybridBlock", "Trainer", "loss", "nn"]
+__all__ = ["HybridBlock", "Trainer", "data", "loss", "metric", "nn"]

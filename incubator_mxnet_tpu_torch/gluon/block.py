@@ -3,8 +3,17 @@
 :class:`HybridBlock` is an ``nn.Module``.  Parameters are module
 attributes, so ``collect_params()`` gives the JAX package's structural
 names (``encoder.layer0.attention.qkv.weight``, ...) and a
-``state_dict`` has the same keys.  Every shape is known at
-construction: the port has no deferred initialisation.
+``state_dict`` has the same keys.
+
+A parameter whose shape has a 0 (``Dense`` without ``in_units``,
+``Conv2D`` without ``in_channels``) is created as PyTorch's
+``UninitializedParameter``, the idiom of its ``LazyModuleMixin``: the
+layer's first forward materialises it from the input's shape and fills
+it with the initializer and generator that :meth:`initialize`
+recorded, as the JAX package's deferred initialisation does
+(``gluon/parameter.py``, ``_finish_deferred_init``).  It is the same
+object before and after, so a ``Trainer`` built from
+``collect_params()`` before the first batch holds the trained tensors.
 """
 from __future__ import annotations
 
@@ -12,8 +21,10 @@ import re
 
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedParameter
 
 from .. import initializer as init_mod
+from .. import random as random_mod
 from ..amp import amp as amp_mod
 from ..context import resolve_device
 
@@ -50,6 +61,10 @@ class HybridBlock(nn.Module):
     def __init__(self):
         super().__init__()
         self._inits: dict[str, init_mod.Initializer | None] = {}
+        # deferred parameters: their shape with 0 where the input decides,
+        # and the (initializer, generator) that initialize() recorded
+        self._deferred: dict[str, tuple] = {}
+        self._pending: dict[str, tuple] = {}
 
     def __call__(self, *args, **kwargs):
         policy = getattr(self, "_amp_policy", None)
@@ -61,12 +76,39 @@ class HybridBlock(nn.Module):
     def new_param(self, name, shape, init=None, dtype="float32",
                   requires_grad=True):
         """Register parameter ``name`` of ``shape`` (contents unset until
-        :meth:`initialize`) with its own initializer."""
-        p = nn.Parameter(torch.empty(shape, dtype=as_dtype(dtype)),
-                         requires_grad=requires_grad)
+        :meth:`initialize`) with its own initializer.  A 0 in ``shape``
+        defers it: see :meth:`finish_deferred_init`."""
+        if 0 in shape:
+            p = UninitializedParameter(requires_grad=requires_grad,
+                                       dtype=as_dtype(dtype))
+            self._deferred[name] = tuple(shape)
+        else:
+            p = nn.Parameter(torch.empty(shape, dtype=as_dtype(dtype)),
+                             requires_grad=requires_grad)
         self.register_parameter(name, p)
         self._inits[name] = init_mod.create(init)
         return p
+
+    def finish_deferred_init(self, name, shape):
+        """Materialise the deferred parameter ``name`` at ``shape``, in
+        place, on the device :meth:`initialize` moved it to, and fill it
+        as :meth:`initialize` said.  Does nothing to a parameter that
+        has its shape already."""
+        p = getattr(self, name)
+        if not isinstance(p, UninitializedParameter):
+            return
+        if name not in self._pending:
+            raise RuntimeError(f"parameter {name} of {type(self).__name__} "
+                               "is not initialized: call initialize() "
+                               "before the first forward")
+        template = self._deferred[name]
+        if len(shape) != len(template) or any(
+                t and t != s for t, s in zip(template, shape)):
+            raise ValueError(f"{name}: the input gives shape {tuple(shape)}, "
+                             f"the layer was built for {template}")
+        ini, generator = self._pending.pop(name)
+        p.materialize(tuple(shape))
+        ini(name, p.data, generator)
 
     def register_child(self, block, name=None):
         self.add_module(name or str(len(self._modules)), block)
@@ -88,14 +130,22 @@ class HybridBlock(nn.Module):
         package, ``init`` overrides each parameter's own initializer,
         and a parameter with neither gets ``Uniform()``.  Draws come
         from ``generator`` in a fixed order, so a seeded generator
-        gives the same weights every time."""
+        gives the same weights every time; without one, they come from
+        ``random.generator()``, which ``random.seed`` seeds.  A deferred
+        parameter records its initializer and generator here, and is
+        filled at the layer's first forward."""
         device = resolve_device(device)
         default = init_mod.create(init)
+        if generator is None:
+            generator = random_mod.generator()
         for mod in self.modules():
             own = getattr(mod, "_inits", {})
             for name, p in mod.named_parameters(recurse=False):
                 ini = default or own.get(name) or init_mod.Uniform()
-                ini(name, p.data, generator)
+                if isinstance(p, UninitializedParameter):
+                    mod._pending[name] = (ini, generator)
+                else:
+                    ini(name, p.data, generator)
         return self.to(device)
 
     def hybridize(self, active=True, **kwargs):

@@ -1,5 +1,12 @@
-"""Core layers (subset of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``)."""
+"""Core layers (subset of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``).
+
+``Dense`` without ``in_units``, and ``BatchNorm`` and ``LayerNorm``
+without ``in_channels``, defer their parameters to the first forward
+(``HybridBlock.finish_deferred_init``), as in the JAX package.
+"""
 from __future__ import annotations
+
+import math
 
 from ... import autograd
 from ...ops import index_ops, nn_ops
@@ -7,13 +14,6 @@ from ..block import HybridBlock, register_state_update
 
 __all__ = ["HybridSequential", "Dense", "Embedding", "Dropout",
            "Activation", "BatchNorm", "LayerNorm", "Flatten"]
-
-
-def _need(value, what, layer):
-    if not value:
-        raise ValueError(f"{layer} needs {what}: the port has no deferred "
-                         "shape inference")
-    return value
 
 
 class HybridSequential(HybridBlock):
@@ -41,10 +41,10 @@ class Dense(HybridBlock):
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0):
         super().__init__()
+        self._units = units
         self._flatten = flatten
         self._activation = activation
         self._use_bias = use_bias
-        in_units = _need(in_units, "in_units", "Dense")
         self.new_param("weight", (units, in_units), weight_initializer, dtype)
         if use_bias:
             self.new_param("bias", (units,), bias_initializer, dtype)
@@ -52,6 +52,8 @@ class Dense(HybridBlock):
             self.register_parameter("bias", None)
 
     def forward(self, x):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self.finish_deferred_init("weight", (self._units, in_units))
         out = nn_ops.fully_connected(x, self.weight, self.bias,
                                      no_bias=not self._use_bias,
                                      flatten=self._flatten)
@@ -117,13 +119,15 @@ class BatchNorm(HybridBlock):
         self._epsilon = epsilon
         self._scale = scale
         self._use_global_stats = use_global_stats
-        c = _need(in_channels, "in_channels", "BatchNorm")
+        c = in_channels
         self.new_param("gamma", (c,), "ones", requires_grad=scale)
         self.new_param("beta", (c,), "zeros", requires_grad=center)
         self.new_param("running_mean", (c,), "zeros", requires_grad=False)
         self.new_param("running_var", (c,), "ones", requires_grad=False)
 
     def forward(self, x):
+        for name in ("gamma", "beta", "running_mean", "running_var"):
+            self.finish_deferred_init(name, (x.shape[self._axis],))
         training = autograd.is_training() and not self._use_global_stats
         out = nn_ops.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
@@ -145,11 +149,12 @@ class LayerNorm(HybridBlock):
         super().__init__()
         self._axis = axis
         self._epsilon = epsilon
-        c = _need(in_channels, "in_channels", "LayerNorm")
-        self.new_param("gamma", (c,), "ones", requires_grad=scale)
-        self.new_param("beta", (c,), "zeros", requires_grad=center)
+        self.new_param("gamma", (in_channels,), "ones", requires_grad=scale)
+        self.new_param("beta", (in_channels,), "zeros", requires_grad=center)
 
     def forward(self, x):
+        for name in ("gamma", "beta"):
+            self.finish_deferred_init(name, (x.shape[self._axis],))
         return nn_ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                                  eps=self._epsilon)
 

@@ -2,17 +2,17 @@
 ``incubator_mxnet_tpu/gluon/nn/conv_layers.py``): ``Conv2D``,
 ``MaxPool2D`` and ``GlobalAvgPool2D``.
 
-Every shape is known at construction, so ``Conv2D`` takes
-``in_channels``.  Its weight is ``(channels, in/groups, kh, kw)`` in the
-default ``"NCHW"`` layout and ``(channels, kh, kw, in/groups)`` in a
-channel-minor one (``"NHWC"``), as in the JAX package.
+Without ``in_channels``, ``Conv2D`` defers its weight to the first
+forward, which gives the input's channels.  Its weight is
+``(channels, in/groups, kh, kw)`` in the default ``"NCHW"`` layout and
+``(channels, kh, kw, in/groups)`` in a channel-minor one (``"NHWC"``),
+as in the JAX package.
 """
 from __future__ import annotations
 
 from ... import initializer as init_mod
 from ...ops import nn_ops
 from ..block import HybridBlock
-from .basic_layers import _need
 
 __all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
 
@@ -35,19 +35,23 @@ class Conv2D(HybridBlock):
         self._groups = groups
         self._activation = activation
         self._use_bias = use_bias
-        cin = _need(in_channels, "in_channels", "Conv2D") // groups
-        if layout.endswith("C"):
-            wshape = (channels,) + self._kernel + (cin,)
-        else:
-            wshape = (channels, cin) + self._kernel
-        self.new_param("weight", wshape,
+        self._channels = channels
+        self.new_param("weight", self._weight_shape(in_channels),
                        weight_initializer or init_mod.Xavier())
         if use_bias:
             self.new_param("bias", (channels,), bias_initializer)
         else:
             self.register_parameter("bias", None)
 
+    def _weight_shape(self, in_channels):
+        cin = in_channels // self._groups
+        if self._layout.endswith("C"):
+            return (self._channels,) + self._kernel + (cin,)
+        return (self._channels, cin) + self._kernel
+
     def forward(self, x):
+        cin = x.shape[-1] if self._layout.endswith("C") else x.shape[1]
+        self.finish_deferred_init("weight", self._weight_shape(cin))
         out = nn_ops.convolution(
             x, self.weight, self.bias, stride=self._strides,
             pad=self._padding, dilate=self._dilation, num_group=self._groups,

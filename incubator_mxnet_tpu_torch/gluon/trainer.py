@@ -11,12 +11,19 @@ steps in a row compute what the JAX package computes.  A parameter that
 ``backward()`` did not reach is updated with a zero gradient, which is
 what the JAX package's zero-initialised gradient buffer gives it.
 
+The trainer may be built before a deferred parameter has its shape
+(``Trainer(net.collect_params(), ...)`` before the first batch): it
+holds the parameter objects, which the first forward materialises in
+place, and the optimizer creates each parameter's state at its first
+update.
+
 On one device there is nothing to reduce: ``kvstore`` may be ``None``,
 ``"device"`` or ``"local"``, and anything else raises.
 """
 from __future__ import annotations
 
 import torch
+from torch.nn.parameter import UninitializedParameter
 
 from .. import optimizer as opt_mod
 
@@ -71,6 +78,9 @@ class Trainer:
     def update(self, batch_size):
         self._optimizer.rescale_grad = self._scale / batch_size
         for i, p in enumerate(self._params):
+            if isinstance(p, UninitializedParameter):
+                raise RuntimeError(f"parameter {i} has no shape yet: run a "
+                                   "forward before the first step")
             if not p.requires_grad:
                 continue
             grad = p.grad if p.grad is not None else torch.zeros_like(p)

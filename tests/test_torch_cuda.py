@@ -43,7 +43,8 @@ largest |plain| value (the same float32 products summed in another
 order, over up to 1025 keys); dq and dk within 1e-5 of the size of the
 two terms whose difference ds is (scale·max|delta|·max|k| or |q|) where
 that is larger: with one key they cancel exactly; bfloat16 one bf16 ulp
-of each value more.
+of each value more.  Run-time-compiled CUDA C (``rtc``) and the LeNet
+step state theirs in their own section below.
 """
 import copy
 
@@ -668,3 +669,220 @@ def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):
                      q[..., :64].half())
     with pytest.raises(ValueError, match="cuda"):
         fa.flash_fwd(q[..., :64], q[..., :64].cpu(), q[..., :64])
+
+
+# -- run-time-compiled CUDA C (rtc.CudaModule, kernel row 17) -------------
+# NVRTC contracts a·x + y into one FMA, so saxpy is held to the plain
+# version computed in float64 and rounded once: within one float32 ulp of
+# each value.  The __half template may round the product and the sum
+# apart: one half ulp of each value plus one of a·x.  Block sums: 1e-5 of
+# each block's sum of |x| (float32 sums in another order).
+
+_SAXPY = r"""
+extern "C" __global__ void saxpy(const float *x, float *y, float a, int n) {
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += gridDim.x * blockDim.x)
+        y[i] = a * x[i] + y[i];
+}
+"""
+_AXPY = r"""
+#include <cuda_fp16.h>
+template <typename T>
+__global__ void axpy(const T *x, T *y, T a, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = a * x[i] + y[i];
+}
+"""
+_BLOCK_SUM = r"""
+extern "C" __global__ void block_sum(const float *x, float *out, int n,
+                                     int chunk) {
+    extern __shared__ float buf[];
+    long long base = (long long)blockIdx.x * chunk;
+    for (int i = threadIdx.x; i < chunk; i += blockDim.x)
+        buf[i] = base + i < n ? x[base + i] : 0.0f;
+    __syncthreads();
+    float s = 0.0f;
+    for (int i = threadIdx.x; i < chunk; i += blockDim.x) s += buf[i];
+    __syncthreads();
+    buf[threadIdx.x] = s;
+    __syncthreads();
+    for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+        if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) out[blockIdx.x] = buf[0];
+}
+"""
+
+
+def _ulp(v):
+    a = v.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def _axpy_within(got, x, y0, a, dtype):
+    """max |got - (a·x + y0 rounded once)| over the allowance."""
+    got, x, y0 = (t.cpu() for t in (got, x, y0))
+    a = torch.tensor(a, dtype=dtype).double().item()
+    want = (a * x.double() + y0.double()).to(dtype)
+    allow = _ulp(want).double()
+    if dtype == torch.float16:
+        allow = allow + _ulp((a * x.double()).to(dtype)).double()
+    return ((got.double() - want.double()).abs() / allow).max().item()
+
+
+@pytest.mark.parametrize("n", [1, 1000, 100003])
+def test_rtc_saxpy_matches_plain_on_the_current_stream(dev, n):
+    from incubator_mxnet_tpu_torch import context, rtc
+    k = rtc.CudaModule(_SAXPY).get_kernel(
+        "saxpy", "const float *x, float *y, float a, int n")
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, generator=g, device=dev)
+    y = torch.randn(n, generator=g, device=dev)
+    y0 = y.clone()
+    before = rtc.launches
+    k.launch([x, y, 1.7, n], context.gpu(0), (64,), (128,))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ys = y0.clone()
+        k.launch([x, ys, 1.7, n], dev, (3, 1), (32, 2, 1))
+        ys = ys * 1.0                   # a torch op on the same stream
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert rtc.launches == before + 2
+    assert _axpy_within(y, x, y0, 1.7, torch.float32) <= 1.0
+    assert torch.equal(ys, y)
+
+
+@pytest.mark.parametrize("ctype,dtype", [("float", torch.float32),
+                                         ("__half", torch.float16)])
+def test_rtc_template_through_exports(dev, ctype, dtype):
+    from incubator_mxnet_tpu_torch import rtc
+    mod = rtc.CudaModule(_AXPY, exports=["axpy<float>", "axpy<__half>"])
+    k = mod.get_kernel(f"axpy<{ctype}>",
+                       f"const {ctype} *x, {ctype} *y, {ctype} a, int n")
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(5000, generator=g, device=dev).to(dtype)
+    y = torch.randn(5000, generator=g, device=dev).to(dtype)
+    y0 = y.clone()
+    k.launch([x, y, -0.3, 5000], dev, (20,), (256,))
+    assert _axpy_within(y, x, y0, -0.3, dtype) <= 1.0
+
+
+def test_rtc_dynamic_shared_memory_above_48k(dev):
+    from incubator_mxnet_tpu_torch import rtc
+    chunk, n = 16384, 5 * 16384 + 77
+    k = rtc.CudaModule(_BLOCK_SUM).get_kernel(
+        "block_sum", "const float *x, float *out, int n, int chunk")
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev)
+    out = torch.empty(6, device=dev)
+    k.launch([x, out, n, chunk], dev, (6,), (256,), shared_mem=chunk * 4)
+    blocked = torch.nn.functional.pad(x, (0, 6 * chunk - n)).reshape(6, -1)
+    err = (out - blocked.sum(1)).abs() / blocked.abs().sum(1)
+    assert err.max().item() <= 1e-5
+
+
+def test_rtc_int64_scalar_and_typed_pointers(dev):
+    from incubator_mxnet_tpu_torch import rtc
+    src = r"""
+    extern "C" __global__ void fill(long long *out, long long start,
+                                    const unsigned char *u, const char *c,
+                                    const double *d, int n) {
+        int i = threadIdx.x;
+        if (i < n) out[i] = start + u[i] + c[i] + (long long)d[i];
+    }"""
+    k = rtc.CudaModule(src).get_kernel(
+        "fill", "int64_t *out, int64_t start, const uint8_t *u, "
+        "const int8_t *c, const double *d, int n")
+    n, start = 100, 5 * 2 ** 33 + 1
+    u = torch.arange(n, dtype=torch.uint8, device=dev)
+    c = -torch.arange(n, dtype=torch.int8, device=dev)
+    d = torch.full((n,), 7.0, dtype=torch.float64, device=dev)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    k.launch([out, start, u, c, d, n], dev, 1, 128)
+    assert torch.equal(out.cpu(), torch.full((n,), start + 7))
+
+
+def test_rtc_refuses_what_it_cannot_launch(dev):
+    from incubator_mxnet_tpu_torch import rtc
+    from incubator_mxnet_tpu_torch.error import KernelError
+    with pytest.raises(KernelError, match="error"):
+        rtc.CudaModule('extern "C" __global__ void f(float *x) { x[0] = 1 }')
+    k = rtc.CudaModule(_SAXPY).get_kernel(
+        "saxpy", "const float *x, float *y, float a, int n")
+    x = torch.zeros(64, device=dev)
+    y = torch.zeros(64, device=dev)
+    before = rtc.launches
+    with pytest.raises(ValueError, match="cpu"):
+        k.launch([x.cpu(), y, 1.0, 64], dev, 1, 64)
+    with pytest.raises(TypeError, match="float64"):
+        k.launch([x.double(), y, 1.0, 64], dev, 1, 64)
+    with pytest.raises(ValueError, match="4 arguments"):
+        k.launch([x, y, 1.0], dev, 1, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        k.launch([torch.zeros(128, device=dev)[::2], y, 1.0, 64], dev, 1, 64)
+    with pytest.raises(ValueError, match="grid_dims"):
+        k.launch([x, y, 1.0, 64], dev, (1, 1, 1, 1), 64)
+    with pytest.raises(KernelError, match="extern"):
+        rtc.CudaModule("__global__ void g(float *x) { x[0] = 1; }"
+                       ).get_kernel("g", "float *x").launch([x], dev, 1, 1)
+    assert rtc.launches == before
+
+
+def test_pallas_module_on_the_card_matches_cpu(dev):
+    from incubator_mxnet_tpu_torch import rtc
+
+    def rows(x_ref, y_ref, o_ref, *, alpha):
+        i = rtc.program_id(0)
+        o_ref[i] = x_ref[i] * alpha + y_ref[i] * rtc.num_programs(0)
+
+    k = rtc.PallasModule(rows, num_inputs=2, static_args=("alpha",)
+                         ).get_kernel("rows", alpha=3.0)
+    g = torch.Generator().manual_seed(4)
+    x, y = torch.randn(6, 40, generator=g), torch.randn(6, 40, generator=g)
+    got = k.launch([x.to(dev), y.to(dev)], grid_dims=(6,))
+    torch.testing.assert_close(got.cpu(), k.launch([x, y], grid_dims=(6,)),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_lenet_step_on_the_card_matches_cpu(dev, no_tf32):
+    """examples/train_mnist.py's network, deferred on the card and given
+    the CPU model's weights: one Adam step, loss 1e-5 relative, every
+    gradient 1e-4 of its largest value; the update of every weight whose
+    gradient is above 1e-2 of its largest within 1e-2·lr, every weight
+    within 2·lr (a first Adam step moves a weight by about lr·sign(g),
+    and a gradient near 0 may round to the other sign)."""
+    from incubator_mxnet_tpu_torch.convert import (params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.examples.train_mnist import (
+        lenet, synthetic_data)
+    x, y = (torch.from_numpy(a) for a in synthetic_data(16, seed=3))
+    cpu = lenet()
+    cpu.initialize(device="cpu", generator=torch.Generator().manual_seed(0))
+    with autograd.pause():
+        cpu(x)
+    card = lenet()
+    card.initialize(device=dev)
+    params_from_jax(params_to_numpy(cpu), card)
+    out = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        trainer = Trainer(net.collect_params(), "adam",
+                          {"learning_rate": 3e-3})
+        with autograd.record():
+            loss = SoftmaxCrossEntropyLoss()(net(x.to(where)), y.to(where))
+        autograd.backward(loss)
+        grads = grads_to_numpy(net)
+        before = params_to_numpy(net)
+        trainer.step(16)
+        after = params_to_numpy(net)
+        out.append((loss.sum().item(), grads, after,
+                    {k: after[k] - before[k] for k in after}))
+    (l_cpu, g_cpu, w_cpu, d_cpu), (l_card, g_card, w_card, d_card) = out
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name, g in g_cpu.items():
+        scale = np.abs(g).max()
+        assert np.abs(g_card[name] - g).max() <= 1e-4 * scale, name
+        large = np.abs(g) > 1e-2 * scale
+        assert np.abs(d_card[name] - d_cpu[name])[large].max() <= 3e-5, name
+        assert np.abs(w_card[name] - w_cpu[name]).max() <= 6e-3, name

@@ -16,10 +16,10 @@ import sys
 import pytest
 import torch
 
-from incubator_mxnet_tpu_torch import bench, context
+from incubator_mxnet_tpu_torch import bench, context, random, rtc
 from incubator_mxnet_tpu_torch.deploy import load_predictor
 from incubator_mxnet_tpu_torch.error import DeviceUnavailableError
-from incubator_mxnet_tpu_torch.examples import (train_bert,
+from incubator_mxnet_tpu_torch.examples import (train_bert, train_mnist,
                                                 train_resnet_fused,
                                                 train_transformer_lm)
 from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
@@ -72,7 +72,11 @@ def test_importing_the_port_loads_no_jax():
                 "examples.train_resnet_fused", "ops._fused_common",
                 "amp", "amp.amp", "amp.lists", "fuse", "bench",
                 "ops.softmax", "ops.rms_norm", "models.transformer",
-                "examples.train_transformer_lm", "ops.flash_attention"):
+                "examples.train_transformer_lm", "ops.flash_attention",
+                "rtc", "_cuda_driver", "random", "gluon.data",
+                "gluon.data.dataset", "gluon.data.sampler",
+                "gluon.data.dataloader", "gluon.metric",
+                "examples.train_mnist"):
         assert "incubator_mxnet_tpu_torch." + mod in names, mod
 
 
@@ -117,10 +121,25 @@ def no_cuda(monkeypatch):
     lambda: TransformerLM(TransformerConfig(
         vocab_size=8, d_model=8, n_heads=2, n_layers=1, d_ff=8,
         max_len=4)).init(),
+    lambda: train_mnist.main([]),
+    lambda: train_mnist.main(["--smoke"]),
+    lambda: train_mnist.lenet().initialize(),
+    lambda: random.uniform(shape=(2,)),
+    lambda: random.seed(0, ctx=context.gpu(0)),
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         entry()
+
+
+def test_user_cuda_c_needs_a_card(no_cuda):
+    """Arbitrary CUDA C has no CPU version: ``CudaModule`` raises, and
+    a CUDA kernel never launches on the CPU."""
+    with pytest.raises(DeviceUnavailableError, match="no CPU version"):
+        rtc.CudaModule('extern "C" __global__ void k(float *x) {}')
+    kern = rtc.CudaKernel(None, "k", "k", rtc.parse_signature("float *x"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kern.launch([torch.zeros(1)], "cpu", 1, 1)
 
 
 def test_cpu_is_used_only_when_named(no_cuda):
