@@ -15,9 +15,13 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    at the main paths' shapes (and, for the row kernels 3-4 and 8-9, at
    ragged widths, a width past 16384 and a row with -inf entries; for
    flash attention, kernel 5 and its dk/dv and dq kernels, at one row,
-   cross lengths, ragged tiles, T = 1025, head widths 16 to 128 and
-   B·H = 1, in both dtypes), with the stated tolerances, and its time
-   beside the plain version's, one PyTorch library call's and the bound;
+   cross lengths, ragged tiles, T = 1025, head widths 16 to 128 (40 and
+   72 among them), B·H = 1 and a q whose rows the bfloat16 backward
+   loads element by element, in both dtypes; then two backward runs at
+   the path's shape bit for bit, and the backward's kernels by dtype:
+   float32-FMA for float32, tensor-core for bfloat16), with the stated
+   tolerances, and its time beside the plain version's, one PyTorch
+   library call's and the bound;
 4. BERT-base at full width in process — one forward at B=8, T=128 on
    the card against the same weights on the CPU through the port's
    plain path, and the LayerNorm launch count of that forward;
@@ -261,13 +265,18 @@ ROW_TOL = 1e-6
 TF_LOSS_TOL, TF_GRAD_TOL = 1e-5, 1e-4
 # flash attention (kernel 5 and its dk/dv and dq kernels, phase 3) at the
 # TransformerLM's attention, (B, H, T, D) = (32, 8, 1024, 64) causal,
-# then ragged cases (B, H, Tq, Tk, D, causal): one row; cross lengths;
-# ragged tiles; the model's T = 1025; every head width class; B·H = 1
+# then ragged cases (B, H, Tq, Tk, D, causal[, pad]): one row; cross
+# lengths; ragged tiles; the model's T = 1025; every head width class;
+# B·H = 1; D = 40 and 72 (multiples of 8, not of 16); a q whose rows sit
+# pad = 3 elements further apart than the model's, so that the bfloat16
+# backward loads it element by element
 FLASH_PATH = (TF_B, TF_H, TF_T - 1, TF_T - 1, TF_D // TF_H, True)
 FLASH_CASES = [(2, 2, 1, 1, 64, True), (2, 3, 70, 150, 32, False),
                (2, 3, 200, 200, 64, True), (1, 4, 1025, 1025, 64, True),
                (2, 2, 300, 300, 16, True), (2, 2, 300, 300, 32, False),
-               (2, 2, 300, 300, 128, True), (1, 1, 129, 129, 64, False)]
+               (2, 2, 300, 300, 128, True), (1, 1, 129, 129, 64, False),
+               (2, 2, 300, 300, 40, True), (2, 2, 300, 300, 72, False),
+               (2, 2, 300, 300, 64, True, 3)]
 # each output against its plain version on the same inputs (the
 # backward's from the kernel's own float32 output and lse): float32
 # max|d| <= 1e-5 of the largest |plain| value (the same float32 products,
@@ -710,15 +719,18 @@ def time_softmax(torch, sm, dev, rate):
 
 def flash_inputs(torch, case, dtype, dev, seed):
     """``(q, k, v, g)`` on the card as the model's heads are: (B, H, T,
-    D) transposed views of (B, T, H, D) tensors; q, k ~ 0.5·N(0, 1), v
-    and g ~ N(0, 1)."""
-    b, h, tq, tk, d, _ = case
+    D) transposed views of (B, T, H, D) tensors (q's of a (B, T, H, D +
+    pad) tensor where the case gives a pad); q, k ~ 0.5·N(0, 1), v and g
+    ~ N(0, 1)."""
+    b, h, tq, tk, d, _ = case[:6]
+    pad = case[6] if len(case) > 6 else 0
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
     out = []
-    for t, mul in ((tq, 0.5), (tk, 0.5), (tk, 1.0), (tq, 1.0)):
-        x = torch.randn(b, t, h, d, generator=gen, device=dev) * mul
-        out.append(x.to(dt).transpose(1, 2))
+    for t, mul, extra in ((tq, 0.5, pad), (tk, 0.5, 0), (tk, 1.0, 0),
+                          (tq, 1.0, 0)):
+        x = torch.randn(b, t, h, d + extra, generator=gen, device=dev) * mul
+        out.append(x.to(dt)[..., :d].transpose(1, 2))
     return out
 
 
@@ -742,8 +754,8 @@ def check_flash(torch, fa, dev):
             torch.cuda.synchronize()
             # ds = p·(dp − delta)·scale: dq and dk at the size of the
             # terms that cancel (FLASH_TOL's note)
-            delta = (g.float() * o).sum(-1).abs().max().item() \
-                * case[4] ** -0.5
+            d = case[4]
+            delta = (g.float() * o).sum(-1).abs().max().item() * d ** -0.5
             errs = {name: row_err(torch, a, b, max(
                 b.float().abs().max().item(), t), FLASH_TOL)
                 for name, a, b, t in (
@@ -758,14 +770,44 @@ def check_flash(torch, fa, dev):
                   f"{', + 1 bf16 ulp' if dtype == 'bfloat16' else ''})",
                   flush=True)
             assert all(ok for _, ok in errs.values()), (case, dtype, errs)
+            assert fa._vec16(q, k, v, g) == (d % 8 == 0 and len(case) == 6)
             if case == FLASH_PATH and dtype == "bfloat16":
+                # no atomics: a second run gives the same bits
+                again = fa.flash_bwd(q, k, v, o, lse, g, causal=causal)
+                assert all(torch.equal(a, b) for a, b in
+                           zip((dq, dk, dv), again)), "flash_bwd repeat"
+                print(f"flash_bwd {case} {dtype}: a second run is bit for "
+                      "bit the first", flush=True)
+                del again
                 path_err = tuple(
                     max((a.float() - b.float()).abs().max().item()
                         for a, b in pairs) for pairs in (
                         [(o_low, ro.to(q.dtype))],
                         [(dk, rdk), (dv, rdv)], [(dq, rdq)]))
             del q, k, v, g, o, lse, o_low, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+    check_flash_routes(torch, fa, dev)
     return path_err
+
+
+def check_flash_routes(torch, fa, dev):
+    """The backward's kernels by dtype, from the profiler's trace of one
+    call: the float32-FMA kernels for float32 inputs, the tensor-core
+    kernels (``..._mma``) for bfloat16."""
+    from torch.profiler import ProfilerActivity, profile
+    for dtype, mma in (("float32", False), ("bfloat16", True)):
+        q, k, v, g = flash_inputs(torch, (1, 2, 100, 100, 64, True), dtype,
+                                  dev, 1)
+        o, lse = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_bwd(q, k, v, o, lse, g, causal=True)
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if "flash_bwd" in e.name})
+        print(f"flash_bwd {dtype} runs {names}", flush=True)
+        for part in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            hits = [n for n in names if part in n]
+            assert len(hits) == 1 and ("_mma" in hits[0]) == mma, (dtype,
+                                                                    names)
 
 
 def time_by_kernel(torch, fn, argsets, keys, iters=50, warmup=5):
@@ -849,21 +891,24 @@ def time_flash(torch, fa, dev, rate):
     lse_b = b * h * t * 4
     label = f"{FLASH_PATH} bfloat16"
     out = []
-    for name, key, products, nbytes, plain, lib in (
+    for name, key, products, split, nbytes, plain, lib in (
             # q, k, v read, o (float32) and lse written
-            ("flash_attention_fwd", "flash_fwd", 2, 3 * n * 2 + n * 4 + lse_b,
-             plain_f, lib_f),
+            ("flash_attention_fwd", "flash_fwd", 2, 0,
+             3 * n * 2 + n * 4 + lse_b, plain_f, lib_f),
             # q, k, v, dO, lse, delta read; dk, dv written
-            ("flash_attention_bwd_dkdv", "flash_bwd_dkdv", 4,
+            ("flash_attention_bwd_dkdv", "flash_bwd_dkdv", 4, 2,
              6 * n * 2 + 2 * lse_b, plain_b, lib_b),
             # q, k, v, dO, lse, delta read; dq written
-            ("flash_attention_bwd_dq", "flash_bwd_dq", 3,
+            ("flash_attention_bwd_dq", "flash_bwd_dq", 3, 1,
              5 * n * 2 + 2 * lse_b, plain_b, lib_b)):
         times = fwd_t if key == "flash_fwd" else bwd_t
         flops = products * 2 * pairs * d
-        print(f"{name}: {flops} FLOP take {flops / FP32_PEAK * 1e3:.6f} ms "
-              f"at the float32-FMA rate (67 TFLOP/s), the rate of this "
-              f"kernel's products", flush=True)
+        ms = times[key] or times["stream"]
+        print(f"{name}: {flops} FLOP ({(products + split) * 2 * pairs * d} "
+              f"with the split's second products) in {ms:.6f} ms: "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; at the float32-FMA rate "
+              f"(67 TFLOP/s) they take {flops / FP32_PEAK * 1e3:.6f} ms",
+              flush=True)
         out.append(report(f"{name} {label}", {
             "ms": (times[key], times["stream"]), "plain_ms": plain,
             "library_ms": lib}, nbytes, rate, flops, BF16_PEAK))

@@ -29,38 +29,90 @@
 //
 // dq has a kernel of its own so that no gradient is summed with atomics:
 // each output element is written once by one block, and the result does
-// not depend on the order in which blocks run.
+// not depend on the order in which blocks run (two runs agree bit for
+// bit).  The backward has two routes by the inputs' dtype.
 //
-// Numbers: every product accumulates in float32 FMA, and p and ds stay
-// float32, as in the JAX functions; no tensor core and no TF32 rounding.
+// float32 (flash_bwd_dkdv / flash_bwd_dq): every product accumulates in
+// float32 FMA, a 4 x 4 register tile a thread over float32 tiles in
+// shared memory (the layout below); no tensor core and no TF32 rounding.
+//
+// bfloat16 (flash_bwd_dkdv_mma / flash_bwd_dq_mma): the products run on
+// the tensor cores, mma.sync m16n8k16 with bf16 operands and float32
+// sums, as the JAX function's float32 numbers allow:
+//   - s = q.k^T and dp = dO.v^T have bf16 operands only; their products
+//     are exact in float32, so the tensor cores change only the order of
+//     the sum.
+//   - dv = p^T.dO, dk = ds^T.q and dq = ds.k have one float32 operand.
+//     Each p or ds value enters as hi = bf16(x) and lo = bf16(x - hi),
+//     two mma into one float32 sum: hi + lo is x to 2^-17 of it.  At
+//     (1, 2, 1025, 1025, 64) causal that puts dq, dk and dv 1.7e-6 to
+//     3.2e-6 of their largest value from the JAX function's float32
+//     result, inside the 1e-5 that the kernels are held to; one bf16
+//     rounding of p and ds would put them 1.2e-3 to 2.4e-3 away (the
+//     emulation `_kernel_bwd` of tests/test_torch_flash_attention.py, on
+//     the CPU).
+//   - s * scale, p = exp(s * scale - lse), the mask and ds = p (dp -
+//     delta) scale stay float32, as in the JAX function.
 //
 // Bound.  At the TransformerLM's shape (B*H = 256, T = 1024, D = 64,
 // causal) the forward does 34 GFLOP on 161 MiB of q, k, v (bf16), o
-// (float32, kept for the backward) and lse, and the backward 86 GFLOP
-// (five products): far above the card's ratio of operations to bytes,
-// so the kernels are bound by arithmetic.  In float32 FMA (67 TFLOP/s)
-// the forward needs at least 0.51 ms and the backward 1.28 ms.  The
-// design keeps every (q, kv) tile of s, p and ds in registers and shared
-// memory and never writes one to device memory, so bytes stay at the
-// inputs and outputs.  Products use a 4 x 4 register tile a thread over
-// shared memory; wgmma with bf16 operands is the later lever.
+// (float32, kept for the backward) and lse; dkdv 69 GFLOP of products
+// (103 with the split's second products) on 194 MiB and dq 52 (69) on
+// 162 MiB: far above the card's ratio of operations to bytes, so the
+// kernels are bound by arithmetic (at the bf16 tensor-core peak, 989
+// TFLOP/s, 0.070 and 0.052 ms).  Every (q, kv) tile of s, p and ds stays
+// in registers and shared memory, never in device memory.
 //
-// Layout: a block of 256 threads takes a 64-row q tile (forward, dq) or
-// a 64-row KV tile (dkdv).  Thread (ty, tx) = (tid / 16, tid % 16) owns
-// rows ty + 16 i and columns tx + 16 j of a (64, 64) score tile and
-// columns tx + 16 c of a (64, D) accumulator.  Tiles sit in shared memory
-// as float32 rows of D rounded up to 16, 32, 64 or 128, with one float of
-// padding so that a row stride is odd: neighbouring lanes reading one
-// column of neighbouring rows, or one row along d, hit distinct banks.
-// Each tile is read from device memory once per use, along d, and
-// widened to float32 as it is stored; every ragged edge (rows past Tq or
-// Tk, columns past D) is zero-filled on load and masked on store, with
-// 64-bit offsets.  q, k, v, o, dO and the gradients are strided views
-// (the model's heads are transposes of one (B, T, 3, H, D) product):
-// the kernels take each tensor's batch, head and row strides, so the
-// wrapper copies nothing.
+// Design of the bf16 backward.  A block of 4 warps takes 64 KV rows
+// (dkdv) or 64 q rows (dq); each warp owns 16 of them and walks the
+// other side's 64-row tiles in 16-row chunks.
+//   - dkdv computes the transposes S^T = K.Q^T and dP^T = V.dO^T, with K
+//     and V as A (held in registers for D <= 64) and Q, dO as B.  P^T
+//     and dS^T then sit in the accumulator layout of two n8 tiles, which
+//     is the A layout of one k16 step (FlashAttention-2's register
+//     reuse): dV += P^T.dO and dK += dS^T.Q take them from registers,
+//     with dO and Q as B through ldmatrix.trans.  lse and delta belong to
+//     the q columns and come with each Q tile.
+//   - dq holds Q and dO as A fragments for the whole loop: S = Q.K^T,
+//     dP = dO.V^T, then dQ += dS.K with K as B through ldmatrix.trans.
+//   - Tiles sit in shared memory as bf16 rows of D rounded up to 16, 32,
+//     64 or 128 (zeros past D), with 16 bytes of padding a row, so that
+//     every ldmatrix row address is 16-byte aligned and the 8 rows of one
+//     8x8 matrix fall in distinct banks.
+//   - The streamed tiles (Q, dO, lse, delta for dkdv; K, V for dq) load
+//     by cp.async into a ring of 2 stages: the next tile's copies are in
+//     flight while this one multiplies.  16-byte copies where the wrapper
+//     found every row start 16-byte aligned (vec16); else element loads
+//     into the same ring.  Rows past Tq or Tk are zero-filled.
+//   - Causal: dkdv starts at the diagonal tile, dq stops at
+//     live_kv_tiles; a warp skips a chunk whose every pair is masked.
+// ptxas (-Xptxas=-v, sm_90a, CUDA 12.8), no spills in any instance:
+//   D <= 16, 32:  dkdv 88, 137 registers; dq 94, 104
+//   D <= 64:      dkdv 168 registers, 56,320 B of shared memory; dq 168,
+//                 55,296 B: 3 blocks (12 warps) an SM, by registers
+//   D <= 128:     dkdv 250, 105,472 B; dq 248, 104,448 B: 2 blocks an SM
+// (32, 8, 1024, 64) causal on an H100 80GB HBM3 at 700 W: dkdv 0.61 ms,
+// dq 0.46 ms, 112-113 TFLOP/s of products (PERF.md, rows 5b-5c).  The
+// lever left is wgmma on warpgroups fed by TMA.
+//
+// Layout of the forward and the float32 backward: a block of 256 threads
+// takes a 64-row q tile (forward, dq) or a 64-row KV tile (dkdv).  Thread
+// (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and columns tx + 16
+// j of a (64, 64) score tile and columns tx + 16 c of a (64, D)
+// accumulator.  Tiles sit in shared memory as float32 rows of D rounded
+// up to 16, 32, 64 or 128, with one float of padding so that a row stride
+// is odd: neighbouring lanes reading one column of neighbouring rows, or
+// one row along d, hit distinct banks.  Each tile is read from device
+// memory once per use, along d, and widened to float32 as it is stored;
+// every ragged edge (rows past Tq or Tk, columns past D) is zero-filled on
+// load and masked on store, with 64-bit offsets.  q, k, v, o, dO and the
+// gradients are strided views (the model's heads are transposes of one
+// (B, T, 3, H, D) product): the kernels take each tensor's batch, head
+// and row strides, so the wrapper copies nothing.
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -92,6 +144,7 @@ struct Params {
   float* lse_out;
   View qs, ks, vs, gs, os, dqs, dks, dvs;
   int H, Tq, Tk, D, causal;
+  int vec;              // bf16 backward: 16-byte copies (see load_tile_tc)
   float scale;
 };
 
@@ -425,14 +478,481 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 backward on the tensor cores (dtype 1).  See the note at the top.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarpsTc = 4;               // each warp owns 16 rows of 64
+constexpr int kThreadsTc = 32 * kWarpsTc;
+constexpr int kStages = 2;                // ring of streamed tiles
+static_assert(kThreadsTc == 2 * kTile, "load_stats: one value a thread");
+
+template <int NO>
+struct TcGeom {
+  static constexpr int kDp = 16 * NO;     // D rounded up
+  static constexpr int kLd = kDp + 8;     // bf16 a smem row: 16 bytes pad
+  static constexpr int kElems = kTile * kLd;
+  static constexpr size_t kTileBytes = kElems * sizeof(bf16);
+  // dkdv: K, V, then a ring of (Q, dO) and of (lse, delta)
+  static constexpr size_t kDkdvSmem =
+      (2 + 2 * kStages) * kTileBytes + 2 * kStages * kTile * sizeof(float);
+  // dq: Q, dO, then a ring of (K, V)
+  static constexpr size_t kDqSmem = (2 + 2 * kStages) * kTileBytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from src to dst, or 16 zero bytes when !full.
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8, and register i gets matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr))
+      : "memory");
+}
+
+// c += a . b over one m16n8k16 tile, bf16 operands, float32 sums.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where lane reads for ldmatrix.x4 over the 16 x 16 block at (r0, c0) of
+// a tile of row stride kLd.  a_ptr: the A operand of a row-major (m, k)
+// tile, and with .trans the B operand of a row-major (k, n) tile, both
+// for two n8 tiles (registers 0-1 the first, 2-3 the second).  b_ptr:
+// the B operand of a row-major (n, k) tile (no .trans).
+template <int kLd>
+__device__ __forceinline__ const bf16* a_ptr(const bf16* tile, int r0,
+                                             int c0) {
+  const int lane = threadIdx.x & 31;
+  return tile + (r0 + (lane & 15)) * kLd + c0 + (lane >> 4) * 8;
+}
+
+template <int kLd>
+__device__ __forceinline__ const bf16* b_ptr(const bf16* tile, int r0,
+                                             int c0) {
+  const int lane = threadIdx.x & 31;
+  return tile + (r0 + (lane & 7) + ((lane >> 4) << 3)) * kLd + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x = (x0, x1) as hi = bf16(x) and lo = bf16(x - hi); x - hi is exact in
+// float32, so hi + lo is x to 2^-17 of it.
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The accumulator (C) layout of two adjacent n8 tiles, c[j][e] at row
+// g + 8 (e / 2), column 8 j + 2 t + e % 2, is the A layout of one k16
+// step: hi and lo A fragments of its values.
+__device__ __forceinline__ void split_a(const float (&c)[2][4],
+                                        uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split(c[0][0], c[0][1], hi[0], lo[0]);
+  split(c[0][2], c[0][3], hi[1], lo[1]);
+  split(c[1][0], c[1][1], hi[2], lo[2]);
+  split(c[1][2], c[1][3], hi[3], lo[3]);
+}
+
+// Rows [r0, r0 + 64) of a (rows, D) matrix with row stride st into
+// dst[row][d]; zero where the row or d is out of range.  vec: 16-byte
+// asynchronous copies (the wrapper found src, every stride and D
+// multiples of 16 bytes); else element loads, stored before return.
+template <int NO>
+__device__ __forceinline__ void load_tile_tc(bf16* dst, const bf16* src,
+                                             long long st, int r0, int rows,
+                                             int D, bool vec) {
+  constexpr int kDp = TcGeom<NO>::kDp, kLd = TcGeom<NO>::kLd;
+  if (vec) {
+    constexpr int kChunks = kDp / 8;
+    for (int i = threadIdx.x; i < kTile * kChunks; i += kThreadsTc) {
+      const int r = i / kChunks, d = (i % kChunks) * 8;
+      bf16* out = dst + r * kLd + d;
+      if (d < D) {
+        const bool in = r0 + r < rows;
+        cp_async16(out, in ? src + static_cast<long long>(r0 + r) * st + d
+                           : src, in);
+      } else {
+        *reinterpret_cast<uint4*>(out) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kDp; i += kThreadsTc) {
+      const int r = i / kDp, d = i % kDp;
+      bf16 val = __float2bfloat16(0.f);
+      if (r0 + r < rows && d < D)
+        val = src[static_cast<long long>(r0 + r) * st + d];
+      dst[r * kLd + d] = val;
+    }
+  }
+}
+
+// lse and delta of q rows [q0, q0 + 64) into ls[64] and ds[64] (0 past
+// Tq), one float a thread.
+__device__ __forceinline__ void load_stats(float* ls, float* ds,
+                                           const Params& p,
+                                           long long row_base, int q0) {
+  const int r = threadIdx.x & 63;
+  const bool in = q0 + r < p.Tq;
+  const float* src = threadIdx.x < 64 ? p.lse : p.delta;
+  cp_async4((threadIdx.x < 64 ? ls : ds) + r,
+            src + row_base + (in ? q0 + r : 0), in);
+}
+
+template <int NO>
+__device__ __forceinline__ void store_rows(bf16* out, long long st,
+                                           const float (&acc)[2 * NO][4],
+                                           int row0, int rows, int D) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < 2 * NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1), col = 8 * n + 2 * t4 + (e & 1);
+      if (row < rows && col < D)
+        out[static_cast<long long>(row) * st + col] =
+            __float2bfloat16(acc[n][e]);
+    }
+}
+
+// dk and dv.  Grid (B*H, KV tiles), the longest causal tiles (the first)
+// first.  Warp w owns KV rows k0 + 16 w .. + 15 and takes each 64-row q
+// tile in four 16-row chunks: S^T = K.Q^T and dP^T = V.dO^T (K, V as A,
+// Q, dO as B), then P^T, dS^T from registers as A for dV += P^T.dO and
+// dK += dS^T.Q (dO, Q as B through ldmatrix.trans).  For D <= 64 the A
+// fragments of K and V stay in registers for the whole loop.
+template <int NO>
+__global__ void __launch_bounds__(kThreadsTc) flash_bwd_dkdv_mma(Params p) {
+  using G = TcGeom<NO>;
+  constexpr int kLd = G::kLd;
+  constexpr bool kHold = NO <= 4;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* kt = reinterpret_cast<bf16*>(smem_tc);
+  bf16* vt = kt + G::kElems;
+  bf16* qt = vt + G::kElems;             // [kStages] tiles
+  bf16* gt = qt + kStages * G::kElems;   // [kStages] tiles
+  float* lse_s = reinterpret_cast<float*>(gt + kStages * G::kElems);
+  float* delta_s = lse_s + kStages * kTile;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int kv_tile = blockIdx.y, k0 = kv_tile * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kv_row0 = k0 + 16 * warp;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const bf16* dO = static_cast<const bf16*>(p.g) + b * p.gs.b + h * p.gs.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + h * p.ks.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + h * p.vs.h;
+  const long long row_base = static_cast<long long>(bh) * p.Tq;
+  const bool vec = p.vec;
+  const int nq = (p.Tq + kTile - 1) / kTile;
+  // causal: rows below k0 see none of this tile (tiles of q and KV align)
+  const int t0 = p.causal ? kv_tile : 0;
+
+  load_tile_tc<NO>(kt, k, p.ks.t, k0, p.Tk, p.D, vec);
+  load_tile_tc<NO>(vt, v, p.vs.t, k0, p.Tk, p.D, vec);
+  cp_async_commit();
+  if (t0 < nq) {
+    load_tile_tc<NO>(qt, q, p.qs.t, t0 * kTile, p.Tq, p.D, vec);
+    load_tile_tc<NO>(gt, dO, p.gs.t, t0 * kTile, p.Tq, p.D, vec);
+    load_stats(lse_s, delta_s, p, row_base, t0 * kTile);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // K and V
+  __syncthreads();
+  uint32_t kf[kHold ? NO : 1][4], vf[kHold ? NO : 1][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kk = 0; kk < NO; ++kk) {
+      ldsm_x4(kf[kk], a_ptr<kLd>(kt, 16 * warp, 16 * kk));
+      ldsm_x4(vf[kk], a_ptr<kLd>(vt, 16 * warp, 16 * kk));
+    }
+  }
+
+  float dk[2 * NO][4], dv[2 * NO][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int t = t0; t < nq; ++t) {
+    const int stage = (t - t0) & 1;
+    if (t + 1 < nq) {  // the next tile loads while this one multiplies
+      const int nxt = stage ^ 1;
+      load_tile_tc<NO>(qt + nxt * G::kElems, q, p.qs.t, (t + 1) * kTile,
+                       p.Tq, p.D, vec);
+      load_tile_tc<NO>(gt + nxt * G::kElems, dO, p.gs.t, (t + 1) * kTile,
+                       p.Tq, p.D, vec);
+      load_stats(lse_s + nxt * kTile, delta_s + nxt * kTile, p, row_base,
+                 (t + 1) * kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = t * kTile;
+    const bf16* qs = qt + stage * G::kElems;
+    const bf16* gs = gt + stage * G::kElems;
+    const float* ls = lse_s + stage * kTile;
+    const float* dls = delta_s + stage * kTile;
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c) {
+      const int qc0 = q0 + 16 * c;
+      // warp-uniform: the chunk holds no q row, or (causal) every q row
+      // of it lies above every KV row of the warp
+      if (kv_row0 >= p.Tk || qc0 >= p.Tq) break;
+      if (p.causal && qc0 + 15 < kv_row0) continue;
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NO; ++kk) {
+        uint32_t bq[4], bg[4];
+        ldsm_x4(bq, b_ptr<kLd>(qs, 16 * c, 16 * kk));
+        ldsm_x4(bg, b_ptr<kLd>(gs, 16 * c, 16 * kk));
+        if constexpr (kHold) {
+          mma(s[0], kf[kk], bq[0], bq[1]);
+          mma(s[1], kf[kk], bq[2], bq[3]);
+          mma(dp[0], vf[kk], bg[0], bg[1]);
+          mma(dp[1], vf[kk], bg[2], bg[3]);
+        } else {
+          uint32_t a[4];
+          ldsm_x4(a, a_ptr<kLd>(kt, 16 * warp, 16 * kk));
+          mma(s[0], a, bq[0], bq[1]);
+          mma(s[1], a, bq[2], bq[3]);
+          ldsm_x4(a, a_ptr<kLd>(vt, 16 * warp, 16 * kk));
+          mma(dp[0], a, bg[0], bg[1]);
+          mma(dp[1], a, bg[2], bg[3]);
+        }
+      }
+      // s, dp hold S^T, dP^T: row = KV row, column = q row
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 16 * c + 8 * j + 2 * t4 + (e & 1);
+          float pr = 0.f, ds = 0.f;
+          if (live(p, q0 + qc, kv_row0 + g + 8 * (e >> 1))) {
+            pr = expf(s[j][e] * p.scale - ls[qc]);
+            ds = pr * (dp[j][e] - dls[qc]) * p.scale;
+          }
+          s[j][e] = pr;
+          dp[j][e] = ds;
+        }
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      split_a(s, ph, pl);
+      split_a(dp, dh, dl);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bo[4];
+        ldsm_x4_t(bo, a_ptr<kLd>(gs, 16 * c, 16 * n));
+        mma(dv[2 * n], ph, bo[0], bo[1]);
+        mma(dv[2 * n], pl, bo[0], bo[1]);
+        mma(dv[2 * n + 1], ph, bo[2], bo[3]);
+        mma(dv[2 * n + 1], pl, bo[2], bo[3]);
+        ldsm_x4_t(bo, a_ptr<kLd>(qs, 16 * c, 16 * n));
+        mma(dk[2 * n], dh, bo[0], bo[1]);
+        mma(dk[2 * n], dl, bo[0], bo[1]);
+        mma(dk[2 * n + 1], dh, bo[2], bo[3]);
+        mma(dk[2 * n + 1], dl, bo[2], bo[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it reloads
+  }
+
+  store_rows<NO>(static_cast<bf16*>(p.dk) + b * p.dks.b + h * p.dks.h,
+                 p.dks.t, dk, kv_row0, p.Tk, p.D);
+  store_rows<NO>(static_cast<bf16*>(p.dv) + b * p.dvs.b + h * p.dvs.h,
+                 p.dvs.t, dv, kv_row0, p.Tk, p.D);
+}
+
+// dq.  Grid (B*H, q tiles), the longest causal tiles first.  Warp w owns
+// q rows q0 + 16 w .. + 15, with its A fragments of Q and dO in registers
+// for the whole loop, and takes each 64-row KV tile in four 16-row
+// chunks: S = Q.K^T and dP = dO.V^T (K, V as B), then dS from registers
+// as A for dQ += dS.K (K as B through ldmatrix.trans).
+template <int NO>
+__global__ void __launch_bounds__(kThreadsTc) flash_bwd_dq_mma(Params p) {
+  using G = TcGeom<NO>;
+  constexpr int kLd = G::kLd;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qt = reinterpret_cast<bf16*>(smem_tc);
+  bf16* gt = qt + G::kElems;
+  bf16* kt = gt + G::kElems;             // [kStages] tiles
+  bf16* vt = kt + kStages * G::kElems;   // [kStages] tiles
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Tq + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q_row0 = q0 + 16 * warp;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const bf16* dO = static_cast<const bf16*>(p.g) + b * p.gs.b + h * p.gs.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + h * p.ks.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + h * p.vs.h;
+  const bool vec = p.vec;
+  const int nkv = live_kv_tiles(p, q0);
+
+  load_tile_tc<NO>(qt, q, p.qs.t, q0, p.Tq, p.D, vec);
+  load_tile_tc<NO>(gt, dO, p.gs.t, q0, p.Tq, p.D, vec);
+  cp_async_commit();
+  load_tile_tc<NO>(kt, k, p.ks.t, 0, p.Tk, p.D, vec);
+  load_tile_tc<NO>(vt, v, p.vs.t, 0, p.Tk, p.D, vec);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO
+  __syncthreads();
+  uint32_t qf[NO][4], gf[NO][4];
+#pragma unroll
+  for (int kk = 0; kk < NO; ++kk) {
+    ldsm_x4(qf[kk], a_ptr<kLd>(qt, 16 * warp, 16 * kk));
+    ldsm_x4(gf[kk], a_ptr<kLd>(gt, 16 * warp, 16 * kk));
+  }
+  const long long row_base = static_cast<long long>(bh) * p.Tq;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q_row0 + g + 8 * i;
+    lse[i] = row < p.Tq ? p.lse[row_base + row] : 0.f;
+    delta[i] = row < p.Tq ? p.delta[row_base + row] : 0.f;
+  }
+  float dq[2 * NO][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int t = 0; t < nkv; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < nkv) {  // the next tile loads while this one multiplies
+      const int nxt = stage ^ 1;
+      load_tile_tc<NO>(kt + nxt * G::kElems, k, p.ks.t, (t + 1) * kTile,
+                       p.Tk, p.D, vec);
+      load_tile_tc<NO>(vt + nxt * G::kElems, v, p.vs.t, (t + 1) * kTile,
+                       p.Tk, p.D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * kTile;
+    const bf16* ks = kt + stage * G::kElems;
+    const bf16* vs = vt + stage * G::kElems;
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c) {
+      const int kc0 = k0 + 16 * c;
+      // warp-uniform: the chunk holds no key, or (causal) every key of
+      // it lies past every q row of the warp, and so do the next chunks
+      if (q_row0 >= p.Tq || kc0 >= p.Tk) break;
+      if (p.causal && kc0 > q_row0 + 15) break;
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NO; ++kk) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, b_ptr<kLd>(ks, 16 * c, 16 * kk));
+        ldsm_x4(bv, b_ptr<kLd>(vs, 16 * c, 16 * kk));
+        mma(s[0], qf[kk], bk[0], bk[1]);
+        mma(s[1], qf[kk], bk[2], bk[3]);
+        mma(dp[0], gf[kk], bv[0], bv[1]);
+        mma(dp[1], gf[kk], bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float ds = 0.f;
+          if (live(p, q_row0 + g + 8 * i, kc0 + 8 * j + 2 * t4 + (e & 1))) {
+            const float pr = expf(s[j][e] * p.scale - lse[i]);
+            ds = pr * (dp[j][e] - delta[i]) * p.scale;
+          }
+          dp[j][e] = ds;
+        }
+      uint32_t dh[4], dl[4];
+      split_a(dp, dh, dl);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, a_ptr<kLd>(ks, 16 * c, 16 * n));
+        mma(dq[2 * n], dh, bk[0], bk[1]);
+        mma(dq[2 * n], dl, bk[0], bk[1]);
+        mma(dq[2 * n + 1], dh, bk[2], bk[3]);
+        mma(dq[2 * n + 1], dl, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it reloads
+  }
+
+  store_rows<NO>(static_cast<bf16*>(p.dq) + b * p.dqs.b + h * p.dqs.h,
+                 p.dqs.t, dq, q_row0, p.Tq, p.D);
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int bh, int tiles,
+cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, int threads,
                    size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, tiles), kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -441,28 +961,41 @@ constexpr size_t smem_bytes(int tiles, int ptiles) {
   return (tiles * Geom<NO>::kFloats + ptiles * kTile * kPLd) * sizeof(float);
 }
 
-// which: 0 forward, 1 dkdv, 2 dq.
-template <typename T, typename TO, int NO>
-cudaError_t dispatch(int which, const Params& p, int bh, int nq, int nkv,
-                     cudaStream_t s) {
-  switch (which) {
-    case 0:
-      return launch(flash_fwd<T, TO, NO>, p, bh, nq, smem_bytes<NO>(3, 1), s);
-    case 1:
-      return launch(flash_bwd_dkdv<T, NO>, p, bh, nkv, smem_bytes<NO>(4, 2),
-                    s);
-    default:
-      return launch(flash_bwd_dq<T, NO>, p, bh, nq, smem_bytes<NO>(4, 1), s);
-  }
+// f(std::integral_constant<int, NO>()) for the least NO in {1, 2, 4, 8}
+// with 16 NO >= D.
+template <typename F>
+cudaError_t by_width(int D, F f) {
+  if (D <= 16) return f(std::integral_constant<int, 1>());
+  if (D <= 32) return f(std::integral_constant<int, 2>());
+  if (D <= 64) return f(std::integral_constant<int, 4>());
+  return f(std::integral_constant<int, 8>());
 }
 
+// which: 0 forward, 1 dkdv, 2 dq.  The forward is the FMA kernel in both
+// dtypes; the backward the FMA kernels in float32 and the tensor-core
+// kernels in bfloat16.
 template <typename T, typename TO>
-cudaError_t dispatch_d(int which, const Params& p, int bh, int nq, int nkv,
-                       cudaStream_t s) {
-  if (p.D <= 16) return dispatch<T, TO, 1>(which, p, bh, nq, nkv, s);
-  if (p.D <= 32) return dispatch<T, TO, 2>(which, p, bh, nq, nkv, s);
-  if (p.D <= 64) return dispatch<T, TO, 4>(which, p, bh, nq, nkv, s);
-  return dispatch<T, TO, 8>(which, p, bh, nq, nkv, s);
+cudaError_t dispatch(int which, const Params& p, int bh, int nq, int nkv,
+                     cudaStream_t s) {
+  return by_width(p.D, [&](auto no) {
+    constexpr int NO = decltype(no)::value;
+    if (which == 0)
+      return launch(flash_fwd<T, TO, NO>, p, dim3(bh, nq), kThreads,
+                    smem_bytes<NO>(3, 1), s);
+    if constexpr (std::is_same<T, float>::value) {
+      if (which == 1)
+        return launch(flash_bwd_dkdv<float, NO>, p, dim3(bh, nkv), kThreads,
+                      smem_bytes<NO>(4, 2), s);
+      return launch(flash_bwd_dq<float, NO>, p, dim3(bh, nq), kThreads,
+                    smem_bytes<NO>(4, 1), s);
+    } else {
+      if (which == 1)
+        return launch(flash_bwd_dkdv_mma<NO>, p, dim3(bh, nkv), kThreadsTc,
+                      TcGeom<NO>::kDkdvSmem, s);
+      return launch(flash_bwd_dq_mma<NO>, p, dim3(bh, nq), kThreadsTc,
+                    TcGeom<NO>::kDqSmem, s);
+    }
+  });
 }
 
 // shape = {B, H, Tq, Tk, D, causal}; strides: three (b, h, t) element
@@ -494,13 +1027,13 @@ int run(int which, int dtype, int out_f32, int device, const long long* shape,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(
-        dispatch_d<float, float>(which, p, bh, nq, nkv, s));
+        dispatch<float, float>(which, p, bh, nq, nkv, s));
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (out_f32)
     return static_cast<int>(
-        dispatch_d<__nv_bfloat16, float>(which, p, bh, nq, nkv, s));
+        dispatch<__nv_bfloat16, float>(which, p, bh, nq, nkv, s));
   return static_cast<int>(
-      dispatch_d<__nv_bfloat16, __nv_bfloat16>(which, p, bh, nq, nkv, s));
+      dispatch<__nv_bfloat16, __nv_bfloat16>(which, p, bh, nq, nkv, s));
 }
 
 }  // namespace
@@ -524,14 +1057,19 @@ extern "C" int mx_flash_fwd(int dtype, int out_f32, int device,
 }
 
 // dk and dv from q, k, v, dO (g) in the type `dtype`, and the forward's
-// lse and delta = rowsum(dO * O), (B, H, Tq) float32 contiguous.
-extern "C" int mx_flash_bwd_dkdv(int dtype, int device, const long long* shape,
+// lse and delta = rowsum(dO * O), (B, H, Tq) float32 contiguous.  vec16:
+// q, k, v and g each start on 16 bytes and have (b, h, t) strides and D
+// that are multiples of 8 elements, so the bfloat16 kernels copy rows 16
+// bytes at a time; float32 ignores it.
+extern "C" int mx_flash_bwd_dkdv(int dtype, int vec16, int device,
+                                 const long long* shape,
                                  const long long* strides, float scale,
                                  const void* q, const void* k, const void* v,
                                  const void* g, const float* lse,
                                  const float* delta, void* dk, void* dv,
                                  void* stream) {
   Params p{};
+  p.vec = vec16;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -544,12 +1082,14 @@ extern "C" int mx_flash_bwd_dkdv(int dtype, int device, const long long* shape,
 }
 
 // dq, from the same inputs.
-extern "C" int mx_flash_bwd_dq(int dtype, int device, const long long* shape,
+extern "C" int mx_flash_bwd_dq(int dtype, int vec16, int device,
+                               const long long* shape,
                                const long long* strides, float scale,
                                const void* q, const void* k, const void* v,
                                const void* g, const float* lse,
                                const float* delta, void* dq, void* stream) {
   Params p{};
+  p.vec = vec16;
   p.q = q;
   p.k = k;
   p.v = v;

@@ -17,6 +17,19 @@ computes ``s = (q·kᵀ)·scale`` (the scale applied after the product, as
 ``_attn_bwd_reference`` does), ``ds = p·(dp − delta)·scale`` and the
 three gradients in float32, each written in its input's dtype.
 
+The backward kernels take two routes by dtype.  float32 inputs run
+float32-FMA kernels.  bfloat16 inputs run tensor-core kernels (bf16
+operands, float32 sums) that keep those numbers: q·kᵀ and dO·vᵀ have
+bf16 operands only, so their products are exact; p and ds, which stay
+float32, enter pᵀ·dO, dsᵀ·q and ds·k as two bf16 parts, hi = bf16(x)
+and lo = bf16(x − hi), each product summed in float32.  That puts the
+gradients within 1.7e-6 to 3.2e-6 of their largest value from the JAX
+function's float32 result at the TransformerLM's T and head width, where
+one bf16 rounding of p and ds would put them 1.2e-3 to 2.4e-3 away
+(``tests/test_torch_flash_attention.py`` emulates both).  The bfloat16
+kernels copy rows 16 bytes at a time when every input's start, strides
+and D allow it (:func:`_vec16`), else element by element.
+
 Two differences of method, not of result:
 
 * The forward returns the row logsumexp ``lse = m + log l`` and the
@@ -69,8 +82,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # the C entries' arguments (csrc/flash_attention.cu)
 _FWD_ARGS = [_I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P]
-_DKDV_ARGS = [_I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P]
-_DQ_ARGS = [_I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P]
+_DKDV_ARGS = [_I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_DQ_ARGS = [_I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P]
 
 
 def _scale(q, sm_scale):
@@ -167,6 +180,15 @@ def _strides(q, k, v, g=None, o=None, dq=None, dk=None, dv=None):
     return (ctypes.c_longlong * 24)(*flat)
 
 
+def _vec16(*tensors):
+    """True when the bfloat16 backward kernels may copy rows of every
+    tensor 16 bytes at a time: each starts on 16 bytes, and its (b, h, t)
+    strides and its last dimension are multiples of 8 elements.  Else
+    they load element by element."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
+               and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
+
+
 def _shape(q, k, causal):
     b, h, tq, d = q.shape
     return (ctypes.c_longlong * 6)(b, h, tq, k.shape[2], d, int(causal))
@@ -244,13 +266,14 @@ def flash_bwd(q, k, v, o, lse, do, sm_scale=None, causal=False):
     if tq == 0:
         return dq, dk.zero_(), dv.zero_()
     code, dev = _DTYPE_CODES[q.dtype], q.device.index
+    vec = int(_vec16(q, k, v, do))
     shape, scale = _shape(q, k, causal), _scale(q, sm_scale)
-    _launch("mx_flash_bwd_dkdv", _DKDV_ARGS, q.device, code, dev, shape,
-            _strides(q, k, v, do, dk=dk, dv=dv), scale, q.data_ptr(),
+    _launch("mx_flash_bwd_dkdv", _DKDV_ARGS, q.device, code, vec, dev,
+            shape, _strides(q, k, v, do, dk=dk, dv=dv), scale, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     _count("bwd_dkdv_launches")
-    _launch("mx_flash_bwd_dq", _DQ_ARGS, q.device, code, dev, shape,
+    _launch("mx_flash_bwd_dq", _DQ_ARGS, q.device, code, vec, dev, shape,
             _strides(q, k, v, do, dq=dq), scale, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr())

@@ -626,7 +626,9 @@ def _bthd(b, h, t, d, dtype, dev, gen, mul=1.0):
     (1, 2, 150, 70, 32, True), (2, 2, 200, 200, 64, True),
     (1, 1, 1025, 1025, 64, True),          # the TransformerLM's T
     (1, 2, 130, 130, 16, True), (1, 2, 130, 130, 128, False),
-    (1, 1, 65, 65, 1, True)])
+    (1, 1, 65, 65, 1, True),
+    (1, 2, 130, 130, 40, True),            # D a multiple of 8, not of 16
+    (1, 2, 150, 70, 72, False)])
 def test_flash_attention_kernels_match_plain(dev, no_tf32, dtype, b, h, tq,
                                              tk, d, causal):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -635,6 +637,12 @@ def test_flash_attention_kernels_match_plain(dev, no_tf32, dtype, b, h, tq,
     k = _bthd(b, h, tk, d, dt, dev, gen, 0.5)
     v = _bthd(b, h, tk, d, dt, dev, gen)
     g = _bthd(b, h, tq, d, dt, dev, gen)
+    _check_flash(q, k, v, g, causal)
+
+
+def _check_flash(q, k, v, g, causal):
+    """Kernel 5 and its backward kernels against their plain versions."""
+    dt, d = q.dtype, q.shape[-1]
     before = (fa.fwd_launches, fa.bwd_dkdv_launches, fa.bwd_dq_launches)
     o, lse = fa.flash_fwd(q, k, v, causal=causal, out_dtype=torch.float32)
     o_low, lse_low = fa.flash_fwd(q, k, v, causal=causal)
@@ -656,6 +664,58 @@ def test_flash_attention_kernels_match_plain(dev, no_tf32, dtype, b, h, tq,
     _row_close(dq, rdq, "dq", FLASH_TOL, delta * k.float().abs().max().item())
     _row_close(dk, rdk, "dk", FLASH_TOL, delta * q.float().abs().max().item())
     _row_close(dv, rdv, "dv", FLASH_TOL)
+
+
+def test_flash_bwd_loads_element_wise_where_rows_are_not_16_byte_aligned(
+        dev, no_tf32):
+    """A bf16 q sliced from a wider tensor, its rows 134 elements apart,
+    sends both backward kernels to their element-wise loads; the model's
+    layout takes the 16-byte copies."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, t, d = 2, 2, 150, 64
+    wide = torch.randn(b, t, h, d + 3, generator=gen, device=dev) * 0.5
+    q = wide.to(torch.bfloat16)[..., :d].transpose(1, 2)
+    k, v, g = (_bthd(b, h, t, d, torch.bfloat16, dev, gen, mul)
+               for mul in (0.5, 1.0, 1.0))
+    assert q.stride(2) % 8 != 0
+    assert not fa._vec16(q, k, v, g) and fa._vec16(k, v, g)
+    _check_flash(q, k, v, g, True)
+
+
+def test_flash_bwd_is_bit_for_bit_repeatable(dev):
+    """No atomics: two backward runs at the TransformerLM's attention,
+    (32, 8, 1024, 64) causal bf16, give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k = (_bthd(32, 8, 1024, 64, torch.bfloat16, dev, gen, 0.5)
+            for _ in range(2))
+    v, g = (_bthd(32, 8, 1024, 64, torch.bfloat16, dev, gen)
+            for _ in range(2))
+    o, lse = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
+    first = fa.flash_bwd(q, k, v, o, lse, g, causal=True)
+    second = fa.flash_bwd(q, k, v, o, lse, g, causal=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_flash_bwd_runs_the_kernels_of_its_dtype(dev, dtype, route):
+    """float32 inputs run the float32-FMA backward kernels; bfloat16 the
+    tensor-core kernels (names ending in _mma), as the profiler sees."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dt = getattr(torch, dtype)
+    q, k, v, g = (_bthd(1, 2, 100, 64, dt, dev, gen) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_bwd(q, k, v, o, lse, g, causal=True)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    for part in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        hits = [n for n in names if part in n]
+        assert len(hits) == 1, (part, names)
+        assert ("_mma" in hits[0]) == (route == "tensor-core"), hits
 
 
 def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):

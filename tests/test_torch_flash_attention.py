@@ -19,6 +19,16 @@ once, so each value may land one bf16 ulp away (2^-8 of it), plus the
 float32 allowance.  The bf16 gradients take the cotangent 2·o from the
 JAX side, so both backwards see the same bits (a one-ulp difference in
 o would otherwise move the cotangent of ``(o ** 2).sum()``).
+
+The bfloat16 backward kernels' arithmetic, emulated here (they run only
+on the card): bf16 q, k, v and dO enter the tensor cores as they are,
+so s = q·kᵀ and dp = dO·vᵀ are float32 sums of exact products; p and ds
+stay float32 and enter dv = pᵀ·dO, dk = dsᵀ·q and dq = ds·k as two bf16
+parts, hi = bf16(x) and lo = bf16(x − hi), each product summed in
+float32.  That emulation is held to ``_attn_bwd_reference`` at
+``GRAD_TOL``, the share of the largest value that the card holds the
+kernels to (with the outputs in float32, before their bf16 rounding);
+one bf16 rounding of p and ds instead does not fit it.
 """
 import numpy as np
 import pytest
@@ -171,3 +181,98 @@ def test_scale_defaults_to_head_dim_and_cpu_launches_nothing():
                                                         sm_scale=0.5))
     assert (fa.fwd_launches, fa.bwd_dkdv_launches,
             fa.bwd_dq_launches) == before          # CPU: plain versions
+
+
+def _split(x):
+    """x as hi = bf16(x) and lo = bf16(x − hi), both widened to float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _rounded(x):
+    """x as one bf16 rounding and a zero second part."""
+    return x.to(torch.bfloat16).float(), torch.zeros_like(x)
+
+
+def _kernel_bwd(q, k, v, o, lse, g, causal, parts):
+    """``(dq, dk, dv)`` in float32 by the bf16 backward kernels'
+    arithmetic, with p and ds cut into two bf16 parts by ``parts``."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse.unsqueeze(-1))
+    if causal:
+        p = torch.where(fa._keep(p.shape[-2], p.shape[-1], p.device), p, 0.0)
+    delta = (gf * o).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta) * scale
+    (p_hi, p_lo), (ds_hi, ds_lo) = parts(p), parts(ds)
+    dq = torch.matmul(ds_hi, kf) + torch.matmul(ds_lo, kf)
+    dk = (torch.matmul(ds_hi.transpose(-1, -2), qf)
+          + torch.matmul(ds_lo.transpose(-1, -2), qf))
+    dv = (torch.matmul(p_hi.transpose(-1, -2), gf)
+          + torch.matmul(p_lo.transpose(-1, -2), gf))
+    return dq, dk, dv
+
+
+# (B, H, Tq, Tk, D, causal): the TransformerLM's T and head width; cross
+# lengths
+SPLIT_CASES = [(1, 2, 1025, 1025, 64, True), (1, 2, 70, 150, 32, True)]
+
+
+def _split_case(case):
+    """The JAX reference's float32 and bfloat16 gradients and the
+    port's forward residuals for one case."""
+    b, h, tq, tk, d, causal = case
+    (jq, jk, jv), (q, k, v) = _both(_inputs(b, h, tq, tk, d, seed=7),
+                                    "bfloat16")
+    g = np.random.RandomState(8).randn(b, h, tq, d).astype(np.float32)
+    (jg,), (tg,) = _both([g], "bfloat16")
+    f32 = [a.astype(jnp.float32) for a in (jq, jk, jv, jg)]
+    want32 = [_np(a) for a in pk._attn_bwd_reference(
+        *f32[:3], d ** -0.5, causal, f32[3])]
+    want16 = [_np(a) for a in pk._attn_bwd_reference(
+        jq, jk, jv, d ** -0.5, causal, jg)]
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, out_dtype=torch.float32)
+    return (q, k, v, o, lse, tg), want32, want16
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_products_hold_attn_bwd_reference_to_grad_tol(case):
+    """hi + lo parts of p and ds: dq, dk and dv within GRAD_TOL of the
+    largest value of JAX's float32 backward of the same bf16 values, and
+    their bf16 roundings within one bf16 ulp more of JAX's bf16
+    backward."""
+    args, want32, want16 = _split_case(case)
+    got = _kernel_bwd(*args, case[5], _split)
+    for name, a, w32, w16 in zip("qkv", got, want32, want16):
+        err = np.abs(_np(a) - w32).max() / np.abs(w32).max()
+        assert err <= GRAD_TOL, (name, err)
+        _close(_np(a.to(torch.bfloat16)), w16, "bfloat16",
+               GRAD_TOL * np.abs(w16).max())
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_one_bf16_rounding_of_p_and_ds_misses_grad_tol(case):
+    """The control: with p and ds rounded once to bf16 (what a plain bf16
+    tensor-core product would take), every gradient misses GRAD_TOL."""
+    args, want32, _ = _split_case(case)
+    got = _kernel_bwd(*args, case[5], _rounded)
+    for name, a, w in zip("qkv", got, want32):
+        err = np.abs(_np(a) - w).max() / np.abs(w).max()
+        assert err > GRAD_TOL, (name, err)
+
+
+def test_vec16_takes_the_model_heads_and_refuses_unaligned_rows():
+    """The 16-byte copies of the bf16 backward: taken for the
+    TransformerLM's heads (views of one (B, T, 3·H·D) product), refused
+    for a head width, a start or a row stride off 8 elements."""
+    b, t, h, d = 2, 5, 3, 64
+    qkv = torch.zeros(b, t, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = (x.reshape(b, t, h, d).transpose(1, 2)
+               for x in qkv.split(h * d, dim=-1))
+    assert fa._vec16(q, k, v, q)
+    assert not fa._vec16(q[..., :60], k[..., :60], v[..., :60])   # D = 60
+    shifted = qkv[..., 1:1 + h * d].reshape(b, t, h, d).transpose(1, 2)
+    assert not fa._vec16(shifted, k, v)                           # start
+    wide = torch.zeros(b, t, h, d + 4, dtype=torch.bfloat16)[..., :d]
+    assert not fa._vec16(q, wide.transpose(1, 2), v)              # strides
