@@ -16,12 +16,12 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    ragged widths, a width past 16384 and a row with -inf entries; for
    flash attention, kernel 5 and its dk/dv and dq kernels, at one row,
    cross lengths, ragged tiles, T = 1025, head widths 16 to 128 (40 and
-   72 among them), B·H = 1 and a q whose rows the bfloat16 backward
-   loads element by element, in both dtypes; then two backward runs at
-   the path's shape bit for bit, and the backward's kernels by dtype:
-   float32-FMA for float32, tensor-core for bfloat16), with the stated
-   tolerances, and its time beside the plain version's, one PyTorch
-   library call's and the bound;
+   72 among them), B·H = 1 and a q whose rows the bfloat16 kernels
+   load element by element, in both dtypes; then two forward and two
+   backward runs at the path's shape bit for bit, and the kernels by
+   dtype: float32-FMA for float32, tensor-core for bfloat16), with the
+   stated tolerances, and its time beside the plain version's, one
+   PyTorch library call's and the bound;
 4. BERT-base at full width in process — one forward at B=8, T=128 on
    the card against the same weights on the CPU through the port's
    plain path, and the LayerNorm launch count of that forward;
@@ -269,7 +269,7 @@ TF_LOSS_TOL, TF_GRAD_TOL = 1e-5, 1e-4
 # lengths; ragged tiles; the model's T = 1025; every head width class;
 # B·H = 1; D = 40 and 72 (multiples of 8, not of 16); a q whose rows sit
 # pad = 3 elements further apart than the model's, so that the bfloat16
-# backward loads it element by element
+# kernels load it element by element
 FLASH_PATH = (TF_B, TF_H, TF_T - 1, TF_T - 1, TF_D // TF_H, True)
 FLASH_CASES = [(2, 2, 1, 1, 64, True), (2, 3, 70, 150, 32, False),
                (2, 3, 200, 200, 64, True), (1, 4, 1025, 1025, 64, True),
@@ -773,12 +773,17 @@ def check_flash(torch, fa, dev):
             assert fa._vec16(q, k, v, g) == (d % 8 == 0 and len(case) == 6)
             if case == FLASH_PATH and dtype == "bfloat16":
                 # no atomics: a second run gives the same bits
+                again = fa.flash_fwd(q, k, v, causal=causal,
+                                     out_dtype=torch.float32)
+                again_low, _ = fa.flash_fwd(q, k, v, causal=causal)
+                assert all(torch.equal(a, b) for a, b in zip(
+                    (o, lse, o_low), (*again, again_low))), "flash_fwd repeat"
                 again = fa.flash_bwd(q, k, v, o, lse, g, causal=causal)
                 assert all(torch.equal(a, b) for a, b in
                            zip((dq, dk, dv), again)), "flash_bwd repeat"
-                print(f"flash_bwd {case} {dtype}: a second run is bit for "
-                      "bit the first", flush=True)
-                del again
+                print(f"flash_fwd, flash_bwd {case} {dtype}: a second run is "
+                      "bit for bit the first", flush=True)
+                del again, again_low
                 path_err = tuple(
                     max((a.float() - b.float()).abs().max().item()
                         for a, b in pairs) for pairs in (
@@ -790,24 +795,32 @@ def check_flash(torch, fa, dev):
 
 
 def check_flash_routes(torch, fa, dev):
-    """The backward's kernels by dtype, from the profiler's trace of one
-    call: the float32-FMA kernels for float32 inputs, the tensor-core
-    kernels (``..._mma``) for bfloat16."""
+    """The forward's and the backward's kernels by dtype, from the
+    profiler's trace of one call each: the float32-FMA kernels for
+    float32 inputs, the tensor-core kernels (``..._mma``) for
+    bfloat16."""
     from torch.profiler import ProfilerActivity, profile
     for dtype, mma in (("float32", False), ("bfloat16", True)):
         q, k, v, g = flash_inputs(torch, (1, 2, 100, 100, 64, True), dtype,
                                   dev, 1)
-        o, lse = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            o, lse = fa.flash_fwd(q, k, v, causal=True,
+                                  out_dtype=torch.float32)
+            torch.cuda.synchronize()
+        fwd = sorted({e.name for e in prof.events() if "flash_" in e.name})
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fa.flash_bwd(q, k, v, o, lse, g, causal=True)
             torch.cuda.synchronize()
-        names = sorted({e.name for e in prof.events()
-                        if "flash_bwd" in e.name})
-        print(f"flash_bwd {dtype} runs {names}", flush=True)
-        for part in ("flash_bwd_dkdv", "flash_bwd_dq"):
-            hits = [n for n in names if part in n]
-            assert len(hits) == 1 and ("_mma" in hits[0]) == mma, (dtype,
-                                                                    names)
+        bwd = sorted({e.name for e in prof.events() if "flash_" in e.name})
+        print(f"flash_fwd {dtype} runs {fwd}; flash_bwd {dtype} runs {bwd}",
+              flush=True)
+        for names, parts in ((fwd, ("flash_fwd",)),
+                             (bwd, ("flash_bwd_dkdv", "flash_bwd_dq"))):
+            assert len(names) == len(parts), (dtype, names)
+            for part in parts:
+                hits = [n for n in names if part in n]
+                assert len(hits) == 1 and ("_mma" in hits[0]) == mma, (
+                    dtype, names)
 
 
 def time_by_kernel(torch, fn, argsets, keys, iters=50, warmup=5):
@@ -843,7 +856,10 @@ def time_flash(torch, fa, dev, rate):
     them).  Bounds: each input read once and each output written once at
     the memory rate; the products this run's causal mask keeps (T(T+1)/2
     (q, k) pairs a head, 2·D FLOP a pair a product) at the bf16 tensor-
-    core peak, with the float32-FMA time of the same FLOPs beside it."""
+    core peak, with the float32-FMA time of the same FLOPs beside it.
+    The rate printed counts those products; beside it, with the second
+    products of the hi + lo split (p·v in the forward; p·dO, ds·q and
+    ds·k in the backward)."""
     import torch.nn.functional as F
     b, h, t, _, d, causal = FLASH_PATH
     sets, bwd_sets, lib_sets = [], [], []
@@ -893,7 +909,7 @@ def time_flash(torch, fa, dev, rate):
     out = []
     for name, key, products, split, nbytes, plain, lib in (
             # q, k, v read, o (float32) and lse written
-            ("flash_attention_fwd", "flash_fwd", 2, 0,
+            ("flash_attention_fwd", "flash_fwd", 2, 1,
              3 * n * 2 + n * 4 + lse_b, plain_f, lib_f),
             # q, k, v, dO, lse, delta read; dk, dv written
             ("flash_attention_bwd_dkdv", "flash_bwd_dkdv", 4, 2,
@@ -2483,8 +2499,8 @@ def main():
           f"({', '.join(logs) or 'already built'})", flush=True)
     for log in logs.values():
         for line in log.splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "Compiling" in line):
+            if "spill" in line or "ptxas info" in line and (
+                    "registers" in line or "Compiling" in line):
                 print("  " + line.strip(), flush=True)
 
     phase("3 kernels against plain versions")

@@ -30,72 +30,91 @@
 // dq has a kernel of its own so that no gradient is summed with atomics:
 // each output element is written once by one block, and the result does
 // not depend on the order in which blocks run (two runs agree bit for
-// bit).  The backward has two routes by the inputs' dtype.
+// bit; so do two forward runs).
 //
-// float32 (flash_bwd_dkdv / flash_bwd_dq): every product accumulates in
-// float32 FMA, a 4 x 4 register tile a thread over float32 tiles in
-// shared memory (the layout below); no tensor core and no TF32 rounding.
+// Two routes by the inputs' dtype, for the forward and the backward.
 //
-// bfloat16 (flash_bwd_dkdv_mma / flash_bwd_dq_mma): the products run on
-// the tensor cores, mma.sync m16n8k16 with bf16 operands and float32
-// sums, as the JAX function's float32 numbers allow:
+// float32 (flash_fwd, flash_bwd_dkdv, flash_bwd_dq): every product
+// accumulates in float32 FMA, a 4 x 4 register tile a thread over float32
+// tiles in shared memory (the layout below); no tensor core and no TF32
+// rounding.
+//
+// bfloat16 (flash_fwd_mma, flash_bwd_dkdv_mma, flash_bwd_dq_mma): the
+// products run on the tensor cores, mma.sync m16n8k16 with bf16 operands
+// and float32 sums, as the JAX function's float32 numbers allow:
 //   - s = q.k^T and dp = dO.v^T have bf16 operands only; their products
 //     are exact in float32, so the tensor cores change only the order of
-//     the sum.
-//   - dv = p^T.dO, dk = ds^T.q and dq = ds.k have one float32 operand.
-//     Each p or ds value enters as hi = bf16(x) and lo = bf16(x - hi),
-//     two mma into one float32 sum: hi + lo is x to 2^-17 of it.  At
-//     (1, 2, 1025, 1025, 64) causal that puts dq, dk and dv 1.7e-6 to
-//     3.2e-6 of their largest value from the JAX function's float32
-//     result, inside the 1e-5 that the kernels are held to; one bf16
-//     rounding of p and ds would put them 1.2e-3 to 2.4e-3 away (the
-//     emulation `_kernel_bwd` of tests/test_torch_flash_attention.py, on
-//     the CPU).
-//   - s * scale, p = exp(s * scale - lse), the mask and ds = p (dp -
+//     the sum.  The scale is applied to s in float32 after the product
+//     (for D = 64, scale = 1/8 and this is JAX's (q * scale).k^T exactly;
+//     for other D it moves s by one float32 rounding).
+//   - o = p.v, dv = p^T.dO, dk = ds^T.q and dq = ds.k have one float32
+//     operand.  Each p or ds value enters as hi = bf16(x) and lo = bf16(x
+//     - hi), two mma into one float32 sum: hi + lo is x to 2^-17 of it.
+//     In the CPU emulations of tests/test_torch_flash_attention.py
+//     (`_kernel_fwd`, `_kernel_bwd`) that puts o 0.95e-6 to 3.2e-6 of its
+//     largest value from the Pallas kernel's float32 output, and dq, dk,
+//     dv 1.7e-6 to 3.2e-6 from the JAX function's float32 backward,
+//     inside the 1e-5 that the kernels are held to; one bf16 rounding of
+//     p would put o 7.9e-4 away, and of p and ds the gradients 1.2e-3 to
+//     2.4e-3.
+//   - The online max and sum, exp, the rescale alpha, the -1e30 mask,
+//     max(l, 1e-30), lse, p = exp(s * scale - lse) and ds = p (dp -
 //     delta) scale stay float32, as in the JAX function.
 //
 // Bound.  At the TransformerLM's shape (B*H = 256, T = 1024, D = 64,
-// causal) the forward does 34 GFLOP on 161 MiB of q, k, v (bf16), o
-// (float32, kept for the backward) and lse; dkdv 69 GFLOP of products
-// (103 with the split's second products) on 194 MiB and dq 52 (69) on
-// 162 MiB: far above the card's ratio of operations to bytes, so the
-// kernels are bound by arithmetic (at the bf16 tensor-core peak, 989
-// TFLOP/s, 0.070 and 0.052 ms).  Every (q, kv) tile of s, p and ds stays
-// in registers and shared memory, never in device memory.
+// causal) the forward does 34 GFLOP of products (52 with the split's
+// second products) on 161 MiB of q, k, v (bf16), o (float32, kept for the
+// backward) and lse: 204 FLOP a byte, under the card's 295, so it is
+// bound by bytes (0.050 ms at 3.35 TB/s; 0.035 ms of products at the bf16
+// tensor-core peak, 989 TFLOP/s).  dkdv does 69 GFLOP (103) on 194 MiB
+// and dq 52 (69) on 162 MiB, bound by arithmetic (0.070 and 0.052 ms).
+// Every (q, kv) tile of s, p and ds stays in registers and shared
+// memory, never in device memory.
 //
-// Design of the bf16 backward.  A block of 4 warps takes 64 KV rows
-// (dkdv) or 64 q rows (dq); each warp owns 16 of them and walks the
-// other side's 64-row tiles in 16-row chunks.
-//   - dkdv computes the transposes S^T = K.Q^T and dP^T = V.dO^T, with K
-//     and V as A (held in registers for D <= 64) and Q, dO as B.  P^T
-//     and dS^T then sit in the accumulator layout of two n8 tiles, which
-//     is the A layout of one k16 step (FlashAttention-2's register
-//     reuse): dV += P^T.dO and dK += dS^T.Q take them from registers,
-//     with dO and Q as B through ldmatrix.trans.  lse and delta belong to
-//     the q columns and come with each Q tile.
+// Design of the bf16 kernels.  A block of 4 warps takes 64 q rows
+// (forward, dq) or 64 KV rows (dkdv); each warp owns 16 of them and walks
+// the other side's 64-row tiles.
+//   - The forward holds Q as A fragments for the whole loop (re-read from
+//     shared memory at D = 128) and takes each KV tile whole: S = Q.K^T
+//     in 8 n8 tiles, the row max and sum in the accumulator layout (a
+//     row's values sit in the 4 lanes of a quad), then O += P.V with P
+//     from registers and V as B through ldmatrix.trans.
+//   - dkdv computes the transposes S^T = K.Q^T and dP^T = V.dO^T in
+//     16-row chunks, with K and V as A (held in registers for D <= 64)
+//     and Q, dO as B.  P^T and dS^T then sit in the accumulator layout of
+//     two n8 tiles, which is the A layout of one k16 step
+//     (FlashAttention-2's register reuse): dV += P^T.dO and dK += dS^T.Q
+//     take them from registers, with dO and Q as B through
+//     ldmatrix.trans.  lse and delta belong to the q columns and come
+//     with each Q tile.
 //   - dq holds Q and dO as A fragments for the whole loop: S = Q.K^T,
 //     dP = dO.V^T, then dQ += dS.K with K as B through ldmatrix.trans.
 //   - Tiles sit in shared memory as bf16 rows of D rounded up to 16, 32,
 //     64 or 128 (zeros past D), with 16 bytes of padding a row, so that
 //     every ldmatrix row address is 16-byte aligned and the 8 rows of one
 //     8x8 matrix fall in distinct banks.
-//   - The streamed tiles (Q, dO, lse, delta for dkdv; K, V for dq) load
-//     by cp.async into a ring of 2 stages: the next tile's copies are in
-//     flight while this one multiplies.  16-byte copies where the wrapper
-//     found every row start 16-byte aligned (vec16); else element loads
-//     into the same ring.  Rows past Tq or Tk are zero-filled.
-//   - Causal: dkdv starts at the diagonal tile, dq stops at
-//     live_kv_tiles; a warp skips a chunk whose every pair is masked.
+//   - The streamed tiles (K, V for the forward and dq; Q, dO, lse, delta
+//     for dkdv) load by cp.async into a ring of 2 stages: the next tile's
+//     copies are in flight while this one multiplies.  16-byte copies
+//     where the wrapper found every row start 16-byte aligned (vec16);
+//     else element loads into the same ring.  Rows past Tq or Tk are
+//     zero-filled.
+//   - Causal: the forward and dq stop at live_kv_tiles, dkdv starts at the
+//     diagonal tile; only a tile that holds a masked pair is masked, and a
+//     warp skips a 16-wide chunk whose every pair is masked.
 // ptxas (-Xptxas=-v, sm_90a, CUDA 12.8), no spills in any instance:
-//   D <= 16, 32:  dkdv 88, 137 registers; dq 94, 104
-//   D <= 64:      dkdv 168 registers, 56,320 B of shared memory; dq 168,
+//   D <= 16, 32:  forward 128, 86 registers; dkdv 88, 137; dq 94, 104
+//   D <= 64:      forward 128 registers, 46,080 B of shared memory: 4
+//                 blocks (16 warps) an SM; dkdv 168, 56,320 B; dq 168,
 //                 55,296 B: 3 blocks (12 warps) an SM, by registers
-//   D <= 128:     dkdv 250, 105,472 B; dq 248, 104,448 B: 2 blocks an SM
-// (32, 8, 1024, 64) causal on an H100 80GB HBM3 at 700 W: dkdv 0.61 ms,
-// dq 0.46 ms, 112-113 TFLOP/s of products (PERF.md, rows 5b-5c).  The
-// lever left is wgmma on warpgroups fed by TMA.
+//   D <= 128:     forward 168, 87,040 B; dkdv 250, 105,472 B; dq 248,
+//                 104,448 B: 2 blocks an SM
+// (32, 8, 1024, 64) causal on an H100 80GB HBM3 at 700 W: forward 0.33
+// ms, 105 TFLOP/s of products; dkdv 0.61 ms, dq 0.46 ms, 112-113 TFLOP/s
+// (PERF.md, rows 5-5c).  The lever left is wgmma on warpgroups fed by
+// TMA.
 //
-// Layout of the forward and the float32 backward: a block of 256 threads
+// Layout of the float32 kernels: a block of 256 threads
 // takes a 64-row q tile (forward, dq) or a 64-row KV tile (dkdv).  Thread
 // (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and columns tx + 16
 // j of a (64, 64) score tile and columns tx + 16 c of a (64, D)
@@ -144,7 +163,7 @@ struct Params {
   float* lse_out;
   View qs, ks, vs, gs, os, dqs, dks, dvs;
   int H, Tq, Tk, D, causal;
-  int vec;              // bf16 backward: 16-byte copies (see load_tile_tc)
+  int vec;              // bf16 kernels: 16-byte copies (see load_tile_tc)
   float scale;
 };
 
@@ -479,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(Params p) {
 }
 
 // ---------------------------------------------------------------------
-// bf16 backward on the tensor cores (dtype 1).  See the note at the top.
+// bf16 kernels on the tensor cores (dtype 1).  See the note at the top.
 
 using bf16 = __nv_bfloat16;
 
@@ -499,6 +518,8 @@ struct TcGeom {
       (2 + 2 * kStages) * kTileBytes + 2 * kStages * kTile * sizeof(float);
   // dq: Q, dO, then a ring of (K, V)
   static constexpr size_t kDqSmem = (2 + 2 * kStages) * kTileBytes;
+  // forward: Q, then a ring of (K, V)
+  static constexpr size_t kFwdSmem = (1 + 2 * kStages) * kTileBytes;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -651,8 +672,10 @@ __device__ __forceinline__ void load_stats(float* ls, float* ds,
             src + row_base + (in ? q0 + r : 0), in);
 }
 
-template <int NO>
-__device__ __forceinline__ void store_rows(bf16* out, long long st,
+// A warp's 16 rows of accumulators (2 NO n8 tiles) into rows [row0, row0
+// + 16) of a (rows, D) matrix with row stride st, in the type TO.
+template <int NO, typename TO>
+__device__ __forceinline__ void store_rows(TO* out, long long st,
                                            const float (&acc)[2 * NO][4],
                                            int row0, int rows, int D) {
   const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
@@ -663,8 +686,195 @@ __device__ __forceinline__ void store_rows(bf16* out, long long st,
       const int row = row0 + g + 8 * (e >> 1), col = 8 * n + 2 * t4 + (e & 1);
       if (row < rows && col < D)
         out[static_cast<long long>(row) * st + col] =
-            __float2bfloat16(acc[n][e]);
+            from_float<TO>(acc[n][e]);
     }
+}
+
+// The forward.  Grid (B*H, q tiles), the longest causal tiles first.  Warp
+// w owns q rows q0 + 16 w .. + 15, with the A fragments of Q in registers
+// for the whole loop (D <= 64; re-read from shared memory at D = 128),
+// and takes each 64-row KV tile whole: S = Q.K^T (K as B) into 8 n8
+// tiles, scaled and masked in float32; the online max and sum over the
+// accumulator layout, where a row's 64 values sit in the 4 lanes of a
+// quad; then O += P.V with P from registers as hi + lo A fragments and V
+// as B through ldmatrix.trans.  Each lane keeps a partial sum l of its
+// own columns (every lane of a quad rescales by the same alpha); the
+// quad's partials meet once, at the end.
+template <int NO, typename TO>
+__global__ void __launch_bounds__(kThreadsTc) flash_fwd_mma(Params p) {
+  using G = TcGeom<NO>;
+  constexpr int kLd = G::kLd;
+  constexpr bool kHold = NO <= 4;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qt = reinterpret_cast<bf16*>(smem_tc);
+  bf16* kt = qt + G::kElems;             // [kStages] tiles
+  bf16* vt = kt + kStages * G::kElems;   // [kStages] tiles
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Tq + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q_row0 = q0 + 16 * warp;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + h * p.ks.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + h * p.vs.h;
+  const bool vec = p.vec;
+  const int nkv = live_kv_tiles(p, q0);
+
+  load_tile_tc<NO>(qt, q, p.qs.t, q0, p.Tq, p.D, vec);
+  cp_async_commit();
+  load_tile_tc<NO>(kt, k, p.ks.t, 0, p.Tk, p.D, vec);
+  load_tile_tc<NO>(vt, v, p.vs.t, 0, p.Tk, p.D, vec);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q
+  __syncthreads();
+  uint32_t qf[kHold ? NO : 1][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kk = 0; kk < NO; ++kk)
+      ldsm_x4(qf[kk], a_ptr<kLd>(qt, 16 * warp, 16 * kk));
+  }
+  float o[2 * NO][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 2 * NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int t = 0; t < nkv; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < nkv) {  // the next tile loads while this one multiplies
+      const int nxt = stage ^ 1;
+      load_tile_tc<NO>(kt + nxt * G::kElems, k, p.ks.t, (t + 1) * kTile,
+                       p.Tk, p.D, vec);
+      load_tile_tc<NO>(vt + nxt * G::kElems, v, p.vs.t, (t + 1) * kTile,
+                       p.Tk, p.D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * kTile;
+    const bf16* ks = kt + stage * G::kElems;
+    const bf16* vs = vt + stage * G::kElems;
+    // warp-uniform: chunks [0, nc) of 16 keys hold every live key of the
+    // warp's rows (causal: none past its last row); 0 for a warp past Tq
+    int end = min(p.Tk, k0 + kTile);
+    if (p.causal) end = min(end, q_row0 + 16);
+    const int nc = q_row0 < p.Tq ? max(0, (end - k0 + 15) >> 4) : 0;
+    if (nc > 0) {
+      float s[4][2][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[c][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NO; ++kk) {
+        uint32_t a[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = qf[kk][r];
+        } else {
+          ldsm_x4(a, a_ptr<kLd>(qt, 16 * warp, 16 * kk));
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c < nc) {
+            uint32_t bk[4];
+            ldsm_x4(bk, b_ptr<kLd>(ks, 16 * c, 16 * kk));
+            mma(s[c][0], a, bk[0], bk[1]);
+            mma(s[c][1], a, bk[2], bk[3]);
+          }
+        }
+      }
+      // s = (q.k^T) * scale, -1e30 where masked; only a tile that holds
+      // a key past Tk or (causal) past the warp's first row needs the mask
+      const bool edge =
+          k0 + kTile > p.Tk || (p.causal && k0 + kTile - 1 > q_row0);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[c][j][e] * p.scale;
+            if (c >= nc) {
+              x = kNegInf;
+            } else if (edge) {
+              const int col = k0 + 16 * c + 8 * j + 2 * t4 + (e & 1);
+              const int row = q_row0 + g + 8 * (e >> 1);
+              if (col >= p.Tk || (p.causal && col > row)) x = kNegInf;
+            }
+            s[c][j][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < 2 * NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c < nc) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float pr = expf(s[c][j][e] - m[e >> 1]);
+              s[c][j][e] = pr;
+              l[e >> 1] += pr;
+            }
+          uint32_t ph[4], pl[4];
+          split_a(s[c], ph, pl);
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            uint32_t bv[4];
+            ldsm_x4_t(bv, a_ptr<kLd>(vs, 16 * c, 16 * n));
+            mma(o[2 * n], ph, bv[0], bv[1]);
+            mma(o[2 * n], pl, bv[0], bv[1]);
+            mma(o[2 * n + 1], ph, bv[2], bv[3]);
+            mma(o[2 * n + 1], pl, bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it reloads
+  }
+
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    den[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] /= den[e >> 1];
+  store_rows<NO>(static_cast<TO*>(p.o) + b * p.os.b + h * p.os.h, p.os.t, o,
+                 q_row0, p.Tq, p.D);
+  if (t4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q_row0 + g + 8 * i;
+      if (row < p.Tq)
+        p.lse_out[static_cast<long long>(bh) * p.Tq + row] =
+            m[i] + logf(den[i]);
+    }
+  }
 }
 
 // dk and dv.  Grid (B*H, KV tiles), the longest causal tiles (the first)
@@ -971,24 +1181,26 @@ cudaError_t by_width(int D, F f) {
   return f(std::integral_constant<int, 8>());
 }
 
-// which: 0 forward, 1 dkdv, 2 dq.  The forward is the FMA kernel in both
-// dtypes; the backward the FMA kernels in float32 and the tensor-core
-// kernels in bfloat16.
+// which: 0 forward, 1 dkdv, 2 dq.  float32 inputs run the FMA kernels,
+// bfloat16 inputs the tensor-core kernels.
 template <typename T, typename TO>
 cudaError_t dispatch(int which, const Params& p, int bh, int nq, int nkv,
                      cudaStream_t s) {
   return by_width(p.D, [&](auto no) {
     constexpr int NO = decltype(no)::value;
-    if (which == 0)
-      return launch(flash_fwd<T, TO, NO>, p, dim3(bh, nq), kThreads,
-                    smem_bytes<NO>(3, 1), s);
     if constexpr (std::is_same<T, float>::value) {
+      if (which == 0)
+        return launch(flash_fwd<float, float, NO>, p, dim3(bh, nq), kThreads,
+                      smem_bytes<NO>(3, 1), s);
       if (which == 1)
         return launch(flash_bwd_dkdv<float, NO>, p, dim3(bh, nkv), kThreads,
                       smem_bytes<NO>(4, 2), s);
       return launch(flash_bwd_dq<float, NO>, p, dim3(bh, nq), kThreads,
                     smem_bytes<NO>(4, 1), s);
     } else {
+      if (which == 0)
+        return launch(flash_fwd_mma<NO, TO>, p, dim3(bh, nq), kThreadsTc,
+                      TcGeom<NO>::kFwdSmem, s);
       if (which == 1)
         return launch(flash_bwd_dkdv_mma<NO>, p, dim3(bh, nkv), kThreadsTc,
                       TcGeom<NO>::kDkdvSmem, s);
@@ -1040,14 +1252,18 @@ int run(int which, int dtype, int out_f32, int device, const long long* shape,
 
 // dtype: 0 = float32, 1 = bfloat16, the type of q, k and v.  o is written
 // in that type, or in float32 when out_f32 is set; lse (B, H, Tq) float32
-// contiguous.  All launches go on `stream`, without synchronising, and
-// return the cudaError_t of the launch.
-extern "C" int mx_flash_fwd(int dtype, int out_f32, int device,
+// contiguous.  vec16: q, k and v each start on 16 bytes and have (b, h, t)
+// strides and D that are multiples of 8 elements, so the bfloat16 kernels
+// copy rows 16 bytes at a time; float32 ignores it.  All launches go on
+// `stream`, without synchronising, and return the cudaError_t of the
+// launch.
+extern "C" int mx_flash_fwd(int dtype, int out_f32, int vec16, int device,
                             const long long* shape, const long long* strides,
                             float scale, const void* q, const void* k,
                             const void* v, void* o, float* lse,
                             void* stream) {
   Params p{};
+  p.vec = vec16;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -1057,10 +1273,8 @@ extern "C" int mx_flash_fwd(int dtype, int out_f32, int device,
 }
 
 // dk and dv from q, k, v, dO (g) in the type `dtype`, and the forward's
-// lse and delta = rowsum(dO * O), (B, H, Tq) float32 contiguous.  vec16:
-// q, k, v and g each start on 16 bytes and have (b, h, t) strides and D
-// that are multiples of 8 elements, so the bfloat16 kernels copy rows 16
-// bytes at a time; float32 ignores it.
+// lse and delta = rowsum(dO * O), (B, H, Tq) float32 contiguous.  vec16
+// as for the forward, over q, k, v and g.
 extern "C" int mx_flash_bwd_dkdv(int dtype, int vec16, int device,
                                  const long long* shape,
                                  const long long* strides, float scale,

@@ -17,18 +17,25 @@ computes ``s = (q·kᵀ)·scale`` (the scale applied after the product, as
 ``_attn_bwd_reference`` does), ``ds = p·(dp − delta)·scale`` and the
 three gradients in float32, each written in its input's dtype.
 
-The backward kernels take two routes by dtype.  float32 inputs run
-float32-FMA kernels.  bfloat16 inputs run tensor-core kernels (bf16
-operands, float32 sums) that keep those numbers: q·kᵀ and dO·vᵀ have
-bf16 operands only, so their products are exact; p and ds, which stay
-float32, enter pᵀ·dO, dsᵀ·q and ds·k as two bf16 parts, hi = bf16(x)
-and lo = bf16(x − hi), each product summed in float32.  That puts the
-gradients within 1.7e-6 to 3.2e-6 of their largest value from the JAX
-function's float32 result at the TransformerLM's T and head width, where
-one bf16 rounding of p and ds would put them 1.2e-3 to 2.4e-3 away
-(``tests/test_torch_flash_attention.py`` emulates both).  The bfloat16
-kernels copy rows 16 bytes at a time when every input's start, strides
-and D allow it (:func:`_vec16`), else element by element.
+The kernels take two routes by dtype, forward and backward alike.
+float32 inputs run float32-FMA kernels.  bfloat16 inputs run
+tensor-core kernels (bf16 operands, float32 sums) that keep those
+numbers: q·kᵀ and dO·vᵀ have bf16 operands only, so their products are
+exact (the forward applies the scale to s after the product, which for
+D = 64 is JAX's ``(q·scale)·kᵀ`` exactly and for other D moves s by one
+float32 rounding); p and ds, which stay float32, enter p·v, pᵀ·dO, dsᵀ·q
+and ds·k as two bf16 parts, hi = bf16(x) and lo = bf16(x − hi), each
+product summed in float32.  The online softmax, the mask, lse and the
+division stay float32.  That puts o within 0.95e-6 to 3.2e-6 of its
+largest value from the Pallas kernel's float32 output, and the gradients
+within 1.7e-6 to 3.2e-6 from the JAX function's float32 backward, at
+the TransformerLM's T and head width (o also at cross lengths and D =
+32, 128), where one bf16 rounding of p would put o 7.9e-4 away and of p
+and ds the gradients 1.2e-3 to 2.4e-3 (``tests/test_torch_flash_attention.py``
+emulates both).  The bfloat16 kernels copy rows 16 bytes at a time when
+every input's start, strides and D allow it (:func:`_vec16`), else
+element by element.  The forward writes o in float32 when autograd
+wants the residual (:class:`FlashAttentionFunction`), else in q's dtype.
 
 Two differences of method, not of result:
 
@@ -81,7 +88,7 @@ _count_lock = threading.Lock()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # the C entries' arguments (csrc/flash_attention.cu)
-_FWD_ARGS = [_I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P]
+_FWD_ARGS = [_I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P]
 _DKDV_ARGS = [_I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _DQ_ARGS = [_I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P]
 
@@ -181,10 +188,10 @@ def _strides(q, k, v, g=None, o=None, dq=None, dk=None, dv=None):
 
 
 def _vec16(*tensors):
-    """True when the bfloat16 backward kernels may copy rows of every
-    tensor 16 bytes at a time: each starts on 16 bytes, and its (b, h, t)
-    strides and its last dimension are multiples of 8 elements.  Else
-    they load element by element."""
+    """True when the bfloat16 kernels may copy rows of every tensor 16
+    bytes at a time: each starts on 16 bytes, and its (b, h, t) strides
+    and its last dimension are multiples of 8 elements.  Else they load
+    element by element."""
     return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
                and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
 
@@ -227,8 +234,9 @@ def flash_fwd(q, k, v, sm_scale=None, causal=False, out_dtype=None):
     if b == 0 or tq == 0:
         return o, lse
     _launch("mx_flash_fwd", _FWD_ARGS, q.device, _DTYPE_CODES[q.dtype],
-            int(out_dtype != q.dtype), q.device.index, _shape(q, k, causal),
-            _strides(q, k, v, o=o), _scale(q, sm_scale), q.data_ptr(),
+            int(out_dtype != q.dtype), int(_vec16(q, k, v)), q.device.index,
+            _shape(q, k, causal), _strides(q, k, v, o=o),
+            _scale(q, sm_scale), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
     _count("fwd_launches")
     return o, lse

@@ -669,8 +669,8 @@ def _check_flash(q, k, v, g, causal):
 def test_flash_bwd_loads_element_wise_where_rows_are_not_16_byte_aligned(
         dev, no_tf32):
     """A bf16 q sliced from a wider tensor, its rows 134 elements apart,
-    sends both backward kernels to their element-wise loads; the model's
-    layout takes the 16-byte copies."""
+    sends the forward and both backward kernels to their element-wise
+    loads; the model's layout takes the 16-byte copies."""
     gen = torch.Generator(device=dev).manual_seed(3)
     b, h, t, d = 2, 2, 150, 64
     wide = torch.randn(b, t, h, d + 3, generator=gen, device=dev) * 0.5
@@ -683,18 +683,25 @@ def test_flash_bwd_loads_element_wise_where_rows_are_not_16_byte_aligned(
 
 
 def test_flash_bwd_is_bit_for_bit_repeatable(dev):
-    """No atomics: two backward runs at the TransformerLM's attention,
-    (32, 8, 1024, 64) causal bf16, give the same bits."""
+    """No atomics: two forward runs (o in float32 and in bf16, lse) and
+    two backward runs at the TransformerLM's attention, (32, 8, 1024, 64)
+    causal bf16, give the same bits."""
     gen = torch.Generator(device=dev).manual_seed(4)
     q, k = (_bthd(32, 8, 1024, 64, torch.bfloat16, dev, gen, 0.5)
             for _ in range(2))
     v, g = (_bthd(32, 8, 1024, 64, torch.bfloat16, dev, gen)
             for _ in range(2))
     o, lse = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
+    o_again, lse_again = fa.flash_fwd(q, k, v, causal=True,
+                                      out_dtype=torch.float32)
+    o_low, o_low_again = (fa.flash_fwd(q, k, v, causal=True)[0]
+                          for _ in range(2))
     first = fa.flash_bwd(q, k, v, o, lse, g, causal=True)
     second = fa.flash_bwd(q, k, v, o, lse, g, causal=True)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+    for name, a, b in zip(("o", "lse", "o bf16", "dq", "dk", "dv"),
+                          (o, lse, o_low, *first),
+                          (o_again, lse_again, o_low_again, *second)):
         assert torch.equal(a, b), name
 
 
@@ -716,6 +723,27 @@ def test_flash_bwd_runs_the_kernels_of_its_dtype(dev, dtype, route):
         hits = [n for n in names if part in n]
         assert len(hits) == 1, (part, names)
         assert ("_mma" in hits[0]) == (route == "tensor-core"), hits
+
+
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_flash_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
+    """float32 inputs run the float32-FMA forward kernel; bfloat16 the
+    tensor-core kernel (flash_fwd_mma), for either output type, as the
+    profiler sees."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dt = getattr(torch, dtype)
+    q, k, v = (_bthd(1, 2, 100, 64, dt, dev, gen) for _ in range(3))
+    for out_dtype in (None, torch.float32):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_fwd(q, k, v, causal=True, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+        hits = {e.name for e in prof.events() if "flash_" in e.name}
+        assert len(hits) == 1, hits
+        name, = hits
+        assert "flash_fwd" in name, name
+        assert ("flash_fwd_mma" in name) == (route == "tensor-core"), name
 
 
 def test_flash_attention_refuses_what_the_kernels_do_not_take(dev):

@@ -28,7 +28,11 @@ parts, hi = bf16(x) and lo = bf16(x − hi), each product summed in
 float32.  That emulation is held to ``_attn_bwd_reference`` at
 ``GRAD_TOL``, the share of the largest value that the card holds the
 kernels to (with the outputs in float32, before their bf16 rounding);
-one bf16 rounding of p and ds instead does not fit it.
+one bf16 rounding of p and ds instead does not fit it.  The bfloat16
+forward kernel is emulated the same way (``_kernel_fwd``: s = (q·kᵀ)·scale
+from the bf16 values, the float32 softmax, p as two bf16 parts for p·v)
+and held to the Pallas forward kernel at ``O_TOL``; one bf16 rounding
+of p does not fit it either.
 """
 import numpy as np
 import pytest
@@ -263,7 +267,7 @@ def test_one_bf16_rounding_of_p_and_ds_misses_grad_tol(case):
 
 
 def test_vec16_takes_the_model_heads_and_refuses_unaligned_rows():
-    """The 16-byte copies of the bf16 backward: taken for the
+    """The 16-byte copies of the bf16 kernels: taken for the
     TransformerLM's heads (views of one (B, T, 3·H·D) product), refused
     for a head width, a start or a row stride off 8 elements."""
     b, t, h, d = 2, 5, 3, 64
@@ -276,3 +280,86 @@ def test_vec16_takes_the_model_heads_and_refuses_unaligned_rows():
     assert not fa._vec16(shifted, k, v)                           # start
     wide = torch.zeros(b, t, h, d + 4, dtype=torch.bfloat16)[..., :d]
     assert not fa._vec16(q, wide.transpose(1, 2), v)              # strides
+
+
+# the share of max|o| that the card holds the forward kernel's float32
+# output to (chip_smoke.py's FLASH_TOL)
+O_TOL = 1e-5
+
+
+def _kernel_fwd(q, k, v, causal, parts):
+    """``(o, lse)`` in float32 by the bf16 forward kernel's arithmetic:
+    ``s = (q·kᵀ)·scale`` from the bf16 values in float32 (the products
+    are exact), -1e30 where masked, the float32 softmax, and ``p = exp(s
+    − m)`` cut into two bf16 parts by ``parts`` for p·v, each product
+    summed in float32.  The kernel's online rescale over 64-wide KV tiles
+    is left out: it changes only float32 roundings."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~fa._keep(s.shape[-2], s.shape[-1], s.device),
+                          fa._NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    hi, lo = parts(p)
+    o = (torch.matmul(hi, vf) + torch.matmul(lo, vf)) / den
+    return o, (m + torch.log(den)).squeeze(-1)
+
+
+# (B, H, Tq, Tk, D, causal): the TransformerLM's T and head width; cross
+# lengths; D = 32 and 128, whose scales are not powers of two
+FWD_SPLIT_CASES = [(1, 2, 1025, 1025, 64, True), (1, 2, 70, 150, 64, False),
+                   (1, 2, 300, 300, 32, True), (1, 2, 300, 300, 128, False)]
+
+
+def _fwd_split_case(case):
+    """bf16 q, k, v and the Pallas forward kernel's outputs for them: in
+    float32 (from the same bf16 values widened) and in bfloat16."""
+    b, h, tq, tk, d, causal = case
+    (jq, jk, jv), (q, k, v) = _both(_inputs(b, h, tq, tk, d, seed=9),
+                                    "bfloat16")
+    want32 = _np(pk.flash_attention(*(a.astype(jnp.float32)
+                                      for a in (jq, jk, jv)), causal=causal))
+    want16 = _np(pk.flash_attention(jq, jk, jv, causal=causal))
+    return (q, k, v), want32, want16
+
+
+def _numpy_lse(q, k, causal):
+    s = np.einsum("bhqd,bhkd->bhqk", q.double().numpy(),
+                  k.double().numpy()) * q.shape[-1] ** -0.5
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[-2:], bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("case", FWD_SPLIT_CASES, ids=str)
+def test_split_p_holds_pallas_forward_to_o_tol(case):
+    """hi + lo parts of p: the float32 o within O_TOL of the largest value
+    of the Pallas kernel's float32 output for the same bf16 values, its
+    bf16 rounding within one bf16 ulp more of the kernel's bf16 output,
+    and lse within LSE_ATOL of a float64 logsumexp."""
+    (q, k, v), want32, want16 = _fwd_split_case(case)
+    o, lse = _kernel_fwd(q, k, v, case[5], _split)
+    err = np.abs(_np(o) - want32).max() / np.abs(want32).max()
+    lse_err = np.abs(lse.numpy() - _numpy_lse(q, k, case[5])).max()
+    print(f"{case}: o {err:.3e} of max|o| (O_TOL {O_TOL:g}), lse "
+          f"{lse_err:.3e} (LSE_ATOL {LSE_ATOL:g})")
+    assert err <= O_TOL, err
+    _close(_np(o.to(torch.bfloat16)), want16, "bfloat16",
+           O_TOL * np.abs(want16).max())
+    assert lse_err <= LSE_ATOL, lse_err
+
+
+def test_one_bf16_rounding_of_p_misses_o_tol():
+    """The control: with p rounded once to bf16 (what a plain bf16
+    tensor-core product would take), o misses O_TOL at the TransformerLM's
+    T and head width."""
+    case = FWD_SPLIT_CASES[0]
+    (q, k, v), want32, _ = _fwd_split_case(case)
+    o, _ = _kernel_fwd(q, k, v, case[5], _rounded)
+    err = np.abs(_np(o) - want32).max() / np.abs(want32).max()
+    print(f"{case}: one bf16 rounding of p puts o {err:.3e} of max|o| away")
+    assert err > O_TOL, err
