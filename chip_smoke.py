@@ -197,6 +197,9 @@ FMM_TEST_SHAPES = [(256, 128, 128), (200, 96, 72), (1024, 256, 64),
                    (512, 64, 256)]
 # the representative launch: stage 1's c3 at B=128, with the prologue
 FMM_REP = (RESNET_B * 56 * 56, 64, 256, True)
+# kernel 12's bfloat16 tile (fused_matmul_bn_dw_mma) also at shapes whose
+# rows it must load element by element (K or N not a multiple of 8)
+DW_ELEMENT_SHAPES = [(1000, 60, 100), (77, 9, 130)]
 FP32_PEAK = 67e12      # FLOP/s of float32 FMA outside the tensor cores
 BF16_PEAK = 989e12     # dense bf16 tensor-core FLOP/s
 # card step vs CPU step, ResNet-50 at B=4.  ResNet-50's float32
@@ -796,22 +799,20 @@ def check_flash(torch, fa, dev):
 
 def check_flash_routes(torch, fa, dev):
     """The forward's and the backward's kernels by dtype, from the
-    profiler's trace of one call each: the float32-FMA kernels for
-    float32 inputs, the tensor-core kernels (``..._mma``) for
-    bfloat16."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler's trace of their calls (:func:`kernel_names`): the
+    float32-FMA kernels for float32 inputs, the tensor-core kernels
+    (``..._mma``) for bfloat16."""
     for dtype, mma in (("float32", False), ("bfloat16", True)):
         q, k, v, g = flash_inputs(torch, (1, 2, 100, 100, 64, True), dtype,
                                   dev, 1)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            o, lse = fa.flash_fwd(q, k, v, causal=True,
-                                  out_dtype=torch.float32)
-            torch.cuda.synchronize()
-        fwd = sorted({e.name for e in prof.events() if "flash_" in e.name})
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fa.flash_bwd(q, k, v, o, lse, g, causal=True)
-            torch.cuda.synchronize()
-        bwd = sorted({e.name for e in prof.events() if "flash_" in e.name})
+        o, lse = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
+        fwd = [n for n in kernel_names(
+            torch, lambda: fa.flash_fwd(q, k, v, causal=True,
+                                        out_dtype=torch.float32), ())
+               if "flash_" in n]
+        bwd = [n for n in kernel_names(
+            torch, lambda: fa.flash_bwd(q, k, v, o, lse, g, causal=True), ())
+               if "flash_" in n]
         print(f"flash_fwd {dtype} runs {fwd}; flash_bwd {dtype} runs {bwd}",
               flush=True)
         for names, parts in ((fwd, ("flash_fwd",)),
@@ -1050,12 +1051,13 @@ def check_fused_matmul_bn(torch, fb, dev):
     """Kernels 10-12 against their plain versions at every shape the
     ResNet-50 path gives them at B=128 and at the JAX tests' shapes, in
     float32 and bfloat16, with nonzero ds1/ds2.  Returns the max |d| of
-    y, dx and dw over the path's float32 shapes."""
+    y, dx and dw over the path's float32 shapes, and of dw over its
+    bfloat16 shapes (``dw_mma``: kernel 12's tensor-core tile)."""
     path = list(dict.fromkeys(resnet_fmm_shapes(RESNET_B)))
     cases = [(shape, dt) for shape in path for dt in FMM_TOL]
     cases += [((m, k, n, pro), dt) for m, k, n in FMM_TEST_SHAPES
               for pro in (False, True) for dt in FMM_TOL]
-    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dw_mma": 0.0}
     for (m, k, n, pro), dtype in cases:
         x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
                                                      dev, 0)
@@ -1091,8 +1093,54 @@ def check_fused_matmul_bn(torch, fb, dev):
         if (m, k, n, pro) in path and dtype == "float32":
             for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
                 path_err[key] = max(path_err[key], abs_err[name])
+        if (m, k, n, pro) in path and dtype == "bfloat16":
+            path_err["dw_mma"] = max(path_err["dw_mma"], abs_err["dw"])
         del x, w, dy, got, want, args
     return path_err
+
+
+def check_dw_mma(torch, fb, dev):
+    """Kernel 12 by dtype: the profiler's kernel names show float32 runs
+    the FMA tile and bfloat16 the tensor-core tile
+    (``fused_matmul_bn_dw_mma``); the bfloat16 tile within FMM_TOL of
+    the plain version where it loads rows element by element; two runs
+    of it give the same bits at the representative launch, the ragged
+    test shape and those shapes."""
+    def dw_args(m, k, n, dtype, pro=True):
+        x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
+                                                     dev, 2)
+        if not pro:
+            scale = bias = None
+        y = fb.matmul_bn_reference(x, w, scale, bias)[0]
+        return x, w, scale, bias, y, dy, ds1, ds2
+
+    for dtype in FMM_TOL:
+        names = [n for n in kernel_names(torch, fb.fused_matmul_bn_dw,
+                                         dw_args(200, 96, 72, dtype))
+                 if "fused_matmul_bn" in n]
+        print(f"fused_matmul_bn_dw {dtype} runs {names}", flush=True)
+        assert len(names) == 1 and "fused_matmul_bn_dw" in names[0], names
+        assert ("fused_matmul_bn_dw_mma" in names[0]) == (
+            dtype == "bfloat16"), names
+    m, k, n, _ = FMM_REP
+    for m, k, n, pro in [(m, k, n, True), (200, 96, 72, True),
+                         (200, 96, 72, False)] + [
+            shape + (pro,) for shape in DW_ELEMENT_SHAPES
+            for pro in (False, True)]:
+        args = dw_args(m, k, n, "bfloat16", pro)
+        first, second = (fb.fused_matmul_bn_dw(*args) for _ in range(2))
+        want = fb.matmul_bn_dw_reference(*args)
+        torch.cuda.synchronize()
+        err = (first.float() - want.float()).abs().max().item()
+        scale_ = want.float().abs().max().item()
+        assert err <= FMM_TOL["bfloat16"] * scale_, ((m, k, n, pro), err)
+        assert torch.equal(first, second), (m, k, n, pro)
+        print(f"fused_matmul_bn_dw_mma ({m}, {k}, {n}) prologue={pro}: "
+              f"max|d|/max|ref| {err / scale_:.2e} (tol "
+              f"{FMM_TOL['bfloat16']:g}); vec16 x {fb._vec16(args[0])} "
+              f"y/dy {fb._vec16(args[4], args[5])}; two runs bit for bit",
+              flush=True)
+        del args, first, second, want
 
 
 def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
@@ -1220,16 +1268,29 @@ def check_fused_conv3_bn(torch, fc, dev):
     return path_err
 
 
-def kernel_names(torch, fn, args):
-    """The device kernels one call of ``fn`` runs, by name, from the
-    profiler trace."""
+def kernel_names(torch, fn, args, tries=4):
+    """The device kernels a call of ``fn`` runs, by name, from the
+    profiler trace of three calls after one untraced call.  The profiler
+    can return a trace of so short a window with no device event at all;
+    such a trace says nothing of the kernels, so it is taken again, up to
+    ``tries`` times, and an empty list is returned only if every trace
+    was empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == DeviceType.CUDA})
+    fn(*args)
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn(*args)
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA})
+        if names:
+            return names
+        print(f"profiler trace {attempt + 1} of {tries} held no device "
+              "event", flush=True)
+    return names
 
 
 def time_fused_conv3_bn(torch, fc, dev, dtype, rate):
@@ -2514,8 +2575,9 @@ def main():
     xent_fwd_times, xent_bwd_times = time_softmax_xent(torch, sx, dev,
                                                        "float32", rate)
     fmm_err = check_fused_matmul_bn(torch, fb, dev)
+    check_dw_mma(torch, fb, dev)
     fmm_times = time_fused_matmul_bn(torch, fb, dev, "float32", rate)
-    time_fused_matmul_bn(torch, fb, dev, "bfloat16", rate)
+    dw_mma_times = time_fused_matmul_bn(torch, fb, dev, "bfloat16", rate)[2]
     conv_err = check_fused_conv3_bn(torch, fc, dev)
     conv_times = time_fused_conv3_bn(torch, fc, dev, "float32", rate)
     time_fused_conv3_bn(torch, fc, dev, "bfloat16", rate)
@@ -2644,7 +2706,12 @@ def main():
 
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
     bench = bench_path(torch, np, dev, smi)
-    resnet = {k: v + bench[k] for k, v in resnet.items()}
+    # kernel 12's counter moves for either of its instances: phase 7 runs
+    # only float32 (the FMA tile), the bench path only bfloat16 (the
+    # tensor-core tile)
+    dw_mma_launches = bench["fused_matmul_bn_dw"]
+    resnet = {k: v + (bench[k] if k != "fused_matmul_bn_dw" else 0)
+              for k, v in resnet.items()}
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2726,6 +2793,11 @@ def main():
              max_abs_err=fmm_err[part], **times)
         for part, line, times in zip(("fwd", "dx", "dw"), (83, 154, 181),
                                      fmm_times)
+    ] + [
+        dict(name="fused_matmul_bn_dw_mma", route="cuda",
+             source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:181",
+             launches=dw_mma_launches, max_abs_err=fmm_err["dw_mma"],
+             **dw_mma_times),
     ] + [
         dict(name=f"fused_conv3_bn_{part}", route="cuda",
              source=src + "fused_conv3_bn.cu", replaces=where,

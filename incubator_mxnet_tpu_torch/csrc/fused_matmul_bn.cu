@@ -42,21 +42,49 @@
 // launches, where a side is 64 wide (c3: 0.31 and 0.28 ms of traffic
 // against 0.20 ms of FMA), and by operations elsewhere.
 // In bfloat16 every launch is bound by bytes (tensor cores at 989
-// TFLOP/s); this FMA loop does not reach that bound.
+// TFLOP/s, 295 operations a byte); the FMA loop below does not reach that
+// bound, and the bf16 dw no longer runs it (see below).
 //
-// Design: one tiled product, C (I, J) = A (I, R) @ B (R, J), shared by
-// the three kernels, which differ only in how A and B are fetched and in
-// the epilogue.  A block of 256 threads owns a 128x128 tile of C; each
-// thread keeps an 8x8 sub-tile in registers (two 4x4 quads per axis, so
-// the shared-memory reads are float4 broadcasts), and the depth
-// goes through shared memory 8 at a time, the next slice's global loads
-// in flight while the current one is multiplied.  Each operand element
-// is converted to float32 (and put through the prologue or dyt) once, as
-// it is staged, so the inner loop is plain float32 FMA.  Global loads run
-// along the operand's contiguous axis.  This is the simple, right first
-// kernel; TMA, wgmma and a persistent schedule are later work.
+// Design of the forward, dx and the float32 dw: one tiled product, C (I,
+// J) = A (I, R) @ B (R, J), shared by the three kernels, which differ
+// only in how A and B are fetched and in the epilogue.  A block of 256
+// threads owns a 128x128 tile of C; each thread keeps an 8x8 sub-tile in
+// registers (two 4x4 quads per axis, so the shared-memory reads are
+// float4 broadcasts), and the depth goes through shared memory 8 at a
+// time, the next slice's global loads in flight while the current one is
+// multiplied.  Each operand element is converted to float32 (and put
+// through the prologue or dyt) once, as it is staged, so the inner loop
+// is plain float32 FMA.  Global loads run along the operand's contiguous
+// axis.  This is the simple, right first kernel; TMA, wgmma and a
+// persistent schedule are later work.
+//
+// The bf16 dw (fused_matmul_bn_dw_mma) replaces the same TPU kernel,
+// `_bwd_dw_kernel` (fused_block.py:181), on the tensor cores.  At the
+// representative launch (401408, 64, 256) it must read 462 MB (x, y, dy
+// once: 0.138 ms at 3.35 TB/s) for 13.2 GFLOP (0.013 ms at 989 TFLOP/s),
+// so the design is about bytes: every row of x, y and dy is read with
+// 16-byte loads, once per tile of the other side, and never widened in
+// device memory.  The products of two bf16 values are exact in float32,
+// and both operands are bf16 after their rounding (the prologue's
+// relu(x*scale + bias) and dyt, as the TPU kernel rounds them), so one
+// mma.sync.m16n8k16 with float32 sums gives the float32 numbers of the
+// FMA tile; no hi + lo split.  A block of 4 warps owns a 64 x BN tile of
+// dw (BN = 128, or 64 where N <= 64: ResNet-50's narrowest sides), each
+// warp 32 x BN/2 as 2 x BN/16 m16n8 tiles, over one run of M; a run goes
+// through shared memory in stages of 32 rows.  Each thread holds its
+// share of the next stage's raw rows in registers (uint4 loads) while
+// the warps multiply the current one; it then applies the prologue and
+// dyt in float32 with __fmul_rn/__fadd_rn, rounds to bf16, zeroes rows
+// past the run (dyt is ds1 there, not 0) and stores the stage as bf16
+// [m][k] and [m][n] tiles with 16 bytes of row padding (ldmatrix rows on
+// distinct banks).  The product runs along M, so both operands come from
+// their [m][.] tiles by ldmatrix.trans.  Where a start or a row width
+// does not allow 16 bytes (the wrapper's vec flags) the rows load element
+// by element.  Each run writes its float32 (K, N) partial and the wrapper
+// sums the runs in a fixed order: no atomics, the same bits every run.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -364,27 +392,284 @@ __global__ void __launch_bounds__(THREADS)
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-template <typename T>
-cudaError_t launch(int mode, const Args<T>& a, int64_t splits,
-                   cudaStream_t stream) {
-  dim3 block(THREADS);
-  if (mode == kFwd || mode == kDx) {
-    const int64_t gi = ceil_div(a.M, BI);
-    const int64_t gj = ceil_div(mode == kFwd ? a.N : a.K, BJ);
-    if (gi > 0x7fffffff || gj > 65535) return cudaErrorInvalidValue;
-    dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-    if (mode == kFwd)
-      fused_matmul_bn_fwd_kernel<T><<<grid, block, 0, stream>>>(a);
-    else
-      fused_matmul_bn_dx_kernel<T><<<grid, block, 0, stream>>>(a);
-  } else {
-    const int64_t gi = ceil_div(a.K, BI), gj = ceil_div(a.N, BJ);
-    if (gi > 0x7fffffff || gj > 65535 || splits > 65535 || splits <= 0)
-      return cudaErrorInvalidValue;
-    dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
-              static_cast<unsigned>(splits));
-    fused_matmul_bn_dw_kernel<T><<<grid, block, 0, stream>>>(a);
+// ---------------------------------------------------------------------
+// dw in bfloat16 on the tensor cores.  See the note at the top.
+
+using mx::a_ptr;
+using mx::b_ptr;
+using mx::bf16;
+using mx::bits;
+using mx::ldsm_x4_t;
+using mx::mma;
+
+constexpr int kTcBK = 64;                   // rows of dw a block owns
+constexpr int kTcBM = 32;                   // rows of M a stage holds
+constexpr int kTcThreads = 128;             // 4 warps, 2 x 2 over the tile
+constexpr int kTcXLd = kTcBK + 8;           // bf16 row stride: 16 bytes pad
+constexpr int kTcXChunks = kTcBM * kTcBK / 8 / kTcThreads;  // uint4 a thread
+
+template <int BN>
+struct DwTc {
+  static constexpr int kLd = BN + 8;                      // dyt row stride
+  static constexpr int kChunks = kTcBM * BN / 8 / kTcThreads;  // uint4
+  static constexpr int kRowChunks = BN / 8;               // uint4 a row
+  static constexpr int kRowStep = kTcThreads / kRowChunks;  // rows apart
+  static constexpr int kN8 = BN / 16;                     // n8 tiles a warp
+};
+
+union Pack8 {  // 8 bf16 values as one 16-byte load or store
+  uint4 u;
+  uint32_t w[4];
+  unsigned short h[8];
+};
+
+// Elements [col, col + 8) of a row, 0 past `limit` or where !in_row;
+// one 16-byte load where `vec` (the row start and col are 16-byte
+// aligned and a chunk lies wholly inside or outside the row).
+__device__ __forceinline__ uint4 load8(const bf16* row, int col, int limit,
+                                       bool in_row, bool vec) {
+  Pack8 p;
+  p.u = make_uint4(0, 0, 0, 0);
+  if (!in_row) return p.u;
+  if (vec) {
+    if (col < limit) p.u = __ldg(reinterpret_cast<const uint4*>(row + col));
+    return p.u;
   }
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (col + j < limit) p.h[j] = r[col + j];
+  return p.u;
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  return bits(__floats2bfloat162_rn(a, b));  // round to nearest even
+}
+
+// relu(x*scale + bias) of 8 values, rounded to bf16 (prologue_at)
+__device__ __forceinline__ uint4 prologue8(uint4 raw, const float* sc,
+                                           const float* bi) {
+  Pack8 in, out;
+  in.u = raw;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = unpack(in.w[j]);
+    out.w[j] = pack(
+        fmaxf(__fadd_rn(__fmul_rn(v.x, sc[2 * j]), bi[2 * j]), 0.f),
+        fmaxf(__fadd_rn(__fmul_rn(v.y, sc[2 * j + 1]), bi[2 * j + 1]), 0.f));
+  }
+  return out.u;
+}
+
+// dy + ds1 + 2*y*ds2 of 8 values, rounded to bf16 (dyt_at)
+__device__ __forceinline__ uint4 dyt8(uint4 y_raw, uint4 dy_raw,
+                                      const float* d1, const float* d2) {
+  Pack8 y, dy, out;
+  y.u = y_raw;
+  dy.u = dy_raw;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 yv = unpack(y.w[j]), gv = unpack(dy.w[j]);
+    out.w[j] = pack(
+        __fadd_rn(__fadd_rn(gv.x, d1[2 * j]),
+                  __fmul_rn(__fmul_rn(2.f, yv.x), d2[2 * j])),
+        __fadd_rn(__fadd_rn(gv.y, d1[2 * j + 1]),
+                  __fmul_rn(__fmul_rn(2.f, yv.y), d2[2 * j + 1])));
+  }
+  return out.u;
+}
+
+// Grid (ceil(K / 64), ceil(N / BN), splits); block z takes rows
+// [z * split_rows, min(M, (z + 1) * split_rows)) of M and writes its
+// float32 partial of dw to part0[z].  vec bit 0: x loads 16 bytes at a
+// time; bit 1: y and dy do.
+template <int BN>
+__global__ void __launch_bounds__(kTcThreads)
+    fused_matmul_bn_dw_mma(Args<bf16> a, int vec) {
+  using G = DwTc<BN>;
+  __shared__ __align__(16) unsigned short xs_raw[2][kTcBM * kTcXLd];
+  __shared__ __align__(16) unsigned short ds_raw[2][kTcBM * G::kLd];
+  __shared__ __align__(16) float sc_s[kTcBK], bi_s[kTcBK];
+  __shared__ __align__(16) float d1_s[BN], d2_s[BN];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wk = warp & 1, wn = warp >> 1;   // the warp's 32 x BN/2 tile
+  const int k0 = blockIdx.x * kTcBK, n0 = blockIdx.y * BN;
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.z) * a.split_rows;
+  const int64_t r_end =
+      r_begin + a.split_rows < a.M ? r_begin + a.split_rows : a.M;
+  const bool vec_x = vec & 1, vec_y = vec & 2;
+
+  // per-column constants, 0 past K and N (a zero column stays zero)
+  for (int i = tid; i < kTcBK; i += kTcThreads) {
+    const bool in = a.prologue && k0 + i < a.K;
+    sc_s[i] = in ? a.scale[k0 + i] : 0.f;
+    bi_s[i] = in ? a.bias[k0 + i] : 0.f;
+  }
+  for (int i = tid; i < BN; i += kTcThreads) {
+    const bool in = n0 + i < a.N;
+    d1_s[i] = in ? a.ds1[n0 + i] : 0.f;
+    d2_s[i] = in ? a.ds2[n0 + i] : 0.f;
+  }
+
+  // this thread's chunks: x rows xr + 16 i at columns xc .. xc + 7 of
+  // the tile; y and dy rows dr + kRowStep i at columns dc .. dc + 7
+  const int xc = (tid % (kTcBK / 8)) * 8, xr = tid / (kTcBK / 8);
+  const int dc = (tid % G::kRowChunks) * 8, dr = tid / G::kRowChunks;
+  constexpr int kXStep = kTcThreads / (kTcBK / 8);
+  uint4 xv[kTcXChunks], yv[G::kChunks], gv[G::kChunks];
+
+  auto load_stage = [&](int64_t m0) {
+#pragma unroll
+    for (int i = 0; i < kTcXChunks; ++i) {
+      const int64_t m = m0 + xr + kXStep * i;
+      const bool in = m < r_end;
+      xv[i] = load8(a.x + (in ? m : 0) * a.K, k0 + xc, a.K, in, vec_x);
+    }
+#pragma unroll
+    for (int i = 0; i < G::kChunks; ++i) {
+      const int64_t m = m0 + dr + G::kRowStep * i;
+      const bool in = m < r_end;
+      const int64_t row = (in ? m : 0) * a.N;
+      yv[i] = load8(a.y + row, n0 + dc, a.N, in, vec_y);
+      gv[i] = load8(a.dy + row, n0 + dc, a.N, in, vec_y);
+    }
+  };
+
+  float acc[2][G::kN8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kN8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  load_stage(r_begin);
+  __syncthreads();  // the constants
+  int buf = 0;
+  for (int64_t m0 = r_begin; m0 < r_end; m0 += kTcBM, buf ^= 1) {
+    bf16* xs = reinterpret_cast<bf16*>(xs_raw[buf]);
+    bf16* ds = reinterpret_cast<bf16*>(ds_raw[buf]);
+    // stage the rows: prologue and dyt rounded to bf16, 0 past the run
+    {
+      float sc[8], bi[8], d1[8], d2[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sc[j] = sc_s[xc + j];
+        bi[j] = bi_s[xc + j];
+        d1[j] = d1_s[dc + j];
+        d2[j] = d2_s[dc + j];
+      }
+#pragma unroll
+      for (int i = 0; i < kTcXChunks; ++i) {
+        const int r = xr + kXStep * i;
+        uint4 v = xv[i];  // 0 past the run and past K already
+        if (a.prologue)
+          v = m0 + r < r_end ? prologue8(v, sc, bi) : make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(xs + r * kTcXLd + xc) = v;
+      }
+#pragma unroll
+      for (int i = 0; i < G::kChunks; ++i) {
+        const int r = dr + G::kRowStep * i;
+        *reinterpret_cast<uint4*>(ds + r * G::kLd + dc) =
+            m0 + r < r_end ? dyt8(yv[i], gv[i], d1, d2)
+                           : make_uint4(0, 0, 0, 0);
+      }
+    }
+    __syncthreads();
+    // the next stage's loads are in flight while this one multiplies; the
+    // other buffer is free: every warp left its product at the barrier
+    if (m0 + kTcBM < r_end) load_stage(m0 + kTcBM);
+#pragma unroll
+    for (int kk = 0; kk < kTcBM / 16; ++kk) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)  // A = P(x)^T: rows k, depth m
+        ldsm_x4_t(af[i], b_ptr<kTcXLd>(xs, 16 * kk, 32 * wk + 16 * i));
+#pragma unroll
+      for (int p = 0; p < G::kN8 / 2; ++p) {  // B = dyt: depth m, cols n
+        uint32_t bf[4];
+        ldsm_x4_t(bf, a_ptr<G::kLd>(ds, 16 * kk, (BN / 2) * wn + 16 * p));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma(acc[i][2 * p], af[i], bf[0], bf[1]);
+          mma(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // this run's float32 partial: acc[i][j][e] at row 16 i + g + 8 (e / 2),
+  // column 8 j + 2 t + e % 2 of the warp's tile
+  float* dst = a.part0 + static_cast<int64_t>(blockIdx.z) * a.K * a.N;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pairs = (a.N & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 32 * wk + 16 * i + g + 8 * h;
+      if (k >= a.K) continue;
+      float* out = dst + static_cast<int64_t>(k) * a.N;
+#pragma unroll
+      for (int j = 0; j < G::kN8; ++j) {
+        const int n = n0 + (BN / 2) * wn + 8 * j + 2 * t4;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (pairs && n + 1 < a.N) {
+          *reinterpret_cast<float2*>(out + n) = make_float2(v0, v1);
+        } else {
+          if (n < a.N) out[n] = v0;
+          if (n + 1 < a.N) out[n + 1] = v1;
+        }
+      }
+    }
+}
+
+template <typename T>
+cudaError_t launch(int mode, const Args<T>& a, cudaStream_t stream) {
+  dim3 block(THREADS);
+  const int64_t gi = ceil_div(a.M, BI);
+  const int64_t gj = ceil_div(mode == kFwd ? a.N : a.K, BJ);
+  if (gi > 0x7fffffff || gj > 65535) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
+  if (mode == kFwd)
+    fused_matmul_bn_fwd_kernel<T><<<grid, block, 0, stream>>>(a);
+  else
+    fused_matmul_bn_dx_kernel<T><<<grid, block, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// float32 dw: the FMA tile over runs of split_rows rows
+cudaError_t launch_dw(const Args<float>& a, int64_t splits, int,
+                      cudaStream_t stream) {
+  const int64_t gi = ceil_div(a.K, BI), gj = ceil_div(a.N, BJ);
+  if (gi > 0x7fffffff || gj > 65535 || splits > 65535 || splits <= 0)
+    return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
+            static_cast<unsigned>(splits));
+  fused_matmul_bn_dw_kernel<float><<<grid, THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16 dw: the tensor-core tile; runs of split_rows, a multiple of the
+// stage depth, so that no stage straddles two runs
+cudaError_t launch_dw(const Args<bf16>& a, int64_t splits, int vec,
+                      cudaStream_t stream) {
+  const int bn = a.N <= 64 ? 64 : 128;
+  const int64_t gi = ceil_div(a.K, kTcBK), gj = ceil_div(a.N, bn);
+  if (gi > 0x7fffffff || gj > 65535 || splits > 65535 || splits <= 0 ||
+      a.split_rows % kTcBM != 0)
+    return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
+            static_cast<unsigned>(splits));
+  if (bn == 64)
+    fused_matmul_bn_dw_mma<64><<<grid, kTcThreads, 0, stream>>>(a, vec);
+  else
+    fused_matmul_bn_dw_mma<128><<<grid, kTcThreads, 0, stream>>>(a, vec);
   return cudaGetLastError();
 }
 
@@ -414,27 +699,33 @@ Args<T> make_args(const void* x, const void* w, const void* scale,
   return a;
 }
 
+template <typename T>
+int run(int mode, const Args<T>& a, int64_t splits, int vec,
+        cudaStream_t stream) {
+  return static_cast<int>(mode == kDw ? launch_dw(a, splits, vec, stream)
+                                      : launch(mode, a, stream));
+}
+
 int dispatch(int dtype, int mode, const void* x, const void* w,
              const void* scale, const void* bias, const void* y,
              const void* dy, const void* ds1, const void* ds2, void* out,
              void* part0, void* part1, long long M, int K, int N,
-             int prologue, long long split_rows, long long splits,
+             int prologue, long long split_rows, long long splits, int vec,
              void* stream) {
   if (M < 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch<float>(
-          mode, make_args<float>(x, w, scale, bias, y, dy, ds1, ds2, out,
-                                 part0, part1, M, K, N, prologue, split_rows),
-          splits, s));
+      return run(mode,
+                 make_args<float>(x, w, scale, bias, y, dy, ds1, ds2, out,
+                                  part0, part1, M, K, N, prologue, split_rows),
+                 splits, vec, s);
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(
-          mode, make_args<__nv_bfloat16>(x, w, scale, bias, y, dy, ds1, ds2,
-                                         out, part0, part1, M, K, N, prologue,
-                                         split_rows),
-          splits, s));
+      return run(mode,
+                 make_args<bf16>(x, w, scale, bias, y, dy, ds1, ds2, out,
+                                 part0, part1, M, K, N, prologue, split_rows),
+                 splits, vec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -463,7 +754,7 @@ extern "C" int mx_fused_matmul_bn_fwd(int dtype, const void* x,
   if (!part_rows_ok(part_rows, M))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, kFwd, x, w, scale, bias, nullptr, nullptr, nullptr,
-                  nullptr, y, s1_part, s2_part, M, K, N, prologue, 0, 0,
+                  nullptr, y, s1_part, s2_part, M, K, N, prologue, 0, 0, 0,
                   stream);
 }
 
@@ -483,12 +774,16 @@ extern "C" int mx_fused_matmul_bn_dx(int dtype, const void* x, const void* w,
   if (prologue && !part_rows_ok(part_rows, M))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, kDx, x, w, scale, bias, y, dy, ds1, ds2, dx,
-                  dscale_part, dbias_part, M, K, N, prologue, 0, 0, stream);
+                  dscale_part, dbias_part, M, K, N, prologue, 0, 0, 0, stream);
 }
 
 // dtype and operands as for dx; dw_part is (splits, K, N) float32, one
 // (K, N) partial for each run of split_rows rows of M (the last run may
-// be shorter), every element written.
+// be shorter), every element written.  float32 runs the FMA tile;
+// bfloat16 the tensor-core tile, whose runs must be a multiple of its
+// stage depth (32 rows) and which reads x 16 bytes at a time where bit 0
+// of vec is set (x 16-byte aligned, K a multiple of 8), y and dy where
+// bit 1 is (both 16-byte aligned, N a multiple of 8).
 extern "C" int mx_fused_matmul_bn_dw(int dtype, const void* x, const void* w,
                                      const void* scale, const void* bias,
                                      int prologue, const void* y,
@@ -496,11 +791,11 @@ extern "C" int mx_fused_matmul_bn_dw(int dtype, const void* x, const void* w,
                                      const void* ds2, void* dw_part,
                                      long long M, int K, int N,
                                      long long split_rows, long long splits,
-                                     void* stream) {
+                                     int vec, void* stream) {
   if (split_rows <= 0 || (splits - 1) * split_rows >= M ||
       splits * split_rows < M)
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, kDw, x, w, scale, bias, y, dy, ds1, ds2, nullptr,
                   dw_part, nullptr, M, K, N, prologue, split_rows, splits,
-                  stream);
+                  vec, stream);
 }

@@ -18,7 +18,11 @@ package's, with its dtype behaviour: the state is ``zeros_like`` of
 each parameter (after AMP a bfloat16 momentum on a bfloat16 weight, with
 no float32 master copy), every parameter is written back in its own
 dtype, and Adam's step count is a device tensor, so its bias correction
-is computed on the device.
+is computed on the device.  Each Python hyper-parameter meets a tensor
+as JAX's weak-typed scalar does (``optimizer.weak_scalar``: rounded to
+a bfloat16 tensor's dtype first, on the host, so the update stays
+capturable); Adam's correction is a float32 tensor, as in JAX, and
+promotes what it multiplies.
 
 Not ported yet: ``mesh``/``batch_spec``, ``remat``, ``chunk_steps`` and
 ``chunked_loop()``, and the lint / memlint / shardlint hooks.
@@ -33,6 +37,7 @@ from torch.func import functional_call
 from . import autograd
 from .context import resolve_device
 from .gluon.nn import Dropout
+from .optimizer.optimizer import weak_scalar as _w
 
 __all__ = ["FusedTrainStep", "make_fused_train_step", "sgd_init",
            "adam_init", "kernel_launches"]
@@ -73,8 +78,9 @@ def _wide(t):
 
 def _sgd_update(grads, state, params, lr, momentum, wd):
     for k, p in params.items():
-        m = state["mom"][k]
-        m.copy_(momentum * m - lr * (grads[k] + wd * p))
+        m, g = state["mom"][k], grads[k]
+        gw = g + _w(wd, p) * p
+        m.copy_(_w(momentum, m) * m - _w(lr, gw) * gw)
         p.copy_(p + m)
 
 
@@ -82,8 +88,9 @@ def _nag_update(grads, state, params, lr, momentum, wd):
     """Nesterov momentum, the formula of optimizer.py's NAG."""
     for k, p in params.items():
         m, g = state["mom"][k], grads[k]
-        m.copy_(momentum * m + g + wd * p)
-        p.copy_(p - lr * (g + wd * p + momentum * m))
+        m.copy_(_w(momentum, m) * m + g + _w(wd, p) * p)
+        d = g + _w(wd, p) * p + _w(momentum, m) * m
+        p.copy_(p - _w(lr, d) * d)
 
 
 def _adam_corr(state, b1, b2):
@@ -96,10 +103,11 @@ def _adam_corr(state, b1, b2):
 def _adam_update(grads, state, params, lr, b1, b2, eps, wd):
     corr = _adam_corr(state, b1, b2)
     for k, p in params.items():
-        m, v, g = state["m"][k], state["v"][k], grads[k] + wd * p
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        p.copy_(p - lr * corr * _wide(m) / (torch.sqrt(v) + eps))
+        m, v, g = state["m"][k], state["v"][k], grads[k] + _w(wd, p) * p
+        m.copy_(_w(b1, m) * m + _w(1 - b1, g) * g)
+        g2 = torch.square(g)
+        v.copy_(_w(b2, v) * v + _w(1 - b2, g2) * g2)
+        p.copy_(p - lr * corr * _wide(m) / (torch.sqrt(v) + _w(eps, v)))
 
 
 def _adamw_update(grads, state, params, lr, b1, b2, eps, wd):
@@ -107,10 +115,11 @@ def _adamw_update(grads, state, params, lr, b1, b2, eps, wd):
     corr = _adam_corr(state, b1, b2)
     for k, p in params.items():
         m, v, g = state["m"][k], state["v"][k], grads[k]
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        p.copy_(p - lr * corr * _wide(m) / (torch.sqrt(v) + eps)
-                - lr * wd * p)
+        m.copy_(_w(b1, m) * m + _w(1 - b1, g) * g)
+        g2 = torch.square(g)
+        v.copy_(_w(b2, v) * v + _w(1 - b2, g2) * g2)
+        p.copy_(p - lr * corr * _wide(m) / (torch.sqrt(v) + _w(eps, v))
+                - _w(lr * wd, p) * p)
 
 
 _UPDATES = {"sgd": _sgd_update, "nag": _nag_update, "adam": _adam_update,

@@ -18,6 +18,10 @@ product recomputes the prologue too.
 Three kernels (``csrc/fused_matmul_bn.cu``), one wrapper each:
 :func:`fused_matmul_bn_fwd` (kernel 10), :func:`fused_matmul_bn_dx`
 (11) and :func:`fused_matmul_bn_dw` (12), each with a launch counter.
+Kernel 12 has one instance for each dtype: float32 runs the FMA tile
+that 10 and 11 share, bfloat16 a tile on the tensor cores
+(``fused_matmul_bn_dw_mma``), over runs of M that :func:`dw_mma_split`
+chooses.
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing falls
 back from the card to the plain version.
@@ -51,7 +55,7 @@ __all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
            "fused_matmul_bn_fwd", "fused_matmul_bn_dx", "fused_matmul_bn_dw",
            "FusedMatmulBNFunction", "fused_matmul_bn", "bn_consts",
            "fused_bottleneck_v1", "fused_bottleneck_v1_proj",
-           "fwd_launches", "dx_launches", "dw_launches"]
+           "dw_mma_split", "fwd_launches", "dx_launches", "dw_launches"]
 
 #: Launches of kernels 10, 11 and 12 so far; each wrapper adds one per
 #: launch and nothing else touches them (a caller may reset them to 0).
@@ -63,7 +67,38 @@ _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # the C entries' arguments (csrc/fused_matmul_bn.cu)
 _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L, _L, _I, _I, _P]
 _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L, _L, _I, _I, _P]
-_DW_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 5 + [_L, _I, _I, _L, _L, _P]
+_DW_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 5 + [_L, _I, _I, _L, _L, _I, _P]
+
+# kernel 12's bfloat16 tile (fused_matmul_bn_dw_mma): 64 rows of dw, over
+# stages of 32 rows of M
+_MMA_BK, _MMA_BM = 64, 32
+# enough runs of M that about this many blocks cover each SM (one wave at
+# the tile's occupancy)
+_MMA_BLOCKS_PER_SM = 4
+
+
+def dw_mma_split(m, k, n, sms):
+    """``(split_rows, splits)`` of kernel 12's bfloat16 tile for x (m, k)
+    and dw (k, n) on a card of ``sms`` SMs: runs of M, each a multiple
+    of the 32-row stage, that tile M exactly (the last may be shorter).
+    Enough runs that about ``_MMA_BLOCKS_PER_SM`` blocks of the (64,
+    128) tile (64 wide where n <= 64) cover every SM, but no run so
+    short that its float32 (k, n) partial, written and read back, costs
+    more than an eighth of the bytes the run reads (2 (k + 2n) a row)."""
+    bn = 64 if n <= 64 else 128
+    tiles = -(-k // _MMA_BK) * -(-n // bn)
+    want = max(1, -(-_MMA_BLOCKS_PER_SM * sms // tiles))
+    rows = max(-(-m // want), 32 * k * n // (k + 2 * n), 1)
+    rows = -(-rows // _MMA_BM) * _MMA_BM
+    return rows, -(-m // rows)
+
+
+def _vec16(*tensors):
+    """True when kernel 12's bfloat16 tile may load rows of every tensor
+    16 bytes at a time: each starts on 16 bytes and its rows are a
+    multiple of 8 elements.  Else it loads element by element."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
+               for t in tensors)
 
 
 def matmul_bn_reference(x, w, scale=None, bias=None):
@@ -228,15 +263,22 @@ def fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
     ds2)`` → dw ``(K, N)`` in w's dtype, summed over M in float32.
 
     On a CUDA tensor: kernel 12 over runs of M, each writing a float32
-    (K, N) partial, then their sum in a fixed order.  On a CPU tensor:
-    the plain version."""
+    (K, N) partial, then their sum in a fixed order; bfloat16 runs the
+    tensor-core tile, float32 the FMA tile.  On a CPU tensor: the plain
+    version."""
     if x.device.type == "cpu":
         return matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
     m, k, n, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
         "fused_matmul_bn_dw", x, w, scale, bias, y, dy, ds1, ds2)
     if m == 0:
         return torch.zeros((k, n), dtype=w.dtype, device=x.device)
-    split_rows, splits = _fc.dw_split(m, k, n, x.device)
+    vec = 0
+    if x.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        split_rows, splits = dw_mma_split(m, k, n, sms)
+        vec = int(_vec16(x)) | 2 * int(_vec16(y, dy))
+    else:
+        split_rows, splits = _fc.dw_split(m, k, n, x.device)
     parts = torch.empty((splits, k, n), dtype=torch.float32, device=x.device)
     fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_dw",
                          _DW_ARGS)
@@ -245,7 +287,7 @@ def fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
         fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
            _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
            y.data_ptr(), dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
-           parts.data_ptr(), m, k, n, split_rows, splits, stream)
+           parts.data_ptr(), m, k, n, split_rows, splits, vec, stream)
     _count("dw")
     return parts.sum(dim=0).to(w.dtype)
 

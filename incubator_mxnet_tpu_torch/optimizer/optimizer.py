@@ -6,17 +6,39 @@ arrays; here an update is plain PyTorch ops on the parameter and its
 state tensors, written in place under ``torch.no_grad()``, so no second
 copy of the weights or the state is made.  The gradient is never
 written: the scaled (and clipped) gradient is a new tensor.
+
+A Python hyper-parameter meets a tensor as JAX's weak-typed scalar does
+(:func:`weak_scalar`): below float32 it is rounded to the tensor's dtype
+first, so a bfloat16 update rounds where the JAX package's rounds.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "register",
-           "create"]
+           "create", "weak_scalar"]
 
 _registry: dict[str, type] = {}
+
+
+@functools.lru_cache(maxsize=256)  # bounded: Adam's coefficient moves
+def _rounded(v, dtype):
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def weak_scalar(v, t):
+    """The Python number ``v`` as JAX meets tensor ``t`` with it: a
+    weak-typed scalar takes t's dtype, so for a bfloat16 (or float16)
+    tensor it is rounded to that dtype first (0.9 -> 0.8984375), where
+    PyTorch would compute with it unrounded in float32.  Float32 and
+    wider tensors get ``v`` unchanged.  Rounded on the host and cached:
+    nothing touches the device, so a CUDA graph may capture the caller."""
+    if t.dtype.is_floating_point and t.dtype.itemsize < 4:
+        return _rounded(float(v), t.dtype)
+    return v
 
 
 def register(cls):
@@ -96,7 +118,7 @@ class Optimizer:
         self._update_count(index)
         lr = self._get_lr(index)
         wd = self._get_wd(index)
-        g = grad * self.rescale_grad
+        g = grad * weak_scalar(self.rescale_grad, grad)
         if self.clip_gradient is not None:
             g = g.clamp_(-self.clip_gradient, self.clip_gradient)
         return lr, wd, g
@@ -123,9 +145,10 @@ class SGD(Optimizer):
     @torch.no_grad()
     def update(self, index, weight, grad, state):
         lr, wd, g = self._prep(index, weight, grad)
-        g = g.to(weight.dtype) + wd * weight
+        g = g.to(weight.dtype) + weak_scalar(wd, weight) * weight
+        lr = weak_scalar(lr, g)
         if state is not None:
-            state.mul_(self.momentum).sub_(lr * g)
+            state.mul_(weak_scalar(self.momentum, state)).sub_(lr * g)
             weight.add_(state)
         else:
             weight.sub_(lr * g)
@@ -154,11 +177,14 @@ class Adam(Optimizer):
         t = self._index_update_count[index]
         m, v = state
         if wd:
-            g = g + wd * weight
-        m.mul_(self.beta1).add_((1 - self.beta1) * g)
-        v.mul_(self.beta2).add_((1 - self.beta2) * g * g)
+            g = g + weak_scalar(wd, weight) * weight
+        m.mul_(weak_scalar(self.beta1, m)).add_(
+            weak_scalar(1 - self.beta1, g) * g)
+        v.mul_(weak_scalar(self.beta2, v)).add_(
+            weak_scalar(1 - self.beta2, g) * g * g)
         coef = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
-        weight.sub_(coef * m / (v.sqrt() + self.epsilon))
+        weight.sub_(weak_scalar(coef, m) * m
+                    / (v.sqrt() + weak_scalar(self.epsilon, v)))
 
 
 class Updater:

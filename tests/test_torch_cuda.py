@@ -315,6 +315,71 @@ def test_fused_matmul_bn_rejects_what_it_does_not_take(dev):
     assert y.shape == (0, 8) and s1.abs().sum() == 0
 
 
+def _dw_args(m, k, n, dtype, dev, prologue=True, seed=3):
+    x, w, scale, bias, dy, ds1, ds2 = _fmm_inputs(m, k, n, dtype, dev, seed)
+    if not prologue:
+        scale = bias = None
+    y = fb.matmul_bn_reference(x, w, scale, bias)[0]
+    return x, w, scale, bias, y, dy, ds1, ds2
+
+
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_fused_matmul_bn_dw_runs_the_kernel_of_its_dtype(dev, dtype, route):
+    """float32 inputs run kernel 12's FMA tile; bfloat16 its tensor-core
+    tile (fused_matmul_bn_dw_mma), as the profiler sees."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _dw_args(200, 96, 72, dtype, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fb.fused_matmul_bn_dw(*args)
+        torch.cuda.synchronize()
+    hits = {e.name for e in prof.events() if "fused_matmul_bn" in e.name}
+    assert len(hits) == 1, hits
+    name, = hits
+    assert "fused_matmul_bn_dw" in name, name
+    assert ("fused_matmul_bn_dw_mma" in name) == (route == "tensor-core"), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(200, 96, 72), (12544, 64, 256),
+                                   (1000, 60, 100)])
+def test_fused_matmul_bn_dw_is_bit_for_bit_repeatable(dev, dtype, m, k, n):
+    """No atomics: the runs of M write float32 partials that the wrapper
+    sums in a fixed order, so two calls give the same bits."""
+    args = _dw_args(m, k, n, dtype, dev)
+    first, second = (fb.fused_matmul_bn_dw(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (1000, 60, 100, 0),   # K and N not multiples of 8
+    (77, 9, 130, 0),      # K under one 16-byte chunk
+    (640, 64, 256, 1),    # rows of 8 elements, starts off 16 bytes
+])
+def test_fused_matmul_bn_dw_mma_loads_element_wise(dev, no_tf32, prologue, m,
+                                                   k, n, offset):
+    """Where a start or a row width does not allow 16-byte loads, the
+    bfloat16 tile loads element by element and still matches the plain
+    version within the bfloat16 tolerance (2e-2 of max|dw|)."""
+    x, w, scale, bias, y, dy, ds1, ds2 = _dw_args(m, k, n, "bfloat16", dev,
+                                                  prologue)
+    if offset:
+        def shift(t):
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            out = buf[offset:].view(t.shape)
+            out.copy_(t)
+            return out
+        x, y, dy = shift(x), shift(y), shift(dy)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert not (fb._vec16(x) and fb._vec16(y, dy))
+    got = fb.fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
+    want = fb.matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    torch.cuda.synchronize()
+    _within(got, want, 2e-2, "dw")
+
+
 def test_small_fused_resnet_step_on_the_card_matches_cpu(dev, no_tf32):
     """A fused ResNet (one bottleneck a stage, each with a projection)
     on the card against the same weights and batch on the CPU: 12 launches

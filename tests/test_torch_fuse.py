@@ -17,7 +17,16 @@ CUDA-graph replay is held against the eager step on the card, in
 * the small fused ResNet of ``tests/test_torch_resnet_train.py``, 3 SGD
   steps (momentum, wd) against JAX's ``FusedTrainStep``;
 * ``python -m incubator_mxnet_tpu_torch.bench --device cpu`` at a tiny
-  size: one JSON line, tagged ``_cpu``, with no device metric.
+  size: one JSON line, tagged ``_cpu``, with no device metric;
+* the four update functions alone on a (256, 64) weight, gradient and
+  state, 3 steps: in bfloat16 bit for bit against the JAX package's
+  ``_sgd_update`` ... ``_adamw_update`` called op by op (each Python
+  hyper-parameter rounded to bfloat16 first, as JAX rounds a weak-typed
+  scalar); in float32 bit for bit against the formulas with unrounded
+  scalars (nothing moved there) and within 1e-6 of JAX's.  The JAX
+  functions run un-jitted: under ``jit`` XLA's CPU backend keeps excess
+  precision across fused bfloat16 ops and contracts float32 ones into
+  FMAs, which is not the op-by-op arithmetic either package defines.
 
 Tolerances, float32: losses 1e-5 relative; parameters and moving
 statistics STEP_TOL = 1e-5 of the largest |JAX| value of each tensor
@@ -30,11 +39,13 @@ to, set above its measured response to rounding (about 1.1e-5).
 """
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import incubator_mxnet_tpu as mx
+from incubator_mxnet_tpu import fuse as jax_fuse
 from incubator_mxnet_tpu import gluon as jax_gluon
 from incubator_mxnet_tpu import nd
 from incubator_mxnet_tpu.fuse import make_fused_train_step as jax_fused
@@ -42,6 +53,7 @@ from incubator_mxnet_tpu.gluon import nn as jax_nn
 from incubator_mxnet_tpu.gluon.model_zoo.vision import resnet as jax_resnet
 
 from incubator_mxnet_tpu_torch import autograd, bench
+from incubator_mxnet_tpu_torch import fuse as port_fuse
 from incubator_mxnet_tpu_torch.convert import params_from_jax
 from incubator_mxnet_tpu_torch.error import DeviceUnavailableError
 from incubator_mxnet_tpu_torch.fuse import (FusedTrainStep,
@@ -255,3 +267,114 @@ def test_bench_runs_tagged_on_the_cpu(capsys):
     assert res["platform"] == "cpu" and res["value"] > 0
     assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
     assert "mfu_pct" not in res and "peak_memory_bytes" not in res
+
+
+# bench.py's SGD scalars; Adam at lr 1e-3, wd 1e-4
+UPDATES = [
+    ("sgd", {"lr": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("nag", {"lr": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    ("adam", {"lr": 1e-3, "b1": 0.9, "b2": 0.999, "eps": 1e-8, "wd": 1e-4}),
+    ("adamw", {"lr": 1e-3, "b1": 0.9, "b2": 0.999, "eps": 1e-8, "wd": 1e-4}),
+]
+
+
+def _update_inputs(opt, seed=3, shape=(256, 64)):
+    """A weight, 3 gradients and a state, float32 numpy."""
+    rng = np.random.RandomState(seed)
+    w = rng.randn(*shape).astype(np.float32)
+    grads = [(0.1 * rng.randn(*shape)).astype(np.float32) for _ in range(3)]
+    if opt in ("sgd", "nag"):
+        state = {"mom": (0.01 * rng.randn(*shape)).astype(np.float32)}
+    else:
+        state = {"m": (0.01 * rng.randn(*shape)).astype(np.float32),
+                 "v": np.abs(1e-4 * rng.randn(*shape)).astype(np.float32)}
+    return w, grads, state
+
+
+def _run_port(fn, opt, hp, w, grads, state, dtype):
+    p = {"w": torch.tensor(w, dtype=dtype)}
+    st = {k: {"w": torch.tensor(v, dtype=dtype)} for k, v in state.items()}
+    if opt.startswith("adam"):
+        st["t"] = torch.zeros((), dtype=torch.int32)
+    for g in grads:
+        fn({"w": torch.tensor(g, dtype=dtype)}, st, p, **hp)
+    out = {"w": p["w"]}
+    out.update((k, st[k]["w"]) for k in state)
+    return {k: v.float().numpy() for k, v in out.items()}
+
+
+def _run_jax(opt, hp, w, grads, state, dtype):
+    fn = getattr(jax_fuse, f"_{opt}_update")
+    p = {"w": jnp.asarray(w).astype(dtype)}
+    st = {k: {"w": jnp.asarray(v).astype(dtype)} for k, v in state.items()}
+    if opt.startswith("adam"):
+        st["t"] = jnp.zeros((), jnp.int32)
+    for g in grads:
+        p, st = fn({"w": jnp.asarray(g).astype(dtype)}, st, p, **hp)
+    out = {"w": p["w"]}
+    out.update((k, st[k]["w"]) for k in state)
+    return {k: np.asarray(v.astype(jnp.float32)) for k, v in out.items()}
+
+
+def _unrounded_update(opt):
+    """The update formulas with every Python scalar used as PyTorch
+    takes it, unrounded: what the port computed before its scalars were
+    rounded as JAX's weak types are."""
+    wide = port_fuse._wide
+
+    def sgd(grads, state, params, lr, momentum, wd):
+        for k, p in params.items():
+            m = state["mom"][k]
+            m.copy_(momentum * m - lr * (grads[k] + wd * p))
+            p.copy_(p + m)
+
+    def nag(grads, state, params, lr, momentum, wd):
+        for k, p in params.items():
+            m, g = state["mom"][k], grads[k]
+            m.copy_(momentum * m + g + wd * p)
+            p.copy_(p - lr * (g + wd * p + momentum * m))
+
+    def adam(grads, state, params, lr, b1, b2, eps, wd, decoupled=False):
+        corr = port_fuse._adam_corr(state, b1, b2)
+        for k, p in params.items():
+            m, v, g = state["m"][k], state["v"][k], grads[k]
+            g = g if decoupled else g + wd * p
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            new = p - lr * corr * wide(m) / (torch.sqrt(v) + eps)
+            p.copy_(new - lr * wd * p if decoupled else new)
+
+    def adamw(*args, **kw):
+        adam(*args, decoupled=True, **kw)
+
+    return {"sgd": sgd, "nag": nag, "adam": adam, "adamw": adamw}[opt]
+
+
+def _mismatches(got, want):
+    return {k: int((got[k] != want[k]).sum()) for k in want}
+
+
+@pytest.mark.parametrize("opt,hp", UPDATES, ids=[u[0] for u in UPDATES])
+def test_bfloat16_update_matches_jax_bit_for_bit(opt, hp):
+    w, grads, state = _update_inputs(opt)
+    fn = getattr(port_fuse, f"_{opt}_update")
+    got = _run_port(fn, opt, hp, w, grads, state, torch.bfloat16)
+    want = _run_jax(opt, hp, w, grads, state, jnp.bfloat16)
+    assert _mismatches(got, want) == {k: 0 for k in want}
+    # the unrounded scalars do not give JAX's numbers: the check can fail
+    old = _run_port(_unrounded_update(opt), opt, hp, w, grads, state,
+                    torch.bfloat16)
+    assert sum(_mismatches(old, want).values()) > 0
+
+
+@pytest.mark.parametrize("opt,hp", UPDATES, ids=[u[0] for u in UPDATES])
+def test_float32_update_is_unchanged(opt, hp):
+    w, grads, state = _update_inputs(opt)
+    fn = getattr(port_fuse, f"_{opt}_update")
+    got = _run_port(fn, opt, hp, w, grads, state, torch.float32)
+    old = _run_port(_unrounded_update(opt), opt, hp, w, grads, state,
+                    torch.float32)
+    assert _mismatches(got, old) == {k: 0 for k in old}
+    want = _run_jax(opt, hp, w, grads, state, jnp.float32)
+    for k in want:
+        _close(got[k], want[k], 1e-6, f"{opt} {k}")

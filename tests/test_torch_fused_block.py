@@ -15,7 +15,12 @@ from a seed and handed to both.
 * the ds1/ds2 cotangent chain through ``bn_consts`` (a 1x1, its BN's
   constants, a 1x1 with that prologue), as a bottleneck uses it;
 * ``torch.autograd.gradcheck`` of the Function in float64;
-* stat cotangents that are None read as zeros.
+* stat cotangents that are None read as zeros;
+* kernel 12's bfloat16 arithmetic (``fused_matmul_bn_dw_mma``, which
+  runs only on the card) emulated by ``_kernel_dw`` and held to the JAX
+  VJP's dw at the shapes above, with the runs :func:`dw_mma_split`
+  chooses and with 64-row runs, and the split rule's runs tiling M in
+  whole 32-row stages.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -33,6 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from incubator_mxnet_tpu.ops import fused_block as jfb
+from incubator_mxnet_tpu_torch.ops import _fused_common as fc
 from incubator_mxnet_tpu_torch.ops import fused_block as fb
 
 SHAPES = [(256, 128, 128),   # whole TPU tiles
@@ -218,3 +224,62 @@ def test_wrappers_take_only_cpu_or_cuda_tensors():
     meta = torch.empty(4, 3, device="meta")
     with pytest.raises(ValueError, match="device"):
         fb.fused_matmul_bn_fwd(meta, torch.empty(3, 2, device="meta"))
+
+
+# kernel 12's bfloat16 tile: 32 rows of M a stage, 16 a tensor-core step
+_STAGE, _MMA_DEPTH = 32, 16
+
+
+def _kernel_dw(x, scale, bias, y, dy, ds1, ds2, split_rows):
+    """dw by the arithmetic of kernel 12's bfloat16 tile: the prologue
+    and dyt in float32, rounded to bf16; exact products of the bf16
+    values; each 16-row m16n8k16 step's sum added to the run's float32
+    accumulator, stage after stage; each run of ``split_rows`` rows a
+    float32 partial, and the partials summed in order in float32, then
+    rounded to bf16.  Rows past M are absent, as the kernel's zeroed
+    rows add nothing."""
+    a = fc.prologue(x, scale, bias).double()
+    b = fc.dyt(y, dy, ds1, ds2).double()
+    m = x.shape[0]
+    total = None
+    for r0 in range(0, m, split_rows):
+        acc = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32)
+        for s0 in range(r0, min(m, r0 + split_rows), _MMA_DEPTH):
+            rows = slice(s0, min(m, s0 + _MMA_DEPTH))
+            acc = (acc.double() + a[rows].t() @ b[rows]).float()
+        total = acc if total is None else total + acc
+    return total.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", ["rule", 64])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_kernel_dw_arithmetic_matches_jax(m, k, n, prologue, split):
+    """The bfloat16 dw kernel's order of sums and roundings, on the JAX
+    forward's own y, within TOL of the JAX VJP's dw (Pallas, interpret
+    mode).  Measured at these inputs: 0 to 3.3e-3 of max|dw| (one bf16 ulp
+    where an f32 sum in another order rounds to the other neighbour)."""
+    a = _inputs(m, k, n, seed=m + k + n)
+    j, t = _to_jax(a, "bfloat16"), _to_torch(a, "bfloat16")
+    (y, _, _), (_, dw, _, _) = _jax_vjp(
+        lambda x, w, s, b: jfb._fmm(x, w, s, b, prologue), j, prologue)
+    y = torch.from_numpy(np.array(y.astype(jnp.float32))).bfloat16()
+    split_rows = (fb.dw_mma_split(m, k, n, sms=132)[0] if split == "rule"
+                  else split)
+    got = _kernel_dw(t["x"], t["scale"] if prologue else None,
+                     t["bias"] if prologue else None, y, t["dy"], t["ds1"],
+                     t["ds2"], split_rows)
+    _close(got, dw.astype(jnp.float32), TOL["bfloat16"], "dw")
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 64), (31, 64, 256), (33, 2048, 2048), (200, 96, 72),
+    (401408, 64, 64), (401408, 64, 256), (401408, 256, 64),
+    (100352, 128, 512), (25088, 512, 1024), (6272, 2048, 512),
+    (3 * 10 ** 7, 64, 64)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dw_mma_split_tiles_m_in_whole_stages(m, k, n, sms):
+    rows, splits = fb.dw_mma_split(m, k, n, sms)
+    assert rows > 0 and rows % _STAGE == 0
+    assert (splits - 1) * rows < m <= splits * rows
+    assert 1 <= splits <= 65535
