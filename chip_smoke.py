@@ -19,9 +19,13 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    72 among them), B·H = 1 and a q whose rows the bfloat16 kernels
    load element by element, in both dtypes; then two forward and two
    backward runs at the path's shape bit for bit, and the kernels by
-   dtype: float32-FMA for float32, tensor-core for bfloat16), with the
-   stated tolerances, and its time beside the plain version's, one
-   PyTorch library call's and the bound;
+   dtype: float32-FMA for float32, tensor-core for bfloat16; the
+   weight gradients of the fused 1x1 and 3x3, kernels 12 and 16, the
+   same way, bfloat16 also where it loads rows element by element, and
+   two runs bit for bit, as two runs of the LayerNorm backward), with
+   the stated tolerances, and its time beside the plain version's, one
+   PyTorch library call's and the bound (the fused kernels' in both
+   dtypes);
 4. BERT-base at full width in process — one forward at B=8, T=128 on
    the card against the same weights on the CPU through the port's
    plain path, and the LayerNorm launch count of that forward;
@@ -113,7 +117,9 @@ launches, and LeNet over phase 12 (b).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
-paths it ran on.
+paths it ran on; kernels 12 and 16 have an entry for each instance,
+the float32 FMA tile with phase 7's launches and the bfloat16
+tensor-core tile (``..._dw_mma``) with phase 8's.
 """
 import copy
 import gc
@@ -227,6 +233,11 @@ CONV_TEST_SHAPES = [(2, 8, 8, 16, 24), (3, 6, 6, 16, 16), (2, 14, 14, 32, 16),
                     (2, 5, 9, 16, 8), (16, 6, 6, 16, 260)]
 # the representative launch: stage 1's 3x3 at B=128, with the prologue
 CONV_REP = (RESNET_B, IMAGE // 4, IMAGE // 4, 64, 64)
+# kernel 16's bfloat16 tile (fused_conv3_bn_dw_mma) also at shapes whose
+# rows it must load element by element (C or C_out not a multiple of 8)
+# and where an image row takes several segments (W > 62)
+CONV_DW_ELEMENT_SHAPES = [(2, 5, 9, 12, 20), (2, 7, 7, 5, 64),
+                          (1, 3, 130, 8, 8)]
 # the bench path: (a) graph replay against the eager step, float32, B=8,
 # one warm-up call and 3 replays; every loss, parameter, moving statistic
 # and momentum within GRAPH_TOL of the largest |eager| value of its
@@ -502,8 +513,11 @@ def check_layer_norm_bwd(torch, ln, dev):
     for shape, dtype in LN_BWD_SHAPES:
         args = ln_bwd_inputs(torch, ln, shape, dtype, 0, dev)
         got = ln.layer_norm_bwd(*args)
+        again = ln.layer_norm_bwd(*args)
         want = ln.layer_norm_bwd_reference(*args)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+            shape, dtype, "two runs differ")
         tol = LN_BWD_TOL[dtype]
         torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
                                    atol=tol)
@@ -514,8 +528,8 @@ def check_layer_norm_bwd(torch, ln, dev):
             assert err <= PARAM_TOL * scale, (shape, dtype, name, err, scale)
         print(f"layer_norm_bwd {shape} {dtype}: max|d dx|={errs[0]:.3e} "
               f"(tol {tol:g}) max|d dgamma|={errs[1]:.3e} "
-              f"max|d dbeta|={errs[2]:.3e} (tol {PARAM_TOL:g} of max) ok",
-              flush=True)
+              f"max|d dbeta|={errs[2]:.3e} (tol {PARAM_TOL:g} of max); two "
+              "runs bit for bit", flush=True)
         if shape == (ROWS, HIDDEN) and dtype == "float32":
             train_err = errs[0]
     return train_err
@@ -1226,12 +1240,13 @@ def check_fused_conv3_bn(torch, fc, dev):
     3x3 shapes at B=128 (with the prologue, as the path runs them) and at
     the JAX tests' shapes (with and without it), in float32 and bfloat16,
     with nonzero ds1/ds2.  Returns the max |d| of y, dx and dw over the
-    path's float32 shapes."""
+    path's float32 shapes, and of dw over its bfloat16 shapes
+    (``dw_mma``: kernel 16's tensor-core tile)."""
     path = list(dict.fromkeys(resnet_conv3_shapes(RESNET_B)))
     cases = [((shape, True), dt) for shape in path for dt in FMM_TOL]
     cases += [((shape, pro), dt) for shape in CONV_TEST_SHAPES
               for pro in (False, True) for dt in FMM_TOL]
-    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dw_mma": 0.0}
     for (shape, pro), dtype in cases:
         x, w, scale, bias, dy, ds1, ds2 = conv_inputs(torch, shape, dtype,
                                                       dev, 0)
@@ -1264,8 +1279,58 @@ def check_fused_conv3_bn(torch, fc, dev):
         if shape in path and dtype == "float32":
             for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
                 path_err[key] = max(path_err[key], abs_err[name])
+        if shape in path and dtype == "bfloat16":
+            path_err["dw_mma"] = max(path_err["dw_mma"], abs_err["dw"])
         del x, w, dy, got, want, args
     return path_err
+
+
+def check_conv3_dw_mma(torch, fc, dev):
+    """Kernel 16 by dtype: the profiler's kernel names show float32 runs
+    the FMA tile and bfloat16 the tensor-core tile
+    (``fused_conv3_bn_dw_mma``); the bfloat16 tile within FMM_TOL of the
+    plain version where it loads rows element by element and where an
+    image row takes several segments; two runs of it give the same bits
+    there, at every path shape and at the JAX tests' ragged shapes."""
+    from incubator_mxnet_tpu_torch.ops import _fused_common as common
+
+    def dw_args(shape, dtype, pro=True):
+        x, w, scale, bias, dy, ds1, ds2 = conv_inputs(torch, shape, dtype,
+                                                      dev, 2)
+        if not pro:
+            scale = bias = None
+        y = fc.conv3_bn_reference(x, w, scale, bias)[0]
+        return x, w, scale, bias, y, dy, ds1, ds2
+
+    for dtype in FMM_TOL:
+        names = [n for n in kernel_names(torch, fc.fused_conv3_bn_dw,
+                                         dw_args((2, 5, 9, 16, 8), dtype))
+                 if "fused_conv3_bn" in n]
+        print(f"fused_conv3_bn_dw {dtype} runs {names}", flush=True)
+        assert len(names) == 1 and "fused_conv3_bn_dw" in names[0], names
+        assert ("fused_conv3_bn_dw_mma" in names[0]) == (
+            dtype == "bfloat16"), names
+    path = list(dict.fromkeys(resnet_conv3_shapes(RESNET_B)))
+    for shape, pro in ([(s_, True) for s_ in path]
+                       + [((2, 5, 9, 16, 8), p) for p in (False, True)]
+                       + [((16, 6, 6, 16, 260), True)]
+                       + [(s_, p) for s_ in CONV_DW_ELEMENT_SHAPES
+                          for p in (False, True)]):
+        args = dw_args(shape, "bfloat16", pro)
+        first, second = (fc.fused_conv3_bn_dw(*args) for _ in range(2))
+        want = fc.conv3_bn_dw_reference(*args)
+        torch.cuda.synchronize()
+        err = (first.float() - want.float()).abs().max().item()
+        scale_ = want.float().abs().max().item()
+        assert err <= FMM_TOL["bfloat16"] * scale_, (shape, pro, err)
+        assert torch.equal(first, second), (shape, pro)
+        print(f"fused_conv3_bn_dw_mma {shape} prologue={pro}: "
+              f"max|d|/max|ref| {err / scale_:.2e} (tol "
+              f"{FMM_TOL['bfloat16']:g}); vec16 x {common.vec16(args[0])} "
+              f"y/dy {common.vec16(args[4], args[5])}; split "
+              f"{fc.dw_mma_split(*shape, common.sms(dev.index))}; two runs "
+              "bit for bit", flush=True)
+        del args, first, second, want
 
 
 def kernel_names(torch, fn, args, tries=4):
@@ -2579,8 +2644,10 @@ def main():
     fmm_times = time_fused_matmul_bn(torch, fb, dev, "float32", rate)
     dw_mma_times = time_fused_matmul_bn(torch, fb, dev, "bfloat16", rate)[2]
     conv_err = check_fused_conv3_bn(torch, fc, dev)
+    check_conv3_dw_mma(torch, fc, dev)
     conv_times = time_fused_conv3_bn(torch, fc, dev, "float32", rate)
-    time_fused_conv3_bn(torch, fc, dev, "bfloat16", rate)
+    conv_dw_mma_times = time_fused_conv3_bn(torch, fc, dev, "bfloat16",
+                                            rate)[2]
     gc.collect()
     torch.cuda.empty_cache()
     sm_err = check_softmax(torch, sm, dev)
@@ -2706,11 +2773,13 @@ def main():
 
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
     bench = bench_path(torch, np, dev, smi)
-    # kernel 12's counter moves for either of its instances: phase 7 runs
-    # only float32 (the FMA tile), the bench path only bfloat16 (the
-    # tensor-core tile)
+    # kernels 12's and 16's counters move for either of their instances:
+    # phase 7 runs only float32 (the FMA tiles), the bench path only
+    # bfloat16 (the tensor-core tiles)
     dw_mma_launches = bench["fused_matmul_bn_dw"]
-    resnet = {k: v + (bench[k] if k != "fused_matmul_bn_dw" else 0)
+    conv_dw_mma_launches = bench["fused_conv3_bn_dw"]
+    resnet = {k: v + (bench[k] if k not in ("fused_matmul_bn_dw",
+                                             "fused_conv3_bn_dw") else 0)
               for k, v in resnet.items()}
 
     gc.collect()
@@ -2807,6 +2876,11 @@ def main():
             ("fwd", "dx", "dw"),
             (f"{fck}:139", f"{fck}:217, {fck}:180", f"{fck}:244"),
             conv_times)
+    ] + [
+        dict(name="fused_conv3_bn_dw_mma", route="cuda",
+             source=src + "fused_conv3_bn.cu", replaces=f"{fck}:244",
+             launches=conv_dw_mma_launches, max_abs_err=conv_err["dw_mma"],
+             **conv_dw_mma_times),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

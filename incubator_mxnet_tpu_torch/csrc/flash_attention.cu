@@ -505,6 +505,9 @@ using mx::a_ptr;
 using mx::b_ptr;
 using mx::bf16;
 using mx::bits;
+using mx::cp_async16;
+using mx::cp_async_commit;
+using mx::cp_async_wait;
 using mx::ldsm_x4;
 using mx::ldsm_x4_t;
 using mx::mma;
@@ -530,31 +533,12 @@ struct TcGeom {
   static constexpr size_t kFwdSmem = (1 + 2 * kStages) * kTileBytes;
 };
 
-// 16 bytes from src to dst, or 16 zero bytes when !full.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(full ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // x = (x0, x1) as hi = bf16(x) and lo = bf16(x - hi); x - hi is exact in

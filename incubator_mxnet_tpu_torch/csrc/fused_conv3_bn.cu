@@ -62,11 +62,53 @@
 // float32 FMA outside the tensor cores, while the bytes (x, y, dy, the
 // 73 KB to 9.4 MB kernel) take at most 0.12 ms at 3.35 TB/s: in float32
 // every launch is bound by operations.  In bfloat16 the tensor cores'
-// 989 TFLOP/s bound it by bytes at stage 1 and by operations elsewhere;
-// this FMA loop reaches neither.  Simple and right first: implicit GEMM
-// on wgmma with TMA-fed halo tiles is later work.
+// 989 TFLOP/s bound it by bytes at stage 1 (dw: 154 MB, 0.046 ms,
+// against 0.030 ms of operations) and by operations at stages 2-4; the
+// FMA loop reaches neither.  The forward, dx and the float32 dw run it;
+// implicit GEMM on wgmma with TMA-fed halo tiles is later work for them.
+//
+// The bf16 dw (fused_conv3_bn_dw_mma) replaces the same TPU kernel,
+// `_bwd_dw_kernel` (:244), on the tensor cores.  The TPU kernel rounds
+// both operands to the input type before its product (the prologue's
+// relu(x*scale + bias) and dyt), and the product of two bf16 values is
+// exact in float32, so mma.sync.m16n8k16 on bf16 with float32 sums gives
+// the FMA tile's numbers up to the order of the sums.  The design takes
+// the 3x3 geometry out of the inner loop, where the FMA tile spends
+// integer divisions and a masked scalar load on each of A's elements,
+// nine times for each x value:
+//   - A block owns the float32 sums of the three taps (dw = -1, 0, 1) of
+//     one kernel row dh for a 64 x 64 tile of (c, o); 8 warps, each 16 c
+//     x 32 o x 3 taps.  The grid is (3 * tiles of (c, o), runs of
+//     stages), the three dh of a tile side by side, so that they read
+//     the same rows of y and dy while L2 holds them.
+//   - The pixels are walked in segments of an image row, at most 62
+//     wide (a whole row up to W = 62), and a stage holds as many
+//     segments as fit in 64 positions, each segment as its pixels with
+//     one halo position on either side.  dyt is staged at a segment's
+//     pixels and 0 at its halo positions; xn, of image row h + dh, at
+//     every position (0 outside the image).  So the three taps are three
+//     row offsets into one xn tile, and a tap's product over a
+//     segment's positions sums exactly the pixels whose neighbour lies
+//     in the image: no mask and no index arithmetic per element.
+//   - The raw rows of x, y and dy go by cp.async (16 bytes a copy,
+//     zeros where a chunk lies outside) into a ring of three raw stages,
+//     two stages ahead of the product, so that loads stay in flight
+//     without holding registers (126 a thread: two blocks an SM).  Each
+//     thread stages the chunks it copied: the prologue and dyt applied
+//     in float32 with __fmul_rn/__fadd_rn, rounded to bf16 and stored as
+//     [position][channel] tiles whose rows are padded by 16 bytes, so
+//     that ldmatrix rows fall on distinct banks.  Both operands come
+//     from their tiles by ldmatrix.trans; dyt's fragments are shared by
+//     the three taps.  Where a start is not 16-byte aligned or C (C_out)
+//     is not a multiple of 8, the rows of x (y and dy) load element by
+//     element.
+//   - Each run writes its float32 (9*C, C_out) partial; the wrapper sums
+//     the runs in a fixed order.  No atomics: the same bits every run.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -443,12 +485,17 @@ cudaError_t launch(int mode, const Args<T>& a, long long splits,
     else
       fused_conv3_bn_dx_kernel<T><<<grid, block, 0, stream>>>(a);
   } else {
-    const int64_t gi = ceil_div(9LL * a.C, BI), gj = ceil_div(a.Co, BJ);
-    if (gj > 65535 || splits > 65535 || splits <= 0)
+    // the FMA dw is float32's; bfloat16's is fused_conv3_bn_dw_mma
+    if constexpr (!std::is_same<T, float>::value) {
       return cudaErrorInvalidValue;
-    dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
-              static_cast<unsigned>(splits));
-    fused_conv3_bn_dw_kernel<T><<<grid, block, 0, stream>>>(a);
+    } else {
+      const int64_t gi = ceil_div(9LL * a.C, BI), gj = ceil_div(a.Co, BJ);
+      if (gj > 65535 || splits > 65535 || splits <= 0)
+        return cudaErrorInvalidValue;
+      dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
+                static_cast<unsigned>(splits));
+      fused_conv3_bn_dw_kernel<T><<<grid, block, 0, stream>>>(a);
+    }
   }
   return cudaGetLastError();
 }
@@ -517,6 +564,311 @@ int dispatch(int dtype, int mode, const void* x, const void* w,
   }
 }
 
+// ---------------------------------------------------------------------
+// dw in bfloat16 on the tensor cores.  See the note at the top.
+
+using mx::a_ptr;
+using mx::b_ptr;
+using mx::bf16;
+using mx::cp_async16;
+using mx::cp_async_commit;
+using mx::cp_async_wait;
+using mx::dyt8;
+using mx::ldsm_x4_t;
+using mx::load8;
+using mx::mma;
+using mx::prologue8;
+
+constexpr int kTcTile = 64;      // c and o of dw a block owns
+constexpr int kTcPos = 64;       // positions a stage holds
+constexpr int kTcMaxSeg = kTcPos - 2;  // widest segment: two halo positions
+constexpr int kTcThreads = 256;  // 8 warps: 4 over c x 2 over o
+constexpr int kTcLd = kTcTile + 8;     // bf16 row stride: 16 bytes pad
+constexpr int kTcXRows = kTcPos + 2;   // xn rows: a zero guard either side
+constexpr int kTcChunks = kTcPos * (kTcTile / 8) / kTcThreads;  // 2
+constexpr int kTcRing = 3;       // raw stages: two load while one is staged
+
+struct TcArgs {
+  const bf16* x;        // (M, C)
+  const float* scale;   // (C,), read only with the prologue
+  const float* bias;    // (C,)
+  const bf16* y;        // (M, Co)
+  const bf16* dy;       // (M, Co)
+  const float* ds1;     // (Co,)
+  const float* ds2;     // (Co,)
+  float* part;          // (runs, 9*C, Co)
+  int H;
+  int W;
+  int C;
+  int Co;
+  int prologue;
+  int vec;              // bit 0: x loads 16 bytes; bit 1: y and dy do
+  int seg_w;            // pixels of a segment (the last of a row: fewer)
+  int stage_segs;       // segments a stage holds
+  int row_segs;         // segments of an image row
+  int segs;             // N * H * row_segs
+  int stages;           // ceil(segs / stage_segs)
+  int run_stages;       // stages of a run (the last run: fewer)
+};
+
+// The walk of the pixels for an image width W: segments of seg_w
+// pixels, stage_segs of them to a stage (64 positions at most, a
+// segment taking seg_w + 2), row_segs to an image row.  A row wider than
+// kTcMaxSeg takes several segments, one a stage.
+void tc_geometry(int W, int* seg_w, int* stage_segs, int* row_segs) {
+  *seg_w = W < kTcMaxSeg ? W : kTcMaxSeg;
+  *stage_segs = kTcPos / (*seg_w + 2);
+  *row_segs = (W + *seg_w - 1) / *seg_w;
+}
+
+// Dynamic shared memory of fused_conv3_bn_dw_mma, in order: the ring of
+// raw stages (x, y, dy: kTcRaw bf16 values each, [position][channel]),
+// the two operand buffers (xn: kTcXRows rows, then dyt: kTcPos rows, of
+// kTcLd), the per-channel constants (4 x kTcTile floats).
+constexpr int kTcRaw = kTcPos * kTcTile;
+constexpr int kTcOps = (kTcXRows + kTcPos) * kTcLd;
+constexpr size_t kTcSmem =
+    (kTcRing * 3 * kTcRaw + 2 * kTcOps) * sizeof(bf16) +
+    4 * kTcTile * sizeof(float);
+
+// Grid (3 * ceil(C / 64) * ceil(Co / 64), runs): block (t, r) takes
+// kernel row dh = t % 3 - 1 and tile t / 3 of (c, o) over run r of the
+// stages, and writes its three taps' float32 sums to part[r].
+__global__ void __launch_bounds__(kTcThreads, 2)
+    fused_conv3_bn_dw_mma(TcArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* raw = reinterpret_cast<bf16*>(smem);
+  bf16* ops = raw + kTcRing * 3 * kTcRaw;
+  float* sc_s = reinterpret_cast<float*>(ops + 2 * kTcOps);
+  float* bi_s = sc_s + kTcTile;
+  float* d1_s = bi_s + kTcTile;
+  float* d2_s = d1_s + kTcTile;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wc = warp & 3, wo = warp >> 2;  // the warp's 16 x 32 tile
+  const int tiles_c = (a.C + kTcTile - 1) / kTcTile;
+  const int dh = static_cast<int>(blockIdx.x % 3) - 1;
+  const int tile = static_cast<int>(blockIdx.x / 3);
+  const int c0 = (tile % tiles_c) * kTcTile, o0 = (tile / tiles_c) * kTcTile;
+  const int st_begin = blockIdx.y * a.run_stages;
+  const int st_end =
+      a.stages - st_begin > a.run_stages ? st_begin + a.run_stages : a.stages;
+  const bool vec_x = a.vec & 1, vec_y = a.vec & 2;
+
+  // Both operand buffers start at 0: the guard rows, the positions past
+  // a stage's segments and past its last step of 16 are never written
+  // again.
+  {
+    uint4* z = reinterpret_cast<uint4*>(ops);
+    for (int i = tid; i < 2 * kTcOps / 8; i += kTcThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+  }
+  // per-channel constants, 0 past C and Co (a zero channel stays zero)
+  for (int i = tid; i < kTcTile; i += kTcThreads) {
+    const bool in_c = a.prologue && c0 + i < a.C;
+    sc_s[i] = in_c ? a.scale[c0 + i] : 0.f;
+    bi_s[i] = in_c ? a.bias[c0 + i] : 0.f;
+    const bool in_o = o0 + i < a.Co;
+    d1_s[i] = in_o ? a.ds1[o0 + i] : 0.f;
+    d2_s[i] = in_o ? a.ds2[o0 + i] : 0.f;
+  }
+
+  // This thread's chunks: positions tid / 8 + 32 i of a stage, channels
+  // cc .. cc + 7 of the tile, for x and for dyt; the thread loads them
+  // and stages them itself, so the raw ring needs no barrier.  A
+  // position is fixed for the whole run: segment sg of the stage, place
+  // p in it (0 and seg_w + 1 are the halo).  The segment's image row
+  // (n * H + h), its h and its index in the row advance by stage_segs
+  // segments a stage, as the loads run ahead.
+  const int cc = (tid & 7) * 8;
+  const int pitch = a.seg_w + 2;
+  const int npos = a.stage_segs * pitch;  // positions a stage uses
+  int pos[kTcChunks], place[kTcChunks], seg[kTcChunks];
+  int img_row[kTcChunks], h[kTcChunks], sr[kTcChunks];
+#pragma unroll
+  for (int i = 0; i < kTcChunks; ++i) {
+    pos[i] = (tid >> 3) + (kTcThreads / 8) * i;
+    const int sg = pos[i] / pitch;
+    place[i] = pos[i] - sg * pitch;
+    seg[i] = st_begin * a.stage_segs + sg;
+    img_row[i] = seg[i] / a.row_segs;
+    sr[i] = seg[i] - img_row[i] * a.row_segs;
+    h[i] = img_row[i] % a.H;
+  }
+
+  // Loads the stage the positions point at into raw slot `slot` (cp.async
+  // of 16 bytes, zeros where a chunk lies outside; element loads where
+  // a start or width does not allow 16 bytes), moves the positions on
+  // by a stage, and returns the stage's flags: bit 2i, chunk i's x lies
+  // in the image; bit 2i + 1, its dyt is a segment's own pixel.
+  auto fetch = [&](int slot) {
+    unsigned flags = 0;
+    bf16* rx = raw + slot * 3 * kTcRaw;
+    bf16* ry = rx + kTcRaw;
+    bf16* rd = ry + kTcRaw;
+#pragma unroll
+    for (int i = 0; i < kTcChunks; ++i) {
+      if (pos[i] < npos) {
+        const bool live = seg[i] < a.segs;
+        const int p = place[i];
+        const int w = sr[i] * a.seg_w + p - 1;  // this position's pixel
+        // x at (n, h + dh, w); dyt at (n, h, w) for a segment's own pixels
+        const bool xin = live && h[i] + dh >= 0 && h[i] + dh < a.H &&
+                         w >= 0 && w < a.W;
+        const bool din = live && p >= 1 && p <= a.seg_w && w < a.W;
+        flags |= (xin ? 1u : 0u) << (2 * i) | (din ? 2u : 0u) << (2 * i);
+        const int at = pos[i] * kTcTile + cc;
+        const bf16* xr =
+            a.x + (xin ? static_cast<int64_t>(img_row[i] + dh) * a.W + w
+                       : 0) * a.C;
+        const int64_t dpix =
+            din ? static_cast<int64_t>(img_row[i]) * a.W + w : 0;
+        const bf16* yr = a.y + dpix * a.Co;
+        const bf16* gr = a.dy + dpix * a.Co;
+        if (vec_x) {
+          const bool full = xin && c0 + cc < a.C;
+          cp_async16(rx + at, full ? xr + c0 + cc : a.x, full);
+        } else {
+          *reinterpret_cast<uint4*>(rx + at) =
+              load8(xr, c0 + cc, a.C, xin, false);
+        }
+        if (vec_y) {
+          const bool full = din && o0 + cc < a.Co;
+          cp_async16(ry + at, full ? yr + o0 + cc : a.y, full);
+          cp_async16(rd + at, full ? gr + o0 + cc : a.dy, full);
+        } else {
+          *reinterpret_cast<uint4*>(ry + at) =
+              load8(yr, o0 + cc, a.Co, din, false);
+          *reinterpret_cast<uint4*>(rd + at) =
+              load8(gr, o0 + cc, a.Co, din, false);
+        }
+      }
+      seg[i] += a.stage_segs;
+      if (a.row_segs == 1) {
+        img_row[i] += a.stage_segs;
+        h[i] += a.stage_segs;
+        while (h[i] >= a.H) h[i] -= a.H;
+      } else if (++sr[i] == a.row_segs) {  // one segment a stage
+        sr[i] = 0;
+        ++img_row[i];
+        if (++h[i] == a.H) h[i] = 0;
+      }
+    }
+    return flags;
+  };
+
+  float acc[3][4][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+
+  // the first kTcRing - 1 stages in flight; one group a stage, empty past
+  // the run, so that a wait counts stages
+  unsigned ring_flags = 0;  // 4 bits a slot
+#pragma unroll
+  for (int k = 0; k < kTcRing - 1; ++k) {
+    if (st_begin + k < st_end) ring_flags |= fetch(k) << (4 * k);
+    cp_async_commit();
+  }
+  const int ksteps = (npos + 15) / 16;
+  __syncthreads();  // the zeroed buffers and the constants
+  int buf = 0, slot = 0;
+  for (int st = st_begin; st < st_end; ++st, buf ^= 1) {
+    bf16* xs = ops + buf * kTcOps;
+    bf16* ds = xs + kTcXRows * kTcLd;
+    cp_async_wait<kTcRing - 2>();  // this thread's chunks of stage st
+    // stage: xn (prologue rounded to bf16, 0 outside the image) one row
+    // below its position (the guard), dyt (rounded to bf16) at the
+    // segments' pixels and 0 at their halo
+    {
+      const unsigned flags = ring_flags >> (4 * slot);
+      const bf16* rx = raw + slot * 3 * kTcRaw;
+      float sc[8], bi[8], d1[8], d2[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sc[j] = sc_s[cc + j];
+        bi[j] = bi_s[cc + j];
+        d1[j] = d1_s[cc + j];
+        d2[j] = d2_s[cc + j];
+      }
+#pragma unroll
+      for (int i = 0; i < kTcChunks; ++i) {
+        if (pos[i] >= npos) continue;
+        const int at = pos[i] * kTcTile + cc;
+        uint4 v = *reinterpret_cast<const uint4*>(rx + at);
+        if (a.prologue)  // x is 0 outside the image and past C already
+          v = flags >> (2 * i) & 1 ? prologue8(v, sc, bi)
+                                   : make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(xs + (pos[i] + 1) * kTcLd + cc) = v;
+        *reinterpret_cast<uint4*>(ds + pos[i] * kTcLd + cc) =
+            flags >> (2 * i) & 2
+                ? dyt8(*reinterpret_cast<const uint4*>(rx + kTcRaw + at),
+                       *reinterpret_cast<const uint4*>(rx + 2 * kTcRaw + at),
+                       d1, d2)
+                : make_uint4(0, 0, 0, 0);
+      }
+    }
+    __syncthreads();
+    // stage st + kTcRing - 1 into the slot that stage st - 1 left (this
+    // thread's own chunks, staged already); the other operand buffer is
+    // free: every warp left its product at the barrier
+    const int next = slot == 0 ? kTcRing - 1 : slot - 1;
+    if (st + kTcRing - 1 < st_end)
+      ring_flags = (ring_flags & ~(0xfu << (4 * next))) |
+                   fetch(next) << (4 * next);
+    cp_async_commit();
+    slot = slot + 1 == kTcRing ? 0 : slot + 1;
+#pragma unroll
+    for (int kk = 0; kk < kTcPos / 16; ++kk) {
+      if (kk >= ksteps) break;
+      uint32_t bf[2][4];  // B = dyt: depth positions, columns o
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        ldsm_x4_t(bf[q], a_ptr<kTcLd>(ds, 16 * kk, 32 * wo + 16 * q));
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {  // A = xn^T at tap offset t: rows c
+        uint32_t af[4];
+        ldsm_x4_t(af, b_ptr<kTcLd>(xs, 16 * kk + t, 16 * wc));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          mma(acc[t][2 * q], af, bf[q][0], bf[q][1]);
+          mma(acc[t][2 * q + 1], af, bf[q][2], bf[q][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+
+  // this run's float32 partial: acc[t][j][e] is tap 3 (dh + 1) + t at
+  // c = 16 wc + g + 8 (e / 2), o = 32 wo + 8 j + 2 t4 + e % 2 of the tile
+  float* dst = a.part + static_cast<int64_t>(blockIdx.y) * 9 * a.C * a.Co;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pairs = (a.Co & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = c0 + 16 * wc + g + 8 * hf;
+      if (c >= a.C) continue;
+      float* out =
+          dst + (static_cast<int64_t>(3 * (dh + 1) + t) * a.C + c) * a.Co;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + 32 * wo + 8 * j + 2 * t4;
+        const float v0 = acc[t][j][2 * hf], v1 = acc[t][j][2 * hf + 1];
+        if (pairs && o + 1 < a.Co) {
+          *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+        } else {
+          if (o < a.Co) out[o] = v0;
+          if (o + 1 < a.Co) out[o + 1] = v1;
+        }
+      }
+    }
+}
+
 // The caller sized the partial rows of the forward and dx for blocks of
 // BI rows of M: refuse any other count rather than write past them.
 bool part_rows_ok(long long part_rows, long long N, int H, int W) {
@@ -565,10 +917,11 @@ extern "C" int mx_fused_conv3_bn_dx(int dtype, const void* x, const void* w,
                   stream);
 }
 
-// dtype and operands as for dx (no kernel: dw does not read it); dw_part
-// is (splits, 9*C, Co) float32, one partial of the (3, 3, C, Co) gradient
-// for each run of split_rows rows of M = N*H*W (the last run may be
-// shorter), every element written.
+// The float32 dw on the FMA tile: dtype must be 0 (bfloat16 runs
+// mx_fused_conv3_bn_dw_mma); operands as for dx (no kernel: dw does not
+// read it); dw_part is (splits, 9*C, Co) float32, one partial of the
+// (3, 3, C, Co) gradient for each run of split_rows rows of M = N*H*W
+// (the last run may be shorter), every element written.
 extern "C" int mx_fused_conv3_bn_dw(int dtype, const void* x,
                                     const void* scale, const void* bias,
                                     int prologue, const void* y,
@@ -585,4 +938,61 @@ extern "C" int mx_fused_conv3_bn_dw(int dtype, const void* x,
   return dispatch(dtype, kDw, x, nullptr, scale, bias, y, dy, ds1, ds2,
                   nullptr, dw_part, nullptr, N, H, W, C, Co, prologue,
                   split_rows, splits, stream);
+}
+
+// The bfloat16 dw on the tensor cores.  x (N, H, W, C), y and dy
+// (N, H, W, Co) bfloat16, contiguous; scale and bias (C,) float32, read
+// only when prologue is 1; ds1 and ds2 (Co,) float32.  The pixels are
+// walked in segments of image rows (tc_geometry: segments of min(W, 62)
+// pixels, 64 / (seg + 2) of them a stage); dw_part is (runs, 9*C, Co)
+// float32, one partial of the (3, 3, C, Co) gradient for each run of
+// run_stages stages (the last run may be shorter), with runs =
+// ceil(stages / run_stages), every element written.  x loads 16 bytes at
+// a time where bit 0 of vec is set (x 16-byte aligned, C a multiple of
+// 8), y and dy where bit 1 is (both aligned, Co a multiple of 8).
+extern "C" int mx_fused_conv3_bn_dw_mma(const void* x, const void* scale,
+                                        const void* bias, int prologue,
+                                        const void* y, const void* dy,
+                                        const void* ds1, const void* ds2,
+                                        void* dw_part, long long N, int H,
+                                        int W, int C, int Co,
+                                        long long run_stages, long long runs,
+                                        int vec, void* stream) {
+  if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  TcArgs a;
+  tc_geometry(W, &a.seg_w, &a.stage_segs, &a.row_segs);
+  const long long segs = N * H * a.row_segs;   // at most N*H*W
+  const long long stages = ceil_div(segs, a.stage_segs);
+  const long long tiles =
+      3 * ceil_div(C, kTcTile) * ceil_div(Co, kTcTile);
+  if (run_stages <= 0 || run_stages > stages ||
+      runs != ceil_div(stages, run_stages) || runs > 65535 ||
+      tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const bf16*>(x);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.y = static_cast<const bf16*>(y);
+  a.dy = static_cast<const bf16*>(dy);
+  a.ds1 = static_cast<const float*>(ds1);
+  a.ds2 = static_cast<const float*>(ds2);
+  a.part = static_cast<float*>(dw_part);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.Co = Co;
+  a.prologue = prologue;
+  a.vec = vec;
+  a.segs = static_cast<int>(segs);
+  a.stages = static_cast<int>(stages);
+  a.run_stages = static_cast<int>(run_stages);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_conv3_bn_dw_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kTcSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(runs));
+  fused_conv3_bn_dw_mma<<<grid, kTcThreads, kTcSmem,
+                          static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

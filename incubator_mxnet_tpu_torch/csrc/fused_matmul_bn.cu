@@ -398,9 +398,11 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 using mx::a_ptr;
 using mx::b_ptr;
 using mx::bf16;
-using mx::bits;
+using mx::dyt8;
 using mx::ldsm_x4_t;
+using mx::load8;
 using mx::mma;
+using mx::prologue8;
 
 constexpr int kTcBK = 64;                   // rows of dw a block owns
 constexpr int kTcBM = 32;                   // rows of M a stage holds
@@ -416,72 +418,6 @@ struct DwTc {
   static constexpr int kRowStep = kTcThreads / kRowChunks;  // rows apart
   static constexpr int kN8 = BN / 16;                     // n8 tiles a warp
 };
-
-union Pack8 {  // 8 bf16 values as one 16-byte load or store
-  uint4 u;
-  uint32_t w[4];
-  unsigned short h[8];
-};
-
-// Elements [col, col + 8) of a row, 0 past `limit` or where !in_row;
-// one 16-byte load where `vec` (the row start and col are 16-byte
-// aligned and a chunk lies wholly inside or outside the row).
-__device__ __forceinline__ uint4 load8(const bf16* row, int col, int limit,
-                                       bool in_row, bool vec) {
-  Pack8 p;
-  p.u = make_uint4(0, 0, 0, 0);
-  if (!in_row) return p.u;
-  if (vec) {
-    if (col < limit) p.u = __ldg(reinterpret_cast<const uint4*>(row + col));
-    return p.u;
-  }
-  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (col + j < limit) p.h[j] = r[col + j];
-  return p.u;
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
-}
-
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  return bits(__floats2bfloat162_rn(a, b));  // round to nearest even
-}
-
-// relu(x*scale + bias) of 8 values, rounded to bf16 (prologue_at)
-__device__ __forceinline__ uint4 prologue8(uint4 raw, const float* sc,
-                                           const float* bi) {
-  Pack8 in, out;
-  in.u = raw;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 v = unpack(in.w[j]);
-    out.w[j] = pack(
-        fmaxf(__fadd_rn(__fmul_rn(v.x, sc[2 * j]), bi[2 * j]), 0.f),
-        fmaxf(__fadd_rn(__fmul_rn(v.y, sc[2 * j + 1]), bi[2 * j + 1]), 0.f));
-  }
-  return out.u;
-}
-
-// dy + ds1 + 2*y*ds2 of 8 values, rounded to bf16 (dyt_at)
-__device__ __forceinline__ uint4 dyt8(uint4 y_raw, uint4 dy_raw,
-                                      const float* d1, const float* d2) {
-  Pack8 y, dy, out;
-  y.u = y_raw;
-  dy.u = dy_raw;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 yv = unpack(y.w[j]), gv = unpack(dy.w[j]);
-    out.w[j] = pack(
-        __fadd_rn(__fadd_rn(gv.x, d1[2 * j]),
-                  __fmul_rn(__fmul_rn(2.f, yv.x), d2[2 * j])),
-        __fadd_rn(__fadd_rn(gv.y, d1[2 * j + 1]),
-                  __fmul_rn(__fmul_rn(2.f, yv.y), d2[2 * j + 1])));
-  }
-  return out.u;
-}
 
 // Grid (ceil(K / 64), ceil(N / BN), splits); block z takes rows
 // [z * split_rows, min(M, (z + 1) * split_rows)) of M and writes its

@@ -1,7 +1,11 @@
 // bf16 tensor-core helpers shared by the kernels that multiply on
 // Hopper's tensor cores with mma.sync (flash_attention.cu and the bf16 dw
-// of fused_matmul_bn.cu): ldmatrix from shared memory, the m16n8k16
-// product with float32 sums, and where each lane reads for ldmatrix.
+// of fused_matmul_bn.cu and fused_conv3_bn.cu): ldmatrix from shared
+// memory, the m16n8k16 product with float32 sums, where each lane reads
+// for ldmatrix, cp.async into shared memory, and the staging of the dw
+// kernels' operands (eight bf16 values at a time: the masked load, the
+// BatchNorm prologue and the stats-adjusted cotangent dyt, each rounded
+// to bf16).
 #pragma once
 
 #include <cstdint>
@@ -66,6 +70,92 @@ __device__ __forceinline__ const bf16* b_ptr(const bf16* tile, int r0,
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 bytes from src to dst, or 16 zero bytes when !full.
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+union Pack8 {  // 8 bf16 values as one 16-byte load or store
+  uint4 u;
+  uint32_t w[4];
+  unsigned short h[8];
+};
+
+// Elements [col, col + 8) of a row, 0 past `limit` or where !in_row;
+// one 16-byte load where `vec` (the row start and col are 16-byte
+// aligned and a chunk lies wholly inside or outside the row).
+__device__ __forceinline__ uint4 load8(const bf16* row, int col, int limit,
+                                       bool in_row, bool vec) {
+  Pack8 p;
+  p.u = make_uint4(0, 0, 0, 0);
+  if (!in_row) return p.u;
+  if (vec) {
+    if (col < limit) p.u = __ldg(reinterpret_cast<const uint4*>(row + col));
+    return p.u;
+  }
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (col + j < limit) p.h[j] = r[col + j];
+  return p.u;
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  return bits(__floats2bfloat162_rn(a, b));  // round to nearest even
+}
+
+// relu(x*scale + bias) of 8 values, rounded to bf16, as the kernels'
+// prologue_at rounds one
+__device__ __forceinline__ uint4 prologue8(uint4 raw, const float* sc,
+                                           const float* bi) {
+  Pack8 in, out;
+  in.u = raw;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = unpack(in.w[j]);
+    out.w[j] = pack(
+        fmaxf(__fadd_rn(__fmul_rn(v.x, sc[2 * j]), bi[2 * j]), 0.f),
+        fmaxf(__fadd_rn(__fmul_rn(v.y, sc[2 * j + 1]), bi[2 * j + 1]), 0.f));
+  }
+  return out.u;
+}
+
+// dy + ds1 + 2*y*ds2 of 8 values, rounded to bf16, as dyt_at rounds one
+__device__ __forceinline__ uint4 dyt8(uint4 y_raw, uint4 dy_raw,
+                                      const float* d1, const float* d2) {
+  Pack8 y, dy, out;
+  y.u = y_raw;
+  dy.u = dy_raw;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 yv = unpack(y.w[j]), gv = unpack(dy.w[j]);
+    out.w[j] = pack(
+        __fadd_rn(__fadd_rn(gv.x, d1[2 * j]),
+                  __fmul_rn(__fmul_rn(2.f, yv.x), d2[2 * j])),
+        __fadd_rn(__fadd_rn(gv.y, d1[2 * j + 1]),
+                  __fmul_rn(__fmul_rn(2.f, yv.y), d2[2 * j + 1])));
+  }
+  return out.u;
 }
 
 }  // namespace mx

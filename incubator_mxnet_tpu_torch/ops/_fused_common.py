@@ -9,12 +9,13 @@ product, the product in float32.
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
 
 __all__ = ["DTYPE_CODES", "BLOCK_ROWS", "acc", "prologue", "dyt", "f32",
-           "ptr", "count_lock", "dw_split"]
+           "ptr", "count_lock", "dw_split", "vec16", "sms"]
 
 #: the C entries' dtype codes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,3 +74,19 @@ def dw_split(m, rows_of_dw, cols_of_dw, device):
     rows = max(_MIN_SPLIT_ROWS, -(-m // want))
     rows = -(-rows // 8) * 8
     return rows, -(-m // rows)
+
+
+def vec16(*tensors):
+    """True when a bfloat16 tensor-core dw tile may load rows of every
+    tensor 16 bytes at a time: each starts on 16 bytes and its rows are a
+    multiple of 8 elements.  Else it loads element by element."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
+               for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def sms(index):
+    """The SMs of CUDA device ``index``, queried once (the wrappers of
+    the fused ops and of the LayerNorm backward size their grids by
+    it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -48,6 +48,7 @@ import torch
 
 from . import _build
 from . import _fused_common as _fc
+from ._fused_common import vec16 as _vec16
 from .fused_conv import fused_conv3_bn
 
 __all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
@@ -91,14 +92,6 @@ def dw_mma_split(m, k, n, sms):
     rows = max(-(-m // want), 32 * k * n // (k + 2 * n), 1)
     rows = -(-rows // _MMA_BM) * _MMA_BM
     return rows, -(-m // rows)
-
-
-def _vec16(*tensors):
-    """True when kernel 12's bfloat16 tile may load rows of every tensor
-    16 bytes at a time: each starts on 16 bytes and its rows are a
-    multiple of 8 elements.  Else it loads element by element."""
-    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
-               for t in tensors)
 
 
 def matmul_bn_reference(x, w, scale=None, bias=None):

@@ -21,8 +21,11 @@ Three kernels (``csrc/fused_conv3_bn.cu``), one wrapper each:
 :func:`fused_conv3_bn_fwd` (TPU kernel 13), :func:`fused_conv3_bn_dx`
 (kernels 14 and 15: the TPU's split of C_out into blocks, a VMEM limit,
 has no counterpart) and :func:`fused_conv3_bn_dw` (16), each with a
-launch counter.  Each wrapper dispatches on where x lies: a CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+launch counter.  Kernel 16 has one instance for each dtype: float32 runs
+the FMA tile that 13 and 14 share, bfloat16 a tile on the tensor cores
+(``fused_conv3_bn_dw_mma``), over runs of pixels that
+:func:`dw_mma_split` chooses.  Each wrapper dispatches on where x lies:
+a CPU tensor takes the plain version; a CUDA tensor launches the kernel or raises.
 Nothing falls back, and there is no switch: on the card every 3x3 of the
 fused bottleneck runs on the kernels, whatever its geometry.
 
@@ -46,8 +49,8 @@ from . import _fused_common as _fc
 __all__ = ["conv3_bn_reference", "conv3_bn_dx_reference",
            "conv3_bn_dw_reference", "conv3_bn_bwd_reference",
            "fused_conv3_bn_fwd", "fused_conv3_bn_dx", "fused_conv3_bn_dw",
-           "FusedConv3BNFunction", "fused_conv3_bn",
-           "fwd_launches", "dx_launches", "dw_launches"]
+           "FusedConv3BNFunction", "fused_conv3_bn", "dw_mma_geometry",
+           "dw_mma_split", "fwd_launches", "dx_launches", "dw_launches"]
 
 #: Launches of the forward, dx and dw kernels so far; each wrapper adds
 #: one per launch and nothing else touches them (a caller may reset them
@@ -62,6 +65,19 @@ _SHAPE = [_L, _I, _I, _I, _I]   # N, H, W, C, C_out
 _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L] + _SHAPE + [_P]
 _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L] + _SHAPE + [_P]
 _DW_ARGS = [_I] + [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _P]
+_DW_MMA_ARGS = [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _I, _P]
+
+# kernel 16's bfloat16 tile (fused_conv3_bn_dw_mma): 64 x 64 of (c, o)
+# for each of the three kernel rows, over stages of at most 64
+# positions.  Enough runs of stages that about _MMA_BLOCKS_PER_SM blocks
+# cover each SM (one wave at the tile's occupancy), none shorter than
+# _MMA_MIN_RUN_PIXELS: a block's float32 partial (3 x 64 x 64, 48 KiB),
+# written and read back, then costs at most an eighth of what the block
+# reads (64 + 2 * 64 bf16 values a pixel: 384 bytes).
+_MMA_TILE, _MMA_POS = 64, 64
+_MMA_BLOCKS_PER_SM = 2
+_MMA_MIN_RUN_PIXELS = 8 * 2 * (3 * _MMA_TILE * _MMA_TILE * 4) // (
+    3 * _MMA_TILE * 2)
 
 
 _TAPS = [(dh, dw) for dh in (-1, 0, 1) for dw in (-1, 0, 1)]
@@ -130,6 +146,32 @@ def conv3_bn_bwd_reference(x, w, scale, bias, y, dy, ds1, ds2):
     dx, dsc, dbi = conv3_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
     dw = conv3_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
     return dx, dw, dsc, dbi
+
+
+def dw_mma_geometry(w):
+    """``(seg_w, stage_segs, row_segs)`` of kernel 16's bfloat16 tile
+    for an image width ``w`` (``tc_geometry`` in the source): the pixels
+    are walked in segments of image rows, at most 62 pixels each, and a
+    stage holds as many segments as fit in 64 positions, a segment taking
+    its pixels and one halo position on either side."""
+    seg_w = min(w, _MMA_POS - 2)
+    return seg_w, _MMA_POS // (seg_w + 2), -(-w // seg_w)
+
+
+def dw_mma_split(n, h, w, c, co, sms):
+    """``(run_stages, runs)`` of kernel 16's bfloat16 tile for x (n, h,
+    w, c) and dw (3, 3, c, co) on a card of ``sms`` SMs: runs of whole
+    stages that tile the stages exactly (the last run may be shorter).
+    Enough runs that about ``_MMA_BLOCKS_PER_SM`` blocks cover every SM,
+    none of fewer than ``_MMA_MIN_RUN_PIXELS`` pixels where the image
+    holds that many."""
+    seg_w, stage_segs, row_segs = dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    tiles = 3 * -(-c // _MMA_TILE) * -(-co // _MMA_TILE)
+    want = max(1, -(-_MMA_BLOCKS_PER_SM * sms // tiles))
+    least = -(-_MMA_MIN_RUN_PIXELS // (stage_segs * seg_w))
+    run_stages = min(max(-(-stages // want), least), stages)
+    return run_stages, -(-stages // run_stages)
 
 
 def _check(name, x, w, scale, bias, **more):
@@ -266,9 +308,10 @@ def fused_conv3_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
     ds2)`` → dw ``(3, 3, C, C_out)`` in w's dtype, summed over N*H*W in
     float32.
 
-    On a CUDA tensor: the dw kernel over runs of N*H*W, each writing a
+    On a CUDA tensor: kernel 16 over runs of N*H*W, each writing a
     float32 partial of the whole gradient, then their sum in a fixed
-    order.  On a CPU tensor: the plain version."""
+    order; bfloat16 runs the tensor-core tile, float32 the FMA tile.  On
+    a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return conv3_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
     n, h, wd, c, co, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
@@ -276,15 +319,30 @@ def fused_conv3_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
     m = n * h * wd
     if m == 0:
         return torch.zeros((3, 3, c, co), dtype=w.dtype, device=x.device)
-    split_rows, splits = _fc.dw_split(m, 9 * c, co, x.device)
-    parts = torch.empty((splits, 3, 3, c, co), dtype=torch.float32,
-                        device=x.device)
-    fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dw", _DW_ARGS)
     with torch.cuda.device(x.device):
-        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), _fc.ptr(scale),
-           _fc.ptr(bias), int(scale is not None), y.data_ptr(),
-           dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), parts.data_ptr(),
-           n, h, wd, c, co, split_rows, splits, _stream(x.device))
+        if x.dtype == torch.bfloat16:
+            run_stages, runs = dw_mma_split(n, h, wd, c, co,
+                                            _fc.sms(x.device.index))
+            parts = torch.empty((runs, 3, 3, c, co), dtype=torch.float32,
+                                device=x.device)
+            vec = int(_fc.vec16(x)) | 2 * int(_fc.vec16(y, dy))
+            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dw_mma",
+                                 _DW_MMA_ARGS)
+            fn(x.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
+               int(scale is not None), y.data_ptr(), dy.data_ptr(),
+               ds1.data_ptr(), ds2.data_ptr(), parts.data_ptr(), n, h, wd, c,
+               co, run_stages, runs, vec, _stream(x.device))
+        else:
+            split_rows, splits = _fc.dw_split(m, 9 * c, co, x.device)
+            parts = torch.empty((splits, 3, 3, c, co), dtype=torch.float32,
+                                device=x.device)
+            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dw",
+                                 _DW_ARGS)
+            fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), _fc.ptr(scale),
+               _fc.ptr(bias), int(scale is not None), y.data_ptr(),
+               dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
+               parts.data_ptr(), n, h, wd, c, co, split_rows, splits,
+               _stream(x.device))
     _count("dw")
     return parts.sum(dim=0).to(w.dtype)
 

@@ -17,10 +17,11 @@ import threading
 import torch
 
 from . import _build
+from ._fused_common import sms as _sms
 
 __all__ = ["layer_norm_fwd", "layer_norm_fwd_reference", "layer_norm_bwd",
-           "layer_norm_bwd_reference", "LayerNormFunction", "launches",
-           "bwd_launches"]
+           "layer_norm_bwd_reference", "bwd_plan", "LayerNormFunction",
+           "launches", "bwd_launches"]
 
 #: Launches of the forward and the backward kernel so far; each wrapper
 #: adds one per launch and nothing else touches them (a caller may reset
@@ -33,7 +34,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _P = ctypes.c_int, ctypes.c_void_p
 # the C entries' arguments (csrc/layer_norm.cu)
 _FWD_ARGS = [_I, _I] + [_P] * 6 + [ctypes.c_longlong, _I, ctypes.c_float, _P]
-_BWD_ARGS = [_I, _I] + [_P] * 8 + [ctypes.c_longlong, _I, _I, _P]
+_BWD_ARGS = [_I, _I] + [_P] * 8 + [ctypes.c_longlong, _I, _I, _I, _P]
+# the backward's blocks (csrc/layer_norm.cu): a row of at most
+# _BWD_WARP_ROW values takes one warp, _BWD_WARPS warps a block, about
+# _BWD_BLOCKS_PER_SM blocks on each SM; a wider row takes a whole block,
+# about _WIDE_BLOCKS_PER_SM on each SM
+_BWD_WARP_ROW = 1024
+_BWD_WARPS = 8
+_BWD_BLOCKS_PER_SM = 2
+_WIDE_BLOCKS_PER_SM = 4
 
 
 def layer_norm_fwd_reference(x, gamma, beta, eps=1e-5):
@@ -121,12 +130,18 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     return y, mean, rstd
 
 
-def _rows_per_block(rows, device):
-    """Rows each backward block takes: enough blocks for about four on
-    every SM, so that loads overlap, and no more, since each block
-    writes one partial row of dgamma and dbeta that the wrapper sums."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, -(-rows // (4 * sms)))
+def bwd_plan(rows, cols, sms):
+    """``(rows_per_block, blocks)`` of the backward kernel for ``rows``
+    rows of ``cols`` values on a card of ``sms`` SMs.  Each block writes
+    one partial row of dgamma and of dbeta, which a second kernel sums:
+    enough blocks that loads overlap on every SM, and no more.  With one
+    warp a row, at most one block for every eight rows (its warps)."""
+    if cols <= _BWD_WARP_ROW:
+        want = min(-(-rows // _BWD_WARPS), _BWD_BLOCKS_PER_SM * sms)
+    else:
+        want = _WIDE_BLOCKS_PER_SM * sms
+    per_block = max(1, -(-rows // want))
+    return per_block, -(-rows // per_block)
 
 
 def layer_norm_bwd(x, g, gamma, mean, rstd):
@@ -136,8 +151,9 @@ def layer_norm_bwd(x, g, gamma, mean, rstd):
     statistics; ``g`` is the gradient of y (x's shape and dtype).  dx
     comes out in x's dtype, dgamma and dbeta in gamma's.  On a CUDA
     tensor: the hand-written kernel, which writes per-block partial rows
-    of dgamma and dbeta that this wrapper sums, as the TPU wrapper sums
-    its per-row-block partials.  On a CPU tensor: the plain version."""
+    of dgamma and dbeta, and the file's second kernel, which sums them in
+    a fixed order (the TPU wrapper sums its per-row-block partials the
+    same way).  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return layer_norm_bwd_reference(x, g, gamma, mean, rstd)
     cols = x.shape[-1] if x.dim() else 0
@@ -158,20 +174,20 @@ def layer_norm_bwd(x, g, gamma, mean, rstd):
     if rows == 0:
         zeros = torch.zeros(cols, dtype=gamma.dtype, device=x.device)
         return dx, zeros, zeros.clone()
-    per_block = _rows_per_block(rows, x.device)
-    blocks = -(-rows // per_block)
+    per_block, blocks = bwd_plan(rows, cols, _sms(x.device.index))
     parts = torch.empty(2, blocks, cols, dtype=torch.float32, device=x.device)
+    sums = torch.empty(2, cols, dtype=torch.float32, device=x.device)
     fn = _build.launcher("layer_norm", "mx_layer_norm_bwd", _BWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         fn(_DTYPE_CODES[x.dtype], x.device.index, x.data_ptr(),
            g.data_ptr(), gamma32.data_ptr(), mean.data_ptr(),
-           rstd.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-           parts[1].data_ptr(), rows, cols, per_block, stream)
+           rstd.data_ptr(), dx.data_ptr(), parts.data_ptr(),
+           sums.data_ptr(), rows, cols, per_block, blocks, stream)
     global bwd_launches
     with _count_lock:
         bwd_launches += 1
-    sums = parts.sum(dim=1).to(gamma.dtype)
+    sums = sums.to(gamma.dtype)
     return dx, sums[0], sums[1]
 
 

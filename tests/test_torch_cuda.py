@@ -22,7 +22,9 @@ are rounded to bf16, so an f32 sum in another order can land one bf16
 ulp, 2^-8 of a value, away); the float32 column sums s1, s2, dscale and
 dbias take the same share of their largest value.  The fused 3x3
 conv + BatchNorm kernels take the same tolerances, for the same
-reasons.  The small fused ResNet, card step against CPU step: loss 1e-5
+reasons; kernel 16's bfloat16 tensor-core tile too (both operands
+rounded to bf16 before the exact products, float32 sums in another
+order).  The small fused ResNet, card step against CPU step: loss 1e-5
 relative, every gradient 1e-3 of its largest value (50 layers of
 float32 sums in another order; both TF32 switches off).  Its
 ``FusedTrainStep`` by CUDA-graph replay against the same step run
@@ -497,6 +499,113 @@ def test_fused_conv3_bn_rejects_what_it_does_not_take(dev):
         fc.fused_conv3_bn_dx(x, k, scale, bias, dy[:1], dy, ds1, ds2)
     y, s1, s2 = fc.fused_conv3_bn_fwd(x[:0], k)
     assert y.shape == (0, 4, 4, 8) and s1.abs().sum() == 0
+
+
+def _kernel_names(fn, args, tries=4):
+    """The device kernels three calls of ``fn`` run, by name, from the
+    profiler's trace after one untraced call; a trace with no device
+    event at all is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn(*args)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    return set()
+
+
+def _conv_dw_args(n, h, w, c, co, dtype, dev, prologue=True, seed=3):
+    x, k, scale, bias, dy, ds1, ds2 = _conv_inputs(n, h, w, c, co, dtype,
+                                                   dev, seed)
+    if not prologue:
+        scale = bias = None
+    y = fc.conv3_bn_reference(x, k, scale, bias)[0]
+    return x, k, scale, bias, y, dy, ds1, ds2
+
+
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_fused_conv3_bn_dw_runs_the_kernel_of_its_dtype(dev, dtype, route):
+    """float32 inputs run kernel 16's FMA tile; bfloat16 its tensor-core
+    tile (fused_conv3_bn_dw_mma), as the profiler sees."""
+    args = _conv_dw_args(2, 5, 9, 16, 8, dtype, dev)
+    hits = {n for n in _kernel_names(fc.fused_conv3_bn_dw, args)
+            if "fused_conv3_bn" in n}
+    assert len(hits) == 1, hits
+    name, = hits
+    assert "fused_conv3_bn_dw" in name, name
+    assert ("fused_conv3_bn_dw_mma" in name) == (route == "tensor-core"), name
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("n,h,w,c,co,offset", [
+    (2, 5, 9, 12, 20, 0),     # C and C_out not multiples of 8
+    (3, 6, 6, 16, 13, 0),     # C_out under two 16-byte chunks
+    (2, 7, 7, 5, 64, 0),      # C under one 16-byte chunk
+    (4, 14, 14, 64, 64, 1),   # rows of 8 elements, starts off 16 bytes
+    (1, 3, 130, 8, 8, 0),     # an image row in three segments
+])
+def test_fused_conv3_bn_dw_mma_loads_element_wise(dev, no_tf32, prologue, n,
+                                                  h, w, c, co, offset):
+    """Where a start or a channel count does not allow 16-byte loads, the
+    bfloat16 tile loads element by element and still matches the plain
+    version within the bfloat16 tolerance (2e-2 of max|dw|)."""
+    x, k, scale, bias, y, dy, ds1, ds2 = _conv_dw_args(n, h, w, c, co,
+                                                       "bfloat16", dev,
+                                                       prologue)
+    if offset:
+        def shift(t):
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            out = buf[offset:].view(t.shape)
+            out.copy_(t)
+            return out
+        x, y, dy = shift(x), shift(y), shift(dy)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert w > 62 or not (fb._vec16(x) and fb._vec16(y, dy))
+    got = fc.fused_conv3_bn_dw(x, k, scale, bias, y, dy, ds1, ds2)
+    want = fc.conv3_bn_dw_reference(x, k, scale, bias, y, dy, ds1, ds2)
+    torch.cuda.synchronize()
+    _within(got, want, 2e-2, "dw")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c,co", [(2, 5, 9, 16, 8), (16, 6, 6, 16, 260),
+                                        (8, 56, 56, 64, 64),
+                                        (8, 7, 7, 512, 512)])
+def test_fused_conv3_bn_dw_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
+                                                     co):
+    """No atomics: the runs write float32 partials that the wrapper sums
+    in a fixed order, so two calls give the same bits."""
+    args = _conv_dw_args(n, h, w, c, co, dtype, dev)
+    first, second = (fc.fused_conv3_bn_dw(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2048, 768), "float32"), ((2048, 768), "bfloat16"),
+    ((1000, 100), "float32"), ((3, 4096), "bfloat16"),
+    ((5, 20000), "float32")])
+def test_layer_norm_bwd_is_bit_for_bit_repeatable(dev, shape, dtype):
+    """No atomics: the blocks' partial rows of dgamma and dbeta are
+    summed by the file's second kernel in a fixed order, so two calls
+    give the same bits."""
+    x, gamma, beta = _inputs(shape, dtype, dev, seed=4)
+    gamma = gamma.float()
+    g = (torch.randn(shape, generator=torch.Generator().manual_seed(5))
+         .to(dev, x.dtype))
+    _, mean, rstd = ln.layer_norm_fwd_reference(x, gamma, beta)
+    first, second = (ln.layer_norm_bwd(x, g, gamma, mean, rstd)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

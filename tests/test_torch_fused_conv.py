@@ -20,7 +20,11 @@ from a seed and handed to both.
   package's ``test_chain_grad_through_bn_consts``;
 * ``torch.autograd.gradcheck`` of the Function in float64;
 * stat cotangents that are None read as zeros, and the zero padding is
-  of the normalized input.
+  of the normalized input;
+* kernel 16's bfloat16 tensor-core tile (``fused_conv3_bn_dw_mma``, which
+  runs only on the card) by its arithmetic, ``_kernel_conv3_dw``, against
+  the JAX VJP's dw at the four shapes with and without the prologue, and
+  its split helper, whose runs of whole stages tile every pixel once.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -274,3 +278,133 @@ def test_zero_padding_is_of_the_normalized_input():
     jy, _, _ = jfc._fc3(*(jnp.asarray(v) for v in (x, k, one, one)), True)
     np.testing.assert_array_equal(y[0, :, :, 0].numpy(), want)
     np.testing.assert_array_equal(np.asarray(jy)[0, :, :, 0], want)
+
+
+# ---------------------------------------------------------------------------
+# kernel 16's bfloat16 tile, by its arithmetic
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    """float32 values rounded to bfloat16 (to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _kernel_conv3_dw(x, scale, bias, y, dy, ds1, ds2, sms=132,
+                     run_stages=None):
+    """dw (3, 3, C, C_out) float32 by ``fused_conv3_bn_dw_mma``'s
+    arithmetic, on numpy arrays that hold bfloat16 values: xn =
+    relu(x*scale + bias) and dyt = dy + ds1 + 2*y*ds2 in float32, rounded
+    to bf16; the pixels walked in the kernel's segments and stages
+    (``fc.dw_mma_geometry``), dyt 0 at a segment's halo positions and xn
+    0 outside the image; per tap and 16-position step the exact product
+    summed and rounded once to float32 (one ``mma``), added in float32
+    stage after stage; one float32 partial per run (``fc.dw_mma_split``
+    unless ``run_stages`` is given), then the runs added in order."""
+    n, h, w, c = x.shape
+    co = dy.shape[-1]
+    xn = x if scale is None else _bf16(np.maximum(x * scale + bias, 0))
+    dyt = _bf16((dy + ds1) + (2 * y) * ds2)
+    seg_w, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    pitch = seg_w + 2
+    npos = stage_segs * pitch
+    kp = -(-npos // 16) * 16
+    stages = -(-(n * h * row_segs) // stage_segs)
+    if run_stages is None:
+        run_stages, runs = fc.dw_mma_split(n, h, w, c, co, sms)
+    else:
+        runs = -(-stages // run_stages)
+    assert runs == -(-stages // run_stages) and run_stages <= stages
+    # every position of every stage: its segment, place and pixel
+    st, q = np.meshgrid(np.arange(stages), np.arange(kp), indexing="ij")
+    seg = st * stage_segs + q // pitch
+    place = q % pitch
+    live = (q < npos) & (seg < n * h * row_segs)
+    img_row = seg // row_segs
+    px = (seg % row_segs) * seg_w + place - 1
+    b, hh = img_row // h, img_row % h
+    inner = live & (place >= 1) & (place <= seg_w) & (px < w)
+    d_tile = np.where(inner[..., None],
+                      dyt[b.clip(0, n - 1), hh.clip(0, h - 1),
+                          px.clip(0, w - 1)], 0).astype(np.float32)
+    dw = np.zeros((runs, 3, 3, c, co), np.float32)
+    for dh in (-1, 0, 1):
+        ok = live & (hh + dh >= 0) & (hh + dh < h) & (px >= 0) & (px < w)
+        x_tile = np.where(ok[..., None],
+                          xn[b.clip(0, n - 1), (hh + dh).clip(0, h - 1),
+                             px.clip(0, w - 1)], 0).astype(np.float32)
+        # the tile's rows: a zero guard, the positions, zeros past them
+        x_tile = np.pad(x_tile, ((0, 0), (1, 2), (0, 0)))
+        for tap in range(3):      # dw = tap - 1: row offset tap
+            a = x_tile[:, tap:tap + kp]
+            steps = np.einsum("skpc,skpo->skco",
+                              a.reshape(stages, kp // 16, 16, c)
+                              .astype(np.float64),
+                              d_tile.reshape(stages, kp // 16, 16, co)
+                              .astype(np.float64)).astype(np.float32)
+            steps = steps.reshape(stages * (kp // 16), c, co)
+            per_run = run_stages * (kp // 16)
+            for r in range(runs):
+                acc = np.zeros((c, co), np.float32)
+                for s_ in steps[r * per_run:(r + 1) * per_run]:
+                    acc = acc + s_
+                dw[r, dh + 1, tap] = acc
+    out = np.zeros((3, 3, c, co), np.float32)
+    for r in range(runs):
+        out = out + dw[r]
+    return out
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_dw_mma_arithmetic_matches_the_jax_vjp(shape, prologue):
+    """``_kernel_conv3_dw`` (the plan's runs, and one stage a run, so
+    that the partials' sum is exercised) against the dw of the JAX
+    package's ``fused_conv3_bn`` VJP (the Pallas kernels in interpret
+    mode), bfloat16, within TOL["bfloat16"] of max |dw|.  Both round dw
+    to bfloat16; on these inputs they land 0 to 2e-6 of max |dw| apart
+    (a value or two a bf16 ulp apart), far inside 2e-2."""
+    a = _inputs(*shape, seed=11 + sum(shape))
+    j = _to_jax(a, "bfloat16")
+    c = j["x"].shape[-1]
+    sc = j["scale"] if prologue else jnp.ones((c,), jnp.float32)
+    bi = j["bias"] if prologue else jnp.zeros((c,), jnp.float32)
+    fn = lambda x, w, s, b: jfc.fused_conv3_bn(  # noqa: E731
+        x, w, s if prologue else None, b if prologue else None)
+    (y, _, _), vjp = jax.vjp(fn, j["x"], j["w"], sc, bi)
+    want = np.asarray(vjp((j["dy"], j["ds1"], j["ds2"]))[1]
+                      .astype(jnp.float32))
+    f32 = lambda v: np.asarray(jnp.asarray(v).astype(jnp.float32))  # noqa
+    args = (f32(j["x"]), a["scale"] if prologue else None,
+            a["bias"] if prologue else None, f32(y), f32(j["dy"]), a["ds1"],
+            a["ds2"])
+    for run_stages in (None, 1):
+        got = _bf16(_kernel_conv3_dw(*args, run_stages=run_stages))
+        _close(got, want, TOL["bfloat16"], f"dw_mma runs={run_stages}")
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+    (128, 7, 7, 512, 512),             # ResNet-50's 3x3 shapes at B=128
+    (2, 8, 8, 16, 24), (3, 6, 6, 16, 16), (2, 14, 14, 32, 16),
+    (2, 5, 9, 16, 8), (16, 6, 6, 16, 260), (8, 7, 7, 512, 512),
+    (1, 1, 1, 3, 5), (3, 2, 62, 8, 8), (2, 3, 63, 8, 8),  # one row a segment
+    (1, 4, 200, 8, 8)])                # an image row in several segments
+def test_dw_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
+    seg_w, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    # every pixel of an image row lies in exactly one segment, and a
+    # stage's segments with their halo fit its 64 positions
+    assert 1 <= seg_w <= 62 and (row_segs - 1) * seg_w < w <= row_segs * seg_w
+    assert 1 <= stage_segs and stage_segs * (seg_w + 2) <= 64
+    assert row_segs == 1 or stage_segs == 1
+    segs = n * h * row_segs
+    stages = -(-segs // stage_segs)
+    run_stages, runs = fc.dw_mma_split(n, h, w, c, co, sms)
+    # runs of whole stages cover every stage once
+    assert 1 <= run_stages <= stages and runs <= 65535
+    assert (runs - 1) * run_stages < stages <= runs * run_stages
+    # no run so short that a block's partial outweighs an eighth of its
+    # reads, unless the image holds fewer pixels
+    pixels = run_stages * stage_segs * seg_w
+    assert pixels >= fc._MMA_MIN_RUN_PIXELS or runs == 1

@@ -213,3 +213,114 @@ def test_op_output_has_the_function_as_grad_fn():
     y.sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (x, gamma, beta))
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's order of sums, emulated
+# ---------------------------------------------------------------------------
+
+def _f32(v):
+    return np.float32(v)
+
+
+def _fma(a, b, c):
+    """a*b + c rounded once to float32, as the card's fused multiply-add
+    (the product of two float32 values is exact in float64)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _kernel_ln_bwd(x, g, gamma, mean, rstd, sms=132):
+    """(dx, dgamma, dbeta) in float32 by ``csrc/layer_norm.cu``'s order
+    of sums for a row of at most 1024 float32 values whose chunks of 4
+    load 16 bytes at a time: lane l sums its values (l + 32 j) * 4 + e in
+    order and the warp adds the lanes' sums by shuffles (xor 16, 8, 4,
+    2, 1); warp w of a block adds the dgamma and dbeta terms of rows
+    first + w, first + w + 8, ...; the block adds its 8 warps in order;
+    then warp v of the partials' sum adds blocks v, v + 32, ... and the
+    32 warps are added in order.  The blocks are ``ln.bwd_plan``'s."""
+    rows, cols = x.shape
+    assert cols <= 1024 and cols % 4 == 0
+    nc = -(-cols // 128)
+    order = [[(lane + 32 * j) * 4 + e for j in range(nc) for e in range(4)]
+             for lane in range(32)]
+    gam = gamma.astype(np.float32)
+    dx = np.zeros((rows, cols), np.float32)
+    xh_all = ((x - mean[:, None]).astype(np.float32)
+              * rstd[:, None]).astype(np.float32)
+    for r in range(rows):
+        xh = xh_all[r]
+        gg = (g[r] * gam).astype(np.float32)
+        lane1, lane2 = [], []
+        for cs in order:
+            s1 = s2 = _f32(0)
+            for c in cs:
+                if c < cols:
+                    s1 = _f32(s1 + gg[c])
+                    s2 = _fma(gg[c], xh[c], s2)
+            lane1.append(s1)
+            lane2.append(s2)
+        v1, v2 = np.array(lane1, np.float32), np.array(lane2, np.float32)
+        for off in (16, 8, 4, 2, 1):
+            v1 = (v1[:off] + v1[off:2 * off]).astype(np.float32)
+            v2 = (v2[:off] + v2[off:2 * off]).astype(np.float32)
+        m1 = _f32(v1[0] / _f32(cols))
+        m2 = _f32(v2[0] / _f32(cols))
+        dx[r] = ((gg - m1).astype(np.float32)
+                 - (xh * m2).astype(np.float32)).astype(np.float32) * rstd[r]
+    per_block, blocks = ln.bwd_plan(rows, cols, sms)
+    parts = np.zeros((2, blocks, cols), np.float32)
+    for blk in range(blocks):
+        first, last = blk * per_block, min(rows, (blk + 1) * per_block)
+        warps = np.zeros((2, 8, cols), np.float32)
+        for w in range(8):
+            for r in range(first + w, last, 8):
+                warps[0, w] = _fma(g[r], xh_all[r], warps[0, w])
+                warps[1, w] = (warps[1, w] + g[r]).astype(np.float32)
+        for w in range(8):
+            parts[:, blk] = (parts[:, blk] + warps[:, w]).astype(np.float32)
+    red = np.zeros((2, 32, cols), np.float32)
+    for v in range(32):
+        for b in range(v, blocks, 32):
+            red[:, v] = (red[:, v] + parts[:, b]).astype(np.float32)
+    sums = np.zeros((2, cols), np.float32)
+    for v in range(32):
+        sums = (sums + red[:, v]).astype(np.float32)
+    return dx, sums[0], sums[1]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("shape", [(16, 768), (7, 100)])
+def test_kernel_bwd_order_matches_fused_ln_bwd(shape, sms, monkeypatch):
+    """The backward kernel's order of sums (``_kernel_ln_bwd``; at
+    sms=1 every block takes several rows a warp and several warps sum
+    into one block) against the JAX package's ``_fused_ln_bwd`` (the
+    Pallas kernel in interpret mode), float32, each of dx, dgamma and
+    dbeta within 1e-5 of its largest value."""
+    monkeypatch.setenv("MXNET_USE_PALLAS", "1")
+    x, gamma, beta = _inputs(shape, seed=8)
+    g = np.random.default_rng(9).standard_normal(shape).astype(np.float32)
+    _, res = pk._fused_ln_fwd(jnp.asarray(x), jnp.asarray(gamma),
+                              jnp.asarray(beta), 1e-5)
+    want = pk._fused_ln_bwd(1e-5, res, jnp.asarray(g))
+    mean = np.asarray(res[2])[:shape[0], 0]
+    rstd = np.asarray(res[3])[:shape[0], 0]
+    got = _kernel_ln_bwd(x, g, gamma, mean, rstd, sms)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        _close_scaled(a, np.asarray(b), 1e-5, name)
+
+
+@pytest.mark.parametrize("rows,cols,sms", [
+    (2048, 768, 132), (16, 768, 132), (7, 100, 132), (1000, 100, 132),
+    (3, 4096, 132), (5, 20000, 132), (100000, 64, 132), (9, 64, 132),
+    (1, 1, 1)])
+def test_bwd_plan_gives_every_row_one_block(rows, cols, sms):
+    """Every row lies in exactly one block; rows of at most 1024 values
+    take at most two blocks an SM and one block for every eight rows
+    (a block's warps), wider rows at most four blocks an SM."""
+    per_block, blocks = ln.bwd_plan(rows, cols, sms)
+    assert per_block >= 1 and (blocks - 1) * per_block < rows <= (
+        blocks * per_block)
+    if cols <= 1024:
+        assert blocks <= min(2 * sms, -(-rows // 8))
+    else:
+        assert blocks <= 4 * sms
