@@ -19,10 +19,11 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    72 among them), B·H = 1 and a q whose rows the bfloat16 kernels
    load element by element, in both dtypes; then two forward and two
    backward runs at the path's shape bit for bit, and the kernels by
-   dtype: float32-FMA for float32, tensor-core for bfloat16; the
-   weight gradients of the fused 1x1 and 3x3, kernels 12 and 16, the
-   same way, bfloat16 also where it loads rows element by element, and
-   two runs bit for bit, as two runs of the LayerNorm backward), with
+   dtype: float32-FMA for float32, tensor-core for bfloat16; the fused
+   1x1's dx and weight gradient (kernels 11 and 12) and the fused 3x3's
+   forward and weight gradient (13 and 16) the same way, bfloat16 also
+   where they load rows element by element, and two runs bit for bit,
+   as two runs of the LayerNorm backward), with
    the stated tolerances, and its time beside the plain version's, one
    PyTorch library call's and the bound (the fused kernels' in both
    dtypes);
@@ -117,9 +118,9 @@ launches, and LeNet over phase 12 (b).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
-paths it ran on; kernels 12 and 16 have an entry for each instance,
-the float32 FMA tile with phase 7's launches and the bfloat16
-tensor-core tile (``..._dw_mma``) with phase 8's.
+paths it ran on; kernels 11, 12, 13 and 16 have an entry for each
+instance, the float32 FMA tile with phase 7's launches and the bfloat16
+tensor-core tile (``..._mma``) with phase 8's.
 """
 import copy
 import gc
@@ -203,9 +204,11 @@ FMM_TEST_SHAPES = [(256, 128, 128), (200, 96, 72), (1024, 256, 64),
                    (512, 64, 256)]
 # the representative launch: stage 1's c3 at B=128, with the prologue
 FMM_REP = (RESNET_B * 56 * 56, 64, 256, True)
-# kernel 12's bfloat16 tile (fused_matmul_bn_dw_mma) also at shapes whose
-# rows it must load element by element (K or N not a multiple of 8)
-DW_ELEMENT_SHAPES = [(1000, 60, 100), (77, 9, 130)]
+# the bfloat16 tiles of kernels 11 and 12 (fused_matmul_bn_dx_mma,
+# fused_matmul_bn_dw_mma) also at shapes whose rows they must load
+# element by element (K or N not a multiple of 8), and dx where its
+# columns take two tiles, the second ragged
+FMM_ELEMENT_SHAPES = [(1000, 60, 100), (77, 9, 130), (33, 200, 40)]
 FP32_PEAK = 67e12      # FLOP/s of float32 FMA outside the tensor cores
 BF16_PEAK = 989e12     # dense bf16 tensor-core FLOP/s
 # card step vs CPU step, ResNet-50 at B=4.  ResNet-50's float32
@@ -233,11 +236,14 @@ CONV_TEST_SHAPES = [(2, 8, 8, 16, 24), (3, 6, 6, 16, 16), (2, 14, 14, 32, 16),
                     (2, 5, 9, 16, 8), (16, 6, 6, 16, 260)]
 # the representative launch: stage 1's 3x3 at B=128, with the prologue
 CONV_REP = (RESNET_B, IMAGE // 4, IMAGE // 4, 64, 64)
-# kernel 16's bfloat16 tile (fused_conv3_bn_dw_mma) also at shapes whose
-# rows it must load element by element (C or C_out not a multiple of 8)
-# and where an image row takes several segments (W > 62)
-CONV_DW_ELEMENT_SHAPES = [(2, 5, 9, 12, 20), (2, 7, 7, 5, 64),
-                          (1, 3, 130, 8, 8)]
+# the bfloat16 tiles of kernels 13 and 16 (fused_conv3_bn_fwd_mma,
+# fused_conv3_bn_dw_mma) also at shapes whose rows they must load element
+# by element (C or C_out not a multiple of 8), where an image row takes
+# several segments (W > 62), and, for the forward, where C > 64 runs in
+# chunks of 32 channels and C_out in two tiles
+CONV_ELEMENT_SHAPES = [(2, 5, 9, 12, 20), (2, 7, 7, 5, 64),
+                       (1, 3, 130, 8, 8), (1, 2, 70, 72, 24),
+                       (2, 6, 6, 80, 200)]
 # the bench path: (a) graph replay against the eager step, float32, B=8,
 # one warm-up call and 3 replays; every loss, parameter, moving statistic
 # and momentum within GRAPH_TOL of the largest |eager| value of its
@@ -1065,13 +1071,15 @@ def check_fused_matmul_bn(torch, fb, dev):
     """Kernels 10-12 against their plain versions at every shape the
     ResNet-50 path gives them at B=128 and at the JAX tests' shapes, in
     float32 and bfloat16, with nonzero ds1/ds2.  Returns the max |d| of
-    y, dx and dw over the path's float32 shapes, and of dw over its
-    bfloat16 shapes (``dw_mma``: kernel 12's tensor-core tile)."""
+    y, dx and dw over the path's float32 shapes, and of dx and dw over its
+    bfloat16 shapes (``dx_mma``, ``dw_mma``: kernels 11's and 12's
+    tensor-core tiles)."""
     path = list(dict.fromkeys(resnet_fmm_shapes(RESNET_B)))
     cases = [(shape, dt) for shape in path for dt in FMM_TOL]
     cases += [((m, k, n, pro), dt) for m, k, n in FMM_TEST_SHAPES
               for pro in (False, True) for dt in FMM_TOL]
-    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dw_mma": 0.0}
+    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dx_mma": 0.0,
+                "dw_mma": 0.0}
     for (m, k, n, pro), dtype in cases:
         x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
                                                      dev, 0)
@@ -1108,19 +1116,21 @@ def check_fused_matmul_bn(torch, fb, dev):
             for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
                 path_err[key] = max(path_err[key], abs_err[name])
         if (m, k, n, pro) in path and dtype == "bfloat16":
-            path_err["dw_mma"] = max(path_err["dw_mma"], abs_err["dw"])
+            for key in ("dx", "dw"):
+                path_err[key + "_mma"] = max(path_err[key + "_mma"],
+                                             abs_err[key])
         del x, w, dy, got, want, args
     return path_err
 
 
-def check_dw_mma(torch, fb, dev):
-    """Kernel 12 by dtype: the profiler's kernel names show float32 runs
-    the FMA tile and bfloat16 the tensor-core tile
-    (``fused_matmul_bn_dw_mma``); the bfloat16 tile within FMM_TOL of
-    the plain version where it loads rows element by element; two runs
-    of it give the same bits at the representative launch, the ragged
-    test shape and those shapes."""
-    def dw_args(m, k, n, dtype, pro=True):
+def check_fmm_mma(torch, fb, dev):
+    """Kernels 11 and 12 by dtype: the profiler's kernel names show
+    float32 runs the FMA tile and bfloat16 the tensor-core tile
+    (``fused_matmul_bn_dx_mma``, ``fused_matmul_bn_dw_mma``); each
+    bfloat16 tile within FMM_TOL of its plain version where it loads rows
+    element by element; two runs of it give the same bits there, at the
+    representative launch and at the ragged test shape."""
+    def bwd_args(m, k, n, dtype, pro=True):
         x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
                                                      dev, 2)
         if not pro:
@@ -1128,33 +1138,47 @@ def check_dw_mma(torch, fb, dev):
         y = fb.matmul_bn_reference(x, w, scale, bias)[0]
         return x, w, scale, bias, y, dy, ds1, ds2
 
-    for dtype in FMM_TOL:
-        names = [n for n in kernel_names(torch, fb.fused_matmul_bn_dw,
-                                         dw_args(200, 96, 72, dtype))
-                 if "fused_matmul_bn" in n]
-        print(f"fused_matmul_bn_dw {dtype} runs {names}", flush=True)
-        assert len(names) == 1 and "fused_matmul_bn_dw" in names[0], names
-        assert ("fused_matmul_bn_dw_mma" in names[0]) == (
-            dtype == "bfloat16"), names
+    tiles = (("dx", fb.fused_matmul_bn_dx, fb.matmul_bn_dx_reference),
+             ("dw", lambda *a: (fb.fused_matmul_bn_dw(*a),),
+              lambda *a: (fb.matmul_bn_dw_reference(*a),)))
+    for part, fn, _ in tiles:
+        for dtype in FMM_TOL:
+            names = [n for n in kernel_names(torch, fn,
+                                             bwd_args(200, 96, 72, dtype))
+                     if "fused_matmul_bn" in n]
+            print(f"fused_matmul_bn_{part} {dtype} runs {names}", flush=True)
+            assert (len(names) == 1
+                    and f"fused_matmul_bn_{part}" in names[0]), names
+            assert (f"fused_matmul_bn_{part}_mma" in names[0]) == (
+                dtype == "bfloat16"), names
     m, k, n, _ = FMM_REP
     for m, k, n, pro in [(m, k, n, True), (200, 96, 72, True),
                          (200, 96, 72, False)] + [
-            shape + (pro,) for shape in DW_ELEMENT_SHAPES
+            shape + (pro,) for shape in FMM_ELEMENT_SHAPES
             for pro in (False, True)]:
-        args = dw_args(m, k, n, "bfloat16", pro)
-        first, second = (fb.fused_matmul_bn_dw(*args) for _ in range(2))
-        want = fb.matmul_bn_dw_reference(*args)
-        torch.cuda.synchronize()
-        err = (first.float() - want.float()).abs().max().item()
-        scale_ = want.float().abs().max().item()
-        assert err <= FMM_TOL["bfloat16"] * scale_, ((m, k, n, pro), err)
-        assert torch.equal(first, second), (m, k, n, pro)
-        print(f"fused_matmul_bn_dw_mma ({m}, {k}, {n}) prologue={pro}: "
-              f"max|d|/max|ref| {err / scale_:.2e} (tol "
-              f"{FMM_TOL['bfloat16']:g}); vec16 x {fb._vec16(args[0])} "
-              f"y/dy {fb._vec16(args[4], args[5])}; two runs bit for bit",
-              flush=True)
-        del args, first, second, want
+        args = bwd_args(m, k, n, "bfloat16", pro)
+        for part, fn, ref in tiles:
+            first, second, want = fn(*args), fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            ratios = []
+            for a, b, r in zip(first, second, want):
+                if r is None:
+                    assert a is None and b is None
+                    continue
+                err = (a.float() - r.float()).abs().max().item()
+                scale_ = r.float().abs().max().item()
+                assert err <= FMM_TOL["bfloat16"] * scale_, (
+                    part, (m, k, n, pro), err)
+                assert torch.equal(a, b), (part, (m, k, n, pro))
+                ratios.append(err / scale_)
+            print(f"fused_matmul_bn_{part}_mma ({m}, {k}, {n}) "
+                  f"prologue={pro}: max|d|/max|ref| "
+                  f"{' '.join(f'{v:.2e}' for v in ratios)} "
+                  f"(tol {FMM_TOL['bfloat16']:g}); vec16 x "
+                  f"{fb._vec16(args[0])} y/dy {fb._vec16(args[4], args[5])}; "
+                  "two runs bit for bit", flush=True)
+            del first, second, want
+        del args
 
 
 def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
@@ -1240,13 +1264,15 @@ def check_fused_conv3_bn(torch, fc, dev):
     3x3 shapes at B=128 (with the prologue, as the path runs them) and at
     the JAX tests' shapes (with and without it), in float32 and bfloat16,
     with nonzero ds1/ds2.  Returns the max |d| of y, dx and dw over the
-    path's float32 shapes, and of dw over its bfloat16 shapes
-    (``dw_mma``: kernel 16's tensor-core tile)."""
+    path's float32 shapes, and of y and dw over its bfloat16 shapes
+    (``fwd_mma``, ``dw_mma``: kernels 13's and 16's tensor-core
+    tiles)."""
     path = list(dict.fromkeys(resnet_conv3_shapes(RESNET_B)))
     cases = [((shape, True), dt) for shape in path for dt in FMM_TOL]
     cases += [((shape, pro), dt) for shape in CONV_TEST_SHAPES
               for pro in (False, True) for dt in FMM_TOL]
-    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dw_mma": 0.0}
+    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "fwd_mma": 0.0,
+                "dw_mma": 0.0}
     for (shape, pro), dtype in cases:
         x, w, scale, bias, dy, ds1, ds2 = conv_inputs(torch, shape, dtype,
                                                       dev, 0)
@@ -1280,21 +1306,23 @@ def check_fused_conv3_bn(torch, fc, dev):
             for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
                 path_err[key] = max(path_err[key], abs_err[name])
         if shape in path and dtype == "bfloat16":
+            path_err["fwd_mma"] = max(path_err["fwd_mma"], abs_err["y"])
             path_err["dw_mma"] = max(path_err["dw_mma"], abs_err["dw"])
         del x, w, dy, got, want, args
     return path_err
 
 
-def check_conv3_dw_mma(torch, fc, dev):
-    """Kernel 16 by dtype: the profiler's kernel names show float32 runs
-    the FMA tile and bfloat16 the tensor-core tile
-    (``fused_conv3_bn_dw_mma``); the bfloat16 tile within FMM_TOL of the
-    plain version where it loads rows element by element and where an
-    image row takes several segments; two runs of it give the same bits
-    there, at every path shape and at the JAX tests' ragged shapes."""
+def check_conv3_mma(torch, fc, dev):
+    """Kernels 13 and 16 by dtype: the profiler's kernel names show
+    float32 runs the FMA tile and bfloat16 the tensor-core tile
+    (``fused_conv3_bn_fwd_mma``, ``fused_conv3_bn_dw_mma``); each
+    bfloat16 tile within FMM_TOL of its plain version where it loads rows
+    element by element and where an image row takes several segments;
+    two runs of it give the same bits there, at every path shape and at
+    the JAX tests' ragged shapes."""
     from incubator_mxnet_tpu_torch.ops import _fused_common as common
 
-    def dw_args(shape, dtype, pro=True):
+    def bwd_args(shape, dtype, pro=True):
         x, w, scale, bias, dy, ds1, ds2 = conv_inputs(torch, shape, dtype,
                                                       dev, 2)
         if not pro:
@@ -1302,35 +1330,49 @@ def check_conv3_dw_mma(torch, fc, dev):
         y = fc.conv3_bn_reference(x, w, scale, bias)[0]
         return x, w, scale, bias, y, dy, ds1, ds2
 
-    for dtype in FMM_TOL:
-        names = [n for n in kernel_names(torch, fc.fused_conv3_bn_dw,
-                                         dw_args((2, 5, 9, 16, 8), dtype))
-                 if "fused_conv3_bn" in n]
-        print(f"fused_conv3_bn_dw {dtype} runs {names}", flush=True)
-        assert len(names) == 1 and "fused_conv3_bn_dw" in names[0], names
-        assert ("fused_conv3_bn_dw_mma" in names[0]) == (
-            dtype == "bfloat16"), names
+    tiles = (("fwd", lambda *a: fc.fused_conv3_bn_fwd(*a[:4]),
+              lambda *a: fc.conv3_bn_reference(*a[:4])),
+             ("dw", lambda *a: (fc.fused_conv3_bn_dw(*a),),
+              lambda *a: (fc.conv3_bn_dw_reference(*a),)))
+    for part, fn, _ in tiles:
+        for dtype in FMM_TOL:
+            names = [n for n in kernel_names(
+                torch, fn, bwd_args((2, 5, 9, 16, 8), dtype))
+                if "fused_conv3_bn" in n]
+            print(f"fused_conv3_bn_{part} {dtype} runs {names}", flush=True)
+            assert (len(names) == 1
+                    and f"fused_conv3_bn_{part}" in names[0]), names
+            assert (f"fused_conv3_bn_{part}_mma" in names[0]) == (
+                dtype == "bfloat16"), names
     path = list(dict.fromkeys(resnet_conv3_shapes(RESNET_B)))
+    sms = common.sms(dev.index)
     for shape, pro in ([(s_, True) for s_ in path]
                        + [((2, 5, 9, 16, 8), p) for p in (False, True)]
                        + [((16, 6, 6, 16, 260), True)]
-                       + [(s_, p) for s_ in CONV_DW_ELEMENT_SHAPES
+                       + [(s_, p) for s_ in CONV_ELEMENT_SHAPES
                           for p in (False, True)]):
-        args = dw_args(shape, "bfloat16", pro)
-        first, second = (fc.fused_conv3_bn_dw(*args) for _ in range(2))
-        want = fc.conv3_bn_dw_reference(*args)
-        torch.cuda.synchronize()
-        err = (first.float() - want.float()).abs().max().item()
-        scale_ = want.float().abs().max().item()
-        assert err <= FMM_TOL["bfloat16"] * scale_, (shape, pro, err)
-        assert torch.equal(first, second), (shape, pro)
-        print(f"fused_conv3_bn_dw_mma {shape} prologue={pro}: "
-              f"max|d|/max|ref| {err / scale_:.2e} (tol "
-              f"{FMM_TOL['bfloat16']:g}); vec16 x {common.vec16(args[0])} "
-              f"y/dy {common.vec16(args[4], args[5])}; split "
-              f"{fc.dw_mma_split(*shape, common.sms(dev.index))}; two runs "
-              "bit for bit", flush=True)
-        del args, first, second, want
+        args = bwd_args(shape, "bfloat16", pro)
+        for part, fn, ref in tiles:
+            first, second, want = fn(*args), fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            ratios = []
+            for a, b, r in zip(first, second, want):
+                err = (a.float() - r.float()).abs().max().item()
+                scale_ = r.float().abs().max().item()
+                assert err <= FMM_TOL["bfloat16"] * scale_, (part, shape,
+                                                             pro, err)
+                assert torch.equal(a, b), (part, shape, pro)
+                ratios.append(err / scale_)
+            split = (fc.fwd_mma_split if part == "fwd"
+                     else fc.dw_mma_split)(*shape, sms)
+            print(f"fused_conv3_bn_{part}_mma {shape} prologue={pro}: "
+                  f"max|d|/max|ref| {' '.join(f'{v:.2e}' for v in ratios)} "
+                  f"(tol {FMM_TOL['bfloat16']:g}); vec16 x "
+                  f"{common.vec16(args[0])} w {common.vec16(args[1])} y/dy "
+                  f"{common.vec16(args[4], args[5])}; split {split}; two "
+                  "runs bit for bit", flush=True)
+            del first, second, want
+        del args
 
 
 def kernel_names(torch, fn, args, tries=4):
@@ -1871,6 +1913,12 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
     "flash_attention_fwd": "flash_attention.fwd_launches",
     "flash_attention_bwd_dkdv": "flash_attention.bwd_dkdv_launches",
     "flash_attention_bwd_dq": "flash_attention.bwd_dq_launches"}
+
+
+# the kernels with a bfloat16 tensor-core instance beside the float32 FMA
+# tile, by their kernels line names
+_MMA_INSTANCES = ("fused_matmul_bn_dx", "fused_matmul_bn_dw",
+                  "fused_conv3_bn_fwd", "fused_conv3_bn_dw")
 
 
 def zero_launches():
@@ -2640,14 +2688,15 @@ def main():
     xent_fwd_times, xent_bwd_times = time_softmax_xent(torch, sx, dev,
                                                        "float32", rate)
     fmm_err = check_fused_matmul_bn(torch, fb, dev)
-    check_dw_mma(torch, fb, dev)
+    check_fmm_mma(torch, fb, dev)
     fmm_times = time_fused_matmul_bn(torch, fb, dev, "float32", rate)
-    dw_mma_times = time_fused_matmul_bn(torch, fb, dev, "bfloat16", rate)[2]
+    _, dx_mma_times, dw_mma_times = time_fused_matmul_bn(torch, fb, dev,
+                                                         "bfloat16", rate)
     conv_err = check_fused_conv3_bn(torch, fc, dev)
-    check_conv3_dw_mma(torch, fc, dev)
+    check_conv3_mma(torch, fc, dev)
     conv_times = time_fused_conv3_bn(torch, fc, dev, "float32", rate)
-    conv_dw_mma_times = time_fused_conv3_bn(torch, fc, dev, "bfloat16",
-                                            rate)[2]
+    conv_fwd_mma_times, _, conv_dw_mma_times = time_fused_conv3_bn(
+        torch, fc, dev, "bfloat16", rate)
     gc.collect()
     torch.cuda.empty_cache()
     sm_err = check_softmax(torch, sm, dev)
@@ -2773,13 +2822,11 @@ def main():
 
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
     bench = bench_path(torch, np, dev, smi)
-    # kernels 12's and 16's counters move for either of their instances:
-    # phase 7 runs only float32 (the FMA tiles), the bench path only
-    # bfloat16 (the tensor-core tiles)
-    dw_mma_launches = bench["fused_matmul_bn_dw"]
-    conv_dw_mma_launches = bench["fused_conv3_bn_dw"]
-    resnet = {k: v + (bench[k] if k not in ("fused_matmul_bn_dw",
-                                             "fused_conv3_bn_dw") else 0)
+    # kernels 11's, 12's, 13's and 16's counters move for either of their
+    # instances: phase 7 runs only float32 (the FMA tiles), the bench path
+    # only bfloat16 (the tensor-core tiles)
+    mma_launches = {k: bench[k] for k in _MMA_INSTANCES}
+    resnet = {k: v + (bench[k] if k not in _MMA_INSTANCES else 0)
               for k, v in resnet.items()}
 
     gc.collect()
@@ -2863,10 +2910,12 @@ def main():
         for part, line, times in zip(("fwd", "dx", "dw"), (83, 154, 181),
                                      fmm_times)
     ] + [
-        dict(name="fused_matmul_bn_dw_mma", route="cuda",
-             source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:181",
-             launches=dw_mma_launches, max_abs_err=fmm_err["dw_mma"],
-             **dw_mma_times),
+        dict(name=f"fused_matmul_bn_{part}_mma", route="cuda",
+             source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:{line}",
+             launches=mma_launches[f"fused_matmul_bn_{part}"],
+             max_abs_err=fmm_err[f"{part}_mma"], **times)
+        for part, line, times in zip(("dx", "dw"), (154, 181),
+                                     (dx_mma_times, dw_mma_times))
     ] + [
         dict(name=f"fused_conv3_bn_{part}", route="cuda",
              source=src + "fused_conv3_bn.cu", replaces=where,
@@ -2877,10 +2926,12 @@ def main():
             (f"{fck}:139", f"{fck}:217, {fck}:180", f"{fck}:244"),
             conv_times)
     ] + [
-        dict(name="fused_conv3_bn_dw_mma", route="cuda",
-             source=src + "fused_conv3_bn.cu", replaces=f"{fck}:244",
-             launches=conv_dw_mma_launches, max_abs_err=conv_err["dw_mma"],
-             **conv_dw_mma_times),
+        dict(name=f"fused_conv3_bn_{part}_mma", route="cuda",
+             source=src + "fused_conv3_bn.cu", replaces=f"{fck}:{line}",
+             launches=mma_launches[f"fused_conv3_bn_{part}"],
+             max_abs_err=conv_err[f"{part}_mma"], **times)
+        for part, line, times in zip(("fwd", "dw"), (139, 244),
+                                     (conv_fwd_mma_times, conv_dw_mma_times))
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,8 +64,9 @@
 // every launch is bound by operations.  In bfloat16 the tensor cores'
 // 989 TFLOP/s bound it by bytes at stage 1 (dw: 154 MB, 0.046 ms,
 // against 0.030 ms of operations) and by operations at stages 2-4; the
-// FMA loop reaches neither.  The forward, dx and the float32 dw run it;
-// implicit GEMM on wgmma with TMA-fed halo tiles is later work for them.
+// FMA loop reaches neither.  The float32 forward and dw and dx in both
+// dtypes run it; implicit GEMM on wgmma with TMA-fed halo tiles is later
+// work for them.
 //
 // The bf16 dw (fused_conv3_bn_dw_mma) replaces the same TPU kernel,
 // `_bwd_dw_kernel` (:244), on the tensor cores.  The TPU kernel rounds
@@ -104,6 +105,38 @@
 //     element.
 //   - Each run writes its float32 (9*C, C_out) partial; the wrapper sums
 //     the runs in a fixed order.  No atomics: the same bits every run.
+//
+// The bf16 forward (fused_conv3_bn_fwd_mma) replaces `_fwd_kernel`
+// (:139) on the tensor cores, on the same walk of the pixels, with the
+// product turned around: the FMA tile loaded, masked, normalised and
+// rounded each x value nine times, with a division for tap and channel
+// on each.  Each launch is 29.6 GFLOP at ResNet-50's shapes (0.030 ms at
+// 989 TFLOP/s, about what x, W and y take at 3.35 TB/s at stage 1).
+//   - A block owns 64 positions (one stage) x 64 output channels (128
+//     where C_out > 64) and walks a run of stages; 8 warps, each 16 or
+//     32 positions x 32 channels.  A stage's depth runs in steps (dh,
+//     chunk of channels): xn of image row h + dh is staged as a bf16
+//     [position][channel] tile one row below its position (a zero guard
+//     row either side; 0 outside the image, the halo holding the real
+//     neighbour where a row takes several segments), so that the three
+//     taps dw = -1, 0, 1 are A at row offsets 0, 1, 2 by ldmatrix, and B
+//     is W[3 (dh + 1) + dw]'s [c][o] chunk by ldmatrix.trans.  No mask
+//     and no index arithmetic per element.
+//   - Raw x rows go by cp.async (16 bytes, zeros outside; element loads
+//     where a start is unaligned or C is not a multiple of 8) into a ring
+//     of three steps, two ahead of the product; each thread applies the
+//     prologue in place to the chunks it copied, once for each copy, and
+//     one barrier a step publishes the tile.  Where C <= 64 the block's
+//     whole W slice (3 x 3 x 64 x 64 bf16, 74 KB padded to 83) stays in
+//     shared memory for its run; else W streams with x by chunks of 32
+//     channels (C > 64 means every kernel row reads W anew from L2 a
+//     stage: about as many bytes as x).
+//   - The epilogue rounds y to bf16, stores it at the segments' own
+//     pixels (a halo position's result and those past the segments are
+//     dropped) and adds the rounded values to float32 column sums held in
+//     registers for the run; these are reduced by shuffles, then across
+//     the warps in order, into one partial row of s1 and s2 a run, which
+//     the wrapper sums in a fixed order.  No atomics.
 
 #include <type_traits>
 
@@ -480,10 +513,14 @@ cudaError_t launch(int mode, const Args<T>& a, long long splits,
     const int64_t gj = ceil_div(mode == kFwd ? a.Co : a.C, BJ);
     if (gj > 65535) return cudaErrorInvalidValue;
     dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-    if (mode == kFwd)
-      fused_conv3_bn_fwd_kernel<T><<<grid, block, 0, stream>>>(a);
-    else
+    if (mode == kDx) {
       fused_conv3_bn_dx_kernel<T><<<grid, block, 0, stream>>>(a);
+    } else if constexpr (std::is_same<T, float>::value) {
+      fused_conv3_bn_fwd_kernel<T><<<grid, block, 0, stream>>>(a);
+    } else {
+      // the FMA forward is float32's; bfloat16's is fused_conv3_bn_fwd_mma
+      return cudaErrorInvalidValue;
+    }
   } else {
     // the FMA dw is float32's; bfloat16's is fused_conv3_bn_dw_mma
     if constexpr (!std::is_same<T, float>::value) {
@@ -869,6 +906,360 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     }
 }
 
+// ---------------------------------------------------------------------
+// The forward in bfloat16 on the tensor cores.  See the note at the top.
+
+using mx::ldsm_x4;
+
+constexpr int kFwThreads = 256;  // 8 warps over 64 positions x BN channels
+constexpr int kFwRing = 3;       // operand steps: two load while one multiplies
+
+// fused_conv3_bn_fwd_mma's tile: BN output channels a block (64, or 128
+// where C_out > 64), KC input channels a step.  RES (C <= KC = 64): the
+// block's whole W slice stays in shared memory for its run; else KC = 32
+// and W streams through the ring with x, a chunk a step.
+template <int BN, int KC, bool RES>
+struct FwTc {
+  static constexpr int kWarpsN = BN / 32;          // 32 channels a warp
+  static constexpr int kWarpsM = 8 / kWarpsN;
+  static constexpr int kMw = kTcPos / kWarpsM;     // positions a warp
+  static constexpr int kMI = kMw / 16;             // its m16 tiles
+  static constexpr int kXLd = KC + 8;              // bf16 row strides: 16
+  static constexpr int kWLd = BN + 8;              // bytes of pad
+  static constexpr int kXTile = kTcXRows * kXLd;   // xn of one step
+  static constexpr int kWTile = 3 * KC * kWLd;     // W[3 (dh + 1) + t][c][o]
+  static constexpr int kRowChunks = KC / 8;        // uint4 of an x position
+  static constexpr int kXChunks = kTcPos * kRowChunks / kFwThreads;
+  static constexpr int kWChunks = 3 * KC * (BN / 8) / kFwThreads;
+  static constexpr int kWTiles = RES ? 3 : kFwRing;  // one a dh, or a step
+  static constexpr size_t kSmem =
+      (kFwRing * kXTile + kWTiles * kWTile) * sizeof(bf16) +
+      2 * kWarpsM * BN * sizeof(float);
+};
+
+struct FwArgs {
+  const bf16* x;        // (M, C)
+  const bf16* w;        // (9, C, Co)
+  const float* scale;   // (C,), read only with the prologue
+  const float* bias;    // (C,)
+  bf16* y;              // (M, Co)
+  float* s1;            // (runs, Co)
+  float* s2;            // (runs, Co)
+  int H;
+  int W;
+  int C;
+  int Co;
+  int prologue;
+  int vec;              // bit 0: x loads 16 bytes; bit 1: w does
+  int seg_w;            // the pixel walk of tc_geometry
+  int stage_segs;
+  int row_segs;
+  int segs;             // N * H * row_segs
+  int stages;           // ceil(segs / stage_segs)
+  int run_stages;       // stages of a run (the last run: fewer)
+};
+
+// Grid (ceil(Co / BN), runs): block (j, r) computes output channels
+// [j BN, (j + 1) BN) at every pixel of run r's stages, a stage at a
+// time, and writes its float32 sums of y and y^2 to s1[r], s2[r].  A
+// stage's depth runs in steps (dh, chunk of KC channels): xn of image
+// row h + dh as a [position][channel] tile, one row below its position
+// (a zero guard row), so that tap dw of the kernel row is the tile at
+// row offset dw + 1; W[3 (dh + 1) + dw + 1] for that chunk.
+template <int BN, int KC, bool RES>
+__global__ void __launch_bounds__(kFwThreads, 2)
+    fused_conv3_bn_fwd_mma(FwArgs a) {
+  using G = FwTc<BN, KC, RES>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xring = reinterpret_cast<bf16*>(smem);
+  bf16* wbuf = xring + kFwRing * G::kXTile;
+  float* red = reinterpret_cast<float*>(wbuf + G::kWTiles * G::kWTile);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % G::kWarpsM, wn = warp / G::kWarpsM;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int o0 = blockIdx.x * BN;
+  const int st_begin = blockIdx.y * a.run_stages;
+  const int st_end =
+      a.stages - st_begin > a.run_stages ? st_begin + a.run_stages : a.stages;
+  const int nck = (a.C + KC - 1) / KC;  // channel chunks: 1 where RES
+  const int per_stage = 3 * nck;        // steps a stage
+  const int nsteps = (st_end - st_begin) * per_stage;
+  const bool vec_x = a.vec & 1, vec_w = a.vec & 2;
+  const int pitch = a.seg_w + 2;
+  const int npos = a.stage_segs * pitch;  // positions a stage uses
+
+  // The x ring starts at 0: the guard rows and the positions past a
+  // stage's segments are never written again.  The barrier keeps every
+  // zero ahead of the copies that land in the ring.
+  {
+    uint4* z = reinterpret_cast<uint4*>(xring);
+    for (int i = tid; i < kFwRing * G::kXTile / 8; i += kFwThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  // This thread's x chunks: positions pos[i] of a stage, channels cc ..
+  // cc + 7 of a step's chunk; it loads them and applies the prologue to
+  // them itself, so no barrier separates the two.  A position's segment
+  // and place in it are fixed; its pixel follows the stage (locate).
+  const int cc = (tid % G::kRowChunks) * 8;
+  int pos[G::kXChunks], sg[G::kXChunks], place[G::kXChunks];
+  int64_t pix[G::kXChunks];  // its pixel (n, h, w) as a row of x, or -1
+  int hrow[G::kXChunks];     // its h
+#pragma unroll
+  for (int i = 0; i < G::kXChunks; ++i) {
+    pos[i] = tid / G::kRowChunks + (kFwThreads / G::kRowChunks) * i;
+    sg[i] = pos[i] / pitch;
+    place[i] = pos[i] - sg[i] * pitch;
+  }
+  int ld_stage = -1;
+  auto locate = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < G::kXChunks; ++i) {
+      const int seg = st * a.stage_segs + sg[i];
+      const int img_row = seg / a.row_segs;
+      const int w = (seg - img_row * a.row_segs) * a.seg_w + place[i] - 1;
+      const bool ok = pos[i] < npos && seg < a.segs && w >= 0 && w < a.W;
+      pix[i] = ok ? static_cast<int64_t>(img_row) * a.W + w : -1;
+      hrow[i] = img_row % a.H;
+    }
+  };
+
+  // W[3 (dh + 1) + t][c0 + c][o0 + o] for t < 3, c < KC, o < BN into a
+  // [t][c][o] tile; 0 past C and Co.
+  auto load_w = [&](bf16* dst, int dh, int c0) {
+    constexpr int kCols = BN / 8;
+#pragma unroll
+    for (int j = 0; j < G::kWChunks; ++j) {
+      const int e = tid + kFwThreads * j;
+      const int row = e / kCols, col = (e - row * kCols) * 8;
+      const int t = row / KC, c = c0 + row - t * KC;
+      const bool in = c < a.C;
+      const bf16* src =
+          a.w + (in ? static_cast<int64_t>(3 * (dh + 1) + t) * a.C + c : 0) *
+                    a.Co;
+      bf16* d = dst + row * G::kWLd + col;
+      if (vec_w) {
+        const bool full = in && o0 + col < a.Co;
+        cp_async16(d, full ? src + o0 + col : a.w, full);
+      } else {
+        *reinterpret_cast<uint4*>(d) = load8(src, o0 + col, a.Co, in, false);
+      }
+    }
+  };
+
+  // Loads step k of the run into ring slot `slot` (cp.async of 16
+  // bytes, zeros where a chunk lies outside; element loads where a start
+  // or C does not allow 16 bytes) and returns its flags: bit i, chunk
+  // i's pixel lies in the image.
+  auto load_step = [&](int k, int slot) {
+    const int sl = k / per_stage, r = k - sl * per_stage;
+    const int dh = r / nck - 1, c0 = (r % nck) * KC;
+    if (sl != ld_stage) {
+      locate(st_begin + sl);
+      ld_stage = sl;
+    }
+    unsigned flags = 0;
+    bf16* xs = xring + slot * G::kXTile;
+#pragma unroll
+    for (int i = 0; i < G::kXChunks; ++i) {
+      if (pos[i] >= npos) continue;
+      const int hh = hrow[i] + dh;
+      const bool in = pix[i] >= 0 && hh >= 0 && hh < a.H;
+      flags |= (in ? 1u : 0u) << i;
+      const bf16* row =
+          a.x + (in ? pix[i] + static_cast<int64_t>(dh) * a.W : 0) * a.C;
+      bf16* d = xs + (pos[i] + 1) * G::kXLd + cc;
+      if (vec_x) {
+        const bool full = in && c0 + cc < a.C;
+        cp_async16(d, full ? row + c0 + cc : a.x, full);
+      } else {
+        *reinterpret_cast<uint4*>(d) = load8(row, c0 + cc, a.C, in, false);
+      }
+    }
+    if (!RES) load_w(wbuf + slot * G::kWTile, dh, c0);
+    return flags;
+  };
+
+  float acc[G::kMI][4][4];
+#pragma unroll
+  for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float s1[4][2], s2[4][2];  // this thread's column sums of y, y^2
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+
+  // Rounds stage st's sums to bf16, stores them at its segments' pixels
+  // (a halo position's and those past the segments are dropped), adds
+  // the rounded values to the column sums, and clears the sums.
+  const bool pairs = (a.Co & 1) == 0;  // bf16 pairs stay 4-byte aligned
+  auto epilogue = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int q = G::kMw * wm + 16 * i + g + 8 * hf;
+        const int sgq = q / pitch, p = q - sgq * pitch;
+        const int seg = st * a.stage_segs + sgq;
+        const int img_row = seg / a.row_segs;
+        const int w = (seg - img_row * a.row_segs) * a.seg_w + p - 1;
+        const bool keep =
+            q < npos && p >= 1 && p <= a.seg_w && seg < a.segs && w < a.W;
+        bf16* yr =
+            a.y + (keep ? static_cast<int64_t>(img_row) * a.W + w : 0) * a.Co;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int o = o0 + 32 * wn + 8 * j + 2 * t4;
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+          acc[i][j][2 * hf] = acc[i][j][2 * hf + 1] = 0.f;
+          if (!keep) continue;
+          const float2 f = __bfloat1622float2(v);
+          if (pairs && o + 1 < a.Co) {
+            *reinterpret_cast<__nv_bfloat162*>(yr + o) = v;
+          } else {
+            if (o < a.Co) yr[o] = v.x;
+            if (o + 1 < a.Co) yr[o + 1] = v.y;
+          }
+          if (o < a.Co) {
+            s1[j][0] += f.x;
+            s2[j][0] += f.x * f.x;
+          }
+          if (o + 1 < a.Co) {
+            s1[j][1] += f.y;
+            s2[j][1] += f.y * f.y;
+          }
+        }
+      }
+  };
+
+  // the resident W joins step 0's group; then the first kFwRing - 1
+  // steps in flight, one group a step (empty past the run), so that a
+  // wait counts steps
+  if (RES) {
+#pragma unroll
+    for (int dh = -1; dh <= 1; ++dh) load_w(wbuf + (dh + 1) * G::kWTile, dh, 0);
+  }
+  constexpr unsigned kMask = (1u << G::kXChunks) - 1;
+  unsigned ring_flags = 0;  // G::kXChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < kFwRing - 1; ++k) {
+    if (k < nsteps) ring_flags |= load_step(k, k) << (G::kXChunks * k);
+    cp_async_commit();
+  }
+  int slot = 0, r_c = 0, sl_c = 0;  // the step multiplied: its slot, place
+  for (int s = 0; s < nsteps; ++s) {
+    const int dh = r_c / nck - 1, c0 = (r_c % nck) * KC;
+    bf16* xs = xring + slot * G::kXTile;
+    cp_async_wait<kFwRing - 2>();  // this thread's chunks of step s
+    if (a.prologue) {  // in place: relu(x*scale + bias) rounded, 0 outside
+      float sc[8], bi[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + cc + j;
+        sc[j] = c < a.C ? __ldg(a.scale + c) : 0.f;
+        bi[j] = c < a.C ? __ldg(a.bias + c) : 0.f;
+      }
+      const unsigned flags = ring_flags >> (G::kXChunks * slot);
+#pragma unroll
+      for (int i = 0; i < G::kXChunks; ++i) {
+        if (pos[i] >= npos) continue;
+        uint4* p = reinterpret_cast<uint4*>(xs + (pos[i] + 1) * G::kXLd + cc);
+        *p = flags >> i & 1 ? prologue8(*p, sc, bi) : make_uint4(0, 0, 0, 0);
+      }
+    }
+    __syncthreads();
+    // step s + kFwRing - 1 into the slot that step s - 1 left: every warp
+    // left its product at the barrier
+    const int next = slot == 0 ? kFwRing - 1 : slot - 1;
+    if (s + kFwRing - 1 < nsteps)
+      ring_flags = (ring_flags & ~(kMask << (G::kXChunks * next))) |
+                   load_step(s + kFwRing - 1, next)
+                       << (G::kXChunks * next);
+    cp_async_commit();
+    const bf16* wt = wbuf + (RES ? dh + 1 : slot) * G::kWTile;
+    const int ksteps = ((a.C - c0 < KC ? a.C - c0 : KC) + 15) / 16;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {  // tap dw = t - 1: row offset t
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        if (kk >= ksteps) break;
+        uint32_t af[G::kMI][4];  // A = xn: rows positions, depth c
+#pragma unroll
+        for (int i = 0; i < G::kMI; ++i)
+          ldsm_x4(af[i], a_ptr<G::kXLd>(xs, G::kMw * wm + 16 * i + t, 16 * kk));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {  // B = W[t]: depth c, columns o
+          uint32_t bf[4];
+          ldsm_x4_t(bf, a_ptr<G::kWLd>(wt + t * KC * G::kWLd, 16 * kk,
+                                       32 * wn + 16 * q));
+#pragma unroll
+          for (int i = 0; i < G::kMI; ++i) {
+            mma(acc[i][2 * q], af[i], bf[0], bf[1]);
+            mma(acc[i][2 * q + 1], af[i], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    slot = slot + 1 == kFwRing ? 0 : slot + 1;
+    if (++r_c == per_stage) {
+      epilogue(st_begin + sl_c);
+      r_c = 0;
+      ++sl_c;
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+
+  // the run's column sums: over the 8 rows of each lane quad by shuffles,
+  // then over the warps along the positions in order; the same bits
+  // every run
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = s1[j][e], v2 = s2[j][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = 32 * wn + 8 * j + 2 * t4 + e;
+        red[wm * BN + col] = v1;
+        red[(G::kWarpsM + wm) * BN + col] = v2;
+      }
+    }
+  __syncthreads();
+  if (tid < BN && o0 + tid < a.Co) {
+    float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < G::kWarpsM; ++k) {
+      v1 += red[k * BN + tid];
+      v2 += red[(G::kWarpsM + k) * BN + tid];
+    }
+    const int64_t at = static_cast<int64_t>(blockIdx.y) * a.Co + o0 + tid;
+    a.s1[at] = v1;
+    a.s2[at] = v2;
+  }
+}
+
+template <int BN, int KC, bool RES>
+cudaError_t launch_fwd_mma(const FwArgs& a, unsigned tiles, unsigned runs,
+                           cudaStream_t stream) {
+  constexpr size_t smem = FwTc<BN, KC, RES>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_conv3_bn_fwd_mma<BN, KC, RES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_conv3_bn_fwd_mma<BN, KC, RES>
+      <<<dim3(tiles, runs), kFwThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // The caller sized the partial rows of the forward and dx for blocks of
 // BI rows of M: refuse any other count rather than write past them.
 bool part_rows_ok(long long part_rows, long long N, int H, int W) {
@@ -877,8 +1268,9 @@ bool part_rows_ok(long long part_rows, long long N, int H, int W) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x (N, H, W, C), w (3, 3, C, Co) and
-// y (N, H, W, Co) in that type, contiguous (NHWC, HWIO); scale and bias
+// The float32 forward on the FMA tile: dtype must be 0 (bfloat16 runs
+// mx_fused_conv3_bn_fwd_mma).  x (N, H, W, C), w (3, 3, C, Co) and y
+// (N, H, W, Co) in that type, contiguous (NHWC, HWIO); scale and bias
 // (C,) float32, read only when prologue is 1 (may be null otherwise);
 // s1_part and s2_part (part_rows, Co) float32 with part_rows =
 // ceil(N*H*W / 128), every element written.  Launches on `stream`
@@ -896,8 +1288,8 @@ extern "C" int mx_fused_conv3_bn_fwd(int dtype, const void* x, const void* w,
                   0, stream);
 }
 
-// dtype as above.  x (N, H, W, C), w (3, 3, C, Co), y and dy
-// (N, H, W, Co) in that type; ds1 and ds2 (Co,) float32; dx (N, H, W, C)
+// dtype: 0 = float32, 1 = bfloat16.  x (N, H, W, C), w (3, 3, C, Co), y
+// and dy (N, H, W, Co) in that type; ds1 and ds2 (Co,) float32; dx (N, H, W, C)
 // in that type.  With the prologue, scale and bias (C,) float32 are read
 // and dscale_part and dbias_part (part_rows, C) float32, part_rows =
 // ceil(N*H*W / 128), written; without it they may be null.
@@ -995,4 +1387,61 @@ extern "C" int mx_fused_conv3_bn_dw_mma(const void* x, const void* scale,
   fused_conv3_bn_dw_mma<<<grid, kTcThreads, kTcSmem,
                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 forward on the tensor cores.  x (N, H, W, C) and w (3, 3,
+// C, Co) bfloat16, contiguous; scale and bias (C,) float32, read only
+// when prologue is 1; y (N, H, W, Co) bfloat16.  The pixels are walked
+// as the bf16 dw walks them (tc_geometry), in runs of run_stages stages
+// (the last run may be shorter), runs = ceil(stages / run_stages);
+// s1_part and s2_part are (runs, Co) float32, one row of sums of y and
+// y^2 for each run, every element written.  x loads 16 bytes at a time
+// where bit 0 of vec is set (x 16-byte aligned, C a multiple of 8), w
+// where bit 1 is (w 16-byte aligned, Co a multiple of 8).
+extern "C" int mx_fused_conv3_bn_fwd_mma(const void* x, const void* w,
+                                         const void* scale, const void* bias,
+                                         int prologue, void* y, void* s1_part,
+                                         void* s2_part, long long N, int H,
+                                         int W, int C, int Co,
+                                         long long run_stages, long long runs,
+                                         int vec, void* stream) {
+  if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  FwArgs a;
+  tc_geometry(W, &a.seg_w, &a.stage_segs, &a.row_segs);
+  const long long segs = N * H * a.row_segs;   // at most N*H*W
+  const long long stages = ceil_div(segs, a.stage_segs);
+  const int bn = Co <= 64 ? 64 : 128;
+  const long long tiles = ceil_div(Co, bn);
+  if (run_stages <= 0 || run_stages > stages ||
+      runs != ceil_div(stages, run_stages) || runs > 65535 ||
+      tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.y = static_cast<bf16*>(y);
+  a.s1 = static_cast<float*>(s1_part);
+  a.s2 = static_cast<float*>(s2_part);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.Co = Co;
+  a.prologue = prologue;
+  a.vec = vec;
+  a.segs = static_cast<int>(segs);
+  a.stages = static_cast<int>(stages);
+  a.run_stages = static_cast<int>(run_stages);
+  const unsigned gt = static_cast<unsigned>(tiles);
+  const unsigned gr = static_cast<unsigned>(runs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (C <= 64)
+    err = bn == 64 ? launch_fwd_mma<64, 64, true>(a, gt, gr, s)
+                   : launch_fwd_mma<128, 64, true>(a, gt, gr, s);
+  else
+    err = bn == 64 ? launch_fwd_mma<64, 32, false>(a, gt, gr, s)
+                   : launch_fwd_mma<128, 32, false>(a, gt, gr, s);
+  return static_cast<int>(err);
 }

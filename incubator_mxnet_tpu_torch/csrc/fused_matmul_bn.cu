@@ -43,9 +43,9 @@
 // against 0.20 ms of FMA), and by operations elsewhere.
 // In bfloat16 every launch is bound by bytes (tensor cores at 989
 // TFLOP/s, 295 operations a byte); the FMA loop below does not reach that
-// bound, and the bf16 dw no longer runs it (see below).
+// bound, and the bf16 dx and dw no longer run it (see below).
 //
-// Design of the forward, dx and the float32 dw: one tiled product, C (I,
+// Design of the forward, the float32 dx and dw: one tiled product, C (I,
 // J) = A (I, R) @ B (R, J), shared by the three kernels, which differ
 // only in how A and B are fetched and in the epilogue.  A block of 256
 // threads owns a 128x128 tile of C; each thread keeps an 8x8 sub-tile in
@@ -82,6 +82,28 @@
 // does not allow 16 bytes (the wrapper's vec flags) the rows load element
 // by element.  Each run writes its float32 (K, N) partial and the wrapper
 // sums the runs in a fixed order: no atomics, the same bits every run.
+//
+// The bf16 dx (fused_matmul_bn_dx_mma) replaces `_bwd_dx_kernel`
+// (fused_block.py:154) on the tensor cores.  At (401408, 64, 256) with
+// the prologue it must move 514 MB (y and dy read, x read, dx written:
+// 0.153 ms at 3.35 TB/s) for 13.2 GFLOP, so it is bound by bytes.  A
+// block of 8 warps owns 128 rows of M x a tile of BK columns of dx (64
+// where K <= 64 or N <= 128, else 128; the grid puts a row block's
+// column tiles side by side while L2 holds their y and dy), each warp 32
+// x BK/2, and runs the product along N in stages of 32 columns: y and dy
+// by cp.async (16 bytes, element loads where a start or N does not
+// allow it) into a ring of three stages, two ahead; each thread turns
+// the chunks it copied into dyt in place (dyt8: float32, rounded to
+// bf16; 0 past M, where it would be ds1), and one barrier a stage
+// publishes the tile, A by ldmatrix.  w (K, N) is row-major, so its rows
+// are B's (n, k) layout: ldmatrix without .trans, by cp.async into the
+// same ring.  The epilogue works in the accumulator layout: x is loaded
+// (during the last stage's product where BK = 64), z = x*scale + bias,
+// dz = dxn where z > 0, dx = dz*scale rounded to bf16 in pairs, and the
+// column sums of dz*x and dz over the block's rows (shuffles, then the
+// row warps in order) go to one float32 partial row a block, which the
+// wrapper sums in a fixed order.  Where K > BK each column tile stages
+// dyt again from L2.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -565,18 +587,343 @@ __global__ void __launch_bounds__(kTcThreads)
     }
 }
 
+// ---------------------------------------------------------------------
+// dx in bfloat16 on the tensor cores.  See the note at the top.
+
+using mx::cp_async16;
+using mx::cp_async_commit;
+using mx::cp_async_wait;
+using mx::ldsm_x4;
+using mx::unpack;
+
+constexpr int kDxBM = BI;         // rows of M a block owns: a partial row
+constexpr int kDxBN = 32;         // depth (columns of y and dy) a stage
+constexpr int kDxThreads = 256;   // 8 warps: 4 over rows x 2 over columns
+constexpr int kDxRing = 3;        // stages: two load while one multiplies
+constexpr int kDxLd = kDxBN + 8;  // bf16 row stride: 16 bytes pad
+constexpr int kDxRowChunks = kDxBN / 8;                // uint4 a stage row
+constexpr int kDxRowStep = kDxThreads / kDxRowChunks;  // a thread's rows
+constexpr int kDxYChunks = kDxBM / kDxRowStep;         // apart: 64
+
+// BK columns of dx a block (64 or 128): each warp BK/2 of them.  Shared
+// memory: the ring (a slot: y, dy and w rows, bf16), then float32
+// scale and bias of the tile's columns, the epilogue's [2][4][BK] column
+// sums, and a slot's ds1 and ds2 (kDxBN each) for each ring slot.
+template <int BK>
+struct DxTc {
+  static constexpr int kNI = BK / 16;                // n8 tiles a warp
+  static constexpr int kWChunks = BK / kDxRowStep;   // uint4 of w a thread
+  static constexpr int kSlot = (2 * kDxBM + BK) * kDxLd;  // y, dy, w
+  static constexpr size_t kSmem =
+      kDxRing * kSlot * sizeof(bf16) +
+      (2 * BK + 2 * 4 * BK + kDxRing * 2 * kDxBN) * sizeof(float);
+};
+
+// Grid (ceil(M / 128) * ceil(K / BK)): block b takes rows [128 m, 128 (m
+// + 1)) of M and columns [BK k, BK (k + 1)) of dx, with m = b / ktiles
+// and k = b % ktiles, so that the column tiles of the same rows run side
+// by side while L2 holds their y and dy.  With the prologue it writes
+// its float32 column sums of dz*x and dz to part0[m] and part1[m].  vec
+// bit 0: x loads 4 bytes a pair; bit 1: y and dy load 16 bytes; bit 2:
+// w does.
+template <int BK>
+__global__ void __launch_bounds__(kDxThreads, 2)
+    fused_matmul_bn_dx_mma(Args<bf16> a, int vec) {
+  using G = DxTc<BK>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* sc_s = reinterpret_cast<float*>(ring + kDxRing * G::kSlot);
+  float* bi_s = sc_s + BK;
+  float* red = bi_s + BK;  // [dscale, dbias][row warp][column]
+  float* dsl = red + 8 * BK;  // [slot][ds1, ds2][kDxBN]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wk = warp >> 2;  // the warp's 32 x BK/2 tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ktiles = (a.K + BK - 1) / BK;
+  const int64_t mt = blockIdx.x / ktiles;
+  const int k0 = static_cast<int>(blockIdx.x - mt * ktiles) * BK;
+  const int64_t m0 = mt * kDxBM;
+  const int stages = (a.N + kDxBN - 1) / kDxBN;
+  const bool vec_x = vec & 1, vec_y = vec & 2, vec_w = vec & 4;
+
+  // per-column constants, 0 past K (a zero column stays zero)
+  for (int i = tid; i < BK; i += kDxThreads) {
+    const bool in = a.prologue && k0 + i < a.K;
+    sc_s[i] = in ? a.scale[k0 + i] : 0.f;
+    bi_s[i] = in ? a.bias[k0 + i] : 0.f;
+  }
+
+  // This thread's chunks: rows r0 + 64 i of the stage's y and dy (and
+  // of w), columns cc .. cc + 7 of its depth.  It loads them and turns
+  // its y and dy into dyt itself, so no barrier separates the two.
+  const int cc = (tid % kDxRowChunks) * 8, r0 = tid / kDxRowChunks;
+
+  // Loads stage st (columns [32 st, 32 st + 32) of y, dy and w, and of
+  // ds1 and ds2, 0 past N) into ring slot `slot` (cp.async of 16 bytes,
+  // zeros where a chunk lies outside; element loads where a start or a
+  // width does not allow 16 bytes) and returns its flags: bit i, chunk
+  // i's row lies in M.  ds1 and ds2 wait in shared memory rather than in
+  // registers while the product's sums are live.
+  auto fetch_stage = [&](int st, int slot) {
+    const int n0 = st * kDxBN;
+    bf16* ys = ring + slot * G::kSlot;
+    bf16* ds = ys + kDxBM * kDxLd;
+    bf16* ws = ds + kDxBM * kDxLd;
+    unsigned flags = 0;
+    if (tid < kDxBN) {
+      const int n = n0 + tid;
+      dsl[slot * 2 * kDxBN + tid] = n < a.N ? a.ds1[n] : 0.f;
+      dsl[(slot * 2 + 1) * kDxBN + tid] = n < a.N ? a.ds2[n] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kDxYChunks; ++i) {
+      const int r = r0 + kDxRowStep * i;
+      const int64_t m = m0 + r;
+      const bool in = m < a.M;
+      flags |= (in ? 1u : 0u) << i;
+      const int64_t off = (in ? m : 0) * a.N;
+      bf16* yd = ys + r * kDxLd + cc;
+      bf16* dd = ds + r * kDxLd + cc;
+      if (vec_y) {
+        const bool full = in && n0 + cc < a.N;
+        cp_async16(yd, full ? a.y + off + n0 + cc : a.y, full);
+        cp_async16(dd, full ? a.dy + off + n0 + cc : a.dy, full);
+      } else {
+        *reinterpret_cast<uint4*>(yd) =
+            load8(a.y + off, n0 + cc, a.N, in, false);
+        *reinterpret_cast<uint4*>(dd) =
+            load8(a.dy + off, n0 + cc, a.N, in, false);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G::kWChunks; ++i) {
+      const int r = r0 + kDxRowStep * i;
+      const bool in = k0 + r < a.K;
+      const bf16* wr = a.w + (in ? static_cast<int64_t>(k0 + r) : 0) * a.N;
+      bf16* wd = ws + r * kDxLd + cc;
+      if (vec_w) {
+        const bool full = in && n0 + cc < a.N;
+        cp_async16(wd, full ? wr + n0 + cc : a.w, full);
+      } else {
+        *reinterpret_cast<uint4*>(wd) = load8(wr, n0 + cc, a.N, in, false);
+      }
+    }
+    return flags;
+  };
+
+  // x[m, k] and x[m, k + 1] as a bf16 pair, 0 past M and K
+  auto x_pair = [&](int64_t m, int k) -> uint32_t {
+    if (m >= a.M || k >= a.K) return 0u;
+    const unsigned short* p =
+        reinterpret_cast<const unsigned short*>(a.x + m * a.K + k);
+    if (vec_x) return __ldg(reinterpret_cast<const unsigned int*>(p));
+    return static_cast<uint32_t>(p[0]) |
+           (k + 1 < a.K ? static_cast<uint32_t>(p[1]) << 16 : 0u);
+  };
+
+  float acc[2][G::kNI][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kNI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // the first kDxRing - 1 stages in flight, one group a stage (empty
+  // past the depth), so that a wait counts stages
+  unsigned ring_flags = 0;  // kDxYChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < kDxRing - 1; ++k) {
+    if (k < stages) ring_flags |= fetch_stage(k, k) << (kDxYChunks * k);
+    cp_async_commit();
+  }
+  __syncthreads();  // the first stages' ds1 and ds2, written by others
+  // x at this thread's places of dx, loaded during the last stage's
+  // product where the registers allow (BK = 64)
+  uint32_t xv[2][2][BK == 64 ? G::kNI : 1];
+  int slot = 0;
+  for (int st = 0; st < stages; ++st) {
+    bf16* ys = ring + slot * G::kSlot;
+    bf16* ds = ys + kDxBM * kDxLd;
+    const bf16* ws = ds + kDxBM * kDxLd;
+    cp_async_wait<kDxRing - 2>();  // this thread's chunks of stage st
+    {  // dyt in place of dy, rounded to bf16; 0 past M (it is ds1 there)
+      const float* d1 = dsl + slot * 2 * kDxBN + cc;
+      const float* d2 = d1 + kDxBN;
+      const unsigned flags = ring_flags >> (kDxYChunks * slot);
+#pragma unroll
+      for (int i = 0; i < kDxYChunks; ++i) {
+        const int r = r0 + kDxRowStep * i;
+        uint4* d = reinterpret_cast<uint4*>(ds + r * kDxLd + cc);
+        *d = flags >> i & 1
+                 ? dyt8(*reinterpret_cast<const uint4*>(ys + r * kDxLd + cc),
+                        *d, d1, d2)
+                 : make_uint4(0, 0, 0, 0);
+      }
+    }
+    __syncthreads();
+    // stage st + kDxRing - 1 into the slot that stage st - 1 left: every
+    // warp left its product at the barrier
+    const int next = slot == 0 ? kDxRing - 1 : slot - 1;
+    if (st + kDxRing - 1 < stages)
+      ring_flags =
+          (ring_flags & ~(((1u << kDxYChunks) - 1) << (kDxYChunks * next))) |
+          fetch_stage(st + kDxRing - 1, next) << (kDxYChunks * next);
+    cp_async_commit();
+    if constexpr (BK == 64) {
+      if (st == stages - 1 && a.prologue) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < G::kNI; ++j)
+              xv[i][h][j] = x_pair(m0 + 32 * wm + 16 * i + g + 8 * h,
+                                   k0 + 32 * wk + 8 * j + 2 * t4);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDxBN / 16; ++kk) {
+      uint32_t af[2][4];  // A = dyt: rows m, depth n
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(af[i], a_ptr<kDxLd>(ds, 32 * wm + 16 * i, 16 * kk));
+#pragma unroll
+      for (int p = 0; p < G::kNI / 2; ++p) {  // B = w^T: w's rows are (k, n)
+        uint32_t bf[4];
+        ldsm_x4(bf, b_ptr<kDxLd>(ws, (BK / 2) * wk + 16 * p, 16 * kk));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma(acc[i][2 * p], af[i], bf[0], bf[1]);
+          mma(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+    slot = slot + 1 == kDxRing ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+
+  // The epilogue in the accumulator layout: acc[i][j][e] is dxn at row
+  // 32 wm + 16 i + g + 8 (e / 2), column (BK/2) wk + 8 j + 2 t4 + e % 2
+  // of the tile.  With the prologue: z = x*scale + bias, dz = dxn where
+  // z > 0, dx = dz*scale rounded to bf16, and the columns' sums of dz*x
+  // and dz over the block's rows: over this thread's four rows, the 8
+  // rows of each lane quad by shuffles, then the row warps in order.
+  const bool pairs = (a.K & 1) == 0;  // bf16 pairs stay 4-byte aligned
+#pragma unroll
+  for (int j = 0; j < G::kNI; ++j) {
+    const int kl = (BK / 2) * wk + 8 * j + 2 * t4;  // the tile's column
+    const int k = k0 + kl;
+    const float sc0 = sc_s[kl], sc1 = sc_s[kl + 1];
+    const float bi0 = bi_s[kl], bi1 = bi_s[kl + 1];
+    float dsc0 = 0.f, dsc1 = 0.f, dbi0 = 0.f, dbi1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t m = m0 + 32 * wm + 16 * i + g + 8 * h;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (a.prologue) {
+          uint32_t xr;
+          if constexpr (BK == 64)
+            xr = xv[i][h][j];
+          else
+            xr = x_pair(m, k);
+          const float2 xf = unpack(xr);
+          const float dz0 =
+              __fadd_rn(__fmul_rn(xf.x, sc0), bi0) > 0.f ? v0 : 0.f;
+          const float dz1 =
+              __fadd_rn(__fmul_rn(xf.y, sc1), bi1) > 0.f ? v1 : 0.f;
+          dsc0 += dz0 * xf.x;
+          dsc1 += dz1 * xf.y;
+          dbi0 += dz0;
+          dbi1 += dz1;
+          v0 = __fmul_rn(dz0, sc0);
+          v1 = __fmul_rn(dz1, sc1);
+        }
+        if (m >= a.M) continue;
+        bf16* out = a.out + m * a.K + k;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+        if (pairs && k + 1 < a.K) {
+          *reinterpret_cast<__nv_bfloat162*>(out) = v;
+        } else {
+          if (k < a.K) out[0] = v.x;
+          if (k + 1 < a.K) out[1] = v.y;
+        }
+      }
+    if (a.prologue) {  // uniform across the block
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        dsc0 += __shfl_xor_sync(0xffffffffu, dsc0, off);
+        dsc1 += __shfl_xor_sync(0xffffffffu, dsc1, off);
+        dbi0 += __shfl_xor_sync(0xffffffffu, dbi0, off);
+        dbi1 += __shfl_xor_sync(0xffffffffu, dbi1, off);
+      }
+      if (g == 0) {
+        red[wm * BK + kl] = dsc0;
+        red[wm * BK + kl + 1] = dsc1;
+        red[(4 + wm) * BK + kl] = dbi0;
+        red[(4 + wm) * BK + kl + 1] = dbi1;
+      }
+    }
+  }
+  if (!a.prologue) return;
+  __syncthreads();
+  if (tid < BK && k0 + tid < a.K) {
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      v0 += red[w * BK + tid];
+      v1 += red[(4 + w) * BK + tid];
+    }
+    const int64_t at = mt * a.K + k0 + tid;
+    a.part0[at] = v0;
+    a.part1[at] = v1;
+  }
+}
+
+template <int BK>
+cudaError_t launch_dx_mma(const Args<bf16>& a, int vec, cudaStream_t stream) {
+  const int64_t blocks = ceil_div(a.M, kDxBM) * ceil_div(a.K, BK);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  constexpr size_t smem = DxTc<BK>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_matmul_bn_dx_mma<BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_matmul_bn_dx_mma<BK><<<static_cast<unsigned>(blocks), kDxThreads,
+                               smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+// the forward: the FMA tile over blocks of 128 x 128 of y
 template <typename T>
-cudaError_t launch(int mode, const Args<T>& a, cudaStream_t stream) {
-  dim3 block(THREADS);
-  const int64_t gi = ceil_div(a.M, BI);
-  const int64_t gj = ceil_div(mode == kFwd ? a.N : a.K, BJ);
+cudaError_t launch_fwd(const Args<T>& a, cudaStream_t stream) {
+  const int64_t gi = ceil_div(a.M, BI), gj = ceil_div(a.N, BJ);
   if (gi > 0x7fffffff || gj > 65535) return cudaErrorInvalidValue;
   dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-  if (mode == kFwd)
-    fused_matmul_bn_fwd_kernel<T><<<grid, block, 0, stream>>>(a);
-  else
-    fused_matmul_bn_dx_kernel<T><<<grid, block, 0, stream>>>(a);
+  fused_matmul_bn_fwd_kernel<T><<<grid, THREADS, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+// float32 dx: the FMA tile over blocks of 128 x 128 of dx
+cudaError_t launch_dx(const Args<float>& a, int, cudaStream_t stream) {
+  const int64_t gi = ceil_div(a.M, BI), gj = ceil_div(a.K, BJ);
+  if (gi > 0x7fffffff || gj > 65535) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
+  fused_matmul_bn_dx_kernel<float><<<grid, THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16 dx: the tensor-core tile in column tiles of 64 where K <= 64 or
+// the depth N is at most 128 (a block's few stages then leave x's load
+// and its latency exposed: the 64-wide tile loads x during the product
+// and holds more blocks an SM), else of 128, which stage dyt half as
+// often
+cudaError_t launch_dx(const Args<bf16>& a, int vec, cudaStream_t stream) {
+  return a.K <= 64 || a.N <= 128 ? launch_dx_mma<64>(a, vec, stream)
+                                 : launch_dx_mma<128>(a, vec, stream);
 }
 
 // float32 dw: the FMA tile over runs of split_rows rows
@@ -638,8 +985,9 @@ Args<T> make_args(const void* x, const void* w, const void* scale,
 template <typename T>
 int run(int mode, const Args<T>& a, int64_t splits, int vec,
         cudaStream_t stream) {
-  return static_cast<int>(mode == kDw ? launch_dw(a, splits, vec, stream)
-                                      : launch(mode, a, stream));
+  if (mode == kFwd) return static_cast<int>(launch_fwd(a, stream));
+  if (mode == kDx) return static_cast<int>(launch_dx(a, vec, stream));
+  return static_cast<int>(launch_dw(a, splits, vec, stream));
 }
 
 int dispatch(int dtype, int mode, const void* x, const void* w,
@@ -698,7 +1046,11 @@ extern "C" int mx_fused_matmul_bn_fwd(int dtype, const void* x,
 // ds1 and ds2 (N,) float32; dx (M, K) in that type.  With the prologue,
 // scale and bias (K,) float32 and dscale_part and dbias_part
 // (part_rows, K) float32, part_rows = ceil(M / 128), are read and
-// written; without it they may be null.
+// written; without it they may be null.  float32 runs the FMA tile;
+// bfloat16 the tensor-core tile, which reads x pairs 4 bytes at a time
+// where bit 0 of vec is set (x 16-byte aligned, K a multiple of 8), y and
+// dy 16 bytes at a time where bit 1 is (both 16-byte aligned, N a
+// multiple of 8), and w where bit 2 is (w 16-byte aligned).
 extern "C" int mx_fused_matmul_bn_dx(int dtype, const void* x, const void* w,
                                      const void* scale, const void* bias,
                                      int prologue, const void* y,
@@ -706,11 +1058,12 @@ extern "C" int mx_fused_matmul_bn_dx(int dtype, const void* x, const void* w,
                                      const void* ds2, void* dx,
                                      void* dscale_part, void* dbias_part,
                                      long long part_rows, long long M, int K,
-                                     int N, void* stream) {
+                                     int N, int vec, void* stream) {
   if (prologue && !part_rows_ok(part_rows, M))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, kDx, x, w, scale, bias, y, dy, ds1, ds2, dx,
-                  dscale_part, dbias_part, M, K, N, prologue, 0, 0, 0, stream);
+                  dscale_part, dbias_part, M, K, N, prologue, 0, 0, vec,
+                  stream);
 }
 
 // dtype and operands as for dx; dw_part is (splits, K, N) float32, one

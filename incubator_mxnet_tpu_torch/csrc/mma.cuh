@@ -1,11 +1,11 @@
 // bf16 tensor-core helpers shared by the kernels that multiply on
-// Hopper's tensor cores with mma.sync (flash_attention.cu and the bf16 dw
-// of fused_matmul_bn.cu and fused_conv3_bn.cu): ldmatrix from shared
-// memory, the m16n8k16 product with float32 sums, where each lane reads
-// for ldmatrix, cp.async into shared memory, and the staging of the dw
-// kernels' operands (eight bf16 values at a time: the masked load, the
-// BatchNorm prologue and the stats-adjusted cotangent dyt, each rounded
-// to bf16).
+// Hopper's tensor cores with mma.sync (flash_attention.cu, and the bf16
+// dx and dw of fused_matmul_bn.cu and forward and dw of
+// fused_conv3_bn.cu): ldmatrix from shared memory, the m16n8k16 product
+// with float32 sums, where each lane reads for ldmatrix, cp.async into
+// shared memory, and the staging of the fused kernels' operands (eight
+// bf16 values at a time: the masked load, the BatchNorm prologue and the
+// stats-adjusted cotangent dyt, each rounded to bf16).
 #pragma once
 
 #include <cstdint>

@@ -18,10 +18,10 @@ product recomputes the prologue too.
 Three kernels (``csrc/fused_matmul_bn.cu``), one wrapper each:
 :func:`fused_matmul_bn_fwd` (kernel 10), :func:`fused_matmul_bn_dx`
 (11) and :func:`fused_matmul_bn_dw` (12), each with a launch counter.
-Kernel 12 has one instance for each dtype: float32 runs the FMA tile
-that 10 and 11 share, bfloat16 a tile on the tensor cores
-(``fused_matmul_bn_dw_mma``), over runs of M that :func:`dw_mma_split`
-chooses.
+Kernels 11 and 12 have one instance for each dtype: float32 runs the
+FMA tile that all three share, bfloat16 a tile on the tensor cores
+(``fused_matmul_bn_dx_mma``; ``fused_matmul_bn_dw_mma``, over runs of M
+that :func:`dw_mma_split` chooses).
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing falls
 back from the card to the plain version.
@@ -67,7 +67,7 @@ dw_launches = 0
 _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # the C entries' arguments (csrc/fused_matmul_bn.cu)
 _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L, _L, _I, _I, _P]
-_DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L, _L, _I, _I, _P]
+_DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L, _L, _I, _I, _I, _P]
 _DW_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 5 + [_L, _I, _I, _L, _L, _I, _P]
 
 # kernel 12's bfloat16 tile (fused_matmul_bn_dw_mma): 64 rows of dw, over
@@ -221,8 +221,9 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
 
     dx comes out in x's dtype; dscale and dbias are float32 ``(K,)``
     with a prologue (scale given), else None.  On a CUDA tensor: kernel
-    11, then the sum of its partial rows.  On a CPU tensor: the plain
-    version."""
+    11, then the sum of its partial rows (one a block of 128 rows of M)
+    in a fixed order; bfloat16 runs the tensor-core tile, float32 the FMA
+    tile.  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return matmul_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
     m, k, n, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
@@ -235,6 +236,9 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
     if m == 0:
         zeros = torch.zeros(k, dtype=torch.float32, device=x.device)
         return (dx, zeros, zeros.clone()) if prologue else (dx, None, None)
+    vec = 0
+    if x.dtype == torch.bfloat16:
+        vec = int(_vec16(x)) | 2 * int(_vec16(y, dy)) | 4 * int(_vec16(w))
     fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_dx",
                          _DX_ARGS)
     with torch.cuda.device(x.device):
@@ -243,7 +247,8 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
            _fc.ptr(scale), _fc.ptr(bias), int(prologue), y.data_ptr(),
            dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
            parts[0].data_ptr() if prologue else None,
-           parts[1].data_ptr() if prologue else None, rows, m, k, n, stream)
+           parts[1].data_ptr() if prologue else None, rows, m, k, n, vec,
+           stream)
     _count("dx")
     if not prologue:
         return dx, None, None

@@ -21,11 +21,13 @@ Three kernels (``csrc/fused_conv3_bn.cu``), one wrapper each:
 :func:`fused_conv3_bn_fwd` (TPU kernel 13), :func:`fused_conv3_bn_dx`
 (kernels 14 and 15: the TPU's split of C_out into blocks, a VMEM limit,
 has no counterpart) and :func:`fused_conv3_bn_dw` (16), each with a
-launch counter.  Kernel 16 has one instance for each dtype: float32 runs
-the FMA tile that 13 and 14 share, bfloat16 a tile on the tensor cores
-(``fused_conv3_bn_dw_mma``), over runs of pixels that
-:func:`dw_mma_split` chooses.  Each wrapper dispatches on where x lies:
-a CPU tensor takes the plain version; a CUDA tensor launches the kernel or raises.
+launch counter.  Kernels 13 and 16 have one instance for each dtype:
+float32 runs the FMA tile that all three share, bfloat16 a tile on the
+tensor cores (``fused_conv3_bn_fwd_mma``, over runs of pixels that
+:func:`fwd_mma_split` chooses; ``fused_conv3_bn_dw_mma``, over those of
+:func:`dw_mma_split`); kernel 14 runs the FMA tile in both.  Each
+wrapper dispatches on where x lies: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
 Nothing falls back, and there is no switch: on the card every 3x3 of the
 fused bottleneck runs on the kernels, whatever its geometry.
 
@@ -50,7 +52,8 @@ __all__ = ["conv3_bn_reference", "conv3_bn_dx_reference",
            "conv3_bn_dw_reference", "conv3_bn_bwd_reference",
            "fused_conv3_bn_fwd", "fused_conv3_bn_dx", "fused_conv3_bn_dw",
            "FusedConv3BNFunction", "fused_conv3_bn", "dw_mma_geometry",
-           "dw_mma_split", "fwd_launches", "dx_launches", "dw_launches"]
+           "dw_mma_split", "fwd_mma_tile", "fwd_mma_split", "fwd_launches",
+           "dx_launches", "dw_launches"]
 
 #: Launches of the forward, dx and dw kernels so far; each wrapper adds
 #: one per launch and nothing else touches them (a caller may reset them
@@ -66,6 +69,7 @@ _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L] + _SHAPE + [_P]
 _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L] + _SHAPE + [_P]
 _DW_ARGS = [_I] + [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _P]
 _DW_MMA_ARGS = [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _I, _P]
+_FWD_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 3 + _SHAPE + [_L, _L, _I, _P]
 
 # kernel 16's bfloat16 tile (fused_conv3_bn_dw_mma): 64 x 64 of (c, o)
 # for each of the three kernel rows, over stages of at most 64
@@ -78,6 +82,10 @@ _MMA_TILE, _MMA_POS = 64, 64
 _MMA_BLOCKS_PER_SM = 2
 _MMA_MIN_RUN_PIXELS = 8 * 2 * (3 * _MMA_TILE * _MMA_TILE * 4) // (
     3 * _MMA_TILE * 2)
+# kernel 13's bfloat16 tile (fused_conv3_bn_fwd_mma) walks the pixels as
+# kernel 16's does; its runs of stages are enough that about
+# _FWD_BLOCKS_PER_SM blocks cover each SM (one wave at its occupancy)
+_FWD_BLOCKS_PER_SM = 2
 
 
 _TAPS = [(dh, dw) for dh in (-1, 0, 1) for dw in (-1, 0, 1)]
@@ -174,6 +182,30 @@ def dw_mma_split(n, h, w, c, co, sms):
     return run_stages, -(-stages // run_stages)
 
 
+def fwd_mma_tile(c, co):
+    """``(bn, kc)`` of kernel 13's bfloat16 tile, as
+    ``mx_fused_conv3_bn_fwd_mma`` picks its instance: ``bn`` output
+    channels a block (64, or 128 where ``co`` > 64) and ``kc`` input
+    channels a step (64 where ``c`` <= 64, the block's whole W slice
+    then staying in shared memory for its run; else 32, W streaming with
+    x)."""
+    return (64 if co <= 64 else 128), (64 if c <= 64 else 32)
+
+
+def fwd_mma_split(n, h, w, c, co, sms):
+    """``(run_stages, runs)`` of kernel 13's bfloat16 tile for x (n, h,
+    w, c) and C_out = co on a card of ``sms`` SMs: runs of whole stages
+    of :func:`dw_mma_geometry`'s walk that tile the stages exactly (the
+    last run may be shorter), enough that about ``_FWD_BLOCKS_PER_SM``
+    blocks of ``fwd_mma_tile``'s channels cover every SM."""
+    _, stage_segs, row_segs = dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    tiles = -(-co // fwd_mma_tile(c, co)[0])
+    want = max(1, -(-_FWD_BLOCKS_PER_SM * sms // tiles))
+    run_stages = -(-stages // want)
+    return run_stages, -(-stages // run_stages)
+
+
 def _check(name, x, w, scale, bias, **more):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -233,8 +265,10 @@ def fused_conv3_bn_fwd(x, w, scale=None, bias=None):
     x (N, H, W, C) and w (3, 3, C, C_out) in one dtype, float32 or
     bfloat16; scale and bias ``(C,)`` (cast to float32), both or neither.
     On a CUDA tensor: the forward kernel on the current stream, then the
-    sum of its (ceil(N*H*W / 128), C_out) partial rows.  On a CPU tensor:
-    the plain version."""
+    sum of its float32 partial rows of the sums in a fixed order:
+    bfloat16 runs the tensor-core tile (a row for each run of
+    :func:`fwd_mma_split`), float32 the FMA tile (a row for each block of
+    128 rows of N*H*W).  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return conv3_bn_reference(x, w, scale, bias)
     n, h, wd, c, co = _check("fused_conv3_bn_fwd", x, w, scale, bias)
@@ -245,15 +279,29 @@ def fused_conv3_bn_fwd(x, w, scale=None, bias=None):
     if m == 0:
         zeros = torch.zeros(co, dtype=torch.float32, device=x.device)
         return y, zeros, zeros.clone()
-    rows = -(-m // _fc.BLOCK_ROWS)
-    parts = torch.empty((2, rows, co), dtype=torch.float32, device=x.device)
-    fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_fwd",
-                         _FWD_ARGS)
     with torch.cuda.device(x.device):
-        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-           _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
-           y.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows,
-           n, h, wd, c, co, _stream(x.device))
+        if x.dtype == torch.bfloat16:
+            run_stages, runs = fwd_mma_split(n, h, wd, c, co,
+                                             _fc.sms(x.device.index))
+            parts = torch.empty((2, runs, co), dtype=torch.float32,
+                                device=x.device)
+            vec = int(_fc.vec16(x)) | 2 * int(_fc.vec16(w))
+            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_fwd_mma",
+                                 _FWD_MMA_ARGS)
+            fn(x.data_ptr(), w.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
+               int(scale is not None), y.data_ptr(), parts[0].data_ptr(),
+               parts[1].data_ptr(), n, h, wd, c, co, run_stages, runs, vec,
+               _stream(x.device))
+        else:
+            rows = -(-m // _fc.BLOCK_ROWS)
+            parts = torch.empty((2, rows, co), dtype=torch.float32,
+                                device=x.device)
+            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_fwd",
+                                 _FWD_ARGS)
+            fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+               _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
+               y.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows,
+               n, h, wd, c, co, _stream(x.device))
     _count("fwd")
     sums = parts.sum(dim=1)
     return y, sums[0], sums[1]

@@ -22,12 +22,12 @@ are rounded to bf16, so an f32 sum in another order can land one bf16
 ulp, 2^-8 of a value, away); the float32 column sums s1, s2, dscale and
 dbias take the same share of their largest value.  The fused 3x3
 conv + BatchNorm kernels take the same tolerances, for the same
-reasons; kernel 16's bfloat16 tensor-core tile too (both operands
-rounded to bf16 before the exact products, float32 sums in another
-order).  The small fused ResNet, card step against CPU step: loss 1e-5
-relative, every gradient 1e-3 of its largest value (50 layers of
-float32 sums in another order; both TF32 switches off).  Its
-``FusedTrainStep`` by CUDA-graph replay against the same step run
+reasons; the bfloat16 tensor-core tiles of kernels 11, 13 and 16 too
+(both operands rounded to bf16 before the exact products, float32
+sums in another order).  The small fused ResNet, card step against
+CPU step: loss 1e-5 relative, every gradient 1e-3 of its largest value
+(50 layers of float32 sums in another order; both TF32 switches off).
+Its ``FusedTrainStep`` by CUDA-graph replay against the same step run
 eagerly: every loss and state tensor within 1e-6 of the largest value
 (the same kernels on the same inputs, cuDNN deterministic: they agree
 bit for bit unless a library picks another algorithm under capture).
@@ -382,6 +382,69 @@ def test_fused_matmul_bn_dw_mma_loads_element_wise(dev, no_tf32, prologue, m,
     _within(got, want, 2e-2, "dw")
 
 
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_fused_matmul_bn_dx_runs_the_kernel_of_its_dtype(dev, dtype, route):
+    """float32 inputs run kernel 11's FMA tile; bfloat16 its tensor-core
+    tile (fused_matmul_bn_dx_mma), as the profiler sees."""
+    args = _dw_args(200, 96, 72, dtype, dev)
+    hits = {n for n in _kernel_names(fb.fused_matmul_bn_dx, args)
+            if "fused_matmul_bn" in n}
+    assert len(hits) == 1, hits
+    name, = hits
+    assert "fused_matmul_bn_dx" in name, name
+    assert ("fused_matmul_bn_dx_mma" in name) == (route == "tensor-core"), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(200, 96, 72), (12544, 64, 256),
+                                   (1000, 60, 100), (1568, 1024, 512)])
+def test_fused_matmul_bn_dx_is_bit_for_bit_repeatable(dev, dtype, m, k, n):
+    """No atomics: each block of 128 rows writes its float32 partial row
+    of dscale and dbias, which the wrapper sums in a fixed order, so two
+    calls give the same bits."""
+    args = _dw_args(m, k, n, dtype, dev)
+    first, second = (fb.fused_matmul_bn_dx(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (1000, 60, 100, 0),   # K and N not multiples of 8
+    (77, 9, 130, 0),      # K under one 16-byte chunk
+    (640, 64, 256, 1),    # rows of 8 elements, starts off 16 bytes
+    (33, 200, 40, 0),     # two column tiles of dx, the second ragged
+])
+def test_fused_matmul_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue, m,
+                                                   k, n, offset):
+    """Where a start or a row width does not allow 16-byte loads, the
+    bfloat16 dx tile loads element by element and still matches the
+    plain version within the bfloat16 tolerance (2e-2 of the largest
+    value of dx, dscale and dbias)."""
+    x, w, scale, bias, y, dy, ds1, ds2 = _dw_args(m, k, n, "bfloat16", dev,
+                                                  prologue)
+    if offset:
+        def shift(t):
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            out = buf[offset:].view(t.shape)
+            out.copy_(t)
+            return out
+        x, y, dy = shift(x), shift(y), shift(dy)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert k > 128 or not (fb._vec16(x) and fb._vec16(y, dy))
+    args = (x, w, scale, bias, y, dy, ds1, ds2)
+    got = fb.fused_matmul_bn_dx(*args)
+    want = fb.matmul_bn_dx_reference(*args)
+    torch.cuda.synchronize()
+    for what, g, r in zip(("dx", "dscale", "dbias"), got, want):
+        if r is None:
+            assert g is None
+        else:
+            _within(g, r, 2e-2, what)
+
+
 def test_small_fused_resnet_step_on_the_card_matches_cpu(dev, no_tf32):
     """A fused ResNet (one bottleneck a stage, each with a projection)
     on the card against the same weights and batch on the CPU: 12 launches
@@ -586,6 +649,70 @@ def test_fused_conv3_bn_dw_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
     first, second = (fc.fused_conv3_bn_dw(*args) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_fused_conv3_bn_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
+    """float32 inputs run kernel 13's FMA tile; bfloat16 its tensor-core
+    tile (fused_conv3_bn_fwd_mma), as the profiler sees."""
+    x, k, scale, bias = _conv_inputs(2, 5, 9, 16, 8, dtype, dev)[:4]
+    hits = {n for n in _kernel_names(fc.fused_conv3_bn_fwd,
+                                     (x, k, scale, bias))
+            if "fused_conv3_bn" in n}
+    assert len(hits) == 1, hits
+    name, = hits
+    assert "fused_conv3_bn_fwd" in name, name
+    assert ("fused_conv3_bn_fwd_mma" in name) == (route == "tensor-core"), name
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("n,h,w,c,co,offset", [
+    (2, 5, 9, 12, 20, 0),     # C and C_out not multiples of 8
+    (3, 6, 6, 16, 13, 0),     # C_out under two 16-byte chunks
+    (2, 7, 7, 5, 64, 0),      # C under one 16-byte chunk
+    (4, 14, 14, 64, 64, 1),   # rows of 8 elements, starts off 16 bytes
+    (1, 3, 130, 8, 8, 0),     # an image row in three segments
+    (1, 2, 70, 72, 24, 0),    # C > 64: channels in chunks of 32
+    (2, 6, 6, 80, 200, 0),    # and C_out in two tiles of 128
+])
+def test_fused_conv3_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue, n,
+                                                   h, w, c, co, offset):
+    """Where a start or a channel count does not allow 16-byte loads (and
+    where rows take several segments, or C and C_out several chunks and
+    tiles), the bfloat16 forward tile matches the plain version within
+    the bfloat16 tolerance (2e-2 of the largest value of y, s1, s2)."""
+    x, k, scale, bias = _conv_inputs(n, h, w, c, co, "bfloat16", dev)[:4]
+    if not prologue:
+        scale = bias = None
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        shifted = buf[offset:].view(x.shape)
+        shifted.copy_(x)
+        x = shifted
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert w > 62 or c > 64 or not (fb._vec16(x) and fb._vec16(k))
+    got = fc.fused_conv3_bn_fwd(x, k, scale, bias)
+    want = fc.conv3_bn_reference(x, k, scale, bias)
+    torch.cuda.synchronize()
+    for what, g, r in zip(("y", "s1", "s2"), got, want):
+        _within(g, r, 2e-2, what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c,co", [(2, 5, 9, 16, 8), (16, 6, 6, 16, 260),
+                                        (8, 56, 56, 64, 64),
+                                        (8, 7, 7, 512, 512)])
+def test_fused_conv3_bn_fwd_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
+                                                      co):
+    """No atomics: the sums of y and y² are float32 partial rows (one a
+    run of stages in bfloat16, one a block of 128 rows in float32) that
+    the wrapper sums in a fixed order, so two calls give the same bits."""
+    args = _conv_inputs(n, h, w, c, co, dtype, dev)[:4]
+    first, second = (fc.fused_conv3_bn_fwd(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,dtype", [

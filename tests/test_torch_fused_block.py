@@ -20,7 +20,10 @@ from a seed and handed to both.
   runs only on the card) emulated by ``_kernel_dw`` and held to the JAX
   VJP's dw at the shapes above, with the runs :func:`dw_mma_split`
   chooses and with 64-row runs, and the split rule's runs tiling M in
-  whole 32-row stages.
+  whole 32-row stages;
+* kernel 11's bfloat16 arithmetic (``fused_matmul_bn_dx_mma``, the card
+  only) emulated by ``_kernel_fmm_dx`` and held to the JAX VJP's dx,
+  dscale and dbias at the shapes above, with and without the prologue.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -283,3 +286,63 @@ def test_dw_mma_split_tiles_m_in_whole_stages(m, k, n, sms):
     assert rows > 0 and rows % _STAGE == 0
     assert (splits - 1) * rows < m <= splits * rows
     assert 1 <= splits <= 65535
+
+
+# kernel 11's bfloat16 tile: 128 rows of M a block, 16 columns of dy a
+# tensor-core step
+_DX_ROWS = 128
+
+
+def _kernel_fmm_dx(x, w, scale, bias, y, dy, ds1, ds2):
+    """``(dx, dscale, dbias)`` by the arithmetic of kernel 11's bfloat16
+    tile: dyt = dy + ds1 + 2*y*ds2 in float32, rounded to bf16; exact
+    products of the bf16 values, each 16-column m16n8k16 step's sum
+    added to the float32 dxn in order along N; with the prologue z =
+    x*scale + bias in float32 (one rounding each), dz = dxn where z > 0,
+    dx = dz*scale rounded to bf16, and dscale, dbias as float32 sums of
+    dz*x and dz over each block of 128 rows, the blocks' partials then
+    added in order; without it dx = dxn rounded to bf16."""
+    d = fc.dyt(y, dy, ds1, ds2).double()
+    wt = w.double()
+    m, n = d.shape
+    dxn = torch.zeros(m, w.shape[0], dtype=torch.float32)
+    for s0 in range(0, n, 16):
+        cols = slice(s0, min(n, s0 + 16))
+        dxn = (dxn.double() + d[:, cols] @ wt[:, cols].t()).float()
+    if scale is None:
+        return dxn.to(torch.bfloat16), None, None
+    xf = x.float()
+    dz = torch.where(xf * scale + bias > 0, dxn, torch.zeros_like(dxn))
+    dsc = torch.zeros(w.shape[0], dtype=torch.float32)
+    dbi = torch.zeros(w.shape[0], dtype=torch.float32)
+    for r0 in range(0, m, _DX_ROWS):
+        rows = slice(r0, min(m, r0 + _DX_ROWS))
+        dsc = dsc + (dz[rows] * xf[rows]).sum(dim=0)
+        dbi = dbi + dz[rows].sum(dim=0)
+    return (dz * scale).to(torch.bfloat16), dsc, dbi
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_kernel_dx_arithmetic_matches_jax(m, k, n, prologue):
+    """The bfloat16 dx kernel's order of sums and roundings, on the JAX
+    forward's own y, within TOL["bfloat16"] (2e-2 of the largest |JAX|
+    value) of the JAX VJP's dx, dscale and dbias (Pallas, interpret
+    mode).  Both round dxn's float32 sums, taken in another order, so dx
+    may land one bf16 ulp (2^-8 of a value) away, and a z at 0 may flip
+    one dz: on these inputs 0 to 8.7e-4 of max|dx|, up to 1.6e-7 for
+    dscale and dbias."""
+    a = _inputs(m, k, n, seed=m + k + n)
+    j, t = _to_jax(a, "bfloat16"), _to_torch(a, "bfloat16")
+    (y, _, _), (dx, _, dsc, dbi) = _jax_vjp(
+        lambda x, w, s, b: jfb._fmm(x, w, s, b, prologue), j, prologue)
+    y = torch.from_numpy(np.array(y.astype(jnp.float32))).bfloat16()
+    got = _kernel_fmm_dx(t["x"], t["w"], t["scale"] if prologue else None,
+                         t["bias"] if prologue else None, y, t["dy"],
+                         t["ds1"], t["ds2"])
+    _close(got[0], dx.astype(jnp.float32), TOL["bfloat16"], "dx")
+    if prologue:
+        _close(got[1], dsc, TOL["bfloat16"], "dscale")
+        _close(got[2], dbi, TOL["bfloat16"], "dbias")
+    else:
+        assert got[1] is None and got[2] is None

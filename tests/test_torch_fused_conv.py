@@ -24,7 +24,13 @@ from a seed and handed to both.
 * kernel 16's bfloat16 tensor-core tile (``fused_conv3_bn_dw_mma``, which
   runs only on the card) by its arithmetic, ``_kernel_conv3_dw``, against
   the JAX VJP's dw at the four shapes with and without the prologue, and
-  its split helper, whose runs of whole stages tile every pixel once.
+  its split helper, whose runs of whole stages tile every pixel once;
+* kernel 13's bfloat16 tensor-core tile (``fused_conv3_bn_fwd_mma``, the
+  card only) by its arithmetic, ``_kernel_conv3_fwd``, against the Pallas
+  forward ``_fc3`` in interpret mode at the four shapes and two whose
+  image rows take several segments (W > 62, one with C > 64, so that its
+  channels run in chunks of 32), with and without the prologue, and its
+  split helper, whose runs of whole stages tile every pixel once.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -290,6 +296,30 @@ def _bf16(a):
         torch.bfloat16).float().numpy()
 
 
+# positions a stage of the bfloat16 tiles holds (kTcPos in the source)
+_POS = 64
+
+
+def _walk(n, h, w):
+    """The bfloat16 tiles' walk of the pixels (``fc.dw_mma_geometry``):
+    ``(stages, b, hh, px, live, own)``, each array (stages, _POS) over
+    every position of every stage: its image b (clipped into range),
+    row hh and column px, whether it lies in a real segment (``live``,
+    the halo included) and whether it is a segment's own pixel
+    (``own``)."""
+    seg_w, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    pitch = seg_w + 2
+    stages = -(-(n * h * row_segs) // stage_segs)
+    st, q = np.meshgrid(np.arange(stages), np.arange(_POS), indexing="ij")
+    seg = st * stage_segs + q // pitch
+    place = q % pitch
+    live = (q < stage_segs * pitch) & (seg < n * h * row_segs)
+    img_row = seg // row_segs
+    px = (seg % row_segs) * seg_w + place - 1
+    own = live & (place >= 1) & (place <= seg_w) & (px < w)
+    return stages, (img_row // h).clip(0, n - 1), img_row % h, px, live, own
+
+
 def _kernel_conv3_dw(x, scale, bias, y, dy, ds1, ds2, sms=132,
                      run_stages=None):
     """dw (3, 3, C, C_out) float32 by ``fused_conv3_bn_dw_mma``'s
@@ -305,34 +335,21 @@ def _kernel_conv3_dw(x, scale, bias, y, dy, ds1, ds2, sms=132,
     co = dy.shape[-1]
     xn = x if scale is None else _bf16(np.maximum(x * scale + bias, 0))
     dyt = _bf16((dy + ds1) + (2 * y) * ds2)
-    seg_w, stage_segs, row_segs = fc.dw_mma_geometry(w)
-    pitch = seg_w + 2
-    npos = stage_segs * pitch
-    kp = -(-npos // 16) * 16
-    stages = -(-(n * h * row_segs) // stage_segs)
+    stages, b, hh, px, live, inner = _walk(n, h, w)
+    kp = _POS    # all-zero 16-position steps past a stage's segments add 0
     if run_stages is None:
         run_stages, runs = fc.dw_mma_split(n, h, w, c, co, sms)
     else:
         runs = -(-stages // run_stages)
     assert runs == -(-stages // run_stages) and run_stages <= stages
-    # every position of every stage: its segment, place and pixel
-    st, q = np.meshgrid(np.arange(stages), np.arange(kp), indexing="ij")
-    seg = st * stage_segs + q // pitch
-    place = q % pitch
-    live = (q < npos) & (seg < n * h * row_segs)
-    img_row = seg // row_segs
-    px = (seg % row_segs) * seg_w + place - 1
-    b, hh = img_row // h, img_row % h
-    inner = live & (place >= 1) & (place <= seg_w) & (px < w)
-    d_tile = np.where(inner[..., None],
-                      dyt[b.clip(0, n - 1), hh.clip(0, h - 1),
-                          px.clip(0, w - 1)], 0).astype(np.float32)
+    d_tile = np.where(inner[..., None], dyt[b, hh, px.clip(0, w - 1)],
+                      0).astype(np.float32)
     dw = np.zeros((runs, 3, 3, c, co), np.float32)
     for dh in (-1, 0, 1):
         ok = live & (hh + dh >= 0) & (hh + dh < h) & (px >= 0) & (px < w)
         x_tile = np.where(ok[..., None],
-                          xn[b.clip(0, n - 1), (hh + dh).clip(0, h - 1),
-                             px.clip(0, w - 1)], 0).astype(np.float32)
+                          xn[b, (hh + dh).clip(0, h - 1), px.clip(0, w - 1)],
+                          0).astype(np.float32)
         # the tile's rows: a zero guard, the positions, zeros past them
         x_tile = np.pad(x_tile, ((0, 0), (1, 2), (0, 0)))
         for tap in range(3):      # dw = tap - 1: row offset tap
@@ -408,3 +425,116 @@ def test_dw_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
     # reads, unless the image holds fewer pixels
     pixels = run_stages * stage_segs * seg_w
     assert pixels >= fc._MMA_MIN_RUN_PIXELS or runs == 1
+
+
+# ---------------------------------------------------------------------------
+# kernel 13's bfloat16 tile, by its arithmetic
+# ---------------------------------------------------------------------------
+
+def _kernel_conv3_fwd(x, w, scale, bias, sms=132, run_stages=None):
+    """``(y, s1, s2)`` by ``fused_conv3_bn_fwd_mma``'s arithmetic, on
+    numpy arrays that hold bfloat16 values: xn = relu(x*scale + bias) in
+    float32, rounded to bf16; the pixels walked in kernel 16's segments
+    and stages (``fc.dw_mma_geometry``), 64 positions a stage, a stage's
+    xn of image row h + dh a tile with a zero guard row on either side and
+    0 outside the image, so that tap dw is the tile at row offset dw + 1;
+    per stage the depth in the kernel's order (dh, then chunks of
+    ``fc.fwd_mma_tile``'s kc channels, then the three taps, then steps of
+    16 channels), each step's exact product summed and rounded once to
+    float32 (one ``mma``); y rounded to bf16 and kept at the segments'
+    own pixels; s1 and s2 of the rounded y, one float32 partial per run
+    (``fc.fwd_mma_split`` unless ``run_stages`` is given), the runs then
+    added in order."""
+    n, h, wd, c = x.shape
+    co = w.shape[-1]
+    xn = x if scale is None else _bf16(np.maximum(x * scale + bias, 0))
+    stages, b, hh, px, live, keep = _walk(n, h, wd)
+    if run_stages is None:
+        run_stages, runs = fc.fwd_mma_split(n, h, wd, c, co, sms)
+    else:
+        runs = -(-stages // run_stages)
+    assert runs == -(-stages // run_stages) and run_stages <= stages
+    kc = fc.fwd_mma_tile(c, co)[1]
+    acc = np.zeros((stages, _POS, co), np.float32)
+    for dh in (-1, 0, 1):
+        ok = live & (hh + dh >= 0) & (hh + dh < h) & (px >= 0) & (px < wd)
+        x_tile = np.where(ok[..., None],
+                          xn[b, (hh + dh).clip(0, h - 1), px.clip(0, wd - 1)],
+                          0).astype(np.float64)
+        x_tile = np.pad(x_tile, ((0, 0), (1, 1), (0, 0)))  # the guard rows
+        for c0 in range(0, c, kc):
+            for tap in range(3):          # dw = tap - 1: row offset tap
+                a = x_tile[:, tap:tap + _POS]
+                for k0 in range(c0, min(c, c0 + kc), 16):
+                    ks = slice(k0, min(c, k0 + 16))
+                    step = np.einsum("spc,co->spo", a[..., ks],
+                                     w[dh + 1, tap, ks].astype(np.float64))
+                    acc = (acc + step).astype(np.float32)
+    yb = _bf16(acc)
+    y = np.zeros((n, h, wd, co), np.float32)
+    y[b[keep], hh[keep], px[keep]] = yb[keep]
+    s1 = np.zeros(co, np.float32)
+    s2 = np.zeros(co, np.float32)
+    for r in range(runs):
+        rows = yb[r * run_stages:(r + 1) * run_stages][
+            keep[r * run_stages:(r + 1) * run_stages]]
+        s1 = s1 + rows.sum(axis=0, dtype=np.float32)
+        s2 = s2 + (rows * rows).sum(axis=0, dtype=np.float32)
+    return y, s1, s2
+
+
+# the JAX tests' shapes, then image rows of three segments (W = 130) and
+# of two with C = 72 > 64 (channels in chunks of 32)
+FWD_MMA_SHAPES = SHAPES + [(1, 3, 130, 8, 8), (1, 2, 70, 72, 24)]
+
+
+@pytest.mark.parametrize("shape", FWD_MMA_SHAPES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_fwd_mma_arithmetic_matches_the_pallas_forward(shape, prologue):
+    """``_kernel_conv3_fwd`` (the plan's runs, and one stage a run, so
+    that the partials' sum is exercised) against the JAX package's Pallas
+    forward ``_fc3`` in interpret mode, bfloat16: y, s1 and s2 within
+    TOL["bfloat16"] (2e-2) of their largest |JAX| value.  Both round y to
+    bf16 from float32 sums taken in another order, so a value may land
+    one bf16 ulp (2^-8 of it) away: on these inputs 0 to 2.5e-3 of max|y|
+    (0 to 3.6e-4 for s1 and s2), against about 1 for mirrored taps."""
+    a = _inputs(*shape, seed=17 + sum(shape))
+    j = _to_jax(a, "bfloat16")
+    g = jfc._Geom(j["x"], shape[4])
+    assert g.fits()
+    c = shape[3]
+    sc = j["scale"] if prologue else jnp.ones((c,), jnp.float32)
+    bi = j["bias"] if prologue else jnp.zeros((c,), jnp.float32)
+    want = [np.asarray(v.astype(jnp.float32))
+            for v in jfc._fc3(j["x"], j["w"], sc, bi, prologue)]
+    f32 = lambda v: np.asarray(jnp.asarray(v).astype(jnp.float32))  # noqa
+    args = (f32(j["x"]), f32(j["w"]), a["scale"] if prologue else None,
+            a["bias"] if prologue else None)
+    for run_stages in (None, 1):
+        got = _kernel_conv3_fwd(*args, run_stages=run_stages)
+        for name, gv, wv in zip(("y", "s1", "s2"), got, want):
+            _close(gv, wv, TOL["bfloat16"],
+                   f"fwd_mma {name} runs={run_stages}")
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+    (128, 7, 7, 512, 512),             # ResNet-50's 3x3 shapes at B=128
+    (2, 8, 8, 16, 24), (3, 6, 6, 16, 16), (2, 14, 14, 32, 16),
+    (2, 5, 9, 16, 8), (16, 6, 6, 16, 260), (8, 7, 7, 512, 512),
+    (1, 1, 1, 3, 5), (3, 2, 62, 8, 8), (2, 3, 63, 8, 8),
+    (1, 4, 200, 8, 8), (1, 2, 70, 72, 24)])
+def test_fwd_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
+    _, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    run_stages, runs = fc.fwd_mma_split(n, h, w, c, co, sms)
+    # runs of whole stages cover every stage once, within the grid's
+    # limit, and enough of them that every SM gets a block where the
+    # stages allow
+    assert 1 <= run_stages <= stages and runs <= 65535
+    assert (runs - 1) * run_stages < stages <= runs * run_stages
+    bn, kc = fc.fwd_mma_tile(c, co)
+    assert bn in (64, 128) and (bn == 64) == (co <= 64)
+    assert kc == (64 if c <= 64 else 32)
+    assert runs * -(-co // bn) >= min(sms, stages)
