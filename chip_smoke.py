@@ -20,10 +20,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    load element by element, in both dtypes; then two forward and two
    backward runs at the path's shape bit for bit, and the kernels by
    dtype: float32-FMA for float32, tensor-core for bfloat16; the fused
-   1x1's dx and weight gradient (kernels 11 and 12) and the fused 3x3's
-   forward and weight gradient (13 and 16) the same way, bfloat16 also
-   where they load rows element by element, and two runs bit for bit,
-   as two runs of the LayerNorm backward), with
+   1x1's forward, dx and weight gradient (kernels 10-12) and the fused
+   3x3's forward, dx and weight gradient (13, 14 and 16) the same way,
+   bfloat16 also where they load rows element by element, and two runs
+   bit for bit, as two runs of the LayerNorm backward), with
    the stated tolerances, and its time beside the plain version's, one
    PyTorch library call's and the bound (the fused kernels' in both
    dtypes);
@@ -118,8 +118,8 @@ launches, and LeNet over phase 12 (b).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
-paths it ran on; kernels 11, 12, 13 and 16 have an entry for each
-instance, the float32 FMA tile with phase 7's launches and the bfloat16
+paths it ran on; kernels 10-14 and 16 have an entry for each instance,
+the float32 FMA tile with phase 7's launches and the bfloat16
 tensor-core tile (``..._mma``) with phase 8's.
 """
 import copy
@@ -204,10 +204,11 @@ FMM_TEST_SHAPES = [(256, 128, 128), (200, 96, 72), (1024, 256, 64),
                    (512, 64, 256)]
 # the representative launch: stage 1's c3 at B=128, with the prologue
 FMM_REP = (RESNET_B * 56 * 56, 64, 256, True)
-# the bfloat16 tiles of kernels 11 and 12 (fused_matmul_bn_dx_mma,
-# fused_matmul_bn_dw_mma) also at shapes whose rows they must load
-# element by element (K or N not a multiple of 8), and dx where its
-# columns take two tiles, the second ragged
+# the bfloat16 tiles of kernels 10, 11 and 12 (fused_matmul_bn_fwd_mma,
+# fused_matmul_bn_dx_mma, fused_matmul_bn_dw_mma) also at shapes whose
+# rows they must load element by element (K or N not a multiple of 8),
+# and where dx's columns take two tiles, the second ragged, and the
+# forward's K streams in seven steps, the last ragged
 FMM_ELEMENT_SHAPES = [(1000, 60, 100), (77, 9, 130), (33, 200, 40)]
 FP32_PEAK = 67e12      # FLOP/s of float32 FMA outside the tensor cores
 BF16_PEAK = 989e12     # dense bf16 tensor-core FLOP/s
@@ -236,11 +237,12 @@ CONV_TEST_SHAPES = [(2, 8, 8, 16, 24), (3, 6, 6, 16, 16), (2, 14, 14, 32, 16),
                     (2, 5, 9, 16, 8), (16, 6, 6, 16, 260)]
 # the representative launch: stage 1's 3x3 at B=128, with the prologue
 CONV_REP = (RESNET_B, IMAGE // 4, IMAGE // 4, 64, 64)
-# the bfloat16 tiles of kernels 13 and 16 (fused_conv3_bn_fwd_mma,
-# fused_conv3_bn_dw_mma) also at shapes whose rows they must load element
-# by element (C or C_out not a multiple of 8), where an image row takes
-# several segments (W > 62), and, for the forward, where C > 64 runs in
-# chunks of 32 channels and C_out in two tiles
+# the bfloat16 tiles of kernels 13, 14 and 16 (fused_conv3_bn_fwd_mma,
+# fused_conv3_bn_dx_mma, fused_conv3_bn_dw_mma) also at shapes whose rows
+# they must load element by element (C or C_out not a multiple of 8),
+# where an image row takes several segments (W > 62), and, for the
+# forward and dx, where C > 64 and C_out > 64 take several chunks of
+# channels and tiles
 CONV_ELEMENT_SHAPES = [(2, 5, 9, 12, 20), (2, 7, 7, 5, 64),
                        (1, 3, 130, 8, 8), (1, 2, 70, 72, 24),
                        (2, 6, 6, 80, 200)]
@@ -1071,15 +1073,15 @@ def check_fused_matmul_bn(torch, fb, dev):
     """Kernels 10-12 against their plain versions at every shape the
     ResNet-50 path gives them at B=128 and at the JAX tests' shapes, in
     float32 and bfloat16, with nonzero ds1/ds2.  Returns the max |d| of
-    y, dx and dw over the path's float32 shapes, and of dx and dw over its
-    bfloat16 shapes (``dx_mma``, ``dw_mma``: kernels 11's and 12's
-    tensor-core tiles)."""
+    y, dx and dw over the path's float32 shapes, and over its bfloat16
+    shapes (``fwd_mma``, ``dx_mma``, ``dw_mma``: kernels 10's, 11's and
+    12's tensor-core tiles)."""
     path = list(dict.fromkeys(resnet_fmm_shapes(RESNET_B)))
     cases = [(shape, dt) for shape in path for dt in FMM_TOL]
     cases += [((m, k, n, pro), dt) for m, k, n in FMM_TEST_SHAPES
               for pro in (False, True) for dt in FMM_TOL]
-    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "dx_mma": 0.0,
-                "dw_mma": 0.0}
+    path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "fwd_mma": 0.0,
+                "dx_mma": 0.0, "dw_mma": 0.0}
     for (m, k, n, pro), dtype in cases:
         x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
                                                      dev, 0)
@@ -1112,24 +1114,23 @@ def check_fused_matmul_bn(torch, fb, dev):
               f"max|d|/max|ref| " + " ".join(
                   f"{k_}={v:.2e}" for k_, v in ratios.items())
               + f" (tol {tol:g}) ok", flush=True)
-        if (m, k, n, pro) in path and dtype == "float32":
+        if (m, k, n, pro) in path:
+            tile = "" if dtype == "float32" else "_mma"
             for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
-                path_err[key] = max(path_err[key], abs_err[name])
-        if (m, k, n, pro) in path and dtype == "bfloat16":
-            for key in ("dx", "dw"):
-                path_err[key + "_mma"] = max(path_err[key + "_mma"],
-                                             abs_err[key])
+                path_err[key + tile] = max(path_err[key + tile],
+                                           abs_err[name])
         del x, w, dy, got, want, args
     return path_err
 
 
 def check_fmm_mma(torch, fb, dev):
-    """Kernels 11 and 12 by dtype: the profiler's kernel names show
+    """Kernels 10, 11 and 12 by dtype: the profiler's kernel names show
     float32 runs the FMA tile and bfloat16 the tensor-core tile
-    (``fused_matmul_bn_dx_mma``, ``fused_matmul_bn_dw_mma``); each
-    bfloat16 tile within FMM_TOL of its plain version where it loads rows
-    element by element; two runs of it give the same bits there, at the
-    representative launch and at the ragged test shape."""
+    (``fused_matmul_bn_fwd_mma``, ``fused_matmul_bn_dx_mma``,
+    ``fused_matmul_bn_dw_mma``); each bfloat16 tile within FMM_TOL of its
+    plain version where it loads rows element by element; two runs of it
+    give the same bits there, at the representative launch and at the
+    ragged test shape."""
     def bwd_args(m, k, n, dtype, pro=True):
         x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
                                                      dev, 2)
@@ -1138,7 +1139,9 @@ def check_fmm_mma(torch, fb, dev):
         y = fb.matmul_bn_reference(x, w, scale, bias)[0]
         return x, w, scale, bias, y, dy, ds1, ds2
 
-    tiles = (("dx", fb.fused_matmul_bn_dx, fb.matmul_bn_dx_reference),
+    tiles = (("fwd", lambda *a: fb.fused_matmul_bn_fwd(*a[:4]),
+              lambda *a: fb.matmul_bn_reference(*a[:4])),
+             ("dx", fb.fused_matmul_bn_dx, fb.matmul_bn_dx_reference),
              ("dw", lambda *a: (fb.fused_matmul_bn_dw(*a),),
               lambda *a: (fb.matmul_bn_dw_reference(*a),)))
     for part, fn, _ in tiles:
@@ -1264,15 +1267,15 @@ def check_fused_conv3_bn(torch, fc, dev):
     3x3 shapes at B=128 (with the prologue, as the path runs them) and at
     the JAX tests' shapes (with and without it), in float32 and bfloat16,
     with nonzero ds1/ds2.  Returns the max |d| of y, dx and dw over the
-    path's float32 shapes, and of y and dw over its bfloat16 shapes
-    (``fwd_mma``, ``dw_mma``: kernels 13's and 16's tensor-core
+    path's float32 shapes, and over its bfloat16 shapes (``fwd_mma``,
+    ``dx_mma``, ``dw_mma``: kernels 13's, 14's and 16's tensor-core
     tiles)."""
     path = list(dict.fromkeys(resnet_conv3_shapes(RESNET_B)))
     cases = [((shape, True), dt) for shape in path for dt in FMM_TOL]
     cases += [((shape, pro), dt) for shape in CONV_TEST_SHAPES
               for pro in (False, True) for dt in FMM_TOL]
     path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "fwd_mma": 0.0,
-                "dw_mma": 0.0}
+                "dx_mma": 0.0, "dw_mma": 0.0}
     for (shape, pro), dtype in cases:
         x, w, scale, bias, dy, ds1, ds2 = conv_inputs(torch, shape, dtype,
                                                       dev, 0)
@@ -1302,24 +1305,24 @@ def check_fused_conv3_bn(torch, fc, dev):
               f"max|d|/max|ref| " + " ".join(
                   f"{k_}={v:.2e}" for k_, v in ratios.items())
               + f" (tol {tol:g}) ok", flush=True)
-        if shape in path and dtype == "float32":
+        if shape in path:
+            tile = "" if dtype == "float32" else "_mma"
             for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
-                path_err[key] = max(path_err[key], abs_err[name])
-        if shape in path and dtype == "bfloat16":
-            path_err["fwd_mma"] = max(path_err["fwd_mma"], abs_err["y"])
-            path_err["dw_mma"] = max(path_err["dw_mma"], abs_err["dw"])
+                path_err[key + tile] = max(path_err[key + tile],
+                                           abs_err[name])
         del x, w, dy, got, want, args
     return path_err
 
 
 def check_conv3_mma(torch, fc, dev):
-    """Kernels 13 and 16 by dtype: the profiler's kernel names show
+    """Kernels 13, 14 and 16 by dtype: the profiler's kernel names show
     float32 runs the FMA tile and bfloat16 the tensor-core tile
-    (``fused_conv3_bn_fwd_mma``, ``fused_conv3_bn_dw_mma``); each
-    bfloat16 tile within FMM_TOL of its plain version where it loads rows
-    element by element and where an image row takes several segments;
-    two runs of it give the same bits there, at every path shape and at
-    the JAX tests' ragged shapes."""
+    (``fused_conv3_bn_fwd_mma``, ``fused_conv3_bn_dx_mma``,
+    ``fused_conv3_bn_dw_mma``); each bfloat16 tile within FMM_TOL of its
+    plain version where it loads rows element by element, where an image
+    row takes several segments and where C_out > 64 (the TPU's kernel
+    15); two runs of it give the same bits there, at every path shape
+    and at the JAX tests' ragged shapes."""
     from incubator_mxnet_tpu_torch.ops import _fused_common as common
 
     def bwd_args(shape, dtype, pro=True):
@@ -1332,6 +1335,7 @@ def check_conv3_mma(torch, fc, dev):
 
     tiles = (("fwd", lambda *a: fc.fused_conv3_bn_fwd(*a[:4]),
               lambda *a: fc.conv3_bn_reference(*a[:4])),
+             ("dx", fc.fused_conv3_bn_dx, fc.conv3_bn_dx_reference),
              ("dw", lambda *a: (fc.fused_conv3_bn_dw(*a),),
               lambda *a: (fc.conv3_bn_dw_reference(*a),)))
     for part, fn, _ in tiles:
@@ -1358,13 +1362,13 @@ def check_conv3_mma(torch, fc, dev):
             ratios = []
             for a, b, r in zip(first, second, want):
                 err = (a.float() - r.float()).abs().max().item()
-                scale_ = r.float().abs().max().item()
+                scale_ = max(r.float().abs().max().item(), 1e-30)
                 assert err <= FMM_TOL["bfloat16"] * scale_, (part, shape,
                                                              pro, err)
                 assert torch.equal(a, b), (part, shape, pro)
                 ratios.append(err / scale_)
-            split = (fc.fwd_mma_split if part == "fwd"
-                     else fc.dw_mma_split)(*shape, sms)
+            split = {"fwd": fc.fwd_mma_split, "dx": fc.dx_mma_split,
+                     "dw": fc.dw_mma_split}[part](*shape, sms)
             print(f"fused_conv3_bn_{part}_mma {shape} prologue={pro}: "
                   f"max|d|/max|ref| {' '.join(f'{v:.2e}' for v in ratios)} "
                   f"(tol {FMM_TOL['bfloat16']:g}); vec16 x "
@@ -1917,8 +1921,9 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
 
 # the kernels with a bfloat16 tensor-core instance beside the float32 FMA
 # tile, by their kernels line names
-_MMA_INSTANCES = ("fused_matmul_bn_dx", "fused_matmul_bn_dw",
-                  "fused_conv3_bn_fwd", "fused_conv3_bn_dw")
+_MMA_INSTANCES = ("fused_matmul_bn_fwd", "fused_matmul_bn_dx",
+                  "fused_matmul_bn_dw", "fused_conv3_bn_fwd",
+                  "fused_conv3_bn_dx", "fused_conv3_bn_dw")
 
 
 def zero_launches():
@@ -2690,13 +2695,11 @@ def main():
     fmm_err = check_fused_matmul_bn(torch, fb, dev)
     check_fmm_mma(torch, fb, dev)
     fmm_times = time_fused_matmul_bn(torch, fb, dev, "float32", rate)
-    _, dx_mma_times, dw_mma_times = time_fused_matmul_bn(torch, fb, dev,
-                                                         "bfloat16", rate)
+    fmm_mma_times = time_fused_matmul_bn(torch, fb, dev, "bfloat16", rate)
     conv_err = check_fused_conv3_bn(torch, fc, dev)
     check_conv3_mma(torch, fc, dev)
     conv_times = time_fused_conv3_bn(torch, fc, dev, "float32", rate)
-    conv_fwd_mma_times, _, conv_dw_mma_times = time_fused_conv3_bn(
-        torch, fc, dev, "bfloat16", rate)
+    conv_mma_times = time_fused_conv3_bn(torch, fc, dev, "bfloat16", rate)
     gc.collect()
     torch.cuda.empty_cache()
     sm_err = check_softmax(torch, sm, dev)
@@ -2822,7 +2825,7 @@ def main():
 
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
     bench = bench_path(torch, np, dev, smi)
-    # kernels 11's, 12's, 13's and 16's counters move for either of their
+    # kernels 10-14's and 16's counters move for either of their
     # instances: phase 7 runs only float32 (the FMA tiles), the bench path
     # only bfloat16 (the tensor-core tiles)
     mma_launches = {k: bench[k] for k in _MMA_INSTANCES}
@@ -2914,8 +2917,8 @@ def main():
              source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:{line}",
              launches=mma_launches[f"fused_matmul_bn_{part}"],
              max_abs_err=fmm_err[f"{part}_mma"], **times)
-        for part, line, times in zip(("dx", "dw"), (154, 181),
-                                     (dx_mma_times, dw_mma_times))
+        for part, line, times in zip(("fwd", "dx", "dw"), (83, 154, 181),
+                                     fmm_mma_times)
     ] + [
         dict(name=f"fused_conv3_bn_{part}", route="cuda",
              source=src + "fused_conv3_bn.cu", replaces=where,
@@ -2927,11 +2930,13 @@ def main():
             conv_times)
     ] + [
         dict(name=f"fused_conv3_bn_{part}_mma", route="cuda",
-             source=src + "fused_conv3_bn.cu", replaces=f"{fck}:{line}",
+             source=src + "fused_conv3_bn.cu", replaces=where,
              launches=mma_launches[f"fused_conv3_bn_{part}"],
              max_abs_err=conv_err[f"{part}_mma"], **times)
-        for part, line, times in zip(("fwd", "dw"), (139, 244),
-                                     (conv_fwd_mma_times, conv_dw_mma_times))
+        for part, where, times in zip(
+            ("fwd", "dx", "dw"),
+            (f"{fck}:139", f"{fck}:217, {fck}:180", f"{fck}:244"),
+            conv_mma_times)
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

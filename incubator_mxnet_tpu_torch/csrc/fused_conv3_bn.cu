@@ -64,9 +64,9 @@
 // every launch is bound by operations.  In bfloat16 the tensor cores'
 // 989 TFLOP/s bound it by bytes at stage 1 (dw: 154 MB, 0.046 ms,
 // against 0.030 ms of operations) and by operations at stages 2-4; the
-// FMA loop reaches neither.  The float32 forward and dw and dx in both
-// dtypes run it; implicit GEMM on wgmma with TMA-fed halo tiles is later
-// work for them.
+// FMA loop reaches neither.  Only float32 runs it (forward, dx and dw);
+// implicit GEMM on wgmma with TMA-fed halo tiles is later work for it.
+// Every bfloat16 kernel runs on the tensor cores (below).
 //
 // The bf16 dw (fused_conv3_bn_dw_mma) replaces the same TPU kernel,
 // `_bwd_dw_kernel` (:244), on the tensor cores.  The TPU kernel rounds
@@ -137,8 +137,48 @@
 //     registers for the run; these are reduced by shuffles, then across
 //     the warps in order, into one partial row of s1 and s2 a run, which
 //     the wrapper sums in a fixed order.  No atomics.
-
-#include <type_traits>
+//
+// The bf16 dx (fused_conv3_bn_dx_mma) replaces `_bwd_dx_kernel` (:217)
+// and its split over C_out `_bwd_dx_kernel_nb` (:180) on the tensor
+// cores, on the forward's walk with the product turned around: the FMA
+// tile divided for tap and channel, masked and turned each dy/y value
+// into dyt at each of its nine reads.  Each launch is 29.6 GFLOP at
+// ResNet-50's shapes; stage 1 must move x, y, dy and dx (0.061 ms at
+// 3.35 TB/s).
+//   - A block owns 64 positions (one stage) x 64 input channels c (128
+//     where C > 64) and walks a run of stages; 8 warps, each 16 or 32
+//     positions x 32 channels.  A stage's depth runs in steps (dh, chunk
+//     of output channels o: all of them where C and Co <= 64, else 32):
+//     dyt of image row h - dh is staged as a
+//     bf16 [position][o] tile one row below its position (a zero guard
+//     row either side; 0 outside the image, the halo holding the real
+//     neighbour where a row takes several segments), so that tap dw,
+//     which reads dyt at w - dw, is A at row offset 1 - dw (2, 1, 0 for
+//     dw = -1, 0, 1) by ldmatrix; B is W[3 (dh + 1) + dw + 1]'s [c][o]
+//     chunk, which is B's (n, k) layout as W lies: ldmatrix without
+//     .trans.
+//   - y and dy go by cp.async (16 bytes, zeros outside; element loads
+//     where a start is unaligned or Co is not a multiple of 8) into a
+//     ring of steps: dy into the dyt tile, y into a raw tile beside it;
+//     each thread turns the chunks it copied into dyt in place (dyt8; 0
+//     outside the image, where it would be ds1), and one barrier a step
+//     publishes the tile.  Where C and Co <= 64 the block's whole W slice
+//     (3 x 3 x 64 x 64 bf16) stays in shared memory for its run and the
+//     ring holds two steps, one ahead (111,680 bytes: two blocks an SM;
+//     three steps leave one, which ran 1.5x slower on an H100 SXM);
+//     else W streams through a ring of three steps, two ahead, 32 o a
+//     step (104,928 bytes at 128 channels, 67,552 at 64).  W's tiles are
+//     swizzled rather than padded (w_at), which is what lets both fit
+//     two blocks an SM beside y's raw tiles.
+//   - Every chunk of C_out sums into the same registers, so the ReLU /
+//     normalize backward sees the total dxn: the TPU's split over C_out
+//     (kernel 15, a VMEM limit) needs no counterpart.  The epilogue works
+//     in the accumulator layout at the segments' own pixels: x pairs are
+//     loaded there, z = x*scale + bias, dz = dxn where z > 0, dx =
+//     dz*scale rounded to bf16 in pairs; the column sums of dz*x and dz
+//     stay in registers for the run and are reduced by shuffles, then
+//     across the warps in order, into one float32 partial row a run.  No
+//     atomics.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -504,8 +544,9 @@ __global__ void __launch_bounds__(THREADS)
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-template <typename T>
-cudaError_t launch(int mode, const Args<T>& a, long long splits,
+// The FMA tile, float32 only: bfloat16's forward, dx and dw are the
+// tensor-core tiles below.
+cudaError_t launch(int mode, const Args<float>& a, long long splits,
                    cudaStream_t stream) {
   dim3 block(THREADS);
   if (mode == kFwd || mode == kDx) {
@@ -513,26 +554,17 @@ cudaError_t launch(int mode, const Args<T>& a, long long splits,
     const int64_t gj = ceil_div(mode == kFwd ? a.Co : a.C, BJ);
     if (gj > 65535) return cudaErrorInvalidValue;
     dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-    if (mode == kDx) {
-      fused_conv3_bn_dx_kernel<T><<<grid, block, 0, stream>>>(a);
-    } else if constexpr (std::is_same<T, float>::value) {
-      fused_conv3_bn_fwd_kernel<T><<<grid, block, 0, stream>>>(a);
-    } else {
-      // the FMA forward is float32's; bfloat16's is fused_conv3_bn_fwd_mma
-      return cudaErrorInvalidValue;
-    }
+    if (mode == kDx)
+      fused_conv3_bn_dx_kernel<float><<<grid, block, 0, stream>>>(a);
+    else
+      fused_conv3_bn_fwd_kernel<float><<<grid, block, 0, stream>>>(a);
   } else {
-    // the FMA dw is float32's; bfloat16's is fused_conv3_bn_dw_mma
-    if constexpr (!std::is_same<T, float>::value) {
+    const int64_t gi = ceil_div(9LL * a.C, BI), gj = ceil_div(a.Co, BJ);
+    if (gj > 65535 || splits > 65535 || splits <= 0)
       return cudaErrorInvalidValue;
-    } else {
-      const int64_t gi = ceil_div(9LL * a.C, BI), gj = ceil_div(a.Co, BJ);
-      if (gj > 65535 || splits > 65535 || splits <= 0)
-        return cudaErrorInvalidValue;
-      dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
-                static_cast<unsigned>(splits));
-      fused_conv3_bn_dw_kernel<T><<<grid, block, 0, stream>>>(a);
-    }
+    dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
+              static_cast<unsigned>(splits));
+    fused_conv3_bn_dw_kernel<float><<<grid, block, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -579,26 +611,13 @@ int dispatch(int dtype, int mode, const void* x, const void* w,
              void* part0, void* part1, long long N, int H, int W, int C,
              int Co, int prologue, long long split_rows, long long splits,
              void* stream) {
-  if (!shape_ok(N, H, W, C, Co))
+  if (dtype != 0 || !shape_ok(N, H, W, C, Co))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch<float>(
-          mode, make_args<float>(x, w, scale, bias, y, dy, ds1, ds2, out,
-                                 part0, part1, N, H, W, C, Co, prologue,
-                                 split_rows),
-          splits, s));
-    case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(
-          mode, make_args<__nv_bfloat16>(x, w, scale, bias, y, dy, ds1, ds2,
-                                         out, part0, part1, N, H, W, C, Co,
-                                         prologue, split_rows),
-          splits, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(launch(
+      mode, make_args<float>(x, w, scale, bias, y, dy, ds1, ds2, out, part0,
+                             part1, N, H, W, C, Co, prologue, split_rows),
+      splits, static_cast<cudaStream_t>(stream)));
 }
 
 // ---------------------------------------------------------------------
@@ -1260,6 +1279,421 @@ cudaError_t launch_fwd_mma(const FwArgs& a, unsigned tiles, unsigned runs,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// dx in bfloat16 on the tensor cores.  See the note at the top.
+
+using mx::unpack;
+
+// fused_conv3_bn_dx_mma's tile: BN input channels c a block (64, or 128
+// where C > 64), KC output channels o a step, a ring of RING steps.  A
+// ring slot holds one step's operands: the dyt tile ([position][o], one
+// row below its position, a zero guard row either side; rows padded by
+// 16 bytes), the step's raw y rows (read back only by the thread that
+// copied them) and, unless RES, W's three taps of the step's kernel row
+// as [t][c][o] tiles.  RES (C and Co <= KC = 64): the block's whole W
+// slice stays in shared memory for its run, and a ring of two steps
+// leaves room for it at two blocks an SM.  W's rows are swizzled rather
+// than padded (w_at), so that ldmatrix's eight rows fall on distinct
+// banks.
+template <int BN, int KC, bool RES, int RING>
+struct DxTc {
+  static constexpr int kWarpsN = BN / 32;          // 32 channels a warp
+  static constexpr int kWarpsM = 8 / kWarpsN;
+  static constexpr int kMw = kTcPos / kWarpsM;     // positions a warp
+  static constexpr int kMI = kMw / 16;             // its m16 tiles
+  static constexpr int kDLd = KC + 8;              // dyt row stride
+  static constexpr int kDTile = kTcXRows * kDLd;
+  static constexpr int kYTile = kTcPos * KC;
+  static constexpr int kWTile = 3 * BN * KC;       // a kernel row's taps
+  static constexpr int kSlot = kDTile + kYTile + (RES ? 0 : kWTile);
+  static constexpr int kRowChunks = KC / 8;        // uint4 of a position
+  static constexpr int kChunks = kTcPos * kRowChunks / kFwThreads;
+  static constexpr int kWChunks = 3 * BN * kRowChunks / kFwThreads;
+  static constexpr size_t kSmem =
+      (RING * kSlot + (RES ? 3 * kWTile : 0)) * sizeof(bf16) +
+      (2 + 2 * kWarpsM) * BN * sizeof(float);
+};
+
+// Element (row, 8 * chunk) of a swizzled W tile of KC-value rows: chunk
+// k of row r is stored at chunk k ^ (r % 8) (KC = 64, 128-byte rows), k
+// ^ (r / 2 % 4) (KC = 32, 64-byte rows).
+template <int KC>
+__device__ __forceinline__ int w_at(int row, int chunk) {
+  return row * KC + ((chunk ^ (KC == 64 ? row & 7 : row >> 1 & 3)) << 3);
+}
+
+struct DxArgs {
+  const bf16* x;        // (M, C)
+  const bf16* w;        // (9, C, Co)
+  const float* scale;   // (C,), read only with the prologue
+  const float* bias;    // (C,)
+  const bf16* y;        // (M, Co)
+  const bf16* dy;       // (M, Co)
+  const float* ds1;     // (Co,)
+  const float* ds2;     // (Co,)
+  bf16* dx;             // (M, C)
+  float* dscale;        // (runs, C), written only with the prologue
+  float* dbias;         // (runs, C)
+  int H;
+  int W;
+  int C;
+  int Co;
+  int prologue;
+  int vec;              // bit 0: x loads 4 bytes a pair; bit 1: y and dy
+                        // load 16 bytes; bit 2: w does
+  int seg_w;            // the pixel walk of tc_geometry
+  int stage_segs;
+  int row_segs;
+  int segs;             // N * H * row_segs
+  int stages;           // ceil(segs / stage_segs)
+  int run_stages;       // stages of a run (the last run: fewer)
+};
+
+// Grid (ceil(C / BN), runs): block (j, r) computes dx at input channels
+// [j BN, (j + 1) BN) for every pixel of run r's stages, a stage at a
+// time, and with the prologue writes its float32 sums of dz*x and dz to
+// dscale[r], dbias[r].  A stage's depth runs in steps (dh, chunk of KC
+// output channels): dyt of image row h - dh as a [position][o] tile one
+// row below its position, so that tap dw of the kernel row (which reads
+// dyt at w - dw) is the tile at row offset 1 - dw; W[3 (dh + 1) + dw +
+// 1]'s [c][o] chunk is B as it lies.
+template <int BN, int KC, bool RES, int RING>
+__global__ void __launch_bounds__(kFwThreads, 2)
+    fused_conv3_bn_dx_mma(DxArgs a) {
+  using G = DxTc<BN, KC, RES, RING>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* wres = ring + RING * G::kSlot;  // RES: W[3 (dh + 1) + t][c][o]
+  float* sc_s = reinterpret_cast<float*>(wres + (RES ? 3 * G::kWTile : 0));
+  float* bi_s = sc_s + BN;
+  float* red = bi_s + BN;  // [dscale, dbias][position warp][column]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % G::kWarpsM, wn = warp / G::kWarpsM;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = blockIdx.x * BN;
+  const int st_begin = blockIdx.y * a.run_stages;
+  const int st_end =
+      a.stages - st_begin > a.run_stages ? st_begin + a.run_stages : a.stages;
+  const int nck = (a.Co + KC - 1) / KC;  // output-channel chunks: 1 if RES
+  const int per_stage = 3 * nck;               // steps a stage
+  const int nsteps = (st_end - st_begin) * per_stage;
+  const bool vec_x = a.vec & 1, vec_y = a.vec & 2, vec_w = a.vec & 4;
+  const int pitch = a.seg_w + 2;
+  const int npos = a.stage_segs * pitch;  // positions a stage uses
+
+  // The dyt tiles start at 0: the guard rows and the positions past a
+  // stage's segments are never written again.  The per-channel
+  // constants are 0 past C (a zero channel stays zero).  The barrier
+  // keeps both ahead of the copies and of their readers.
+  for (int s = 0; s < RING; ++s) {
+    uint4* z = reinterpret_cast<uint4*>(ring + s * G::kSlot);
+    for (int i = tid; i < G::kDTile / 8; i += kFwThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+  }
+  for (int i = tid; i < BN; i += kFwThreads) {
+    const bool in = a.prologue && c0 + i < a.C;
+    sc_s[i] = in ? a.scale[c0 + i] : 0.f;
+    bi_s[i] = in ? a.bias[c0 + i] : 0.f;
+  }
+  __syncthreads();
+
+  // This thread's chunks: positions pos[i] of a stage, output channels
+  // cc .. cc + 7 of a step's chunk; it loads y and dy there and turns
+  // them into dyt itself, so no barrier separates the two.  A
+  // position's segment and place in it are fixed; its pixel follows the
+  // stage (locate), as in the forward.
+  const int cc = (tid % G::kRowChunks) * 8;
+  int pos[G::kChunks], sg[G::kChunks], place[G::kChunks];
+  int64_t pix[G::kChunks];  // its pixel (n, h, w) as a row of dy, or -1
+  int hrow[G::kChunks];     // its h
+#pragma unroll
+  for (int i = 0; i < G::kChunks; ++i) {
+    pos[i] = tid / G::kRowChunks + (kFwThreads / G::kRowChunks) * i;
+    sg[i] = pos[i] / pitch;
+    place[i] = pos[i] - sg[i] * pitch;
+  }
+  int ld_stage = -1;
+  auto locate = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < G::kChunks; ++i) {
+      const int seg = st * a.stage_segs + sg[i];
+      const int img_row = seg / a.row_segs;
+      const int w = (seg - img_row * a.row_segs) * a.seg_w + place[i] - 1;
+      const bool ok = pos[i] < npos && seg < a.segs && w >= 0 && w < a.W;
+      pix[i] = ok ? static_cast<int64_t>(img_row) * a.W + w : -1;
+      hrow[i] = img_row % a.H;
+    }
+  };
+
+  // W[3 (dh + 1) + t][c0 + c][o0 + o] for t < 3, c < BN, o < KC into a
+  // swizzled [t][c][o] tile; 0 past C and Co.
+  auto load_w = [&](bf16* dst, int dh, int o0) {
+#pragma unroll
+    for (int j = 0; j < G::kWChunks; ++j) {
+      const int e = tid + kFwThreads * j;
+      const int row = e / G::kRowChunks, ch = e - row * G::kRowChunks;
+      const int t = row / BN, c = c0 + row - t * BN;
+      const bool in = c < a.C;
+      const bf16* src =
+          a.w + (in ? static_cast<int64_t>(3 * (dh + 1) + t) * a.C + c : 0) *
+                    a.Co;
+      bf16* d = dst + w_at<KC>(row, ch);
+      if (vec_w) {
+        const bool full = in && o0 + 8 * ch < a.Co;
+        cp_async16(d, full ? src + o0 + 8 * ch : a.w, full);
+      } else {
+        *reinterpret_cast<uint4*>(d) =
+            load8(src, o0 + 8 * ch, a.Co, in, false);
+      }
+    }
+  };
+
+  // Loads step k of the run into ring slot `slot`: y and dy of image row
+  // h - dh at every position (cp.async of 16 bytes, zeros where a chunk
+  // lies outside; element loads where a start or Co does not allow 16
+  // bytes), dy into the dyt tile, and W's chunk; returns the flags: bit
+  // i, chunk i's pixel lies in the image.
+  auto load_step = [&](int k, int slot) {
+    const int sl = k / per_stage, r = k - sl * per_stage;
+    const int dh = r / nck - 1, o0 = (r % nck) * KC;
+    if (sl != ld_stage) {
+      locate(st_begin + sl);
+      ld_stage = sl;
+    }
+    unsigned flags = 0;
+    bf16* ds = ring + slot * G::kSlot;
+    bf16* ys = ds + G::kDTile;
+#pragma unroll
+    for (int i = 0; i < G::kChunks; ++i) {
+      if (pos[i] >= npos) continue;
+      const int hh = hrow[i] - dh;
+      const bool in = pix[i] >= 0 && hh >= 0 && hh < a.H;
+      flags |= (in ? 1u : 0u) << i;
+      const int64_t row =
+          (in ? pix[i] - static_cast<int64_t>(dh) * a.W : 0) * a.Co;
+      bf16* dd = ds + (pos[i] + 1) * G::kDLd + cc;
+      bf16* yd = ys + pos[i] * KC + cc;
+      if (vec_y) {
+        const bool full = in && o0 + cc < a.Co;
+        cp_async16(yd, full ? a.y + row + o0 + cc : a.y, full);
+        cp_async16(dd, full ? a.dy + row + o0 + cc : a.dy, full);
+      } else {
+        *reinterpret_cast<uint4*>(yd) =
+            load8(a.y + row, o0 + cc, a.Co, in, false);
+        *reinterpret_cast<uint4*>(dd) =
+            load8(a.dy + row, o0 + cc, a.Co, in, false);
+      }
+    }
+    if (!RES) load_w(ys + G::kYTile, dh, o0);
+    return flags;
+  };
+
+  // x[m, c] and x[m, c + 1] as a bf16 pair, 0 past C; `at` is m * C
+  auto x_pair = [&](int64_t at, int c) -> uint32_t {
+    if (c >= a.C) return 0u;
+    const unsigned short* p =
+        reinterpret_cast<const unsigned short*>(a.x + at + c);
+    if (vec_x) return __ldg(reinterpret_cast<const unsigned int*>(p));
+    return static_cast<uint32_t>(p[0]) |
+           (c + 1 < a.C ? static_cast<uint32_t>(p[1]) << 16 : 0u);
+  };
+
+  float acc[G::kMI][4][4];
+#pragma unroll
+  for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float dsc[4][2], dbi[4][2];  // this thread's column sums of dz*x, dz
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    dsc[j][0] = dsc[j][1] = dbi[j][0] = dbi[j][1] = 0.f;
+
+  // Stage st's epilogue in the accumulator layout, at the segments' own
+  // pixels (a halo position's sums and those past the segments are
+  // dropped): with the prologue z = x*scale + bias, dz = dxn where z >
+  // 0, dx = dz*scale, and dz*x and dz added to the column sums; dx
+  // rounded to bf16 in pairs and stored; the sums cleared.
+  const bool pairs = (a.C & 1) == 0;  // bf16 pairs stay 4-byte aligned
+  auto epilogue = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int q = G::kMw * wm + 16 * i + g + 8 * hf;
+        const int sgq = q / pitch, p = q - sgq * pitch;
+        const int seg = st * a.stage_segs + sgq;
+        const int img_row = seg / a.row_segs;
+        const int w = (seg - img_row * a.row_segs) * a.seg_w + p - 1;
+        const bool keep =
+            q < npos && p >= 1 && p <= a.seg_w && seg < a.segs && w < a.W;
+        const int64_t at =
+            (keep ? static_cast<int64_t>(img_row) * a.W + w : 0) * a.C;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int cl = 32 * wn + 8 * j + 2 * t4, c = c0 + cl;
+          float v0 = acc[i][j][2 * hf], v1 = acc[i][j][2 * hf + 1];
+          acc[i][j][2 * hf] = acc[i][j][2 * hf + 1] = 0.f;
+          if (!keep) continue;
+          if (a.prologue) {
+            const float2 xf = unpack(x_pair(at, c));
+            const float sc0 = sc_s[cl], sc1 = sc_s[cl + 1];
+            const float dz0 =
+                __fadd_rn(__fmul_rn(xf.x, sc0), bi_s[cl]) > 0.f ? v0 : 0.f;
+            const float dz1 =
+                __fadd_rn(__fmul_rn(xf.y, sc1), bi_s[cl + 1]) > 0.f ? v1
+                                                                     : 0.f;
+            dsc[j][0] += dz0 * xf.x;
+            dsc[j][1] += dz1 * xf.y;
+            dbi[j][0] += dz0;
+            dbi[j][1] += dz1;
+            v0 = __fmul_rn(dz0, sc0);
+            v1 = __fmul_rn(dz1, sc1);
+          }
+          const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+          bf16* out = a.dx + at + c;
+          if (pairs && c + 1 < a.C) {
+            *reinterpret_cast<__nv_bfloat162*>(out) = v;
+          } else {
+            if (c < a.C) out[0] = v.x;
+            if (c + 1 < a.C) out[1] = v.y;
+          }
+        }
+      }
+  };
+
+  // the resident W joins step 0's group; then the first RING - 1 steps
+  // in flight, one group a step (empty past the run), so that a wait
+  // counts steps
+  if (RES) {
+#pragma unroll
+    for (int dh = -1; dh <= 1; ++dh)
+      load_w(wres + (dh + 1) * G::kWTile, dh, 0);
+  }
+  constexpr unsigned kMask = (1u << G::kChunks) - 1;
+  unsigned ring_flags = 0;  // G::kChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < RING - 1; ++k) {
+    if (k < nsteps) ring_flags |= load_step(k, k) << (G::kChunks * k);
+    cp_async_commit();
+  }
+  int slot = 0, r_c = 0, sl_c = 0;  // the step multiplied: its slot, place
+  for (int s = 0; s < nsteps; ++s) {
+    const int dh = r_c / nck - 1, o0 = (r_c % nck) * KC;
+    bf16* ds = ring + slot * G::kSlot;
+    const bf16* ys = ds + G::kDTile;
+    const bf16* ws = RES ? wres + (dh + 1) * G::kWTile : ys + G::kYTile;
+    cp_async_wait<RING - 2>();  // this thread's chunks of step s
+    {  // dyt in place of dy, rounded to bf16; 0 outside the image
+      float d1[8], d2[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = o0 + cc + j;
+        d1[j] = o < a.Co ? __ldg(a.ds1 + o) : 0.f;
+        d2[j] = o < a.Co ? __ldg(a.ds2 + o) : 0.f;
+      }
+      const unsigned flags = ring_flags >> (G::kChunks * slot);
+#pragma unroll
+      for (int i = 0; i < G::kChunks; ++i) {
+        if (pos[i] >= npos) continue;
+        uint4* d = reinterpret_cast<uint4*>(ds + (pos[i] + 1) * G::kDLd + cc);
+        *d = flags >> i & 1
+                 ? dyt8(*reinterpret_cast<const uint4*>(ys + pos[i] * KC + cc),
+                        *d, d1, d2)
+                 : make_uint4(0, 0, 0, 0);
+      }
+    }
+    __syncthreads();
+    // step s + RING - 1 into the slot that step s - 1 left: every warp
+    // left its product at the barrier
+    const int next = slot == 0 ? RING - 1 : slot - 1;
+    if (s + RING - 1 < nsteps)
+      ring_flags = (ring_flags & ~(kMask << (G::kChunks * next))) |
+                   load_step(s + RING - 1, next) << (G::kChunks * next);
+    cp_async_commit();
+    const int ksteps = ((a.Co - o0 < KC ? a.Co - o0 : KC) + 15) / 16;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {  // tap dw = t - 1: row offset 2 - t
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        if (kk >= ksteps) break;
+        uint32_t af[G::kMI][4];  // A = dyt: rows positions, depth o
+#pragma unroll
+        for (int i = 0; i < G::kMI; ++i)
+          ldsm_x4(af[i], a_ptr<G::kDLd>(ds, G::kMw * wm + 16 * i + 2 - t,
+                                        16 * kk));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {  // B = W[t]: rows c, depth o
+          const int row = t * BN + 32 * wn + 16 * q + (lane & 7) +
+                          ((lane >> 4) << 3);
+          uint32_t bf[4];
+          ldsm_x4(bf, ws + w_at<KC>(row, 2 * kk + (lane >> 3 & 1)));
+#pragma unroll
+          for (int i = 0; i < G::kMI; ++i) {
+            mma(acc[i][2 * q], af[i], bf[0], bf[1]);
+            mma(acc[i][2 * q + 1], af[i], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    slot = slot + 1 == RING ? 0 : slot + 1;
+    if (++r_c == per_stage) {
+      epilogue(st_begin + sl_c);
+      r_c = 0;
+      ++sl_c;
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+  if (!a.prologue) return;  // uniform across the block
+
+  // the run's column sums: over the 8 rows of each lane quad by shuffles,
+  // then over the warps along the positions in order; the same bits
+  // every run
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = dsc[j][e], v2 = dbi[j][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = 32 * wn + 8 * j + 2 * t4 + e;
+        red[wm * BN + col] = v1;
+        red[(G::kWarpsM + wm) * BN + col] = v2;
+      }
+    }
+  __syncthreads();
+  if (tid < BN && c0 + tid < a.C) {
+    float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < G::kWarpsM; ++k) {
+      v1 += red[k * BN + tid];
+      v2 += red[(G::kWarpsM + k) * BN + tid];
+    }
+    const int64_t at = static_cast<int64_t>(blockIdx.y) * a.C + c0 + tid;
+    a.dscale[at] = v1;
+    a.dbias[at] = v2;
+  }
+}
+
+template <int BN, int KC, bool RES, int RING>
+cudaError_t launch_dx_mma(const DxArgs& a, unsigned tiles, unsigned runs,
+                          cudaStream_t stream) {
+  constexpr size_t smem = DxTc<BN, KC, RES, RING>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_conv3_bn_dx_mma<BN, KC, RES, RING>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_conv3_bn_dx_mma<BN, KC, RES, RING>
+      <<<dim3(tiles, runs), kFwThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // The caller sized the partial rows of the forward and dx for blocks of
 // BI rows of M: refuse any other count rather than write past them.
 bool part_rows_ok(long long part_rows, long long N, int H, int W) {
@@ -1288,8 +1722,9 @@ extern "C" int mx_fused_conv3_bn_fwd(int dtype, const void* x, const void* w,
                   0, stream);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  x (N, H, W, C), w (3, 3, C, Co), y
-// and dy (N, H, W, Co) in that type; ds1 and ds2 (Co,) float32; dx (N, H, W, C)
+// The float32 dx on the FMA tile: dtype must be 0 (bfloat16 runs
+// mx_fused_conv3_bn_dx_mma).  x (N, H, W, C), w (3, 3, C, Co), y and dy
+// (N, H, W, Co) in that type; ds1 and ds2 (Co,) float32; dx (N, H, W, C)
 // in that type.  With the prologue, scale and bias (C,) float32 are read
 // and dscale_part and dbias_part (part_rows, C) float32, part_rows =
 // ceil(N*H*W / 128), written; without it they may be null.
@@ -1443,5 +1878,67 @@ extern "C" int mx_fused_conv3_bn_fwd_mma(const void* x, const void* w,
   else
     err = bn == 64 ? launch_fwd_mma<64, 32, false>(a, gt, gr, s)
                    : launch_fwd_mma<128, 32, false>(a, gt, gr, s);
+  return static_cast<int>(err);
+}
+
+// The bfloat16 dx on the tensor cores.  x (N, H, W, C), w (3, 3, C, Co),
+// y and dy (N, H, W, Co) and dx (N, H, W, C) bfloat16, contiguous; ds1
+// and ds2 (Co,) float32.  The pixels are walked as the bf16 forward
+// walks them (tc_geometry), in runs of run_stages stages (the last run
+// may be shorter), runs = ceil(stages / run_stages).  With the
+// prologue, scale and bias (C,) float32 are read and dscale_part and
+// dbias_part (runs, C) float32, one row of sums of dz*x and dz for each
+// run, every element written; without it they may be null.  x pairs
+// load 4 bytes at a time where bit 0 of vec is set (x 16-byte aligned, C
+// a multiple of 8), y and dy 16 bytes where bit 1 is (both aligned, Co a
+// multiple of 8), w where bit 2 is (w aligned, Co a multiple of 8).
+extern "C" int mx_fused_conv3_bn_dx_mma(
+    const void* x, const void* w, const void* scale, const void* bias,
+    int prologue, const void* y, const void* dy, const void* ds1,
+    const void* ds2, void* dx, void* dscale_part, void* dbias_part,
+    long long N, int H, int W, int C, int Co, long long run_stages,
+    long long runs, int vec, void* stream) {
+  if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  DxArgs a;
+  tc_geometry(W, &a.seg_w, &a.stage_segs, &a.row_segs);
+  const long long segs = N * H * a.row_segs;   // at most N*H*W
+  const long long stages = ceil_div(segs, a.stage_segs);
+  const int bn = C <= 64 ? 64 : 128;
+  const long long tiles = ceil_div(C, bn);
+  if (run_stages <= 0 || run_stages > stages ||
+      runs != ceil_div(stages, run_stages) || runs > 65535 ||
+      tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.y = static_cast<const bf16*>(y);
+  a.dy = static_cast<const bf16*>(dy);
+  a.ds1 = static_cast<const float*>(ds1);
+  a.ds2 = static_cast<const float*>(ds2);
+  a.dx = static_cast<bf16*>(dx);
+  a.dscale = static_cast<float*>(dscale_part);
+  a.dbias = static_cast<float*>(dbias_part);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.Co = Co;
+  a.prologue = prologue;
+  a.vec = vec;
+  a.segs = static_cast<int>(segs);
+  a.stages = static_cast<int>(stages);
+  a.run_stages = static_cast<int>(run_stages);
+  const unsigned gt = static_cast<unsigned>(tiles);
+  const unsigned gr = static_cast<unsigned>(runs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (C <= 64 && Co <= 64)
+    err = launch_dx_mma<64, 64, true, 2>(a, gt, gr, s);
+  else if (C <= 64)
+    err = launch_dx_mma<64, 32, false, 3>(a, gt, gr, s);
+  else
+    err = launch_dx_mma<128, 32, false, 3>(a, gt, gr, s);
   return static_cast<int>(err);
 }

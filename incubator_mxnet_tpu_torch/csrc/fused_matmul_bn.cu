@@ -27,10 +27,11 @@
 //
 // The column sums cross M.  The TPU grid walks M in order and carries
 // them in VMEM; blocks on Hopper run in no order, so each block of 128
-// rows writes one float32 partial row (s1/s2 in the forward, dscale/
-// dbias in dx), and dw splits M into runs that each write a float32
-// partial of the whole (K, N) tile.  The wrapper sums the partials in a
-// fixed order.  No atomics: the result is the same from run to run.
+// rows (the bf16 forward: each run of row blocks) writes one float32
+// partial row (s1/s2 in the forward, dscale/dbias in dx), and dw splits
+// M into runs that each write a float32 partial of the whole (K, N)
+// tile.  The wrapper sums the partials in a fixed order.  No atomics:
+// the result is the same from run to run.
 //
 // Bound.  At ResNet-50's shapes (K and N from 64 to 2048, M up to
 // 401,408 rows at B=128) each kernel does 2*M*K*N operations.  The
@@ -43,9 +44,9 @@
 // against 0.20 ms of FMA), and by operations elsewhere.
 // In bfloat16 every launch is bound by bytes (tensor cores at 989
 // TFLOP/s, 295 operations a byte); the FMA loop below does not reach that
-// bound, and the bf16 dx and dw no longer run it (see below).
+// bound, and no bf16 kernel runs it (see below).
 //
-// Design of the forward, the float32 dx and dw: one tiled product, C (I,
+// Design of the float32 forward, dx and dw: one tiled product, C (I,
 // J) = A (I, R) @ B (R, J), shared by the three kernels, which differ
 // only in how A and B are fetched and in the epilogue.  A block of 256
 // threads owns a 128x128 tile of C; each thread keeps an 8x8 sub-tile in
@@ -104,6 +105,33 @@
 // row warps in order) go to one float32 partial row a block, which the
 // wrapper sums in a fixed order.  Where K > BK each column tile stages
 // dyt again from L2.
+//
+// The bf16 forward (fused_matmul_bn_fwd_mma) replaces `_fwd_kernel`
+// (fused_block.py:83) on the tensor cores.  At (401408, 64, 256) with the
+// prologue it must move 257 MB (x read, y written: 0.077 ms at 3.35
+// TB/s) for 13.2 GFLOP, so it is bound by bytes, most of them y's.  The
+// FMA tile loaded x two bytes at a time and put each element through the
+// prologue as it staged it, and wrote one partial row of s1 and s2 a
+// block of 128 rows.  A block of 8 warps owns 128 rows of M x BN columns
+// of y (64 where N <= 64, else 128), each warp 32 or 64 rows x 32
+// columns, and walks a run of such row blocks (the grid puts a run's
+// column tiles side by side while L2 holds its x).  A row block's depth
+// runs in steps of 32 of K, or all of K where K <= 64, when the block's
+// w slice stays in shared memory for the run: x by cp.async (16 bytes,
+// element loads where a start or K does not allow it) into a ring of
+// three steps, two ahead; each thread applies the prologue in place to
+// the chunks it copied (prologue8: relu(x*scale + bias) in float32,
+// rounded to bf16) and zeroes rows past M, where it would be
+// relu(bias); one barrier a step publishes the tile, A by ldmatrix.  w
+// (K, N) is row-major, B's (k, n) layout: ldmatrix.trans.  The epilogue
+// rounds y to bf16 in pairs into a staging tile of the warp's own (no
+// barrier) and stores the rows inside M from there, 16 bytes a lane, so
+// that each store covers whole 32-byte sectors of y (pairs stored from
+// the accumulators take four stores a sector, and ran 1.5x slower at the
+// launch above on an H100 SXM); the column sums of the
+// rounded y and y^2 stay in registers for the run and are reduced by
+// shuffles, then across the row warps in order, into one float32
+// partial row a run, which the wrapper sums in a fixed order.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -897,14 +925,323 @@ cudaError_t launch_dx_mma(const Args<bf16>& a, int vec, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the forward: the FMA tile over blocks of 128 x 128 of y
-template <typename T>
-cudaError_t launch_fwd(const Args<T>& a, cudaStream_t stream) {
-  const int64_t gi = ceil_div(a.M, BI), gj = ceil_div(a.N, BJ);
-  if (gi > 0x7fffffff || gj > 65535) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-  fused_matmul_bn_fwd_kernel<T><<<grid, THREADS, 0, stream>>>(a);
+// ---------------------------------------------------------------------
+// The forward in bfloat16 on the tensor cores.  See the note at the top.
+
+constexpr int kFmBM = BI;        // rows of M a row block: 128
+constexpr int kFmThreads = 256;  // 8 warps over 128 rows x BN columns
+constexpr int kFmRing = 3;       // steps: two load while one multiplies
+
+// fused_matmul_bn_fwd_mma's tile: BN columns of y a block (64, or 128
+// where N > 64), KC of K a step.  RES (K <= KC = 64): the block's w
+// slice stays in shared memory for its run; else KC = 32 and w streams
+// through the ring with x, a chunk a step.  Shared memory: the x ring,
+// w, each warp's staging tile of y (its rows x 32 columns, rows padded
+// by 16 bytes), then the [s1, s2][row warp][column] sums of the
+// epilogue.
+template <int BN, int KC, bool RES>
+struct FmTc {
+  static constexpr int kWarpsN = BN / 32;          // 32 columns a warp
+  static constexpr int kWarpsM = 8 / kWarpsN;
+  static constexpr int kMw = kFmBM / kWarpsM;      // rows a warp
+  static constexpr int kMI = kMw / 16;             // its m16 tiles
+  static constexpr int kXLd = KC + 8;              // bf16 row strides: 16
+  static constexpr int kWLd = BN + 8;              // bytes of pad
+  static constexpr int kXTile = kFmBM * kXLd;
+  static constexpr int kWTile = KC * kWLd;
+  static constexpr int kRowChunks = KC / 8;        // uint4 of an x row
+  static constexpr int kRowStep = kFmThreads / kRowChunks;  // a thread's
+  static constexpr int kXChunks = kFmBM / kRowStep;         // rows apart
+  static constexpr int kWChunks = KC * (BN / 8) / kFmThreads;
+  static constexpr int kWTiles = RES ? 1 : kFmRing;
+  static constexpr int kYLd = 32 + 8;
+  static constexpr int kYTile = kMw * kYLd;        // a warp's y
+  static constexpr size_t kSmem =
+      (kFmRing * kXTile + kWTiles * kWTile + 8 * kYTile) * sizeof(bf16) +
+      2 * kWarpsM * BN * sizeof(float);
+};
+
+// Grid (ceil(N / BN), runs): block (j, r) computes columns [j BN, (j + 1)
+// BN) of y for the row blocks of run r (a.split_rows rows, the last run
+// fewer), a row block at a time, and writes its float32 sums of y and
+// y^2 to part0[r], part1[r].  A row block's depth runs in steps of KC of
+// K.  vec bit 0: x loads 16 bytes at a time; bit 1: w does; bit 2: y
+// stores 16 bytes at a time.
+template <int BN, int KC, bool RES>
+__global__ void __launch_bounds__(kFmThreads, 2)
+    fused_matmul_bn_fwd_mma(Args<bf16> a, int vec) {
+  using G = FmTc<BN, KC, RES>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xring = reinterpret_cast<bf16*>(smem);
+  bf16* wbuf = xring + kFmRing * G::kXTile;
+  bf16* ystage = wbuf + G::kWTiles * G::kWTile;
+  float* red = reinterpret_cast<float*>(ystage + 8 * G::kYTile);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % G::kWarpsM, wn = warp / G::kWarpsM;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * BN;
+  const int64_t m_begin = static_cast<int64_t>(blockIdx.y) * a.split_rows;
+  const int64_t m_end =
+      a.M - m_begin > a.split_rows ? m_begin + a.split_rows : a.M;
+  const int nrb = static_cast<int>((m_end - m_begin + kFmBM - 1) / kFmBM);
+  const int nck = (a.K + KC - 1) / KC;  // steps a row block: 1 where RES
+  const int nsteps = nrb * nck;
+  const bool vec_x = vec & 1, vec_w = vec & 2, vec_y = vec & 4;
+
+  // This thread's x chunks: rows r0 + kRowStep i of a row block, columns
+  // cc .. cc + 7 of a step's depth; it loads them and applies the
+  // prologue to them itself, so no barrier separates the two.
+  const int cc = (tid % G::kRowChunks) * 8, r0 = tid / G::kRowChunks;
+
+  // w[k0 + k][n0 + n] for k < KC, n < BN into a [k][n] tile; 0 past K
+  // and N.
+  auto load_w = [&](bf16* dst, int k0) {
+    constexpr int kCols = BN / 8;
+#pragma unroll
+    for (int j = 0; j < G::kWChunks; ++j) {
+      const int e = tid + kFmThreads * j;
+      const int row = e / kCols, col = (e - row * kCols) * 8;
+      const bool in = k0 + row < a.K;
+      const bf16* src = a.w + (in ? static_cast<int64_t>(k0 + row) : 0) * a.N;
+      bf16* d = dst + row * G::kWLd + col;
+      if (vec_w) {
+        const bool full = in && n0 + col < a.N;
+        cp_async16(d, full ? src + n0 + col : a.w, full);
+      } else {
+        *reinterpret_cast<uint4*>(d) = load8(src, n0 + col, a.N, in, false);
+      }
+    }
+  };
+
+  // Loads step k of the run into ring slot `slot` (cp.async of 16
+  // bytes, zeros where a chunk lies outside; element loads where a start
+  // or K does not allow 16 bytes) and returns its flags: bit i, chunk
+  // i's row lies in M.
+  auto load_step = [&](int k, int slot) {
+    const int rb = k / nck, k0 = (k - rb * nck) * KC;
+    const int64_t m0 = m_begin + static_cast<int64_t>(rb) * kFmBM;
+    unsigned flags = 0;
+    bf16* xs = xring + slot * G::kXTile;
+#pragma unroll
+    for (int i = 0; i < G::kXChunks; ++i) {
+      const int r = r0 + G::kRowStep * i;
+      const int64_t m = m0 + r;
+      const bool in = m < m_end;
+      flags |= (in ? 1u : 0u) << i;
+      const bf16* src = a.x + (in ? m : 0) * a.K;
+      bf16* d = xs + r * G::kXLd + cc;
+      if (vec_x) {
+        const bool full = in && k0 + cc < a.K;
+        cp_async16(d, full ? src + k0 + cc : a.x, full);
+      } else {
+        *reinterpret_cast<uint4*>(d) = load8(src, k0 + cc, a.K, in, false);
+      }
+    }
+    if (!RES) load_w(wbuf + slot * G::kWTile, k0);
+    return flags;
+  };
+
+  float acc[G::kMI][4][4];
+#pragma unroll
+  for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float s1[4][2], s2[4][2];  // this thread's column sums of y, y^2
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+
+  // Row block rb's epilogue: y rounded to bf16 in pairs into the warp's
+  // staging tile, the rounded values at rows inside M added to the column
+  // sums, the sums cleared; then the tile's rows inside M stored, 16
+  // bytes a lane where vec_y allows (whole 32-byte sectors of a row).
+  bf16* yst = ystage + warp * G::kYTile;
+  auto epilogue = [&](int rb) {
+    const int64_t m0 =
+        m_begin + static_cast<int64_t>(rb) * kFmBM + G::kMw * wm;
+#pragma unroll
+    for (int i = 0; i < G::kMI; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * i + g + 8 * hf;
+        const bool keep = m0 + r < m_end;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 32 * wn + 8 * j + 2 * t4;
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+          acc[i][j][2 * hf] = acc[i][j][2 * hf + 1] = 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(yst + r * G::kYLd + 8 * j +
+                                             2 * t4) = v;
+          if (!keep) continue;
+          const float2 f = __bfloat1622float2(v);
+          if (n < a.N) {
+            s1[j][0] += f.x;
+            s2[j][0] += f.x * f.x;
+          }
+          if (n + 1 < a.N) {
+            s1[j][1] += f.y;
+            s2[j][1] += f.y * f.y;
+          }
+        }
+      }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < G::kMw / 8; ++it) {
+      const int r = 8 * it + (lane >> 2), n = n0 + 32 * wn + 8 * (lane & 3);
+      const int64_t m = m0 + r;
+      if (m >= m_end || n >= a.N) continue;
+      const bf16* src = yst + r * G::kYLd + 8 * (lane & 3);
+      bf16* dst = a.out + m * a.N + n;
+      if (vec_y) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (n + e < a.N) dst[e] = src[e];
+      }
+    }
+    __syncwarp();
+  };
+
+  // the resident w joins step 0's group; then the first kFmRing - 1
+  // steps in flight, one group a step (empty past the run), so that a
+  // wait counts steps
+  if (RES) load_w(wbuf, 0);
+  constexpr unsigned kMask = (1u << G::kXChunks) - 1;
+  unsigned ring_flags = 0;  // G::kXChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < kFmRing - 1; ++k) {
+    if (k < nsteps) ring_flags |= load_step(k, k) << (G::kXChunks * k);
+    cp_async_commit();
+  }
+  int slot = 0, kc = 0, rb = 0;  // the step multiplied: its slot, place
+  for (int s = 0; s < nsteps; ++s) {
+    const int k0 = kc * KC;
+    bf16* xs = xring + slot * G::kXTile;
+    cp_async_wait<kFmRing - 2>();  // this thread's chunks of step s
+    if (a.prologue) {  // in place: relu(x*scale + bias) rounded, 0 past M
+      float sc[8], bi[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int k = k0 + cc + j;
+        sc[j] = k < a.K ? __ldg(a.scale + k) : 0.f;
+        bi[j] = k < a.K ? __ldg(a.bias + k) : 0.f;
+      }
+      const unsigned flags = ring_flags >> (G::kXChunks * slot);
+#pragma unroll
+      for (int i = 0; i < G::kXChunks; ++i) {
+        const int r = r0 + G::kRowStep * i;
+        uint4* p = reinterpret_cast<uint4*>(xs + r * G::kXLd + cc);
+        *p = flags >> i & 1 ? prologue8(*p, sc, bi) : make_uint4(0, 0, 0, 0);
+      }
+    }
+    __syncthreads();
+    // step s + kFmRing - 1 into the slot that step s - 1 left: every warp
+    // left its product at the barrier
+    const int next = slot == 0 ? kFmRing - 1 : slot - 1;
+    if (s + kFmRing - 1 < nsteps)
+      ring_flags = (ring_flags & ~(kMask << (G::kXChunks * next))) |
+                   load_step(s + kFmRing - 1, next) << (G::kXChunks * next);
+    cp_async_commit();
+    const bf16* wt = wbuf + (RES ? 0 : slot * G::kWTile);
+    const int ksteps = ((a.K - k0 < KC ? a.K - k0 : KC) + 15) / 16;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      if (kk >= ksteps) break;
+      uint32_t af[G::kMI][4];  // A = xn: rows m, depth k
+#pragma unroll
+      for (int i = 0; i < G::kMI; ++i)
+        ldsm_x4(af[i], a_ptr<G::kXLd>(xs, G::kMw * wm + 16 * i, 16 * kk));
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // B = w: depth k, columns n
+        uint32_t bf[4];
+        ldsm_x4_t(bf, a_ptr<G::kWLd>(wt, 16 * kk, 32 * wn + 16 * q));
+#pragma unroll
+        for (int i = 0; i < G::kMI; ++i) {
+          mma(acc[i][2 * q], af[i], bf[0], bf[1]);
+          mma(acc[i][2 * q + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+    slot = slot + 1 == kFmRing ? 0 : slot + 1;
+    if (++kc == nck) {
+      epilogue(rb);
+      kc = 0;
+      ++rb;
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+
+  // the run's column sums: over the 8 rows of each lane quad by shuffles,
+  // then over the row warps in order; the same bits every run
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = s1[j][e], v2 = s2[j][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = 32 * wn + 8 * j + 2 * t4 + e;
+        red[wm * BN + col] = v1;
+        red[(G::kWarpsM + wm) * BN + col] = v2;
+      }
+    }
+  __syncthreads();
+  if (tid < BN && n0 + tid < a.N) {
+    float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < G::kWarpsM; ++k) {
+      v1 += red[k * BN + tid];
+      v2 += red[(G::kWarpsM + k) * BN + tid];
+    }
+    const int64_t at = static_cast<int64_t>(blockIdx.y) * a.N + n0 + tid;
+    a.part0[at] = v1;
+    a.part1[at] = v2;
+  }
+}
+
+template <int BN, int KC, bool RES>
+cudaError_t launch_fwd_mma(const Args<bf16>& a, int vec, cudaStream_t stream) {
+  const int64_t tiles = ceil_div(a.N, BN), runs = ceil_div(a.M, a.split_rows);
+  if (tiles > 0x7fffffff || runs > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = FmTc<BN, KC, RES>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_matmul_bn_fwd_mma<BN, KC, RES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_matmul_bn_fwd_mma<BN, KC, RES>
+      <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(runs)),
+         kFmThreads, smem, stream>>>(a, vec);
   return cudaGetLastError();
+}
+
+// float32 forward: the FMA tile over blocks of 128 x 128 of y, one
+// partial row a block (runs of 128 rows)
+cudaError_t launch_fwd(const Args<float>& a, int, cudaStream_t stream) {
+  const int64_t gi = ceil_div(a.M, BI), gj = ceil_div(a.N, BJ);
+  if (a.split_rows != BI || gi > 0x7fffffff || gj > 65535)
+    return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
+  fused_matmul_bn_fwd_kernel<float><<<grid, THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16 forward: the tensor-core tile, w resident where K <= 64, over
+// runs of split_rows rows of M
+cudaError_t launch_fwd(const Args<bf16>& a, int vec, cudaStream_t stream) {
+  const bool wide = a.N > 64;
+  if (a.K <= 64)
+    return wide ? launch_fwd_mma<128, 64, true>(a, vec, stream)
+                : launch_fwd_mma<64, 64, true>(a, vec, stream);
+  return wide ? launch_fwd_mma<128, 32, false>(a, vec, stream)
+              : launch_fwd_mma<64, 32, false>(a, vec, stream);
 }
 
 // float32 dx: the FMA tile over blocks of 128 x 128 of dx
@@ -985,7 +1322,7 @@ Args<T> make_args(const void* x, const void* w, const void* scale,
 template <typename T>
 int run(int mode, const Args<T>& a, int64_t splits, int vec,
         cudaStream_t stream) {
-  if (mode == kFwd) return static_cast<int>(launch_fwd(a, stream));
+  if (mode == kFwd) return static_cast<int>(launch_fwd(a, vec, stream));
   if (mode == kDx) return static_cast<int>(launch_dx(a, vec, stream));
   return static_cast<int>(launch_dw(a, splits, vec, stream));
 }
@@ -1026,20 +1363,29 @@ bool part_rows_ok(long long part_rows, long long M) {
 // dtype: 0 = float32, 1 = bfloat16.  x (M, K), w (K, N) and y (M, N) in
 // that type, row-major and contiguous; scale and bias (K,) float32, read
 // only when prologue is 1 (may be null otherwise); s1_part and s2_part
-// (part_rows, N) float32 with part_rows = ceil(M / 128), every element
-// written.  Launches on `stream` without synchronising; returns the
-// launch's cudaError_t.
+// (part_rows, N) float32, one row of sums of y and y^2 for each run of
+// run_rows rows of M (the last run may be shorter), part_rows =
+// ceil(M / run_rows), every element written.  float32 runs the FMA tile,
+// whose runs are its blocks of 128 rows; bfloat16 the tensor-core tile,
+// whose runs are a multiple of 128 rows and which reads x 16 bytes at a
+// time where bit 0 of vec is set (x 16-byte aligned, K a multiple of 8),
+// w where bit 1 is (w 16-byte aligned, N a multiple of 8), and writes y
+// 16 bytes at a time where bit 2 is (y 16-byte aligned, N a multiple of
+// 8).  Launches
+// on `stream` without synchronising; returns the launch's cudaError_t.
 extern "C" int mx_fused_matmul_bn_fwd(int dtype, const void* x,
                                       const void* w, const void* scale,
                                       const void* bias, int prologue,
                                       void* y, void* s1_part, void* s2_part,
                                       long long part_rows, long long M,
-                                      int K, int N, void* stream) {
-  if (!part_rows_ok(part_rows, M))
+                                      int K, int N, long long run_rows,
+                                      int vec, void* stream) {
+  if (run_rows <= 0 || run_rows % BI != 0 ||
+      part_rows != ceil_div(M, run_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, kFwd, x, w, scale, bias, nullptr, nullptr, nullptr,
-                  nullptr, y, s1_part, s2_part, M, K, N, prologue, 0, 0, 0,
-                  stream);
+                  nullptr, y, s1_part, s2_part, M, K, N, prologue, run_rows,
+                  0, vec, stream);
 }
 
 // dtype as above.  x (M, K), w (K, N), y and dy (M, N) in that type;

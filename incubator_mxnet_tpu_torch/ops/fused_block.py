@@ -18,10 +18,11 @@ product recomputes the prologue too.
 Three kernels (``csrc/fused_matmul_bn.cu``), one wrapper each:
 :func:`fused_matmul_bn_fwd` (kernel 10), :func:`fused_matmul_bn_dx`
 (11) and :func:`fused_matmul_bn_dw` (12), each with a launch counter.
-Kernels 11 and 12 have one instance for each dtype: float32 runs the
-FMA tile that all three share, bfloat16 a tile on the tensor cores
-(``fused_matmul_bn_dx_mma``; ``fused_matmul_bn_dw_mma``, over runs of M
-that :func:`dw_mma_split` chooses).
+Each has one instance for each dtype: float32 runs the FMA tile that all
+three share, bfloat16 a tile on the tensor cores
+(``fused_matmul_bn_fwd_mma``, over runs of M that :func:`fwd_mma_split`
+chooses; ``fused_matmul_bn_dx_mma``; ``fused_matmul_bn_dw_mma``, over
+runs of M that :func:`dw_mma_split` chooses).
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing falls
 back from the card to the plain version.
@@ -56,7 +57,8 @@ __all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
            "fused_matmul_bn_fwd", "fused_matmul_bn_dx", "fused_matmul_bn_dw",
            "FusedMatmulBNFunction", "fused_matmul_bn", "bn_consts",
            "fused_bottleneck_v1", "fused_bottleneck_v1_proj",
-           "dw_mma_split", "fwd_launches", "dx_launches", "dw_launches"]
+           "dw_mma_split", "fwd_mma_split", "fwd_launches", "dx_launches",
+           "dw_launches"]
 
 #: Launches of kernels 10, 11 and 12 so far; each wrapper adds one per
 #: launch and nothing else touches them (a caller may reset them to 0).
@@ -66,7 +68,8 @@ dw_launches = 0
 
 _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # the C entries' arguments (csrc/fused_matmul_bn.cu)
-_FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L, _L, _I, _I, _P]
+_FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L, _L, _I, _I, _L, _I,
+                                                 _P]
 _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L, _L, _I, _I, _I, _P]
 _DW_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 5 + [_L, _I, _I, _L, _L, _I, _P]
 
@@ -92,6 +95,36 @@ def dw_mma_split(m, k, n, sms):
     rows = max(-(-m // want), 32 * k * n // (k + 2 * n), 1)
     rows = -(-rows // _MMA_BM) * _MMA_BM
     return rows, -(-m // rows)
+
+
+# kernel 10's bfloat16 tile (fused_matmul_bn_fwd_mma): row blocks of 128
+# rows of M; runs of row blocks are chosen so that the blocks fill the
+# card's slots (_FWD_BLOCKS_PER_SM an SM) in as few waves as possible,
+# runs of at most _FWD_MAX_RUN row blocks searched
+_FWD_ROWS, _FWD_BLOCKS_PER_SM, _FWD_MAX_RUN = 128, 2, 64
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_mma_split(m, k, n, sms):
+    """``(run_rows, runs)`` of kernel 10's bfloat16 tile for x (m, k) and
+    y (m, n) on a card of ``sms`` SMs: runs of whole 128-row blocks that
+    tile M exactly (the last may be shorter), at most 65535 of them.
+    The run length r minimises waves x r, the time of the slowest SM
+    when each of the ``runs`` x (column tiles) blocks takes a slot of
+    ``_FWD_BLOCKS_PER_SM`` an SM, the longer run where two tie: longer
+    runs load a resident w (k <= 64) less often and leave fewer partial
+    rows."""
+    blocks = -(-m // _FWD_ROWS)
+    tiles = -(-n // (64 if n <= 64 else 128))
+    slots = _FWD_BLOCKS_PER_SM * sms
+    least = max(1, -(-blocks // 65535))
+    best = (None, least)
+    for r in range(least, max(least, min(blocks, _FWD_MAX_RUN)) + 1):
+        cost = -(-(-(-blocks // r) * tiles) // slots) * r
+        if best[0] is None or cost <= best[0]:
+            best = (cost, r)
+    r = best[1]
+    return r * _FWD_ROWS, -(-blocks // r)
 
 
 def matmul_bn_reference(x, w, scale=None, bias=None):
@@ -182,19 +215,25 @@ def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
 
     x (M, K) and w (K, N) in one dtype, float32 or bfloat16; scale and
     bias ``(K,)`` (cast to float32), both or neither.  On a CUDA tensor:
-    kernel 10 on the current stream, then the sum of its (ceil(M / 128),
-    N) partial rows.  On a CPU tensor: the plain version."""
+    kernel 10 on the current stream, then the sum of its float32 partial
+    rows in a fixed order: bfloat16 runs the tensor-core tile (a row for
+    each run of :func:`fwd_mma_split`), float32 the FMA tile (a row for
+    each block of 128 rows of M).  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return matmul_bn_reference(x, w, scale, bias)
     m, k, n = _check("fused_matmul_bn_fwd", x, w, scale, bias)
     x, w = x.contiguous(), w.contiguous()
     scale, bias = _fc.f32(scale), _fc.f32(bias)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rows = -(-m // _fc.BLOCK_ROWS)
-    parts = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
     if m == 0:
         zeros = torch.zeros(n, dtype=torch.float32, device=x.device)
         return y, zeros, zeros.clone()
+    if x.dtype == torch.bfloat16:
+        run_rows, rows = fwd_mma_split(m, k, n, _fc.sms(x.device.index))
+        vec = int(_vec16(x)) | 2 * int(_vec16(w)) | 4 * int(_vec16(y))
+    else:
+        run_rows, rows, vec = _fc.BLOCK_ROWS, -(-m // _fc.BLOCK_ROWS), 0
+    parts = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
     fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_fwd",
                          _FWD_ARGS)
     with torch.cuda.device(x.device):
@@ -202,7 +241,7 @@ def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
         fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
            _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
            y.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows, m,
-           k, n, stream)
+           k, n, run_rows, vec, stream)
     _count("fwd")
     sums = parts.sum(dim=1)
     return y, sums[0], sums[1]

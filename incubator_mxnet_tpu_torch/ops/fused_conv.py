@@ -21,13 +21,14 @@ Three kernels (``csrc/fused_conv3_bn.cu``), one wrapper each:
 :func:`fused_conv3_bn_fwd` (TPU kernel 13), :func:`fused_conv3_bn_dx`
 (kernels 14 and 15: the TPU's split of C_out into blocks, a VMEM limit,
 has no counterpart) and :func:`fused_conv3_bn_dw` (16), each with a
-launch counter.  Kernels 13 and 16 have one instance for each dtype:
-float32 runs the FMA tile that all three share, bfloat16 a tile on the
-tensor cores (``fused_conv3_bn_fwd_mma``, over runs of pixels that
-:func:`fwd_mma_split` chooses; ``fused_conv3_bn_dw_mma``, over those of
-:func:`dw_mma_split`); kernel 14 runs the FMA tile in both.  Each
-wrapper dispatches on where x lies: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+launch counter.  Each has one instance for each dtype: float32 runs the
+FMA tile that all three share, bfloat16 a tile on the tensor cores
+(``fused_conv3_bn_fwd_mma``, over runs of pixels that
+:func:`fwd_mma_split` chooses; ``fused_conv3_bn_dx_mma``, over those of
+:func:`dx_mma_split`; ``fused_conv3_bn_dw_mma``, over those of
+:func:`dw_mma_split`).  Each wrapper dispatches on where x lies: a CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 Nothing falls back, and there is no switch: on the card every 3x3 of the
 fused bottleneck runs on the kernels, whatever its geometry.
 
@@ -52,8 +53,8 @@ __all__ = ["conv3_bn_reference", "conv3_bn_dx_reference",
            "conv3_bn_dw_reference", "conv3_bn_bwd_reference",
            "fused_conv3_bn_fwd", "fused_conv3_bn_dx", "fused_conv3_bn_dw",
            "FusedConv3BNFunction", "fused_conv3_bn", "dw_mma_geometry",
-           "dw_mma_split", "fwd_mma_tile", "fwd_mma_split", "fwd_launches",
-           "dx_launches", "dw_launches"]
+           "dw_mma_split", "fwd_mma_tile", "fwd_mma_split", "dx_mma_tile",
+           "dx_mma_split", "fwd_launches", "dx_launches", "dw_launches"]
 
 #: Launches of the forward, dx and dw kernels so far; each wrapper adds
 #: one per launch and nothing else touches them (a caller may reset them
@@ -70,6 +71,7 @@ _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L] + _SHAPE + [_P]
 _DW_ARGS = [_I] + [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _P]
 _DW_MMA_ARGS = [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _I, _P]
 _FWD_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 3 + _SHAPE + [_L, _L, _I, _P]
+_DX_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 7 + _SHAPE + [_L, _L, _I, _P]
 
 # kernel 16's bfloat16 tile (fused_conv3_bn_dw_mma): 64 x 64 of (c, o)
 # for each of the three kernel rows, over stages of at most 64
@@ -82,9 +84,10 @@ _MMA_TILE, _MMA_POS = 64, 64
 _MMA_BLOCKS_PER_SM = 2
 _MMA_MIN_RUN_PIXELS = 8 * 2 * (3 * _MMA_TILE * _MMA_TILE * 4) // (
     3 * _MMA_TILE * 2)
-# kernel 13's bfloat16 tile (fused_conv3_bn_fwd_mma) walks the pixels as
-# kernel 16's does; its runs of stages are enough that about
-# _FWD_BLOCKS_PER_SM blocks cover each SM (one wave at its occupancy)
+# kernels 13's and 14's bfloat16 tiles (fused_conv3_bn_fwd_mma,
+# fused_conv3_bn_dx_mma) walk the pixels as kernel 16's does; their runs
+# of stages are enough that about _FWD_BLOCKS_PER_SM blocks cover each SM
+# (one wave at their occupancy)
 _FWD_BLOCKS_PER_SM = 2
 
 
@@ -192,18 +195,40 @@ def fwd_mma_tile(c, co):
     return (64 if co <= 64 else 128), (64 if c <= 64 else 32)
 
 
-def fwd_mma_split(n, h, w, c, co, sms):
-    """``(run_stages, runs)`` of kernel 13's bfloat16 tile for x (n, h,
-    w, c) and C_out = co on a card of ``sms`` SMs: runs of whole stages
-    of :func:`dw_mma_geometry`'s walk that tile the stages exactly (the
-    last run may be shorter), enough that about ``_FWD_BLOCKS_PER_SM``
-    blocks of ``fwd_mma_tile``'s channels cover every SM."""
+def _stage_runs(n, h, w, tiles, sms):
+    """``(run_stages, runs)``: runs of whole stages of
+    :func:`dw_mma_geometry`'s walk that tile the stages exactly (the last
+    run may be shorter), enough that about ``_FWD_BLOCKS_PER_SM`` blocks
+    of ``tiles`` channel tiles cover every SM."""
     _, stage_segs, row_segs = dw_mma_geometry(w)
     stages = -(-(n * h * row_segs) // stage_segs)
-    tiles = -(-co // fwd_mma_tile(c, co)[0])
     want = max(1, -(-_FWD_BLOCKS_PER_SM * sms // tiles))
     run_stages = -(-stages // want)
     return run_stages, -(-stages // run_stages)
+
+
+def fwd_mma_split(n, h, w, c, co, sms):
+    """``(run_stages, runs)`` of kernel 13's bfloat16 tile for x (n, h,
+    w, c) and C_out = co on a card of ``sms`` SMs (:func:`_stage_runs`
+    over the tiles of ``fwd_mma_tile``'s output channels)."""
+    return _stage_runs(n, h, w, -(-co // fwd_mma_tile(c, co)[0]), sms)
+
+
+def dx_mma_tile(c, co):
+    """``(bn, kc)`` of kernel 14's bfloat16 tile, as
+    ``mx_fused_conv3_bn_dx_mma`` picks its instance: ``bn`` input
+    channels of dx a block (64, or 128 where ``c`` > 64) and ``kc``
+    output channels a step (64 where ``c`` and ``co`` <= 64, the block's
+    whole W slice then staying in shared memory for its run; else 32, W
+    streaming with dy)."""
+    return (64 if c <= 64 else 128), (64 if max(c, co) <= 64 else 32)
+
+
+def dx_mma_split(n, h, w, c, co, sms):
+    """``(run_stages, runs)`` of kernel 14's bfloat16 tile for x (n, h,
+    w, c) and C_out = co on a card of ``sms`` SMs (:func:`_stage_runs`
+    over the tiles of ``dx_mma_tile``'s input channels)."""
+    return _stage_runs(n, h, w, -(-c // dx_mma_tile(c, co)[0]), sms)
 
 
 def _check(name, x, w, scale, bias, **more):
@@ -320,8 +345,11 @@ def fused_conv3_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
 
     dx comes out in x's dtype; dscale and dbias are float32 ``(C,)``,
     zeros without a prologue (scale None), as the JAX package returns
-    them.  On a CUDA tensor: the dx kernel, then the sum of its partial
-    rows.  On a CPU tensor: the plain version."""
+    them.  On a CUDA tensor: the dx kernel, then the sum of its float32
+    partial rows in a fixed order: bfloat16 runs the tensor-core tile (a
+    row for each run of :func:`dx_mma_split`), float32 the FMA tile (a row
+    for each block of 128 rows of N*H*W).  On a CPU tensor: the plain
+    version."""
     if x.device.type == "cpu":
         return conv3_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
     n, h, wd, c, co, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
@@ -329,21 +357,36 @@ def fused_conv3_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
     prologue = scale is not None
     dx = torch.empty_like(x)
     m = n * h * wd
-    rows = -(-m // _fc.BLOCK_ROWS)
     if m == 0 or not prologue:
         zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
         if m == 0:
             return dx, zeros, zeros.clone()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        run_stages, rows = dx_mma_split(n, h, wd, c, co,
+                                        _fc.sms(x.device.index))
+    else:
+        rows = -(-m // _fc.BLOCK_ROWS)
     parts = (torch.empty((2, rows, c), dtype=torch.float32, device=x.device)
              if prologue else None)
-    fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dx", _DX_ARGS)
+    operands = (x.data_ptr(), w.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
+                int(prologue), y.data_ptr(), dy.data_ptr(), ds1.data_ptr(),
+                ds2.data_ptr(), dx.data_ptr(),
+                parts[0].data_ptr() if prologue else None,
+                parts[1].data_ptr() if prologue else None)
     with torch.cuda.device(x.device):
-        fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-           _fc.ptr(scale), _fc.ptr(bias), int(prologue), y.data_ptr(),
-           dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(), dx.data_ptr(),
-           parts[0].data_ptr() if prologue else None,
-           parts[1].data_ptr() if prologue else None, rows, n, h, wd, c, co,
-           _stream(x.device))
+        if bf16:
+            vec = (int(_fc.vec16(x)) | 2 * int(_fc.vec16(y, dy))
+                   | 4 * int(_fc.vec16(w)))
+            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dx_mma",
+                                 _DX_MMA_ARGS)
+            fn(*operands, n, h, wd, c, co, run_stages, rows, vec,
+               _stream(x.device))
+        else:
+            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dx",
+                                 _DX_ARGS)
+            fn(_fc.DTYPE_CODES[x.dtype], *operands, rows, n, h, wd, c, co,
+               _stream(x.device))
     _count("dx")
     if not prologue:
         return dx, zeros, zeros.clone()

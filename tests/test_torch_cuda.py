@@ -445,6 +445,66 @@ def test_fused_matmul_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue, m,
             _within(g, r, 2e-2, what)
 
 
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_fused_matmul_bn_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
+    """float32 inputs run kernel 10's FMA tile; bfloat16 its tensor-core
+    tile (fused_matmul_bn_fwd_mma), as the profiler sees."""
+    x, w, scale, bias = _fmm_inputs(200, 96, 72, dtype, dev)[:4]
+    hits = {n for n in _kernel_names(fb.fused_matmul_bn_fwd,
+                                     (x, w, scale, bias))
+            if "fused_matmul_bn" in n}
+    assert len(hits) == 1, hits
+    name, = hits
+    assert "fused_matmul_bn_fwd" in name, name
+    assert ("fused_matmul_bn_fwd_mma" in name) == (route == "tensor-core"), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(200, 96, 72), (12544, 64, 256),
+                                   (1000, 60, 100), (1568, 1024, 512)])
+def test_fused_matmul_bn_fwd_is_bit_for_bit_repeatable(dev, dtype, m, k, n):
+    """No atomics: the sums of y and y² are float32 partial rows (one a
+    run of row blocks in bfloat16, one a block of 128 rows in float32)
+    that the wrapper sums in a fixed order, so two calls give the same
+    bits."""
+    args = _fmm_inputs(m, k, n, dtype, dev)[:4]
+    first, second = (fb.fused_matmul_bn_fwd(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (1000, 60, 100, 0),   # K and N not multiples of 8
+    (77, 9, 130, 0),      # K under one 16-byte chunk
+    (640, 64, 256, 1),    # rows of 8 elements, starts off 16 bytes
+    (33, 200, 40, 0),     # K in seven steps of 32, the last ragged
+])
+def test_fused_matmul_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue, m,
+                                                    k, n, offset):
+    """Where a start or a row width does not allow 16-byte loads (and
+    where K streams in several steps), the bfloat16 forward tile matches
+    the plain version within the bfloat16 tolerance (2e-2 of the largest
+    value of y, s1, s2)."""
+    x, w, scale, bias = _fmm_inputs(m, k, n, "bfloat16", dev)[:4]
+    if not prologue:
+        scale = bias = None
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        shifted = buf[offset:].view(x.shape)
+        shifted.copy_(x)
+        x = shifted
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert k > 64 or not (fb._vec16(x) and fb._vec16(w))
+    got = fb.fused_matmul_bn_fwd(x, w, scale, bias)
+    want = fb.matmul_bn_reference(x, w, scale, bias)
+    torch.cuda.synchronize()
+    for what, g, r in zip(("y", "s1", "s2"), got, want):
+        _within(g, r, 2e-2, what)
+
+
 def test_small_fused_resnet_step_on_the_card_matches_cpu(dev, no_tf32):
     """A fused ResNet (one bottleneck a stage, each with a projection)
     on the card against the same weights and batch on the CPU: 12 launches
@@ -710,6 +770,76 @@ def test_fused_conv3_bn_fwd_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
     the wrapper sums in a fixed order, so two calls give the same bits."""
     args = _conv_inputs(n, h, w, c, co, dtype, dev)[:4]
     first, second = (fc.fused_conv3_bn_fwd(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+                                         ("bfloat16", "tensor-core")])
+def test_fused_conv3_bn_dx_runs_the_kernel_of_its_dtype(dev, dtype, route):
+    """float32 inputs run kernel 14's FMA tile; bfloat16 its tensor-core
+    tile (fused_conv3_bn_dx_mma), as the profiler sees."""
+    args = _conv_dw_args(2, 5, 9, 16, 8, dtype, dev)
+    hits = {n for n in _kernel_names(fc.fused_conv3_bn_dx, args)
+            if "fused_conv3_bn" in n}
+    assert len(hits) == 1, hits
+    name, = hits
+    assert "fused_conv3_bn_dx" in name, name
+    assert ("fused_conv3_bn_dx_mma" in name) == (route == "tensor-core"), name
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("n,h,w,c,co,offset", [
+    (2, 5, 9, 12, 20, 0),     # C and C_out not multiples of 8
+    (3, 6, 6, 16, 13, 0),     # C_out under two 16-byte chunks
+    (2, 7, 7, 5, 64, 0),      # C under one 16-byte chunk
+    (4, 14, 14, 64, 64, 1),   # rows of 8 elements, starts off 16 bytes
+    (1, 3, 130, 8, 8, 0),     # an image row in three segments
+    (1, 2, 70, 24, 72, 0),    # C_out > 64: output channels in chunks
+    (2, 6, 6, 200, 80, 0),    # and C in two tiles of 128
+])
+def test_fused_conv3_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue, n,
+                                                  h, w, c, co, offset):
+    """Where a start or a channel count does not allow 16-byte loads (and
+    where rows take several segments, or C and C_out several tiles and
+    chunks), the bfloat16 dx tile matches the plain version within the
+    bfloat16 tolerance (2e-2 of the largest value of dx, dscale and
+    dbias)."""
+    x, k, scale, bias, y, dy, ds1, ds2 = _conv_dw_args(n, h, w, c, co,
+                                                       "bfloat16", dev,
+                                                       prologue)
+    if offset:
+        def shift(t):
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            out = buf[offset:].view(t.shape)
+            out.copy_(t)
+            return out
+        x, y, dy = shift(x), shift(y), shift(dy)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert w > 62 or c > 64 or co > 64 or not (
+        fb._vec16(x) and fb._vec16(y, dy))
+    args = (x, k, scale, bias, y, dy, ds1, ds2)
+    got = fc.fused_conv3_bn_dx(*args)
+    want = fc.conv3_bn_dx_reference(*args)
+    torch.cuda.synchronize()
+    _within(got[0], want[0], 2e-2, "dx")
+    if prologue:
+        for what, g, r in zip(("dscale", "dbias"), got[1:], want[1:]):
+            _within(g, r, 2e-2, what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c,co", [(2, 5, 9, 16, 8), (16, 6, 6, 16, 260),
+                                        (8, 56, 56, 64, 64),
+                                        (8, 7, 7, 512, 512)])
+def test_fused_conv3_bn_dx_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
+                                                     co):
+    """No atomics: the sums of dz*x and dz are float32 partial rows (one a
+    run of stages in bfloat16, one a block of 128 rows in float32) that
+    the wrapper sums in a fixed order, so two calls give the same bits."""
+    args = _conv_dw_args(n, h, w, c, co, dtype, dev)
+    first, second = (fc.fused_conv3_bn_dx(*args) for _ in range(2))
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)

@@ -23,7 +23,12 @@ from a seed and handed to both.
   whole 32-row stages;
 * kernel 11's bfloat16 arithmetic (``fused_matmul_bn_dx_mma``, the card
   only) emulated by ``_kernel_fmm_dx`` and held to the JAX VJP's dx,
-  dscale and dbias at the shapes above, with and without the prologue.
+  dscale and dbias at the shapes above, with and without the prologue;
+* kernel 10's bfloat16 arithmetic (``fused_matmul_bn_fwd_mma``, the card
+  only) emulated by ``_kernel_fmm_fwd`` and held to the JAX package's
+  Pallas forward ``_fwd_impl`` (interpret mode) at the shapes above and
+  one whose K is not a multiple of 8, with and without the prologue, and
+  its split rule's runs tiling M in whole 128-row blocks.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -346,3 +351,84 @@ def test_kernel_dx_arithmetic_matches_jax(m, k, n, prologue):
         _close(got[2], dbi, TOL["bfloat16"], "dbias")
     else:
         assert got[1] is None and got[2] is None
+
+
+# kernel 10's bfloat16 tile: 128 rows of M a row block, 16 of K a
+# tensor-core step
+_FWD_ROWS = 128
+
+
+def _kernel_fmm_fwd(x, w, scale, bias, run_rows):
+    """``(y, s1, s2)`` by the arithmetic of kernel 10's bfloat16 tile:
+    the prologue relu(x*scale + bias) in float32, rounded to bf16; exact
+    products of the bf16 values, each 16-deep m16n8k16 step's sum added
+    to the float32 y in order along K; y rounded to bf16; s1 and s2 the
+    float32 sums of the rounded y and y^2 over each run of ``run_rows``
+    rows, the runs' partials then added in order.  Rows past M are
+    absent, as the kernel zeroes them after the prologue and stores none
+    of them."""
+    a = fc.prologue(x, scale, bias).double()
+    wt = w.double()
+    m, k = a.shape
+    acc = torch.zeros(m, w.shape[1], dtype=torch.float32)
+    for k0 in range(0, k, 16):
+        ks = slice(k0, min(k, k0 + 16))
+        acc = (acc.double() + a[:, ks] @ wt[ks]).float()
+    y = acc.to(torch.bfloat16)
+    yf = y.float()
+    s1 = torch.zeros(w.shape[1], dtype=torch.float32)
+    s2 = torch.zeros(w.shape[1], dtype=torch.float32)
+    for r0 in range(0, m, run_rows):
+        rows = yf[r0:r0 + run_rows]
+        s1 = s1 + rows.sum(dim=0)
+        s2 = s2 + (rows * rows).sum(dim=0)
+    return y, s1, s2
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + [(300, 60, 100)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_kernel_fwd_arithmetic_matches_jax(m, k, n, prologue):
+    """The bfloat16 forward kernel's order of sums and roundings (the
+    split rule's runs, and runs of one row block, so that the partials'
+    sum is exercised) within TOL["bfloat16"] (2e-2 of the largest |JAX|
+    value) of the JAX package's Pallas forward ``_fwd_impl`` in
+    interpret mode: y, s1 and s2.  Both round y's float32 sums, taken in
+    another order, to bf16, so a value may land one bf16 ulp (2^-8 of
+    it) away."""
+    a = _inputs(m, k, n, seed=m + k + n + 1)
+    j, t = _to_jax(a, "bfloat16"), _to_torch(a, "bfloat16")
+    sc = j["scale"] if prologue else jnp.ones((k,), jnp.float32)
+    bi = j["bias"] if prologue else jnp.zeros((k,), jnp.float32)
+    want = jfb._fwd_impl(j["x"], j["w"], sc, bi, prologue)
+    for run_rows in (fb.fwd_mma_split(m, k, n, sms=132)[0], _FWD_ROWS):
+        got = _kernel_fmm_fwd(t["x"], t["w"], t["scale"] if prologue else None,
+                              t["bias"] if prologue else None, run_rows)
+        for name, g, r in zip(("y", "s1", "s2"), got, want):
+            _close(g, r.astype(jnp.float32), TOL["bfloat16"],
+                   f"fwd {name} run_rows={run_rows}")
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 64), (31, 64, 256), (33, 2048, 2048), (200, 96, 72),
+    (401408, 64, 64), (401408, 64, 256), (401408, 256, 64),
+    (100352, 128, 512), (25088, 512, 1024), (6272, 2048, 512),
+    (6272, 1024, 2048), (3 * 10 ** 7, 64, 64), (2 ** 31 - 1, 8, 8)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fwd_mma_split_tiles_m_in_whole_stages(m, k, n, sms):
+    """Runs of whole 128-row blocks tile M exactly within the grid's
+    limit, and no other run length leaves the slowest SM less work (runs
+    x column tiles blocks, _FWD_BLOCKS_PER_SM of them an SM at a time)
+    among the lengths searched."""
+    rows, runs = fb.fwd_mma_split(m, k, n, sms)
+    assert rows > 0 and rows % _FWD_ROWS == 0
+    assert (runs - 1) * rows < m <= runs * rows
+    assert 1 <= runs <= 65535
+    blocks, tiles = -(-m // _FWD_ROWS), -(-n // (64 if n <= 64 else 128))
+    slots = fb._FWD_BLOCKS_PER_SM * sms
+
+    def cost(r):
+        return -(-(-(-blocks // r) * tiles) // slots) * r
+
+    least = -(-blocks // 65535)
+    for r in range(least, max(least, min(blocks, fb._FWD_MAX_RUN)) + 1):
+        assert cost(rows // _FWD_ROWS) <= cost(r)

@@ -30,7 +30,13 @@ from a seed and handed to both.
   forward ``_fc3`` in interpret mode at the four shapes and two whose
   image rows take several segments (W > 62, one with C > 64, so that its
   channels run in chunks of 32), with and without the prologue, and its
-  split helper, whose runs of whole stages tile every pixel once.
+  split helper, whose runs of whole stages tile every pixel once;
+* kernel 14's bfloat16 tensor-core tile (``fused_conv3_bn_dx_mma``, the
+  card only, which also stands for the TPU's kernel 15) by its
+  arithmetic, ``_kernel_conv3_dx``, against the dx, dscale and dbias of
+  the Pallas VJP ``_fc3`` in interpret mode at the forward's shapes and in
+  the multi-N-block geometry (``_bwd_dx_kernel_nb``), with and without
+  the prologue, and its split helper.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -538,3 +544,127 @@ def test_fwd_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
     assert bn in (64, 128) and (bn == 64) == (co <= 64)
     assert kc == (64 if c <= 64 else 32)
     assert runs * -(-co // bn) >= min(sms, stages)
+
+
+# ---------------------------------------------------------------------------
+# kernel 14's bfloat16 tile (and the TPU's kernel 15), by its arithmetic
+# ---------------------------------------------------------------------------
+
+def _kernel_conv3_dx(x, w, scale, bias, y, dy, ds1, ds2, sms=132,
+                     run_stages=None):
+    """``(dx, dscale, dbias)`` by ``fused_conv3_bn_dx_mma``'s arithmetic,
+    on numpy arrays that hold bfloat16 values: dyt = dy + ds1 + 2*y*ds2 in
+    float32, rounded to bf16; the pixels walked in kernel 16's segments
+    and stages (``fc.dw_mma_geometry``), 64 positions a stage, a stage's
+    dyt of image row h - dh a tile with a zero guard row on either side
+    and 0 outside the image (past M, where it would be ds1, too), so that
+    tap dw reads it at row offset 1 - dw; per stage the depth in the
+    kernel's order (dh, then chunks of ``fc.dx_mma_tile``'s kc output
+    channels, then the three taps, then steps of 16 channels), each
+    step's exact product summed and rounded once to float32 (one
+    ``mma``); at the segments' own pixels, with the prologue z =
+    x*scale + bias in float32, dz = dxn where z > 0, dx = dz*scale
+    rounded to bf16, and dscale, dbias the float32 sums of dz*x and dz,
+    one partial per run (``fc.dx_mma_split`` unless ``run_stages`` is
+    given), the runs then added in order; without it dx = dxn rounded to
+    bf16 and dscale, dbias zeros."""
+    n, h, wd, c = x.shape
+    co = dy.shape[-1]
+    dyt = _bf16((dy + ds1) + (2 * y) * ds2)
+    stages, b, hh, px, live, keep = _walk(n, h, wd)
+    if run_stages is None:
+        run_stages, runs = fc.dx_mma_split(n, h, wd, c, co, sms)
+    else:
+        runs = -(-stages // run_stages)
+    assert runs == -(-stages // run_stages) and run_stages <= stages
+    kc = fc.dx_mma_tile(c, co)[1]
+    acc = np.zeros((stages, _POS, c), np.float32)
+    for dh in (-1, 0, 1):
+        ok = live & (hh - dh >= 0) & (hh - dh < h) & (px >= 0) & (px < wd)
+        d_tile = np.where(ok[..., None],
+                          dyt[b, (hh - dh).clip(0, h - 1), px.clip(0, wd - 1)],
+                          0).astype(np.float64)
+        d_tile = np.pad(d_tile, ((0, 0), (1, 1), (0, 0)))  # the guard rows
+        for o0 in range(0, co, kc):
+            for tap in range(3):          # dw = tap - 1: row offset 2 - tap
+                a = d_tile[:, 2 - tap:2 - tap + _POS]
+                for k0 in range(o0, min(co, o0 + kc), 16):
+                    ks = slice(k0, min(co, k0 + 16))
+                    step = np.einsum("spo,co->spc", a[..., ks],
+                                     w[dh + 1, tap, :, ks].astype(np.float64))
+                    acc = (acc + step).astype(np.float32)
+    zero = np.zeros(c, np.float32)
+    if scale is None:
+        rows, dsc, dbi = _bf16(acc), zero, zero
+    else:
+        xk = x[b, hh, px.clip(0, wd - 1)]
+        dz = np.where(xk * scale + bias > 0, acc, 0).astype(np.float32)
+        rows = _bf16(dz * scale)
+        dsc, dbi = zero, zero
+        for r in range(runs):
+            part = slice(r * run_stages, (r + 1) * run_stages)
+            own = keep[part]
+            dsc = dsc + (dz[part] * xk[part])[own].sum(axis=0, dtype=np.float32)
+            dbi = dbi + dz[part][own].sum(axis=0, dtype=np.float32)
+    dx = np.zeros((n, h, wd, c), np.float32)
+    dx[b[keep], hh[keep], px[keep]] = rows[keep]
+    return dx, dsc, dbi
+
+
+@pytest.mark.parametrize("shape", FWD_MMA_SHAPES + [MULTI_NBLOCK])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_dx_mma_arithmetic_matches_the_jax_vjp(shape, prologue, monkeypatch):
+    """``_kernel_conv3_dx`` (the plan's runs, and one stage a run, so that
+    the partials' sum is exercised) against the dx, dscale and dbias of
+    the JAX package's Pallas VJP ``_fc3`` in interpret mode, bfloat16,
+    within TOL["bfloat16"] (2e-2) of their largest |JAX| value.  At
+    MULTI_NBLOCK the JAX side is forced onto ``_bwd_dx_kernel_nb`` (C_out
+    in three N blocks: the TPU's kernel 15), as
+    ``test_multi_nblock_geometry_matches_the_pallas_kernels`` forces it.
+    Both round dx to bf16 from float32 sums taken in another order, so a
+    value may land one bf16 ulp (2^-8 of it) away."""
+    a = _inputs(*shape, seed=29 + sum(shape))
+    j = _to_jax(a, "bfloat16")
+    n, h, w, c, co = shape
+    if shape == MULTI_NBLOCK:
+        monkeypatch.setattr(jfc, "_VMEM_BUDGET",
+                            jfc._Geom(j["x"], co)._bytes(128) + 1)
+        g = jfc._Geom(j["x"], co)
+        assert g.n_blocks == 3 and g.fits()
+    else:
+        assert jfc._Geom(j["x"], co).fits()
+    (y, _, _), (dx, _, dsc, dbi) = _jax_vjp(_pallas(prologue), j, prologue)
+    f32 = lambda v: np.asarray(jnp.asarray(v).astype(jnp.float32))  # noqa
+    args = (f32(j["x"]), f32(j["w"]), a["scale"] if prologue else None,
+            a["bias"] if prologue else None, f32(y), f32(j["dy"]), a["ds1"],
+            a["ds2"])
+    for run_stages in (None, 1):
+        got = _kernel_conv3_dx(*args, run_stages=run_stages)
+        _close(got[0], f32(dx), TOL["bfloat16"], f"dx_mma dx runs={run_stages}")
+        if prologue:
+            for name, gv, wv in zip(("dscale", "dbias"), got[1:], (dsc, dbi)):
+                _close(gv, f32(wv), TOL["bfloat16"],
+                       f"dx_mma {name} runs={run_stages}")
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+    (128, 7, 7, 512, 512),             # ResNet-50's 3x3 shapes at B=128
+    (2, 8, 8, 16, 24), (3, 6, 6, 16, 16), (2, 14, 14, 32, 16),
+    (2, 5, 9, 16, 8), (16, 6, 6, 16, 260), (8, 7, 7, 512, 512),
+    (1, 1, 1, 3, 5), (3, 2, 62, 8, 8), (2, 3, 63, 8, 8),
+    (1, 4, 200, 8, 8), (1, 2, 70, 72, 24), (2, 6, 6, 200, 80)])
+def test_dx_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
+    _, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    run_stages, runs = fc.dx_mma_split(n, h, w, c, co, sms)
+    # runs of whole stages cover every stage once, within the grid's
+    # limit, and enough of them that every SM gets a block where the
+    # stages allow
+    assert 1 <= run_stages <= stages and runs <= 65535
+    assert (runs - 1) * run_stages < stages <= runs * run_stages
+    bn, kc = fc.dx_mma_tile(c, co)
+    assert bn in (64, 128) and (bn == 64) == (c <= 64)
+    assert kc == (64 if max(c, co) <= 64 else 32)
+    assert runs * -(-c // bn) >= min(sms, stages)
