@@ -22,8 +22,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    dtype: float32-FMA for float32, tensor-core for bfloat16; the fused
    1x1's forward, dx and weight gradient (kernels 10-12) and the fused
    3x3's forward, dx and weight gradient (13, 14 and 16) the same way,
-   bfloat16 also where they load rows element by element, and two runs
-   bit for bit, as two runs of the LayerNorm backward), with
+   except that the float32 weight gradients run 3xTF32 tensor-core
+   tiles, each tensor-core tile also where it loads rows element by
+   element, and two runs bit for bit, as two runs of the LayerNorm
+   backward), with
    the stated tolerances, and its time beside the plain version's, one
    PyTorch library call's and the bound (the fused kernels' in both
    dtypes);
@@ -119,8 +121,10 @@ launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
 paths it ran on; kernels 10-14 and 16 have an entry for each instance,
-the float32 FMA tile with phase 7's launches and the bfloat16
-tensor-core tile (``..._mma``) with phase 8's.
+the float32 tile with phase 7's launches (the FMA tiles of kernels 10,
+11, 13 and 14; the 3xTF32 tensor-core tiles of kernels 12 and 16,
+``..._dw_tf32``) and the bfloat16 tensor-core tile (``..._mma``) with
+phase 8's.
 """
 import copy
 import gc
@@ -212,6 +216,11 @@ FMM_REP = (RESNET_B * 56 * 56, 64, 256, True)
 FMM_ELEMENT_SHAPES = [(1000, 60, 100), (77, 9, 130), (33, 200, 40)]
 FP32_PEAK = 67e12      # FLOP/s of float32 FMA outside the tensor cores
 BF16_PEAK = 989e12     # dense bf16 tensor-core FLOP/s
+TF32_PEAK = 495e12     # dense tf32 tensor-core FLOP/s
+# the float32 weight gradients (kernels 12 and 16) multiply on the tensor
+# cores in three tf32 products each, so their bound counts three times
+# 2*M*K*N operations at TF32_PEAK
+TF32_PRODUCTS = 3
 # card step vs CPU step, ResNet-50 at B=4.  ResNet-50's float32
 # forward and backward at a tiny batch amplify rounding: moving the
 # input by 1e-6 (a few ulps) moves the CPU path's own logits by about
@@ -1123,14 +1132,34 @@ def check_fused_matmul_bn(torch, fb, dev):
     return path_err
 
 
+def tile_suffix(part, dtype):
+    """The kernel-name suffix of a fused kernel's instance: ``_mma`` for
+    every bfloat16 tile, ``_tf32`` for the float32 weight gradients (the
+    3xTF32 tiles of kernels 12 and 16), none for the float32 FMA tiles of
+    the forwards and dx."""
+    if dtype == "bfloat16":
+        return "_mma"
+    return "_tf32" if part == "dw" else ""
+
+
+def dw_operations(dtype, flops, peak):
+    """``(operations, peak)`` of a fused weight gradient's bound: float32
+    runs three tf32 products of ``flops`` each at the TF32 peak, bfloat16
+    one at ``peak``."""
+    if dtype == "float32":
+        return TF32_PRODUCTS * flops, TF32_PEAK
+    return flops, peak
+
+
 def check_fmm_mma(torch, fb, dev):
     """Kernels 10, 11 and 12 by dtype: the profiler's kernel names show
-    float32 runs the FMA tile and bfloat16 the tensor-core tile
+    float32's forward and dx run the FMA tile, its dw the 3xTF32 tile
+    (``fused_matmul_bn_dw_tf32``), and bfloat16 the tensor-core tiles
     (``fused_matmul_bn_fwd_mma``, ``fused_matmul_bn_dx_mma``,
-    ``fused_matmul_bn_dw_mma``); each bfloat16 tile within FMM_TOL of its
-    plain version where it loads rows element by element; two runs of it
-    give the same bits there, at the representative launch and at the
-    ragged test shape."""
+    ``fused_matmul_bn_dw_mma``); each tensor-core tile within FMM_TOL of
+    its plain version where it loads rows element by element; two runs
+    of it give the same bits there, at the representative launch and at
+    the ragged test shape."""
     def bwd_args(m, k, n, dtype, pro=True):
         x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
                                                      dev, 2)
@@ -1150,38 +1179,44 @@ def check_fmm_mma(torch, fb, dev):
                                              bwd_args(200, 96, 72, dtype))
                      if "fused_matmul_bn" in n]
             print(f"fused_matmul_bn_{part} {dtype} runs {names}", flush=True)
-            assert (len(names) == 1
-                    and f"fused_matmul_bn_{part}" in names[0]), names
-            assert (f"fused_matmul_bn_{part}_mma" in names[0]) == (
-                dtype == "bfloat16"), names
+            want = f"fused_matmul_bn_{part}{tile_suffix(part, dtype)}"
+            assert len(names) == 1 and want in names[0], names
+            assert ("_mma" in names[0]) == (dtype == "bfloat16"), names
+            assert ("_tf32" in names[0]) == (
+                tile_suffix(part, dtype) == "_tf32"), names
     m, k, n, _ = FMM_REP
     for m, k, n, pro in [(m, k, n, True), (200, 96, 72, True),
                          (200, 96, 72, False)] + [
             shape + (pro,) for shape in FMM_ELEMENT_SHAPES
             for pro in (False, True)]:
-        args = bwd_args(m, k, n, "bfloat16", pro)
-        for part, fn, ref in tiles:
-            first, second, want = fn(*args), fn(*args), ref(*args)
-            torch.cuda.synchronize()
-            ratios = []
-            for a, b, r in zip(first, second, want):
-                if r is None:
-                    assert a is None and b is None
+        for dtype in FMM_TOL:
+            args = bwd_args(m, k, n, dtype, pro)
+            tol = FMM_TOL[dtype]
+            for part, fn, ref in tiles:
+                suffix = tile_suffix(part, dtype)
+                if not suffix:
                     continue
-                err = (a.float() - r.float()).abs().max().item()
-                scale_ = r.float().abs().max().item()
-                assert err <= FMM_TOL["bfloat16"] * scale_, (
-                    part, (m, k, n, pro), err)
-                assert torch.equal(a, b), (part, (m, k, n, pro))
-                ratios.append(err / scale_)
-            print(f"fused_matmul_bn_{part}_mma ({m}, {k}, {n}) "
-                  f"prologue={pro}: max|d|/max|ref| "
-                  f"{' '.join(f'{v:.2e}' for v in ratios)} "
-                  f"(tol {FMM_TOL['bfloat16']:g}); vec16 x "
-                  f"{fb._vec16(args[0])} y/dy {fb._vec16(args[4], args[5])}; "
-                  "two runs bit for bit", flush=True)
-            del first, second, want
-        del args
+                first, second, want = fn(*args), fn(*args), ref(*args)
+                torch.cuda.synchronize()
+                ratios = []
+                for a, b, r in zip(first, second, want):
+                    if r is None:
+                        assert a is None and b is None
+                        continue
+                    err = (a.float() - r.float()).abs().max().item()
+                    scale_ = r.float().abs().max().item()
+                    assert err <= tol * scale_, (part, dtype, (m, k, n, pro),
+                                                 err)
+                    assert torch.equal(a, b), (part, dtype, (m, k, n, pro))
+                    ratios.append(err / scale_)
+                print(f"fused_matmul_bn_{part}{suffix} ({m}, {k}, {n}) "
+                      f"prologue={pro}: max|d|/max|ref| "
+                      f"{' '.join(f'{v:.2e}' for v in ratios)} "
+                      f"(tol {tol:g}); vec16 x {fb._vec16(args[0])} y/dy "
+                      f"{fb._vec16(args[4], args[5])}; two runs bit for bit",
+                      flush=True)
+                del first, second, want
+            del args
 
 
 def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
@@ -1219,12 +1254,13 @@ def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
     dx_bytes = (2 * m * n + k * n + 2 * m * k) * es + 4 * k * 4 + 2 * n * 4
     dw_bytes = (m * k + 2 * m * n + k * n) * es + 2 * k * 4 + 2 * n * 4
     label = f"({m}, {k}, {n}) prologue {dtype}"
+    dw_flops, dw_peak = dw_operations(dtype, flops, peak)
     out = (report(f"fused_matmul_bn_fwd {label}", fwd, fwd_bytes, rate,
                   flops, peak),
            report(f"fused_matmul_bn_dx {label}", dx, dx_bytes, rate, flops,
                   peak),
-           report(f"fused_matmul_bn_dw {label}", dw, dw_bytes, rate, flops,
-                  peak))
+           report(f"fused_matmul_bn_dw{tile_suffix('dw', dtype)} {label}", dw,
+                  dw_bytes, rate, dw_flops, dw_peak))
     del sets, fwd_sets, bwd_sets
     return out
 
@@ -1316,13 +1352,14 @@ def check_fused_conv3_bn(torch, fc, dev):
 
 def check_conv3_mma(torch, fc, dev):
     """Kernels 13, 14 and 16 by dtype: the profiler's kernel names show
-    float32 runs the FMA tile and bfloat16 the tensor-core tile
+    float32's forward and dx run the FMA tile, its dw the 3xTF32 tile
+    (``fused_conv3_bn_dw_tf32``), and bfloat16 the tensor-core tiles
     (``fused_conv3_bn_fwd_mma``, ``fused_conv3_bn_dx_mma``,
-    ``fused_conv3_bn_dw_mma``); each bfloat16 tile within FMM_TOL of its
-    plain version where it loads rows element by element, where an image
-    row takes several segments and where C_out > 64 (the TPU's kernel
-    15); two runs of it give the same bits there, at every path shape
-    and at the JAX tests' ragged shapes."""
+    ``fused_conv3_bn_dw_mma``); each tensor-core tile within FMM_TOL of
+    its plain version where it loads rows element by element, where an
+    image row takes several segments and where C_out > 64 (C_out = 260:
+    the TPU's kernel 15); two runs of it give the same bits there, at
+    every path shape and at the JAX tests' ragged shapes."""
     from incubator_mxnet_tpu_torch.ops import _fused_common as common
 
     def bwd_args(shape, dtype, pro=True):
@@ -1344,10 +1381,11 @@ def check_conv3_mma(torch, fc, dev):
                 torch, fn, bwd_args((2, 5, 9, 16, 8), dtype))
                 if "fused_conv3_bn" in n]
             print(f"fused_conv3_bn_{part} {dtype} runs {names}", flush=True)
-            assert (len(names) == 1
-                    and f"fused_conv3_bn_{part}" in names[0]), names
-            assert (f"fused_conv3_bn_{part}_mma" in names[0]) == (
-                dtype == "bfloat16"), names
+            want = f"fused_conv3_bn_{part}{tile_suffix(part, dtype)}"
+            assert len(names) == 1 and want in names[0], names
+            assert ("_mma" in names[0]) == (dtype == "bfloat16"), names
+            assert ("_tf32" in names[0]) == (
+                tile_suffix(part, dtype) == "_tf32"), names
     path = list(dict.fromkeys(resnet_conv3_shapes(RESNET_B)))
     sms = common.sms(dev.index)
     for shape, pro in ([(s_, True) for s_ in path]
@@ -1355,28 +1393,34 @@ def check_conv3_mma(torch, fc, dev):
                        + [((16, 6, 6, 16, 260), True)]
                        + [(s_, p) for s_ in CONV_ELEMENT_SHAPES
                           for p in (False, True)]):
-        args = bwd_args(shape, "bfloat16", pro)
-        for part, fn, ref in tiles:
-            first, second, want = fn(*args), fn(*args), ref(*args)
-            torch.cuda.synchronize()
-            ratios = []
-            for a, b, r in zip(first, second, want):
-                err = (a.float() - r.float()).abs().max().item()
-                scale_ = max(r.float().abs().max().item(), 1e-30)
-                assert err <= FMM_TOL["bfloat16"] * scale_, (part, shape,
-                                                             pro, err)
-                assert torch.equal(a, b), (part, shape, pro)
-                ratios.append(err / scale_)
-            split = {"fwd": fc.fwd_mma_split, "dx": fc.dx_mma_split,
-                     "dw": fc.dw_mma_split}[part](*shape, sms)
-            print(f"fused_conv3_bn_{part}_mma {shape} prologue={pro}: "
-                  f"max|d|/max|ref| {' '.join(f'{v:.2e}' for v in ratios)} "
-                  f"(tol {FMM_TOL['bfloat16']:g}); vec16 x "
-                  f"{common.vec16(args[0])} w {common.vec16(args[1])} y/dy "
-                  f"{common.vec16(args[4], args[5])}; split {split}; two "
-                  "runs bit for bit", flush=True)
-            del first, second, want
-        del args
+        for dtype in FMM_TOL:
+            args = bwd_args(shape, dtype, pro)
+            tol = FMM_TOL[dtype]
+            for part, fn, ref in tiles:
+                suffix = tile_suffix(part, dtype)
+                if not suffix:
+                    continue
+                first, second, want = fn(*args), fn(*args), ref(*args)
+                torch.cuda.synchronize()
+                ratios = []
+                for a, b, r in zip(first, second, want):
+                    err = (a.float() - r.float()).abs().max().item()
+                    scale_ = max(r.float().abs().max().item(), 1e-30)
+                    assert err <= tol * scale_, (part, dtype, shape, pro, err)
+                    assert torch.equal(a, b), (part, dtype, shape, pro)
+                    ratios.append(err / scale_)
+                split = {"fwd": fc.fwd_mma_split, "dx": fc.dx_mma_split,
+                         "dw": fc.dw_mma_split if dtype == "bfloat16"
+                         else fc.dw_tf32_split}[part](*shape, sms)
+                print(f"fused_conv3_bn_{part}{suffix} {shape} prologue={pro}: "
+                      f"max|d|/max|ref| "
+                      f"{' '.join(f'{v:.2e}' for v in ratios)} (tol {tol:g}); "
+                      f"vec16 x {common.vec16(args[0])} w "
+                      f"{common.vec16(args[1])} y/dy "
+                      f"{common.vec16(args[4], args[5])}; split {split}; two "
+                      "runs bit for bit", flush=True)
+                del first, second, want
+            del args
 
 
 def kernel_names(torch, fn, args, tries=4):
@@ -1465,12 +1509,13 @@ def time_fused_conv3_bn(torch, fc, dev, dtype, rate):
         + 2 * co * 4
     dw_bytes = (m * c + 2 * m * co + 9 * c * co) * es + 2 * c * 4 + 2 * co * 4
     label = f"{CONV_REP} prologue {dtype}"
+    dw_flops, dw_peak = dw_operations(dtype, flops, peak)
     out = (report(f"fused_conv3_bn_fwd {label}", fwd, fwd_bytes, rate, flops,
                   peak),
            report(f"fused_conv3_bn_dx {label}", dx, dx_bytes, rate, flops,
                   peak),
-           report(f"fused_conv3_bn_dw {label}", dw, dw_bytes, rate, flops,
-                  peak))
+           report(f"fused_conv3_bn_dw{tile_suffix('dw', dtype)} {label}", dw,
+                  dw_bytes, rate, dw_flops, dw_peak))
     del sets, fwd_sets, bwd_sets, lib_sets
     return out
 
@@ -1919,8 +1964,9 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
     "flash_attention_bwd_dq": "flash_attention.bwd_dq_launches"}
 
 
-# the kernels with a bfloat16 tensor-core instance beside the float32 FMA
-# tile, by their kernels line names
+# the kernels with a bfloat16 tensor-core instance beside a float32 one
+# (the FMA tile; the 3xTF32 tile for the weight gradients), by their
+# counters' names
 _MMA_INSTANCES = ("fused_matmul_bn_fwd", "fused_matmul_bn_dx",
                   "fused_matmul_bn_dw", "fused_conv3_bn_fwd",
                   "fused_conv3_bn_dx", "fused_conv3_bn_dw")
@@ -2826,8 +2872,9 @@ def main():
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
     bench = bench_path(torch, np, dev, smi)
     # kernels 10-14's and 16's counters move for either of their
-    # instances: phase 7 runs only float32 (the FMA tiles), the bench path
-    # only bfloat16 (the tensor-core tiles)
+    # instances: phase 7 runs only float32 (the FMA tiles, and the 3xTF32
+    # tiles of the weight gradients), the bench path only bfloat16 (the
+    # tensor-core tiles)
     mma_launches = {k: bench[k] for k in _MMA_INSTANCES}
     resnet = {k: v + (bench[k] if k not in _MMA_INSTANCES else 0)
               for k, v in resnet.items()}
@@ -2906,8 +2953,9 @@ def main():
             (pk + ":348", pk + ":419 (XLA backward)",
              pk + ":419 (XLA backward)"), flash_err, flash_times)
     ] + [
-        dict(name=f"fused_matmul_bn_{part}", route="cuda",
-             source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:{line}",
+        dict(name=f"fused_matmul_bn_{part}{tile_suffix(part, 'float32')}",
+             route="cuda", source=src + "fused_matmul_bn.cu",
+             replaces=f"{fbk}:{line}",
              launches=resnet[f"fused_matmul_bn_{part}"],
              max_abs_err=fmm_err[part], **times)
         for part, line, times in zip(("fwd", "dx", "dw"), (83, 154, 181),
@@ -2920,8 +2968,8 @@ def main():
         for part, line, times in zip(("fwd", "dx", "dw"), (83, 154, 181),
                                      fmm_mma_times)
     ] + [
-        dict(name=f"fused_conv3_bn_{part}", route="cuda",
-             source=src + "fused_conv3_bn.cu", replaces=where,
+        dict(name=f"fused_conv3_bn_{part}{tile_suffix(part, 'float32')}",
+             route="cuda", source=src + "fused_conv3_bn.cu", replaces=where,
              launches=resnet[f"fused_conv3_bn_{part}"],
              max_abs_err=conv_err[part], **times)
         for part, where, times in zip(

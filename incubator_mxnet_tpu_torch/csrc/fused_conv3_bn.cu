@@ -37,10 +37,10 @@
 // is rounded to T.  Every load and store masks its ragged edge; no
 // padded copy of any operand exists in device memory.
 //
-// Each kernel is an implicit matrix product over the shifted taps,
+// The float32 forward and dx are implicit matrix products over the
+// shifted taps,
 //   forward  C (M, C_out)   = A (M, 9*C)     @ B (9*C, C_out)
 //   dx       C (M, C)       = A (M, 9*C_out) @ B (9*C_out, C)
-//   dw       C (9*C, C_out) = A (9*C, M)     @ B (M, C_out)
 // with the shift, the image mask, the prologue and dyt applied as A and
 // B are staged.  The tile loop is the one of csrc/fused_matmul_bn.cu: a
 // block of 256 threads owns a 128x128 tile of C, each thread an 8x8
@@ -52,21 +52,25 @@
 //
 // Sums across M.  Blocks run in no order, so the forward and dx write one
 // float32 partial row per block of 128 rows (s1/s2, dscale/dbias), and dw
-// splits M into runs that each write a float32 partial of the whole
-// (9*C, C_out) gradient; the wrapper sums them in a fixed order.  No
-// atomics: the result is the same from run to run.
+// (both dtypes, below) splits the pixels into runs that each write a
+// float32 partial of the whole (9*C, C_out) gradient; the wrapper sums
+// them in a fixed order.  No atomics: the result is the same from run to
+// run.
 //
 // Bound.  Each kernel does 2*M*9*C*C_out operations.  At ResNet-50's
 // 3x3 shapes at B=128 (M = 401,408 rows at 64 channels down to 6,272 at
 // 512) that is 29.6 GFLOP a launch, 0.44 ms at the card's 67 TFLOP/s of
 // float32 FMA outside the tensor cores, while the bytes (x, y, dy, the
 // 73 KB to 9.4 MB kernel) take at most 0.12 ms at 3.35 TB/s: in float32
-// every launch is bound by operations.  In bfloat16 the tensor cores'
-// 989 TFLOP/s bound it by bytes at stage 1 (dw: 154 MB, 0.046 ms,
-// against 0.030 ms of operations) and by operations at stages 2-4; the
-// FMA loop reaches neither.  Only float32 runs it (forward, dx and dw);
-// implicit GEMM on wgmma with TMA-fed halo tiles is later work for it.
-// Every bfloat16 kernel runs on the tensor cores (below).
+// on the FMA units every launch is bound by operations.  The float32 dw
+// runs on the tensor cores in three tf32 products (below): 3 x 29.6
+// GFLOP, 0.179 ms at 495 TFLOP/s, still above its bytes (0.092 ms at
+// stage 1).  In bfloat16 the tensor cores' 989 TFLOP/s bound it by bytes
+// at stage 1 (dw: 154 MB, 0.046 ms, against 0.030 ms of operations) and
+// by operations at stages 2-4; the FMA loop reaches neither.  Only the
+// float32 forward and dx run it; implicit GEMM on wgmma with TMA-fed
+// halo tiles is later work for them.  Every bfloat16 kernel runs on the
+// tensor cores (below).
 //
 // The bf16 dw (fused_conv3_bn_dw_mma) replaces the same TPU kernel,
 // `_bwd_dw_kernel` (:244), on the tensor cores.  The TPU kernel rounds
@@ -105,6 +109,39 @@
 //     element.
 //   - Each run writes its float32 (9*C, C_out) partial; the wrapper sums
 //     the runs in a fixed order.  No atomics: the same bits every run.
+//
+// The float32 dw (fused_conv3_bn_dw_tf32) replaces the same TPU kernel
+// on the tensor cores, on the bf16 tile's walk, grid and runs, keeping
+// float32 numbers.  The TPU kernel multiplies float32 operands
+// unrounded, and one tf32 or bf16 pass keeps about three digits, so
+// each operand is split into tf32 hi = rna(v) and lo = rna(v - hi)
+// (mma.cuh: split_tf32), and three mma.sync.m16n8k8 tf32 products,
+// lo.hi + hi.lo + hi.hi, go into float32 sums: about 2^-21 of each
+// product.  The tensor core truncates each sum it returns, so a tap's
+// products go into a part that starts at 0 each stage (24 products a
+// chain), added to the run's sum rounded to nearest: one register for
+// all of a run's products drifted past the float32 tolerance at
+// ResNet-50's shapes (phase 3 of chip_smoke.py compares them).  The FMA
+// tile it replaces
+// spent an integer division and a masked scalar load on each of A's
+// elements and ran 2.1x slower than its plain version.
+//   - The raw rows of x, y and dy go by cp.async (16 bytes, zeros
+//     outside; element loads where a start is unaligned or C (C_out) is
+//     not a multiple of 4) straight into a ring slot laid out as the
+//     operand tiles: x one row below its position (a zero guard row
+//     either side), y and dy at their position.  Each thread applies the
+//     prologue in place to the x chunks it copied (0 outside the image)
+//     and turns its y and dy chunks into dyt (0 at the halo), in float32
+//     with __fmul_rn/__fadd_rn, split into tf32 hi and lo in place of dy
+//     and y; one barrier a stage publishes the slot.  So shared memory
+//     holds one float32 tile per operand a stage and no separate operand
+//     buffers: 55,872 bytes a slot; a ring of two, one stage loading
+//     while one multiplies, at two blocks an SM (112,768 bytes a block).
+//   - The tiles' row strides are 8 mod 32 floats, so the 32-bit fragment
+//     loads (a lane reads row t, column g) fall on 32 distinct banks; the
+//     three taps read the x tile at row offsets 0, 1, 2 as in bf16,
+//     splitting x as its fragment is loaded, and read dyt's parts as
+//     they lie (one split for the three taps).
 //
 // The bf16 forward (fused_conv3_bn_fwd_mma) replaces `_fwd_kernel`
 // (:139) on the tensor cores, on the same walk of the pixels, with the
@@ -194,7 +231,7 @@ constexpr int BR = 8;         // depth staged through shared memory at once
 constexpr int THREADS = 256;  // 16 x 16 threads, an 8x8 sub-tile each
 constexpr int LOADS = BI * BR / THREADS;  // A (and B) elements a thread stages
 
-enum Mode { kFwd = 0, kDx = 1, kDw = 2 };
+enum Mode { kFwd = 0, kDx = 1 };
 
 template <typename T>
 struct Args {
@@ -207,7 +244,7 @@ struct Args {
   const float* ds1;     // (Co,) (dx, dw)
   const float* ds2;     // (Co,)
   T* out;               // forward: y (M, Co); dx: dx (M, C)
-  float* part0;         // forward: s1 rows; dx: dscale rows; dw: dw parts
+  float* part0;         // forward: s1 rows; dx: dscale rows
   float* part1;         // forward: s2 rows; dx: dbias rows
   int M;                // N*H*W rows
   int H;
@@ -215,7 +252,6 @@ struct Args {
   int C;
   int Co;
   int prologue;
-  int split_rows;       // dw: rows of M each split takes
 };
 
 template <typename T>
@@ -288,54 +324,33 @@ __device__ __forceinline__ void column_partials(
 // l of A goes to As[ar][ai + l * a_step_i] ... as laid out below; the
 // coordinates that do not change from slice to slice are computed once.
 //
-//   forward, dx: A row i = tid / 8 + 32 l (a pixel), depth tid % 8;
-//   forward:     B depth tid / 128 + 2 l, column tid % 128;
-//   dx:          B depth tid % 8, column tid / 8 + 32 l;
-//   dw:          A row i = tid % 128 (a tap and channel), depth
-//                tid / 128 + 2 l (a pixel); B the same as the forward's.
+//   A row i = tid / 8 + 32 l (a pixel), depth tid % 8;
+//   forward: B depth tid / 128 + 2 l, column tid % 128;
+//   dx:      B depth tid % 8, column tid / 8 + 32 l.
 template <int MODE, typename T>
 struct Stager {
   const Args<T>& a;
   int tid;
   int r_end;
-  // forward and dx: the pixel of each A row, its (h, w), and whether it
-  // exists
+  // the pixel of each A row, its (h, w), and whether it exists
   int row[LOADS];
   int ph[LOADS];
   int pw[LOADS];
   bool ok[LOADS];
-  // dw: the tap and channel of this thread's A row
-  int kdh, kdw, kc;
-  bool kok;
 
   __device__ __forceinline__ Stager(const Args<T>& args, int i0, int end)
       : a(args), tid(threadIdx.x), r_end(end) {
-    if (MODE == kDw) {
-      const int k = i0 + (tid % BI);
-      kok = k < 9 * a.C;
-      const int t = kok ? k / a.C : 0;
-      kc = k - t * a.C;
-      tap(t, &kdh, &kdw);
-    } else {
 #pragma unroll
-      for (int l = 0; l < LOADS; ++l) {
-        const int m = i0 + tid / BR + (THREADS / BR) * l;
-        ok[l] = m < a.M;
-        row[l] = m;
-        pw[l] = m % a.W;
-        ph[l] = (m / a.W) % a.H;
-      }
+    for (int l = 0; l < LOADS; ++l) {
+      const int m = i0 + tid / BR + (THREADS / BR) * l;
+      ok[l] = m < a.M;
+      row[l] = m;
+      pw[l] = m % a.W;
+      ph[l] = (m / a.W) % a.H;
     }
   }
 
   __device__ __forceinline__ float fetch_a(int l, int r0) const {
-    if (MODE == kDw) {
-      const int m = r0 + tid / BI + (THREADS / BI) * l;
-      if (!kok || m >= r_end) return 0.f;
-      const int h = (m / a.W) % a.H + kdh, w = m % a.W + kdw;
-      if (!inside(h, w, a.H, a.W)) return 0.f;
-      return prologue_at(a, m + kdh * a.W + kdw, kc);
-    }
     const int k = r0 + tid % BR;
     if (!ok[l] || k >= r_end) return 0.f;
     const int width = MODE == kFwd ? a.C : a.Co;
@@ -362,20 +377,14 @@ struct Stager {
     const int k = r0 + tid / BJ + (THREADS / BJ) * l;
     const int o = j0 + tid % BJ;
     if (k >= r_end || o >= a.Co) return 0.f;
-    if (MODE == kFwd)  // B[t*C + c][o] = W[t, c, o]
-      return to_float(a.w[static_cast<int64_t>(k) * a.Co + o]);
-    return dyt_at(a, k, o);  // dw: B[m][o] = dyt[m, o]
+    // forward: B[t*C + c][o] = W[t, c, o]
+    return to_float(a.w[static_cast<int64_t>(k) * a.Co + o]);
   }
 
   // shared-memory places of element l of A and B
   __device__ __forceinline__ void a_place(int l, int* r, int* i) const {
-    if (MODE == kDw) {
-      *r = tid / BI + (THREADS / BI) * l;
-      *i = tid % BI;
-    } else {
-      *r = tid % BR;
-      *i = tid / BR + (THREADS / BR) * l;
-    }
+    *r = tid % BR;
+    *i = tid / BR + (THREADS / BR) * l;
   }
   __device__ __forceinline__ void b_place(int l, int* r, int* j) const {
     if (MODE == kDx) {
@@ -397,19 +406,12 @@ __device__ __forceinline__ void fused_conv(const Args<T>& a) {
   __shared__ float red0[THREADS / 16][BJ];
   __shared__ float red1[THREADS / 16][BJ];
 
-  const int I = MODE == kDw ? 9 * a.C : a.M;
+  // C is (M, C_out) in the forward, (M, C) in dx; the depth 9 C or 9 C_out
+  const int I = a.M;
   const int J = MODE == kDx ? a.C : a.Co;
   const int i0 = blockIdx.x * BI;
   const int j0 = blockIdx.y * BJ;
-  int r_begin = 0, r_end;
-  if (MODE == kFwd) {
-    r_end = 9 * a.C;
-  } else if (MODE == kDx) {
-    r_end = 9 * a.Co;
-  } else {
-    r_begin = blockIdx.z * a.split_rows;
-    r_end = a.M - r_begin > a.split_rows ? r_begin + a.split_rows : a.M;
-  }
+  const int r_begin = 0, r_end = MODE == kFwd ? 9 * a.C : 9 * a.Co;
   const Stager<MODE, T> st(a, i0, r_end);
 
   const int tid = threadIdx.x;
@@ -457,21 +459,6 @@ __device__ __forceinline__ void fused_conv(const Args<T>& a) {
         for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
     }
     __syncthreads();
-  }
-
-  if (MODE == kDw) {  // this split's float32 partial of dw (9*C, Co)
-    float* dst = a.part0 + static_cast<int64_t>(blockIdx.z) * I * a.Co;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int k = i0 + slot(ty, p);
-      if (k >= I) continue;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int o = j0 + slot(tx, q);
-        if (o < J) dst[static_cast<int64_t>(k) * a.Co + o] = acc[p][q];
-      }
-    }
-    return;
   }
 
   float c0[8], c1[8];  // per-column sums over this thread's rows
@@ -536,36 +523,19 @@ __global__ void __launch_bounds__(THREADS)
   fused_conv<kDx>(a);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_conv3_bn_dw_kernel(Args<T> a) {
-  fused_conv<kDw>(a);
-}
-
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// The FMA tile, float32 only: bfloat16's forward, dx and dw are the
-// tensor-core tiles below.
-cudaError_t launch(int mode, const Args<float>& a, long long splits,
-                   cudaStream_t stream) {
-  dim3 block(THREADS);
-  if (mode == kFwd || mode == kDx) {
-    const int64_t gi = ceil_div(a.M, BI);
-    const int64_t gj = ceil_div(mode == kFwd ? a.Co : a.C, BJ);
-    if (gj > 65535) return cudaErrorInvalidValue;
-    dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-    if (mode == kDx)
-      fused_conv3_bn_dx_kernel<float><<<grid, block, 0, stream>>>(a);
-    else
-      fused_conv3_bn_fwd_kernel<float><<<grid, block, 0, stream>>>(a);
-  } else {
-    const int64_t gi = ceil_div(9LL * a.C, BI), gj = ceil_div(a.Co, BJ);
-    if (gj > 65535 || splits > 65535 || splits <= 0)
-      return cudaErrorInvalidValue;
-    dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
-              static_cast<unsigned>(splits));
-    fused_conv3_bn_dw_kernel<float><<<grid, block, 0, stream>>>(a);
-  }
+// The FMA tile, float32 forward and dx only: bfloat16's forward, dx and
+// dw and float32's dw are the tensor-core tiles below.
+cudaError_t launch(int mode, const Args<float>& a, cudaStream_t stream) {
+  const int64_t gi = ceil_div(a.M, BI);
+  const int64_t gj = ceil_div(mode == kFwd ? a.Co : a.C, BJ);
+  if (gj > 65535) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
+  if (mode == kDx)
+    fused_conv3_bn_dx_kernel<float><<<grid, THREADS, 0, stream>>>(a);
+  else
+    fused_conv3_bn_fwd_kernel<float><<<grid, THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -582,7 +552,7 @@ Args<T> make_args(const void* x, const void* w, const void* scale,
                   const void* bias, const void* y, const void* dy,
                   const void* ds1, const void* ds2, void* out, void* part0,
                   void* part1, long long N, int H, int W, int C, int Co,
-                  int prologue, long long split_rows) {
+                  int prologue) {
   Args<T> a;
   a.x = static_cast<const T*>(x);
   a.w = static_cast<const T*>(w);
@@ -601,7 +571,6 @@ Args<T> make_args(const void* x, const void* w, const void* scale,
   a.C = C;
   a.Co = Co;
   a.prologue = prologue;
-  a.split_rows = static_cast<int>(split_rows);
   return a;
 }
 
@@ -609,15 +578,14 @@ int dispatch(int dtype, int mode, const void* x, const void* w,
              const void* scale, const void* bias, const void* y,
              const void* dy, const void* ds1, const void* ds2, void* out,
              void* part0, void* part1, long long N, int H, int W, int C,
-             int Co, int prologue, long long split_rows, long long splits,
-             void* stream) {
+             int Co, int prologue, void* stream) {
   if (dtype != 0 || !shape_ok(N, H, W, C, Co))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaSuccess);
   return static_cast<int>(launch(
       mode, make_args<float>(x, w, scale, bias, y, dy, ds1, ds2, out, part0,
-                             part1, N, H, W, C, Co, prologue, split_rows),
-      splits, static_cast<cudaStream_t>(stream)));
+                             part1, N, H, W, C, Co, prologue),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // ---------------------------------------------------------------------
@@ -644,12 +612,15 @@ constexpr int kTcXRows = kTcPos + 2;   // xn rows: a zero guard either side
 constexpr int kTcChunks = kTcPos * (kTcTile / 8) / kTcThreads;  // 2
 constexpr int kTcRing = 3;       // raw stages: two load while one is staged
 
-struct TcArgs {
-  const bf16* x;        // (M, C)
+// The arguments of the dw tiles: T = bf16 (fused_conv3_bn_dw_mma) or
+// float (fused_conv3_bn_dw_tf32).
+template <typename T>
+struct DwArgs {
+  const T* x;           // (M, C)
   const float* scale;   // (C,), read only with the prologue
   const float* bias;    // (C,)
-  const bf16* y;        // (M, Co)
-  const bf16* dy;       // (M, Co)
+  const T* y;           // (M, Co)
+  const T* dy;          // (M, Co)
   const float* ds1;     // (Co,)
   const float* ds2;     // (Co,)
   float* part;          // (runs, 9*C, Co)
@@ -666,6 +637,7 @@ struct TcArgs {
   int stages;           // ceil(segs / stage_segs)
   int run_stages;       // stages of a run (the last run: fewer)
 };
+using TcArgs = DwArgs<bf16>;
 
 // The walk of the pixels for an image width W: segments of seg_w
 // pixels, stage_segs of them to a stage (64 positions at most, a
@@ -902,6 +874,285 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   // c = 16 wc + g + 8 (e / 2), o = 32 wo + 8 j + 2 t4 + e % 2 of the tile
   float* dst = a.part + static_cast<int64_t>(blockIdx.y) * 9 * a.C * a.Co;
   const int g = lane >> 2, t4 = lane & 3;
+  const bool pairs = (a.Co & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = c0 + 16 * wc + g + 8 * hf;
+      if (c >= a.C) continue;
+      float* out =
+          dst + (static_cast<int64_t>(3 * (dh + 1) + t) * a.C + c) * a.Co;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + 32 * wo + 8 * j + 2 * t4;
+        const float v0 = acc[t][j][2 * hf], v1 = acc[t][j][2 * hf + 1];
+        if (pairs && o + 1 < a.Co) {
+          *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+        } else {
+          if (o < a.Co) out[o] = v0;
+          if (o + 1 < a.Co) out[o + 1] = v1;
+        }
+      }
+    }
+}
+
+// ---------------------------------------------------------------------
+// dw in float32 on the tensor cores (3xTF32).  See the note at the top.
+
+using mx::dyt4;
+using mx::load4;
+using mx::mma_3xtf32;
+using mx::prologue4;
+using mx::split_tf32;
+
+constexpr int kTfLd = kTcTile + 8;   // float row stride: 8 mod 32 banks
+constexpr int kTfRowChunks = kTcTile / 4;                // float4 a row
+constexpr int kTfRowStep = kTcThreads / kTfRowChunks;    // a thread's
+constexpr int kTfChunks = kTcPos / kTfRowStep;           // positions apart
+constexpr int kTfRing = 2;           // stages: one loads while one multiplies
+
+// A ring slot holds a stage: x, turned into xn in place (kTcXRows rows of
+// kTfLd: position p at row p + 1, a zero guard row either side), y and
+// dy (kTcPos rows of kTfLd each), turned in place into dyt's tf32 lo and
+// hi parts; after the ring, the per-channel constants (4 x kTcTile
+// floats).  The padded strides are 8 mod 32 floats, so the 32 lanes of
+// a fragment load, at rows t4 and columns g, read 32 distinct banks.
+template <int RING>
+struct DwTf {
+  static constexpr int kX = kTcXRows * kTfLd;
+  static constexpr int kY = kTcPos * kTfLd;
+  static constexpr int kSlot = kX + 2 * kY;  // floats
+  static constexpr size_t kSmem =
+      (RING * kSlot + 4 * kTcTile) * sizeof(float);
+};
+
+// Grid (3 * ceil(C / 64) * ceil(Co / 64), runs), as fused_conv3_bn_dw_mma:
+// block (t, r) takes kernel row dh = t % 3 - 1 and tile t / 3 of (c, o)
+// over run r of the stages, and writes its three taps' float32 sums to
+// part[r].
+template <int RING>
+__global__ void __launch_bounds__(kTcThreads, RING == 2 ? 2 : 1)
+    fused_conv3_bn_dw_tf32(DwArgs<float> a) {
+  using G = DwTf<RING>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* sc_s = ring + RING * G::kSlot;
+  float* bi_s = sc_s + kTcTile;
+  float* d1_s = bi_s + kTcTile;
+  float* d2_s = d1_s + kTcTile;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wc = warp & 3, wo = warp >> 2;  // the warp's 16 x 32 tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tiles_c = (a.C + kTcTile - 1) / kTcTile;
+  const int dh = static_cast<int>(blockIdx.x % 3) - 1;
+  const int tile = static_cast<int>(blockIdx.x / 3);
+  const int c0 = (tile % tiles_c) * kTcTile, o0 = (tile / tiles_c) * kTcTile;
+  const int st_begin = blockIdx.y * a.run_stages;
+  const int st_end =
+      a.stages - st_begin > a.run_stages ? st_begin + a.run_stages : a.stages;
+  const bool vec_x = a.vec & 1, vec_y = a.vec & 2;
+
+  // The ring starts at 0: the guard rows and the positions past a
+  // stage's segments are never written again.
+  {
+    float4* z = reinterpret_cast<float4*>(ring);
+    for (int i = tid; i < RING * G::kSlot / 4; i += kTcThreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // per-channel constants, 0 past C and Co (a zero channel stays zero)
+  for (int i = tid; i < kTcTile; i += kTcThreads) {
+    const bool in_c = a.prologue && c0 + i < a.C;
+    sc_s[i] = in_c ? a.scale[c0 + i] : 0.f;
+    bi_s[i] = in_c ? a.bias[c0 + i] : 0.f;
+    const bool in_o = o0 + i < a.Co;
+    d1_s[i] = in_o ? a.ds1[o0 + i] : 0.f;
+    d2_s[i] = in_o ? a.ds2[o0 + i] : 0.f;
+  }
+
+  // This thread's chunks: positions (tid >> 4) + 16 i of a stage,
+  // channels cc .. cc + 3 of the tile, for x, y and dy; the thread
+  // copies them and stages them itself.  Position i is place[i] of the
+  // stage's segment sg[i] (places 0 and seg_w + 1 are the halo).
+  const int cc = (tid & 15) * 4;
+  const int pitch = a.seg_w + 2;
+  const int npos = a.stage_segs * pitch;  // positions a stage uses
+  int sg[kTfChunks], place[kTfChunks];
+#pragma unroll
+  for (int i = 0; i < kTfChunks; ++i) {
+    const int p = (tid >> 4) + kTfRowStep * i;
+    sg[i] = p / pitch;
+    place[i] = p - sg[i] * pitch;
+  }
+
+  // Loads stage st into ring slot `slot` (cp.async of 16 bytes, zeros
+  // where a chunk lies outside; element loads where a start or width
+  // does not allow 16 bytes) and returns its flags: bit 2i, chunk i's x
+  // lies in the image; bit 2i + 1, its dyt is a segment's own pixel.
+  // Where an image row takes several segments, a stage holds one.
+  auto fetch = [&](int st, int slot) {
+    unsigned flags = 0;
+    float* rx = ring + slot * G::kSlot;
+    float* ry = rx + G::kX;
+    float* rd = ry + G::kY;
+    const int seg0 = st * a.stage_segs;
+    const int img0 = seg0 / a.row_segs, sr = seg0 - img0 * a.row_segs;
+#pragma unroll
+    for (int i = 0; i < kTfChunks; ++i) {
+      const int p = (tid >> 4) + kTfRowStep * i;
+      if (p < npos) {
+        const bool live = seg0 + sg[i] < a.segs;
+        const int img_row = img0 + sg[i];  // sg[i] is 0 where row_segs > 1
+        const int h = img_row % a.H;
+        const int w = sr * a.seg_w + place[i] - 1;  // this position's pixel
+        // x at (n, h + dh, w); dyt at (n, h, w) for a segment's own pixels
+        const bool xin = live && h + dh >= 0 && h + dh < a.H && w >= 0 &&
+                         w < a.W;
+        const bool din = live && place[i] >= 1 && place[i] <= a.seg_w &&
+                         w < a.W;
+        flags |= (xin ? 1u : 0u) << (2 * i) | (din ? 2u : 0u) << (2 * i);
+        const float* xr =
+            a.x + (xin ? static_cast<int64_t>(img_row + dh) * a.W + w : 0) *
+                      a.C;
+        const int64_t dpix =
+            (din ? static_cast<int64_t>(img_row) * a.W + w : 0) * a.Co;
+        float* xd = rx + (p + 1) * kTfLd + cc;
+        float* yd = ry + p * kTfLd + cc;
+        float* dd = rd + p * kTfLd + cc;
+        if (vec_x) {
+          const bool full = xin && c0 + cc < a.C;
+          cp_async16(xd, full ? xr + c0 + cc : a.x, full);
+        } else {
+          *reinterpret_cast<float4*>(xd) = load4(xr, c0 + cc, a.C, xin);
+        }
+        if (vec_y) {
+          const bool full = din && o0 + cc < a.Co;
+          cp_async16(yd, full ? a.y + dpix + o0 + cc : a.y, full);
+          cp_async16(dd, full ? a.dy + dpix + o0 + cc : a.dy, full);
+        } else {
+          *reinterpret_cast<float4*>(yd) =
+              load4(a.y + dpix, o0 + cc, a.Co, din);
+          *reinterpret_cast<float4*>(dd) =
+              load4(a.dy + dpix, o0 + cc, a.Co, din);
+        }
+      }
+    }
+    return flags;
+  };
+
+  float acc[3][4][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+
+  __syncthreads();  // the zeroed ring and the constants
+  // the first RING - 1 stages in flight; one group a stage, empty past
+  // the run, so that a wait counts stages
+  constexpr int kBits = 2 * kTfChunks;  // flags a slot
+  unsigned ring_flags = 0;
+#pragma unroll
+  for (int k = 0; k < RING - 1; ++k) {
+    if (st_begin + k < st_end)
+      ring_flags |= fetch(st_begin + k, k) << (kBits * k);
+    cp_async_commit();
+  }
+  const int ksteps = (npos + 7) / 8;
+  int slot = 0;
+  for (int st = st_begin; st < st_end; ++st) {
+    float* rx = ring + slot * G::kSlot;
+    float* ry = rx + G::kX;
+    float* rd = ry + G::kY;
+    cp_async_wait<RING - 2>();  // this thread's chunks of stage st
+    {  // xn (the prologue, 0 outside the image) in place, in float32; dyt
+       // (0 at the halo) in float32, split into tf32 hi in place of dy
+       // and lo in place of y
+      const unsigned flags = ring_flags >> (kBits * slot);
+      float sc[4], bi[4], d1[4], d2[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[j] = sc_s[cc + j];
+        bi[j] = bi_s[cc + j];
+        d1[j] = d1_s[cc + j];
+        d2[j] = d2_s[cc + j];
+      }
+#pragma unroll
+      for (int i = 0; i < kTfChunks; ++i) {
+        const int p = (tid >> 4) + kTfRowStep * i;
+        if (p >= npos) continue;
+        if (a.prologue) {  // x is 0 outside the image and past C already
+          float4* q = reinterpret_cast<float4*>(rx + (p + 1) * kTfLd + cc);
+          *q = flags >> (2 * i) & 1 ? prologue4(*q, sc, bi)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        float4* d = reinterpret_cast<float4*>(rd + p * kTfLd + cc);
+        float4* yl = reinterpret_cast<float4*>(ry + p * kTfLd + cc);
+        const float4 v = flags >> (2 * i) & 2
+                             ? dyt4(*yl, *d, d1, d2)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        uint4 hi, lo;
+        split_tf32(v.x, hi.x, lo.x);
+        split_tf32(v.y, hi.y, lo.y);
+        split_tf32(v.z, hi.z, lo.z);
+        split_tf32(v.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(d) = hi;
+        *reinterpret_cast<uint4*>(yl) = lo;
+      }
+    }
+    __syncthreads();
+    // stage st + RING - 1 into the slot that stage st - 1 left: every
+    // warp left its product at the barrier
+    const int next = slot == 0 ? RING - 1 : slot - 1;
+    if (st + RING - 1 < st_end)
+      ring_flags = (ring_flags & ~(((1u << kBits) - 1) << (kBits * next))) |
+                   fetch(st + RING - 1, next) << (kBits * next);
+    cp_async_commit();
+    // Each tap's products over the stage go into a part that starts at
+    // 0, and the part into acc, rounded to nearest: the tensor core
+    // truncates each sum, and a chain of every product of a run in one
+    // register drifts by as many ulps, past the float32 tolerance at
+    // ResNet-50's shapes; 24 products a chain keep the drift of each
+    // part far below its rounding.
+    const uint32_t* bhi = reinterpret_cast<const uint32_t*>(rd);
+    const uint32_t* blo = reinterpret_cast<const uint32_t*>(ry);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      float part[4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTcPos / 8; ++kk) {
+        if (kk >= ksteps) break;
+        // A = xn^T at tap offset t: rows c, depth positions, split into
+        // tf32 hi + lo as loaded
+        const float* q = rx + (8 * kk + t4 + t) * kTfLd + 16 * wc + g;
+        uint32_t ah[4], al[4];
+        split_tf32(q[0], ah[0], al[0]);
+        split_tf32(q[8], ah[1], al[1]);
+        split_tf32(q[4 * kTfLd], ah[2], al[2]);
+        split_tf32(q[4 * kTfLd + 8], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // B = dyt: depth positions, cols o
+          const int at = (8 * kk + t4) * kTfLd + 32 * wo + 8 * j + g;
+          const uint32_t bh[2] = {bhi[at], bhi[at + 4 * kTfLd]};
+          const uint32_t bl[2] = {blo[at], blo[at + 4 * kTfLd]};
+          mma_3xtf32(part[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[t][j][e] = __fadd_rn(acc[t][j][e], part[j][e]);
+    }
+    slot = slot + 1 == RING ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+
+  // this run's float32 partial: acc[t][j][e] is tap 3 (dh + 1) + t at
+  // c = 16 wc + g + 8 (e / 2), o = 32 wo + 8 j + 2 t4 + e % 2 of the tile
+  float* dst = a.part + static_cast<int64_t>(blockIdx.y) * 9 * a.C * a.Co;
   const bool pairs = (a.Co & 1) == 0;  // float2 stores stay 8-byte aligned
 #pragma unroll
   for (int t = 0; t < 3; ++t)
@@ -1700,6 +1951,44 @@ bool part_rows_ok(long long part_rows, long long N, int H, int W) {
   return part_rows == ceil_div(N * H * W, BI);
 }
 
+// Fills the arguments of a dw tile and its grid (3 * tiles of (c, o),
+// runs); false where the runs do not tile the walk's stages.
+template <typename T>
+bool dw_args(DwArgs<T>* a, const void* x, const void* scale,
+             const void* bias, int prologue, const void* y, const void* dy,
+             const void* ds1, const void* ds2, void* dw_part, long long N,
+             int H, int W, int C, int Co, long long run_stages,
+             long long runs, int vec, dim3* grid) {
+  tc_geometry(W, &a->seg_w, &a->stage_segs, &a->row_segs);
+  const long long segs = N * H * a->row_segs;   // at most N*H*W
+  const long long stages = ceil_div(segs, a->stage_segs);
+  const long long tiles =
+      3 * ceil_div(C, kTcTile) * ceil_div(Co, kTcTile);
+  if (run_stages <= 0 || run_stages > stages ||
+      runs != ceil_div(stages, run_stages) || runs > 65535 ||
+      tiles > 0x7fffffffLL)
+    return false;
+  a->x = static_cast<const T*>(x);
+  a->scale = static_cast<const float*>(scale);
+  a->bias = static_cast<const float*>(bias);
+  a->y = static_cast<const T*>(y);
+  a->dy = static_cast<const T*>(dy);
+  a->ds1 = static_cast<const float*>(ds1);
+  a->ds2 = static_cast<const float*>(ds2);
+  a->part = static_cast<float*>(dw_part);
+  a->H = H;
+  a->W = W;
+  a->C = C;
+  a->Co = Co;
+  a->prologue = prologue;
+  a->vec = vec;
+  a->segs = static_cast<int>(segs);
+  a->stages = static_cast<int>(stages);
+  a->run_stages = static_cast<int>(run_stages);
+  *grid = dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(runs));
+  return true;
+}
+
 }  // namespace
 
 // The float32 forward on the FMA tile: dtype must be 0 (bfloat16 runs
@@ -1718,8 +2007,8 @@ extern "C" int mx_fused_conv3_bn_fwd(int dtype, const void* x, const void* w,
   if (!shape_ok(N, H, W, C, Co) || !part_rows_ok(part_rows, N, H, W))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, kFwd, x, w, scale, bias, nullptr, nullptr, nullptr,
-                  nullptr, y, s1_part, s2_part, N, H, W, C, Co, prologue, 0,
-                  0, stream);
+                  nullptr, y, s1_part, s2_part, N, H, W, C, Co, prologue,
+                  stream);
 }
 
 // The float32 dx on the FMA tile: dtype must be 0 (bfloat16 runs
@@ -1740,31 +2029,7 @@ extern "C" int mx_fused_conv3_bn_dx(int dtype, const void* x, const void* w,
       (prologue && !part_rows_ok(part_rows, N, H, W)))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, kDx, x, w, scale, bias, y, dy, ds1, ds2, dx,
-                  dscale_part, dbias_part, N, H, W, C, Co, prologue, 0, 0,
-                  stream);
-}
-
-// The float32 dw on the FMA tile: dtype must be 0 (bfloat16 runs
-// mx_fused_conv3_bn_dw_mma); operands as for dx (no kernel: dw does not
-// read it); dw_part is (splits, 9*C, Co) float32, one partial of the
-// (3, 3, C, Co) gradient for each run of split_rows rows of M = N*H*W
-// (the last run may be shorter), every element written.
-extern "C" int mx_fused_conv3_bn_dw(int dtype, const void* x,
-                                    const void* scale, const void* bias,
-                                    int prologue, const void* y,
-                                    const void* dy, const void* ds1,
-                                    const void* ds2, void* dw_part,
-                                    long long N, int H, int W, int C, int Co,
-                                    long long split_rows, long long splits,
-                                    void* stream) {
-  if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long M = N * H * W;
-  if (split_rows <= 0 || split_rows > 0x7fffffffLL ||
-      (M > 0 && ((splits - 1) * split_rows >= M || splits * split_rows < M)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, kDw, x, nullptr, scale, bias, y, dy, ds1, ds2,
-                  nullptr, dw_part, nullptr, N, H, W, C, Co, prologue,
-                  split_rows, splits, stream);
+                  dscale_part, dbias_part, N, H, W, C, Co, prologue, stream);
 }
 
 // The bfloat16 dw on the tensor cores.  x (N, H, W, C), y and dy
@@ -1788,39 +2053,46 @@ extern "C" int mx_fused_conv3_bn_dw_mma(const void* x, const void* scale,
   if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaSuccess);
   TcArgs a;
-  tc_geometry(W, &a.seg_w, &a.stage_segs, &a.row_segs);
-  const long long segs = N * H * a.row_segs;   // at most N*H*W
-  const long long stages = ceil_div(segs, a.stage_segs);
-  const long long tiles =
-      3 * ceil_div(C, kTcTile) * ceil_div(Co, kTcTile);
-  if (run_stages <= 0 || run_stages > stages ||
-      runs != ceil_div(stages, run_stages) || runs > 65535 ||
-      tiles > 0x7fffffffLL)
+  dim3 grid;
+  if (!dw_args(&a, x, scale, bias, prologue, y, dy, ds1, ds2, dw_part, N, H,
+               W, C, Co, run_stages, runs, vec, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.x = static_cast<const bf16*>(x);
-  a.scale = static_cast<const float*>(scale);
-  a.bias = static_cast<const float*>(bias);
-  a.y = static_cast<const bf16*>(y);
-  a.dy = static_cast<const bf16*>(dy);
-  a.ds1 = static_cast<const float*>(ds1);
-  a.ds2 = static_cast<const float*>(ds2);
-  a.part = static_cast<float*>(dw_part);
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.Co = Co;
-  a.prologue = prologue;
-  a.vec = vec;
-  a.segs = static_cast<int>(segs);
-  a.stages = static_cast<int>(stages);
-  a.run_stages = static_cast<int>(run_stages);
   const cudaError_t err = cudaFuncSetAttribute(
       fused_conv3_bn_dw_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kTcSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(runs));
   fused_conv3_bn_dw_mma<<<grid, kTcThreads, kTcSmem,
                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 dw on the tensor cores (3xTF32): as
+// mx_fused_conv3_bn_dw_mma, with x, y and dy float32, on the same walk
+// and runs; x loads 16 bytes at a time where bit 0 of vec is set (x
+// 16-byte aligned, C a multiple of 4), y and dy where bit 1 is (both
+// aligned, Co a multiple of 4).
+extern "C" int mx_fused_conv3_bn_dw_tf32(const void* x, const void* scale,
+                                         const void* bias, int prologue,
+                                         const void* y, const void* dy,
+                                         const void* ds1, const void* ds2,
+                                         void* dw_part, long long N, int H,
+                                         int W, int C, int Co,
+                                         long long run_stages, long long runs,
+                                         int vec, void* stream) {
+  if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  DwArgs<float> a;
+  dim3 grid;
+  if (!dw_args(&a, x, scale, bias, prologue, y, dy, ds1, ds2, dw_part, N, H,
+               W, C, Co, run_stages, runs, vec, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = DwTf<kTfRing>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_conv3_bn_dw_tf32<kTfRing>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_conv3_bn_dw_tf32<kTfRing><<<grid, kTcThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,14 +41,16 @@
 // a byte), the forward is bound by operations except stage 1's 64-to-64
 // launch (16 a byte); dx and dw are bound by bytes at most stage-1
 // launches, where a side is 64 wide (c3: 0.31 and 0.28 ms of traffic
-// against 0.20 ms of FMA), and by operations elsewhere.
+// against 0.20 ms of FMA), and by operations elsewhere.  The float32 dw
+// runs on the tensor cores in three tf32 products (below): 3 x 2*M*K*N
+// operations at 495 TFLOP/s, under its bytes at every ResNet-50 launch.
 // In bfloat16 every launch is bound by bytes (tensor cores at 989
 // TFLOP/s, 295 operations a byte); the FMA loop below does not reach that
 // bound, and no bf16 kernel runs it (see below).
 //
-// Design of the float32 forward, dx and dw: one tiled product, C (I,
-// J) = A (I, R) @ B (R, J), shared by the three kernels, which differ
-// only in how A and B are fetched and in the epilogue.  A block of 256
+// Design of the float32 forward and dx: one tiled product, C (I, J) =
+// A (I, R) @ B (R, J), shared by the two kernels, which differ only in
+// how A and B are fetched and in the epilogue.  A block of 256
 // threads owns a 128x128 tile of C; each thread keeps an 8x8 sub-tile in
 // registers (two 4x4 quads per axis, so the shared-memory reads are
 // float4 broadcasts), and the depth goes through shared memory 8 at a
@@ -83,6 +85,35 @@
 // does not allow 16 bytes (the wrapper's vec flags) the rows load element
 // by element.  Each run writes its float32 (K, N) partial and the wrapper
 // sums the runs in a fixed order: no atomics, the same bits every run.
+//
+// The float32 dw (fused_matmul_bn_dw_tf32) replaces the same TPU kernel
+// on the tensor cores without giving up float32 numbers.  The TPU kernel
+// multiplies float32 operands unrounded (the prologue's relu(x*scale +
+// bias) and dyt stay float32), and one tf32 or bf16 pass keeps about
+// three digits, so each operand is split as its fragment is loaded into
+// tf32 hi = rna(v) and lo = rna(v - hi) (mma.cuh: split_tf32), and three
+// mma.sync.m16n8k8 tf32 products, lo.hi + hi.lo + hi.hi, go into float32
+// sums: about 2^-21 of each product.  The tensor core truncates each sum
+// it returns, so a stage's products go into a part that starts at 0
+// (six products a chain), added to the run's sum rounded to nearest:
+// one register for all of a run's products drifted past the float32
+// tolerance at ResNet-50's shapes.  At (401408, 64, 256) it must read
+// 925 MB (x, y, dy once: 0.276 ms at 3.35 TB/s) for 3 x 13.2 GFLOP
+// (0.080 ms at 495 TFLOP/s), so it is bound by bytes.  It walks M as the
+// bf16 tile does: a block of 4 warps owns a 64 x BN tile of dw (BN =
+// 128, or 64 where N <= 64), each warp 32 x BN/2, over one run of M (the
+// bf16 tile's runs, dw_mma_split), in stages of 16 rows.  Raw rows of x,
+// y and dy go by cp.async (16 bytes, zeros past the run and the tile;
+// element loads where a start or a row width does not allow 16 bytes)
+// into a ring of three stages, two ahead of the product (66,048 bytes
+// of shared memory at BN = 128: three blocks an SM); each thread applies
+// the prologue in place to the x chunks it copied and turns its dy
+// chunks into dyt in place, in float32 with __fmul_rn/__fadd_rn, zeroing
+// rows past the run, and one barrier a stage publishes the tiles.  The
+// tiles' row strides are 8 mod 32 floats, so the 32-bit fragment loads
+// (a lane reads row t, column g) fall on 32 distinct banks; no ldmatrix,
+// which moves 16-bit elements.  Each run writes its float32 (K, N)
+// partial, and the wrapper sums the runs in a fixed order: no atomics.
 //
 // The bf16 dx (fused_matmul_bn_dx_mma) replaces `_bwd_dx_kernel`
 // (fused_block.py:154) on the tensor cores.  At (401408, 64, 256) with
@@ -147,7 +178,7 @@ constexpr int BR = 8;         // depth staged through shared memory at once
 constexpr int THREADS = 256;  // 16 x 16 threads, an 8x8 sub-tile each
 constexpr int LOADS = BI * BR / THREADS;  // A (and B) elements a thread stages
 
-enum Mode { kFwd = 0, kDx = 1, kDw = 2 };
+enum Mode { kFwd = 0, kDx = 1, kDw = 2 };  // kDw: the tensor-core tiles
 
 template <typename T>
 struct Args {
@@ -166,7 +197,7 @@ struct Args {
   int K;
   int N;
   int prologue;
-  int64_t split_rows;   // dw: rows of M each split takes
+  int64_t split_rows;   // dw: rows of M each split takes; bf16 forward: a run
 };
 
 template <typename T>
@@ -194,54 +225,33 @@ __device__ __forceinline__ float dyt_at(const Args<T>& a, int64_t m, int n) {
   return round_to<T>(v);
 }
 
-// Sizes of C and its depth for each mode.
-template <int MODE, typename T>
-__device__ __forceinline__ void dims(const Args<T>& a, int64_t* I, int64_t* J) {
-  if (MODE == kFwd) {
-    *I = a.M;
-    *J = a.N;
-  } else if (MODE == kDx) {
-    *I = a.M;
-    *J = a.K;
-  } else {
-    *I = a.K;
-    *J = a.N;
-  }
-}
-
 // A[i][r] for i < I, r < r_end (else 0).  Element e of the staged slice
-// maps to (i, r) along A's contiguous axis in device memory.
+// maps to (i, r) along A's contiguous axis in device memory: forward, A
+// = P(x) with r = k; dx, A = dyt with r = n.
 template <int MODE, typename T>
 __device__ __forceinline__ float fetch_a(const Args<T>& a, int e, int64_t i0,
                                          int64_t r0, int64_t I, int64_t r_end,
                                          int* si, int* sr) {
-  int i, r;
-  if (MODE == kDw) {  // A = P(x)^T: i = k, r = m; x runs along k
-    i = e % BI;
-    r = e / BI;
-  } else {            // forward: A = P(x), r = k; dx: A = dyt, r = n
-    r = e % BR;
-    i = e / BR;
-  }
+  const int r = e % BR, i = e / BR;
   *si = i;
   *sr = r;
   const int64_t gi = i0 + i, gr = r0 + r;
   if (gi >= I || gr >= r_end) return 0.f;
   if (MODE == kFwd) return prologue_at(a, gi, static_cast<int>(gr));
-  if (MODE == kDx) return dyt_at(a, gi, static_cast<int>(gr));
-  return prologue_at(a, gr, static_cast<int>(gi));
+  return dyt_at(a, gi, static_cast<int>(gr));
 }
 
-// B[r][j] for r < r_end, j < J (else 0), along B's contiguous axis.
+// B[r][j] for r < r_end, j < J (else 0), along B's contiguous axis:
+// forward, B = w (r = k); dx, B = w^T (r = n, j = k; w runs along n).
 template <int MODE, typename T>
 __device__ __forceinline__ float fetch_b(const Args<T>& a, int e, int64_t j0,
                                          int64_t r0, int64_t J, int64_t r_end,
                                          int* sj, int* sr) {
   int j, r;
-  if (MODE == kDx) {  // B = w^T: r = n, j = k; w runs along n
+  if (MODE == kDx) {
     r = e % BR;
     j = e / BR;
-  } else {            // forward: B = w (r = k); dw: B = dyt (r = m)
+  } else {
     j = e % BJ;
     r = e / BJ;
   }
@@ -250,8 +260,7 @@ __device__ __forceinline__ float fetch_b(const Args<T>& a, int e, int64_t j0,
   const int64_t gj = j0 + j, gr = r0 + r;
   if (gj >= J || gr >= r_end) return 0.f;
   if (MODE == kFwd) return to_float(a.w[gr * a.N + gj]);
-  if (MODE == kDx) return to_float(a.w[gj * a.N + gr]);
-  return dyt_at(a, gr, static_cast<int>(gj));
+  return to_float(a.w[gj * a.N + gr]);
 }
 
 // Row (or column) of C that sub-tile slot q (0..7) of thread t (0..15)
@@ -295,19 +304,11 @@ __device__ __forceinline__ void fused_mm_bn(const Args<T>& a) {
   __shared__ float red0[THREADS / 16][BJ];
   __shared__ float red1[THREADS / 16][BJ];
 
-  int64_t I, J;
-  dims<MODE>(a, &I, &J);
+  // C is (M, N) in the forward, (M, K) in dx; the depth K or N
+  const int64_t I = a.M, J = MODE == kFwd ? a.N : a.K;
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
   const int64_t j0 = static_cast<int64_t>(blockIdx.y) * BJ;
-  int64_t r_begin = 0, r_end;
-  if (MODE == kFwd) {
-    r_end = a.K;
-  } else if (MODE == kDx) {
-    r_end = a.N;
-  } else {
-    r_begin = static_cast<int64_t>(blockIdx.z) * a.split_rows;
-    r_end = r_begin + a.split_rows < a.M ? r_begin + a.split_rows : a.M;
-  }
+  const int64_t r_begin = 0, r_end = MODE == kFwd ? a.K : a.N;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -356,21 +357,6 @@ __device__ __forceinline__ void fused_mm_bn(const Args<T>& a) {
         for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
     }
     __syncthreads();
-  }
-
-  if (MODE == kDw) {  // this split's float32 partial of dw
-    float* dst = a.part0 + static_cast<int64_t>(blockIdx.z) * a.K * a.N;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int64_t k = i0 + slot(ty, p);
-      if (k >= I) continue;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int64_t n = j0 + slot(tx, q);
-        if (n < J) dst[k * a.N + n] = acc[p][q];
-      }
-    }
-    return;
   }
 
   float c0[8], c1[8];  // per-column sums over this thread's rows
@@ -432,12 +418,6 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     fused_matmul_bn_dx_kernel(Args<T> a) {
   fused_mm_bn<kDx>(a);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_matmul_bn_dw_kernel(Args<T> a) {
-  fused_mm_bn<kDw>(a);
 }
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
@@ -926,6 +906,273 @@ cudaError_t launch_dx_mma(const Args<bf16>& a, int vec, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------
+// dw in float32 on the tensor cores (3xTF32).  See the note at the top.
+
+using mx::dyt4;
+using mx::load4;
+using mx::mma_3xtf32;
+using mx::prologue4;
+using mx::split_tf32;
+
+constexpr int kTfBK = 64;          // rows of dw a block owns
+constexpr int kTfBM = 16;          // rows of M a stage holds
+constexpr int kTfSteps = kTfBM / 8;  // its k8 steps
+constexpr int kTfThreads = 128;    // 4 warps, 2 x 2 over the tile
+constexpr int kTfRing = 3;         // stages: two load while one multiplies
+constexpr int kTfXLd = kTfBK + 8;  // float row stride: 8 mod 32 banks
+constexpr int kTfXRowChunks = kTfBK / 4;              // float4 an x row
+constexpr int kTfXStep = kTfThreads / kTfXRowChunks;  // a thread's x rows
+constexpr int kTfXChunks = kTfBM / kTfXStep;          // apart: 8
+
+// BN columns of dw a block (64 or 128), each warp BN/2 of them.  A ring
+// slot holds a stage: x (kTfBM rows of kTfXLd floats), y (rows of BN)
+// and dy, turned into dyt in place (rows of kLd); after the ring, the
+// per-column constants.  The padded strides are 8 mod 32 floats, so the
+// 32 lanes of a fragment load, at rows t4 and columns g, read 32
+// distinct banks.
+template <int BN>
+struct DwTf {
+  static constexpr int kLd = BN + 8;
+  static constexpr int kXTile = kTfBM * kTfXLd;
+  static constexpr int kYTile = kTfBM * BN;
+  static constexpr int kSlot = kXTile + kYTile + kTfBM * kLd;  // floats
+  static constexpr size_t kSmem =
+      (kTfRing * kSlot + 2 * kTfBK + 2 * BN) * sizeof(float);
+  static constexpr int kRowChunks = BN / 4;                 // float4 a row
+  static constexpr int kRowStep = kTfThreads / kRowChunks;  // a thread's
+  static constexpr int kChunks = kTfBM / kRowStep;          // rows apart
+  static constexpr int kN8 = BN / 16;                       // n8 tiles a warp
+};
+
+// Grid (ceil(K / 64), ceil(N / BN), splits); block z takes rows
+// [z * split_rows, min(M, (z + 1) * split_rows)) of M and writes its
+// float32 partial of dw to part0[z].  vec bit 0: x loads 16 bytes at a
+// time; bit 1: y and dy do.
+template <int BN>
+__global__ void __launch_bounds__(kTfThreads, 3)
+    fused_matmul_bn_dw_tf32(Args<float> a, int vec) {
+  using G = DwTf<BN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* sc_s = ring + kTfRing * G::kSlot;
+  float* bi_s = sc_s + kTfBK;
+  float* d1_s = bi_s + kTfBK;
+  float* d2_s = d1_s + BN;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wk = warp & 1, wn = warp >> 1;  // the warp's 32 x BN/2 tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * kTfBK, n0 = blockIdx.y * BN;
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.z) * a.split_rows;
+  const int64_t r_end =
+      r_begin + a.split_rows < a.M ? r_begin + a.split_rows : a.M;
+  const int64_t stages = (r_end - r_begin + kTfBM - 1) / kTfBM;
+  const bool vec_x = vec & 1, vec_y = vec & 2;
+
+  // This thread's chunks: x rows xr + 8 i at columns xc .. xc + 3 of the
+  // tile, y and dy rows dr + kRowStep i at columns dc .. dc + 3.  It
+  // copies them and stages them itself, so no barrier separates the two
+  // (one barrier publishes the constants).
+  const int xc = (tid % kTfXRowChunks) * 4, xr = tid / kTfXRowChunks;
+  const int dc = (tid % G::kRowChunks) * 4, dr = tid / G::kRowChunks;
+  // per-column constants, 0 past K and N (a zero column stays zero)
+  for (int i = tid; i < kTfBK; i += kTfThreads) {
+    const bool in = a.prologue && k0 + i < a.K;
+    sc_s[i] = in ? a.scale[k0 + i] : 0.f;
+    bi_s[i] = in ? a.bias[k0 + i] : 0.f;
+  }
+  for (int i = tid; i < BN; i += kTfThreads) {
+    const bool in = n0 + i < a.N;
+    d1_s[i] = in ? a.ds1[n0 + i] : 0.f;
+    d2_s[i] = in ? a.ds2[n0 + i] : 0.f;
+  }
+
+  // Loads stage st into ring slot `slot`: cp.async of 16 bytes, zeros
+  // where a chunk lies past the run or past K (N); element loads where a
+  // start or a row width does not allow 16 bytes.
+  auto fetch = [&](int64_t st, int slot) {
+    const int64_t m0 = r_begin + st * kTfBM;
+    float* xs = ring + slot * G::kSlot;
+    float* ys = xs + G::kXTile;
+    float* ds = ys + G::kYTile;
+#pragma unroll
+    for (int i = 0; i < kTfXChunks; ++i) {
+      const int r = xr + kTfXStep * i;
+      const int64_t m = m0 + r;
+      const bool in = m < r_end;
+      const float* src = a.x + (in ? m : 0) * a.K;
+      float* d = xs + r * kTfXLd + xc;
+      if (vec_x) {
+        const bool full = in && k0 + xc < a.K;
+        cp_async16(d, full ? src + k0 + xc : a.x, full);
+      } else {
+        *reinterpret_cast<float4*>(d) = load4(src, k0 + xc, a.K, in);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G::kChunks; ++i) {
+      const int r = dr + G::kRowStep * i;
+      const int64_t m = m0 + r;
+      const bool in = m < r_end;
+      const int64_t off = (in ? m : 0) * a.N;
+      float* yd = ys + r * BN + dc;
+      float* dd = ds + r * G::kLd + dc;
+      if (vec_y) {
+        const bool full = in && n0 + dc < a.N;
+        cp_async16(yd, full ? a.y + off + n0 + dc : a.y, full);
+        cp_async16(dd, full ? a.dy + off + n0 + dc : a.dy, full);
+      } else {
+        *reinterpret_cast<float4*>(yd) = load4(a.y + off, n0 + dc, a.N, in);
+        *reinterpret_cast<float4*>(dd) = load4(a.dy + off, n0 + dc, a.N, in);
+      }
+    }
+  };
+
+  float acc[2][G::kN8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < G::kN8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // the first kTfRing - 1 stages in flight, one group a stage (empty
+  // past the run), so that a wait counts stages
+#pragma unroll
+  for (int k = 0; k < kTfRing - 1; ++k) {
+    if (k < stages) fetch(k, k);
+    cp_async_commit();
+  }
+  __syncthreads();  // the constants
+  int slot = 0;
+  for (int64_t st = 0; st < stages; ++st) {
+    float* xs = ring + slot * G::kSlot;
+    const float* ys = xs + G::kXTile;
+    float* ds = xs + G::kXTile + G::kYTile;
+    cp_async_wait<kTfRing - 2>();  // this thread's chunks of stage st
+    {  // the prologue in place of x and dyt in place of dy, in float32;
+       // 0 past the run (relu(bias) and ds1 there)
+      const int64_t m0 = r_begin + st * kTfBM;
+      float sc[4], bi[4], d1[4], d2[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[j] = sc_s[xc + j];
+        bi[j] = bi_s[xc + j];
+        d1[j] = d1_s[dc + j];
+        d2[j] = d2_s[dc + j];
+      }
+      if (a.prologue) {
+#pragma unroll
+        for (int i = 0; i < kTfXChunks; ++i) {
+          const int r = xr + kTfXStep * i;
+          float4* p = reinterpret_cast<float4*>(xs + r * kTfXLd + xc);
+          *p = m0 + r < r_end ? prologue4(*p, sc, bi)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < G::kChunks; ++i) {
+        const int r = dr + G::kRowStep * i;
+        float4* p = reinterpret_cast<float4*>(ds + r * G::kLd + dc);
+        *p = m0 + r < r_end
+                 ? dyt4(*reinterpret_cast<const float4*>(ys + r * BN + dc),
+                        *p, d1, d2)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    __syncthreads();
+    // stage st + kTfRing - 1 into the slot that stage st - 1 left: every
+    // warp left its product at the barrier
+    const int next = slot == 0 ? kTfRing - 1 : slot - 1;
+    if (st + kTfRing - 1 < stages) fetch(st + kTfRing - 1, next);
+    cp_async_commit();
+    // A = P(x)^T: rows k, depth m, both k8 steps of the stage, split
+    // into tf32 hi + lo as loaded
+    uint32_t ah[kTfSteps][2][4], al[kTfSteps][2][4];
+#pragma unroll
+    for (int kk = 0; kk < kTfSteps; ++kk)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* p = xs + (8 * kk + t4) * kTfXLd + 32 * wk + 16 * i + g;
+        split_tf32(p[0], ah[kk][i][0], al[kk][i][0]);
+        split_tf32(p[8], ah[kk][i][1], al[kk][i][1]);
+        split_tf32(p[4 * kTfXLd], ah[kk][i][2], al[kk][i][2]);
+        split_tf32(p[4 * kTfXLd + 8], ah[kk][i][3], al[kk][i][3]);
+      }
+    // B = dyt: depth m, columns n.  The stage's products go into a part
+    // that starts at 0, and the part into acc, rounded to nearest: the
+    // tensor core truncates each sum, and a chain of every product of a
+    // run in one register drifts by as many ulps, past the float32
+    // tolerance at ResNet-50's shapes; six products a chain keep the
+    // drift of each part far below its rounding.
+#pragma unroll
+    for (int j = 0; j < G::kN8; ++j) {
+      float part[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTfSteps; ++kk) {
+        const float* q =
+            ds + (8 * kk + t4) * G::kLd + (BN / 2) * wn + 8 * j + g;
+        uint32_t bh[2], bl[2];
+        split_tf32(q[0], bh[0], bl[0]);
+        split_tf32(q[4 * G::kLd], bh[1], bl[1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mma_3xtf32(part[i], ah[kk][i], al[kk][i], bh, bl);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][e]);
+    }
+    slot = slot + 1 == kTfRing ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+
+  // this run's float32 partial: acc[i][j][e] at row 16 i + g + 8 (e / 2),
+  // column 8 j + 2 t4 + e % 2 of the warp's tile
+  float* dst = a.part0 + static_cast<int64_t>(blockIdx.z) * a.K * a.N;
+  const bool pairs = (a.N & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 32 * wk + 16 * i + g + 8 * h;
+      if (k >= a.K) continue;
+      float* out = dst + static_cast<int64_t>(k) * a.N;
+#pragma unroll
+      for (int j = 0; j < G::kN8; ++j) {
+        const int n = n0 + (BN / 2) * wn + 8 * j + 2 * t4;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (pairs && n + 1 < a.N) {
+          *reinterpret_cast<float2*>(out + n) = make_float2(v0, v1);
+        } else {
+          if (n < a.N) out[n] = v0;
+          if (n + 1 < a.N) out[n + 1] = v1;
+        }
+      }
+    }
+}
+
+template <int BN>
+cudaError_t launch_dw_tf32(const Args<float>& a, int64_t splits, int vec,
+                           cudaStream_t stream) {
+  const int64_t gi = ceil_div(a.K, kTfBK), gj = ceil_div(a.N, BN);
+  if (gi > 0x7fffffff || gj > 65535 || splits > 65535 || splits <= 0 ||
+      a.split_rows % kTfBM != 0)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DwTf<BN>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_matmul_bn_dw_tf32<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
+            static_cast<unsigned>(splits));
+  fused_matmul_bn_dw_tf32<BN><<<grid, kTfThreads, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
 // The forward in bfloat16 on the tensor cores.  See the note at the top.
 
 constexpr int kFmBM = BI;        // rows of M a row block: 128
@@ -1263,16 +1510,12 @@ cudaError_t launch_dx(const Args<bf16>& a, int vec, cudaStream_t stream) {
                                  : launch_dx_mma<128>(a, vec, stream);
 }
 
-// float32 dw: the FMA tile over runs of split_rows rows
-cudaError_t launch_dw(const Args<float>& a, int64_t splits, int,
+// float32 dw: the 3xTF32 tile in column tiles of 64 where N <= 64,
+// else of 128, over runs of split_rows rows, a multiple of its stage
+cudaError_t launch_dw(const Args<float>& a, int64_t splits, int vec,
                       cudaStream_t stream) {
-  const int64_t gi = ceil_div(a.K, BI), gj = ceil_div(a.N, BJ);
-  if (gi > 0x7fffffff || gj > 65535 || splits > 65535 || splits <= 0)
-    return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj),
-            static_cast<unsigned>(splits));
-  fused_matmul_bn_dw_kernel<float><<<grid, THREADS, 0, stream>>>(a);
-  return cudaGetLastError();
+  return a.N <= 64 ? launch_dw_tf32<64>(a, splits, vec, stream)
+                   : launch_dw_tf32<128>(a, splits, vec, stream);
 }
 
 // bf16 dw: the tensor-core tile; runs of split_rows, a multiple of the
@@ -1414,11 +1657,12 @@ extern "C" int mx_fused_matmul_bn_dx(int dtype, const void* x, const void* w,
 
 // dtype and operands as for dx; dw_part is (splits, K, N) float32, one
 // (K, N) partial for each run of split_rows rows of M (the last run may
-// be shorter), every element written.  float32 runs the FMA tile;
-// bfloat16 the tensor-core tile, whose runs must be a multiple of its
-// stage depth (32 rows) and which reads x 16 bytes at a time where bit 0
-// of vec is set (x 16-byte aligned, K a multiple of 8), y and dy where
-// bit 1 is (both 16-byte aligned, N a multiple of 8).
+// be shorter), every element written.  float32 runs the 3xTF32 tile,
+// whose runs must be a multiple of its stage depth (16 rows); bfloat16
+// the bf16 tensor-core tile, whose runs must be a multiple of its stage
+// depth (32 rows).  Both read x 16 bytes at a time where bit 0 of vec is
+// set (x 16-byte aligned, rows a multiple of 16 bytes), y and dy where
+// bit 1 is (both 16-byte aligned, rows a multiple of 16 bytes).
 extern "C" int mx_fused_matmul_bn_dw(int dtype, const void* x, const void* w,
                                      const void* scale, const void* bias,
                                      int prologue, const void* y,

@@ -1,11 +1,14 @@
-// bf16 tensor-core helpers shared by the kernels that multiply on
-// Hopper's tensor cores with mma.sync (flash_attention.cu, and the bf16
-// forward, dx and dw of fused_matmul_bn.cu and of fused_conv3_bn.cu):
-// ldmatrix from shared memory, the m16n8k16 product with float32 sums,
-// where each lane reads for ldmatrix, cp.async into shared memory, and
-// the staging of the fused kernels' operands (eight bf16 values at a
-// time: the masked load, the BatchNorm prologue and the stats-adjusted
-// cotangent dyt, each rounded to bf16).
+// Tensor-core helpers shared by the kernels that multiply on Hopper's
+// tensor cores with mma.sync (flash_attention.cu, and the bf16 forward,
+// dx and dw and the float32 dw of fused_matmul_bn.cu and of
+// fused_conv3_bn.cu): ldmatrix from shared memory, the bf16 m16n8k16
+// product with float32 sums, where each lane reads for ldmatrix,
+// cp.async into shared memory, the staging of the fused kernels'
+// operands (eight bf16 values at a time: the masked load, the BatchNorm
+// prologue and the stats-adjusted cotangent dyt, each rounded to bf16),
+// and the float32 route: a float32 value split into tf32 hi + lo parts,
+// the tf32 m16n8k8 product with float32 sums, and the same staging four
+// float32 values at a time, unrounded.
 #pragma once
 
 #include <cstdint>
@@ -156,6 +159,96 @@ __device__ __forceinline__ uint4 dyt8(uint4 y_raw, uint4 dy_raw,
                   __fmul_rn(__fmul_rn(2.f, yv.y), d2[2 * j + 1])));
   }
   return out.u;
+}
+
+// ---------------------------------------------------------------------
+// float32 on the tensor cores: three tf32 products ("3xTF32").  A tf32
+// register holds a float32 whose low 13 bits the tensor core ignores, so
+// v is rounded to tf32 first (to nearest, ties away from zero: .rna) and
+// lo is the rounded rest, v = hi + lo + e with |e| <= 2^-22 |v|.  Then
+// a . b = a_lo . b_hi + a_hi . b_lo + a_hi . b_hi up to about 2^-21 of
+// each product; the three go into the same float32 sums, smallest first.
+
+// v rounded to tf32 (.rna), as the bits of a float32
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo up to 2^-22 |v|, both tf32 (v - hi is exact in float32)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// c += a . b over one m16n8k8 tile, tf32 operands, float32 sums.  Lane
+// l = 4 g + t holds A (row-major 16 x 8) at (g, t), (g + 8, t), (g, t +
+// 4), (g + 8, t + 4), B (8 x 8, k by n) at (t, g) and (t + 4, g), and C
+// as the bf16 product's: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t +
+// 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32 from the split operands
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
+}
+
+// 16 bytes of float32 from src to dst, or 16 zero bytes when !full.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// Elements [col, col + 4) of a float32 row, 0 past `limit` or where
+// !in_row, loaded one at a time.
+__device__ __forceinline__ float4 load4(const float* row, int col, int limit,
+                                        bool in_row) {
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (in_row) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < limit) v[j] = __ldg(row + col + j);
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// relu(x*scale + bias) of 4 float32 values, as the kernels' prologue
+__device__ __forceinline__ float4 prologue4(float4 v, const float* sc,
+                                            const float* bi) {
+  return make_float4(fmaxf(__fadd_rn(__fmul_rn(v.x, sc[0]), bi[0]), 0.f),
+                     fmaxf(__fadd_rn(__fmul_rn(v.y, sc[1]), bi[1]), 0.f),
+                     fmaxf(__fadd_rn(__fmul_rn(v.z, sc[2]), bi[2]), 0.f),
+                     fmaxf(__fadd_rn(__fmul_rn(v.w, sc[3]), bi[3]), 0.f));
+}
+
+__device__ __forceinline__ float dyt1(float y, float g, float d1, float d2) {
+  return __fadd_rn(__fadd_rn(g, d1), __fmul_rn(__fmul_rn(2.f, y), d2));
+}
+
+// dy + ds1 + 2*y*ds2 of 4 float32 values, as the kernels' dyt
+__device__ __forceinline__ float4 dyt4(float4 y, float4 g, const float* d1,
+                                       const float* d2) {
+  return make_float4(dyt1(y.x, g.x, d1[0], d2[0]),
+                     dyt1(y.y, g.y, d1[1], d2[1]),
+                     dyt1(y.z, g.z, d1[2], d2[2]),
+                     dyt1(y.w, g.w, d1[3], d2[3]));
 }
 
 }  // namespace mx

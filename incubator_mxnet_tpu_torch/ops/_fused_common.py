@@ -15,7 +15,7 @@ import threading
 import torch
 
 __all__ = ["DTYPE_CODES", "BLOCK_ROWS", "acc", "prologue", "dyt", "f32",
-           "ptr", "count_lock", "dw_split", "vec16", "sms"]
+           "ptr", "count_lock", "vec16", "sms"]
 
 #: the C entries' dtype codes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -23,13 +23,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: guards the wrappers' launch counters
 count_lock = threading.Lock()
 
-#: rows of M a kernel block owns (BI in the sources): the forward and dx
-#: kernels write one partial row per block, and refuse any other count
+#: rows of M a kernel block owns (BI in the sources): the float32
+#: forward and dx kernels write one partial row per block, and refuse any
+#: other count
 BLOCK_ROWS = 128
-# dw splits M so that about this many blocks cover the card, each split
-# at least _MIN_SPLIT_ROWS rows (a multiple of the kernels' depth of 8)
-_DW_BLOCKS_PER_SM = 4
-_MIN_SPLIT_ROWS = 256
 
 
 def acc(t):
@@ -63,25 +60,13 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def dw_split(m, rows_of_dw, cols_of_dw, device):
-    """``(split_rows, splits)``: the runs of M over which a dw kernel
-    writes its float32 partials of the (rows_of_dw, cols_of_dw) gradient.
-    Enough runs that about ``_DW_BLOCKS_PER_SM`` blocks of 128x128 output
-    cover every SM, none shorter than ``_MIN_SPLIT_ROWS`` rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-rows_of_dw // 128) * -(-cols_of_dw // 128)
-    want = max(1, -(-_DW_BLOCKS_PER_SM * sms // tiles))
-    rows = max(_MIN_SPLIT_ROWS, -(-m // want))
-    rows = -(-rows // 8) * 8
-    return rows, -(-m // rows)
-
-
 def vec16(*tensors):
-    """True when a bfloat16 tensor-core dw tile may load rows of every
-    tensor 16 bytes at a time: each starts on 16 bytes and its rows are a
-    multiple of 8 elements.  Else it loads element by element."""
-    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
-               for t in tensors)
+    """True when a tensor-core tile may load rows of every tensor 16
+    bytes at a time: each starts on 16 bytes and its rows are a multiple
+    of 16 bytes (8 bfloat16 or 4 float32 elements).  Else it loads
+    element by element."""
+    return all(t.data_ptr() % 16 == 0
+               and t.shape[-1] * t.element_size() % 16 == 0 for t in tensors)
 
 
 @functools.lru_cache(maxsize=None)

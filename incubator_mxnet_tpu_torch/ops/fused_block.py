@@ -18,11 +18,14 @@ product recomputes the prologue too.
 Three kernels (``csrc/fused_matmul_bn.cu``), one wrapper each:
 :func:`fused_matmul_bn_fwd` (kernel 10), :func:`fused_matmul_bn_dx`
 (11) and :func:`fused_matmul_bn_dw` (12), each with a launch counter.
-Each has one instance for each dtype: float32 runs the FMA tile that all
-three share, bfloat16 a tile on the tensor cores
-(``fused_matmul_bn_fwd_mma``, over runs of M that :func:`fwd_mma_split`
-chooses; ``fused_matmul_bn_dx_mma``; ``fused_matmul_bn_dw_mma``, over
-runs of M that :func:`dw_mma_split` chooses).
+Each has one instance for each dtype.  bfloat16 runs tiles on the
+tensor cores (``fused_matmul_bn_fwd_mma``, over runs of M that
+:func:`fwd_mma_split` chooses; ``fused_matmul_bn_dx_mma``;
+``fused_matmul_bn_dw_mma``, over runs of M that :func:`dw_mma_split`
+chooses).  float32's forward and dx run the FMA tile that the two
+share, its dw a tile on the tensor cores that keeps float32 numbers in
+three tf32 products (``fused_matmul_bn_dw_tf32``, over the runs of
+:func:`dw_tf32_split`).
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing falls
 back from the card to the plain version.
@@ -57,8 +60,8 @@ __all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
            "fused_matmul_bn_fwd", "fused_matmul_bn_dx", "fused_matmul_bn_dw",
            "FusedMatmulBNFunction", "fused_matmul_bn", "bn_consts",
            "fused_bottleneck_v1", "fused_bottleneck_v1_proj",
-           "dw_mma_split", "fwd_mma_split", "fwd_launches", "dx_launches",
-           "dw_launches"]
+           "dw_mma_split", "dw_tf32_split", "fwd_mma_split", "fwd_launches",
+           "dx_launches", "dw_launches"]
 
 #: Launches of kernels 10, 11 and 12 so far; each wrapper adds one per
 #: launch and nothing else touches them (a caller may reset them to 0).
@@ -73,12 +76,27 @@ _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L, _L, _I, _I, _L, _I,
 _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L, _L, _I, _I, _I, _P]
 _DW_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 5 + [_L, _I, _I, _L, _L, _I, _P]
 
-# kernel 12's bfloat16 tile (fused_matmul_bn_dw_mma): 64 rows of dw, over
-# stages of 32 rows of M
+# kernel 12's tensor-core tiles (fused_matmul_bn_dw_mma, bfloat16;
+# fused_matmul_bn_dw_tf32, float32): 64 rows of dw, over stages of 32 (16)
+# rows of M, and runs of M that are a multiple of _MMA_BM rows
 _MMA_BK, _MMA_BM = 64, 32
-# enough runs of M that about this many blocks cover each SM (one wave at
-# the tile's occupancy)
-_MMA_BLOCKS_PER_SM = 4
+# enough runs of M that about this many blocks cover each SM: one wave at
+# the bfloat16 tile's occupancy; two at the 3xTF32 tile's (three blocks
+# an SM)
+_MMA_BLOCKS_PER_SM, _TF32_BLOCKS_PER_SM = 4, 6
+
+
+def _dw_runs(m, k, n, sms, blocks_per_sm, min_rows):
+    """``(split_rows, splits)``: runs of M, each a multiple of _MMA_BM
+    rows, that tile M exactly (the last may be shorter), enough that
+    about ``blocks_per_sm`` blocks of the (64, 128) tile (64 wide where n
+    <= 64) cover every SM, none shorter than ``min_rows``."""
+    bn = 64 if n <= 64 else 128
+    tiles = -(-k // _MMA_BK) * -(-n // bn)
+    want = max(1, -(-blocks_per_sm * sms // tiles))
+    rows = max(-(-m // want), min_rows, 1)
+    rows = -(-rows // _MMA_BM) * _MMA_BM
+    return rows, -(-m // rows)
 
 
 def dw_mma_split(m, k, n, sms):
@@ -89,12 +107,20 @@ def dw_mma_split(m, k, n, sms):
     128) tile (64 wide where n <= 64) cover every SM, but no run so
     short that its float32 (k, n) partial, written and read back, costs
     more than an eighth of the bytes the run reads (2 (k + 2n) a row)."""
-    bn = 64 if n <= 64 else 128
-    tiles = -(-k // _MMA_BK) * -(-n // bn)
-    want = max(1, -(-_MMA_BLOCKS_PER_SM * sms // tiles))
-    rows = max(-(-m // want), 32 * k * n // (k + 2 * n), 1)
-    rows = -(-rows // _MMA_BM) * _MMA_BM
-    return rows, -(-m // rows)
+    return _dw_runs(m, k, n, sms, _MMA_BLOCKS_PER_SM,
+                    32 * k * n // (k + 2 * n))
+
+
+def dw_tf32_split(m, k, n, sms):
+    """``(split_rows, splits)`` of kernel 12's float32 3xTF32 tile, as
+    :func:`dw_mma_split`'s (runs a multiple of 32 rows, so of its 16-row
+    stage) but about ``_TF32_BLOCKS_PER_SM`` blocks an SM, and no run so
+    short that its float32 (k, n) partial, written and read back, costs
+    more than a quarter of the bytes the run reads (4 (k + 2n) a row):
+    of the rules ``scripts/torch_f32_dw_splits.py`` compares, the one
+    under which phase 7's 36 launches took least time on an H100."""
+    return _dw_runs(m, k, n, sms, _TF32_BLOCKS_PER_SM,
+                    8 * k * n // (k + 2 * n))
 
 
 # kernel 10's bfloat16 tile (fused_matmul_bn_fwd_mma): row blocks of 128
@@ -301,21 +327,18 @@ def fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
 
     On a CUDA tensor: kernel 12 over runs of M, each writing a float32
     (K, N) partial, then their sum in a fixed order; bfloat16 runs the
-    tensor-core tile, float32 the FMA tile.  On a CPU tensor: the plain
-    version."""
+    bf16 tensor-core tile over the runs of :func:`dw_mma_split`, float32
+    the 3xTF32 tile over those of :func:`dw_tf32_split`.  On a CPU
+    tensor: the plain version."""
     if x.device.type == "cpu":
         return matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
     m, k, n, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
         "fused_matmul_bn_dw", x, w, scale, bias, y, dy, ds1, ds2)
     if m == 0:
         return torch.zeros((k, n), dtype=w.dtype, device=x.device)
-    vec = 0
-    if x.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        split_rows, splits = dw_mma_split(m, k, n, sms)
-        vec = int(_vec16(x)) | 2 * int(_vec16(y, dy))
-    else:
-        split_rows, splits = _fc.dw_split(m, k, n, x.device)
+    split = dw_mma_split if x.dtype == torch.bfloat16 else dw_tf32_split
+    split_rows, splits = split(m, k, n, _fc.sms(x.device.index))
+    vec = int(_vec16(x)) | 2 * int(_vec16(y, dy))
     parts = torch.empty((splits, k, n), dtype=torch.float32, device=x.device)
     fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_dw",
                          _DW_ARGS)

@@ -21,14 +21,16 @@ Three kernels (``csrc/fused_conv3_bn.cu``), one wrapper each:
 :func:`fused_conv3_bn_fwd` (TPU kernel 13), :func:`fused_conv3_bn_dx`
 (kernels 14 and 15: the TPU's split of C_out into blocks, a VMEM limit,
 has no counterpart) and :func:`fused_conv3_bn_dw` (16), each with a
-launch counter.  Each has one instance for each dtype: float32 runs the
-FMA tile that all three share, bfloat16 a tile on the tensor cores
-(``fused_conv3_bn_fwd_mma``, over runs of pixels that
-:func:`fwd_mma_split` chooses; ``fused_conv3_bn_dx_mma``, over those of
-:func:`dx_mma_split`; ``fused_conv3_bn_dw_mma``, over those of
-:func:`dw_mma_split`).  Each wrapper dispatches on where x lies: a CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+launch counter.  Each has one instance for each dtype.  bfloat16 runs
+tiles on the tensor cores (``fused_conv3_bn_fwd_mma``, over runs of
+pixels that :func:`fwd_mma_split` chooses; ``fused_conv3_bn_dx_mma``,
+over those of :func:`dx_mma_split`; ``fused_conv3_bn_dw_mma``, over
+those of :func:`dw_mma_split`).  float32's forward and dx run the FMA
+tile that the two share, its dw a tile on the tensor cores that keeps
+float32 numbers in three tf32 products (``fused_conv3_bn_dw_tf32``, on
+the bfloat16 dw tile's walk, over the runs of :func:`dw_tf32_split`).
+Each wrapper dispatches on where x lies: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
 Nothing falls back, and there is no switch: on the card every 3x3 of the
 fused bottleneck runs on the kernels, whatever its geometry.
 
@@ -53,8 +55,9 @@ __all__ = ["conv3_bn_reference", "conv3_bn_dx_reference",
            "conv3_bn_dw_reference", "conv3_bn_bwd_reference",
            "fused_conv3_bn_fwd", "fused_conv3_bn_dx", "fused_conv3_bn_dw",
            "FusedConv3BNFunction", "fused_conv3_bn", "dw_mma_geometry",
-           "dw_mma_split", "fwd_mma_tile", "fwd_mma_split", "dx_mma_tile",
-           "dx_mma_split", "fwd_launches", "dx_launches", "dw_launches"]
+           "dw_mma_split", "dw_tf32_split", "fwd_mma_tile", "fwd_mma_split",
+           "dx_mma_tile", "dx_mma_split", "fwd_launches", "dx_launches",
+           "dw_launches"]
 
 #: Launches of the forward, dx and dw kernels so far; each wrapper adds
 #: one per launch and nothing else touches them (a caller may reset them
@@ -68,22 +71,26 @@ _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 _SHAPE = [_L, _I, _I, _I, _I]   # N, H, W, C, C_out
 _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L] + _SHAPE + [_P]
 _DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L] + _SHAPE + [_P]
-_DW_ARGS = [_I] + [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _P]
 _DW_MMA_ARGS = [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _I, _P]
 _FWD_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 3 + _SHAPE + [_L, _L, _I, _P]
 _DX_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 7 + _SHAPE + [_L, _L, _I, _P]
 
-# kernel 16's bfloat16 tile (fused_conv3_bn_dw_mma): 64 x 64 of (c, o)
-# for each of the three kernel rows, over stages of at most 64
-# positions.  Enough runs of stages that about _MMA_BLOCKS_PER_SM blocks
-# cover each SM (one wave at the tile's occupancy), none shorter than
-# _MMA_MIN_RUN_PIXELS: a block's float32 partial (3 x 64 x 64, 48 KiB),
-# written and read back, then costs at most an eighth of what the block
-# reads (64 + 2 * 64 bf16 values a pixel: 384 bytes).
+# kernel 16's tiles (fused_conv3_bn_dw_mma, and fused_conv3_bn_dw_tf32 on
+# the same walk): 64 x 64 of (c, o) for each of the three kernel rows,
+# over stages of at most 64 positions.  Enough runs of stages that about
+# _MMA_BLOCKS_PER_SM blocks cover each SM (one wave at the tile's
+# occupancy), none shorter than _MMA_MIN_RUN_PIXELS: a block's float32
+# partial (3 x 64 x 64, 48 KiB), written and read back, then costs at
+# most an eighth of what the block reads (64 + 2 * 64 bf16 values a
+# pixel: 384 bytes).
 _MMA_TILE, _MMA_POS = 64, 64
 _MMA_BLOCKS_PER_SM = 2
 _MMA_MIN_RUN_PIXELS = 8 * 2 * (3 * _MMA_TILE * _MMA_TILE * 4) // (
     3 * _MMA_TILE * 2)
+# the 3xTF32 tile (two blocks an SM too) reads float32 pixels: the same
+# eighth is half as many pixels
+_TF32_BLOCKS_PER_SM = 2
+_TF32_MIN_RUN_PIXELS = _MMA_MIN_RUN_PIXELS // 2
 # kernels 13's and 14's bfloat16 tiles (fused_conv3_bn_fwd_mma,
 # fused_conv3_bn_dx_mma) walk the pixels as kernel 16's does; their runs
 # of stages are enough that about _FWD_BLOCKS_PER_SM blocks cover each SM
@@ -169,6 +176,21 @@ def dw_mma_geometry(w):
     return seg_w, _MMA_POS // (seg_w + 2), -(-w // seg_w)
 
 
+def _dw_runs(n, h, w, c, co, sms, blocks_per_sm, min_pixels):
+    """``(run_stages, runs)``: runs of whole stages of
+    :func:`dw_mma_geometry`'s walk that tile the stages exactly (the last
+    run may be shorter), enough that about ``blocks_per_sm`` blocks cover
+    every SM, none of fewer than ``min_pixels`` pixels where the image
+    holds that many."""
+    seg_w, stage_segs, row_segs = dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    tiles = 3 * -(-c // _MMA_TILE) * -(-co // _MMA_TILE)
+    want = max(1, -(-blocks_per_sm * sms // tiles))
+    least = -(-min_pixels // (stage_segs * seg_w))
+    run_stages = min(max(-(-stages // want), least), stages)
+    return run_stages, -(-stages // run_stages)
+
+
 def dw_mma_split(n, h, w, c, co, sms):
     """``(run_stages, runs)`` of kernel 16's bfloat16 tile for x (n, h,
     w, c) and dw (3, 3, c, co) on a card of ``sms`` SMs: runs of whole
@@ -176,13 +198,37 @@ def dw_mma_split(n, h, w, c, co, sms):
     Enough runs that about ``_MMA_BLOCKS_PER_SM`` blocks cover every SM,
     none of fewer than ``_MMA_MIN_RUN_PIXELS`` pixels where the image
     holds that many."""
+    return _dw_runs(n, h, w, c, co, sms, _MMA_BLOCKS_PER_SM,
+                    _MMA_MIN_RUN_PIXELS)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_tf32_split(n, h, w, c, co, sms):
+    """``(run_stages, runs)`` of kernel 16's float32 3xTF32 tile, on the
+    bfloat16 tile's walk: runs of whole stages that tile the stages
+    exactly (the last run may be shorter), at most 65535 of them, none
+    of fewer than ``_TF32_MIN_RUN_PIXELS`` pixels where the image holds
+    that many.  The run length r minimises waves x r, the time of the
+    slowest SM when each of the runs x (channel tiles) blocks takes a
+    slot of ``_TF32_BLOCKS_PER_SM`` an SM, the longer run where two tie
+    (of the rules ``scripts/torch_f32_dw_splits.py`` compares, the one
+    under which phase 7's 16 launches took least time on an H100)."""
     seg_w, stage_segs, row_segs = dw_mma_geometry(w)
     stages = -(-(n * h * row_segs) // stage_segs)
     tiles = 3 * -(-c // _MMA_TILE) * -(-co // _MMA_TILE)
-    want = max(1, -(-_MMA_BLOCKS_PER_SM * sms // tiles))
-    least = -(-_MMA_MIN_RUN_PIXELS // (stage_segs * seg_w))
-    run_stages = min(max(-(-stages // want), least), stages)
-    return run_stages, -(-stages // run_stages)
+    slots = _TF32_BLOCKS_PER_SM * sms
+    least = max(min(stages,
+                    -(-_TF32_MIN_RUN_PIXELS // (stage_segs * seg_w))),
+                -(-stages // 65535))
+    best = None
+    for runs in range(1, stages + 1):   # the longest run for each count
+        r = -(-stages // runs)
+        if r < least:
+            break
+        cost = -(-tiles * -(-stages // r) // slots) * r
+        if best is None or cost < best[0]:
+            best = (cost, r)
+    return best[1], -(-stages // best[1])
 
 
 def fwd_mma_tile(c, co):
@@ -399,41 +445,30 @@ def fused_conv3_bn_dw(x, w, scale, bias, y, dy, ds1, ds2):
     ds2)`` → dw ``(3, 3, C, C_out)`` in w's dtype, summed over N*H*W in
     float32.
 
-    On a CUDA tensor: kernel 16 over runs of N*H*W, each writing a
+    On a CUDA tensor: kernel 16 over runs of stages, each writing a
     float32 partial of the whole gradient, then their sum in a fixed
-    order; bfloat16 runs the tensor-core tile, float32 the FMA tile.  On
-    a CPU tensor: the plain version."""
+    order; bfloat16 runs the bf16 tensor-core tile over the runs of
+    :func:`dw_mma_split`, float32 the 3xTF32 tile over those of
+    :func:`dw_tf32_split`.  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return conv3_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
     n, h, wd, c, co, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
         "fused_conv3_bn_dw", x, w, scale, bias, y, dy, ds1, ds2)
-    m = n * h * wd
-    if m == 0:
+    if n * h * wd == 0:
         return torch.zeros((3, 3, c, co), dtype=w.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    split = dw_mma_split if bf16 else dw_tf32_split
+    run_stages, runs = split(n, h, wd, c, co, _fc.sms(x.device.index))
+    parts = torch.empty((runs, 3, 3, c, co), dtype=torch.float32,
+                        device=x.device)
+    vec = int(_fc.vec16(x)) | 2 * int(_fc.vec16(y, dy))
+    entry = "mx_fused_conv3_bn_dw_mma" if bf16 else "mx_fused_conv3_bn_dw_tf32"
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
-            run_stages, runs = dw_mma_split(n, h, wd, c, co,
-                                            _fc.sms(x.device.index))
-            parts = torch.empty((runs, 3, 3, c, co), dtype=torch.float32,
-                                device=x.device)
-            vec = int(_fc.vec16(x)) | 2 * int(_fc.vec16(y, dy))
-            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dw_mma",
-                                 _DW_MMA_ARGS)
-            fn(x.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
-               int(scale is not None), y.data_ptr(), dy.data_ptr(),
-               ds1.data_ptr(), ds2.data_ptr(), parts.data_ptr(), n, h, wd, c,
-               co, run_stages, runs, vec, _stream(x.device))
-        else:
-            split_rows, splits = _fc.dw_split(m, 9 * c, co, x.device)
-            parts = torch.empty((splits, 3, 3, c, co), dtype=torch.float32,
-                                device=x.device)
-            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dw",
-                                 _DW_ARGS)
-            fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), _fc.ptr(scale),
-               _fc.ptr(bias), int(scale is not None), y.data_ptr(),
-               dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
-               parts.data_ptr(), n, h, wd, c, co, split_rows, splits,
-               _stream(x.device))
+        fn = _build.launcher("fused_conv3_bn", entry, _DW_MMA_ARGS)
+        fn(x.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
+           int(scale is not None), y.data_ptr(), dy.data_ptr(),
+           ds1.data_ptr(), ds2.data_ptr(), parts.data_ptr(), n, h, wd, c, co,
+           run_stages, runs, vec, _stream(x.device))
     _count("dw")
     return parts.sum(dim=0).to(w.dtype)
 

@@ -24,7 +24,9 @@ dbias take the same share of their largest value.  The fused 3x3
 conv + BatchNorm kernels take the same tolerances, for the same
 reasons; the bfloat16 tensor-core tiles of kernels 11, 13 and 16 too
 (both operands rounded to bf16 before the exact products, float32
-sums in another order).  The small fused ResNet, card step against
+sums in another order), and the float32 3xTF32 tiles of kernels 12 and
+16 (three tf32 products keep about 2^-21 of each float32 product, and
+the sums run in another order).  The small fused ResNet, card step against
 CPU step: loss 1e-5 relative, every gradient 1e-3 of its largest value
 (50 layers of float32 sums in another order; both TF32 switches off).
 Its ``FusedTrainStep`` by CUDA-graph replay against the same step run
@@ -325,11 +327,12 @@ def _dw_args(m, k, n, dtype, dev, prologue=True, seed=3):
     return x, w, scale, bias, y, dy, ds1, ds2
 
 
-@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+@pytest.mark.parametrize("dtype,route", [("float32", "3xTF32"),
                                          ("bfloat16", "tensor-core")])
 def test_fused_matmul_bn_dw_runs_the_kernel_of_its_dtype(dev, dtype, route):
-    """float32 inputs run kernel 12's FMA tile; bfloat16 its tensor-core
-    tile (fused_matmul_bn_dw_mma), as the profiler sees."""
+    """float32 inputs run kernel 12's 3xTF32 tensor-core tile
+    (fused_matmul_bn_dw_tf32); bfloat16 its bf16 tensor-core tile
+    (fused_matmul_bn_dw_mma), as the profiler sees."""
     from torch.profiler import ProfilerActivity, profile
     args = _dw_args(200, 96, 72, dtype, dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -340,6 +343,7 @@ def test_fused_matmul_bn_dw_runs_the_kernel_of_its_dtype(dev, dtype, route):
     name, = hits
     assert "fused_matmul_bn_dw" in name, name
     assert ("fused_matmul_bn_dw_mma" in name) == (route == "tensor-core"), name
+    assert ("fused_matmul_bn_dw_tf32" in name) == (route == "3xTF32"), name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -380,6 +384,40 @@ def test_fused_matmul_bn_dw_mma_loads_element_wise(dev, no_tf32, prologue, m,
     want = fb.matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
     torch.cuda.synchronize()
     _within(got, want, 2e-2, "dw")
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (1000, 62, 100, 0),   # K not a multiple of 4
+    (77, 3, 130, 0),      # K under one 16-byte chunk
+    (200, 96, 70, 0),     # N not a multiple of 4
+    (640, 64, 256, 1),    # rows of 4 elements, starts off 16 bytes
+    (401408, 64, 256, 0),  # the representative launch: 16-byte loads
+])
+def test_fused_matmul_bn_dw_tf32_matches_plain(dev, no_tf32, prologue, m, k,
+                                               n, offset):
+    """The float32 tile, with 16-byte loads and where a start or a row
+    width makes it load element by element, matches the plain version
+    within the float32 tolerance (1e-5 of max|dw|), two runs bit for
+    bit."""
+    x, w, scale, bias, y, dy, ds1, ds2 = _dw_args(m, k, n, "float32", dev,
+                                                  prologue)
+    if offset:
+        def shift(t):
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            out = buf[offset:].view(t.shape)
+            out.copy_(t)
+            return out
+        x, y, dy = shift(x), shift(y), shift(dy)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    vec = fb._vec16(x) and fb._vec16(y, dy)
+    assert vec == (m == 401408)
+    got = fb.fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
+    again = fb.fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
+    want = fb.matmul_bn_dw_reference(x, w, scale, bias, y, dy, ds1, ds2)
+    torch.cuda.synchronize()
+    _within(got, want, 1e-5, "dw")
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
@@ -652,11 +690,12 @@ def _conv_dw_args(n, h, w, c, co, dtype, dev, prologue=True, seed=3):
     return x, k, scale, bias, y, dy, ds1, ds2
 
 
-@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+@pytest.mark.parametrize("dtype,route", [("float32", "3xTF32"),
                                          ("bfloat16", "tensor-core")])
 def test_fused_conv3_bn_dw_runs_the_kernel_of_its_dtype(dev, dtype, route):
-    """float32 inputs run kernel 16's FMA tile; bfloat16 its tensor-core
-    tile (fused_conv3_bn_dw_mma), as the profiler sees."""
+    """float32 inputs run kernel 16's 3xTF32 tensor-core tile
+    (fused_conv3_bn_dw_tf32); bfloat16 its bf16 tensor-core tile
+    (fused_conv3_bn_dw_mma), as the profiler sees."""
     args = _conv_dw_args(2, 5, 9, 16, 8, dtype, dev)
     hits = {n for n in _kernel_names(fc.fused_conv3_bn_dw, args)
             if "fused_conv3_bn" in n}
@@ -664,6 +703,7 @@ def test_fused_conv3_bn_dw_runs_the_kernel_of_its_dtype(dev, dtype, route):
     name, = hits
     assert "fused_conv3_bn_dw" in name, name
     assert ("fused_conv3_bn_dw_mma" in name) == (route == "tensor-core"), name
+    assert ("fused_conv3_bn_dw_tf32" in name) == (route == "3xTF32"), name
 
 
 @pytest.mark.parametrize("prologue", [False, True])
@@ -695,6 +735,41 @@ def test_fused_conv3_bn_dw_mma_loads_element_wise(dev, no_tf32, prologue, n,
     want = fc.conv3_bn_dw_reference(x, k, scale, bias, y, dy, ds1, ds2)
     torch.cuda.synchronize()
     _within(got, want, 2e-2, "dw")
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("n,h,w,c,co,offset", [
+    (2, 5, 9, 6, 20, 0),      # C not a multiple of 4
+    (3, 6, 6, 16, 13, 0),     # C_out not a multiple of 4
+    (2, 7, 7, 3, 64, 0),      # C under one 16-byte chunk
+    (4, 14, 14, 64, 64, 1),   # rows of 4 elements, starts off 16 bytes
+    (1, 3, 130, 8, 8, 0),     # an image row in three segments
+    (16, 6, 6, 16, 260, 0),   # C_out in five tiles (the TPU's kernel 15)
+    (128, 56, 56, 64, 64, 0),  # the representative launch
+])
+def test_fused_conv3_bn_dw_tf32_matches_plain(dev, no_tf32, prologue, n, h,
+                                              w, c, co, offset):
+    """The float32 tile, with 16-byte loads and where a start or a
+    channel count makes it load element by element, matches the plain
+    version within the float32 tolerance (1e-5 of max|dw|), two runs bit
+    for bit."""
+    x, k, scale, bias, y, dy, ds1, ds2 = _conv_dw_args(n, h, w, c, co,
+                                                       "float32", dev,
+                                                       prologue)
+    if offset:
+        def shift(t):
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            out = buf[offset:].view(t.shape)
+            out.copy_(t)
+            return out
+        x, y, dy = shift(x), shift(y), shift(dy)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = fc.fused_conv3_bn_dw(x, k, scale, bias, y, dy, ds1, ds2)
+    again = fc.fused_conv3_bn_dw(x, k, scale, bias, y, dy, ds1, ds2)
+    want = fc.conv3_bn_dw_reference(x, k, scale, bias, y, dy, ds1, ds2)
+    torch.cuda.synchronize()
+    _within(got, want, 1e-5, "dw")
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

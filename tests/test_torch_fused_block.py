@@ -432,3 +432,171 @@ def test_fwd_mma_split_tiles_m_in_whole_stages(m, k, n, sms):
     least = -(-blocks // 65535)
     for r in range(least, max(least, min(blocks, fb._FWD_MAX_RUN)) + 1):
         assert cost(rows // _FWD_ROWS) <= cost(r)
+
+
+# ---------------------------------------------------------------------------
+# kernel 12's float32 tile (fused_matmul_bn_dw_tf32), by its arithmetic
+# ---------------------------------------------------------------------------
+
+# kernel 12's float32 tile: 16 rows of M a stage, 8 a tensor-core step
+_TF32_STAGE, _TF32_DEPTH = 16, 8
+
+
+def _tf32_rna(v):
+    """float32 values rounded to tf32 as ``cvt.rna.tf32.f32`` rounds them
+    (10 bits of mantissa, to nearest, ties away from zero), as float32:
+    the bits of the magnitude plus half a tf32 ulp, the low 13 bits
+    cleared.  A value that rounds past the largest float becomes inf; a
+    NaN stays NaN."""
+    v = np.ascontiguousarray(v, np.float32)
+    bits = v.view(np.uint32)
+    r = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return np.where(np.isnan(v), v, r.view(np.float32))
+
+
+def _split_tf32(v):
+    """``(hi, lo)``: v = hi + lo up to 2^-22 |v|, both tf32, as
+    ``split_tf32`` in ``csrc/mma.cuh`` takes them (v - hi is exact in
+    float32)."""
+    v = np.ascontiguousarray(v, np.float32)
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)
+
+
+def _products_3xtf32(a, b):
+    """The three tf32 products of an (r, i) and an (r, j) operand over
+    their depth r, in the kernels' order (lo·hi, hi·lo, hi·hi), each
+    summed exactly (float64), as float64 (i, j) arrays."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return [p.T.astype(np.float64) @ q.astype(np.float64)
+            for p, q in ((al, bh), (ah, bl), (ah, bh))]
+
+
+def _add_f32(acc, p):
+    """acc + p rounded once to float32 (acc float32, p float64)."""
+    return (acc.astype(np.float64) + p).astype(np.float32)
+
+
+def _kernel_dw_tf32(x, scale, bias, y, dy, ds1, ds2, split_rows):
+    """dw by the arithmetic of kernel 12's float32 tile: the prologue and
+    dyt in float32, unrounded to any narrower type; each 8-row m16n8k8
+    step's three tf32 products (``_products_3xtf32``) added in order to
+    the stage's float32 part, which starts at 0 each 16-row stage, one
+    rounding each; each part added to the run's float32 sum; each run of
+    ``split_rows`` rows a float32 partial, and the partials summed in
+    order in float32.  Rows past M are absent, as the kernel's zeroed
+    rows add nothing."""
+    a = fc.prologue(x, scale, bias).numpy()
+    b = fc.dyt(y, dy, ds1, ds2).numpy()
+    m = a.shape[0]
+    total = None
+    for r0 in range(0, m, split_rows):
+        acc = np.zeros((a.shape[1], b.shape[1]), np.float32)
+        for s0 in range(r0, min(m, r0 + split_rows), _TF32_STAGE):
+            part = np.zeros_like(acc)
+            for k0 in range(s0, min(m, s0 + _TF32_STAGE), _TF32_DEPTH):
+                rows = slice(k0, min(m, k0 + _TF32_DEPTH))
+                for p in _products_3xtf32(a[rows], b[rows]):
+                    part = _add_f32(part, p)
+            acc = acc + part
+        total = acc if total is None else total + acc
+    return total
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away_from_zero():
+    f32 = np.finfo(np.float32)
+    u = 2.0 ** -10                    # a tf32 ulp at 1
+    cases = [(1 + u / 2, 1 + u),      # a tie goes away from zero (not to 1,
+             (-(1 + u / 2), -(1 + u)),  # which is even)
+             (1 + 3 * u / 2, 1 + 2 * u),
+             (np.nextafter(np.float32(1 + u / 2), np.float32(0)), 1.0),
+             (np.nextafter(np.float32(1 + u / 2), np.float32(2)), 1 + u),
+             (1 + u, 1 + u),           # already tf32
+             (f32.max, np.inf),        # the largest float rounds past it
+             (-f32.max, -np.inf),
+             (np.inf, np.inf), (-np.inf, -np.inf), (0.0, 0.0),
+             (2.0 ** -149, 0.0),       # the least subnormal
+             (2.0 ** -137, 2.0 ** -136),  # a subnormal tie
+             (-3.0 * 2.0 ** -136, -3.0 * 2.0 ** -136),  # a tf32 subnormal
+             (-3.0 * 2.0 ** -140, -0.0)]
+    got = _tf32_rna(np.array([v for v, _ in cases], np.float32))
+    want = np.array([w for _, w in cases], np.float32)
+    assert np.array_equal(got, want), list(zip(got, want))
+    assert np.signbit(_tf32_rna(np.float32(-0.0)))
+    assert np.isnan(_tf32_rna(np.array([np.nan], np.float32))).all()
+    assert (_tf32_rna(np.random.RandomState(0).randn(1000).astype(
+        np.float32)).view(np.uint32) & 0x1FFF == 0).all()
+
+
+def test_split_tf32_keeps_float32_to_2_pow_minus_22():
+    rng = np.random.RandomState(1)
+    v = (rng.randn(4096) * np.exp2(rng.randint(-60, 60, 4096))).astype(
+        np.float32)
+    hi, lo = _split_tf32(v)
+    for part in (hi, lo):
+        assert (part.view(np.uint32) & 0x1FFF == 0).all()
+    err = np.abs(v.astype(np.float64) - hi - lo)
+    assert (err <= 2.0 ** -22 * np.abs(v)).all(), err.max()
+    assert np.array_equal(_split_tf32(hi)[0], hi)
+    assert not _split_tf32(hi)[1].any()
+
+
+@pytest.mark.parametrize("split", ["rule", _TF32_STAGE])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_kernel_dw_tf32_arithmetic_matches_jax(m, k, n, prologue, split):
+    """The float32 dw kernel's order of products, sums and roundings, on
+    the JAX forward's own y, within TOL["float32"] of the JAX VJP's dw
+    (Pallas, interpret mode), with the runs the split rule chooses and
+    with one 16-row stage a run.  Measured at these inputs: 1.7e-7 to
+    5.8e-7 of max|dw| (float32 sums in another order)."""
+    a = _inputs(m, k, n, seed=m + k + n)
+    j, t = _to_jax(a, "float32"), _to_torch(a, "float32")
+    (y, _, _), (_, dw, _, _) = _jax_vjp(
+        lambda x, w, s, b: jfb._fmm(x, w, s, b, prologue), j, prologue)
+    y = torch.from_numpy(np.array(y))
+    split_rows = (fb.dw_tf32_split(m, k, n, sms=132)[0] if split == "rule"
+                  else split)
+    assert split_rows % _TF32_STAGE == 0
+    got = _kernel_dw_tf32(t["x"], t["scale"] if prologue else None,
+                          t["bias"] if prologue else None, y, t["dy"],
+                          t["ds1"], t["ds2"], split_rows)
+    _close(got, dw, TOL["float32"], "dw")
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 64), (31, 64, 256), (33, 2048, 2048), (200, 96, 72),
+    (401408, 64, 64), (401408, 64, 256), (401408, 256, 64),
+    (100352, 128, 512), (25088, 512, 1024), (6272, 2048, 512),
+    (3 * 10 ** 7, 64, 64)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dw_tf32_split_tiles_m_in_whole_stages(m, k, n, sms):
+    rows, splits = fb.dw_tf32_split(m, k, n, sms)
+    assert rows > 0 and rows % _TF32_STAGE == 0 and rows % 32 == 0
+    assert (splits - 1) * rows < m <= splits * rows
+    assert 1 <= splits <= 65535
+    # no run so short that its float32 partial (written and read back)
+    # outweighs a quarter of what the run reads, unless M is shorter
+    assert 8 * k * n <= rows * (k + 2 * n) or splits == 1
+    # at least as many runs as the bfloat16 tile's rule takes
+    assert splits >= fb.dw_mma_split(m, k, n, sms)[1]
+
+
+def test_one_tf32_pass_misses_the_float32_tolerance():
+    """What the split is for: the hi·hi product alone (one TF32 pass, as
+    cuBLAS's TF32 mode takes it) misses the JAX VJP's dw by far more than
+    TOL["float32"] (measured: 1.6e-4 of max|dw| here, 1.1e-4 to 3.5e-4
+    over the file's shapes), where the three products land within it."""
+    m, k, n = SHAPES[0]
+    a = _inputs(m, k, n, seed=m + k + n)
+    j, t = _to_jax(a, "float32"), _to_torch(a, "float32")
+    (y, _, _), (_, dw, _, _) = _jax_vjp(
+        lambda x, w, s, b: jfb._fmm(x, w, s, b, True), j, True)
+    y = torch.from_numpy(np.array(y))
+    xn = fc.prologue(t["x"], t["scale"], t["bias"]).numpy()
+    d = fc.dyt(y, t["dy"], t["ds1"], t["ds2"]).numpy()
+    one = _tf32_rna(xn).T.astype(np.float64) @ _tf32_rna(d).astype(np.float64)
+    with pytest.raises(AssertionError, match="max"):
+        _close(one, dw, TOL["float32"], "dw, one tf32 pass")
+    three = sum(_products_3xtf32(xn, d))
+    _close(three, dw, TOL["float32"], "dw, three tf32 products")

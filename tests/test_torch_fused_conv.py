@@ -434,6 +434,138 @@ def test_dw_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
 
 
 # ---------------------------------------------------------------------------
+# kernel 16's float32 tile, by its arithmetic
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(v):
+    """float32 values rounded to tf32 as ``cvt.rna.tf32.f32`` rounds them
+    (to nearest, ties away from zero), as float32; the edge cases are
+    tested beside kernel 12's float32 tile in test_torch_fused_block.py."""
+    v = np.ascontiguousarray(v, np.float32)
+    r = (v.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return np.where(np.isnan(v), v, r.view(np.float32))
+
+
+def _split_tf32(v):
+    """``(hi, lo)``, both tf32, v = hi + lo up to 2^-22 |v|."""
+    v = np.ascontiguousarray(v, np.float32)
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)
+
+
+def _kernel_conv3_dw_tf32(x, scale, bias, y, dy, ds1, ds2, sms=132,
+                          run_stages=None):
+    """dw (3, 3, C, C_out) float32 by ``fused_conv3_bn_dw_tf32``'s
+    arithmetic, on float32 numpy arrays: xn = relu(x*scale + bias) and
+    dyt = dy + ds1 + 2*y*ds2 in float32; the pixels walked as the
+    bfloat16 tile walks them (``_walk``), in the runs of
+    ``fc.dw_tf32_split`` unless ``run_stages`` is given, dyt 0 at a
+    segment's halo positions and xn 0 outside the image; both split into
+    tf32 hi + lo; per tap and 8-position step the three products lo·hi,
+    hi·lo, hi·hi, each summed exactly and added with one rounding to the
+    tap's float32 part, which starts at 0 each stage; each part added to
+    the run's float32 sum; one partial per run, then the runs added in
+    order."""
+    n, h, w, c = x.shape
+    co = dy.shape[-1]
+    xn = x if scale is None else np.maximum(x * scale + bias, 0)
+    dyt = (dy + ds1) + (2 * y) * ds2
+    stages, b, hh, px, live, inner = _walk(n, h, w)
+    if run_stages is None:
+        run_stages, runs = fc.dw_tf32_split(n, h, w, c, co, sms)
+    else:
+        runs = -(-stages // run_stages)
+    steps = _POS // 8
+    d_hi, d_lo = _split_tf32(np.where(
+        inner[..., None], dyt[b, hh, px.clip(0, w - 1)], 0))
+    dw = np.zeros((runs, 3, 3, c, co), np.float32)
+    for dh in (-1, 0, 1):
+        ok = live & (hh + dh >= 0) & (hh + dh < h) & (px >= 0) & (px < w)
+        x_tile = np.where(ok[..., None],
+                          xn[b, (hh + dh).clip(0, h - 1), px.clip(0, w - 1)],
+                          0)
+        # the tile's rows: a zero guard, the positions, zeros past them
+        x_hi, x_lo = _split_tf32(np.pad(x_tile, ((0, 0), (1, 2), (0, 0))))
+        for tap in range(3):      # dw = tap - 1: row offset tap
+            prods = [np.einsum(
+                "skpc,skpo->skco",
+                p[:, tap:tap + _POS].reshape(stages, steps, 8, c)
+                .astype(np.float64),
+                q.reshape(stages, steps, 8, co).astype(np.float64))
+                for p, q in ((x_lo, d_hi), (x_hi, d_lo), (x_hi, d_hi))]
+            for r in range(runs):
+                acc = np.zeros((c, co), np.float32)
+                for st in range(r * run_stages,
+                                min(stages, (r + 1) * run_stages)):
+                    part = np.zeros((c, co), np.float32)
+                    for k in range(steps):
+                        for p in prods:
+                            part = (part.astype(np.float64)
+                                    + p[st, k]).astype(np.float32)
+                    acc = acc + part
+                dw[r, dh + 1, tap] = acc
+    out = np.zeros((3, 3, c, co), np.float32)
+    for r in range(runs):
+        out = out + dw[r]
+    return out
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("prologue", [False, True])
+def test_dw_tf32_arithmetic_matches_the_jax_vjp(shape, prologue):
+    """``_kernel_conv3_dw_tf32`` (the plan's runs, and one stage a run, so
+    that the partials' sum is exercised) against the dw of the JAX
+    package's ``fused_conv3_bn`` VJP (the Pallas kernels in interpret
+    mode), float32, within TOL["float32"] of max |dw|.  On these inputs
+    they land 2.0e-7 to 3.4e-7 of max |dw| apart (float32 sums in another
+    order)."""
+    a = _inputs(*shape, seed=11 + sum(shape))
+    j = _to_jax(a, "float32")
+    c = j["x"].shape[-1]
+    sc = j["scale"] if prologue else jnp.ones((c,), jnp.float32)
+    bi = j["bias"] if prologue else jnp.zeros((c,), jnp.float32)
+    fn = lambda x, w, s, b: jfc.fused_conv3_bn(  # noqa: E731
+        x, w, s if prologue else None, b if prologue else None)
+    (y, _, _), vjp = jax.vjp(fn, j["x"], j["w"], sc, bi)
+    want = np.asarray(vjp((j["dy"], j["ds1"], j["ds2"]))[1])
+    args = (a["x"], a["scale"] if prologue else None,
+            a["bias"] if prologue else None, np.asarray(y), a["dy"],
+            a["ds1"], a["ds2"])
+    for run_stages in (None, 1):
+        got = _kernel_conv3_dw_tf32(*args, run_stages=run_stages)
+        _close(got, want, TOL["float32"], f"dw_tf32 runs={run_stages}")
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+    (128, 7, 7, 512, 512),             # ResNet-50's 3x3 shapes at B=128
+    (2, 8, 8, 16, 24), (16, 6, 6, 16, 260), (1, 1, 1, 3, 5),
+    (1, 4, 200, 8, 8)])                # an image row in several segments
+def test_dw_tf32_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
+    seg_w, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    run_stages, runs = fc.dw_tf32_split(n, h, w, c, co, sms)
+    assert 1 <= run_stages <= stages and runs <= 65535
+    assert (runs - 1) * run_stages < stages <= runs * run_stages
+    # no run so short that a block's float32 partial outweighs an eighth
+    # of its float32 reads, unless the image holds fewer pixels
+    pixels = run_stages * stage_segs * seg_w
+    assert pixels >= fc._TF32_MIN_RUN_PIXELS or runs == 1
+    assert 8 * 2 * 3 * 64 * 64 * 4 <= fc._TF32_MIN_RUN_PIXELS * 3 * 64 * 4
+    # no allowed run length leaves the slowest SM less work
+    tiles = 3 * -(-c // 64) * -(-co // 64)
+    slots = fc._TF32_BLOCKS_PER_SM * sms
+
+    def cost(r):
+        return -(-tiles * -(-stages // r) // slots) * r
+
+    least = min(stages, -(-fc._TF32_MIN_RUN_PIXELS // (stage_segs * seg_w)))
+    assert all(cost(run_stages) <= cost(r)
+               for r in range(least, stages + 1))
+
+
+# ---------------------------------------------------------------------------
 # kernel 13's bfloat16 tile, by its arithmetic
 # ---------------------------------------------------------------------------
 
