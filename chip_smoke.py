@@ -22,10 +22,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    dtype: float32-FMA for float32, tensor-core for bfloat16; the fused
    1x1's forward, dx and weight gradient (kernels 10-12) and the fused
    3x3's forward, dx and weight gradient (13, 14 and 16) the same way,
-   except that the float32 weight gradients run 3xTF32 tensor-core
-   tiles, each tensor-core tile also where it loads rows element by
-   element, and two runs bit for bit, as two runs of the LayerNorm
-   backward), with
+   except that the float32 dx and weight gradients run 3xTF32
+   tensor-core tiles, each tensor-core tile also where it loads rows
+   element by element, and two runs bit for bit, as two runs of the
+   LayerNorm backward), with
    the stated tolerances, and its time beside the plain version's, one
    PyTorch library call's and the bound (the fused kernels' in both
    dtypes);
@@ -42,7 +42,11 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    B=16, T=128, whose loss must be finite and fall, with exactly 25
    LayerNorm forward and backward and 2 cross-entropy forward and
    backward launches a step; the median step time; one step profiled
-   by kernel family;
+   by kernel family; (c) 3 steps of the model converted to bfloat16 by
+   ``amp.convert_block``, as ``examples/train_bert.py --amp`` builds
+   it, whose losses must be finite, with the same launches a step, and
+   whose LayerNorm and cross-entropy kernels must run their bfloat16
+   instances, by the profiler's kernel names;
 7. train ResNet-50 v1 (NHWC, fused bottleneck, float32, SGD with
    momentum) — (a) one step at B=4, 224x224, 1000 classes on the card
    against the same step on the CPU: the loss, the logits, every moving
@@ -112,7 +116,8 @@ Phases (any failure raises, prints its traceback and exits non-zero):
 
 Each main path runs with the launch counters set to 0 just before it
 and read just after: serving from phase 4 to the end of phase 5,
-BERT training over phase 6 (b), ResNet training over phase 7 (b), the
+BERT training over phase 6 (b) and (c), ResNet training over phase 7
+(b), the
 bench path over phase 8 (b)'s warm-up and timed steps, the
 TransformerLM over phase 9 (b) and (c) and, with flash attention, over
 phase 10 (b) and (c), the user kernels over phase 11's compiles and
@@ -121,10 +126,10 @@ launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
 paths it ran on; kernels 10-14 and 16 have an entry for each instance,
-the float32 tile with phase 7's launches (the FMA tiles of kernels 10,
-11, 13 and 14; the 3xTF32 tensor-core tiles of kernels 12 and 16,
-``..._dw_tf32``) and the bfloat16 tensor-core tile (``..._mma``) with
-phase 8's.
+the float32 tile with phase 7's launches (the FMA tiles of kernels 10
+and 13; the 3xTF32 tensor-core tiles of kernels 11, 12, 14 and 16,
+``..._dx_tf32`` and ``..._dw_tf32``) and the bfloat16 tensor-core tile
+(``..._mma``) with phase 8's.
 """
 import copy
 import gc
@@ -145,6 +150,7 @@ VALID = [128, 100, 77, 64, 33, 16, 5, 1]
 HIDDEN = 768
 # training: BERT-base at B=16, T=128 (2048 tokens a step)
 TRAIN_B, TRAIN_B_CPU, TRAIN_STEPS = 16, 4, 10
+AMP_STEPS = 3   # phase 6 (c): BERT-base converted to bfloat16
 ROWS = TRAIN_B * T
 # the LayerNorm forward at the serving shapes, then the training step's
 LN_SHAPES = [((B * T // 8, HIDDEN), "float32"),
@@ -170,9 +176,11 @@ LN_BWD_SHAPES = [((ROWS, HIDDEN), "float32"), ((ROWS, HIDDEN), "bfloat16"),
 # largest value
 LN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PARAM_TOL = 1e-5
+# the MLM and NSP shapes of the training steps in both dtypes (phase 6's
+# float32 run and its bfloat16 pass (c)), then ragged shapes
 XENT_SHAPES = [((ROWS, VOCAB), "float32"), ((ROWS, VOCAB), "bfloat16"),
-               ((TRAIN_B, 2), "float32"), ((1000, 100), "float32"),
-               ((3, 16385), "float32")]
+               ((TRAIN_B, 2), "float32"), ((TRAIN_B, 2), "bfloat16"),
+               ((1000, 100), "float32"), ((3, 16385), "float32")]
 # loss and lse: float32 in both versions, 1e-5; dx: float32 rtol 1e-5,
 # atol 1e-6 (one float32 ulp of a row's logsumexp, about 15 here, moves
 # exp(x - lse) by about 1e-6 of itself), bfloat16 rtol 8e-3 (one bf16
@@ -217,9 +225,9 @@ FMM_ELEMENT_SHAPES = [(1000, 60, 100), (77, 9, 130), (33, 200, 40)]
 FP32_PEAK = 67e12      # FLOP/s of float32 FMA outside the tensor cores
 BF16_PEAK = 989e12     # dense bf16 tensor-core FLOP/s
 TF32_PEAK = 495e12     # dense tf32 tensor-core FLOP/s
-# the float32 weight gradients (kernels 12 and 16) multiply on the tensor
-# cores in three tf32 products each, so their bound counts three times
-# 2*M*K*N operations at TF32_PEAK
+# the float32 dx and weight gradients (kernels 11, 12, 14 and 16)
+# multiply on the tensor cores in three tf32 products each, so their
+# bound counts three times 2*M*K*N operations at TF32_PEAK
 TF32_PRODUCTS = 3
 # card step vs CPU step, ResNet-50 at B=4.  ResNet-50's float32
 # forward and backward at a tiny batch amplify rounding: moving the
@@ -1134,27 +1142,28 @@ def check_fused_matmul_bn(torch, fb, dev):
 
 def tile_suffix(part, dtype):
     """The kernel-name suffix of a fused kernel's instance: ``_mma`` for
-    every bfloat16 tile, ``_tf32`` for the float32 weight gradients (the
-    3xTF32 tiles of kernels 12 and 16), none for the float32 FMA tiles of
-    the forwards and dx."""
+    every bfloat16 tile, ``_tf32`` for the float32 dx and weight
+    gradients (the 3xTF32 tiles of kernels 11, 12, 14 and 16), none for
+    the float32 FMA tiles of the forwards."""
     if dtype == "bfloat16":
         return "_mma"
-    return "_tf32" if part == "dw" else ""
+    return "" if part == "fwd" else "_tf32"
 
 
-def dw_operations(dtype, flops, peak):
-    """``(operations, peak)`` of a fused weight gradient's bound: float32
-    runs three tf32 products of ``flops`` each at the TF32 peak, bfloat16
-    one at ``peak``."""
-    if dtype == "float32":
+def bound_operations(part, dtype, flops, peak):
+    """``(operations, peak)`` of a fused kernel's bound: a 3xTF32 tile
+    runs three tf32 products of ``flops`` each at the TF32 peak; every
+    other tile one product at ``peak``."""
+    if tile_suffix(part, dtype) == "_tf32":
         return TF32_PRODUCTS * flops, TF32_PEAK
     return flops, peak
 
 
 def check_fmm_mma(torch, fb, dev):
     """Kernels 10, 11 and 12 by dtype: the profiler's kernel names show
-    float32's forward and dx run the FMA tile, its dw the 3xTF32 tile
-    (``fused_matmul_bn_dw_tf32``), and bfloat16 the tensor-core tiles
+    float32's forward runs the FMA tile, its dx and dw the 3xTF32 tiles
+    (``fused_matmul_bn_dx_tf32``, ``fused_matmul_bn_dw_tf32``), and
+    bfloat16 the tensor-core tiles
     (``fused_matmul_bn_fwd_mma``, ``fused_matmul_bn_dx_mma``,
     ``fused_matmul_bn_dw_mma``); each tensor-core tile within FMM_TOL of
     its plain version where it loads rows element by element; two runs
@@ -1254,13 +1263,13 @@ def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
     dx_bytes = (2 * m * n + k * n + 2 * m * k) * es + 4 * k * 4 + 2 * n * 4
     dw_bytes = (m * k + 2 * m * n + k * n) * es + 2 * k * 4 + 2 * n * 4
     label = f"({m}, {k}, {n}) prologue {dtype}"
-    dw_flops, dw_peak = dw_operations(dtype, flops, peak)
-    out = (report(f"fused_matmul_bn_fwd {label}", fwd, fwd_bytes, rate,
-                  flops, peak),
-           report(f"fused_matmul_bn_dx {label}", dx, dx_bytes, rate, flops,
-                  peak),
-           report(f"fused_matmul_bn_dw{tile_suffix('dw', dtype)} {label}", dw,
-                  dw_bytes, rate, dw_flops, dw_peak))
+    out = tuple(
+        report(f"fused_matmul_bn_{part}{tile_suffix(part, dtype)} {label}",
+               times, nbytes, rate, *bound_operations(part, dtype, flops,
+                                                      peak))
+        for part, times, nbytes in (("fwd", fwd, fwd_bytes),
+                                    ("dx", dx, dx_bytes),
+                                    ("dw", dw, dw_bytes)))
     del sets, fwd_sets, bwd_sets
     return out
 
@@ -1352,8 +1361,9 @@ def check_fused_conv3_bn(torch, fc, dev):
 
 def check_conv3_mma(torch, fc, dev):
     """Kernels 13, 14 and 16 by dtype: the profiler's kernel names show
-    float32's forward and dx run the FMA tile, its dw the 3xTF32 tile
-    (``fused_conv3_bn_dw_tf32``), and bfloat16 the tensor-core tiles
+    float32's forward runs the FMA tile, its dx and dw the 3xTF32 tiles
+    (``fused_conv3_bn_dx_tf32``, ``fused_conv3_bn_dw_tf32``), and
+    bfloat16 the tensor-core tiles
     (``fused_conv3_bn_fwd_mma``, ``fused_conv3_bn_dx_mma``,
     ``fused_conv3_bn_dw_mma``); each tensor-core tile within FMM_TOL of
     its plain version where it loads rows element by element, where an
@@ -1409,8 +1419,11 @@ def check_conv3_mma(torch, fc, dev):
                     assert err <= tol * scale_, (part, dtype, shape, pro, err)
                     assert torch.equal(a, b), (part, dtype, shape, pro)
                     ratios.append(err / scale_)
-                split = {"fwd": fc.fwd_mma_split, "dx": fc.dx_mma_split,
-                         "dw": fc.dw_mma_split if dtype == "bfloat16"
+                bf16 = dtype == "bfloat16"
+                split = {"fwd": fc.fwd_mma_split,
+                         "dx": lambda *geom: fc.dx_mma_split(
+                             *geom, getattr(torch, dtype)),
+                         "dw": fc.dw_mma_split if bf16
                          else fc.dw_tf32_split}[part](*shape, sms)
                 print(f"fused_conv3_bn_{part}{suffix} {shape} prologue={pro}: "
                       f"max|d|/max|ref| "
@@ -1509,13 +1522,13 @@ def time_fused_conv3_bn(torch, fc, dev, dtype, rate):
         + 2 * co * 4
     dw_bytes = (m * c + 2 * m * co + 9 * c * co) * es + 2 * c * 4 + 2 * co * 4
     label = f"{CONV_REP} prologue {dtype}"
-    dw_flops, dw_peak = dw_operations(dtype, flops, peak)
-    out = (report(f"fused_conv3_bn_fwd {label}", fwd, fwd_bytes, rate, flops,
-                  peak),
-           report(f"fused_conv3_bn_dx {label}", dx, dx_bytes, rate, flops,
-                  peak),
-           report(f"fused_conv3_bn_dw{tile_suffix('dw', dtype)} {label}", dw,
-                  dw_bytes, rate, dw_flops, dw_peak))
+    out = tuple(
+        report(f"fused_conv3_bn_{part}{tile_suffix(part, dtype)} {label}",
+               times, nbytes, rate, *bound_operations(part, dtype, flops,
+                                                      peak))
+        for part, times, nbytes in (("fwd", fwd, fwd_bytes),
+                                    ("dx", dx, dx_bytes),
+                                    ("dw", dw, dw_bytes)))
     del sets, fwd_sets, bwd_sets, lib_sets
     return out
 
@@ -1744,6 +1757,63 @@ def train_bert_base(torch, np, dev):
           f"min {min(step_ms[2:]):.3f} ms, all "
           f"{[round(v, 3) for v in step_ms]}", flush=True)
     step_breakdown(torch, fwd_bwd, update)
+    for k, n in amp_bert_steps(torch, np, dev, batch).items():
+        counts[k] += n
+    return counts
+
+
+def amp_bert_steps(torch, np, dev, batch):
+    """Phase 6 (c): BERT-base converted to bfloat16 by
+    ``amp.convert_block`` after ``initialize``, before the Trainer, as
+    ``examples/train_bert.py --amp`` builds it; AMP_STEPS steps at B=16,
+    T=128, dropout 0.1, Adam, every loss finite, 25 / 25 / 2 / 2 launches
+    of the LayerNorm and cross-entropy kernels a step; then, by the
+    profiler's kernel names, that those kernels ran their bfloat16
+    instances.  Returns the launch counts."""
+    from incubator_mxnet_tpu_torch import amp
+    from incubator_mxnet_tpu_torch.examples.train_bert import (
+        use_dropout_generator)
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
+    net = BERTModel(vocab_size=VOCAB).initialize(
+        device=dev, generator=torch.Generator().manual_seed(2))
+    amp.convert_block(net, "bfloat16")
+    use_dropout_generator(net, torch.Generator(device=dev).manual_seed(1))
+    trainer = Trainer(net.collect_params(), "adam", {"learning_rate": LR})
+    fwd_bwd, update = bert_step_parts(torch, net, trainer,
+                                      SoftmaxCrossEntropyLoss(), batch)
+    torch.cuda.synchronize()
+    ln.launches = ln.bwd_launches = 0   # training path starts here
+    sx.fwd_launches = sx.bwd_launches = 0
+    losses = []
+    for _ in range(AMP_STEPS):
+        loss = fwd_bwd()
+        update()
+        losses.append(loss.float().item())
+    counts = {"layer_norm_fwd": ln.launches, "layer_norm_bwd": ln.bwd_launches,
+              "softmax_xent_fwd": sx.fwd_launches,
+              "softmax_xent_bwd": sx.bwd_launches}   # training path ends
+    print(f"bfloat16 (amp.convert_block) {AMP_STEPS} steps at B={TRAIN_B}, "
+          f"T={T}, dropout 0.1, Adam lr {LR:g}: loss dtype {loss.dtype}, "
+          f"losses {[round(v, 4) for v in losses]}; launches {counts}",
+          flush=True)
+    assert np.isfinite(losses).all(), losses
+    want = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+            "softmax_xent_fwd": 2, "softmax_xent_bwd": 2}
+    for k, n in want.items():
+        assert counts[k] == n * AMP_STEPS, (k, counts[k])
+    names = [n for n in kernel_names(torch, fwd_bwd, ())
+             if "layer_norm" in n or "xent" in n]
+    print(f"bfloat16 BERT's LayerNorm and cross-entropy kernels: {names}",
+          flush=True)
+    for kernel in ("layer_norm_fwd", "layer_norm_bwd", "xent_fwd",
+                   "xent_bwd"):
+        assert any(kernel in n and "bfloat16" in n for n in names), (kernel,
+                                                                    names)
+    del net, trainer
     return counts
 
 
@@ -1965,8 +2035,8 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
 
 
 # the kernels with a bfloat16 tensor-core instance beside a float32 one
-# (the FMA tile; the 3xTF32 tile for the weight gradients), by their
-# counters' names
+# (the FMA tile for the forwards; the 3xTF32 tile for dx and the weight
+# gradients), by their counters' names
 _MMA_INSTANCES = ("fused_matmul_bn_fwd", "fused_matmul_bn_dx",
                   "fused_matmul_bn_dw", "fused_conv3_bn_fwd",
                   "fused_conv3_bn_dx", "fused_conv3_bn_dw")
@@ -2872,9 +2942,9 @@ def main():
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
     bench = bench_path(torch, np, dev, smi)
     # kernels 10-14's and 16's counters move for either of their
-    # instances: phase 7 runs only float32 (the FMA tiles, and the 3xTF32
-    # tiles of the weight gradients), the bench path only bfloat16 (the
-    # tensor-core tiles)
+    # instances: phase 7 runs only float32 (the FMA tiles of the forwards,
+    # the 3xTF32 tiles of dx and the weight gradients), the bench path
+    # only bfloat16 (the bf16 tensor-core tiles)
     mma_launches = {k: bench[k] for k in _MMA_INSTANCES}
     resnet = {k: v + (bench[k] if k not in _MMA_INSTANCES else 0)
               for k, v in resnet.items()}

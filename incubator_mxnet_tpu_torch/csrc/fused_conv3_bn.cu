@@ -37,25 +37,20 @@
 // is rounded to T.  Every load and store masks its ragged edge; no
 // padded copy of any operand exists in device memory.
 //
-// The float32 forward and dx are implicit matrix products over the
-// shifted taps,
-//   forward  C (M, C_out)   = A (M, 9*C)     @ B (9*C, C_out)
-//   dx       C (M, C)       = A (M, 9*C_out) @ B (9*C_out, C)
-// with the shift, the image mask, the prologue and dyt applied as A and
-// B are staged.  The tile loop is the one of csrc/fused_matmul_bn.cu: a
-// block of 256 threads owns a 128x128 tile of C, each thread an 8x8
-// sub-tile in registers, the depth staged through shared memory 8 at a
-// time with the next slice's loads in flight.  dx sums over all 9*C_out
-// taps and channels in one block, so the ReLU/normalize backward sees the
-// total dxn: the TPU kernel's split over C_out (kernel 15, a VMEM limit)
-// has no counterpart.
+// The float32 forward (fused_conv3_bn_fwd_kernel) is an implicit matrix
+// product over the shifted taps, C (M, C_out) = A (M, 9*C) @ B (9*C,
+// C_out), with the shift, the image mask and the prologue applied as A
+// is staged.  The tile loop is the one of csrc/fused_matmul_bn.cu's
+// float32 forward: a block of 256 threads owns a 128x128 tile of C, each
+// thread an 8x8 sub-tile in registers, the depth staged through shared
+// memory 8 at a time with the next slice's loads in flight.
 //
-// Sums across M.  Blocks run in no order, so the forward and dx write one
-// float32 partial row per block of 128 rows (s1/s2, dscale/dbias), and dw
-// (both dtypes, below) splits the pixels into runs that each write a
-// float32 partial of the whole (9*C, C_out) gradient; the wrapper sums
-// them in a fixed order.  No atomics: the result is the same from run to
-// run.
+// Sums across M.  Blocks run in no order, so the float32 forward writes
+// one float32 partial row per block of 128 rows, the tensor-core
+// forwards and dx one per run of stages (s1/s2, dscale/dbias), and dw
+// splits the pixels into runs that each write a float32 partial of the
+// whole (9*C, C_out) gradient; the wrapper sums them in a fixed order.
+// No atomics: the result is the same from run to run.
 //
 // Bound.  Each kernel does 2*M*9*C*C_out operations.  At ResNet-50's
 // 3x3 shapes at B=128 (M = 401,408 rows at 64 channels down to 6,272 at
@@ -65,12 +60,12 @@
 // on the FMA units every launch is bound by operations.  The float32 dw
 // runs on the tensor cores in three tf32 products (below): 3 x 29.6
 // GFLOP, 0.179 ms at 495 TFLOP/s, still above its bytes (0.092 ms at
-// stage 1).  In bfloat16 the tensor cores' 989 TFLOP/s bound it by bytes
-// at stage 1 (dw: 154 MB, 0.046 ms, against 0.030 ms of operations) and
-// by operations at stages 2-4; the FMA loop reaches neither.  Only the
-// float32 forward and dx run it; implicit GEMM on wgmma with TMA-fed
-// halo tiles is later work for them.  Every bfloat16 kernel runs on the
-// tensor cores (below).
+// stage 1), and so does the float32 dx (bytes 0.123 ms).  In bfloat16
+// the tensor cores' 989 TFLOP/s bound it by bytes at stage 1 (dw: 154
+// MB, 0.046 ms, against 0.030 ms of operations) and by operations at
+// stages 2-4; the FMA loop reaches neither.  Only the float32 forward
+// runs it; implicit GEMM on wgmma with TMA-fed halo tiles is later work
+// for it.  Every bfloat16 kernel runs on the tensor cores (below).
 //
 // The bf16 dw (fused_conv3_bn_dw_mma) replaces the same TPU kernel,
 // `_bwd_dw_kernel` (:244), on the tensor cores.  The TPU kernel rounds
@@ -216,6 +211,40 @@
 //     stay in registers for the run and are reduced by shuffles, then
 //     across the warps in order, into one float32 partial row a run.  No
 //     atomics.
+//
+// The float32 dx (fused_conv3_bn_dx_tf32) replaces the same TPU kernels
+// on the tensor cores, on the bf16 dx tile's walk, grid, steps and
+// epilogue, keeping float32 numbers: dyt and W are split into tf32 hi +
+// lo and three mma.sync.m16n8k8 products, lo.hi + hi.lo + hi.hi, go
+// into float32 sums (mma.cuh), as in the float32 dw.  The FMA tile it
+// replaces divided for tap and channel, masked and turned each dy/y
+// value into dyt at each of its nine reads, and took 3.85 ms at (128, 56,
+// 56, 64 -> 64), 11 % of its 3xTF32 bound (3 x 29.6 GFLOP: 0.179 ms at
+// 495 TFLOP/s; its bytes take 0.123 ms).
+//   - A block owns 64 positions (one stage) x 64 input channels at every
+//     C, 8 warps each 16 positions x 32 channels; a stage's depth runs in
+//     steps (dh, 32 output channels), dyt of image row h - dh one row
+//     below its position, the taps dw = -1, 0, 1 at row offsets 2, 1, 0.
+//   - W cannot stay resident: its 3 x 3 x 64 x 64 float32 slice is 147
+//     KB.  It streams with y and dy, a kernel row's three taps of the
+//     step's 32 output channels (27,648 bytes) a step.  A ring slot holds
+//     a step: dy and y by cp.async (16 bytes, zeros outside; element
+//     loads where a start is unaligned or Co is not a multiple of 4)
+//     straight into the layout of the dyt tile, each thread turning the
+//     chunks it copied into dyt in float32 (dyt4; 0 outside the image,
+//     where it would be ds1) split into tf32 hi in place of dy and lo in
+//     place of y, and W's [t][c][o] rows, split as their fragments are
+//     loaded: 46,656 bytes a slot, a ring of two (one step loading while
+//     one multiplies) at two blocks an SM, as PR 15's dw tile found best.
+//     Row strides of 36 floats put the 32 lanes of a fragment load (row
+//     g, column t4) on 32 distinct banks.
+//   - The tensor core truncates each sum it returns, so a step's products
+//     (its three taps over 32 output channels: 12 k8 steps, 36 mma) go
+//     into a part that starts at 0, and the part into the stage's
+//     float32 sum rounded to nearest: the depth is 9*C_out, up to 4608.
+//     Every chunk of C_out sums into the same registers, so the ReLU /
+//     normalize backward sees the total dxn (no kernel 15).  The epilogue
+//     is the bf16 tile's in float32.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -231,21 +260,15 @@ constexpr int BR = 8;         // depth staged through shared memory at once
 constexpr int THREADS = 256;  // 16 x 16 threads, an 8x8 sub-tile each
 constexpr int LOADS = BI * BR / THREADS;  // A (and B) elements a thread stages
 
-enum Mode { kFwd = 0, kDx = 1 };
-
 template <typename T>
-struct Args {
+struct Args {           // the FMA forward's
   const T* x;           // (M, C)
   const T* w;           // (9, C, Co)
   const float* scale;   // (C,), read only with the prologue
   const float* bias;    // (C,)
-  const T* y;           // (M, Co), the forward's output (dx, dw)
-  const T* dy;          // (M, Co) (dx, dw)
-  const float* ds1;     // (Co,) (dx, dw)
-  const float* ds2;     // (Co,)
-  T* out;               // forward: y (M, Co); dx: dx (M, C)
-  float* part0;         // forward: s1 rows; dx: dscale rows
-  float* part1;         // forward: s2 rows; dx: dbias rows
+  T* out;               // y (M, Co)
+  float* part0;         // s1 rows
+  float* part1;         // s2 rows
   int M;                // N*H*W rows
   int H;
   int W;
@@ -266,16 +289,6 @@ __device__ __forceinline__ float prologue_at(const Args<T>& a, int m, int c) {
   if (!a.prologue) return v;
   return round_to<T>(fmaxf(__fadd_rn(__fmul_rn(v, a.scale[c]), a.bias[c]),
                            0.f));
-}
-
-// dyt = dy + ds1 + 2*y*ds2 rounded to T, at (row m, channel o)
-template <typename T>
-__device__ __forceinline__ float dyt_at(const Args<T>& a, int m, int o) {
-  const int64_t at = static_cast<int64_t>(m) * a.Co + o;
-  const float v = __fadd_rn(
-      __fadd_rn(to_float(a.dy[at]), a.ds1[o]),
-      __fmul_rn(__fmul_rn(2.f, to_float(a.y[at])), a.ds2[o]));
-  return round_to<T>(v);
 }
 
 // Tap t's displacement (dh, dw), each in {-1, 0, 1}.
@@ -325,9 +338,8 @@ __device__ __forceinline__ void column_partials(
 // coordinates that do not change from slice to slice are computed once.
 //
 //   A row i = tid / 8 + 32 l (a pixel), depth tid % 8;
-//   forward: B depth tid / 128 + 2 l, column tid % 128;
-//   dx:      B depth tid % 8, column tid / 8 + 32 l.
-template <int MODE, typename T>
+//   B depth tid / 128 + 2 l, column tid % 128.
+template <typename T>
 struct Stager {
   const Args<T>& a;
   int tid;
@@ -350,34 +362,22 @@ struct Stager {
     }
   }
 
+  // A[pixel][t*C + c]: the neighbour this pixel reads through tap t
   __device__ __forceinline__ float fetch_a(int l, int r0) const {
     const int k = r0 + tid % BR;
     if (!ok[l] || k >= r_end) return 0.f;
-    const int width = MODE == kFwd ? a.C : a.Co;
-    const int t = k / width, ch = k - t * width;
+    const int t = k / a.C, ch = k - t * a.C;
     int dh, dw;
     tap(t, &dh, &dw);
-    if (MODE == kFwd) {  // the neighbour this pixel reads
-      if (!inside(ph[l] + dh, pw[l] + dw, a.H, a.W)) return 0.f;
-      return prologue_at(a, row[l] + dh * a.W + dw, ch);
-    }
-    // dx: the output pixel that read this one through tap t
-    if (!inside(ph[l] - dh, pw[l] - dw, a.H, a.W)) return 0.f;
-    return dyt_at(a, row[l] - dh * a.W - dw, ch);
+    if (!inside(ph[l] + dh, pw[l] + dw, a.H, a.W)) return 0.f;
+    return prologue_at(a, row[l] + dh * a.W + dw, ch);
   }
 
+  // B[t*C + c][o] = W[t, c, o]
   __device__ __forceinline__ float fetch_b(int l, int r0, int j0) const {
-    if (MODE == kDx) {  // B[t*Co + o][c] = W[t, c, o], along o
-      const int k = r0 + tid % BR;
-      const int c = j0 + tid / BR + (THREADS / BR) * l;
-      if (k >= r_end || c >= a.C) return 0.f;
-      const int t = k / a.Co, o = k - t * a.Co;
-      return to_float(a.w[(static_cast<int64_t>(t) * a.C + c) * a.Co + o]);
-    }
     const int k = r0 + tid / BJ + (THREADS / BJ) * l;
     const int o = j0 + tid % BJ;
     if (k >= r_end || o >= a.Co) return 0.f;
-    // forward: B[t*C + c][o] = W[t, c, o]
     return to_float(a.w[static_cast<int64_t>(k) * a.Co + o]);
   }
 
@@ -387,18 +387,14 @@ struct Stager {
     *i = tid / BR + (THREADS / BR) * l;
   }
   __device__ __forceinline__ void b_place(int l, int* r, int* j) const {
-    if (MODE == kDx) {
-      *r = tid % BR;
-      *j = tid / BR + (THREADS / BR) * l;
-    } else {
-      *r = tid / BJ + (THREADS / BJ) * l;
-      *j = tid % BJ;
-    }
+    *r = tid / BJ + (THREADS / BJ) * l;
+    *j = tid % BJ;
   }
 };
 
-template <int MODE, typename T>
-__device__ __forceinline__ void fused_conv(const Args<T>& a) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    fused_conv3_bn_fwd_kernel(Args<T> a) {
   // rows padded by 4 floats: the staging stores of a warp spread over
   // the banks, and every row stays 16-byte aligned for the float4 reads
   __shared__ __align__(16) float As[BR][BI + 4];
@@ -406,13 +402,13 @@ __device__ __forceinline__ void fused_conv(const Args<T>& a) {
   __shared__ float red0[THREADS / 16][BJ];
   __shared__ float red1[THREADS / 16][BJ];
 
-  // C is (M, C_out) in the forward, (M, C) in dx; the depth 9 C or 9 C_out
+  // C = y is (M, C_out), the depth 9 C
   const int I = a.M;
-  const int J = MODE == kDx ? a.C : a.Co;
+  const int J = a.Co;
   const int i0 = blockIdx.x * BI;
   const int j0 = blockIdx.y * BJ;
-  const int r_begin = 0, r_end = MODE == kFwd ? 9 * a.C : 9 * a.Co;
-  const Stager<MODE, T> st(a, i0, r_end);
+  const int r_begin = 0, r_end = 9 * a.C;
+  const Stager<T> st(a, i0, r_end);
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -464,78 +460,36 @@ __device__ __forceinline__ void fused_conv(const Args<T>& a) {
   float c0[8], c1[8];  // per-column sums over this thread's rows
 #pragma unroll
   for (int q = 0; q < 8; ++q) c0[q] = c1[q] = 0.f;
-  if (MODE == kFwd) {
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int m = i0 + slot(ty, p);
-      if (m >= I) continue;
+  for (int p = 0; p < 8; ++p) {
+    const int m = i0 + slot(ty, p);
+    if (m >= I) continue;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int o = j0 + slot(tx, q);
-        if (o >= J) continue;
-        const T yv = from_float<T>(acc[p][q]);
-        a.out[static_cast<int64_t>(m) * a.Co + o] = yv;
-        const float f = to_float(yv);
-        c0[q] += f;
-        c1[q] += f * f;
-      }
+    for (int q = 0; q < 8; ++q) {
+      const int o = j0 + slot(tx, q);
+      if (o >= J) continue;
+      const T yv = from_float<T>(acc[p][q]);
+      a.out[static_cast<int64_t>(m) * a.Co + o] = yv;
+      const float f = to_float(yv);
+      c0[q] += f;
+      c1[q] += f * f;
     }
-  } else {  // dx
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int m = i0 + slot(ty, p);
-      if (m >= I) continue;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int c = j0 + slot(tx, q);
-        if (c >= J) continue;
-        const int64_t at = static_cast<int64_t>(m) * a.C + c;
-        const float d = acc[p][q];
-        if (a.prologue) {
-          const float xv = to_float(a.x[at]);
-          const float sc = a.scale[c];
-          const float z = __fadd_rn(__fmul_rn(xv, sc), a.bias[c]);
-          const float dz = z > 0.f ? d : 0.f;
-          a.out[at] = from_float<T>(__fmul_rn(dz, sc));
-          c0[q] += dz * xv;
-          c1[q] += dz;
-        } else {
-          a.out[at] = from_float<T>(d);
-        }
-      }
-    }
-    if (!a.prologue) return;  // uniform across the block
   }
   const int64_t prow = static_cast<int64_t>(blockIdx.x) * J;
   column_partials(c0, c1, red0, red1, tx, ty, j0, J, a.part0 + prow,
                   a.part1 + prow);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_conv3_bn_fwd_kernel(Args<T> a) {
-  fused_conv<kFwd>(a);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_conv3_bn_dx_kernel(Args<T> a) {
-  fused_conv<kDx>(a);
-}
-
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// The FMA tile, float32 forward and dx only: bfloat16's forward, dx and
-// dw and float32's dw are the tensor-core tiles below.
-cudaError_t launch(int mode, const Args<float>& a, cudaStream_t stream) {
+// The FMA tile, the float32 forward only: every other kernel is a
+// tensor-core tile below.
+cudaError_t launch_fwd(const Args<float>& a, cudaStream_t stream) {
   const int64_t gi = ceil_div(a.M, BI);
-  const int64_t gj = ceil_div(mode == kFwd ? a.Co : a.C, BJ);
+  const int64_t gj = ceil_div(a.Co, BJ);
   if (gj > 65535) return cudaErrorInvalidValue;
   dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-  if (mode == kDx)
-    fused_conv3_bn_dx_kernel<float><<<grid, THREADS, 0, stream>>>(a);
-  else
-    fused_conv3_bn_fwd_kernel<float><<<grid, THREADS, 0, stream>>>(a);
+  fused_conv3_bn_fwd_kernel<float><<<grid, THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -549,19 +503,13 @@ bool shape_ok(long long N, int H, int W, int C, int Co) {
 
 template <typename T>
 Args<T> make_args(const void* x, const void* w, const void* scale,
-                  const void* bias, const void* y, const void* dy,
-                  const void* ds1, const void* ds2, void* out, void* part0,
-                  void* part1, long long N, int H, int W, int C, int Co,
-                  int prologue) {
+                  const void* bias, void* out, void* part0, void* part1,
+                  long long N, int H, int W, int C, int Co, int prologue) {
   Args<T> a;
   a.x = static_cast<const T*>(x);
   a.w = static_cast<const T*>(w);
   a.scale = static_cast<const float*>(scale);
   a.bias = static_cast<const float*>(bias);
-  a.y = static_cast<const T*>(y);
-  a.dy = static_cast<const T*>(dy);
-  a.ds1 = static_cast<const float*>(ds1);
-  a.ds2 = static_cast<const float*>(ds2);
   a.out = static_cast<T*>(out);
   a.part0 = static_cast<float*>(part0);
   a.part1 = static_cast<float*>(part1);
@@ -572,20 +520,6 @@ Args<T> make_args(const void* x, const void* w, const void* scale,
   a.Co = Co;
   a.prologue = prologue;
   return a;
-}
-
-int dispatch(int dtype, int mode, const void* x, const void* w,
-             const void* scale, const void* bias, const void* y,
-             const void* dy, const void* ds1, const void* ds2, void* out,
-             void* part0, void* part1, long long N, int H, int W, int C,
-             int Co, int prologue, void* stream) {
-  if (dtype != 0 || !shape_ok(N, H, W, C, Co))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(launch(
-      mode, make_args<float>(x, w, scale, bias, y, dy, ds1, ds2, out, part0,
-                             part1, N, H, W, C, Co, prologue),
-      static_cast<cudaStream_t>(stream)));
 }
 
 // ---------------------------------------------------------------------
@@ -1573,16 +1507,19 @@ __device__ __forceinline__ int w_at(int row, int chunk) {
   return row * KC + ((chunk ^ (KC == 64 ? row & 7 : row >> 1 & 3)) << 3);
 }
 
+// The arguments of the dx tiles: T = bf16 (fused_conv3_bn_dx_mma) or
+// float (fused_conv3_bn_dx_tf32).
+template <typename T>
 struct DxArgs {
-  const bf16* x;        // (M, C)
-  const bf16* w;        // (9, C, Co)
+  const T* x;           // (M, C)
+  const T* w;           // (9, C, Co)
   const float* scale;   // (C,), read only with the prologue
   const float* bias;    // (C,)
-  const bf16* y;        // (M, Co)
-  const bf16* dy;       // (M, Co)
+  const T* y;           // (M, Co)
+  const T* dy;          // (M, Co)
   const float* ds1;     // (Co,)
   const float* ds2;     // (Co,)
-  bf16* dx;             // (M, C)
+  T* dx;                // (M, C)
   float* dscale;        // (runs, C), written only with the prologue
   float* dbias;         // (runs, C)
   int H;
@@ -1590,8 +1527,8 @@ struct DxArgs {
   int C;
   int Co;
   int prologue;
-  int vec;              // bit 0: x loads 4 bytes a pair; bit 1: y and dy
-                        // load 16 bytes; bit 2: w does
+  int vec;              // bit 0: x loads a pair at a time; bit 1: y and
+                        // dy load 16 bytes; bit 2: w does
   int seg_w;            // the pixel walk of tc_geometry
   int stage_segs;
   int row_segs;
@@ -1610,7 +1547,7 @@ struct DxArgs {
 // 1]'s [c][o] chunk is B as it lies.
 template <int BN, int KC, bool RES, int RING>
 __global__ void __launch_bounds__(kFwThreads, 2)
-    fused_conv3_bn_dx_mma(DxArgs a) {
+    fused_conv3_bn_dx_mma(DxArgs<bf16> a) {
   using G = DxTc<BN, KC, RES, RING>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -1933,7 +1870,7 @@ __global__ void __launch_bounds__(kFwThreads, 2)
 }
 
 template <int BN, int KC, bool RES, int RING>
-cudaError_t launch_dx_mma(const DxArgs& a, unsigned tiles, unsigned runs,
+cudaError_t launch_dx_mma(const DxArgs<bf16>& a, unsigned tiles, unsigned runs,
                           cudaStream_t stream) {
   constexpr size_t smem = DxTc<BN, KC, RES, RING>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -1945,8 +1882,362 @@ cudaError_t launch_dx_mma(const DxArgs& a, unsigned tiles, unsigned runs,
   return cudaGetLastError();
 }
 
-// The caller sized the partial rows of the forward and dx for blocks of
-// BI rows of M: refuse any other count rather than write past them.
+// ---------------------------------------------------------------------
+// dx in float32 on the tensor cores (3xTF32).  See the note at the top.
+
+constexpr int kXtBN = 64;              // input channels c a block owns
+constexpr int kXtKC = 32;              // output channels o a step
+constexpr int kXtLd = kXtKC + 4;       // float row stride: 36, see below
+constexpr int kXtWarpsM = 4;           // 4 warps over positions x 2 over c
+constexpr int kXtMw = kTcPos / kXtWarpsM;           // 16 positions a warp
+constexpr int kXtDTile = kTcXRows * kXtLd;          // dyt's hi, or its lo
+constexpr int kXtWTile = 3 * kXtBN * kXtLd;         // a kernel row's taps
+constexpr int kXtSlot = 2 * kXtDTile + kXtWTile;    // floats
+constexpr int kXtRowChunks = kXtKC / 4;             // float4 of a position
+constexpr int kXtChunks = kTcPos * kXtRowChunks / kFwThreads;
+constexpr int kXtWChunks = 3 * kXtBN * kXtRowChunks / kFwThreads;
+constexpr int kXtRing = 2;             // steps: one loads while one multiplies
+// A ring slot holds a step: dy, turned in place into dyt's tf32 hi, and
+// y, turned into its lo (both [position][o], one row below the position,
+// a zero guard row either side), then W's three taps of the step's
+// kernel row as [t][c][o]; after the ring, scale and bias of the tile's
+// channels and the [dscale, dbias][position warp][c] sums.  A row
+// stride of 36 floats puts the 32 lanes of a fragment load (a lane reads
+// row g, column t4) on 32 distinct banks.
+constexpr size_t kXtSmem =
+    (kXtRing * kXtSlot + (2 + 2 * kXtWarpsM) * kXtBN) * sizeof(float);
+
+// Grid (ceil(C / 64), runs), as fused_conv3_bn_dx_mma's: block (j, r)
+// computes dx at input channels [64 j, 64 (j + 1)) for every pixel of run
+// r's stages, a stage at a time, and with the prologue writes its float32
+// sums of dz*x and dz to dscale[r], dbias[r].  A stage's depth runs in
+// steps (dh, chunk of 32 output channels), each the bf16 tile's.
+__global__ void __launch_bounds__(kFwThreads, 2)
+    fused_conv3_bn_dx_tf32(DxArgs<float> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* sc_s = ring + kXtRing * kXtSlot;
+  float* bi_s = sc_s + kXtBN;
+  float* red = bi_s + kXtBN;  // [dscale, dbias][position warp][column]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % kXtWarpsM, wn = warp / kXtWarpsM;  // 16 x 32
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = blockIdx.x * kXtBN;
+  const int st_begin = blockIdx.y * a.run_stages;
+  const int st_end =
+      a.stages - st_begin > a.run_stages ? st_begin + a.run_stages : a.stages;
+  const int nck = (a.Co + kXtKC - 1) / kXtKC;  // output-channel chunks
+  const int per_stage = 3 * nck;              // steps a stage
+  const int nsteps = (st_end - st_begin) * per_stage;
+  const bool vec_x = a.vec & 1, vec_y = a.vec & 2, vec_w = a.vec & 4;
+  const int pitch = a.seg_w + 2;
+  const int npos = a.stage_segs * pitch;  // positions a stage uses
+
+  // The dyt tiles start at 0: the guard rows and the positions past a
+  // stage's segments are never written again.  The per-channel
+  // constants are 0 past C (a zero channel stays zero).  The barrier
+  // keeps both ahead of the copies and of their readers.
+  for (int s = 0; s < kXtRing; ++s) {
+    float4* z = reinterpret_cast<float4*>(ring + s * kXtSlot);
+    for (int i = tid; i < 2 * kXtDTile / 4; i += kFwThreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = tid; i < kXtBN; i += kFwThreads) {
+    const bool in = a.prologue && c0 + i < a.C;
+    sc_s[i] = in ? a.scale[c0 + i] : 0.f;
+    bi_s[i] = in ? a.bias[c0 + i] : 0.f;
+  }
+  __syncthreads();
+
+  // This thread's chunks: positions pos[i] of a stage, output channels
+  // cc .. cc + 3 of a step's chunk; it copies y and dy there and turns
+  // them into dyt itself, so no barrier separates the two.  A
+  // position's segment and place in it are fixed; its pixel follows the
+  // stage (locate), as in the bf16 tile.
+  const int cc = (tid % kXtRowChunks) * 4;
+  int pos[kXtChunks], sg[kXtChunks], place[kXtChunks];
+  int64_t pix[kXtChunks];  // its pixel (n, h, w) as a row of dy, or -1
+  int hrow[kXtChunks];     // its h
+#pragma unroll
+  for (int i = 0; i < kXtChunks; ++i) {
+    pos[i] = tid / kXtRowChunks + (kFwThreads / kXtRowChunks) * i;
+    sg[i] = pos[i] / pitch;
+    place[i] = pos[i] - sg[i] * pitch;
+  }
+  int ld_stage = -1;
+  auto locate = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < kXtChunks; ++i) {
+      const int seg = st * a.stage_segs + sg[i];
+      const int img_row = seg / a.row_segs;
+      const int w = (seg - img_row * a.row_segs) * a.seg_w + place[i] - 1;
+      const bool ok = pos[i] < npos && seg < a.segs && w >= 0 && w < a.W;
+      pix[i] = ok ? static_cast<int64_t>(img_row) * a.W + w : -1;
+      hrow[i] = img_row % a.H;
+    }
+  };
+
+  // W[3 (dh + 1) + t][c0 + c][o0 + o] for t < 3, c < 64, o < 32 into a
+  // [t][c][o] tile; 0 past C and Co.
+  auto load_w = [&](float* dst, int dh, int o0) {
+#pragma unroll
+    for (int j = 0; j < kXtWChunks; ++j) {
+      const int e = tid + kFwThreads * j;
+      const int row = e / kXtRowChunks, ch = e - row * kXtRowChunks;
+      const int t = row / kXtBN, c = c0 + row - t * kXtBN;
+      const bool in = c < a.C;
+      const float* src =
+          a.w + (in ? static_cast<int64_t>(3 * (dh + 1) + t) * a.C + c : 0) *
+                    a.Co;
+      float* d = dst + row * kXtLd + 4 * ch;
+      if (vec_w) {
+        const bool full = in && o0 + 4 * ch < a.Co;
+        cp_async16(d, full ? src + o0 + 4 * ch : a.w, full);
+      } else {
+        *reinterpret_cast<float4*>(d) = load4(src, o0 + 4 * ch, a.Co, in);
+      }
+    }
+  };
+
+  // Loads step k of the run into ring slot `slot`: dy and y of image row
+  // h - dh at every position into the dyt tiles (cp.async of 16 bytes,
+  // zeros where a chunk lies outside; element loads where a start or Co
+  // does not allow 16 bytes), and W's chunk; returns the flags: bit i,
+  // chunk i's pixel lies in the image.
+  auto load_step = [&](int k, int slot) {
+    const int sl = k / per_stage, r = k - sl * per_stage;
+    const int dh = r / nck - 1, o0 = (r % nck) * kXtKC;
+    if (sl != ld_stage) {
+      locate(st_begin + sl);
+      ld_stage = sl;
+    }
+    unsigned flags = 0;
+    float* dhi = ring + slot * kXtSlot;
+    float* dlo = dhi + kXtDTile;
+#pragma unroll
+    for (int i = 0; i < kXtChunks; ++i) {
+      if (pos[i] >= npos) continue;
+      const int hh = hrow[i] - dh;
+      const bool in = pix[i] >= 0 && hh >= 0 && hh < a.H;
+      flags |= (in ? 1u : 0u) << i;
+      const int64_t row =
+          (in ? pix[i] - static_cast<int64_t>(dh) * a.W : 0) * a.Co;
+      const int at = (pos[i] + 1) * kXtLd + cc;
+      if (vec_y) {
+        const bool full = in && o0 + cc < a.Co;
+        cp_async16(dlo + at, full ? a.y + row + o0 + cc : a.y, full);
+        cp_async16(dhi + at, full ? a.dy + row + o0 + cc : a.dy, full);
+      } else {
+        *reinterpret_cast<float4*>(dlo + at) =
+            load4(a.y + row, o0 + cc, a.Co, in);
+        *reinterpret_cast<float4*>(dhi + at) =
+            load4(a.dy + row, o0 + cc, a.Co, in);
+      }
+    }
+    load_w(dlo + kXtDTile, dh, o0);
+    return flags;
+  };
+
+  // x[m, c] and x[m, c + 1], 0 past C; `at` is m * C
+  auto x_pair = [&](int64_t at, int c) -> float2 {
+    if (c >= a.C) return make_float2(0.f, 0.f);
+    const float* p = a.x + at + c;
+    if (vec_x) return __ldg(reinterpret_cast<const float2*>(p));
+    return make_float2(__ldg(p), c + 1 < a.C ? __ldg(p + 1) : 0.f);
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float dsc[4][2], dbi[4][2];  // this thread's column sums of dz*x, dz
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    dsc[j][0] = dsc[j][1] = dbi[j][0] = dbi[j][1] = 0.f;
+
+  // Stage st's epilogue in the accumulator layout, at the segments' own
+  // pixels (a halo position's sums and those past the segments are
+  // dropped): with the prologue z = x*scale + bias, dz = dxn where z >
+  // 0, dx = dz*scale, and dz*x and dz added to the column sums; dx
+  // stored in pairs; the sums cleared.
+  const bool pairs = (a.C & 1) == 0;  // float2 stores stay 8-byte aligned
+  auto epilogue = [&](int st) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int q = kXtMw * wm + g + 8 * hf;
+      const int sgq = q / pitch, p = q - sgq * pitch;
+      const int seg = st * a.stage_segs + sgq;
+      const int img_row = seg / a.row_segs;
+      const int w = (seg - img_row * a.row_segs) * a.seg_w + p - 1;
+      const bool keep =
+          q < npos && p >= 1 && p <= a.seg_w && seg < a.segs && w < a.W;
+      const int64_t at =
+          (keep ? static_cast<int64_t>(img_row) * a.W + w : 0) * a.C;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = 32 * wn + 8 * j + 2 * t4, c = c0 + cl;
+        float v0 = acc[j][2 * hf], v1 = acc[j][2 * hf + 1];
+        acc[j][2 * hf] = acc[j][2 * hf + 1] = 0.f;
+        if (!keep) continue;
+        if (a.prologue) {
+          const float2 xf = x_pair(at, c);
+          const float sc0 = sc_s[cl], sc1 = sc_s[cl + 1];
+          const float dz0 =
+              __fadd_rn(__fmul_rn(xf.x, sc0), bi_s[cl]) > 0.f ? v0 : 0.f;
+          const float dz1 =
+              __fadd_rn(__fmul_rn(xf.y, sc1), bi_s[cl + 1]) > 0.f ? v1
+                                                                   : 0.f;
+          dsc[j][0] += dz0 * xf.x;
+          dsc[j][1] += dz1 * xf.y;
+          dbi[j][0] += dz0;
+          dbi[j][1] += dz1;
+          v0 = __fmul_rn(dz0, sc0);
+          v1 = __fmul_rn(dz1, sc1);
+        }
+        float* out = a.dx + at + c;
+        if (pairs && c + 1 < a.C) {
+          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+        } else {
+          if (c < a.C) out[0] = v0;
+          if (c + 1 < a.C) out[1] = v1;
+        }
+      }
+    }
+  };
+
+  // the first kXtRing - 1 steps in flight, one group a step (empty past
+  // the run), so that a wait counts steps
+  constexpr unsigned kMask = (1u << kXtChunks) - 1;
+  unsigned ring_flags = 0;  // kXtChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < kXtRing - 1; ++k) {
+    if (k < nsteps) ring_flags |= load_step(k, k) << (kXtChunks * k);
+    cp_async_commit();
+  }
+  int slot = 0, r_c = 0, sl_c = 0;  // the step multiplied: its slot, place
+  for (int s = 0; s < nsteps; ++s) {
+    const int o0 = (r_c % nck) * kXtKC;
+    float* dhi = ring + slot * kXtSlot;
+    float* dlo = dhi + kXtDTile;
+    const float* ws = dlo + kXtDTile;
+    cp_async_wait<kXtRing - 2>();  // this thread's chunks of step s
+    {  // dyt in float32, split into tf32 hi in place of dy and lo in place
+       // of y; 0 outside the image (it is ds1 there)
+      float d1[4], d2[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + cc + j;
+        d1[j] = o < a.Co ? __ldg(a.ds1 + o) : 0.f;
+        d2[j] = o < a.Co ? __ldg(a.ds2 + o) : 0.f;
+      }
+      const unsigned flags = ring_flags >> (kXtChunks * slot);
+#pragma unroll
+      for (int i = 0; i < kXtChunks; ++i) {
+        if (pos[i] >= npos) continue;
+        const int at = (pos[i] + 1) * kXtLd + cc;
+        float4* d = reinterpret_cast<float4*>(dhi + at);
+        float4* yl = reinterpret_cast<float4*>(dlo + at);
+        const float4 v = flags >> i & 1 ? dyt4(*yl, *d, d1, d2)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        uint4 hi, lo;
+        split_tf32(v.x, hi.x, lo.x);
+        split_tf32(v.y, hi.y, lo.y);
+        split_tf32(v.z, hi.z, lo.z);
+        split_tf32(v.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(d) = hi;
+        *reinterpret_cast<uint4*>(yl) = lo;
+      }
+    }
+    __syncthreads();
+    // step s + kXtRing - 1 into the slot that step s - 1 left: every warp
+    // left its product at the barrier
+    const int next = slot == 0 ? kXtRing - 1 : slot - 1;
+    if (s + kXtRing - 1 < nsteps)
+      ring_flags = (ring_flags & ~(kMask << (kXtChunks * next))) |
+                   load_step(s + kXtRing - 1, next) << (kXtChunks * next);
+    cp_async_commit();
+    // The step's products, its three taps over its chunk of o, go into a
+    // part that starts at 0, and the part into acc, rounded to nearest:
+    // the tensor core truncates each sum it returns, and one register for
+    // a chain of all 9*C_out products drifts by as many ulps.  A = dyt
+    // (rows positions at row offset 2 - t, depth o) as split; B = W[t]'s
+    // [c][o] rows as they lie, split as loaded.
+    const uint32_t* a_hi = reinterpret_cast<const uint32_t*>(dhi);
+    const uint32_t* a_lo = reinterpret_cast<const uint32_t*>(dlo);
+    const int ksteps = ((a.Co - o0 < kXtKC ? a.Co - o0 : kXtKC) + 7) / 8;
+    float part[4][4] = {};
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {  // tap dw = t - 1: row offset 2 - t
+#pragma unroll
+      for (int kk = 0; kk < kXtKC / 8; ++kk) {
+        if (kk >= ksteps) break;
+        const int at = (kXtMw * wm + g + 2 - t) * kXtLd + 8 * kk + t4;
+        const uint32_t ah[4] = {a_hi[at], a_hi[at + 8 * kXtLd], a_hi[at + 4],
+                                a_hi[at + 8 * kXtLd + 4]};
+        const uint32_t al[4] = {a_lo[at], a_lo[at + 8 * kXtLd], a_lo[at + 4],
+                                a_lo[at + 8 * kXtLd + 4]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* q =
+              ws + (t * kXtBN + 32 * wn + 8 * j + g) * kXtLd + 8 * kk + t4;
+          uint32_t bh[2], bl[2];
+          split_tf32(q[0], bh[0], bl[0]);
+          split_tf32(q[4], bh[1], bl[1]);
+          mma_3xtf32(part[j], ah, al, bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
+    slot = slot + 1 == kXtRing ? 0 : slot + 1;
+    if (++r_c == per_stage) {
+      epilogue(st_begin + sl_c);
+      r_c = 0;
+      ++sl_c;
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+  if (!a.prologue) return;  // uniform across the block
+
+  // the run's column sums: over the 8 rows of each lane quad by shuffles,
+  // then over the warps along the positions in order; the same bits
+  // every run
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v1 = dsc[j][e], v2 = dbi[j][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+      }
+      if (g == 0) {
+        const int col = 32 * wn + 8 * j + 2 * t4 + e;
+        red[wm * kXtBN + col] = v1;
+        red[(kXtWarpsM + wm) * kXtBN + col] = v2;
+      }
+    }
+  __syncthreads();
+  if (tid < kXtBN && c0 + tid < a.C) {
+    float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kXtWarpsM; ++k) {
+      v1 += red[k * kXtBN + tid];
+      v2 += red[(kXtWarpsM + k) * kXtBN + tid];
+    }
+    const int64_t at = static_cast<int64_t>(blockIdx.y) * a.C + c0 + tid;
+    a.dscale[at] = v1;
+    a.dbias[at] = v2;
+  }
+}
+
+// The caller sized the partial rows of the FMA forward for blocks of BI
+// rows of M: refuse any other count rather than write past them.
 bool part_rows_ok(long long part_rows, long long N, int H, int W) {
   return part_rows == ceil_div(N * H * W, BI);
 }
@@ -1989,6 +2280,44 @@ bool dw_args(DwArgs<T>* a, const void* x, const void* scale,
   return true;
 }
 
+// Fills the arguments of a dx tile of bn input channels a block; false
+// where the runs do not tile the walk's stages.
+template <typename T>
+bool dx_args(DxArgs<T>* a, const void* x, const void* w, const void* scale,
+             const void* bias, int prologue, const void* y, const void* dy,
+             const void* ds1, const void* ds2, void* dx, void* dscale_part,
+             void* dbias_part, long long N, int H, int W, int C, int Co,
+             long long run_stages, long long runs, int vec, int bn) {
+  tc_geometry(W, &a->seg_w, &a->stage_segs, &a->row_segs);
+  const long long segs = N * H * a->row_segs;   // at most N*H*W
+  const long long stages = ceil_div(segs, a->stage_segs);
+  if (run_stages <= 0 || run_stages > stages ||
+      runs != ceil_div(stages, run_stages) || runs > 65535 ||
+      ceil_div(C, bn) > 0x7fffffffLL)
+    return false;
+  a->x = static_cast<const T*>(x);
+  a->w = static_cast<const T*>(w);
+  a->scale = static_cast<const float*>(scale);
+  a->bias = static_cast<const float*>(bias);
+  a->y = static_cast<const T*>(y);
+  a->dy = static_cast<const T*>(dy);
+  a->ds1 = static_cast<const float*>(ds1);
+  a->ds2 = static_cast<const float*>(ds2);
+  a->dx = static_cast<T*>(dx);
+  a->dscale = static_cast<float*>(dscale_part);
+  a->dbias = static_cast<float*>(dbias_part);
+  a->H = H;
+  a->W = W;
+  a->C = C;
+  a->Co = Co;
+  a->prologue = prologue;
+  a->vec = vec;
+  a->segs = static_cast<int>(segs);
+  a->stages = static_cast<int>(stages);
+  a->run_stages = static_cast<int>(run_stages);
+  return true;
+}
+
 }  // namespace
 
 // The float32 forward on the FMA tile: dtype must be 0 (bfloat16 runs
@@ -2004,32 +2333,14 @@ extern "C" int mx_fused_conv3_bn_fwd(int dtype, const void* x, const void* w,
                                      void* s2_part, long long part_rows,
                                      long long N, int H, int W, int C, int Co,
                                      void* stream) {
-  if (!shape_ok(N, H, W, C, Co) || !part_rows_ok(part_rows, N, H, W))
+  if (dtype != 0 || !shape_ok(N, H, W, C, Co) ||
+      !part_rows_ok(part_rows, N, H, W))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, kFwd, x, w, scale, bias, nullptr, nullptr, nullptr,
-                  nullptr, y, s1_part, s2_part, N, H, W, C, Co, prologue,
-                  stream);
-}
-
-// The float32 dx on the FMA tile: dtype must be 0 (bfloat16 runs
-// mx_fused_conv3_bn_dx_mma).  x (N, H, W, C), w (3, 3, C, Co), y and dy
-// (N, H, W, Co) in that type; ds1 and ds2 (Co,) float32; dx (N, H, W, C)
-// in that type.  With the prologue, scale and bias (C,) float32 are read
-// and dscale_part and dbias_part (part_rows, C) float32, part_rows =
-// ceil(N*H*W / 128), written; without it they may be null.
-extern "C" int mx_fused_conv3_bn_dx(int dtype, const void* x, const void* w,
-                                    const void* scale, const void* bias,
-                                    int prologue, const void* y,
-                                    const void* dy, const void* ds1,
-                                    const void* ds2, void* dx,
-                                    void* dscale_part, void* dbias_part,
-                                    long long part_rows, long long N, int H,
-                                    int W, int C, int Co, void* stream) {
-  if (!shape_ok(N, H, W, C, Co) ||
-      (prologue && !part_rows_ok(part_rows, N, H, W)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, kDx, x, w, scale, bias, y, dy, ds1, ds2, dx,
-                  dscale_part, dbias_part, N, H, W, C, Co, prologue, stream);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch_fwd(
+      make_args<float>(x, w, scale, bias, y, s1_part, s2_part, N, H, W, C, Co,
+                       prologue),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The bfloat16 dw on the tensor cores.  x (N, H, W, C), y and dy
@@ -2172,37 +2483,13 @@ extern "C" int mx_fused_conv3_bn_dx_mma(
     long long runs, int vec, void* stream) {
   if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaSuccess);
-  DxArgs a;
-  tc_geometry(W, &a.seg_w, &a.stage_segs, &a.row_segs);
-  const long long segs = N * H * a.row_segs;   // at most N*H*W
-  const long long stages = ceil_div(segs, a.stage_segs);
+  DxArgs<bf16> a;
   const int bn = C <= 64 ? 64 : 128;
-  const long long tiles = ceil_div(C, bn);
-  if (run_stages <= 0 || run_stages > stages ||
-      runs != ceil_div(stages, run_stages) || runs > 65535 ||
-      tiles > 0x7fffffffLL)
+  if (!dx_args(&a, x, w, scale, bias, prologue, y, dy, ds1, ds2, dx,
+               dscale_part, dbias_part, N, H, W, C, Co, run_stages, runs, vec,
+               bn))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.x = static_cast<const bf16*>(x);
-  a.w = static_cast<const bf16*>(w);
-  a.scale = static_cast<const float*>(scale);
-  a.bias = static_cast<const float*>(bias);
-  a.y = static_cast<const bf16*>(y);
-  a.dy = static_cast<const bf16*>(dy);
-  a.ds1 = static_cast<const float*>(ds1);
-  a.ds2 = static_cast<const float*>(ds2);
-  a.dx = static_cast<bf16*>(dx);
-  a.dscale = static_cast<float*>(dscale_part);
-  a.dbias = static_cast<float*>(dbias_part);
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.Co = Co;
-  a.prologue = prologue;
-  a.vec = vec;
-  a.segs = static_cast<int>(segs);
-  a.stages = static_cast<int>(stages);
-  a.run_stages = static_cast<int>(run_stages);
-  const unsigned gt = static_cast<unsigned>(tiles);
+  const unsigned gt = static_cast<unsigned>(ceil_div(C, bn));
   const unsigned gr = static_cast<unsigned>(runs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -2213,4 +2500,34 @@ extern "C" int mx_fused_conv3_bn_dx_mma(
   else
     err = launch_dx_mma<128, 32, false, 3>(a, gt, gr, s);
   return static_cast<int>(err);
+}
+
+// The float32 dx on the tensor cores (3xTF32): as
+// mx_fused_conv3_bn_dx_mma, with x, w, y, dy and dx float32, on the same
+// walk and runs, in tiles of 64 input channels at every C; x pairs load
+// 8 bytes at a time where bit 0 of vec is set (x 16-byte aligned, C a
+// multiple of 4), y and dy 16 bytes where bit 1 is (both aligned, Co a
+// multiple of 4), w where bit 2 is (w aligned, Co a multiple of 4).
+extern "C" int mx_fused_conv3_bn_dx_tf32(
+    const void* x, const void* w, const void* scale, const void* bias,
+    int prologue, const void* y, const void* dy, const void* ds1,
+    const void* ds2, void* dx, void* dscale_part, void* dbias_part,
+    long long N, int H, int W, int C, int Co, long long run_stages,
+    long long runs, int vec, void* stream) {
+  if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  DxArgs<float> a;
+  if (!dx_args(&a, x, w, scale, bias, prologue, y, dy, ds1, ds2, dx,
+               dscale_part, dbias_part, N, H, W, C, Co, run_stages, runs, vec,
+               kXtBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_conv3_bn_dx_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kXtSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_conv3_bn_dx_tf32<<<dim3(static_cast<unsigned>(ceil_div(C, kXtBN)),
+                                static_cast<unsigned>(runs)),
+                           kFwThreads, kXtSmem,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -41,25 +41,23 @@
 // a byte), the forward is bound by operations except stage 1's 64-to-64
 // launch (16 a byte); dx and dw are bound by bytes at most stage-1
 // launches, where a side is 64 wide (c3: 0.31 and 0.28 ms of traffic
-// against 0.20 ms of FMA), and by operations elsewhere.  The float32 dw
-// runs on the tensor cores in three tf32 products (below): 3 x 2*M*K*N
-// operations at 495 TFLOP/s, under its bytes at every ResNet-50 launch.
-// In bfloat16 every launch is bound by bytes (tensor cores at 989
-// TFLOP/s, 295 operations a byte); the FMA loop below does not reach that
-// bound, and no bf16 kernel runs it (see below).
+// against 0.20 ms of FMA), and by operations elsewhere.  The float32 dx
+// and dw run on the tensor cores in three tf32 products (below): 3 x
+// 2*M*K*N operations at 495 TFLOP/s, under their bytes at stage 1's
+// launches.  In bfloat16 every launch is bound by bytes (tensor cores at
+// 989 TFLOP/s, 295 operations a byte); the FMA loop below does not reach
+// that bound, and no bf16 kernel runs it (see below).
 //
-// Design of the float32 forward and dx: one tiled product, C (I, J) =
-// A (I, R) @ B (R, J), shared by the two kernels, which differ only in
-// how A and B are fetched and in the epilogue.  A block of 256
-// threads owns a 128x128 tile of C; each thread keeps an 8x8 sub-tile in
-// registers (two 4x4 quads per axis, so the shared-memory reads are
+// Design of the float32 forward (fused_matmul_bn_fwd_kernel): a block of
+// 256 threads owns a 128x128 tile of y; each thread keeps an 8x8 sub-tile
+// in registers (two 4x4 quads per axis, so the shared-memory reads are
 // float4 broadcasts), and the depth goes through shared memory 8 at a
 // time, the next slice's global loads in flight while the current one is
-// multiplied.  Each operand element is converted to float32 (and put
-// through the prologue or dyt) once, as it is staged, so the inner loop
-// is plain float32 FMA.  Global loads run along the operand's contiguous
-// axis.  This is the simple, right first kernel; TMA, wgmma and a
-// persistent schedule are later work.
+// multiplied.  Each x element is converted to float32 and put through
+// the prologue once, as it is staged, so the inner loop is plain float32
+// FMA.  Global loads run along the operand's contiguous axis.  This is
+// the simple, right first kernel; TMA, wgmma and a persistent schedule
+// are later work.
 //
 // The bf16 dw (fused_matmul_bn_dw_mma) replaces the same TPU kernel,
 // `_bwd_dw_kernel` (fused_block.py:181), on the tensor cores.  At the
@@ -137,6 +135,40 @@
 // wrapper sums in a fixed order.  Where K > BK each column tile stages
 // dyt again from L2.
 //
+// The float32 dx (fused_matmul_bn_dx_tf32) replaces the same TPU kernel
+// on the tensor cores, on the bf16 tile's walk and grid, keeping float32
+// numbers: each operand is split into tf32 hi + lo and three
+// mma.sync.m16n8k8 products, lo.hi + hi.lo + hi.hi, go into float32 sums
+// (mma.cuh), as in the float32 dw.  The FMA tile it replaces took 2.05
+// ms at (401408, 64, 256) with the prologue, 15 % of its byte bound: 514
+// MB read and written in bfloat16 are 1,028 MB in float32 (0.307 ms at
+// 3.35 TB/s), against 3 x 13.2 GFLOP (0.080 ms at 495 TFLOP/s).
+//   - A block of 8 warps owns 128 rows of M x 64 columns of dx at every
+//     K, each warp 32 x 32: its 32 sums and the chain's 32 parts leave
+//     room under the 128 registers of two blocks an SM, where the bf16
+//     tile's 128-column tiles (64 sums a warp) would not.  Where K > 64
+//     each column tile stages dyt again from L2.
+//   - The depth N runs in stages of 16 columns.  The tensor core
+//     truncates each sum it returns, so a stage's products (two k8
+//     steps, six mma) go into a part that starts at 0, and the part into
+//     the run's float32 sum rounded to nearest: one register for all of
+//     N's products drifts past the float32 tolerance at depths up to
+//     2048.
+//   - y, dy and w go by cp.async (16 bytes, zeros outside; element loads
+//     where a start is unaligned or N is not a multiple of 4) into a
+//     ring of three stages, two ahead; each thread turns the y and dy
+//     chunks it copied into dyt in float32 (dyt4; 0 past M, where it
+//     would be ds1), split into tf32 hi in place of dy and lo in place
+//     of y, so that no operand buffer exists beside the ring (25,600
+//     bytes a slot, 79,744 a block: two blocks an SM).  w is split as
+//     its fragment is loaded.  Row strides of 20 floats put the 32 lanes
+//     of a fragment load (row g, column t4) on 32 distinct banks.
+//   - The epilogue is the bf16 tile's in float32: x pairs loaded in the
+//     accumulator layout, z = x*scale + bias, dz = dxn where z > 0, dx =
+//     dz*scale stored in pairs, the column sums of dz*x and dz reduced by
+//     shuffles, then across the row warps in order, into one float32
+//     partial row a block.
+//
 // The bf16 forward (fused_matmul_bn_fwd_mma) replaces `_fwd_kernel`
 // (fused_block.py:83) on the tensor cores.  At (401408, 64, 256) with the
 // prologue it must move 257 MB (x read, y written: 0.077 ms at 3.35
@@ -178,7 +210,7 @@ constexpr int BR = 8;         // depth staged through shared memory at once
 constexpr int THREADS = 256;  // 16 x 16 threads, an 8x8 sub-tile each
 constexpr int LOADS = BI * BR / THREADS;  // A (and B) elements a thread stages
 
-enum Mode { kFwd = 0, kDx = 1, kDw = 2 };  // kDw: the tensor-core tiles
+enum Mode { kFwd = 0, kDx = 1, kDw = 2 };  // the C entries' kernels
 
 template <typename T>
 struct Args {
@@ -215,20 +247,9 @@ __device__ __forceinline__ float prologue_at(const Args<T>& a, int64_t m,
                            0.f));
 }
 
-// dyt = dy + ds1 + 2*y*ds2 rounded to T, at (m, n)
+// A[i][r] = P(x)[i][r] for i < I, r < r_end (else 0); element e of the
+// staged slice maps to (i, r) along x's contiguous axis
 template <typename T>
-__device__ __forceinline__ float dyt_at(const Args<T>& a, int64_t m, int n) {
-  const int64_t at = m * a.N + n;
-  const float v = __fadd_rn(
-      __fadd_rn(to_float(a.dy[at]), a.ds1[n]),
-      __fmul_rn(__fmul_rn(2.f, to_float(a.y[at])), a.ds2[n]));
-  return round_to<T>(v);
-}
-
-// A[i][r] for i < I, r < r_end (else 0).  Element e of the staged slice
-// maps to (i, r) along A's contiguous axis in device memory: forward, A
-// = P(x) with r = k; dx, A = dyt with r = n.
-template <int MODE, typename T>
 __device__ __forceinline__ float fetch_a(const Args<T>& a, int e, int64_t i0,
                                          int64_t r0, int64_t I, int64_t r_end,
                                          int* si, int* sr) {
@@ -237,30 +258,20 @@ __device__ __forceinline__ float fetch_a(const Args<T>& a, int e, int64_t i0,
   *sr = r;
   const int64_t gi = i0 + i, gr = r0 + r;
   if (gi >= I || gr >= r_end) return 0.f;
-  if (MODE == kFwd) return prologue_at(a, gi, static_cast<int>(gr));
-  return dyt_at(a, gi, static_cast<int>(gr));
+  return prologue_at(a, gi, static_cast<int>(gr));
 }
 
-// B[r][j] for r < r_end, j < J (else 0), along B's contiguous axis:
-// forward, B = w (r = k); dx, B = w^T (r = n, j = k; w runs along n).
-template <int MODE, typename T>
+// B[r][j] = w[r][j] for r < r_end, j < J (else 0), along w's rows
+template <typename T>
 __device__ __forceinline__ float fetch_b(const Args<T>& a, int e, int64_t j0,
                                          int64_t r0, int64_t J, int64_t r_end,
                                          int* sj, int* sr) {
-  int j, r;
-  if (MODE == kDx) {
-    r = e % BR;
-    j = e / BR;
-  } else {
-    j = e % BJ;
-    r = e / BJ;
-  }
+  const int j = e % BJ, r = e / BJ;
   *sj = j;
   *sr = r;
   const int64_t gj = j0 + j, gr = r0 + r;
   if (gj >= J || gr >= r_end) return 0.f;
-  if (MODE == kFwd) return to_float(a.w[gr * a.N + gj]);
-  return to_float(a.w[gj * a.N + gr]);
+  return to_float(a.w[gr * a.N + gj]);
 }
 
 // Row (or column) of C that sub-tile slot q (0..7) of thread t (0..15)
@@ -294,8 +305,9 @@ __device__ __forceinline__ void column_partials(
   }
 }
 
-template <int MODE, typename T>
-__device__ __forceinline__ void fused_mm_bn(const Args<T>& a) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    fused_matmul_bn_fwd_kernel(Args<T> a) {
   // rows padded by 4 floats: the staging stores of a warp then hit 32
   // distinct banks, and every row stays 16-byte aligned for the float4
   // reads
@@ -304,11 +316,11 @@ __device__ __forceinline__ void fused_mm_bn(const Args<T>& a) {
   __shared__ float red0[THREADS / 16][BJ];
   __shared__ float red1[THREADS / 16][BJ];
 
-  // C is (M, N) in the forward, (M, K) in dx; the depth K or N
-  const int64_t I = a.M, J = MODE == kFwd ? a.N : a.K;
+  // C = y is (M, N), the depth K
+  const int64_t I = a.M, J = a.N;
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
   const int64_t j0 = static_cast<int64_t>(blockIdx.y) * BJ;
-  const int64_t r_begin = 0, r_end = MODE == kFwd ? a.K : a.N;
+  const int64_t r_begin = 0, r_end = a.K;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -322,9 +334,9 @@ __device__ __forceinline__ void fused_mm_bn(const Args<T>& a) {
   int ai[LOADS], ar[LOADS], bj[LOADS], br[LOADS];
 #pragma unroll
   for (int l = 0; l < LOADS; ++l) {
-    va[l] = fetch_a<MODE>(a, tid + l * THREADS, i0, r_begin, I, r_end,
+    va[l] = fetch_a(a, tid + l * THREADS, i0, r_begin, I, r_end,
                           &ai[l], &ar[l]);
-    vb[l] = fetch_b<MODE>(a, tid + l * THREADS, j0, r_begin, J, r_end,
+    vb[l] = fetch_b(a, tid + l * THREADS, j0, r_begin, J, r_end,
                           &bj[l], &br[l]);
   }
   for (int64_t r0 = r_begin; r0 < r_end; r0 += BR) {
@@ -337,9 +349,9 @@ __device__ __forceinline__ void fused_mm_bn(const Args<T>& a) {
     if (r0 + BR < r_end) {  // the next slice's loads overlap this product
 #pragma unroll
       for (int l = 0; l < LOADS; ++l) {
-        va[l] = fetch_a<MODE>(a, tid + l * THREADS, i0, r0 + BR, I, r_end,
+        va[l] = fetch_a(a, tid + l * THREADS, i0, r0 + BR, I, r_end,
                               &ai[l], &ar[l]);
-        vb[l] = fetch_b<MODE>(a, tid + l * THREADS, j0, r0 + BR, J, r_end,
+        vb[l] = fetch_b(a, tid + l * THREADS, j0, r0 + BR, J, r_end,
                               &bj[l], &br[l]);
       }
     }
@@ -362,62 +374,24 @@ __device__ __forceinline__ void fused_mm_bn(const Args<T>& a) {
   float c0[8], c1[8];  // per-column sums over this thread's rows
 #pragma unroll
   for (int q = 0; q < 8; ++q) c0[q] = c1[q] = 0.f;
-  if (MODE == kFwd) {
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int64_t m = i0 + slot(ty, p);
-      if (m >= I) continue;
+  for (int p = 0; p < 8; ++p) {
+    const int64_t m = i0 + slot(ty, p);
+    if (m >= I) continue;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int64_t n = j0 + slot(tx, q);
-        if (n >= J) continue;
-        const T yv = from_float<T>(acc[p][q]);
-        a.out[m * a.N + n] = yv;
-        const float f = to_float(yv);
-        c0[q] += f;
-        c1[q] += f * f;
-      }
+    for (int q = 0; q < 8; ++q) {
+      const int64_t n = j0 + slot(tx, q);
+      if (n >= J) continue;
+      const T yv = from_float<T>(acc[p][q]);
+      a.out[m * a.N + n] = yv;
+      const float f = to_float(yv);
+      c0[q] += f;
+      c1[q] += f * f;
     }
-  } else {  // dx
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int64_t m = i0 + slot(ty, p);
-      if (m >= I) continue;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int64_t k = j0 + slot(tx, q);
-        if (k >= J) continue;
-        const float d = acc[p][q];
-        if (a.prologue) {
-          const float xv = to_float(a.x[m * a.K + k]);
-          const float sc = a.scale[k];
-          const float z = __fadd_rn(__fmul_rn(xv, sc), a.bias[k]);
-          const float dz = z > 0.f ? d : 0.f;
-          a.out[m * a.K + k] = from_float<T>(__fmul_rn(dz, sc));
-          c0[q] += dz * xv;
-          c1[q] += dz;
-        } else {
-          a.out[m * a.K + k] = from_float<T>(d);
-        }
-      }
-    }
-    if (!a.prologue) return;  // uniform across the block
   }
   const int64_t row = static_cast<int64_t>(blockIdx.x) * J;
   column_partials(c0, c1, red0, red1, tx, ty, j0, J, a.part0 + row,
                   a.part1 + row);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_matmul_bn_fwd_kernel(Args<T> a) {
-  fused_mm_bn<kFwd>(a);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_matmul_bn_dx_kernel(Args<T> a) {
-  fused_mm_bn<kDx>(a);
 }
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
@@ -1173,6 +1147,296 @@ cudaError_t launch_dw_tf32(const Args<float>& a, int64_t splits, int vec,
 }
 
 // ---------------------------------------------------------------------
+// dx in float32 on the tensor cores (3xTF32).  See the note at the top.
+
+constexpr int kXfBK = 64;             // columns of dx a block owns
+constexpr int kXfBN = 16;             // depth (columns of y and dy) a stage
+constexpr int kXfSteps = kXfBN / 8;   // its k8 steps
+constexpr int kXfRing = 3;            // stages: two load while one multiplies
+constexpr int kXfLd = kXfBN + 4;      // float row stride: 20, see below
+constexpr int kXfRowChunks = kXfBN / 4;                // float4 a stage row
+constexpr int kXfRowStep = kDxThreads / kXfRowChunks;  // a thread's rows
+constexpr int kXfYChunks = kDxBM / kXfRowStep;         // apart: 64
+constexpr int kXfWChunks = kXfBK / kXfRowStep;
+// A ring slot holds a stage: dy, turned in place into dyt's tf32 hi, and
+// y, turned into its lo (kDxBM rows each), then w's rows (kXfBK); after
+// the ring, scale and bias of the tile's columns, the epilogue's
+// [2][4][kXfBK] column sums and each slot's ds1 and ds2.  A row stride of
+// 20 floats puts the 32 lanes of a fragment load (a lane reads row g,
+// column t4) on 32 distinct banks.
+constexpr int kXfSlot = (2 * kDxBM + kXfBK) * kXfLd;  // floats
+constexpr size_t kXfSmem =
+    (kXfRing * kXfSlot + 2 * kXfBK + 2 * 4 * kXfBK + kXfRing * 2 * kXfBN) *
+    sizeof(float);
+
+// Grid (ceil(M / 128) * ceil(K / 64)), as fused_matmul_bn_dx_mma's: block
+// b takes rows [128 m, 128 (m + 1)) of M and columns [64 k, 64 (k + 1))
+// of dx, with m = b / ktiles and k = b % ktiles, so that the column
+// tiles of the same rows run side by side while L2 holds their y and dy.
+// With the prologue it writes its float32 column sums of dz*x and dz to
+// part0[m] and part1[m].  vec bit 0: x loads 8 bytes a pair; bit 1: y
+// and dy load 16 bytes; bit 2: w does.
+__global__ void __launch_bounds__(kDxThreads, 2)
+    fused_matmul_bn_dx_tf32(Args<float> a, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* sc_s = ring + kXfRing * kXfSlot;
+  float* bi_s = sc_s + kXfBK;
+  float* red = bi_s + kXfBK;      // [dscale, dbias][row warp][column]
+  float* dsl = red + 8 * kXfBK;   // [slot][ds1, ds2][kXfBN]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wk = warp >> 2;  // the warp's 32 x 32 tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ktiles = (a.K + kXfBK - 1) / kXfBK;
+  const int64_t mt = blockIdx.x / ktiles;
+  const int k0 = static_cast<int>(blockIdx.x - mt * ktiles) * kXfBK;
+  const int64_t m0 = mt * kDxBM;
+  const int stages = (a.N + kXfBN - 1) / kXfBN;
+  const bool vec_x = vec & 1, vec_y = vec & 2, vec_w = vec & 4;
+
+  // per-column constants, 0 past K (a zero column stays zero)
+  for (int i = tid; i < kXfBK; i += kDxThreads) {
+    const bool in = a.prologue && k0 + i < a.K;
+    sc_s[i] = in ? a.scale[k0 + i] : 0.f;
+    bi_s[i] = in ? a.bias[k0 + i] : 0.f;
+  }
+
+  // This thread's chunks: rows r0 + 64 i of the stage's y and dy (and
+  // row r0 of w), columns cc .. cc + 3 of its depth.  It copies them and
+  // turns its y and dy into dyt itself, so no barrier separates the two.
+  const int cc = (tid % kXfRowChunks) * 4, r0 = tid / kXfRowChunks;
+
+  // Loads stage st (columns [16 st, 16 st + 16) of y, dy and w, and of
+  // ds1 and ds2, 0 past N) into ring slot `slot` (cp.async of 16 bytes,
+  // zeros where a chunk lies outside; element loads where a start or a
+  // width does not allow 16 bytes) and returns its flags: bit i, chunk
+  // i's row lies in M.
+  auto fetch_stage = [&](int st, int slot) {
+    const int n0 = st * kXfBN;
+    float* ds = ring + slot * kXfSlot;
+    float* ys = ds + kDxBM * kXfLd;
+    float* ws = ys + kDxBM * kXfLd;
+    unsigned flags = 0;
+    if (tid < kXfBN) {
+      const int n = n0 + tid;
+      dsl[slot * 2 * kXfBN + tid] = n < a.N ? a.ds1[n] : 0.f;
+      dsl[(slot * 2 + 1) * kXfBN + tid] = n < a.N ? a.ds2[n] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kXfYChunks; ++i) {
+      const int r = r0 + kXfRowStep * i;
+      const int64_t m = m0 + r;
+      const bool in = m < a.M;
+      flags |= (in ? 1u : 0u) << i;
+      const int64_t off = (in ? m : 0) * a.N;
+      float* yd = ys + r * kXfLd + cc;
+      float* dd = ds + r * kXfLd + cc;
+      if (vec_y) {
+        const bool full = in && n0 + cc < a.N;
+        cp_async16(yd, full ? a.y + off + n0 + cc : a.y, full);
+        cp_async16(dd, full ? a.dy + off + n0 + cc : a.dy, full);
+      } else {
+        *reinterpret_cast<float4*>(yd) = load4(a.y + off, n0 + cc, a.N, in);
+        *reinterpret_cast<float4*>(dd) = load4(a.dy + off, n0 + cc, a.N, in);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kXfWChunks; ++i) {
+      const int r = r0 + kXfRowStep * i;
+      const bool in = k0 + r < a.K;
+      const float* wr = a.w + (in ? static_cast<int64_t>(k0 + r) : 0) * a.N;
+      float* wd = ws + r * kXfLd + cc;
+      if (vec_w) {
+        const bool full = in && n0 + cc < a.N;
+        cp_async16(wd, full ? wr + n0 + cc : a.w, full);
+      } else {
+        *reinterpret_cast<float4*>(wd) = load4(wr, n0 + cc, a.N, in);
+      }
+    }
+    return flags;
+  };
+
+  // x[m, k] and x[m, k + 1], 0 past M and K
+  auto x_pair = [&](int64_t m, int k) -> float2 {
+    if (m >= a.M || k >= a.K) return make_float2(0.f, 0.f);
+    const float* p = a.x + m * a.K + k;
+    if (vec_x) return __ldg(reinterpret_cast<const float2*>(p));
+    return make_float2(__ldg(p), k + 1 < a.K ? __ldg(p + 1) : 0.f);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // the first kXfRing - 1 stages in flight, one group a stage (empty
+  // past the depth), so that a wait counts stages
+  unsigned ring_flags = 0;  // kXfYChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < kXfRing - 1; ++k) {
+    if (k < stages) ring_flags |= fetch_stage(k, k) << (kXfYChunks * k);
+    cp_async_commit();
+  }
+  __syncthreads();  // the constants, the first stages' ds1 and ds2
+  int slot = 0;
+  for (int st = 0; st < stages; ++st) {
+    float* ds = ring + slot * kXfSlot;
+    float* ys = ds + kDxBM * kXfLd;
+    const float* ws = ys + kDxBM * kXfLd;
+    cp_async_wait<kXfRing - 2>();  // this thread's chunks of stage st
+    {  // dyt in float32, split into tf32 hi in place of dy and lo in place
+       // of y; 0 past M (it is ds1 there)
+      const float* d1 = dsl + slot * 2 * kXfBN + cc;
+      const float* d2 = d1 + kXfBN;
+      const unsigned flags = ring_flags >> (kXfYChunks * slot);
+#pragma unroll
+      for (int i = 0; i < kXfYChunks; ++i) {
+        const int r = r0 + kXfRowStep * i;
+        float4* d = reinterpret_cast<float4*>(ds + r * kXfLd + cc);
+        float4* yl = reinterpret_cast<float4*>(ys + r * kXfLd + cc);
+        const float4 v = flags >> i & 1 ? dyt4(*yl, *d, d1, d2)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        uint4 hi, lo;
+        split_tf32(v.x, hi.x, lo.x);
+        split_tf32(v.y, hi.y, lo.y);
+        split_tf32(v.z, hi.z, lo.z);
+        split_tf32(v.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(d) = hi;
+        *reinterpret_cast<uint4*>(yl) = lo;
+      }
+    }
+    __syncthreads();
+    // stage st + kXfRing - 1 into the slot that stage st - 1 left: every
+    // warp left its product at the barrier
+    const int next = slot == 0 ? kXfRing - 1 : slot - 1;
+    if (st + kXfRing - 1 < stages)
+      ring_flags =
+          (ring_flags & ~(((1u << kXfYChunks) - 1) << (kXfYChunks * next))) |
+          fetch_stage(st + kXfRing - 1, next) << (kXfYChunks * next);
+    cp_async_commit();
+    // The stage's products go into a part that starts at 0, and the part
+    // into acc, rounded to nearest: the tensor core truncates each sum it
+    // returns, and one register for a chain of every product along N
+    // drifts by as many ulps.  A = dyt (rows m, depth n) as split; B =
+    // w^T, w's rows (k, n) as they lie, split as loaded.
+    const uint32_t* a_hi = reinterpret_cast<const uint32_t*>(ds);
+    const uint32_t* a_lo = reinterpret_cast<const uint32_t*>(ys);
+    float part[2][4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kXfSteps; ++kk) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int at = (32 * wm + 16 * i + g) * kXfLd + 8 * kk + t4;
+        ah[i][0] = a_hi[at];
+        ah[i][1] = a_hi[at + 8 * kXfLd];
+        ah[i][2] = a_hi[at + 4];
+        ah[i][3] = a_hi[at + 8 * kXfLd + 4];
+        al[i][0] = a_lo[at];
+        al[i][1] = a_lo[at + 8 * kXfLd];
+        al[i][2] = a_lo[at + 4];
+        al[i][3] = a_lo[at + 8 * kXfLd + 4];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* q = ws + (32 * wk + 8 * j + g) * kXfLd + 8 * kk + t4;
+        uint32_t bh[2], bl[2];
+        split_tf32(q[0], bh[0], bl[0]);
+        split_tf32(q[4], bh[1], bl[1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mma_3xtf32(part[i][j], ah[i], al[i], bh, bl);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+    slot = slot + 1 == kXfRing ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+
+  // The epilogue in the accumulator layout: acc[i][j][e] is dxn at row
+  // 32 wm + 16 i + g + 8 (e / 2), column 32 wk + 8 j + 2 t4 + e % 2 of
+  // the tile.  With the prologue: z = x*scale + bias, dz = dxn where z >
+  // 0, dx = dz*scale, and the columns' sums of dz*x and dz over the
+  // block's rows: over this thread's four rows, the 8 rows of each lane
+  // quad by shuffles, then the row warps in order.
+  const bool pairs = (a.K & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kl = 32 * wk + 8 * j + 2 * t4;  // the tile's column
+    const int k = k0 + kl;
+    const float sc0 = sc_s[kl], sc1 = sc_s[kl + 1];
+    const float bi0 = bi_s[kl], bi1 = bi_s[kl + 1];
+    float dsc0 = 0.f, dsc1 = 0.f, dbi0 = 0.f, dbi1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t m = m0 + 32 * wm + 16 * i + g + 8 * h;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (a.prologue) {
+          const float2 xf = x_pair(m, k);
+          const float dz0 =
+              __fadd_rn(__fmul_rn(xf.x, sc0), bi0) > 0.f ? v0 : 0.f;
+          const float dz1 =
+              __fadd_rn(__fmul_rn(xf.y, sc1), bi1) > 0.f ? v1 : 0.f;
+          dsc0 += dz0 * xf.x;
+          dsc1 += dz1 * xf.y;
+          dbi0 += dz0;
+          dbi1 += dz1;
+          v0 = __fmul_rn(dz0, sc0);
+          v1 = __fmul_rn(dz1, sc1);
+        }
+        if (m >= a.M) continue;
+        float* out = a.out + m * a.K + k;
+        if (pairs && k + 1 < a.K) {
+          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+        } else {
+          if (k < a.K) out[0] = v0;
+          if (k + 1 < a.K) out[1] = v1;
+        }
+      }
+    if (a.prologue) {  // uniform across the block
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        dsc0 += __shfl_xor_sync(0xffffffffu, dsc0, off);
+        dsc1 += __shfl_xor_sync(0xffffffffu, dsc1, off);
+        dbi0 += __shfl_xor_sync(0xffffffffu, dbi0, off);
+        dbi1 += __shfl_xor_sync(0xffffffffu, dbi1, off);
+      }
+      if (g == 0) {
+        red[wm * kXfBK + kl] = dsc0;
+        red[wm * kXfBK + kl + 1] = dsc1;
+        red[(4 + wm) * kXfBK + kl] = dbi0;
+        red[(4 + wm) * kXfBK + kl + 1] = dbi1;
+      }
+    }
+  }
+  if (!a.prologue) return;
+  __syncthreads();
+  if (tid < kXfBK && k0 + tid < a.K) {
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      v0 += red[w * kXfBK + tid];
+      v1 += red[(4 + w) * kXfBK + tid];
+    }
+    const int64_t at = mt * a.K + k0 + tid;
+    a.part0[at] = v0;
+    a.part1[at] = v1;
+  }
+}
+
+// ---------------------------------------------------------------------
 // The forward in bfloat16 on the tensor cores.  See the note at the top.
 
 constexpr int kFmBM = BI;        // rows of M a row block: 128
@@ -1491,12 +1755,16 @@ cudaError_t launch_fwd(const Args<bf16>& a, int vec, cudaStream_t stream) {
               : launch_fwd_mma<64, 32, false>(a, vec, stream);
 }
 
-// float32 dx: the FMA tile over blocks of 128 x 128 of dx
-cudaError_t launch_dx(const Args<float>& a, int, cudaStream_t stream) {
-  const int64_t gi = ceil_div(a.M, BI), gj = ceil_div(a.K, BJ);
-  if (gi > 0x7fffffff || gj > 65535) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-  fused_matmul_bn_dx_kernel<float><<<grid, THREADS, 0, stream>>>(a);
+// float32 dx: the 3xTF32 tile in column tiles of 64 at every K
+cudaError_t launch_dx(const Args<float>& a, int vec, cudaStream_t stream) {
+  const int64_t blocks = ceil_div(a.M, kDxBM) * ceil_div(a.K, kXfBK);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_matmul_bn_dx_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kXfSmem));
+  if (err != cudaSuccess) return err;
+  fused_matmul_bn_dx_tf32<<<static_cast<unsigned>(blocks), kDxThreads,
+                            kXfSmem, stream>>>(a, vec);
   return cudaGetLastError();
 }
 
@@ -1635,11 +1903,12 @@ extern "C" int mx_fused_matmul_bn_fwd(int dtype, const void* x,
 // ds1 and ds2 (N,) float32; dx (M, K) in that type.  With the prologue,
 // scale and bias (K,) float32 and dscale_part and dbias_part
 // (part_rows, K) float32, part_rows = ceil(M / 128), are read and
-// written; without it they may be null.  float32 runs the FMA tile;
-// bfloat16 the tensor-core tile, which reads x pairs 4 bytes at a time
-// where bit 0 of vec is set (x 16-byte aligned, K a multiple of 8), y and
-// dy 16 bytes at a time where bit 1 is (both 16-byte aligned, N a
-// multiple of 8), and w where bit 2 is (w 16-byte aligned).
+// written; without it they may be null.  float32 runs the 3xTF32 tile,
+// bfloat16 the bf16 tensor-core tile.  Both read x pairs at a time where
+// bit 0 of vec is set (x 16-byte aligned, rows a multiple of 16 bytes),
+// y and dy 16 bytes at a time where bit 1 is (both 16-byte aligned, rows
+// a multiple of 16 bytes), and w where bit 2 is (w 16-byte aligned, rows
+// a multiple of 16 bytes).
 extern "C" int mx_fused_matmul_bn_dx(int dtype, const void* x, const void* w,
                                      const void* scale, const void* bias,
                                      int prologue, const void* y,

@@ -21,7 +21,7 @@ import argparse
 import numpy as np
 import torch
 
-from .. import autograd
+from .. import amp, autograd
 from ..context import resolve_device
 from ..gluon import Trainer, nn
 from ..gluon.loss import SoftmaxCrossEntropyLoss
@@ -74,9 +74,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    if args.amp:
-        raise NotImplementedError("--amp needs amp.convert_block, which is "
-                                  "not ported yet (a later slice)")
     if args.smoke:
         args.batch_size, args.seq_len, args.vocab = 4, 16, 60
         args.units, args.layers, args.heads, args.steps = 32, 2, 2, 30
@@ -87,6 +84,8 @@ def main(argv=None):
                     dropout=0.0 if args.smoke else 0.1)
     net.initialize(device=device,
                    generator=torch.Generator().manual_seed(args.seed))
+    if args.amp:
+        amp.convert_block(net, "bfloat16")
     use_dropout_generator(
         net, torch.Generator(device=device).manual_seed(args.seed))
     trainer = Trainer(net.collect_params(), "adam",

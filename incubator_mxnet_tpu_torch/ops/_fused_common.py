@@ -24,8 +24,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 count_lock = threading.Lock()
 
 #: rows of M a kernel block owns (BI in the sources): the float32
-#: forward and dx kernels write one partial row per block, and refuse any
-#: other count
+#: forwards and the 1x1's dx kernels write one partial row per block, and
+#: refuse any other count
 BLOCK_ROWS = 128
 
 

@@ -22,10 +22,10 @@ Each has one instance for each dtype.  bfloat16 runs tiles on the
 tensor cores (``fused_matmul_bn_fwd_mma``, over runs of M that
 :func:`fwd_mma_split` chooses; ``fused_matmul_bn_dx_mma``;
 ``fused_matmul_bn_dw_mma``, over runs of M that :func:`dw_mma_split`
-chooses).  float32's forward and dx run the FMA tile that the two
-share, its dw a tile on the tensor cores that keeps float32 numbers in
-three tf32 products (``fused_matmul_bn_dw_tf32``, over the runs of
-:func:`dw_tf32_split`).
+chooses).  float32's forward runs an FMA tile; its dx and dw run tiles
+on the tensor cores that keep float32 numbers in three tf32 products
+(``fused_matmul_bn_dx_tf32``; ``fused_matmul_bn_dw_tf32``, over the
+runs of :func:`dw_tf32_split`).
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing falls
 back from the card to the plain version.
@@ -287,8 +287,8 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
     dx comes out in x's dtype; dscale and dbias are float32 ``(K,)``
     with a prologue (scale given), else None.  On a CUDA tensor: kernel
     11, then the sum of its partial rows (one a block of 128 rows of M)
-    in a fixed order; bfloat16 runs the tensor-core tile, float32 the FMA
-    tile.  On a CPU tensor: the plain version."""
+    in a fixed order; bfloat16 runs the bf16 tensor-core tile, float32
+    the 3xTF32 tile.  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return matmul_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
     m, k, n, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
@@ -301,9 +301,7 @@ def fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
     if m == 0:
         zeros = torch.zeros(k, dtype=torch.float32, device=x.device)
         return (dx, zeros, zeros.clone()) if prologue else (dx, None, None)
-    vec = 0
-    if x.dtype == torch.bfloat16:
-        vec = int(_vec16(x)) | 2 * int(_vec16(y, dy)) | 4 * int(_vec16(w))
+    vec = int(_vec16(x)) | 2 * int(_vec16(y, dy)) | 4 * int(_vec16(w))
     fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_dx",
                          _DX_ARGS)
     with torch.cuda.device(x.device):

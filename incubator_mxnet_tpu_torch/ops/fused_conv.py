@@ -25,10 +25,11 @@ launch counter.  Each has one instance for each dtype.  bfloat16 runs
 tiles on the tensor cores (``fused_conv3_bn_fwd_mma``, over runs of
 pixels that :func:`fwd_mma_split` chooses; ``fused_conv3_bn_dx_mma``,
 over those of :func:`dx_mma_split`; ``fused_conv3_bn_dw_mma``, over
-those of :func:`dw_mma_split`).  float32's forward and dx run the FMA
-tile that the two share, its dw a tile on the tensor cores that keeps
-float32 numbers in three tf32 products (``fused_conv3_bn_dw_tf32``, on
-the bfloat16 dw tile's walk, over the runs of :func:`dw_tf32_split`).
+those of :func:`dw_mma_split`).  float32's forward runs an FMA tile;
+its dx and dw run tiles on the tensor cores that keep float32 numbers in
+three tf32 products, on the bfloat16 tiles' walk
+(``fused_conv3_bn_dx_tf32``, over the runs of :func:`dx_mma_split`;
+``fused_conv3_bn_dw_tf32``, over those of :func:`dw_tf32_split`).
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 Nothing falls back, and there is no switch: on the card every 3x3 of the
@@ -56,8 +57,8 @@ __all__ = ["conv3_bn_reference", "conv3_bn_dx_reference",
            "fused_conv3_bn_fwd", "fused_conv3_bn_dx", "fused_conv3_bn_dw",
            "FusedConv3BNFunction", "fused_conv3_bn", "dw_mma_geometry",
            "dw_mma_split", "dw_tf32_split", "fwd_mma_tile", "fwd_mma_split",
-           "dx_mma_tile", "dx_mma_split", "fwd_launches", "dx_launches",
-           "dw_launches"]
+           "dx_mma_tile", "dx_mma_split", "fwd_launches",
+           "dx_launches", "dw_launches"]
 
 #: Launches of the forward, dx and dw kernels so far; each wrapper adds
 #: one per launch and nothing else touches them (a caller may reset them
@@ -70,7 +71,6 @@ _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # the C entries' arguments (csrc/fused_conv3_bn.cu)
 _SHAPE = [_L, _I, _I, _I, _I]   # N, H, W, C, C_out
 _FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L] + _SHAPE + [_P]
-_DX_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_L] + _SHAPE + [_P]
 _DW_MMA_ARGS = [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _I, _P]
 _FWD_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 3 + _SHAPE + [_L, _L, _I, _P]
 _DX_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 7 + _SHAPE + [_L, _L, _I, _P]
@@ -260,21 +260,24 @@ def fwd_mma_split(n, h, w, c, co, sms):
     return _stage_runs(n, h, w, -(-co // fwd_mma_tile(c, co)[0]), sms)
 
 
-def dx_mma_tile(c, co):
-    """``(bn, kc)`` of kernel 14's bfloat16 tile, as
-    ``mx_fused_conv3_bn_dx_mma`` picks its instance: ``bn`` input
-    channels of dx a block (64, or 128 where ``c`` > 64) and ``kc``
-    output channels a step (64 where ``c`` and ``co`` <= 64, the block's
-    whole W slice then staying in shared memory for its run; else 32, W
-    streaming with dy)."""
+def dx_mma_tile(c, co, dtype):
+    """``(bn, kc)`` of kernel 14's tile for ``dtype``, as
+    ``mx_fused_conv3_bn_dx_mma`` and ``mx_fused_conv3_bn_dx_tf32`` pick
+    it: ``bn`` input channels of dx a block and ``kc`` output channels a
+    step.  bfloat16: ``bn`` 64, or 128 where ``c`` > 64; ``kc`` 64 where
+    ``c`` and ``co`` <= 64 (the block's whole W slice then staying in
+    shared memory for its run), else 32 (W streaming with dy).  float32
+    (the 3xTF32 tile): 64 and 32 at every C, W always streaming."""
+    if dtype == torch.float32:
+        return 64, 32
     return (64 if c <= 64 else 128), (64 if max(c, co) <= 64 else 32)
 
 
-def dx_mma_split(n, h, w, c, co, sms):
-    """``(run_stages, runs)`` of kernel 14's bfloat16 tile for x (n, h,
+def dx_mma_split(n, h, w, c, co, sms, dtype):
+    """``(run_stages, runs)`` of kernel 14's tile for ``dtype``, x (n, h,
     w, c) and C_out = co on a card of ``sms`` SMs (:func:`_stage_runs`
     over the tiles of ``dx_mma_tile``'s input channels)."""
-    return _stage_runs(n, h, w, -(-c // dx_mma_tile(c, co)[0]), sms)
+    return _stage_runs(n, h, w, -(-c // dx_mma_tile(c, co, dtype)[0]), sms)
 
 
 def _check(name, x, w, scale, bias, **more):
@@ -392,10 +395,10 @@ def fused_conv3_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
     dx comes out in x's dtype; dscale and dbias are float32 ``(C,)``,
     zeros without a prologue (scale None), as the JAX package returns
     them.  On a CUDA tensor: the dx kernel, then the sum of its float32
-    partial rows in a fixed order: bfloat16 runs the tensor-core tile (a
-    row for each run of :func:`dx_mma_split`), float32 the FMA tile (a row
-    for each block of 128 rows of N*H*W).  On a CPU tensor: the plain
-    version."""
+    partial rows (a row for each run of stages) in a fixed order, over
+    the runs of :func:`dx_mma_split`: bfloat16 runs the bf16
+    tensor-core tile, float32 the 3xTF32 tile.  On a CPU tensor: the
+    plain version."""
     if x.device.type == "cpu":
         return conv3_bn_dx_reference(x, w, scale, bias, y, dy, ds1, ds2)
     n, h, wd, c, co, x, w, scale, bias, y, dy, ds1, ds2 = _bwd_operands(
@@ -408,31 +411,21 @@ def fused_conv3_bn_dx(x, w, scale, bias, y, dy, ds1, ds2):
         if m == 0:
             return dx, zeros, zeros.clone()
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        run_stages, rows = dx_mma_split(n, h, wd, c, co,
-                                        _fc.sms(x.device.index))
-    else:
-        rows = -(-m // _fc.BLOCK_ROWS)
-    parts = (torch.empty((2, rows, c), dtype=torch.float32, device=x.device)
+    run_stages, runs = dx_mma_split(n, h, wd, c, co, _fc.sms(x.device.index),
+                                    x.dtype)
+    parts = (torch.empty((2, runs, c), dtype=torch.float32, device=x.device)
              if prologue else None)
-    operands = (x.data_ptr(), w.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
-                int(prologue), y.data_ptr(), dy.data_ptr(), ds1.data_ptr(),
-                ds2.data_ptr(), dx.data_ptr(),
-                parts[0].data_ptr() if prologue else None,
-                parts[1].data_ptr() if prologue else None)
+    vec = (int(_fc.vec16(x)) | 2 * int(_fc.vec16(y, dy))
+           | 4 * int(_fc.vec16(w)))
+    entry = "mx_fused_conv3_bn_dx_mma" if bf16 else "mx_fused_conv3_bn_dx_tf32"
     with torch.cuda.device(x.device):
-        if bf16:
-            vec = (int(_fc.vec16(x)) | 2 * int(_fc.vec16(y, dy))
-                   | 4 * int(_fc.vec16(w)))
-            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dx_mma",
-                                 _DX_MMA_ARGS)
-            fn(*operands, n, h, wd, c, co, run_stages, rows, vec,
-               _stream(x.device))
-        else:
-            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_dx",
-                                 _DX_ARGS)
-            fn(_fc.DTYPE_CODES[x.dtype], *operands, rows, n, h, wd, c, co,
-               _stream(x.device))
+        fn = _build.launcher("fused_conv3_bn", entry, _DX_MMA_ARGS)
+        fn(x.data_ptr(), w.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
+           int(prologue), y.data_ptr(), dy.data_ptr(), ds1.data_ptr(),
+           ds2.data_ptr(), dx.data_ptr(),
+           parts[0].data_ptr() if prologue else None,
+           parts[1].data_ptr() if prologue else None, n, h, wd, c, co,
+           run_stages, runs, vec, _stream(x.device))
     _count("dx")
     if not prologue:
         return dx, zeros, zeros.clone()

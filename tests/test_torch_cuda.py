@@ -24,9 +24,9 @@ dbias take the same share of their largest value.  The fused 3x3
 conv + BatchNorm kernels take the same tolerances, for the same
 reasons; the bfloat16 tensor-core tiles of kernels 11, 13 and 16 too
 (both operands rounded to bf16 before the exact products, float32
-sums in another order), and the float32 3xTF32 tiles of kernels 12 and
-16 (three tf32 products keep about 2^-21 of each float32 product, and
-the sums run in another order).  The small fused ResNet, card step against
+sums in another order), and the float32 3xTF32 tiles of kernels 11,
+12, 14 and 16 (three tf32 products keep about 2^-21 of each float32
+product, and the sums run in another order).  The small fused ResNet, card step against
 CPU step: loss 1e-5 relative, every gradient 1e-3 of its largest value
 (50 layers of float32 sums in another order; both TF32 switches off).
 Its ``FusedTrainStep`` by CUDA-graph replay against the same step run
@@ -260,6 +260,20 @@ def _within(got, want, tol, what):
     assert err <= tol * max(scale, 1e-30), (what, err, scale)
 
 
+def _shift(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements past a
+    fresh allocation: a start off 16 bytes, for the element-load paths."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# the dx tiles' tolerance of the largest value of dx, dscale and dbias:
+# float32 runs the 3xTF32 tiles, bfloat16 the bf16 ones
+_DX_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("prologue", [False, True])
 @pytest.mark.parametrize("m,k,n", [
@@ -372,12 +386,7 @@ def test_fused_matmul_bn_dw_mma_loads_element_wise(dev, no_tf32, prologue, m,
     x, w, scale, bias, y, dy, ds1, ds2 = _dw_args(m, k, n, "bfloat16", dev,
                                                   prologue)
     if offset:
-        def shift(t):
-            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-            out = buf[offset:].view(t.shape)
-            out.copy_(t)
-            return out
-        x, y, dy = shift(x), shift(y), shift(dy)
+        x, y, dy = (_shift(t, offset) for t in (x, y, dy))
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
     assert not (fb._vec16(x) and fb._vec16(y, dy))
     got = fb.fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
@@ -403,12 +412,7 @@ def test_fused_matmul_bn_dw_tf32_matches_plain(dev, no_tf32, prologue, m, k,
     x, w, scale, bias, y, dy, ds1, ds2 = _dw_args(m, k, n, "float32", dev,
                                                   prologue)
     if offset:
-        def shift(t):
-            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-            out = buf[offset:].view(t.shape)
-            out.copy_(t)
-            return out
-        x, y, dy = shift(x), shift(y), shift(dy)
+        x, y, dy = (_shift(t, offset) for t in (x, y, dy))
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
     vec = fb._vec16(x) and fb._vec16(y, dy)
     assert vec == (m == 401408)
@@ -420,11 +424,12 @@ def test_fused_matmul_bn_dw_tf32_matches_plain(dev, no_tf32, prologue, m, k,
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+@pytest.mark.parametrize("dtype,route", [("float32", "3xTF32"),
                                          ("bfloat16", "tensor-core")])
 def test_fused_matmul_bn_dx_runs_the_kernel_of_its_dtype(dev, dtype, route):
-    """float32 inputs run kernel 11's FMA tile; bfloat16 its tensor-core
-    tile (fused_matmul_bn_dx_mma), as the profiler sees."""
+    """float32 inputs run kernel 11's 3xTF32 tensor-core tile
+    (fused_matmul_bn_dx_tf32); bfloat16 its bf16 tensor-core tile
+    (fused_matmul_bn_dx_mma), as the profiler sees."""
     args = _dw_args(200, 96, 72, dtype, dev)
     hits = {n for n in _kernel_names(fb.fused_matmul_bn_dx, args)
             if "fused_matmul_bn" in n}
@@ -432,6 +437,7 @@ def test_fused_matmul_bn_dx_runs_the_kernel_of_its_dtype(dev, dtype, route):
     name, = hits
     assert "fused_matmul_bn_dx" in name, name
     assert ("fused_matmul_bn_dx_mma" in name) == (route == "tensor-core"), name
+    assert ("fused_matmul_bn_dx_tf32" in name) == (route == "3xTF32"), name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -449,38 +455,42 @@ def test_fused_matmul_bn_dx_is_bit_for_bit_repeatable(dev, dtype, m, k, n):
 
 
 @pytest.mark.parametrize("prologue", [False, True])
-@pytest.mark.parametrize("m,k,n,offset", [
-    (1000, 60, 100, 0),   # K and N not multiples of 8
-    (77, 9, 130, 0),      # K under one 16-byte chunk
-    (640, 64, 256, 1),    # rows of 8 elements, starts off 16 bytes
-    (33, 200, 40, 0),     # two column tiles of dx, the second ragged
+@pytest.mark.parametrize("dtype,m,k,n,offset,vec", [
+    ("float32", 1000, 62, 100, 0, False),   # K not a multiple of 4
+    ("float32", 77, 3, 130, 0, False),      # K under one 16-byte chunk
+    ("float32", 200, 96, 70, 0, False),     # N not a multiple of 4
+    ("float32", 640, 64, 256, 1, False),    # starts off 16 bytes
+    ("float32", 33, 200, 40, 0, True),      # four column tiles, one ragged
+    ("float32", 401408, 64, 256, 0, True),  # the representative launch
+    ("bfloat16", 1000, 60, 100, 0, False),  # K and N not multiples of 8
+    ("bfloat16", 77, 9, 130, 0, False),     # K under one 16-byte chunk
+    ("bfloat16", 640, 64, 256, 1, False),   # starts off 16 bytes
+    ("bfloat16", 33, 200, 40, 0, True),     # two column tiles, one ragged
 ])
-def test_fused_matmul_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue, m,
-                                                   k, n, offset):
-    """Where a start or a row width does not allow 16-byte loads, the
-    bfloat16 dx tile loads element by element and still matches the
-    plain version within the bfloat16 tolerance (2e-2 of the largest
-    value of dx, dscale and dbias)."""
-    x, w, scale, bias, y, dy, ds1, ds2 = _dw_args(m, k, n, "bfloat16", dev,
+def test_fused_matmul_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue,
+                                                   dtype, m, k, n, offset,
+                                                   vec):
+    """Where a start or a row width does not allow 16-byte loads (``vec``
+    false), the dx tile of each dtype loads element by element; there
+    and with 16-byte loads it matches the plain version within
+    ``_DX_TOL``, two runs bit for bit."""
+    x, w, scale, bias, y, dy, ds1, ds2 = _dw_args(m, k, n, dtype, dev,
                                                   prologue)
     if offset:
-        def shift(t):
-            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-            out = buf[offset:].view(t.shape)
-            out.copy_(t)
-            return out
-        x, y, dy = shift(x), shift(y), shift(dy)
+        x, y, dy = (_shift(t, offset) for t in (x, y, dy))
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    assert k > 128 or not (fb._vec16(x) and fb._vec16(y, dy))
+    assert (fb._vec16(x) and fb._vec16(y, dy) and fb._vec16(w)) == vec
     args = (x, w, scale, bias, y, dy, ds1, ds2)
     got = fb.fused_matmul_bn_dx(*args)
+    again = fb.fused_matmul_bn_dx(*args)
     want = fb.matmul_bn_dx_reference(*args)
     torch.cuda.synchronize()
-    for what, g, r in zip(("dx", "dscale", "dbias"), got, want):
+    for what, g, a, r in zip(("dx", "dscale", "dbias"), got, again, want):
         if r is None:
-            assert g is None
+            assert g is None and a is None
         else:
-            _within(g, r, 2e-2, what)
+            _within(g, r, _DX_TOL[dtype], what)
+            assert torch.equal(g, a), what
 
 
 @pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
@@ -530,10 +540,7 @@ def test_fused_matmul_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue, m,
     if not prologue:
         scale = bias = None
     if offset:
-        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
-        shifted = buf[offset:].view(x.shape)
-        shifted.copy_(x)
-        x = shifted
+        x = _shift(x, offset)
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
     assert k > 64 or not (fb._vec16(x) and fb._vec16(w))
     got = fb.fused_matmul_bn_fwd(x, w, scale, bias)
@@ -723,12 +730,7 @@ def test_fused_conv3_bn_dw_mma_loads_element_wise(dev, no_tf32, prologue, n,
                                                        "bfloat16", dev,
                                                        prologue)
     if offset:
-        def shift(t):
-            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-            out = buf[offset:].view(t.shape)
-            out.copy_(t)
-            return out
-        x, y, dy = shift(x), shift(y), shift(dy)
+        x, y, dy = (_shift(t, offset) for t in (x, y, dy))
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
     assert w > 62 or not (fb._vec16(x) and fb._vec16(y, dy))
     got = fc.fused_conv3_bn_dw(x, k, scale, bias, y, dy, ds1, ds2)
@@ -757,12 +759,7 @@ def test_fused_conv3_bn_dw_tf32_matches_plain(dev, no_tf32, prologue, n, h,
                                                        "float32", dev,
                                                        prologue)
     if offset:
-        def shift(t):
-            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-            out = buf[offset:].view(t.shape)
-            out.copy_(t)
-            return out
-        x, y, dy = shift(x), shift(y), shift(dy)
+        x, y, dy = (_shift(t, offset) for t in (x, y, dy))
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
     got = fc.fused_conv3_bn_dw(x, k, scale, bias, y, dy, ds1, ds2)
     again = fc.fused_conv3_bn_dw(x, k, scale, bias, y, dy, ds1, ds2)
@@ -821,10 +818,7 @@ def test_fused_conv3_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue, n,
     if not prologue:
         scale = bias = None
     if offset:
-        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
-        shifted = buf[offset:].view(x.shape)
-        shifted.copy_(x)
-        x = shifted
+        x = _shift(x, offset)
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
     assert w > 62 or c > 64 or not (fb._vec16(x) and fb._vec16(k))
     got = fc.fused_conv3_bn_fwd(x, k, scale, bias)
@@ -850,11 +844,12 @@ def test_fused_conv3_bn_fwd_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+@pytest.mark.parametrize("dtype,route", [("float32", "3xTF32"),
                                          ("bfloat16", "tensor-core")])
 def test_fused_conv3_bn_dx_runs_the_kernel_of_its_dtype(dev, dtype, route):
-    """float32 inputs run kernel 14's FMA tile; bfloat16 its tensor-core
-    tile (fused_conv3_bn_dx_mma), as the profiler sees."""
+    """float32 inputs run kernel 14's 3xTF32 tensor-core tile
+    (fused_conv3_bn_dx_tf32); bfloat16 its bf16 tensor-core tile
+    (fused_conv3_bn_dx_mma), as the profiler sees."""
     args = _conv_dw_args(2, 5, 9, 16, 8, dtype, dev)
     hits = {n for n in _kernel_names(fc.fused_conv3_bn_dx, args)
             if "fused_conv3_bn" in n}
@@ -862,46 +857,53 @@ def test_fused_conv3_bn_dx_runs_the_kernel_of_its_dtype(dev, dtype, route):
     name, = hits
     assert "fused_conv3_bn_dx" in name, name
     assert ("fused_conv3_bn_dx_mma" in name) == (route == "tensor-core"), name
+    assert ("fused_conv3_bn_dx_tf32" in name) == (route == "3xTF32"), name
 
 
 @pytest.mark.parametrize("prologue", [False, True])
-@pytest.mark.parametrize("n,h,w,c,co,offset", [
-    (2, 5, 9, 12, 20, 0),     # C and C_out not multiples of 8
-    (3, 6, 6, 16, 13, 0),     # C_out under two 16-byte chunks
-    (2, 7, 7, 5, 64, 0),      # C under one 16-byte chunk
-    (4, 14, 14, 64, 64, 1),   # rows of 8 elements, starts off 16 bytes
-    (1, 3, 130, 8, 8, 0),     # an image row in three segments
-    (1, 2, 70, 24, 72, 0),    # C_out > 64: output channels in chunks
-    (2, 6, 6, 200, 80, 0),    # and C in two tiles of 128
+@pytest.mark.parametrize("dtype,n,h,w,c,co,offset,vec", [
+    ("float32", 2, 5, 9, 6, 20, 0, False),      # C not a multiple of 4
+    ("float32", 3, 6, 6, 16, 13, 0, False),     # C_out not a multiple of 4
+    ("float32", 2, 7, 7, 3, 64, 0, False),      # C under one 16-byte chunk
+    ("float32", 4, 14, 14, 64, 64, 1, False),   # starts off 16 bytes
+    ("float32", 1, 3, 130, 8, 8, 0, True),      # a row in three segments
+    ("float32", 1, 2, 70, 24, 72, 0, True),     # C_out > 64: in chunks
+    ("float32", 2, 6, 6, 200, 80, 0, True),     # and C in four tiles of 64
+    ("float32", 16, 6, 6, 16, 260, 0, True),    # C_out in nine chunks (the
+                                                # TPU's kernel 15)
+    ("float32", 128, 56, 56, 64, 64, 0, True),  # the representative launch
+    ("bfloat16", 2, 5, 9, 12, 20, 0, False),    # C and C_out not multiples
+                                                # of 8
+    ("bfloat16", 3, 6, 6, 16, 13, 0, False),    # C_out under two chunks
+    ("bfloat16", 2, 7, 7, 5, 64, 0, False),     # C under one 16-byte chunk
+    ("bfloat16", 4, 14, 14, 64, 64, 1, False),  # starts off 16 bytes
+    ("bfloat16", 1, 3, 130, 8, 8, 0, True),     # a row in three segments
+    ("bfloat16", 1, 2, 70, 24, 72, 0, True),    # C_out > 64: in chunks
+    ("bfloat16", 2, 6, 6, 200, 80, 0, True),    # and C in two tiles of 128
 ])
-def test_fused_conv3_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue, n,
-                                                  h, w, c, co, offset):
-    """Where a start or a channel count does not allow 16-byte loads (and
-    where rows take several segments, or C and C_out several tiles and
-    chunks), the bfloat16 dx tile matches the plain version within the
-    bfloat16 tolerance (2e-2 of the largest value of dx, dscale and
-    dbias)."""
+def test_fused_conv3_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue,
+                                                  dtype, n, h, w, c, co,
+                                                  offset, vec):
+    """Where a start or a channel count does not allow 16-byte loads
+    (``vec`` false), the dx tile of each dtype loads element by element;
+    there, with 16-byte loads, and where rows take several segments or C
+    and C_out several tiles and chunks, it matches the plain version
+    within ``_DX_TOL``, two runs bit for bit."""
     x, k, scale, bias, y, dy, ds1, ds2 = _conv_dw_args(n, h, w, c, co,
-                                                       "bfloat16", dev,
-                                                       prologue)
+                                                       dtype, dev, prologue)
     if offset:
-        def shift(t):
-            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-            out = buf[offset:].view(t.shape)
-            out.copy_(t)
-            return out
-        x, y, dy = shift(x), shift(y), shift(dy)
+        x, y, dy = (_shift(t, offset) for t in (x, y, dy))
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    assert w > 62 or c > 64 or co > 64 or not (
-        fb._vec16(x) and fb._vec16(y, dy))
+    assert (fb._vec16(x) and fb._vec16(y, dy)) == vec
     args = (x, k, scale, bias, y, dy, ds1, ds2)
     got = fc.fused_conv3_bn_dx(*args)
+    again = fc.fused_conv3_bn_dx(*args)
     want = fc.conv3_bn_dx_reference(*args)
     torch.cuda.synchronize()
-    _within(got[0], want[0], 2e-2, "dx")
-    if prologue:
-        for what, g, r in zip(("dscale", "dbias"), got[1:], want[1:]):
-            _within(g, r, 2e-2, what)
+    parts = ("dx", "dscale", "dbias") if prologue else ("dx",)
+    for what, g, a, r in zip(parts, got, again, want):
+        _within(g, r, _DX_TOL[dtype], what)
+        assert torch.equal(g, a), what
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -911,8 +913,8 @@ def test_fused_conv3_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue, n,
 def test_fused_conv3_bn_dx_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
                                                      co):
     """No atomics: the sums of dz*x and dz are float32 partial rows (one a
-    run of stages in bfloat16, one a block of 128 rows in float32) that
-    the wrapper sums in a fixed order, so two calls give the same bits."""
+    run of stages) that the wrapper sums in a fixed order, so two calls
+    give the same bits."""
     args = _conv_dw_args(n, h, w, c, co, dtype, dev)
     first, second = (fc.fused_conv3_bn_dx(*args) for _ in range(2))
     torch.cuda.synchronize()

@@ -28,7 +28,13 @@ from a seed and handed to both.
   only) emulated by ``_kernel_fmm_fwd`` and held to the JAX package's
   Pallas forward ``_fwd_impl`` (interpret mode) at the shapes above and
   one whose K is not a multiple of 8, with and without the prologue, and
-  its split rule's runs tiling M in whole 128-row blocks.
+  its split rule's runs tiling M in whole 128-row blocks;
+* kernels 12's and 11's float32 tiles (``fused_matmul_bn_dw_tf32`` and
+  ``fused_matmul_bn_dx_tf32``, the card only, three tf32 products a
+  float32 product) emulated by ``_kernel_dw_tf32`` and
+  ``_kernel_fmm_dx_tf32`` and held to the JAX VJP's dw, and its dx,
+  dscale and dbias, within the float32 tolerance, with and without the
+  prologue.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -600,3 +606,72 @@ def test_one_tf32_pass_misses_the_float32_tolerance():
         _close(one, dw, TOL["float32"], "dw, one tf32 pass")
     three = sum(_products_3xtf32(xn, d))
     _close(three, dw, TOL["float32"], "dw, three tf32 products")
+
+
+# ---------------------------------------------------------------------------
+# kernel 11's float32 tile (fused_matmul_bn_dx_tf32), by its arithmetic
+# ---------------------------------------------------------------------------
+
+# kernel 11's float32 tile: 16 columns of dy a stage, 8 a tensor-core step
+_TF32_DX_STAGE = 16
+
+
+def _kernel_fmm_dx_tf32(x, w, scale, bias, y, dy, ds1, ds2):
+    """``(dx, dscale, dbias)`` by the arithmetic of kernel 11's float32
+    tile: dyt = dy + ds1 + 2*y*ds2 in float32; along N in 16-column
+    stages, each 8-column m16n8k8 step's three tf32 products of dyt and
+    w (``_products_3xtf32``) added in order to the stage's float32 part,
+    which starts at 0 each stage, one rounding each; each part added to
+    the float32 dxn; with the prologue z = x*scale + bias in float32 (one
+    rounding each), dz = dxn where z > 0, dx = dz*scale, and dscale,
+    dbias the float32 sums of dz*x and dz over each block of 128 rows,
+    the blocks' partials then added in order; without it dx = dxn.  Rows
+    past M are absent, as the kernel's zeroed rows add nothing."""
+    d = fc.dyt(y, dy, ds1, ds2).numpy()
+    wn = w.numpy()
+    m, n = d.shape
+    dxn = np.zeros((m, wn.shape[0]), np.float32)
+    for s0 in range(0, n, _TF32_DX_STAGE):
+        part = np.zeros_like(dxn)
+        for k0 in range(s0, min(n, s0 + _TF32_DX_STAGE), _TF32_DEPTH):
+            cols = slice(k0, min(n, k0 + _TF32_DEPTH))
+            for p in _products_3xtf32(d[:, cols].T, wn[:, cols].T):
+                part = _add_f32(part, p)
+        dxn = dxn + part
+    if scale is None:
+        return dxn, None, None
+    xf, sc, bi = x.numpy(), scale.numpy(), bias.numpy()
+    dz = np.where(xf * sc + bi > 0, dxn, 0).astype(np.float32)
+    dsc = np.zeros(wn.shape[0], np.float32)
+    dbi = np.zeros(wn.shape[0], np.float32)
+    for r0 in range(0, m, _DX_ROWS):
+        rows = slice(r0, min(m, r0 + _DX_ROWS))
+        dsc = dsc + (dz[rows] * xf[rows]).sum(axis=0, dtype=np.float32)
+        dbi = dbi + dz[rows].sum(axis=0, dtype=np.float32)
+    return dz * sc, dsc, dbi
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + [(300, 60, 100)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_kernel_dx_tf32_arithmetic_matches_jax(m, k, n, prologue):
+    """The float32 dx kernel's order of products, sums and roundings, on
+    the JAX forward's own y, within TOL["float32"] of the JAX VJP's dx,
+    dscale and dbias (Pallas, interpret mode): column tiles past K = 64,
+    ragged M (200, 300), N not a multiple of the 16-column stage (72,
+    100) and K not a multiple of 4 (60).  Measured at these inputs: 1.4e-7
+    to 6.3e-7 of the largest |JAX| value (float32 sums in another
+    order)."""
+    a = _inputs(m, k, n, seed=m + k + n)
+    j, t = _to_jax(a, "float32"), _to_torch(a, "float32")
+    (y, _, _), (dx, _, dsc, dbi) = _jax_vjp(
+        lambda x, w, s, b: jfb._fmm(x, w, s, b, prologue), j, prologue)
+    y = torch.from_numpy(np.array(y))
+    got = _kernel_fmm_dx_tf32(t["x"], t["w"], t["scale"] if prologue else None,
+                              t["bias"] if prologue else None, y, t["dy"],
+                              t["ds1"], t["ds2"])
+    _close(got[0], dx, TOL["float32"], "dx")
+    if prologue:
+        _close(got[1], dsc, TOL["float32"], "dscale")
+        _close(got[2], dbi, TOL["float32"], "dbias")
+    else:
+        assert got[1] is None and got[2] is None

@@ -36,7 +36,12 @@ from a seed and handed to both.
   arithmetic, ``_kernel_conv3_dx``, against the dx, dscale and dbias of
   the Pallas VJP ``_fc3`` in interpret mode at the forward's shapes and in
   the multi-N-block geometry (``_bwd_dx_kernel_nb``), with and without
-  the prologue, and its split helper.
+  the prologue, and its split helper;
+* kernels 16's and 14's float32 tiles (``fused_conv3_bn_dw_tf32`` and
+  ``fused_conv3_bn_dx_tf32``, the card only, three tf32 products a
+  float32 product) by their arithmetic, ``_kernel_conv3_dw_tf32`` and
+  ``_kernel_conv3_dx_tf32``, against the JAX VJP in float32, and their
+  split helpers.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -705,11 +710,12 @@ def _kernel_conv3_dx(x, w, scale, bias, y, dy, ds1, ds2, sms=132,
     dyt = _bf16((dy + ds1) + (2 * y) * ds2)
     stages, b, hh, px, live, keep = _walk(n, h, wd)
     if run_stages is None:
-        run_stages, runs = fc.dx_mma_split(n, h, wd, c, co, sms)
+        run_stages, runs = fc.dx_mma_split(n, h, wd, c, co, sms,
+                                           torch.bfloat16)
     else:
         runs = -(-stages // run_stages)
     assert runs == -(-stages // run_stages) and run_stages <= stages
-    kc = fc.dx_mma_tile(c, co)[1]
+    kc = fc.dx_mma_tile(c, co, torch.bfloat16)[1]
     acc = np.zeros((stages, _POS, c), np.float32)
     for dh in (-1, 0, 1):
         ok = live & (hh - dh >= 0) & (hh - dh < h) & (px >= 0) & (px < wd)
@@ -790,13 +796,148 @@ def test_dx_mma_arithmetic_matches_the_jax_vjp(shape, prologue, monkeypatch):
 def test_dx_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
     _, stage_segs, row_segs = fc.dw_mma_geometry(w)
     stages = -(-(n * h * row_segs) // stage_segs)
-    run_stages, runs = fc.dx_mma_split(n, h, w, c, co, sms)
+    run_stages, runs = fc.dx_mma_split(n, h, w, c, co, sms, torch.bfloat16)
     # runs of whole stages cover every stage once, within the grid's
     # limit, and enough of them that every SM gets a block where the
     # stages allow
     assert 1 <= run_stages <= stages and runs <= 65535
     assert (runs - 1) * run_stages < stages <= runs * run_stages
-    bn, kc = fc.dx_mma_tile(c, co)
+    bn, kc = fc.dx_mma_tile(c, co, torch.bfloat16)
     assert bn in (64, 128) and (bn == 64) == (c <= 64)
     assert kc == (64 if max(c, co) <= 64 else 32)
     assert runs * -(-c // bn) >= min(sms, stages)
+
+
+# ---------------------------------------------------------------------------
+# kernel 14's float32 tile (and the TPU's kernel 15), by its arithmetic
+# ---------------------------------------------------------------------------
+
+# kernel 14's float32 tile: 8 output channels a tensor-core step
+_TF32_DEPTH = 8
+
+
+def _kernel_conv3_dx_tf32(x, w, scale, bias, y, dy, ds1, ds2, sms=132,
+                          run_stages=None):
+    """``(dx, dscale, dbias)`` by ``fused_conv3_bn_dx_tf32``'s arithmetic,
+    on float32 numpy arrays: dyt = dy + ds1 + 2*y*ds2 in float32; the
+    pixels walked as the bfloat16 tiles walk them (``_walk``), a stage's
+    dyt of image row h - dh a tile with a zero guard row on either side
+    and 0 outside the image, so that tap dw reads it at row offset 1 -
+    dw; dyt and w split into tf32 hi + lo; per stage the depth in steps
+    (dh, chunk of 32 output channels), each step's three taps and 8-deep
+    m16n8k8 steps in order, each step's three products lo·hi, hi·lo,
+    hi·hi summed exactly and added with one rounding to the step's
+    float32 part, which starts at 0 each step; each part added to the
+    float32 dxn; at the segments' own pixels, with the prologue z =
+    x*scale + bias in float32, dz = dxn where z > 0, dx = dz*scale, and
+    dscale, dbias the float32 sums of dz*x and dz, one partial per run
+    (``fc.dx_mma_split`` unless ``run_stages`` is given), the runs then
+    added in order; without it dx = dxn and dscale, dbias zeros."""
+    n, h, wd, c = x.shape
+    co = dy.shape[-1]
+    dyt = (dy + ds1) + (2 * y) * ds2
+    stages, b, hh, px, live, keep = _walk(n, h, wd)
+    if run_stages is None:
+        run_stages, runs = fc.dx_mma_split(n, h, wd, c, co, sms,
+                                           torch.float32)
+    else:
+        runs = -(-stages // run_stages)
+    assert runs == -(-stages // run_stages) and run_stages <= stages
+    kc = fc.dx_mma_tile(c, co, torch.float32)[1]
+    acc = np.zeros((stages, _POS, c), np.float32)
+    for dh in (-1, 0, 1):
+        ok = live & (hh - dh >= 0) & (hh - dh < h) & (px >= 0) & (px < wd)
+        d_tile = np.where(ok[..., None],
+                          dyt[b, (hh - dh).clip(0, h - 1), px.clip(0, wd - 1)],
+                          0)
+        # the guard rows
+        d_hi, d_lo = _split_tf32(np.pad(d_tile, ((0, 0), (1, 1), (0, 0))))
+        for o0 in range(0, co, kc):
+            part = np.zeros_like(acc)
+            for tap in range(3):          # dw = tap - 1: row offset 2 - tap
+                a_hi = d_hi[:, 2 - tap:2 - tap + _POS]
+                a_lo = d_lo[:, 2 - tap:2 - tap + _POS]
+                for k0 in range(o0, min(co, o0 + kc), _TF32_DEPTH):
+                    ks = slice(k0, min(co, k0 + _TF32_DEPTH))
+                    w_hi, w_lo = _split_tf32(w[dh + 1, tap, :, ks])
+                    for p, q in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)):
+                        step = np.einsum("spo,co->spc",
+                                         p[..., ks].astype(np.float64),
+                                         q.astype(np.float64))
+                        part = (part.astype(np.float64) + step).astype(
+                            np.float32)
+            acc = acc + part
+    zero = np.zeros(c, np.float32)
+    if scale is None:
+        rows, dsc, dbi = acc, zero, zero
+    else:
+        xk = x[b, hh, px.clip(0, wd - 1)]
+        dz = np.where(xk * scale + bias > 0, acc, 0).astype(np.float32)
+        rows = dz * scale
+        dsc, dbi = zero, zero
+        for r in range(runs):
+            part = slice(r * run_stages, (r + 1) * run_stages)
+            own = keep[part]
+            dsc = dsc + (dz[part] * xk[part])[own].sum(axis=0, dtype=np.float32)
+            dbi = dbi + dz[part][own].sum(axis=0, dtype=np.float32)
+    dx = np.zeros((n, h, wd, c), np.float32)
+    dx[b[keep], hh[keep], px[keep]] = rows[keep]
+    return dx, dsc, dbi
+
+
+@pytest.mark.parametrize("shape", FWD_MMA_SHAPES + [MULTI_NBLOCK])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_dx_tf32_arithmetic_matches_the_jax_vjp(shape, prologue, monkeypatch):
+    """``_kernel_conv3_dx_tf32`` (the plan's runs, and one stage a run, so
+    that the partials' sum is exercised) against the dx, dscale and dbias
+    of the JAX package's Pallas VJP ``_fc3`` in interpret mode, float32,
+    within TOL["float32"] (1e-5) of their largest |JAX| value: image rows
+    in several segments (W = 130, 70), C = 72 > 64 (two tiles of input
+    channels), C_out not a multiple of the 32-channel step (24, 260), and
+    at MULTI_NBLOCK the JAX side forced onto ``_bwd_dx_kernel_nb`` (C_out
+    in three N blocks: the TPU's kernel 15).  On these inputs they land
+    1.0e-7 to 3.7e-7 of the largest |JAX| value apart (float32 sums in
+    another order)."""
+    a = _inputs(*shape, seed=29 + sum(shape))
+    j = _to_jax(a, "float32")
+    n, h, w, c, co = shape
+    if shape == MULTI_NBLOCK:
+        monkeypatch.setattr(jfc, "_VMEM_BUDGET",
+                            jfc._Geom(j["x"], co)._bytes(128) + 1)
+        g = jfc._Geom(j["x"], co)
+        assert g.n_blocks == 3 and g.fits()
+    else:
+        assert jfc._Geom(j["x"], co).fits()
+    (y, _, _), (dx, _, dsc, dbi) = _jax_vjp(_pallas(prologue), j, prologue)
+    args = (a["x"], a["w"], a["scale"] if prologue else None,
+            a["bias"] if prologue else None, np.asarray(y), a["dy"],
+            a["ds1"], a["ds2"])
+    for run_stages in (None, 1):
+        got = _kernel_conv3_dx_tf32(*args, run_stages=run_stages)
+        _close(got[0], np.asarray(dx), TOL["float32"],
+               f"dx_tf32 dx runs={run_stages}")
+        if prologue:
+            for name, gv, wv in zip(("dscale", "dbias"), got[1:], (dsc, dbi)):
+                _close(gv, np.asarray(wv), TOL["float32"],
+                       f"dx_tf32 {name} runs={run_stages}")
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+    (128, 7, 7, 512, 512),             # ResNet-50's 3x3 shapes at B=128
+    (2, 8, 8, 16, 24), (2, 5, 9, 16, 8), (16, 6, 6, 16, 260),
+    (1, 1, 1, 3, 5), (3, 2, 62, 8, 8), (1, 4, 200, 8, 8), (1, 2, 70, 72, 24),
+    (2, 6, 6, 200, 80)])
+def test_dx_mma_split_float32_tiles_the_pixels_in_whole_stages(sms, n, h, w,
+                                                               c, co):
+    _, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    run_stages, runs = fc.dx_mma_split(n, h, w, c, co, sms, torch.float32)
+    # runs of whole stages cover every stage once, within the grid's
+    # limit, and enough of them that every SM gets a block of 64 input
+    # channels where the stages allow
+    assert 1 <= run_stages <= stages and runs <= 65535
+    assert (runs - 1) * run_stages < stages <= runs * run_stages
+    assert fc.dx_mma_tile(c, co, torch.float32) == (64, 32)
+    assert runs * -(-c // 64) >= min(sms, stages)
