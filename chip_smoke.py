@@ -21,11 +21,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    backward runs at the path's shape bit for bit, and the kernels by
    dtype: float32-FMA for float32, tensor-core for bfloat16; the fused
    1x1's forward, dx and weight gradient (kernels 10-12) and the fused
-   3x3's forward, dx and weight gradient (13, 14 and 16) the same way,
-   except that the float32 dx and weight gradients run 3xTF32
-   tensor-core tiles, each tensor-core tile also where it loads rows
-   element by element, and two runs bit for bit, as two runs of the
-   LayerNorm backward), with
+   3x3's forward, dx and weight gradient (13, 14 and 16) by dtype too,
+   every one a tensor-core tile, bf16 for bfloat16 and 3xTF32 for
+   float32, each also where it loads rows element by element, and two
+   runs bit for bit, as two runs of the LayerNorm backward), with
    the stated tolerances, and its time beside the plain version's, one
    PyTorch library call's and the bound (the fused kernels' in both
    dtypes);
@@ -126,10 +125,9 @@ launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
 paths it ran on; kernels 10-14 and 16 have an entry for each instance,
-the float32 tile with phase 7's launches (the FMA tiles of kernels 10
-and 13; the 3xTF32 tensor-core tiles of kernels 11, 12, 14 and 16,
-``..._dx_tf32`` and ``..._dw_tf32``) and the bfloat16 tensor-core tile
-(``..._mma``) with phase 8's.
+the float32 3xTF32 tensor-core tile (``..._tf32``) with phase 7's
+launches and the bfloat16 tensor-core tile (``..._mma``) with phase
+8's.
 """
 import copy
 import gc
@@ -216,18 +214,19 @@ FMM_TEST_SHAPES = [(256, 128, 128), (200, 96, 72), (1024, 256, 64),
                    (512, 64, 256)]
 # the representative launch: stage 1's c3 at B=128, with the prologue
 FMM_REP = (RESNET_B * 56 * 56, 64, 256, True)
-# the bfloat16 tiles of kernels 10, 11 and 12 (fused_matmul_bn_fwd_mma,
-# fused_matmul_bn_dx_mma, fused_matmul_bn_dw_mma) also at shapes whose
-# rows they must load element by element (K or N not a multiple of 8),
-# and where dx's columns take two tiles, the second ragged, and the
-# forward's K streams in seven steps, the last ragged
+# the tensor-core tiles of kernels 10, 11 and 12 in both dtypes
+# (fused_matmul_bn_{fwd,dx,dw}_mma and _tf32) also at shapes whose rows
+# they must load element by element (K or N not a multiple of 8 in
+# bfloat16, of 4 in float32), and where dx's columns take several tiles,
+# the last ragged, and the forward's K streams in steps, the last
+# ragged
 FMM_ELEMENT_SHAPES = [(1000, 60, 100), (77, 9, 130), (33, 200, 40)]
 FP32_PEAK = 67e12      # FLOP/s of float32 FMA outside the tensor cores
 BF16_PEAK = 989e12     # dense bf16 tensor-core FLOP/s
 TF32_PEAK = 495e12     # dense tf32 tensor-core FLOP/s
-# the float32 dx and weight gradients (kernels 11, 12, 14 and 16)
-# multiply on the tensor cores in three tf32 products each, so their
-# bound counts three times 2*M*K*N operations at TF32_PEAK
+# every float32 tile of kernels 10-16 multiplies on the tensor cores in
+# three tf32 products, so its bound counts three times 2*M*K*N
+# operations at TF32_PEAK
 TF32_PRODUCTS = 3
 # card step vs CPU step, ResNet-50 at B=4.  ResNet-50's float32
 # forward and backward at a tiny batch amplify rounding: moving the
@@ -254,12 +253,12 @@ CONV_TEST_SHAPES = [(2, 8, 8, 16, 24), (3, 6, 6, 16, 16), (2, 14, 14, 32, 16),
                     (2, 5, 9, 16, 8), (16, 6, 6, 16, 260)]
 # the representative launch: stage 1's 3x3 at B=128, with the prologue
 CONV_REP = (RESNET_B, IMAGE // 4, IMAGE // 4, 64, 64)
-# the bfloat16 tiles of kernels 13, 14 and 16 (fused_conv3_bn_fwd_mma,
-# fused_conv3_bn_dx_mma, fused_conv3_bn_dw_mma) also at shapes whose rows
-# they must load element by element (C or C_out not a multiple of 8),
-# where an image row takes several segments (W > 62), and, for the
-# forward and dx, where C > 64 and C_out > 64 take several chunks of
-# channels and tiles
+# the tensor-core tiles of kernels 13, 14 and 16 in both dtypes
+# (fused_conv3_bn_{fwd,dx,dw}_mma and _tf32) also at shapes whose rows
+# they must load element by element (C or C_out not a multiple of 8 in
+# bfloat16, of 4 in float32), where an image row takes several segments
+# (W > 62), and, for the forward and dx, where C > 64 and C_out > 64
+# take several chunks of channels and tiles
 CONV_ELEMENT_SHAPES = [(2, 5, 9, 12, 20), (2, 7, 7, 5, 64),
                        (1, 3, 130, 8, 8), (1, 2, 70, 72, 24),
                        (2, 6, 6, 80, 200)]
@@ -1140,35 +1139,31 @@ def check_fused_matmul_bn(torch, fb, dev):
     return path_err
 
 
-def tile_suffix(part, dtype):
+def tile_suffix(dtype):
     """The kernel-name suffix of a fused kernel's instance: ``_mma`` for
-    every bfloat16 tile, ``_tf32`` for the float32 dx and weight
-    gradients (the 3xTF32 tiles of kernels 11, 12, 14 and 16), none for
-    the float32 FMA tiles of the forwards."""
-    if dtype == "bfloat16":
-        return "_mma"
-    return "" if part == "fwd" else "_tf32"
+    every bfloat16 tile, ``_tf32`` for every float32 one (the 3xTF32
+    tiles of kernels 10-16)."""
+    return "_mma" if dtype == "bfloat16" else "_tf32"
 
 
-def bound_operations(part, dtype, flops, peak):
+def bound_operations(dtype, flops):
     """``(operations, peak)`` of a fused kernel's bound: a 3xTF32 tile
-    runs three tf32 products of ``flops`` each at the TF32 peak; every
-    other tile one product at ``peak``."""
-    if tile_suffix(part, dtype) == "_tf32":
-        return TF32_PRODUCTS * flops, TF32_PEAK
-    return flops, peak
+    runs three tf32 products of ``flops`` each at the TF32 peak, a bf16
+    tile one product at the bf16 peak."""
+    if dtype == "bfloat16":
+        return flops, BF16_PEAK
+    return TF32_PRODUCTS * flops, TF32_PEAK
 
 
 def check_fmm_mma(torch, fb, dev):
     """Kernels 10, 11 and 12 by dtype: the profiler's kernel names show
-    float32's forward runs the FMA tile, its dx and dw the 3xTF32 tiles
-    (``fused_matmul_bn_dx_tf32``, ``fused_matmul_bn_dw_tf32``), and
-    bfloat16 the tensor-core tiles
-    (``fused_matmul_bn_fwd_mma``, ``fused_matmul_bn_dx_mma``,
-    ``fused_matmul_bn_dw_mma``); each tensor-core tile within FMM_TOL of
-    its plain version where it loads rows element by element; two runs
-    of it give the same bits there, at the representative launch and at
-    the ragged test shape."""
+    float32 runs the 3xTF32 tiles (``fused_matmul_bn_fwd_tf32``,
+    ``fused_matmul_bn_dx_tf32``, ``fused_matmul_bn_dw_tf32``) and
+    bfloat16 the bf16 tensor-core tiles (``fused_matmul_bn_fwd_mma``,
+    ``fused_matmul_bn_dx_mma``, ``fused_matmul_bn_dw_mma``); each tile
+    within FMM_TOL of its plain version where it loads rows element by
+    element; two runs of it give the same bits there, at the
+    representative launch and at the ragged test shape."""
     def bwd_args(m, k, n, dtype, pro=True):
         x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
                                                      dev, 2)
@@ -1188,11 +1183,10 @@ def check_fmm_mma(torch, fb, dev):
                                              bwd_args(200, 96, 72, dtype))
                      if "fused_matmul_bn" in n]
             print(f"fused_matmul_bn_{part} {dtype} runs {names}", flush=True)
-            want = f"fused_matmul_bn_{part}{tile_suffix(part, dtype)}"
+            want = f"fused_matmul_bn_{part}{tile_suffix(dtype)}"
             assert len(names) == 1 and want in names[0], names
             assert ("_mma" in names[0]) == (dtype == "bfloat16"), names
-            assert ("_tf32" in names[0]) == (
-                tile_suffix(part, dtype) == "_tf32"), names
+            assert ("_tf32" in names[0]) == (dtype == "float32"), names
     m, k, n, _ = FMM_REP
     for m, k, n, pro in [(m, k, n, True), (200, 96, 72, True),
                          (200, 96, 72, False)] + [
@@ -1202,9 +1196,7 @@ def check_fmm_mma(torch, fb, dev):
             args = bwd_args(m, k, n, dtype, pro)
             tol = FMM_TOL[dtype]
             for part, fn, ref in tiles:
-                suffix = tile_suffix(part, dtype)
-                if not suffix:
-                    continue
+                suffix = tile_suffix(dtype)
                 first, second, want = fn(*args), fn(*args), ref(*args)
                 torch.cuda.synchronize()
                 ratios = []
@@ -1256,7 +1248,6 @@ def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
                                 torch.matmul(x.t(), dy), bwd_sets, **kw)}
     es = sets[0][0].element_size()
     flops = 2 * m * k * n
-    peak = FP32_PEAK if dtype == "float32" else BF16_PEAK
     # each input read once, each output written once; scale, bias, ds1,
     # ds2 and the column sums are float32
     fwd_bytes = (m * k + k * n + m * n) * es + 2 * k * 4 + 2 * n * 4
@@ -1264,9 +1255,8 @@ def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
     dw_bytes = (m * k + 2 * m * n + k * n) * es + 2 * k * 4 + 2 * n * 4
     label = f"({m}, {k}, {n}) prologue {dtype}"
     out = tuple(
-        report(f"fused_matmul_bn_{part}{tile_suffix(part, dtype)} {label}",
-               times, nbytes, rate, *bound_operations(part, dtype, flops,
-                                                      peak))
+        report(f"fused_matmul_bn_{part}{tile_suffix(dtype)} {label}",
+               times, nbytes, rate, *bound_operations(dtype, flops))
         for part, times, nbytes in (("fwd", fwd, fwd_bytes),
                                     ("dx", dx, dx_bytes),
                                     ("dw", dw, dw_bytes)))
@@ -1361,12 +1351,12 @@ def check_fused_conv3_bn(torch, fc, dev):
 
 def check_conv3_mma(torch, fc, dev):
     """Kernels 13, 14 and 16 by dtype: the profiler's kernel names show
-    float32's forward runs the FMA tile, its dx and dw the 3xTF32 tiles
-    (``fused_conv3_bn_dx_tf32``, ``fused_conv3_bn_dw_tf32``), and
-    bfloat16 the tensor-core tiles
-    (``fused_conv3_bn_fwd_mma``, ``fused_conv3_bn_dx_mma``,
-    ``fused_conv3_bn_dw_mma``); each tensor-core tile within FMM_TOL of
-    its plain version where it loads rows element by element, where an
+    float32 runs the 3xTF32 tiles (``fused_conv3_bn_fwd_tf32``,
+    ``fused_conv3_bn_dx_tf32``, ``fused_conv3_bn_dw_tf32``) and bfloat16
+    the bf16 tensor-core tiles (``fused_conv3_bn_fwd_mma``,
+    ``fused_conv3_bn_dx_mma``, ``fused_conv3_bn_dw_mma``); each tile
+    within FMM_TOL of its plain version where it loads rows element by
+    element, where an
     image row takes several segments and where C_out > 64 (C_out = 260:
     the TPU's kernel 15); two runs of it give the same bits there, at
     every path shape and at the JAX tests' ragged shapes."""
@@ -1391,11 +1381,10 @@ def check_conv3_mma(torch, fc, dev):
                 torch, fn, bwd_args((2, 5, 9, 16, 8), dtype))
                 if "fused_conv3_bn" in n]
             print(f"fused_conv3_bn_{part} {dtype} runs {names}", flush=True)
-            want = f"fused_conv3_bn_{part}{tile_suffix(part, dtype)}"
+            want = f"fused_conv3_bn_{part}{tile_suffix(dtype)}"
             assert len(names) == 1 and want in names[0], names
             assert ("_mma" in names[0]) == (dtype == "bfloat16"), names
-            assert ("_tf32" in names[0]) == (
-                tile_suffix(part, dtype) == "_tf32"), names
+            assert ("_tf32" in names[0]) == (dtype == "float32"), names
     path = list(dict.fromkeys(resnet_conv3_shapes(RESNET_B)))
     sms = common.sms(dev.index)
     for shape, pro in ([(s_, True) for s_ in path]
@@ -1407,9 +1396,7 @@ def check_conv3_mma(torch, fc, dev):
             args = bwd_args(shape, dtype, pro)
             tol = FMM_TOL[dtype]
             for part, fn, ref in tiles:
-                suffix = tile_suffix(part, dtype)
-                if not suffix:
-                    continue
+                suffix = tile_suffix(dtype)
                 first, second, want = fn(*args), fn(*args), ref(*args)
                 torch.cuda.synchronize()
                 ratios = []
@@ -1420,7 +1407,8 @@ def check_conv3_mma(torch, fc, dev):
                     assert torch.equal(a, b), (part, dtype, shape, pro)
                     ratios.append(err / scale_)
                 bf16 = dtype == "bfloat16"
-                split = {"fwd": fc.fwd_mma_split,
+                split = {"fwd": lambda *geom: fc.fwd_mma_split(
+                             *geom, getattr(torch, dtype)),
                          "dx": lambda *geom: fc.dx_mma_split(
                              *geom, getattr(torch, dtype)),
                          "dw": fc.dw_mma_split if bf16
@@ -1514,7 +1502,6 @@ def time_fused_conv3_bn(torch, fc, dev, dtype, rate):
     es = sets[0][0].element_size()
     m = n * h * w
     flops = 2 * m * 9 * c * co
-    peak = FP32_PEAK if dtype == "float32" else BF16_PEAK
     # each input read once, each output written once; scale, bias, ds1,
     # ds2 and the channel sums are float32
     fwd_bytes = (m * c + 9 * c * co + m * co) * es + 2 * c * 4 + 2 * co * 4
@@ -1523,9 +1510,8 @@ def time_fused_conv3_bn(torch, fc, dev, dtype, rate):
     dw_bytes = (m * c + 2 * m * co + 9 * c * co) * es + 2 * c * 4 + 2 * co * 4
     label = f"{CONV_REP} prologue {dtype}"
     out = tuple(
-        report(f"fused_conv3_bn_{part}{tile_suffix(part, dtype)} {label}",
-               times, nbytes, rate, *bound_operations(part, dtype, flops,
-                                                      peak))
+        report(f"fused_conv3_bn_{part}{tile_suffix(dtype)} {label}",
+               times, nbytes, rate, *bound_operations(dtype, flops))
         for part, times, nbytes in (("fwd", fwd, fwd_bytes),
                                     ("dx", dx, dx_bytes),
                                     ("dw", dw, dw_bytes)))
@@ -2035,8 +2021,7 @@ _KERNEL_COUNTERS = {  # kernels line name -> fuse.kernel_launches() key
 
 
 # the kernels with a bfloat16 tensor-core instance beside a float32 one
-# (the FMA tile for the forwards; the 3xTF32 tile for dx and the weight
-# gradients), by their counters' names
+# (the 3xTF32 tile), by their counters' names
 _MMA_INSTANCES = ("fused_matmul_bn_fwd", "fused_matmul_bn_dx",
                   "fused_matmul_bn_dw", "fused_conv3_bn_fwd",
                   "fused_conv3_bn_dx", "fused_conv3_bn_dw")
@@ -2942,9 +2927,8 @@ def main():
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
     bench = bench_path(torch, np, dev, smi)
     # kernels 10-14's and 16's counters move for either of their
-    # instances: phase 7 runs only float32 (the FMA tiles of the forwards,
-    # the 3xTF32 tiles of dx and the weight gradients), the bench path
-    # only bfloat16 (the bf16 tensor-core tiles)
+    # instances: phase 7 runs only float32 (the 3xTF32 tiles), the bench
+    # path only bfloat16 (the bf16 tensor-core tiles)
     mma_launches = {k: bench[k] for k in _MMA_INSTANCES}
     resnet = {k: v + (bench[k] if k not in _MMA_INSTANCES else 0)
               for k, v in resnet.items()}
@@ -3023,7 +3007,7 @@ def main():
             (pk + ":348", pk + ":419 (XLA backward)",
              pk + ":419 (XLA backward)"), flash_err, flash_times)
     ] + [
-        dict(name=f"fused_matmul_bn_{part}{tile_suffix(part, 'float32')}",
+        dict(name=f"fused_matmul_bn_{part}_tf32",
              route="cuda", source=src + "fused_matmul_bn.cu",
              replaces=f"{fbk}:{line}",
              launches=resnet[f"fused_matmul_bn_{part}"],
@@ -3038,7 +3022,7 @@ def main():
         for part, line, times in zip(("fwd", "dx", "dw"), (83, 154, 181),
                                      fmm_mma_times)
     ] + [
-        dict(name=f"fused_conv3_bn_{part}{tile_suffix(part, 'float32')}",
+        dict(name=f"fused_conv3_bn_{part}_tf32",
              route="cuda", source=src + "fused_conv3_bn.cu", replaces=where,
              launches=resnet[f"fused_conv3_bn_{part}"],
              max_abs_err=conv_err[part], **times)

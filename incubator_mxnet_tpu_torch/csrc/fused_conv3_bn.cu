@@ -37,35 +37,27 @@
 // is rounded to T.  Every load and store masks its ragged edge; no
 // padded copy of any operand exists in device memory.
 //
-// The float32 forward (fused_conv3_bn_fwd_kernel) is an implicit matrix
-// product over the shifted taps, C (M, C_out) = A (M, 9*C) @ B (9*C,
-// C_out), with the shift, the image mask and the prologue applied as A
-// is staged.  The tile loop is the one of csrc/fused_matmul_bn.cu's
-// float32 forward: a block of 256 threads owns a 128x128 tile of C, each
-// thread an 8x8 sub-tile in registers, the depth staged through shared
-// memory 8 at a time with the next slice's loads in flight.
+// Every kernel runs on the tensor cores: bfloat16 operands as they are
+// (the product of two bf16 values is exact in float32), float32 ones
+// split into tf32 hi + lo parts, three products each (3xTF32, below).
 //
-// Sums across M.  Blocks run in no order, so the float32 forward writes
-// one float32 partial row per block of 128 rows, the tensor-core
-// forwards and dx one per run of stages (s1/s2, dscale/dbias), and dw
-// splits the pixels into runs that each write a float32 partial of the
-// whole (9*C, C_out) gradient; the wrapper sums them in a fixed order.
-// No atomics: the result is the same from run to run.
+// Sums across M.  Blocks run in no order, so the forwards and dx write
+// one float32 partial row per run of stages (s1/s2, dscale/dbias), and
+// dw splits the pixels into runs that each write a float32 partial of
+// the whole (9*C, C_out) gradient; the wrapper sums them in a fixed
+// order.  No atomics: the result is the same from run to run.
 //
 // Bound.  Each kernel does 2*M*9*C*C_out operations.  At ResNet-50's
 // 3x3 shapes at B=128 (M = 401,408 rows at 64 channels down to 6,272 at
-// 512) that is 29.6 GFLOP a launch, 0.44 ms at the card's 67 TFLOP/s of
-// float32 FMA outside the tensor cores, while the bytes (x, y, dy, the
-// 73 KB to 9.4 MB kernel) take at most 0.12 ms at 3.35 TB/s: in float32
-// on the FMA units every launch is bound by operations.  The float32 dw
-// runs on the tensor cores in three tf32 products (below): 3 x 29.6
-// GFLOP, 0.179 ms at 495 TFLOP/s, still above its bytes (0.092 ms at
-// stage 1), and so does the float32 dx (bytes 0.123 ms).  In bfloat16
+// 512) that is 29.6 GFLOP a launch.  In float32 the three tf32 products
+// are 3 x 29.6 GFLOP, 0.179 ms at the tensor cores' 495 TFLOP/s of
+// tf32, above the bytes of every kernel (x, y, dy, the 73 KB to 9.4 MB
+// kernel: at most 0.123 ms at 3.35 TB/s, dx at stage 1); on the FMA
+// units (67 TFLOP/s) one product alone would take 0.44 ms.  In bfloat16
 // the tensor cores' 989 TFLOP/s bound it by bytes at stage 1 (dw: 154
 // MB, 0.046 ms, against 0.030 ms of operations) and by operations at
-// stages 2-4; the FMA loop reaches neither.  Only the float32 forward
-// runs it; implicit GEMM on wgmma with TMA-fed halo tiles is later work
-// for it.  Every bfloat16 kernel runs on the tensor cores (below).
+// stages 2-4.  Implicit GEMM on wgmma with TMA-fed halo tiles is later
+// work for all of them.
 //
 // The bf16 dw (fused_conv3_bn_dw_mma) replaces the same TPU kernel,
 // `_bwd_dw_kernel` (:244), on the tensor cores.  The TPU kernel rounds
@@ -245,281 +237,56 @@
 //     Every chunk of C_out sums into the same registers, so the ReLU /
 //     normalize backward sees the total dxn (no kernel 15).  The epilogue
 //     is the bf16 tile's in float32.
+//
+// The float32 forward (fused_conv3_bn_fwd_tf32) replaces `_fwd_kernel`
+// (:139) on the tensor cores, on the bf16 forward tile's walk, grid and
+// runs, with the float32 dx tile's roles mirrored, keeping float32
+// numbers: xn and W are split into tf32 hi + lo and three m16n8k8
+// products, lo.hi + hi.lo + hi.hi, go into float32 sums.  At (128, 56,
+// 56, 64 -> 64) that is bound by operations: 3 x 29.6 GFLOP, 0.179 ms at
+// 495 TFLOP/s, against 0.061 ms of bytes.
+//   - A block owns 64 positions (one stage) x 64 output channels at
+//     every C_out, 8 warps each 16 positions x 32 channels; a stage's
+//     depth runs in steps (dh, 32 input channels), xn of image row h +
+//     dh one row below its position, the taps dw = -1, 0, 1 at row
+//     offsets 0, 1, 2.
+//   - W cannot stay resident (147 KB in float32 at C = C_out = 64): it
+//     streams with x, a kernel row's three taps of the step's 32 input
+//     channels (27,648 bytes) a step.  A ring slot holds a step: x by
+//     cp.async (16 bytes, zeros outside; element loads where a start is
+//     unaligned or C is not a multiple of 4) straight into the layout of
+//     the xn tile, each thread applying the prologue in float32 with
+//     __fmul_rn/__fadd_rn to the chunks it copied (0 outside the image,
+//     where it would be relu(bias)) and splitting them into tf32 hi in
+//     place and lo beside it, and W's [t][c][o] rows, split as their
+//     fragments are loaded: 46,656 bytes a slot, a ring of two (one step
+//     loading while one multiplies) at two blocks an SM.  Row strides of
+//     36 floats (xn) and 72 (W) put the 32 lanes of a fragment load on
+//     32 distinct banks.
+//   - A step's products (its three taps over 32 input channels: 12 k8
+//     steps, 36 mma) go into a part that starts at 0, and the part into
+//     the stage's float32 sum rounded to nearest.
+//   - The epilogue stores y in float32 from a staging tile of the warp's
+//     own (16 positions x 32 channels, no barrier), a lane's four
+//     channels 16 bytes at a time where alignment allows, at the
+//     segments' own pixels; each lane adds what it stores to its column
+//     sums of y and y^2, which are reduced by shuffles, then across the
+//     warps in order, into one float32 partial row a run.  No atomics.
+//     113,792 bytes of shared memory a block: two blocks an SM.
 
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
 
-using mx::from_float;
-using mx::to_float;
-
-constexpr int BI = 128;       // rows of C a block owns
-constexpr int BJ = 128;       // columns of C a block owns
-constexpr int BR = 8;         // depth staged through shared memory at once
-constexpr int THREADS = 256;  // 16 x 16 threads, an 8x8 sub-tile each
-constexpr int LOADS = BI * BR / THREADS;  // A (and B) elements a thread stages
-
-template <typename T>
-struct Args {           // the FMA forward's
-  const T* x;           // (M, C)
-  const T* w;           // (9, C, Co)
-  const float* scale;   // (C,), read only with the prologue
-  const float* bias;    // (C,)
-  T* out;               // y (M, Co)
-  float* part0;         // s1 rows
-  float* part1;         // s2 rows
-  int M;                // N*H*W rows
-  int H;
-  int W;
-  int C;
-  int Co;
-  int prologue;
-};
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
-
-// relu(x*scale + bias) rounded to T, or x itself, at (row m, channel c)
-template <typename T>
-__device__ __forceinline__ float prologue_at(const Args<T>& a, int m, int c) {
-  const float v = to_float(a.x[static_cast<int64_t>(m) * a.C + c]);
-  if (!a.prologue) return v;
-  return round_to<T>(fmaxf(__fadd_rn(__fmul_rn(v, a.scale[c]), a.bias[c]),
-                           0.f));
-}
-
-// Tap t's displacement (dh, dw), each in {-1, 0, 1}.
-__device__ __forceinline__ void tap(int t, int* dh, int* dw) {
-  const int kh = t / 3;
-  *dh = kh - 1;
-  *dw = t - 3 * kh - 1;
-}
-
-__device__ __forceinline__ bool inside(int h, int w, int H, int W) {
-  return h >= 0 && h < H && w >= 0 && w < W;
-}
-
-// Row (or column) of C that sub-tile slot q (0..7) of thread t (0..15)
-// owns: two quads, 64 apart.
-__device__ __forceinline__ int slot(int t, int q) {
-  return (q < 4 ? 0 : 64) + t * 4 + (q & 3);
-}
-
-// Sum a per-thread column partial over the 16 thread rows of the block,
-// in a fixed order, and write it for columns j0 .. j0 + 127.
-__device__ __forceinline__ void column_partials(
-    const float (&v0)[8], const float (&v1)[8], float (*red0)[BJ],
-    float (*red1)[BJ], int tx, int ty, int j0, int J, float* dst0,
-    float* dst1) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    red0[ty][slot(tx, q)] = v0[q];
-    red1[ty][slot(tx, q)] = v1[q];
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < BJ && j0 + t < J) {
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int k = 0; k < THREADS / 16; ++k) {
-      s0 += red0[k][t];
-      s1 += red1[k][t];
-    }
-    dst0[j0 + t] = s0;
-    dst1[j0 + t] = s1;
-  }
-}
-
-// What one thread stages of one slice of depth [r0, r0 + BR).  Element
-// l of A goes to As[ar][ai + l * a_step_i] ... as laid out below; the
-// coordinates that do not change from slice to slice are computed once.
-//
-//   A row i = tid / 8 + 32 l (a pixel), depth tid % 8;
-//   B depth tid / 128 + 2 l, column tid % 128.
-template <typename T>
-struct Stager {
-  const Args<T>& a;
-  int tid;
-  int r_end;
-  // the pixel of each A row, its (h, w), and whether it exists
-  int row[LOADS];
-  int ph[LOADS];
-  int pw[LOADS];
-  bool ok[LOADS];
-
-  __device__ __forceinline__ Stager(const Args<T>& args, int i0, int end)
-      : a(args), tid(threadIdx.x), r_end(end) {
-#pragma unroll
-    for (int l = 0; l < LOADS; ++l) {
-      const int m = i0 + tid / BR + (THREADS / BR) * l;
-      ok[l] = m < a.M;
-      row[l] = m;
-      pw[l] = m % a.W;
-      ph[l] = (m / a.W) % a.H;
-    }
-  }
-
-  // A[pixel][t*C + c]: the neighbour this pixel reads through tap t
-  __device__ __forceinline__ float fetch_a(int l, int r0) const {
-    const int k = r0 + tid % BR;
-    if (!ok[l] || k >= r_end) return 0.f;
-    const int t = k / a.C, ch = k - t * a.C;
-    int dh, dw;
-    tap(t, &dh, &dw);
-    if (!inside(ph[l] + dh, pw[l] + dw, a.H, a.W)) return 0.f;
-    return prologue_at(a, row[l] + dh * a.W + dw, ch);
-  }
-
-  // B[t*C + c][o] = W[t, c, o]
-  __device__ __forceinline__ float fetch_b(int l, int r0, int j0) const {
-    const int k = r0 + tid / BJ + (THREADS / BJ) * l;
-    const int o = j0 + tid % BJ;
-    if (k >= r_end || o >= a.Co) return 0.f;
-    return to_float(a.w[static_cast<int64_t>(k) * a.Co + o]);
-  }
-
-  // shared-memory places of element l of A and B
-  __device__ __forceinline__ void a_place(int l, int* r, int* i) const {
-    *r = tid % BR;
-    *i = tid / BR + (THREADS / BR) * l;
-  }
-  __device__ __forceinline__ void b_place(int l, int* r, int* j) const {
-    *r = tid / BJ + (THREADS / BJ) * l;
-    *j = tid % BJ;
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_conv3_bn_fwd_kernel(Args<T> a) {
-  // rows padded by 4 floats: the staging stores of a warp spread over
-  // the banks, and every row stays 16-byte aligned for the float4 reads
-  __shared__ __align__(16) float As[BR][BI + 4];
-  __shared__ __align__(16) float Bs[BR][BJ + 4];
-  __shared__ float red0[THREADS / 16][BJ];
-  __shared__ float red1[THREADS / 16][BJ];
-
-  // C = y is (M, C_out), the depth 9 C
-  const int I = a.M;
-  const int J = a.Co;
-  const int i0 = blockIdx.x * BI;
-  const int j0 = blockIdx.y * BJ;
-  const int r_begin = 0, r_end = 9 * a.C;
-  const Stager<T> st(a, i0, r_end);
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-
-  float va[LOADS], vb[LOADS];
-#pragma unroll
-  for (int l = 0; l < LOADS; ++l) {
-    va[l] = st.fetch_a(l, r_begin);
-    vb[l] = st.fetch_b(l, r_begin, j0);
-  }
-  for (int r0 = r_begin; r0 < r_end; r0 += BR) {
-#pragma unroll
-    for (int l = 0; l < LOADS; ++l) {
-      int r, i;
-      st.a_place(l, &r, &i);
-      As[r][i] = va[l];
-      st.b_place(l, &r, &i);
-      Bs[r][i] = vb[l];
-    }
-    __syncthreads();
-    if (r0 + BR < r_end) {  // the next slice's loads overlap this product
-#pragma unroll
-      for (int l = 0; l < LOADS; ++l) {
-        va[l] = st.fetch_a(l, r0 + BR);
-        vb[l] = st.fetch_b(l, r0 + BR, j0);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BR; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[r][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[r][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[r][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[r][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int p = 0; p < 8; ++p)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
-    }
-    __syncthreads();
-  }
-
-  float c0[8], c1[8];  // per-column sums over this thread's rows
-#pragma unroll
-  for (int q = 0; q < 8; ++q) c0[q] = c1[q] = 0.f;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int m = i0 + slot(ty, p);
-    if (m >= I) continue;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int o = j0 + slot(tx, q);
-      if (o >= J) continue;
-      const T yv = from_float<T>(acc[p][q]);
-      a.out[static_cast<int64_t>(m) * a.Co + o] = yv;
-      const float f = to_float(yv);
-      c0[q] += f;
-      c1[q] += f * f;
-    }
-  }
-  const int64_t prow = static_cast<int64_t>(blockIdx.x) * J;
-  column_partials(c0, c1, red0, red1, tx, ty, j0, J, a.part0 + prow,
-                  a.part1 + prow);
-}
-
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// The FMA tile, the float32 forward only: every other kernel is a
-// tensor-core tile below.
-cudaError_t launch_fwd(const Args<float>& a, cudaStream_t stream) {
-  const int64_t gi = ceil_div(a.M, BI);
-  const int64_t gj = ceil_div(a.Co, BJ);
-  if (gj > 65535) return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-  fused_conv3_bn_fwd_kernel<float><<<grid, THREADS, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // Shapes the kernels take: every size positive, M = N*H*W and every
-// flat index (9*C, 9*C_out) in 32 bits.
+// flat index (9*C, 9*C_out) in 32 bits, with 128 to spare.
 bool shape_ok(long long N, int H, int W, int C, int Co) {
   if (N < 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0) return false;
-  const long long lim = 0x7fffffffLL - BI;
+  const long long lim = 0x7fffffffLL - 128;
   return N * H * W <= lim && 9LL * C <= lim && 9LL * Co <= lim;
-}
-
-template <typename T>
-Args<T> make_args(const void* x, const void* w, const void* scale,
-                  const void* bias, void* out, void* part0, void* part1,
-                  long long N, int H, int W, int C, int Co, int prologue) {
-  Args<T> a;
-  a.x = static_cast<const T*>(x);
-  a.w = static_cast<const T*>(w);
-  a.scale = static_cast<const float*>(scale);
-  a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<T*>(out);
-  a.part0 = static_cast<float*>(part0);
-  a.part1 = static_cast<float*>(part1);
-  a.M = static_cast<int>(N * H * W);
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.Co = Co;
-  a.prologue = prologue;
-  return a;
 }
 
 // ---------------------------------------------------------------------
@@ -1141,12 +908,15 @@ struct FwTc {
       2 * kWarpsM * BN * sizeof(float);
 };
 
+// The arguments of the forward tiles: T = bf16 (fused_conv3_bn_fwd_mma)
+// or float (fused_conv3_bn_fwd_tf32).
+template <typename T>
 struct FwArgs {
-  const bf16* x;        // (M, C)
-  const bf16* w;        // (9, C, Co)
+  const T* x;           // (M, C)
+  const T* w;           // (9, C, Co)
   const float* scale;   // (C,), read only with the prologue
   const float* bias;    // (C,)
-  bf16* y;              // (M, Co)
+  T* y;                 // (M, Co)
   float* s1;            // (runs, Co)
   float* s2;            // (runs, Co)
   int H;
@@ -1154,7 +924,8 @@ struct FwArgs {
   int C;
   int Co;
   int prologue;
-  int vec;              // bit 0: x loads 16 bytes; bit 1: w does
+  int vec;              // bit 0: x loads 16 bytes; bit 1: w does; bit 2
+                        // (float32): y stores 16 bytes
   int seg_w;            // the pixel walk of tc_geometry
   int stage_segs;
   int row_segs;
@@ -1172,7 +943,7 @@ struct FwArgs {
 // row offset dw + 1; W[3 (dh + 1) + dw + 1] for that chunk.
 template <int BN, int KC, bool RES>
 __global__ void __launch_bounds__(kFwThreads, 2)
-    fused_conv3_bn_fwd_mma(FwArgs a) {
+    fused_conv3_bn_fwd_mma(FwArgs<bf16> a) {
   using G = FwTc<BN, KC, RES>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xring = reinterpret_cast<bf16*>(smem);
@@ -1452,8 +1223,8 @@ __global__ void __launch_bounds__(kFwThreads, 2)
 }
 
 template <int BN, int KC, bool RES>
-cudaError_t launch_fwd_mma(const FwArgs& a, unsigned tiles, unsigned runs,
-                           cudaStream_t stream) {
+cudaError_t launch_fwd_mma(const FwArgs<bf16>& a, unsigned tiles,
+                           unsigned runs, cudaStream_t stream) {
   constexpr size_t smem = FwTc<BN, KC, RES>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       fused_conv3_bn_fwd_mma<BN, KC, RES>,
@@ -2236,10 +2007,344 @@ __global__ void __launch_bounds__(kFwThreads, 2)
   }
 }
 
-// The caller sized the partial rows of the FMA forward for blocks of BI
-// rows of M: refuse any other count rather than write past them.
-bool part_rows_ok(long long part_rows, long long N, int H, int W) {
-  return part_rows == ceil_div(N * H * W, BI);
+// ---------------------------------------------------------------------
+// The forward in float32 on the tensor cores (3xTF32).  See the note at
+// the top.
+
+constexpr int kFtBN = 64;              // output channels o a block owns
+constexpr int kFtKC = 32;              // input channels c a step
+constexpr int kFtXLd = kFtKC + 4;      // xn row stride: 36, see below
+constexpr int kFtWLd = kFtBN + 8;      // W row stride: 72, see below
+constexpr int kFtWarpsM = 4;           // 4 warps over positions x 2 over o
+constexpr int kFtMw = kTcPos / kFtWarpsM;           // 16 positions a warp
+constexpr int kFtXTile = kTcXRows * kFtXLd;         // xn's hi, or its lo
+constexpr int kFtWTile = 3 * kFtKC * kFtWLd;        // a kernel row's taps
+constexpr int kFtSlot = 2 * kFtXTile + kFtWTile;    // floats
+constexpr int kFtRowChunks = kFtKC / 4;             // float4 of a position
+constexpr int kFtChunks = kTcPos * kFtRowChunks / kFwThreads;
+constexpr int kFtWRowChunks = kFtBN / 4;            // float4 of a W row
+constexpr int kFtWChunks = 3 * kFtKC * kFtWRowChunks / kFwThreads;
+constexpr int kFtRing = 2;             // steps: one loads while one multiplies
+constexpr int kFtYLd = 32 + 8;         // a warp's staging row of y
+constexpr int kFtYTile = kFtMw * kFtYLd;
+// A ring slot holds a step: x, turned in place into xn's tf32 hi, and
+// xn's lo beside it (both [position][c], one row below the position, a
+// zero guard row either side), then W's three taps of the step's kernel
+// row as [t][c][o]; after the ring, each warp's staging tile of y.  Row
+// strides of 36 floats (xn) and 72 (W) put the 32 lanes of a fragment
+// load (A: row g, column t4; B: row t4, column g) on 32 distinct banks,
+// and one of 40 the staging tile's float2 stores.  The run's sums of y
+// and y^2 meet in the ring once the last step has left it.
+constexpr size_t kFtSmem =
+    (kFtRing * kFtSlot + 8 * kFtYTile) * sizeof(float);
+static_assert(2 * kFtWarpsM * kFtBN <= kFtRing * kFtSlot, "sums in the ring");
+
+// Grid (ceil(Co / 64), runs), as fused_conv3_bn_fwd_mma's: block (j, r)
+// computes output channels [64 j, 64 (j + 1)) at every pixel of run r's
+// stages, a stage at a time, and writes its float32 sums of y and y^2
+// to s1[r], s2[r].  A stage's depth runs in steps (dh, chunk of 32 input
+// channels): xn of image row h + dh one row below its position, so that
+// tap dw is the tile at row offset dw + 1, and W[3 (dh + 1) + dw + 1]'s
+// [c][o] rows for that chunk.
+__global__ void __launch_bounds__(kFwThreads, 2)
+    fused_conv3_bn_fwd_tf32(FwArgs<float> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* ystage = ring + kFtRing * kFtSlot;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % kFtWarpsM, wn = warp / kFtWarpsM;  // 16 x 32
+  const int g = lane >> 2, t4 = lane & 3;
+  const int o0 = blockIdx.x * kFtBN;
+  const int st_begin = blockIdx.y * a.run_stages;
+  const int st_end =
+      a.stages - st_begin > a.run_stages ? st_begin + a.run_stages : a.stages;
+  const int nck = (a.C + kFtKC - 1) / kFtKC;  // input-channel chunks
+  const int per_stage = 3 * nck;              // steps a stage
+  const int nsteps = (st_end - st_begin) * per_stage;
+  const bool vec_x = a.vec & 1, vec_w = a.vec & 2, vec_y = a.vec & 4;
+  const int pitch = a.seg_w + 2;
+  const int npos = a.stage_segs * pitch;  // positions a stage uses
+
+  // The xn tiles start at 0: the guard rows and the positions past a
+  // stage's segments are never written again.  The barrier keeps every
+  // zero ahead of the copies that land in the ring.
+  for (int s = 0; s < kFtRing; ++s) {
+    float4* z = reinterpret_cast<float4*>(ring + s * kFtSlot);
+    for (int i = tid; i < 2 * kFtXTile / 4; i += kFwThreads)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  // This thread's x chunks: positions pos[i] of a stage, channels cc ..
+  // cc + 3 of a step's chunk; it copies them and turns them into xn
+  // itself, so no barrier separates the two.  A position's segment and
+  // place in it are fixed; its pixel follows the stage (locate), as in
+  // the bf16 tile.
+  const int cc = (tid % kFtRowChunks) * 4;
+  int pos[kFtChunks], sg[kFtChunks], place[kFtChunks];
+  int64_t pix[kFtChunks];  // its pixel (n, h, w) as a row of x, or -1
+  int hrow[kFtChunks];     // its h
+#pragma unroll
+  for (int i = 0; i < kFtChunks; ++i) {
+    pos[i] = tid / kFtRowChunks + (kFwThreads / kFtRowChunks) * i;
+    sg[i] = pos[i] / pitch;
+    place[i] = pos[i] - sg[i] * pitch;
+  }
+  int ld_stage = -1;
+  auto locate = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < kFtChunks; ++i) {
+      const int seg = st * a.stage_segs + sg[i];
+      const int img_row = seg / a.row_segs;
+      const int w = (seg - img_row * a.row_segs) * a.seg_w + place[i] - 1;
+      const bool ok = pos[i] < npos && seg < a.segs && w >= 0 && w < a.W;
+      pix[i] = ok ? static_cast<int64_t>(img_row) * a.W + w : -1;
+      hrow[i] = img_row % a.H;
+    }
+  };
+
+  // W[3 (dh + 1) + t][c0 + c][o0 + o] for t < 3, c < 32, o < 64 into a
+  // [t][c][o] tile; 0 past C and Co.
+  auto load_w = [&](float* dst, int dh, int c0) {
+#pragma unroll
+    for (int j = 0; j < kFtWChunks; ++j) {
+      const int e = tid + kFwThreads * j;
+      const int row = e / kFtWRowChunks, ch = e - row * kFtWRowChunks;
+      const int t = row / kFtKC, c = c0 + row - t * kFtKC;
+      const bool in = c < a.C;
+      const float* src =
+          a.w + (in ? static_cast<int64_t>(3 * (dh + 1) + t) * a.C + c : 0) *
+                    a.Co;
+      float* d = dst + row * kFtWLd + 4 * ch;
+      if (vec_w) {
+        const bool full = in && o0 + 4 * ch < a.Co;
+        cp_async16(d, full ? src + o0 + 4 * ch : a.w, full);
+      } else {
+        *reinterpret_cast<float4*>(d) = load4(src, o0 + 4 * ch, a.Co, in);
+      }
+    }
+  };
+
+  // Loads step k of the run into ring slot `slot`: x of image row h + dh
+  // at every position into the hi tile (cp.async of 16 bytes, zeros
+  // where a chunk lies outside; element loads where a start or C does
+  // not allow 16 bytes), and W's chunk; returns the flags: bit i, chunk
+  // i's pixel lies in the image.
+  auto load_step = [&](int k, int slot) {
+    const int sl = k / per_stage, r = k - sl * per_stage;
+    const int dh = r / nck - 1, c0 = (r % nck) * kFtKC;
+    if (sl != ld_stage) {
+      locate(st_begin + sl);
+      ld_stage = sl;
+    }
+    unsigned flags = 0;
+    float* xs = ring + slot * kFtSlot;
+#pragma unroll
+    for (int i = 0; i < kFtChunks; ++i) {
+      if (pos[i] >= npos) continue;
+      const int hh = hrow[i] + dh;
+      const bool in = pix[i] >= 0 && hh >= 0 && hh < a.H;
+      flags |= (in ? 1u : 0u) << i;
+      const float* row =
+          a.x + (in ? pix[i] + static_cast<int64_t>(dh) * a.W : 0) * a.C;
+      float* d = xs + (pos[i] + 1) * kFtXLd + cc;
+      if (vec_x) {
+        const bool full = in && c0 + cc < a.C;
+        cp_async16(d, full ? row + c0 + cc : a.x, full);
+      } else {
+        *reinterpret_cast<float4*>(d) = load4(row, c0 + cc, a.C, in);
+      }
+    }
+    load_w(xs + 2 * kFtXTile, dh, c0);
+    return flags;
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+
+  // Stage st's epilogue: the warp's sums into its staging tile in pairs,
+  // cleared; then its rows at the segments' own pixels (a halo position's
+  // and those past the segments are dropped) stored, a lane's four
+  // channels 16 bytes at a time where vec_y allows (whole 32-byte sectors
+  // of a row), and added to the lane's column sums of y and y^2.
+  float* yst = ystage + warp * kFtYTile;
+  const int cl = 4 * (lane & 7);          // the lane's columns of the warp's
+  const int oc = o0 + 32 * wn + cl;       // 32, and their first channel
+  auto epilogue = [&](int st) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float2*>(yst + (g + 8 * hf) * kFtYLd + 8 * j +
+                                   2 * t4) =
+            make_float2(acc[j][2 * hf], acc[j][2 * hf + 1]);
+        acc[j][2 * hf] = acc[j][2 * hf + 1] = 0.f;
+      }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < kFtMw / 4; ++it) {
+      const int r = 4 * it + (lane >> 3);
+      const int q = kFtMw * wm + r;
+      const int sgq = q / pitch, p = q - sgq * pitch;
+      const int seg = st * a.stage_segs + sgq;
+      const int img_row = seg / a.row_segs;
+      const int w = (seg - img_row * a.row_segs) * a.seg_w + p - 1;
+      const bool keep =
+          q < npos && p >= 1 && p <= a.seg_w && seg < a.segs && w < a.W;
+      if (!keep || oc >= a.Co) continue;
+      const float4 v = *reinterpret_cast<const float4*>(yst + r * kFtYLd + cl);
+      float* out = a.y + (static_cast<int64_t>(img_row) * a.W + w) * a.Co + oc;
+      const float f[4] = {v.x, v.y, v.z, v.w};
+      if (vec_y) {
+        *reinterpret_cast<float4*>(out) = v;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (oc + e < a.Co) out[e] = f[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // 0 past Co: W's columns there are 0
+        s1[e] += f[e];
+        s2[e] += f[e] * f[e];
+      }
+    }
+    __syncwarp();
+  };
+
+  // the first kFtRing - 1 steps in flight, one group a step (empty past
+  // the run), so that a wait counts steps
+  constexpr unsigned kMask = (1u << kFtChunks) - 1;
+  unsigned ring_flags = 0;  // kFtChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < kFtRing - 1; ++k) {
+    if (k < nsteps) ring_flags |= load_step(k, k) << (kFtChunks * k);
+    cp_async_commit();
+  }
+  int slot = 0, r_c = 0, sl_c = 0;  // the step multiplied: its slot, place
+  for (int s = 0; s < nsteps; ++s) {
+    const int c0 = (r_c % nck) * kFtKC;
+    float* xhi = ring + slot * kFtSlot;
+    float* xlo = xhi + kFtXTile;
+    const float* ws = xlo + kFtXTile;
+    cp_async_wait<kFtRing - 2>();  // this thread's chunks of step s
+    {  // xn = relu(x*scale + bias) in float32 (or x), 0 outside the image,
+       // split into tf32 hi in place of x and lo beside it
+      float sc[4], bi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + cc + j;
+        const bool in = a.prologue && c < a.C;
+        sc[j] = in ? __ldg(a.scale + c) : 0.f;
+        bi[j] = in ? __ldg(a.bias + c) : 0.f;
+      }
+      const unsigned flags = ring_flags >> (kFtChunks * slot);
+#pragma unroll
+      for (int i = 0; i < kFtChunks; ++i) {
+        if (pos[i] >= npos) continue;
+        const int at = (pos[i] + 1) * kFtXLd + cc;
+        float4* hp = reinterpret_cast<float4*>(xhi + at);
+        float4 v = *hp;
+        if (!(flags >> i & 1))
+          v = make_float4(0.f, 0.f, 0.f, 0.f);
+        else if (a.prologue)
+          v = prologue4(v, sc, bi);
+        uint4 hi, lo;
+        split_tf32(v.x, hi.x, lo.x);
+        split_tf32(v.y, hi.y, lo.y);
+        split_tf32(v.z, hi.z, lo.z);
+        split_tf32(v.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(hp) = hi;
+        *reinterpret_cast<uint4*>(xlo + at) = lo;
+      }
+    }
+    __syncthreads();
+    // step s + kFtRing - 1 into the slot that step s - 1 left: every warp
+    // left its product at the barrier
+    const int next = slot == 0 ? kFtRing - 1 : slot - 1;
+    if (s + kFtRing - 1 < nsteps)
+      ring_flags = (ring_flags & ~(kMask << (kFtChunks * next))) |
+                   load_step(s + kFtRing - 1, next) << (kFtChunks * next);
+    cp_async_commit();
+    // The step's products, its three taps over its chunk of c, go into a
+    // part that starts at 0, and the part into acc, rounded to nearest:
+    // the tensor core truncates each sum it returns, and one register for
+    // a chain of all 9*C products drifts by as many ulps.  A = xn (rows
+    // positions at row offset t, depth c) as split; B = W[t]'s [c][o]
+    // rows, split as loaded.
+    const uint32_t* a_hi = reinterpret_cast<const uint32_t*>(xhi);
+    const uint32_t* a_lo = reinterpret_cast<const uint32_t*>(xlo);
+    const int ksteps = ((a.C - c0 < kFtKC ? a.C - c0 : kFtKC) + 7) / 8;
+    float part[4][4] = {};
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {  // tap dw = t - 1: row offset t
+#pragma unroll
+      for (int kk = 0; kk < kFtKC / 8; ++kk) {
+        if (kk >= ksteps) break;
+        const int at = (kFtMw * wm + g + t) * kFtXLd + 8 * kk + t4;
+        const uint32_t ah[4] = {a_hi[at], a_hi[at + 8 * kFtXLd], a_hi[at + 4],
+                                a_hi[at + 8 * kFtXLd + 4]};
+        const uint32_t al[4] = {a_lo[at], a_lo[at + 8 * kFtXLd], a_lo[at + 4],
+                                a_lo[at + 8 * kFtXLd + 4]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* q =
+              ws + (t * kFtKC + 8 * kk + t4) * kFtWLd + 32 * wn + 8 * j + g;
+          uint32_t bh[2], bl[2];
+          split_tf32(q[0], bh[0], bl[0]);
+          split_tf32(q[4 * kFtWLd], bh[1], bl[1]);
+          mma_3xtf32(part[j], ah, al, bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
+    slot = slot + 1 == kFtRing ? 0 : slot + 1;
+    if (++r_c == per_stage) {
+      epilogue(st_begin + sl_c);
+      r_c = 0;
+      ++sl_c;
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+  __syncthreads();     // every warp has left the ring: it takes the sums
+
+  // the run's column sums: over the 4 lanes of each column by shuffles,
+  // then over the warps along the positions in order; the same bits
+  // every run
+  float* red = ring;  // [s1, s2][position warp][column]
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v1 = s1[e], v2 = s2[e];
+#pragma unroll
+    for (int off = 8; off < 32; off <<= 1) {
+      v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+      v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+    }
+    if (lane < 8) {
+      const int col = 32 * wn + cl + e;
+      red[wm * kFtBN + col] = v1;
+      red[(kFtWarpsM + wm) * kFtBN + col] = v2;
+    }
+  }
+  __syncthreads();
+  if (tid < kFtBN && o0 + tid < a.Co) {
+    float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kFtWarpsM; ++k) {
+      v1 += red[k * kFtBN + tid];
+      v2 += red[(kFtWarpsM + k) * kFtBN + tid];
+    }
+    const int64_t at = static_cast<int64_t>(blockIdx.y) * a.Co + o0 + tid;
+    a.s1[at] = v1;
+    a.s2[at] = v2;
+  }
 }
 
 // Fills the arguments of a dw tile and its grid (3 * tiles of (c, o),
@@ -2318,30 +2423,40 @@ bool dx_args(DxArgs<T>* a, const void* x, const void* w, const void* scale,
   return true;
 }
 
-}  // namespace
-
-// The float32 forward on the FMA tile: dtype must be 0 (bfloat16 runs
-// mx_fused_conv3_bn_fwd_mma).  x (N, H, W, C), w (3, 3, C, Co) and y
-// (N, H, W, Co) in that type, contiguous (NHWC, HWIO); scale and bias
-// (C,) float32, read only when prologue is 1 (may be null otherwise);
-// s1_part and s2_part (part_rows, Co) float32 with part_rows =
-// ceil(N*H*W / 128), every element written.  Launches on `stream`
-// without synchronising; returns the launch's cudaError_t.
-extern "C" int mx_fused_conv3_bn_fwd(int dtype, const void* x, const void* w,
-                                     const void* scale, const void* bias,
-                                     int prologue, void* y, void* s1_part,
-                                     void* s2_part, long long part_rows,
-                                     long long N, int H, int W, int C, int Co,
-                                     void* stream) {
-  if (dtype != 0 || !shape_ok(N, H, W, C, Co) ||
-      !part_rows_ok(part_rows, N, H, W))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(launch_fwd(
-      make_args<float>(x, w, scale, bias, y, s1_part, s2_part, N, H, W, C, Co,
-                       prologue),
-      static_cast<cudaStream_t>(stream)));
+// Fills the arguments of a forward tile of bn output channels a block;
+// false where the runs do not tile the walk's stages.
+template <typename T>
+bool fw_args(FwArgs<T>* a, const void* x, const void* w, const void* scale,
+             const void* bias, int prologue, void* y, void* s1_part,
+             void* s2_part, long long N, int H, int W, int C, int Co,
+             long long run_stages, long long runs, int vec, int bn) {
+  tc_geometry(W, &a->seg_w, &a->stage_segs, &a->row_segs);
+  const long long segs = N * H * a->row_segs;   // at most N*H*W
+  const long long stages = ceil_div(segs, a->stage_segs);
+  if (run_stages <= 0 || run_stages > stages ||
+      runs != ceil_div(stages, run_stages) || runs > 65535 ||
+      ceil_div(Co, bn) > 0x7fffffffLL)
+    return false;
+  a->x = static_cast<const T*>(x);
+  a->w = static_cast<const T*>(w);
+  a->scale = static_cast<const float*>(scale);
+  a->bias = static_cast<const float*>(bias);
+  a->y = static_cast<T*>(y);
+  a->s1 = static_cast<float*>(s1_part);
+  a->s2 = static_cast<float*>(s2_part);
+  a->H = H;
+  a->W = W;
+  a->C = C;
+  a->Co = Co;
+  a->prologue = prologue;
+  a->vec = vec;
+  a->segs = static_cast<int>(segs);
+  a->stages = static_cast<int>(stages);
+  a->run_stages = static_cast<int>(run_stages);
+  return true;
 }
+
+}  // namespace
 
 // The bfloat16 dw on the tensor cores.  x (N, H, W, C), y and dy
 // (N, H, W, Co) bfloat16, contiguous; scale and bias (C,) float32, read
@@ -2425,33 +2540,12 @@ extern "C" int mx_fused_conv3_bn_fwd_mma(const void* x, const void* w,
                                          int vec, void* stream) {
   if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaSuccess);
-  FwArgs a;
-  tc_geometry(W, &a.seg_w, &a.stage_segs, &a.row_segs);
-  const long long segs = N * H * a.row_segs;   // at most N*H*W
-  const long long stages = ceil_div(segs, a.stage_segs);
+  FwArgs<bf16> a;
   const int bn = Co <= 64 ? 64 : 128;
-  const long long tiles = ceil_div(Co, bn);
-  if (run_stages <= 0 || run_stages > stages ||
-      runs != ceil_div(stages, run_stages) || runs > 65535 ||
-      tiles > 0x7fffffffLL)
+  if (!fw_args(&a, x, w, scale, bias, prologue, y, s1_part, s2_part, N, H, W,
+               C, Co, run_stages, runs, vec, bn))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.x = static_cast<const bf16*>(x);
-  a.w = static_cast<const bf16*>(w);
-  a.scale = static_cast<const float*>(scale);
-  a.bias = static_cast<const float*>(bias);
-  a.y = static_cast<bf16*>(y);
-  a.s1 = static_cast<float*>(s1_part);
-  a.s2 = static_cast<float*>(s2_part);
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.Co = Co;
-  a.prologue = prologue;
-  a.vec = vec;
-  a.segs = static_cast<int>(segs);
-  a.stages = static_cast<int>(stages);
-  a.run_stages = static_cast<int>(run_stages);
-  const unsigned gt = static_cast<unsigned>(tiles);
+  const unsigned gt = static_cast<unsigned>(ceil_div(Co, bn));
   const unsigned gr = static_cast<unsigned>(runs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -2462,6 +2556,37 @@ extern "C" int mx_fused_conv3_bn_fwd_mma(const void* x, const void* w,
     err = bn == 64 ? launch_fwd_mma<64, 32, false>(a, gt, gr, s)
                    : launch_fwd_mma<128, 32, false>(a, gt, gr, s);
   return static_cast<int>(err);
+}
+
+// The float32 forward on the tensor cores (3xTF32): as
+// mx_fused_conv3_bn_fwd_mma, with x, w and y float32, on the same walk
+// and runs, in tiles of 64 output channels at every C_out; x loads 16
+// bytes at a time where bit 0 of vec is set (x 16-byte aligned, C a
+// multiple of 4), w where bit 1 is (w aligned, Co a multiple of 4), and
+// y stores 16 bytes at a time where bit 2 is (y aligned, Co a multiple
+// of 4).
+extern "C" int mx_fused_conv3_bn_fwd_tf32(const void* x, const void* w,
+                                          const void* scale, const void* bias,
+                                          int prologue, void* y, void* s1_part,
+                                          void* s2_part, long long N, int H,
+                                          int W, int C, int Co,
+                                          long long run_stages, long long runs,
+                                          int vec, void* stream) {
+  if (!shape_ok(N, H, W, C, Co)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  FwArgs<float> a;
+  if (!fw_args(&a, x, w, scale, bias, prologue, y, s1_part, s2_part, N, H, W,
+               C, Co, run_stages, runs, vec, kFtBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_conv3_bn_fwd_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kFtSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_conv3_bn_fwd_tf32<<<dim3(static_cast<unsigned>(ceil_div(Co, kFtBN)),
+                                 static_cast<unsigned>(runs)),
+                            kFwThreads, kFtSmem,
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bfloat16 dx on the tensor cores.  x (N, H, W, C), w (3, 3, C, Co),

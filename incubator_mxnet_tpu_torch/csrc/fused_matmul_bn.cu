@@ -26,38 +26,24 @@
 // and the stores; no padded copy of any operand exists in device memory.
 //
 // The column sums cross M.  The TPU grid walks M in order and carries
-// them in VMEM; blocks on Hopper run in no order, so each block of 128
-// rows (the bf16 forward: each run of row blocks) writes one float32
-// partial row (s1/s2 in the forward, dscale/dbias in dx), and dw splits
-// M into runs that each write a float32 partial of the whole (K, N)
-// tile.  The wrapper sums the partials in a fixed order.  No atomics:
-// the result is the same from run to run.
+// them in VMEM; blocks on Hopper run in no order, so the forwards write
+// one float32 partial row of s1 and s2 for each run of row blocks, dx
+// one of dscale and dbias for each block of 128 rows, and dw splits M
+// into runs that each write a float32 partial of the whole (K, N) tile.
+// The wrapper sums the partials in a fixed order.  No atomics: the
+// result is the same from run to run.
 //
 // Bound.  At ResNet-50's shapes (K and N from 64 to 2048, M up to
 // 401,408 rows at B=128) each kernel does 2*M*K*N operations.  The
 // forward moves (M*K + K*N + M*N) elements, dx and dw read both y and dy
-// (two M*N tensors) besides x.  In float32, against the card's 67
-// TFLOP/s of FMA outside the tensor cores and 3.35 TB/s (20 operations
-// a byte), the forward is bound by operations except stage 1's 64-to-64
-// launch (16 a byte); dx and dw are bound by bytes at most stage-1
-// launches, where a side is 64 wide (c3: 0.31 and 0.28 ms of traffic
-// against 0.20 ms of FMA), and by operations elsewhere.  The float32 dx
-// and dw run on the tensor cores in three tf32 products (below): 3 x
-// 2*M*K*N operations at 495 TFLOP/s, under their bytes at stage 1's
-// launches.  In bfloat16 every launch is bound by bytes (tensor cores at
-// 989 TFLOP/s, 295 operations a byte); the FMA loop below does not reach
-// that bound, and no bf16 kernel runs it (see below).
-//
-// Design of the float32 forward (fused_matmul_bn_fwd_kernel): a block of
-// 256 threads owns a 128x128 tile of y; each thread keeps an 8x8 sub-tile
-// in registers (two 4x4 quads per axis, so the shared-memory reads are
-// float4 broadcasts), and the depth goes through shared memory 8 at a
-// time, the next slice's global loads in flight while the current one is
-// multiplied.  Each x element is converted to float32 and put through
-// the prologue once, as it is staged, so the inner loop is plain float32
-// FMA.  Global loads run along the operand's contiguous axis.  This is
-// the simple, right first kernel; TMA, wgmma and a persistent schedule
-// are later work.
+// (two M*N tensors) besides x.  Every kernel runs on the tensor cores.
+// In float32 they take three tf32 products (3xTF32, below): 3 x 2*M*K*N
+// operations at 495 TFLOP/s, under the bytes at 3.35 TB/s at stage 1's
+// launches (the forward at (401408, 64, 256): 0.153 ms of bytes against
+// 0.080 of operations) and above them where K and N are wide; on the FMA
+// units (67 TFLOP/s) one product alone would take 0.196 ms there.  In
+// bfloat16 every launch is bound by bytes (tensor cores at 989 TFLOP/s,
+// 295 operations a byte).
 //
 // The bf16 dw (fused_matmul_bn_dw_mma) replaces the same TPU kernel,
 // `_bwd_dw_kernel` (fused_block.py:181), on the tensor cores.  At the
@@ -195,21 +181,46 @@
 // rounded y and y^2 stay in registers for the run and are reduced by
 // shuffles, then across the row warps in order, into one float32
 // partial row a run, which the wrapper sums in a fixed order.
+//
+// The float32 forward (fused_matmul_bn_fwd_tf32) replaces the same TPU
+// kernel on the tensor cores, on the bf16 forward tile's walk, grid and
+// runs (fwd_mma_split), keeping float32 numbers as the float32 dx does.
+// At (401408, 64, 256) with the prologue it must move 514 MB (x read, y
+// written: 0.153 ms at 3.35 TB/s) for 3 x 13.2 GFLOP (0.080 ms at 495
+// TFLOP/s): it is bound by bytes.
+//   - A block of 8 warps owns 128 rows of M x 64 columns of y at every
+//     N, each warp 32 x 32: its 32 sums and a stage's 32 parts fit the
+//     128 registers of two blocks an SM only at 64 columns (128 columns
+//     would hold 64 of each, as in the float32 dx tile).
+//   - A row block's depth K runs in stages of 16 columns: x by cp.async
+//     (16 bytes, zeros outside; element loads where a start is unaligned
+//     or K is not a multiple of 4) into a ring of three stages, two
+//     ahead; each thread applies the prologue in float32 with
+//     __fmul_rn/__fadd_rn to the chunks it copied, zeroing rows past the
+//     run (where it would be relu(bias)), and splits them into tf32 hi
+//     in place and lo beside it.  Where K <= 64 the block's w slice (64 x
+//     64 floats, 16 KB) stays in shared memory for its run, else w's 16
+//     rows stream through the ring with x; w is split as its fragment is
+//     loaded.  Row strides of 20 floats (x) and 72 (w) put the 32 lanes
+//     of a fragment load on 32 distinct banks.
+//   - A stage's products (two k8 steps, six mma) go into a part that
+//     starts at 0, and the part into the row block's float32 sum rounded
+//     to nearest.
+//   - The epilogue is the bf16 tile's in float32: y from a staging tile
+//     of the warp's own, an m16 tile at a time, 16 bytes a lane where
+//     alignment allows; each lane adds what it stores to its column sums
+//     of y and y^2, reduced at the run's end by shuffles, then across the
+//     row warps in order, into one float32 partial row a run.  100,352
+//     bytes of shared memory a block with w resident, 95,744 without:
+//     two blocks an SM.
 
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
 
-using mx::from_float;
-using mx::to_float;
-
-constexpr int BI = 128;       // rows of C a block owns
-constexpr int BJ = 128;       // columns of C a block owns
-constexpr int BR = 8;         // depth staged through shared memory at once
-constexpr int THREADS = 256;  // 16 x 16 threads, an 8x8 sub-tile each
-constexpr int LOADS = BI * BR / THREADS;  // A (and B) elements a thread stages
-
+constexpr int BI = 128;       // rows of M a dx block or a forward row
+                              // block owns: one partial row
 enum Mode { kFwd = 0, kDx = 1, kDw = 2 };  // the C entries' kernels
 
 template <typename T>
@@ -229,170 +240,8 @@ struct Args {
   int K;
   int N;
   int prologue;
-  int64_t split_rows;   // dw: rows of M each split takes; bf16 forward: a run
+  int64_t split_rows;   // dw: rows of M each split takes; forward: a run
 };
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
-
-// relu(x*scale + bias) rounded to T, or x itself, at (m, k)
-template <typename T>
-__device__ __forceinline__ float prologue_at(const Args<T>& a, int64_t m,
-                                             int k) {
-  const float v = to_float(a.x[m * a.K + k]);
-  if (!a.prologue) return v;
-  return round_to<T>(fmaxf(__fadd_rn(__fmul_rn(v, a.scale[k]), a.bias[k]),
-                           0.f));
-}
-
-// A[i][r] = P(x)[i][r] for i < I, r < r_end (else 0); element e of the
-// staged slice maps to (i, r) along x's contiguous axis
-template <typename T>
-__device__ __forceinline__ float fetch_a(const Args<T>& a, int e, int64_t i0,
-                                         int64_t r0, int64_t I, int64_t r_end,
-                                         int* si, int* sr) {
-  const int r = e % BR, i = e / BR;
-  *si = i;
-  *sr = r;
-  const int64_t gi = i0 + i, gr = r0 + r;
-  if (gi >= I || gr >= r_end) return 0.f;
-  return prologue_at(a, gi, static_cast<int>(gr));
-}
-
-// B[r][j] = w[r][j] for r < r_end, j < J (else 0), along w's rows
-template <typename T>
-__device__ __forceinline__ float fetch_b(const Args<T>& a, int e, int64_t j0,
-                                         int64_t r0, int64_t J, int64_t r_end,
-                                         int* sj, int* sr) {
-  const int j = e % BJ, r = e / BJ;
-  *sj = j;
-  *sr = r;
-  const int64_t gj = j0 + j, gr = r0 + r;
-  if (gj >= J || gr >= r_end) return 0.f;
-  return to_float(a.w[gr * a.N + gj]);
-}
-
-// Row (or column) of C that sub-tile slot q (0..7) of thread t (0..15)
-// owns: two quads, 64 apart.
-__device__ __forceinline__ int slot(int t, int q) {
-  return (q < 4 ? 0 : 64) + t * 4 + (q & 3);
-}
-
-// Sum a per-thread column partial over the 16 thread rows of the block,
-// in a fixed order, and write it for columns j0 .. j0 + 127.
-__device__ __forceinline__ void column_partials(
-    const float (&v0)[8], const float (&v1)[8], float (*red0)[BJ],
-    float (*red1)[BJ], int tx, int ty, int64_t j0, int64_t J, float* dst0,
-    float* dst1) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    red0[ty][slot(tx, q)] = v0[q];
-    red1[ty][slot(tx, q)] = v1[q];
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < BJ && j0 + t < J) {
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int k = 0; k < THREADS / 16; ++k) {
-      s0 += red0[k][t];
-      s1 += red1[k][t];
-    }
-    dst0[j0 + t] = s0;
-    dst1[j0 + t] = s1;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fused_matmul_bn_fwd_kernel(Args<T> a) {
-  // rows padded by 4 floats: the staging stores of a warp then hit 32
-  // distinct banks, and every row stays 16-byte aligned for the float4
-  // reads
-  __shared__ __align__(16) float As[BR][BI + 4];
-  __shared__ __align__(16) float Bs[BR][BJ + 4];
-  __shared__ float red0[THREADS / 16][BJ];
-  __shared__ float red1[THREADS / 16][BJ];
-
-  // C = y is (M, N), the depth K
-  const int64_t I = a.M, J = a.N;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * BJ;
-  const int64_t r_begin = 0, r_end = a.K;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-
-  float va[LOADS], vb[LOADS];
-  int ai[LOADS], ar[LOADS], bj[LOADS], br[LOADS];
-#pragma unroll
-  for (int l = 0; l < LOADS; ++l) {
-    va[l] = fetch_a(a, tid + l * THREADS, i0, r_begin, I, r_end,
-                          &ai[l], &ar[l]);
-    vb[l] = fetch_b(a, tid + l * THREADS, j0, r_begin, J, r_end,
-                          &bj[l], &br[l]);
-  }
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += BR) {
-#pragma unroll
-    for (int l = 0; l < LOADS; ++l) {
-      As[ar[l]][ai[l]] = va[l];
-      Bs[br[l]][bj[l]] = vb[l];
-    }
-    __syncthreads();
-    if (r0 + BR < r_end) {  // the next slice's loads overlap this product
-#pragma unroll
-      for (int l = 0; l < LOADS; ++l) {
-        va[l] = fetch_a(a, tid + l * THREADS, i0, r0 + BR, I, r_end,
-                              &ai[l], &ar[l]);
-        vb[l] = fetch_b(a, tid + l * THREADS, j0, r0 + BR, J, r_end,
-                              &bj[l], &br[l]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BR; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[r][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[r][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[r][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[r][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int p = 0; p < 8; ++p)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
-    }
-    __syncthreads();
-  }
-
-  float c0[8], c1[8];  // per-column sums over this thread's rows
-#pragma unroll
-  for (int q = 0; q < 8; ++q) c0[q] = c1[q] = 0.f;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int64_t m = i0 + slot(ty, p);
-    if (m >= I) continue;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int64_t n = j0 + slot(tx, q);
-      if (n >= J) continue;
-      const T yv = from_float<T>(acc[p][q]);
-      a.out[m * a.N + n] = yv;
-      const float f = to_float(yv);
-      c0[q] += f;
-      c1[q] += f * f;
-    }
-  }
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * J;
-  column_partials(c0, c1, red0, red1, tx, ty, j0, J, a.part0 + row,
-                  a.part1 + row);
-}
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
@@ -1733,15 +1582,343 @@ cudaError_t launch_fwd_mma(const Args<bf16>& a, int vec, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// float32 forward: the FMA tile over blocks of 128 x 128 of y, one
-// partial row a block (runs of 128 rows)
-cudaError_t launch_fwd(const Args<float>& a, int, cudaStream_t stream) {
-  const int64_t gi = ceil_div(a.M, BI), gj = ceil_div(a.N, BJ);
-  if (a.split_rows != BI || gi > 0x7fffffff || gj > 65535)
-    return cudaErrorInvalidValue;
-  dim3 grid(static_cast<unsigned>(gi), static_cast<unsigned>(gj));
-  fused_matmul_bn_fwd_kernel<float><<<grid, THREADS, 0, stream>>>(a);
+// ---------------------------------------------------------------------
+// The forward in float32 on the tensor cores (3xTF32).  See the note at
+// the top.
+
+constexpr int kFfBN = 64;              // columns of y a block owns
+constexpr int kFfKC = 16;              // depth (columns of x) a stage
+constexpr int kFfSteps = kFfKC / 8;    // its k8 steps
+constexpr int kFfRing = 3;             // stages: two load while one multiplies
+constexpr int kFfXLd = kFfKC + 4;      // x row stride: 20, see below
+constexpr int kFfWLd = kFfBN + 8;      // w row stride: 72, see below
+constexpr int kFfResK = 64;            // K a resident w slice holds
+constexpr int kFfRowChunks = kFfKC / 4;                 // float4 a stage row
+constexpr int kFfRowStep = kFmThreads / kFfRowChunks;   // a thread's rows
+constexpr int kFfXChunks = kFmBM / kFfRowStep;          // apart: 64
+constexpr int kFfWRowChunks = kFfBN / 4;                // float4 a w row
+constexpr int kFfYLd = 32 + 8;         // a warp's staging row of y
+constexpr int kFfYTile = 16 * kFfYLd;  // one m16 tile of a warp's y
+
+// fused_matmul_bn_fwd_tf32's shared memory.  A ring slot holds a stage:
+// x, turned in place into xn's tf32 hi, and xn's lo beside it (kFmBM
+// rows each), then, unless RES, w's kFfKC rows of the block's columns;
+// after the ring, the resident w slice (RES: K <= 64) and each warp's
+// staging tile of y.  Row strides of 20 floats (x) and 72 (w) put the 32
+// lanes of a fragment load (A: row g, column t4; B: row t4, column g) on
+// 32 distinct banks, and one of 40 the staging tile's float2 stores.  The
+// run's sums of y and y^2 meet in the ring once the last stage has left
+// it.
+template <bool RES>
+struct FfTf {
+  static constexpr int kXTile = kFmBM * kFfXLd;    // xn's hi, or its lo
+  static constexpr int kWTile = kFfKC * kFfWLd;    // a stage's w rows
+  static constexpr int kSlot = 2 * kXTile + (RES ? 0 : kWTile);  // floats
+  static constexpr int kWRes = RES ? kFfResK * kFfWLd : 0;
+  static constexpr size_t kSmem =
+      (kFfRing * kSlot + kWRes + 8 * kFfYTile) * sizeof(float);
+  static_assert(2 * 4 * kFfBN <= kFfRing * kSlot, "sums in the ring");
+};
+
+// Grid (ceil(N / 64), runs), as fused_matmul_bn_fwd_mma's: block (j, r)
+// computes columns [64 j, 64 (j + 1)) of y for the row blocks of run r
+// (a.split_rows rows, the last run fewer), a row block at a time, and
+// writes its float32 sums of y and y^2 to part0[r], part1[r].  A row
+// block's depth runs in stages of 16 of K.  vec bit 0: x loads 16 bytes
+// at a time; bit 1: w does; bit 2: y stores 16 bytes at a time.
+template <bool RES>
+__global__ void __launch_bounds__(kFmThreads, 2)
+    fused_matmul_bn_fwd_tf32(Args<float> a, int vec) {
+  using G = FfTf<RES>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* wres = ring + kFfRing * G::kSlot;  // RES: w[k][n0 + n], k < 64
+  float* ystage = wres + G::kWRes;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2;  // the warp's 32 x 32 tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * kFfBN;
+  const int64_t m_begin = static_cast<int64_t>(blockIdx.y) * a.split_rows;
+  const int64_t m_end =
+      a.M - m_begin > a.split_rows ? m_begin + a.split_rows : a.M;
+  const int nrb = static_cast<int>((m_end - m_begin + kFmBM - 1) / kFmBM);
+  const int nck = (a.K + kFfKC - 1) / kFfKC;  // stages a row block
+  const int nsteps = nrb * nck;
+  const bool vec_x = vec & 1, vec_w = vec & 2, vec_y = vec & 4;
+
+  // This thread's x chunks: rows r0 + 64 i of a row block, columns cc ..
+  // cc + 3 of a stage's depth; it copies them and turns them into xn
+  // itself, so no barrier separates the two.
+  const int cc = (tid % kFfRowChunks) * 4, r0 = tid / kFfRowChunks;
+
+  // w[k0 + k][n0 + n] for k < rows, n < 64 into a [k][n] tile; 0 past K
+  // and N.
+  auto load_w = [&](float* dst, int k0, int rows) {
+    for (int e = tid; e < rows * kFfWRowChunks; e += kFmThreads) {
+      const int row = e / kFfWRowChunks, col = (e - row * kFfWRowChunks) * 4;
+      const bool in = k0 + row < a.K;
+      const float* src = a.w + (in ? static_cast<int64_t>(k0 + row) : 0) * a.N;
+      float* d = dst + row * kFfWLd + col;
+      if (vec_w) {
+        const bool full = in && n0 + col < a.N;
+        cp_async16(d, full ? src + n0 + col : a.w, full);
+      } else {
+        *reinterpret_cast<float4*>(d) = load4(src, n0 + col, a.N, in);
+      }
+    }
+  };
+
+  // Loads step k of the run (row block k / nck, columns [16 (k % nck),
+  // +16) of x) into ring slot `slot` (cp.async of 16 bytes, zeros where
+  // a chunk lies outside; element loads where a start or K does not
+  // allow 16 bytes), and w's rows unless RES; returns the flags: bit i,
+  // chunk i's row lies in the run.
+  auto load_step = [&](int k, int slot) {
+    const int rb = k / nck, k0 = (k - rb * nck) * kFfKC;
+    const int64_t m0 = m_begin + static_cast<int64_t>(rb) * kFmBM;
+    unsigned flags = 0;
+    float* xs = ring + slot * G::kSlot;
+#pragma unroll
+    for (int i = 0; i < kFfXChunks; ++i) {
+      const int r = r0 + kFfRowStep * i;
+      const int64_t m = m0 + r;
+      const bool in = m < m_end;
+      flags |= (in ? 1u : 0u) << i;
+      const float* src = a.x + (in ? m : 0) * a.K;
+      float* d = xs + r * kFfXLd + cc;
+      if (vec_x) {
+        const bool full = in && k0 + cc < a.K;
+        cp_async16(d, full ? src + k0 + cc : a.x, full);
+      } else {
+        *reinterpret_cast<float4*>(d) = load4(src, k0 + cc, a.K, in);
+      }
+    }
+    if (!RES) load_w(xs + 2 * G::kXTile, k0, kFfKC);
+    return flags;
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+
+  // Row block rb's epilogue, an m16 tile of the warp at a time: its sums
+  // into the warp's staging tile in pairs, cleared; then the tile's rows
+  // inside the run stored, a lane's four columns 16 bytes at a time where
+  // vec_y allows (whole 32-byte sectors of a row), and added to the
+  // lane's column sums of y and y^2.
+  float* yst = ystage + warp * kFfYTile;
+  const int cl = 4 * (lane & 7);         // the lane's columns of the warp's
+  const int nc = n0 + 32 * wn + cl;      // 32, and the first of them
+  auto epilogue = [&](int rb) {
+    const int64_t m0 =
+        m_begin + static_cast<int64_t>(rb) * kFmBM + 32 * wm;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          *reinterpret_cast<float2*>(yst + (g + 8 * hf) * kFfYLd + 8 * j +
+                                     2 * t4) =
+              make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+          acc[i][j][2 * hf] = acc[i][j][2 * hf + 1] = 0.f;
+        }
+      __syncwarp();
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int r = 4 * it + (lane >> 3);
+        const int64_t m = m0 + 16 * i + r;
+        if (m >= m_end || nc >= a.N) continue;
+        const float4 v =
+            *reinterpret_cast<const float4*>(yst + r * kFfYLd + cl);
+        float* out = a.out + m * a.N + nc;
+        const float f[4] = {v.x, v.y, v.z, v.w};
+        if (vec_y) {
+          *reinterpret_cast<float4*>(out) = v;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (nc + e < a.N) out[e] = f[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // 0 past N: w's columns there are 0
+          s1[e] += f[e];
+          s2[e] += f[e] * f[e];
+        }
+      }
+      __syncwarp();
+    }
+  };
+
+  // the resident w joins step 0's group; then the first kFfRing - 1
+  // steps in flight, one group a step (empty past the run), so that a
+  // wait counts steps
+  if (RES) load_w(wres, 0, kFfResK);
+  constexpr unsigned kMask = (1u << kFfXChunks) - 1;
+  unsigned ring_flags = 0;  // kFfXChunks bits a slot
+#pragma unroll
+  for (int k = 0; k < kFfRing - 1; ++k) {
+    if (k < nsteps) ring_flags |= load_step(k, k) << (kFfXChunks * k);
+    cp_async_commit();
+  }
+  int slot = 0, kc = 0, rb = 0;  // the step multiplied: its slot, place
+  for (int s = 0; s < nsteps; ++s) {
+    const int k0 = kc * kFfKC;
+    float* xhi = ring + slot * G::kSlot;
+    float* xlo = xhi + G::kXTile;
+    const float* ws = RES ? wres + k0 * kFfWLd : xlo + G::kXTile;
+    cp_async_wait<kFfRing - 2>();  // this thread's chunks of step s
+    {  // xn = relu(x*scale + bias) in float32 (or x), 0 past the run,
+       // where it would be relu(bias), split into tf32 hi in place of x
+       // and lo beside it
+      float sc[4], bi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + cc + j;
+        const bool in = a.prologue && k < a.K;
+        sc[j] = in ? __ldg(a.scale + k) : 0.f;
+        bi[j] = in ? __ldg(a.bias + k) : 0.f;
+      }
+      const unsigned flags = ring_flags >> (kFfXChunks * slot);
+#pragma unroll
+      for (int i = 0; i < kFfXChunks; ++i) {
+        const int at = (r0 + kFfRowStep * i) * kFfXLd + cc;
+        float4* hp = reinterpret_cast<float4*>(xhi + at);
+        float4 v = *hp;
+        if (!(flags >> i & 1))
+          v = make_float4(0.f, 0.f, 0.f, 0.f);
+        else if (a.prologue)
+          v = prologue4(v, sc, bi);
+        uint4 hi, lo;
+        split_tf32(v.x, hi.x, lo.x);
+        split_tf32(v.y, hi.y, lo.y);
+        split_tf32(v.z, hi.z, lo.z);
+        split_tf32(v.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(hp) = hi;
+        *reinterpret_cast<uint4*>(xlo + at) = lo;
+      }
+    }
+    __syncthreads();
+    // step s + kFfRing - 1 into the slot that step s - 1 left: every warp
+    // left its product at the barrier
+    const int next = slot == 0 ? kFfRing - 1 : slot - 1;
+    if (s + kFfRing - 1 < nsteps)
+      ring_flags = (ring_flags & ~(kMask << (kFfXChunks * next))) |
+                   load_step(s + kFfRing - 1, next) << (kFfXChunks * next);
+    cp_async_commit();
+    // The stage's products (two k8 steps, six mma a tile) go into a part
+    // that starts at 0, and the part into acc, rounded to nearest: the
+    // tensor core truncates each sum it returns, and one register for a
+    // chain of every product along K drifts by as many ulps.  A = xn
+    // (rows m, depth k) as split; B = w (depth k, columns n), split as
+    // loaded.
+    const uint32_t* a_hi = reinterpret_cast<const uint32_t*>(xhi);
+    const uint32_t* a_lo = reinterpret_cast<const uint32_t*>(xlo);
+    const int ksteps = ((a.K - k0 < kFfKC ? a.K - k0 : kFfKC) + 7) / 8;
+    float part[2][4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kFfSteps; ++kk) {
+      if (kk >= ksteps) break;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int at = (32 * wm + 16 * i + g) * kFfXLd + 8 * kk + t4;
+        ah[i][0] = a_hi[at];
+        ah[i][1] = a_hi[at + 8 * kFfXLd];
+        ah[i][2] = a_hi[at + 4];
+        ah[i][3] = a_hi[at + 8 * kFfXLd + 4];
+        al[i][0] = a_lo[at];
+        al[i][1] = a_lo[at + 8 * kFfXLd];
+        al[i][2] = a_lo[at + 4];
+        al[i][3] = a_lo[at + 8 * kFfXLd + 4];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* q = ws + (8 * kk + t4) * kFfWLd + 32 * wn + 8 * j + g;
+        uint32_t bh[2], bl[2];
+        split_tf32(q[0], bh[0], bl[0]);
+        split_tf32(q[4 * kFfWLd], bh[1], bl[1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mma_3xtf32(part[i][j], ah[i], al[i], bh, bl);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+    slot = slot + 1 == kFfRing ? 0 : slot + 1;
+    if (++kc == nck) {
+      epilogue(rb);
+      kc = 0;
+      ++rb;
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+  __syncthreads();     // every warp has left the ring: it takes the sums
+
+  // the run's column sums: over the 4 lanes of each column by shuffles,
+  // then over the row warps in order; the same bits every run
+  float* red = ring;  // [s1, s2][row warp][column]
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v1 = s1[e], v2 = s2[e];
+#pragma unroll
+    for (int off = 8; off < 32; off <<= 1) {
+      v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+      v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+    }
+    if (lane < 8) {
+      const int col = 32 * wn + cl + e;
+      red[wm * kFfBN + col] = v1;
+      red[(4 + wm) * kFfBN + col] = v2;
+    }
+  }
+  __syncthreads();
+  if (tid < kFfBN && n0 + tid < a.N) {
+    float v1 = 0.f, v2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v1 += red[k * kFfBN + tid];
+      v2 += red[(4 + k) * kFfBN + tid];
+    }
+    const int64_t at = static_cast<int64_t>(blockIdx.y) * a.N + n0 + tid;
+    a.part0[at] = v1;
+    a.part1[at] = v2;
+  }
+}
+
+template <bool RES>
+cudaError_t launch_fwd_tf32(const Args<float>& a, int vec,
+                            cudaStream_t stream) {
+  const int64_t tiles = ceil_div(a.N, kFfBN);
+  const int64_t runs = ceil_div(a.M, a.split_rows);
+  if (tiles > 0x7fffffff || runs > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = FfTf<RES>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_matmul_bn_fwd_tf32<RES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_matmul_bn_fwd_tf32<RES>
+      <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(runs)),
+         kFmThreads, smem, stream>>>(a, vec);
   return cudaGetLastError();
+}
+
+// float32 forward: the 3xTF32 tile in column tiles of 64 at every N, w
+// resident where K <= 64, over runs of split_rows rows of M
+cudaError_t launch_fwd(const Args<float>& a, int vec, cudaStream_t stream) {
+  return a.K <= kFfResK ? launch_fwd_tf32<true>(a, vec, stream)
+                        : launch_fwd_tf32<false>(a, vec, stream);
 }
 
 // bf16 forward: the tensor-core tile, w resident where K <= 64, over
@@ -1863,8 +2040,8 @@ int dispatch(int dtype, int mode, const void* x, const void* w,
   }
 }
 
-// The caller sized the partial rows of the forward and dx for blocks of
-// BI rows of M: refuse any other count rather than write past them.
+// The caller sized the partial rows of dx for blocks of BI rows of M:
+// refuse any other count rather than write past them.
 bool part_rows_ok(long long part_rows, long long M) {
   return part_rows == ceil_div(M, BI);
 }
@@ -1875,15 +2052,14 @@ bool part_rows_ok(long long part_rows, long long M) {
 // that type, row-major and contiguous; scale and bias (K,) float32, read
 // only when prologue is 1 (may be null otherwise); s1_part and s2_part
 // (part_rows, N) float32, one row of sums of y and y^2 for each run of
-// run_rows rows of M (the last run may be shorter), part_rows =
-// ceil(M / run_rows), every element written.  float32 runs the FMA tile,
-// whose runs are its blocks of 128 rows; bfloat16 the tensor-core tile,
-// whose runs are a multiple of 128 rows and which reads x 16 bytes at a
-// time where bit 0 of vec is set (x 16-byte aligned, K a multiple of 8),
-// w where bit 1 is (w 16-byte aligned, N a multiple of 8), and writes y
-// 16 bytes at a time where bit 2 is (y 16-byte aligned, N a multiple of
-// 8).  Launches
-// on `stream` without synchronising; returns the launch's cudaError_t.
+// run_rows rows of M (a multiple of 128; the last run may be shorter),
+// part_rows = ceil(M / run_rows), every element written.  float32 runs
+// the 3xTF32 tile, bfloat16 the bf16 tensor-core tile.  Both read x 16
+// bytes at a time where bit 0 of vec is set (x 16-byte aligned, rows a
+// multiple of 16 bytes), w where bit 1 is (w 16-byte aligned, rows a
+// multiple of 16 bytes), and write y 16 bytes at a time where bit 2 is
+// (y 16-byte aligned, rows a multiple of 16 bytes).  Launches on
+// `stream` without synchronising; returns the launch's cudaError_t.
 extern "C" int mx_fused_matmul_bn_fwd(int dtype, const void* x,
                                       const void* w, const void* scale,
                                       const void* bias, int prologue,

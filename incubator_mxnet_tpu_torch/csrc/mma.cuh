@@ -1,9 +1,9 @@
 // Tensor-core helpers shared by the kernels that multiply on Hopper's
-// tensor cores with mma.sync (flash_attention.cu, and the bf16 forward,
-// dx and dw and the float32 dx and dw of fused_matmul_bn.cu and of
-// fused_conv3_bn.cu): ldmatrix from shared memory, the bf16 m16n8k16
-// product with float32 sums, where each lane reads for ldmatrix,
-// cp.async into shared memory, the staging of the fused kernels'
+// tensor cores with mma.sync (flash_attention.cu, and the forward, dx
+// and dw of fused_matmul_bn.cu and of fused_conv3_bn.cu in both dtypes):
+// ldmatrix from shared memory, the bf16 m16n8k16 product with float32
+// sums, where each lane reads for ldmatrix, cp.async into shared
+// memory, the staging of the fused kernels'
 // operands (eight bf16 values at a time: the masked load, the BatchNorm
 // prologue and the stats-adjusted cotangent dyt, each rounded to bf16),
 // and the float32 route: a float32 value split into tf32 hi + lo parts,

@@ -23,9 +23,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: guards the wrappers' launch counters
 count_lock = threading.Lock()
 
-#: rows of M a kernel block owns (BI in the sources): the float32
-#: forwards and the 1x1's dx kernels write one partial row per block, and
-#: refuse any other count
+#: rows of M a kernel block owns (BI in the sources): the 1x1's dx
+#: kernels write one partial row per block, and refuse any other count
 BLOCK_ROWS = 128
 
 

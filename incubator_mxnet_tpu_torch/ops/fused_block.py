@@ -18,14 +18,14 @@ product recomputes the prologue too.
 Three kernels (``csrc/fused_matmul_bn.cu``), one wrapper each:
 :func:`fused_matmul_bn_fwd` (kernel 10), :func:`fused_matmul_bn_dx`
 (11) and :func:`fused_matmul_bn_dw` (12), each with a launch counter.
-Each has one instance for each dtype.  bfloat16 runs tiles on the
-tensor cores (``fused_matmul_bn_fwd_mma``, over runs of M that
-:func:`fwd_mma_split` chooses; ``fused_matmul_bn_dx_mma``;
+Each has one instance for each dtype, every one a tile on the tensor
+cores.  bfloat16 runs ``fused_matmul_bn_fwd_mma``, over runs of M that
+:func:`fwd_mma_split` chooses; ``fused_matmul_bn_dx_mma``; and
 ``fused_matmul_bn_dw_mma``, over runs of M that :func:`dw_mma_split`
-chooses).  float32's forward runs an FMA tile; its dx and dw run tiles
-on the tensor cores that keep float32 numbers in three tf32 products
-(``fused_matmul_bn_dx_tf32``; ``fused_matmul_bn_dw_tf32``, over the
-runs of :func:`dw_tf32_split`).
+chooses.  float32 runs tiles that keep float32 numbers in three tf32
+products: ``fused_matmul_bn_fwd_tf32``, over the runs of
+:func:`fwd_mma_split`; ``fused_matmul_bn_dx_tf32``; and
+``fused_matmul_bn_dw_tf32``, over the runs of :func:`dw_tf32_split`.
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing falls
 back from the card to the plain version.
@@ -60,8 +60,8 @@ __all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
            "fused_matmul_bn_fwd", "fused_matmul_bn_dx", "fused_matmul_bn_dw",
            "FusedMatmulBNFunction", "fused_matmul_bn", "bn_consts",
            "fused_bottleneck_v1", "fused_bottleneck_v1_proj",
-           "dw_mma_split", "dw_tf32_split", "fwd_mma_split", "fwd_launches",
-           "dx_launches", "dw_launches"]
+           "dw_mma_split", "dw_tf32_split", "fwd_mma_tile", "fwd_mma_split",
+           "fwd_launches", "dx_launches", "dw_launches"]
 
 #: Launches of kernels 10, 11 and 12 so far; each wrapper adds one per
 #: launch and nothing else touches them (a caller may reset them to 0).
@@ -123,25 +123,33 @@ def dw_tf32_split(m, k, n, sms):
                     8 * k * n // (k + 2 * n))
 
 
-# kernel 10's bfloat16 tile (fused_matmul_bn_fwd_mma): row blocks of 128
-# rows of M; runs of row blocks are chosen so that the blocks fill the
-# card's slots (_FWD_BLOCKS_PER_SM an SM) in as few waves as possible,
+# kernel 10's tiles (fused_matmul_bn_fwd_mma, bfloat16;
+# fused_matmul_bn_fwd_tf32, float32): row blocks of 128 rows of M; runs of
+# row blocks are chosen so that the blocks fill the card's slots
+# (_FWD_BLOCKS_PER_SM an SM, for both tiles) in as few waves as possible,
 # runs of at most _FWD_MAX_RUN row blocks searched
 _FWD_ROWS, _FWD_BLOCKS_PER_SM, _FWD_MAX_RUN = 128, 2, 64
 
 
+def fwd_mma_tile(n, dtype):
+    """Columns of y a block of kernel 10's tile owns for ``dtype``, as
+    ``mx_fused_matmul_bn_fwd`` picks its instance: bfloat16 64, or 128
+    where ``n`` > 64; float32 (the 3xTF32 tile) 64 at every N."""
+    return 64 if dtype == torch.float32 or n <= 64 else 128
+
+
 @functools.lru_cache(maxsize=None)
-def fwd_mma_split(m, k, n, sms):
-    """``(run_rows, runs)`` of kernel 10's bfloat16 tile for x (m, k) and
-    y (m, n) on a card of ``sms`` SMs: runs of whole 128-row blocks that
-    tile M exactly (the last may be shorter), at most 65535 of them.
+def fwd_mma_split(m, k, n, sms, dtype):
+    """``(run_rows, runs)`` of kernel 10's tile for ``dtype``, x (m, k)
+    and y (m, n) on a card of ``sms`` SMs: runs of whole 128-row blocks
+    that tile M exactly (the last may be shorter), at most 65535 of them.
     The run length r minimises waves x r, the time of the slowest SM
-    when each of the ``runs`` x (column tiles) blocks takes a slot of
-    ``_FWD_BLOCKS_PER_SM`` an SM, the longer run where two tie: longer
-    runs load a resident w (k <= 64) less often and leave fewer partial
-    rows."""
+    when each of the ``runs`` x (column tiles of :func:`fwd_mma_tile`)
+    blocks takes a slot of ``_FWD_BLOCKS_PER_SM`` an SM, the longer run
+    where two tie: longer runs load a resident w (k <= 64) less often and
+    leave fewer partial rows."""
     blocks = -(-m // _FWD_ROWS)
-    tiles = -(-n // (64 if n <= 64 else 128))
+    tiles = -(-n // fwd_mma_tile(n, dtype))
     slots = _FWD_BLOCKS_PER_SM * sms
     least = max(1, -(-blocks // 65535))
     best = (None, least)
@@ -241,10 +249,10 @@ def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
 
     x (M, K) and w (K, N) in one dtype, float32 or bfloat16; scale and
     bias ``(K,)`` (cast to float32), both or neither.  On a CUDA tensor:
-    kernel 10 on the current stream, then the sum of its float32 partial
-    rows in a fixed order: bfloat16 runs the tensor-core tile (a row for
-    each run of :func:`fwd_mma_split`), float32 the FMA tile (a row for
-    each block of 128 rows of M).  On a CPU tensor: the plain version."""
+    kernel 10 on the current stream over the runs of
+    :func:`fwd_mma_split`, then the sum of its float32 partial rows (one
+    a run) in a fixed order: bfloat16 runs the bf16 tensor-core tile,
+    float32 the 3xTF32 tile.  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return matmul_bn_reference(x, w, scale, bias)
     m, k, n = _check("fused_matmul_bn_fwd", x, w, scale, bias)
@@ -254,11 +262,8 @@ def fused_matmul_bn_fwd(x, w, scale=None, bias=None):
     if m == 0:
         zeros = torch.zeros(n, dtype=torch.float32, device=x.device)
         return y, zeros, zeros.clone()
-    if x.dtype == torch.bfloat16:
-        run_rows, rows = fwd_mma_split(m, k, n, _fc.sms(x.device.index))
-        vec = int(_vec16(x)) | 2 * int(_vec16(w)) | 4 * int(_vec16(y))
-    else:
-        run_rows, rows, vec = _fc.BLOCK_ROWS, -(-m // _fc.BLOCK_ROWS), 0
+    run_rows, rows = fwd_mma_split(m, k, n, _fc.sms(x.device.index), x.dtype)
+    vec = int(_vec16(x)) | 2 * int(_vec16(w)) | 4 * int(_vec16(y))
     parts = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
     fn = _build.launcher("fused_matmul_bn", "mx_fused_matmul_bn_fwd",
                          _FWD_ARGS)

@@ -21,15 +21,15 @@ Three kernels (``csrc/fused_conv3_bn.cu``), one wrapper each:
 :func:`fused_conv3_bn_fwd` (TPU kernel 13), :func:`fused_conv3_bn_dx`
 (kernels 14 and 15: the TPU's split of C_out into blocks, a VMEM limit,
 has no counterpart) and :func:`fused_conv3_bn_dw` (16), each with a
-launch counter.  Each has one instance for each dtype.  bfloat16 runs
-tiles on the tensor cores (``fused_conv3_bn_fwd_mma``, over runs of
-pixels that :func:`fwd_mma_split` chooses; ``fused_conv3_bn_dx_mma``,
-over those of :func:`dx_mma_split`; ``fused_conv3_bn_dw_mma``, over
-those of :func:`dw_mma_split`).  float32's forward runs an FMA tile;
-its dx and dw run tiles on the tensor cores that keep float32 numbers in
-three tf32 products, on the bfloat16 tiles' walk
-(``fused_conv3_bn_dx_tf32``, over the runs of :func:`dx_mma_split`;
-``fused_conv3_bn_dw_tf32``, over those of :func:`dw_tf32_split`).
+launch counter.  Each has one instance for each dtype, every one a tile
+on the tensor cores.  bfloat16 runs ``fused_conv3_bn_fwd_mma``, over
+runs of pixels that :func:`fwd_mma_split` chooses;
+``fused_conv3_bn_dx_mma``, over those of :func:`dx_mma_split`; and
+``fused_conv3_bn_dw_mma``, over those of :func:`dw_mma_split`.  float32
+runs tiles that keep float32 numbers in three tf32 products, on the
+bfloat16 tiles' walk: ``fused_conv3_bn_fwd_tf32`` and
+``fused_conv3_bn_dx_tf32``, over the runs of the same split rules, and
+``fused_conv3_bn_dw_tf32``, over those of :func:`dw_tf32_split`.
 Each wrapper dispatches on where x lies: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 Nothing falls back, and there is no switch: on the card every 3x3 of the
@@ -70,7 +70,6 @@ dw_launches = 0
 _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 # the C entries' arguments (csrc/fused_conv3_bn.cu)
 _SHAPE = [_L, _I, _I, _I, _I]   # N, H, W, C, C_out
-_FWD_ARGS = [_I] + [_P] * 4 + [_I] + [_P] * 3 + [_L] + _SHAPE + [_P]
 _DW_MMA_ARGS = [_P] * 3 + [_I] + [_P] * 5 + _SHAPE + [_L, _L, _I, _P]
 _FWD_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 3 + _SHAPE + [_L, _L, _I, _P]
 _DX_MMA_ARGS = [_P] * 4 + [_I] + [_P] * 7 + _SHAPE + [_L, _L, _I, _P]
@@ -91,10 +90,11 @@ _MMA_MIN_RUN_PIXELS = 8 * 2 * (3 * _MMA_TILE * _MMA_TILE * 4) // (
 # eighth is half as many pixels
 _TF32_BLOCKS_PER_SM = 2
 _TF32_MIN_RUN_PIXELS = _MMA_MIN_RUN_PIXELS // 2
-# kernels 13's and 14's bfloat16 tiles (fused_conv3_bn_fwd_mma,
-# fused_conv3_bn_dx_mma) walk the pixels as kernel 16's does; their runs
-# of stages are enough that about _FWD_BLOCKS_PER_SM blocks cover each SM
-# (one wave at their occupancy)
+# kernels 13's and 14's tiles (fused_conv3_bn_fwd_mma and _dx_mma in
+# bfloat16, fused_conv3_bn_fwd_tf32 and _dx_tf32 in float32) walk the
+# pixels as kernel 16's does; their runs of stages are enough that about
+# _FWD_BLOCKS_PER_SM blocks cover each SM (one wave at their occupancy,
+# two blocks an SM for every one of them)
 _FWD_BLOCKS_PER_SM = 2
 
 
@@ -231,13 +231,16 @@ def dw_tf32_split(n, h, w, c, co, sms):
     return best[1], -(-stages // best[1])
 
 
-def fwd_mma_tile(c, co):
-    """``(bn, kc)`` of kernel 13's bfloat16 tile, as
-    ``mx_fused_conv3_bn_fwd_mma`` picks its instance: ``bn`` output
-    channels a block (64, or 128 where ``co`` > 64) and ``kc`` input
-    channels a step (64 where ``c`` <= 64, the block's whole W slice
-    then staying in shared memory for its run; else 32, W streaming with
-    x)."""
+def fwd_mma_tile(c, co, dtype):
+    """``(bn, kc)`` of kernel 13's tile for ``dtype``, as
+    ``mx_fused_conv3_bn_fwd_mma`` and ``mx_fused_conv3_bn_fwd_tf32``
+    pick it: ``bn`` output channels a block and ``kc`` input channels a
+    step.  bfloat16: ``bn`` 64, or 128 where ``co`` > 64; ``kc`` 64
+    where ``c`` <= 64 (the block's whole W slice then staying in shared
+    memory for its run), else 32 (W streaming with x).  float32 (the
+    3xTF32 tile): 64 and 32 at every C and C_out, W always streaming."""
+    if dtype == torch.float32:
+        return 64, 32
     return (64 if co <= 64 else 128), (64 if c <= 64 else 32)
 
 
@@ -253,11 +256,12 @@ def _stage_runs(n, h, w, tiles, sms):
     return run_stages, -(-stages // run_stages)
 
 
-def fwd_mma_split(n, h, w, c, co, sms):
-    """``(run_stages, runs)`` of kernel 13's bfloat16 tile for x (n, h,
+def fwd_mma_split(n, h, w, c, co, sms, dtype):
+    """``(run_stages, runs)`` of kernel 13's tile for ``dtype``, x (n, h,
     w, c) and C_out = co on a card of ``sms`` SMs (:func:`_stage_runs`
     over the tiles of ``fwd_mma_tile``'s output channels)."""
-    return _stage_runs(n, h, w, -(-co // fwd_mma_tile(c, co)[0]), sms)
+    return _stage_runs(n, h, w, -(-co // fwd_mma_tile(c, co, dtype)[0]),
+                       sms)
 
 
 def dx_mma_tile(c, co, dtype):
@@ -338,44 +342,33 @@ def fused_conv3_bn_fwd(x, w, scale=None, bias=None):
 
     x (N, H, W, C) and w (3, 3, C, C_out) in one dtype, float32 or
     bfloat16; scale and bias ``(C,)`` (cast to float32), both or neither.
-    On a CUDA tensor: the forward kernel on the current stream, then the
-    sum of its float32 partial rows of the sums in a fixed order:
-    bfloat16 runs the tensor-core tile (a row for each run of
-    :func:`fwd_mma_split`), float32 the FMA tile (a row for each block of
-    128 rows of N*H*W).  On a CPU tensor: the plain version."""
+    On a CUDA tensor: kernel 13 on the current stream over the runs of
+    :func:`fwd_mma_split`, then the sum of its float32 partial rows of
+    the sums (one a run) in a fixed order: bfloat16 runs the bf16
+    tensor-core tile, float32 the 3xTF32 tile.  On a CPU tensor: the
+    plain version."""
     if x.device.type == "cpu":
         return conv3_bn_reference(x, w, scale, bias)
     n, h, wd, c, co = _check("fused_conv3_bn_fwd", x, w, scale, bias)
     x, w = x.contiguous(), w.contiguous()
     scale, bias = _fc.f32(scale), _fc.f32(bias)
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
-    m = n * h * wd
-    if m == 0:
+    if n * h * wd == 0:
         zeros = torch.zeros(co, dtype=torch.float32, device=x.device)
         return y, zeros, zeros.clone()
+    run_stages, runs = fwd_mma_split(n, h, wd, c, co, _fc.sms(x.device.index),
+                                     x.dtype)
+    parts = torch.empty((2, runs, co), dtype=torch.float32, device=x.device)
+    vec = (int(_fc.vec16(x)) | 2 * int(_fc.vec16(w))
+           | 4 * int(_fc.vec16(y)))
+    entry = ("mx_fused_conv3_bn_fwd_mma" if x.dtype == torch.bfloat16
+             else "mx_fused_conv3_bn_fwd_tf32")
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
-            run_stages, runs = fwd_mma_split(n, h, wd, c, co,
-                                             _fc.sms(x.device.index))
-            parts = torch.empty((2, runs, co), dtype=torch.float32,
-                                device=x.device)
-            vec = int(_fc.vec16(x)) | 2 * int(_fc.vec16(w))
-            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_fwd_mma",
-                                 _FWD_MMA_ARGS)
-            fn(x.data_ptr(), w.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
-               int(scale is not None), y.data_ptr(), parts[0].data_ptr(),
-               parts[1].data_ptr(), n, h, wd, c, co, run_stages, runs, vec,
-               _stream(x.device))
-        else:
-            rows = -(-m // _fc.BLOCK_ROWS)
-            parts = torch.empty((2, rows, co), dtype=torch.float32,
-                                device=x.device)
-            fn = _build.launcher("fused_conv3_bn", "mx_fused_conv3_bn_fwd",
-                                 _FWD_ARGS)
-            fn(_fc.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-               _fc.ptr(scale), _fc.ptr(bias), int(scale is not None),
-               y.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows,
-               n, h, wd, c, co, _stream(x.device))
+        fn = _build.launcher("fused_conv3_bn", entry, _FWD_MMA_ARGS)
+        fn(x.data_ptr(), w.data_ptr(), _fc.ptr(scale), _fc.ptr(bias),
+           int(scale is not None), y.data_ptr(), parts[0].data_ptr(),
+           parts[1].data_ptr(), n, h, wd, c, co, run_stages, runs, vec,
+           _stream(x.device))
     _count("fwd")
     sums = parts.sum(dim=1)
     return y, sums[0], sums[1]

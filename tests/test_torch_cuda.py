@@ -22,11 +22,11 @@ are rounded to bf16, so an f32 sum in another order can land one bf16
 ulp, 2^-8 of a value, away); the float32 column sums s1, s2, dscale and
 dbias take the same share of their largest value.  The fused 3x3
 conv + BatchNorm kernels take the same tolerances, for the same
-reasons; the bfloat16 tensor-core tiles of kernels 11, 13 and 16 too
-(both operands rounded to bf16 before the exact products, float32
-sums in another order), and the float32 3xTF32 tiles of kernels 11,
-12, 14 and 16 (three tf32 products keep about 2^-21 of each float32
-product, and the sums run in another order).  The small fused ResNet, card step against
+reasons; the bfloat16 tensor-core tiles of kernels 10-16 too (both
+operands rounded to bf16 before the exact products, float32 sums in
+another order), and the float32 3xTF32 tiles of kernels 10-16 (three
+tf32 products keep about 2^-21 of each float32 product, and the sums
+run in another order).  The small fused ResNet, card step against
 CPU step: loss 1e-5 relative, every gradient 1e-3 of its largest value
 (50 layers of float32 sums in another order; both TF32 switches off).
 Its ``FusedTrainStep`` by CUDA-graph replay against the same step run
@@ -493,11 +493,12 @@ def test_fused_matmul_bn_dx_mma_loads_element_wise(dev, no_tf32, prologue,
             assert torch.equal(g, a), what
 
 
-@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+@pytest.mark.parametrize("dtype,route", [("float32", "3xTF32"),
                                          ("bfloat16", "tensor-core")])
 def test_fused_matmul_bn_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
-    """float32 inputs run kernel 10's FMA tile; bfloat16 its tensor-core
-    tile (fused_matmul_bn_fwd_mma), as the profiler sees."""
+    """float32 inputs run kernel 10's 3xTF32 tensor-core tile
+    (fused_matmul_bn_fwd_tf32); bfloat16 its bf16 tensor-core tile
+    (fused_matmul_bn_fwd_mma), as the profiler sees."""
     x, w, scale, bias = _fmm_inputs(200, 96, 72, dtype, dev)[:4]
     hits = {n for n in _kernel_names(fb.fused_matmul_bn_fwd,
                                      (x, w, scale, bias))
@@ -506,6 +507,7 @@ def test_fused_matmul_bn_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
     name, = hits
     assert "fused_matmul_bn_fwd" in name, name
     assert ("fused_matmul_bn_fwd_mma" in name) == (route == "tensor-core"), name
+    assert ("fused_matmul_bn_fwd_tf32" in name) == (route == "3xTF32"), name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -513,9 +515,8 @@ def test_fused_matmul_bn_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
                                    (1000, 60, 100), (1568, 1024, 512)])
 def test_fused_matmul_bn_fwd_is_bit_for_bit_repeatable(dev, dtype, m, k, n):
     """No atomics: the sums of y and y² are float32 partial rows (one a
-    run of row blocks in bfloat16, one a block of 128 rows in float32)
-    that the wrapper sums in a fixed order, so two calls give the same
-    bits."""
+    run of row blocks in either dtype) that the wrapper sums in a fixed
+    order, so two calls give the same bits."""
     args = _fmm_inputs(m, k, n, dtype, dev)[:4]
     first, second = (fb.fused_matmul_bn_fwd(*args) for _ in range(2))
     torch.cuda.synchronize()
@@ -524,30 +525,43 @@ def test_fused_matmul_bn_fwd_is_bit_for_bit_repeatable(dev, dtype, m, k, n):
 
 
 @pytest.mark.parametrize("prologue", [False, True])
-@pytest.mark.parametrize("m,k,n,offset", [
-    (1000, 60, 100, 0),   # K and N not multiples of 8
-    (77, 9, 130, 0),      # K under one 16-byte chunk
-    (640, 64, 256, 1),    # rows of 8 elements, starts off 16 bytes
-    (33, 200, 40, 0),     # K in seven steps of 32, the last ragged
+@pytest.mark.parametrize("dtype,m,k,n,offset,vec", [
+    ("float32", 1000, 62, 100, 0, False),    # K not a multiple of 4
+    ("float32", 77, 3, 130, 0, False),       # K under one 16-byte chunk
+    ("float32", 200, 96, 70, 0, False),      # N not a multiple of 4
+    ("float32", 640, 64, 256, 1, False),     # starts off 16 bytes
+    ("float32", 33, 200, 40, 0, True),       # K in 13 stages, the last
+                                             # ragged
+    ("float32", 1568, 1024, 512, 0, True),   # w streamed, 8 column tiles
+    ("float32", 401408, 64, 256, 0, True),   # the representative launch
+    ("bfloat16", 1000, 60, 100, 0, False),   # K and N not multiples of 8
+    ("bfloat16", 77, 9, 130, 0, False),      # K under one 16-byte chunk
+    ("bfloat16", 640, 64, 256, 1, False),    # starts off 16 bytes
+    ("bfloat16", 33, 200, 40, 0, True),      # K in seven steps of 32, the
+                                             # last ragged
 ])
-def test_fused_matmul_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue, m,
-                                                    k, n, offset):
-    """Where a start or a row width does not allow 16-byte loads (and
-    where K streams in several steps), the bfloat16 forward tile matches
-    the plain version within the bfloat16 tolerance (2e-2 of the largest
-    value of y, s1, s2)."""
-    x, w, scale, bias = _fmm_inputs(m, k, n, "bfloat16", dev)[:4]
+def test_fused_matmul_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue,
+                                                    dtype, m, k, n, offset,
+                                                    vec):
+    """Where a start or a row width does not allow 16-byte loads (``vec``
+    false), the forward tile of each dtype loads element by element;
+    there, with 16-byte loads, and where K streams in several steps, it
+    matches the plain version within ``_DX_TOL`` (float32 1e-5, bfloat16
+    2e-2 of the largest value of y, s1, s2), two runs bit for bit."""
+    x, w, scale, bias = _fmm_inputs(m, k, n, dtype, dev)[:4]
     if not prologue:
         scale = bias = None
     if offset:
         x = _shift(x, offset)
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    assert k > 64 or not (fb._vec16(x) and fb._vec16(w))
+    assert (fb._vec16(x) and fb._vec16(w)) == vec
     got = fb.fused_matmul_bn_fwd(x, w, scale, bias)
+    again = fb.fused_matmul_bn_fwd(x, w, scale, bias)
     want = fb.matmul_bn_reference(x, w, scale, bias)
     torch.cuda.synchronize()
-    for what, g, r in zip(("y", "s1", "s2"), got, want):
-        _within(g, r, 2e-2, what)
+    for what, g, a, r in zip(("y", "s1", "s2"), got, again, want):
+        _within(g, r, _DX_TOL[dtype], what)
+        assert torch.equal(g, a), what
 
 
 def test_small_fused_resnet_step_on_the_card_matches_cpu(dev, no_tf32):
@@ -783,11 +797,12 @@ def test_fused_conv3_bn_dw_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("dtype,route", [("float32", "FMA"),
+@pytest.mark.parametrize("dtype,route", [("float32", "3xTF32"),
                                          ("bfloat16", "tensor-core")])
 def test_fused_conv3_bn_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
-    """float32 inputs run kernel 13's FMA tile; bfloat16 its tensor-core
-    tile (fused_conv3_bn_fwd_mma), as the profiler sees."""
+    """float32 inputs run kernel 13's 3xTF32 tensor-core tile
+    (fused_conv3_bn_fwd_tf32); bfloat16 its bf16 tensor-core tile
+    (fused_conv3_bn_fwd_mma), as the profiler sees."""
     x, k, scale, bias = _conv_inputs(2, 5, 9, 16, 8, dtype, dev)[:4]
     hits = {n for n in _kernel_names(fc.fused_conv3_bn_fwd,
                                      (x, k, scale, bias))
@@ -796,36 +811,52 @@ def test_fused_conv3_bn_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
     name, = hits
     assert "fused_conv3_bn_fwd" in name, name
     assert ("fused_conv3_bn_fwd_mma" in name) == (route == "tensor-core"), name
+    assert ("fused_conv3_bn_fwd_tf32" in name) == (route == "3xTF32"), name
 
 
 @pytest.mark.parametrize("prologue", [False, True])
-@pytest.mark.parametrize("n,h,w,c,co,offset", [
-    (2, 5, 9, 12, 20, 0),     # C and C_out not multiples of 8
-    (3, 6, 6, 16, 13, 0),     # C_out under two 16-byte chunks
-    (2, 7, 7, 5, 64, 0),      # C under one 16-byte chunk
-    (4, 14, 14, 64, 64, 1),   # rows of 8 elements, starts off 16 bytes
-    (1, 3, 130, 8, 8, 0),     # an image row in three segments
-    (1, 2, 70, 72, 24, 0),    # C > 64: channels in chunks of 32
-    (2, 6, 6, 80, 200, 0),    # and C_out in two tiles of 128
+@pytest.mark.parametrize("dtype,n,h,w,c,co,offset,vec", [
+    ("float32", 2, 5, 9, 6, 20, 0, False),      # C not a multiple of 4
+    ("float32", 3, 6, 6, 16, 13, 0, False),     # C_out not a multiple of 4
+    ("float32", 2, 7, 7, 3, 64, 0, False),      # C under one 16-byte chunk
+    ("float32", 4, 14, 14, 64, 64, 1, False),   # starts off 16 bytes
+    ("float32", 1, 3, 130, 8, 8, 0, True),      # a row in three segments
+    ("float32", 1, 2, 70, 72, 24, 0, True),     # C > 64: in chunks of 32
+    ("float32", 2, 6, 6, 80, 200, 0, True),     # and C_out in four tiles
+    ("float32", 16, 6, 6, 16, 260, 0, True),    # C_out in five tiles
+    ("float32", 128, 56, 56, 64, 64, 0, True),  # the representative launch
+    ("bfloat16", 2, 5, 9, 12, 20, 0, False),    # C and C_out not multiples
+                                                # of 8
+    ("bfloat16", 3, 6, 6, 16, 13, 0, False),    # C_out under two chunks
+    ("bfloat16", 2, 7, 7, 5, 64, 0, False),     # C under one 16-byte chunk
+    ("bfloat16", 4, 14, 14, 64, 64, 1, False),  # starts off 16 bytes
+    ("bfloat16", 1, 3, 130, 8, 8, 0, True),     # a row in three segments
+    ("bfloat16", 1, 2, 70, 72, 24, 0, True),    # C > 64: in chunks of 32
+    ("bfloat16", 2, 6, 6, 80, 200, 0, True),    # and C_out in two tiles
 ])
-def test_fused_conv3_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue, n,
-                                                   h, w, c, co, offset):
-    """Where a start or a channel count does not allow 16-byte loads (and
-    where rows take several segments, or C and C_out several chunks and
-    tiles), the bfloat16 forward tile matches the plain version within
-    the bfloat16 tolerance (2e-2 of the largest value of y, s1, s2)."""
-    x, k, scale, bias = _conv_inputs(n, h, w, c, co, "bfloat16", dev)[:4]
+def test_fused_conv3_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue,
+                                                   dtype, n, h, w, c, co,
+                                                   offset, vec):
+    """Where a start or a channel count does not allow 16-byte loads
+    (``vec`` false), the forward tile of each dtype loads element by
+    element; there, with 16-byte loads, and where rows take several
+    segments or C and C_out several chunks and tiles, it matches the
+    plain version within ``_DX_TOL`` (float32 1e-5, bfloat16 2e-2 of the
+    largest value of y, s1, s2), two runs bit for bit."""
+    x, k, scale, bias = _conv_inputs(n, h, w, c, co, dtype, dev)[:4]
     if not prologue:
         scale = bias = None
     if offset:
         x = _shift(x, offset)
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    assert w > 62 or c > 64 or not (fb._vec16(x) and fb._vec16(k))
+    assert (fb._vec16(x) and fb._vec16(k)) == vec
     got = fc.fused_conv3_bn_fwd(x, k, scale, bias)
+    again = fc.fused_conv3_bn_fwd(x, k, scale, bias)
     want = fc.conv3_bn_reference(x, k, scale, bias)
     torch.cuda.synchronize()
-    for what, g, r in zip(("y", "s1", "s2"), got, want):
-        _within(g, r, 2e-2, what)
+    for what, g, a, r in zip(("y", "s1", "s2"), got, again, want):
+        _within(g, r, _DX_TOL[dtype], what)
+        assert torch.equal(g, a), what
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -835,8 +866,8 @@ def test_fused_conv3_bn_fwd_mma_loads_element_wise(dev, no_tf32, prologue, n,
 def test_fused_conv3_bn_fwd_is_bit_for_bit_repeatable(dev, dtype, n, h, w, c,
                                                       co):
     """No atomics: the sums of y and y² are float32 partial rows (one a
-    run of stages in bfloat16, one a block of 128 rows in float32) that
-    the wrapper sums in a fixed order, so two calls give the same bits."""
+    run of stages in either dtype) that the wrapper sums in a fixed
+    order, so two calls give the same bits."""
     args = _conv_inputs(n, h, w, c, co, dtype, dev)[:4]
     first, second = (fc.fused_conv3_bn_fwd(*args) for _ in range(2))
     torch.cuda.synchronize()
@@ -1218,15 +1249,13 @@ def test_flash_bwd_is_bit_for_bit_repeatable(dev):
 def test_flash_bwd_runs_the_kernels_of_its_dtype(dev, dtype, route):
     """float32 inputs run the float32-FMA backward kernels; bfloat16 the
     tensor-core kernels (names ending in _mma), as the profiler sees."""
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=dev).manual_seed(5)
     dt = getattr(torch, dtype)
     q, k, v, g = (_bthd(1, 2, 100, 64, dt, dev, gen) for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v, causal=True, out_dtype=torch.float32)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fa.flash_bwd(q, k, v, o, lse, g, causal=True)
-        torch.cuda.synchronize()
-    names = {e.name for e in prof.events()}
+    names = {n for n in _kernel_names(
+        lambda *a: fa.flash_bwd(*a, causal=True), (q, k, v, o, lse, g))
+        if "flash_" in n}
     for part in ("flash_bwd_dkdv", "flash_bwd_dq"):
         hits = [n for n in names if part in n]
         assert len(hits) == 1, (part, names)
@@ -1239,15 +1268,13 @@ def test_flash_fwd_runs_the_kernel_of_its_dtype(dev, dtype, route):
     """float32 inputs run the float32-FMA forward kernel; bfloat16 the
     tensor-core kernel (flash_fwd_mma), for either output type, as the
     profiler sees."""
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=dev).manual_seed(6)
     dt = getattr(torch, dtype)
     q, k, v = (_bthd(1, 2, 100, 64, dt, dev, gen) for _ in range(3))
     for out_dtype in (None, torch.float32):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fa.flash_fwd(q, k, v, causal=True, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-        hits = {e.name for e in prof.events() if "flash_" in e.name}
+        hits = {n for n in _kernel_names(
+            lambda *a: fa.flash_fwd(*a, causal=True, out_dtype=out_dtype),
+            (q, k, v)) if "flash_" in n}
         assert len(hits) == 1, hits
         name, = hits
         assert "flash_fwd" in name, name

@@ -34,7 +34,12 @@ from a seed and handed to both.
   float32 product) emulated by ``_kernel_dw_tf32`` and
   ``_kernel_fmm_dx_tf32`` and held to the JAX VJP's dw, and its dx,
   dscale and dbias, within the float32 tolerance, with and without the
-  prologue.
+  prologue;
+* kernel 10's float32 tile (``fused_matmul_bn_fwd_tf32``, the card only)
+  emulated by ``_kernel_fmm_fwd_tf32`` and held to the JAX package's
+  Pallas forward ``_fwd_impl`` (interpret mode) in float32, with and
+  without the prologue, and its split rule's float32 runs tiling M in
+  whole 128-row blocks at 64 columns a tile.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -406,7 +411,8 @@ def test_kernel_fwd_arithmetic_matches_jax(m, k, n, prologue):
     sc = j["scale"] if prologue else jnp.ones((k,), jnp.float32)
     bi = j["bias"] if prologue else jnp.zeros((k,), jnp.float32)
     want = jfb._fwd_impl(j["x"], j["w"], sc, bi, prologue)
-    for run_rows in (fb.fwd_mma_split(m, k, n, sms=132)[0], _FWD_ROWS):
+    for run_rows in (fb.fwd_mma_split(m, k, n, 132, torch.bfloat16)[0],
+                     _FWD_ROWS):
         got = _kernel_fmm_fwd(t["x"], t["w"], t["scale"] if prologue else None,
                               t["bias"] if prologue else None, run_rows)
         for name, g, r in zip(("y", "s1", "s2"), got, want):
@@ -425,7 +431,7 @@ def test_fwd_mma_split_tiles_m_in_whole_stages(m, k, n, sms):
     limit, and no other run length leaves the slowest SM less work (runs
     x column tiles blocks, _FWD_BLOCKS_PER_SM of them an SM at a time)
     among the lengths searched."""
-    rows, runs = fb.fwd_mma_split(m, k, n, sms)
+    rows, runs = fb.fwd_mma_split(m, k, n, sms, torch.bfloat16)
     assert rows > 0 and rows % _FWD_ROWS == 0
     assert (runs - 1) * rows < m <= runs * rows
     assert 1 <= runs <= 65535
@@ -675,3 +681,96 @@ def test_kernel_dx_tf32_arithmetic_matches_jax(m, k, n, prologue):
         _close(got[2], dbi, TOL["float32"], "dbias")
     else:
         assert got[1] is None and got[2] is None
+
+
+# ---------------------------------------------------------------------------
+# kernel 10's float32 tile (fused_matmul_bn_fwd_tf32), by its arithmetic
+# ---------------------------------------------------------------------------
+
+# kernel 10's float32 tile: 16 columns of x a stage
+_TF32_FWD_STAGE = 16
+
+
+def _kernel_fmm_fwd_tf32(x, w, scale, bias, run_rows):
+    """``(y, s1, s2)`` by the arithmetic of kernel 10's float32 tile: xn
+    = relu(x*scale + bias) in float32 (or x), unrounded to any narrower
+    type; along K in 16-column stages, each 8-column m16n8k8 step's three
+    tf32 products of xn and w (``_products_3xtf32``) added in order to the
+    stage's float32 part, which starts at 0 each stage, one rounding each;
+    each part added to the float32 y; s1 and s2 the float32 sums of y and
+    y^2 over each run of ``run_rows`` rows, the runs' partials then added
+    in order.  Rows past M are absent, as the kernel zeroes them and
+    stores none of them."""
+    a = fc.prologue(x, scale, bias).numpy()
+    wn = w.numpy()
+    m, k = a.shape
+    y = np.zeros((m, wn.shape[1]), np.float32)
+    for s0 in range(0, k, _TF32_FWD_STAGE):
+        part = np.zeros_like(y)
+        for k0 in range(s0, min(k, s0 + _TF32_FWD_STAGE), _TF32_DEPTH):
+            cols = slice(k0, min(k, k0 + _TF32_DEPTH))
+            for p in _products_3xtf32(a[:, cols].T, wn[cols]):
+                part = _add_f32(part, p)
+        y = y + part
+    s1 = np.zeros(wn.shape[1], np.float32)
+    s2 = np.zeros(wn.shape[1], np.float32)
+    for r0 in range(0, m, run_rows):
+        rows = y[r0:r0 + run_rows]
+        s1 = s1 + rows.sum(axis=0, dtype=np.float32)
+        s2 = s2 + (rows * rows).sum(axis=0, dtype=np.float32)
+    return y, s1, s2
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + [(300, 60, 100)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_kernel_fwd_tf32_arithmetic_matches_jax(m, k, n, prologue):
+    """The float32 forward kernel's order of products, sums and roundings
+    (the split rule's runs, and runs of one row block, so that the
+    partials' sum is exercised) within TOL["float32"] (1e-5 of the largest
+    |JAX| value) of the JAX package's Pallas forward ``_fwd_impl`` in
+    interpret mode, float32: y, s1 and s2, at column tiles past N = 64
+    (128, 72, 256, 100: the last ragged at 72 and 100), ragged M (200,
+    300), K not a multiple of the 16-column stage (72, 60) and K not a
+    multiple of 8 (60).  Measured at these inputs: 7.6e-8 to 5.9e-7 of
+    the largest |JAX| value (float32 sums in another order)."""
+    a = _inputs(m, k, n, seed=m + k + n + 1)
+    j, t = _to_jax(a, "float32"), _to_torch(a, "float32")
+    sc = j["scale"] if prologue else jnp.ones((k,), jnp.float32)
+    bi = j["bias"] if prologue else jnp.zeros((k,), jnp.float32)
+    want = jfb._fwd_impl(j["x"], j["w"], sc, bi, prologue)
+    for run_rows in (fb.fwd_mma_split(m, k, n, 132, torch.float32)[0],
+                     _FWD_ROWS):
+        got = _kernel_fmm_fwd_tf32(t["x"], t["w"],
+                                   t["scale"] if prologue else None,
+                                   t["bias"] if prologue else None, run_rows)
+        for name, g, r in zip(("y", "s1", "s2"), got, want):
+            _close(g, np.asarray(r), TOL["float32"],
+                   f"fwd_tf32 {name} run_rows={run_rows}")
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 64), (31, 64, 256), (33, 2048, 2048), (200, 96, 72),
+    (401408, 64, 64), (401408, 64, 256), (401408, 256, 64),
+    (100352, 128, 512), (25088, 512, 1024), (6272, 2048, 512),
+    (6272, 1024, 2048), (3 * 10 ** 7, 64, 64), (2 ** 31 - 1, 8, 8)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fwd_mma_split_float32_tiles_m_in_whole_stages(m, k, n, sms):
+    """The float32 tile takes 64 columns of y a block at every N, and its
+    runs of whole 128-row blocks tile M exactly within the grid's limit;
+    no other run length leaves the slowest SM less work (runs x column
+    tiles of 64 blocks, _FWD_BLOCKS_PER_SM of them an SM at a time) among
+    the lengths searched."""
+    assert fb.fwd_mma_tile(n, torch.float32) == 64
+    rows, runs = fb.fwd_mma_split(m, k, n, sms, torch.float32)
+    assert rows > 0 and rows % _FWD_ROWS == 0
+    assert (runs - 1) * rows < m <= runs * rows
+    assert 1 <= runs <= 65535
+    blocks, tiles = -(-m // _FWD_ROWS), -(-n // 64)
+    slots = fb._FWD_BLOCKS_PER_SM * sms
+
+    def cost(r):
+        return -(-(-(-blocks // r) * tiles) // slots) * r
+
+    least = -(-blocks // 65535)
+    for r in range(least, max(least, min(blocks, fb._FWD_MAX_RUN)) + 1):
+        assert cost(rows // _FWD_ROWS) <= cost(r)

@@ -41,7 +41,12 @@ from a seed and handed to both.
   ``fused_conv3_bn_dx_tf32``, the card only, three tf32 products a
   float32 product) by their arithmetic, ``_kernel_conv3_dw_tf32`` and
   ``_kernel_conv3_dx_tf32``, against the JAX VJP in float32, and their
-  split helpers.
+  split helpers;
+* kernel 13's float32 tile (``fused_conv3_bn_fwd_tf32``, the card only)
+  by its arithmetic, ``_kernel_conv3_fwd_tf32``, against the Pallas
+  forward ``_fc3`` in interpret mode in float32, with ragged C and C_out
+  and image rows of several segments, with and without the prologue,
+  and its split helper's float32 runs.
 
 Tolerances, each max |port - JAX| against the largest |JAX| value of the
 tensor: float32 1e-5 (the same formulas, sums in another order);
@@ -593,11 +598,12 @@ def _kernel_conv3_fwd(x, w, scale, bias, sms=132, run_stages=None):
     xn = x if scale is None else _bf16(np.maximum(x * scale + bias, 0))
     stages, b, hh, px, live, keep = _walk(n, h, wd)
     if run_stages is None:
-        run_stages, runs = fc.fwd_mma_split(n, h, wd, c, co, sms)
+        run_stages, runs = fc.fwd_mma_split(n, h, wd, c, co, sms,
+                                            torch.bfloat16)
     else:
         runs = -(-stages // run_stages)
     assert runs == -(-stages // run_stages) and run_stages <= stages
-    kc = fc.fwd_mma_tile(c, co)[1]
+    kc = fc.fwd_mma_tile(c, co, torch.bfloat16)[1]
     acc = np.zeros((stages, _POS, co), np.float32)
     for dh in (-1, 0, 1):
         ok = live & (hh + dh >= 0) & (hh + dh < h) & (px >= 0) & (px < wd)
@@ -671,13 +677,13 @@ def test_fwd_mma_arithmetic_matches_the_pallas_forward(shape, prologue):
 def test_fwd_mma_split_tiles_the_pixels_in_whole_stages(sms, n, h, w, c, co):
     _, stage_segs, row_segs = fc.dw_mma_geometry(w)
     stages = -(-(n * h * row_segs) // stage_segs)
-    run_stages, runs = fc.fwd_mma_split(n, h, w, c, co, sms)
+    run_stages, runs = fc.fwd_mma_split(n, h, w, c, co, sms, torch.bfloat16)
     # runs of whole stages cover every stage once, within the grid's
     # limit, and enough of them that every SM gets a block where the
     # stages allow
     assert 1 <= run_stages <= stages and runs <= 65535
     assert (runs - 1) * run_stages < stages <= runs * run_stages
-    bn, kc = fc.fwd_mma_tile(c, co)
+    bn, kc = fc.fwd_mma_tile(c, co, torch.bfloat16)
     assert bn in (64, 128) and (bn == 64) == (co <= 64)
     assert kc == (64 if c <= 64 else 32)
     assert runs * -(-co // bn) >= min(sms, stages)
@@ -941,3 +947,116 @@ def test_dx_mma_split_float32_tiles_the_pixels_in_whole_stages(sms, n, h, w,
     assert (runs - 1) * run_stages < stages <= runs * run_stages
     assert fc.dx_mma_tile(c, co, torch.float32) == (64, 32)
     assert runs * -(-c // 64) >= min(sms, stages)
+
+
+# ---------------------------------------------------------------------------
+# kernel 13's float32 tile, by its arithmetic
+# ---------------------------------------------------------------------------
+
+def _kernel_conv3_fwd_tf32(x, w, scale, bias, sms=132, run_stages=None):
+    """``(y, s1, s2)`` by ``fused_conv3_bn_fwd_tf32``'s arithmetic, on
+    float32 numpy arrays: xn = relu(x*scale + bias) in float32 (or x);
+    the pixels walked as the bfloat16 tiles walk them (``_walk``), a
+    stage's xn of image row h + dh a tile with a zero guard row on either
+    side and 0 outside the image, so that tap dw is the tile at row
+    offset dw + 1; xn and w split into tf32 hi + lo; per stage the depth
+    in steps (dh, chunk of ``fc.fwd_mma_tile``'s 32 input channels), each
+    step's three taps and 8-deep m16n8k8 steps in order, each step's
+    three products lo·hi, hi·lo, hi·hi summed exactly and added with one
+    rounding to the step's float32 part, which starts at 0 each step;
+    each part added to the float32 y; y kept at the segments' own pixels;
+    s1 and s2 of y, one float32 partial per run (``fc.fwd_mma_split``
+    unless ``run_stages`` is given), the runs then added in order."""
+    n, h, wd, c = x.shape
+    co = w.shape[-1]
+    xn = x if scale is None else np.maximum(x * scale + bias, 0)
+    stages, b, hh, px, live, keep = _walk(n, h, wd)
+    if run_stages is None:
+        run_stages, runs = fc.fwd_mma_split(n, h, wd, c, co, sms,
+                                            torch.float32)
+    else:
+        runs = -(-stages // run_stages)
+    assert runs == -(-stages // run_stages) and run_stages <= stages
+    kc = fc.fwd_mma_tile(c, co, torch.float32)[1]
+    acc = np.zeros((stages, _POS, co), np.float32)
+    for dh in (-1, 0, 1):
+        ok = live & (hh + dh >= 0) & (hh + dh < h) & (px >= 0) & (px < wd)
+        x_tile = np.where(ok[..., None],
+                          xn[b, (hh + dh).clip(0, h - 1), px.clip(0, wd - 1)],
+                          0)
+        # the guard rows
+        x_hi, x_lo = _split_tf32(np.pad(x_tile, ((0, 0), (1, 1), (0, 0))))
+        for c0 in range(0, c, kc):
+            part = np.zeros_like(acc)
+            for tap in range(3):          # dw = tap - 1: row offset tap
+                a_hi = x_hi[:, tap:tap + _POS]
+                a_lo = x_lo[:, tap:tap + _POS]
+                for k0 in range(c0, min(c, c0 + kc), _TF32_DEPTH):
+                    ks = slice(k0, min(c, k0 + _TF32_DEPTH))
+                    w_hi, w_lo = _split_tf32(w[dh + 1, tap, ks])
+                    for p, q in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)):
+                        step = np.einsum("spc,co->spo",
+                                         p[..., ks].astype(np.float64),
+                                         q.astype(np.float64))
+                        part = (part.astype(np.float64) + step).astype(
+                            np.float32)
+            acc = acc + part
+    y = np.zeros((n, h, wd, co), np.float32)
+    y[b[keep], hh[keep], px[keep]] = acc[keep]
+    s1 = np.zeros(co, np.float32)
+    s2 = np.zeros(co, np.float32)
+    for r in range(runs):
+        rows = acc[r * run_stages:(r + 1) * run_stages][
+            keep[r * run_stages:(r + 1) * run_stages]]
+        s1 = s1 + rows.sum(axis=0, dtype=np.float32)
+        s2 = s2 + (rows * rows).sum(axis=0, dtype=np.float32)
+    return y, s1, s2
+
+
+@pytest.mark.parametrize("shape", FWD_MMA_SHAPES + [MULTI_NBLOCK])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_fwd_tf32_arithmetic_matches_the_pallas_forward(shape, prologue):
+    """``_kernel_conv3_fwd_tf32`` (the plan's runs, and one stage a run,
+    so that the partials' sum is exercised) against the JAX package's
+    Pallas forward ``_fc3`` in interpret mode, float32: y, s1 and s2
+    within TOL["float32"] (1e-5) of their largest |JAX| value, at image
+    rows in several segments (W = 130, 70), C = 72 (three chunks of 32
+    input channels, the last ragged), C_out not a multiple of 4 or of the
+    64-channel tile (24, 8; 260 in five tiles, the last ragged).  On these
+    inputs they land 4.9e-8 to 5.2e-7 of the largest |JAX| value apart
+    (float32 sums in another order)."""
+    a = _inputs(*shape, seed=17 + sum(shape))
+    j = _to_jax(a, "float32")
+    assert jfc._Geom(j["x"], shape[4]).fits()
+    c = shape[3]
+    sc = j["scale"] if prologue else jnp.ones((c,), jnp.float32)
+    bi = j["bias"] if prologue else jnp.zeros((c,), jnp.float32)
+    want = [np.asarray(v) for v in jfc._fc3(j["x"], j["w"], sc, bi, prologue)]
+    args = (a["x"], a["w"], a["scale"] if prologue else None,
+            a["bias"] if prologue else None)
+    for run_stages in (None, 1):
+        got = _kernel_conv3_fwd_tf32(*args, run_stages=run_stages)
+        for name, gv, wv in zip(("y", "s1", "s2"), got, want):
+            _close(gv, wv, TOL["float32"],
+                   f"fwd_tf32 {name} runs={run_stages}")
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (128, 56, 56, 64, 64), (128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+    (128, 7, 7, 512, 512),             # ResNet-50's 3x3 shapes at B=128
+    (2, 8, 8, 16, 24), (2, 5, 9, 16, 8), (16, 6, 6, 16, 260),
+    (1, 1, 1, 3, 5), (3, 2, 62, 8, 8), (1, 4, 200, 8, 8), (1, 2, 70, 72, 24),
+    (2, 6, 6, 80, 200)])
+def test_fwd_mma_split_float32_tiles_the_pixels_in_whole_stages(sms, n, h, w,
+                                                                c, co):
+    _, stage_segs, row_segs = fc.dw_mma_geometry(w)
+    stages = -(-(n * h * row_segs) // stage_segs)
+    run_stages, runs = fc.fwd_mma_split(n, h, w, c, co, sms, torch.float32)
+    # runs of whole stages cover every stage once, within the grid's
+    # limit, and enough of them that every SM gets a block of 64 output
+    # channels where the stages allow
+    assert 1 <= run_stages <= stages and runs <= 65535
+    assert (runs - 1) * run_stages < stages <= runs * run_stages
+    assert fc.fwd_mma_tile(c, co, torch.float32) == (64, 32)
+    assert runs * -(-co // 64) >= min(sms, stages)
