@@ -24,8 +24,11 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    3x3's forward, dx and weight gradient (13, 14 and 16) by dtype too,
    every one a tensor-core tile, bf16 for bfloat16 and 3xTF32 for
    float32, each also where it loads rows element by element, and two
-   runs bit for bit, as two runs of the LayerNorm backward), with
-   the stated tolerances, and its time beside the plain version's, one
+   runs bit for bit, as two runs of the LayerNorm and RMSNorm
+   backwards; the LayerNorm forward also with float32 gamma and beta on
+   bfloat16 x, and both row kernels also where x starts off 16 bytes,
+   with the kernels of their wrappers' calls by the profiler's names),
+   with the stated tolerances, and its time beside the plain version's, one
    PyTorch library call's and the bound (the fused kernels' in both
    dtypes);
 4. BERT-base at full width in process — one forward at B=8, T=128 on
@@ -160,6 +163,18 @@ LN_SHAPES = [((B * T // 8, HIDDEN), "float32"),
              ((ROWS, HIDDEN), "bfloat16"),
              ((1000, 100), "float32"),
              ((3, 4096), "bfloat16")]
+# kernel 1's other instances, (shape, x dtype, gamma/beta dtype, offset of
+# x in elements): float32 gamma and beta on bfloat16 x, as amp keeps them
+# on BERT's bf16 path; a width that fills part of a lane's last chunks; a
+# bf16 width that is no multiple of a chunk and x one element past a
+# 16-byte boundary, which both load element by element
+LN_VARIANTS = [((B * T, HIDDEN), "bfloat16", "float32", 0),
+               ((ROWS, HIDDEN), "bfloat16", "float32", 0),
+               ((64, 1000), "float32", "float32", 0),
+               ((64, 1000), "bfloat16", "bfloat16", 0),
+               ((64, 770), "bfloat16", "bfloat16", 0),
+               ((64, HIDDEN), "float32", "float32", 1),
+               ((64, HIDDEN), "bfloat16", "float32", 1)]
 LN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # on y; stats always 1e-5
 STAT_TOL = 1e-5
 
@@ -290,6 +305,17 @@ TF_B_CPU, TF_T_CPU = 2, 129
 SM_PATH = (TF_B * TF_H * (TF_T - 1), TF_T - 1)
 RMS_PATH = (TF_B * (TF_T - 1), TF_D)
 ROW_WIDTHS = [1, 7, 300, 1000, 1024, 16385]
+# kernels 8-9's other instances, (rows, cols, x dtype, gamma dtype,
+# offset of x in elements): BERT's width in both dtypes, a width that is
+# no multiple of a chunk (element loads), float32 gamma on bfloat16 x
+# (dgamma in float32) and x one element past a 16-byte boundary
+RMS_VARIANTS = [(64, 768, "float32", "float32", 0),
+                (64, 768, "bfloat16", "bfloat16", 0),
+                (64, 1001, "float32", "float32", 0),
+                (64, 1001, "bfloat16", "bfloat16", 0),
+                (4096, TF_D, "bfloat16", "float32", 0),
+                (64, TF_D, "float32", "float32", 1),
+                (64, TF_D, "bfloat16", "bfloat16", 1)]
 # kernel against plain version, each output: float32 max|d| <= 1e-6 of
 # the largest |plain| value (the same float32 arithmetic, sums in
 # another order); bfloat16 within one bf16 ulp of each value (the same
@@ -447,22 +473,38 @@ def time_ms(torch, fn, argsets, iters=200, warmup=20):
     return (device_us / 1e3 / iters if device_us else None), stream_ms
 
 
-def ln_inputs(torch, shape, dtype, seed, device):
+def offset_copy(torch, a, offset):
+    """``a`` copied into a buffer at ``offset`` elements past its start:
+    contiguous, but no longer on 16 bytes for an odd offset."""
+    if not offset:
+        return a
+    buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=a.device)
+    return buf[offset:].view(a.shape).copy_(a)
+
+
+def ln_inputs(torch, shape, dtype, seed, device, pdtype=None, offset=0):
+    """``(x, gamma, beta)``: x in ``dtype`` (``offset`` elements into its
+    buffer), gamma and beta in ``pdtype`` (default x's)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(shape, generator=g) * 2.0 + 0.5
     gamma = 1.0 + 0.1 * torch.randn(shape[-1], generator=g)
     beta = 0.1 * torch.randn(shape[-1], generator=g)
     dt = getattr(torch, dtype)
-    return tuple(a.to(device, dt) for a in (x, gamma, beta))
+    pdt = getattr(torch, pdtype or dtype)
+    return (offset_copy(torch, x.to(device, dt), offset),
+            gamma.to(device, pdt), beta.to(device, pdt))
 
 
 def check_layer_norm(torch, ln, dev):
-    """Kernel against plain version at every shape; returns the max
-    |Δy| over the main paths' float32 shapes, serving (B·T, 768) and
-    training (2048, 768)."""
+    """Kernel against plain version at every shape and variant, then the
+    kernels of the wrapper's calls by the profiler's names: one kernel,
+    with float32 gamma and beta on bfloat16 x too (no cast).  Returns
+    the max |Δy| over the main paths' float32 shapes, serving (B·T, 768)
+    and training (2048, 768)."""
     path_err = 0.0
-    for shape, dtype in LN_SHAPES:
-        x, g, b = ln_inputs(torch, shape, dtype, 0, dev)
+    cases = [(shape, dtype, dtype, 0) for shape, dtype in LN_SHAPES]
+    for shape, dtype, pdtype, offset in cases + LN_VARIANTS:
+        x, g, b = ln_inputs(torch, shape, dtype, 0, dev, pdtype, offset)
         y, mean, rstd = ln.layer_norm_fwd(x, g, b)
         ry, rmean, rrstd = ln.layer_norm_fwd_reference(x, g, b)
         torch.cuda.synchronize()
@@ -471,12 +513,23 @@ def check_layer_norm(torch, ln, dev):
         torch.testing.assert_close(mean, rmean, rtol=STAT_TOL, atol=STAT_TOL)
         torch.testing.assert_close(rstd, rrstd, rtol=STAT_TOL, atol=STAT_TOL)
         err = (y.float() - ry.float()).abs().max().item()
-        print(f"layer_norm {shape} {dtype}: max|dy|={err:.3e} "
+        print(f"layer_norm {shape} {dtype}, gamma/beta {pdtype}, x offset "
+              f"{offset}: max|dy|={err:.3e} "
               f"max|dmean|={(mean - rmean).abs().max().item():.3e} "
               f"max|drstd|={(rstd - rrstd).abs().max().item():.3e} "
               f"(tol {tol:g}) ok", flush=True)
-        if shape in ((B * T, HIDDEN), (ROWS, HIDDEN)) and dtype == "float32":
+        if (shape in ((B * T, HIDDEN), (ROWS, HIDDEN)) and dtype == "float32"
+                and not offset):
             path_err = max(path_err, err)
+    for shape, dtype, pdtype, offset in (
+            ((ROWS, HIDDEN), "float32", "float32", 0),
+            ((ROWS, HIDDEN), "bfloat16", "float32", 0),
+            ((64, HIDDEN), "bfloat16", "float32", 1)):
+        args = ln_inputs(torch, shape, dtype, 0, dev, pdtype, offset)
+        names = kernel_names(torch, ln.layer_norm_fwd, args)
+        print(f"layer_norm_fwd {shape} {dtype}, gamma/beta {pdtype}, x "
+              f"offset {offset} runs {names}", flush=True)
+        assert len(names) == 1 and "layer_norm_fwd_warp" in names[0], names
     return path_err
 
 
@@ -503,20 +556,30 @@ def report(label, times, nbytes, rate, flops=0, peak=FP32_PEAK):
     return out
 
 
-def time_layer_norm(torch, ln, dev, dtype, rate):
-    """Times at the serving shape, cycling 24 input sets (72 MiB in
-    float32) so that the reads come from device memory, not L2."""
+def time_layer_norm(torch, ln, dev, dtype, rate, rows=B * T, pdtype=None):
+    """Times at ``rows`` rows of BERT's width (the serving shape by
+    default) with gamma and beta in ``pdtype`` (default x's), cycling at
+    least 24 input sets and 72 MiB of x so that the reads come from
+    device memory, not L2.  The library call gets gamma and beta cast to
+    x's dtype before it is timed (the same function)."""
     import torch.nn.functional as F
-    rows, cols = B * T, HIDDEN
-    sets = [ln_inputs(torch, (rows, cols), dtype, s, dev) for s in range(24)]
+    cols = HIDDEN
+    pdtype = pdtype or dtype
+    esize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    n_sets = max(24, -(-(72 << 20) // (rows * cols * esize)))
+    sets = [ln_inputs(torch, (rows, cols), dtype, s, dev, pdtype)
+            for s in range(n_sets)]
+    lib_sets = [(x, g.to(x.dtype), b.to(x.dtype)) for x, g, b in sets]
     times = {
         "ms": time_ms(torch, ln.layer_norm_fwd, sets),
         "plain_ms": time_ms(torch, ln.layer_norm_fwd_reference, sets),
         "library_ms": time_ms(torch, lambda x, g, b: F.layer_norm(
-            x, (cols,), g, b, 1e-5), sets)}
-    esize = sets[0][0].element_size()
-    nbytes = rows * cols * 2 * esize + 2 * cols * esize + 2 * rows * 4
-    return report(f"layer_norm ({rows}, {cols}) {dtype}", times, nbytes, rate)
+            x, (cols,), g, b, 1e-5), lib_sets)}
+    psize = sets[0][1].element_size()
+    # x read, y written; gamma and beta read; mean and rstd written
+    nbytes = rows * cols * 2 * esize + 2 * cols * psize + 2 * rows * 4
+    return report(f"layer_norm ({rows}, {cols}) {dtype}, gamma/beta "
+                  f"{pdtype}", times, nbytes, rate)
 
 
 def ln_bwd_inputs(torch, ln, shape, dtype, seed, dev):
@@ -971,41 +1034,51 @@ def time_flash(torch, fa, dev, rate):
     return out
 
 
-def rms_inputs(torch, rows, cols, dtype, dev, seed):
-    """``(x, gamma, g)`` on the card in ``dtype``."""
+def rms_inputs(torch, rows, cols, dtype, dev, seed, gdtype=None, offset=0):
+    """``(x, gamma, g)`` on the card: x and g in ``dtype`` (x ``offset``
+    elements into its buffer), gamma in ``gdtype`` (default x's)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, dtype)
     x = (torch.randn(rows, cols, generator=gen, device=dev) * 2 + 0.3).to(dt)
-    gamma = (torch.rand(cols, generator=gen, device=dev) + 0.5).to(dt)
-    return x, gamma, torch.randn(rows, cols, generator=gen,
-                                 device=dev).to(dt)
+    gamma = (torch.rand(cols, generator=gen, device=dev) + 0.5).to(
+        getattr(torch, gdtype or dtype))
+    return offset_copy(torch, x, offset), gamma, torch.randn(
+        rows, cols, generator=gen, device=dev).to(dt)
 
 
 def check_rms_norm(torch, rn, dev):
-    """Kernels 8 and 9 against their plain versions at every case; returns
-    the max |d y| and |d dx| at the path's shape, bfloat16 (the path's
-    dtype)."""
+    """Kernels 8 and 9 against their plain versions at every case and
+    variant, the backward twice, bit for bit; returns the max |d y| and
+    |d dx| at the path's shape, bfloat16 (the path's dtype)."""
     path_err = None
-    for rows, cols, dtype in row_cases(RMS_PATH):
-        x, gamma, g = rms_inputs(torch, rows, cols, dtype, dev, 0)
+    cases = [(rows, cols, dtype, dtype, 0)
+             for rows, cols, dtype in row_cases(RMS_PATH)]
+    for rows, cols, dtype, gdtype, offset in cases + RMS_VARIANTS:
+        x, gamma, g = rms_inputs(torch, rows, cols, dtype, dev, 0, gdtype,
+                                 offset)
         y, rrms = rn.rms_norm_fwd(x, gamma)
         dx, dgamma = rn.rms_norm_bwd(x, g, gamma, rrms)
+        again = rn.rms_norm_bwd(x, g, gamma, rrms)
         ry, rrrms = rn.rms_norm_fwd_reference(x, gamma)
         rdx, rdgamma = rn.rms_norm_bwd_reference(x, g, gamma, rrrms)
         torch.cuda.synchronize()
+        assert torch.equal(dx, again[0]) and torch.equal(dgamma, again[1]), (
+            (rows, cols, dtype, gdtype, offset), "two runs differ")
         # dx = rrms·gg − rrms³·x·Σ(gg·x)/n: held at the size of its terms,
         # which cancel (entirely at width 1, where dx is eps/x² of them)
         terms = (rrrms[:, None] * g.float() * gamma.float()).abs().max()
         errs = {k: row_err(torch, a, b) for k, a, b in (
             ("y", y, ry), ("rrms", rrms, rrrms), ("dgamma", dgamma, rdgamma))}
         errs["dx"] = row_err(torch, dx, rdx, terms.item())
-        print(f"rms_norm ({rows}, {cols}) {dtype}: max|d|/max|ref| "
+        print(f"rms_norm ({rows}, {cols}) {dtype}, gamma {gdtype}, x offset "
+              f"{offset}: max|d|/max|ref| "
               + " ".join(f"{k}={e:.2e}" for k, (e, _) in errs.items())
               + f" (tol {ROW_TOL:g} of max"
-              f"{', + 1 bf16 ulp' if dtype == 'bfloat16' else ''})",
-              flush=True)
-        assert all(ok for _, ok in errs.values()), ((rows, cols, dtype), errs)
-        if (rows, cols) == RMS_PATH and dtype == "bfloat16":
+              f"{', + 1 bf16 ulp' if dtype == 'bfloat16' else ''}); the "
+              "backward twice bit for bit", flush=True)
+        assert all(ok for _, ok in errs.values()), (
+            (rows, cols, dtype, gdtype, offset), errs)
+        if (rows, cols) == RMS_PATH and dtype == "bfloat16" and not offset:
             path_err = ((y.float() - ry.float()).abs().max().item(),
                         (dx.float() - rdx.float()).abs().max().item())
     return path_err
@@ -1043,6 +1116,16 @@ def time_rms_norm(torch, rn, dev, rate):
                   2 * n + cols * 2 + rows * 4, rate),
            report(f"rms_norm_bwd ({rows}, {cols}) bfloat16", bwd,
                   3 * n + 2 * cols * 2 + rows * 4, rate))
+    # the backward wrapper's trace: the rows' kernel and the partials'
+    # sum, no other launch (no torch.sum, no cast)
+    names = kernel_names(torch, rn.rms_norm_bwd, bwd_sets[0])
+    print(f"rms_norm_bwd ({rows}, {cols}) bfloat16 runs {names}", flush=True)
+    assert len(names) == 2 and any("rms_bwd_warp" in k for k in names) and (
+        any("rms_bwd_sum" in k for k in names)), names
+    share = time_by_kernel(torch, rn.rms_norm_bwd, bwd_sets,
+                           ("rms_bwd_warp", "rms_bwd_sum"))
+    print("rms_norm_bwd device ms a call by kernel: " + ", ".join(
+        f"{k} {v}" for k, v in share.items()), flush=True)
     del fwd_sets, bwd_sets, lib_sets
     return out
 
@@ -2787,6 +2870,8 @@ def main():
     ln_err = check_layer_norm(torch, ln, dev)
     ln_times = time_layer_norm(torch, ln, dev, "float32", rate)
     time_layer_norm(torch, ln, dev, "bfloat16", rate)
+    for rows in (B * T, ROWS):   # BERT's bf16 path: float32 gamma and beta
+        time_layer_norm(torch, ln, dev, "bfloat16", rate, rows, "float32")
     ln_bwd_err = check_layer_norm_bwd(torch, ln, dev)
     ln_bwd_times = time_layer_norm_bwd(torch, ln, dev, "float32", rate)
     time_layer_norm_bwd(torch, ln, dev, "bfloat16", rate)

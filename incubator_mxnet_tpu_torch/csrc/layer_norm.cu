@@ -11,25 +11,34 @@
 //   y    = (x - mean) * rstd * gamma + beta (written in x's type)
 //
 // and mean and rstd are written in float32, one per row.  gamma and
-// beta arrive in x's type: the wrapper casts them first, as the TPU
-// wrapper does.
+// beta arrive in float32 or in x's type; the kernel rounds them to x's
+// type in registers, as the TPU wrapper casts them, so the wrapper
+// launches no cast.
 //
 // Bound: memory traffic.  Each element costs about seven float
 // operations against rows*D*(bytes in + bytes out) moved, plus gamma
 // and beta once (they stay in L2), far below the card's ratio of
 // operations to bytes.  So the design moves each byte once: every
 // element of x is read from device memory once and every element of y
-// written once.  The first pass stages the row as float32 in shared
-// memory; the variance and output passes read it from there.  A row too
-// wide for shared memory (more than about 57k values) re-reads x
-// instead, which L2 then serves.
+// written once.  At BERT's (1024, 768) that is 6.3 MB, about 2 us at
+// the memory rate, so what costs time besides the bytes is waiting: on
+// barriers and on loads made one element at a time.
 //
-// Layout: a row of at most 512 values gets one warp (eight rows to a
-// block of 256 threads), reduced with warp shuffles alone.  A wider row
-// gets a whole block of up to 1024 threads, reduced with warp shuffles
-// and then across warps through shared memory.  Threads stride over the
-// row, so neighbouring threads touch neighbouring addresses; the last
-// stride is masked by the loop bound.
+// Layout: a row of at most 1024 values gets one warp and stays in its
+// registers, no shared memory and no barrier.  Lane l holds chunks l,
+// l + 32, ... of the row, 16 bytes each (4 float32 or 8 bf16 values)
+// where x, y, gamma and beta start on 16 bytes and D is a multiple of a
+// chunk, else single values l, l + 32, ....  The mean is a warp sum,
+// then the sum of squared differences a second warp sum over the same
+// registers (two passes, as on the TPU); y leaves in 16-byte stores and
+// lane 0 writes mean and rstd.  A block holds `warps` such rows (the
+// wrapper's choice).  A wider row gets a whole block of up to 1024
+// threads that stages the row as float32 in shared memory, reduced with
+// warp shuffles and then across warps through shared memory; the
+// variance and output passes read the staged row.  A row too wide for
+// shared memory (more than about 57k values) re-reads x instead, which
+// L2 then serves.  Its threads stride over the row, so neighbouring
+// threads touch neighbouring addresses.
 //
 // Backward.  Replaces `_ln_bwd_kernel`, launched by `_fused_ln_bwd`
 // (pallas_kernels.py).  Per row, with xhat = (x - mean) * rstd and
@@ -77,55 +86,125 @@ using mx::from_float;
 using mx::row_sum;
 using mx::to_float;
 
-constexpr int kSmallRow = 512;        // widest row that gets one warp
-constexpr int kWarpRowsBlock = 256;   // block size in one-warp-per-row mode
-constexpr int kBwdWarpRow = 1024;     // widest row a backward warp takes
-constexpr int kBwdWarps = 8;          // warps of a one-warp-a-row block
+constexpr int kWarpRow = 1024;        // widest row that gets one warp
+constexpr int kFwdMaxWarps = 8;       // warps of a forward block, at most
+constexpr int kBwdWarps = 8;          // warps of a backward warp block
 constexpr int kBwdBlock = 32 * kBwdWarps;
-constexpr int kSumWarps = 32;         // warps of a block of the partials' sum
 constexpr int kMaxDevices = 64;       // devices whose attributes are kept
 
-template <typename T, bool kCache>
+// A row of at most kWarpRow values: one warp a row, blockDim.x / 32 rows
+// a block; see the note at the top.  Lane l holds values (l + 32 j) * E
+// + e, j < NC, e < E, of a row: E = 16 / sizeof(T) with 16-byte loads
+// (kVec), else E = 1.  gamma and beta are P: float32, or T.
+template <typename T, typename P, int NC, bool kVec>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps)
+layer_norm_fwd_warp(const T* __restrict__ x, const P* __restrict__ gamma,
+                    const P* __restrict__ beta, T* __restrict__ y,
+                    float* __restrict__ mean_out,
+                    float* __restrict__ rstd_out, int64_t rows, int cols,
+                    float eps) {
+  constexpr int E = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int V = NC * E;
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
+      (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps; this kernel has no barrier
+  const T* xr = x + row * cols;
+  float v[V], gm[V], bt[V];  // x (then x - mean), gamma, beta; 0 past the row
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c0 = (lane + 32 * j) * E;
+    if (c0 >= cols) {  // D is a multiple of E: a chunk is whole or out
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[j * E + e] = gm[j * E + e] =
+          bt[j * E + e] = 0.f;
+      continue;
+    }
+    if constexpr (kVec)
+      mx::load16(xr + c0, v + j * E);
+    else
+      v[j] = to_float(__ldg(xr + c0));
+    mx::load_params<T, P, E>(gamma, c0, gm + j * E);
+    mx::load_params<T, P, E>(beta, c0, bt + j * E);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < V; ++k) s += v[k];
+  const float mean = mx::warp_sum(s) / cols;
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c0 = (lane + 32 * j) * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int k = j * E + e;
+      v[k] = c0 + e < cols ? v[k] - mean : 0.f;
+      ss += v[k] * v[k];
+    }
+  }
+  const float var = mx::warp_sum(ss) / cols;
+  const float rstd = 1.0f / sqrtf(var + eps);
+  T* yr = y + row * cols;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c0 = (lane + 32 * j) * E;
+    if (c0 >= cols) continue;
+    float out[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int k = j * E + e;
+      out[e] = v[k] * rstd * gm[k] + bt[k];
+    }
+    if constexpr (kVec)
+      mx::store16(yr + c0, out);
+    else
+      yr[c0] = from_float<T>(out[0]);
+  }
+  if (lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
+
+// A wider row: one block a row, blockDim.x threads striding over it.
+// Shared memory: 32 floats for the warps' partial sums, then (kCache)
+// the row as float32.  gamma and beta are P: float32, or T.
+template <typename T, typename P, bool kCache>
 __global__ void __launch_bounds__(1024)
-layer_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                      const T* __restrict__ beta, T* __restrict__ y,
+layer_norm_fwd_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
+                      const P* __restrict__ beta, T* __restrict__ y,
                       float* __restrict__ mean_out,
-                      float* __restrict__ rstd_out, int64_t rows, int cols,
-                      float eps, int threads_per_row) {
+                      float* __restrict__ rstd_out, int cols, float eps) {
   extern __shared__ float smem[];
   float* red = smem;  // 32 partial sums, one per warp
-  const bool whole_block = threads_per_row > 32;
-  const int slot = threadIdx.x / threads_per_row;  // row within the block
-  const int t = threadIdx.x % threads_per_row;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * (blockDim.x / threads_per_row) +
-      slot;
-  // Only whole warps leave here (one warp per row), and that mode has no
-  // block barrier; with a block per row every row exists.
-  if (row >= rows) return;
+  float* cache = smem + 32;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int64_t row = blockIdx.x;
   const T* xr = x + row * cols;
   T* yr = y + row * cols;
-  float* cache = smem + 32 + static_cast<int64_t>(slot) * cols;
 
   float s = 0.f;
-  for (int i = t; i < cols; i += threads_per_row) {
+  for (int i = t; i < cols; i += nt) {
     const float v = to_float(xr[i]);
     if (kCache) cache[i] = v;
     s += v;
   }
-  const float mean = row_sum(s, red, whole_block) / cols;
+  const float mean = row_sum(s, red, true) / cols;
 
   float ss = 0.f;
-  for (int i = t; i < cols; i += threads_per_row) {
+  for (int i = t; i < cols; i += nt) {
     const float d = (kCache ? cache[i] : to_float(xr[i])) - mean;
     ss += d * d;
   }
-  const float var = row_sum(ss, red, whole_block) / cols;
+  const float var = row_sum(ss, red, true) / cols;
   const float rstd = 1.0f / sqrtf(var + eps);
 
-  for (int i = t; i < cols; i += threads_per_row) {
+  for (int i = t; i < cols; i += nt) {
     const float d = (kCache ? cache[i] : to_float(xr[i])) - mean;
-    yr[i] = from_float<T>(d * rstd * to_float(gamma[i]) + to_float(beta[i]));
+    yr[i] = from_float<T>(d * rstd * mx::param_as<T, P>(gamma, i) +
+                          mx::param_as<T, P>(beta, i));
   }
   if (t == 0) {
     mean_out[row] = mean;
@@ -204,68 +283,7 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// x (float32 or bf16) as 16-byte chunks of float values, and back
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store16(float* p, const float* in) {
-  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* in) {
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    // round to nearest even, as from_float
-    const __nv_bfloat162 h = __floats2bfloat162_rn(in[2 * j], in[2 * j + 1]);
-    w[j] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// Adds the kBwdWarps warps' column sums `acc` (lane values as in
-// layer_norm_bwd_warp) in warp order and writes them to `part`.
-template <int NC, int E>
-__device__ __forceinline__ void block_column_sums(const float (&acc)[NC * E],
-                                                  float* sums, float* part,
-                                                  int cols) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int c = (lane + 32 * j) * E + e;
-      if (c < cols) sums[warp * cols + c] = acc[j * E + e];
-    }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cols; i += kBwdBlock) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kBwdWarps; ++w) t += sums[w * cols + i];
-    part[i] = t;
-  }
-  __syncthreads();  // `sums` is free again
-}
-
-// A row of at most kBwdWarpRow values: one warp a row; see the note at
+// A row of at most kWarpRow values: one warp a row; see the note at
 // the top.  A block of kBwdWarps warps takes rows [blockIdx.x *
 // rows_per_block, ...); warp w takes every kBwdWarps-th of them from the
 // w-th.  Lane l holds values (l + 32 j) * E + e, j < NC, e < E, of a
@@ -281,11 +299,11 @@ layer_norm_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
                     int rows_per_block) {
   constexpr int E = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
   constexpr int V = NC * E;
-  __shared__ __align__(16) float gam_s[kBwdWarpRow];  // 0 past cols
-  __shared__ float sums[kBwdWarps * kBwdWarpRow];
+  __shared__ __align__(16) float gam_s[kWarpRow];  // 0 past cols
+  __shared__ float sums[kBwdWarps * kWarpRow];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < kBwdWarpRow; i += kBwdBlock)
+  for (int i = threadIdx.x; i < kWarpRow; i += kBwdBlock)
     gam_s[i] = i < cols ? gamma[i] : 0.f;
   __syncthreads();
 
@@ -308,8 +326,8 @@ layer_norm_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
         for (int e = 0; e < E; ++e) xh[j * E + e] = gv[j * E + e] = 0.f;
       } else if constexpr (kVec) {
-        load16(xr + c0, xh + j * E);
-        load16(gr + c0, gv + j * E);
+        mx::load16(xr + c0, xh + j * E);
+        mx::load16(gr + c0, gv + j * E);
       } else {
         xh[j] = to_float(__ldg(xr + c0));
         gv[j] = to_float(__ldg(gr + c0));
@@ -345,54 +363,31 @@ layer_norm_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
       }
       if (c0 < cols) {
         if constexpr (kVec)
-          store16(dxr + c0, out);
+          mx::store16(dxr + c0, out);
         else
           dxr[c0] = from_float<T>(out[0]);
       }
     }
   }
-  block_column_sums<NC, E>(
+  mx::block_column_sums<kBwdWarps, NC, E>(
       acc_g, sums, dgamma_part + static_cast<int64_t>(blockIdx.x) * cols,
       cols);
-  block_column_sums<NC, E>(
+  mx::block_column_sums<kBwdWarps, NC, E>(
       acc_b, sums, dbeta_part + static_cast<int64_t>(blockIdx.x) * cols,
       cols);
 }
 
 
 // dgamma and dbeta: the column sums of the (blocks, cols) partial rows
-// of each, in a fixed order.  Block (bx, p) takes columns [32 bx, 32 bx
-// + 32) of part p (0 dgamma, 1 dbeta); warp w adds partial rows w, w +
-// kSumWarps, ... in that order, eight loads in flight at a time, and
-// warp 0 then adds the warps' sums in warp order.
-__global__ void __launch_bounds__(32 * kSumWarps)
+// of each in a fixed order (mx::partial_rows_sum); block (bx, p) takes
+// columns [32 bx, 32 bx + 32) of part p (0 dgamma, 1 dbeta).
+__global__ void __launch_bounds__(32 * mx::kSumWarps)
 layer_norm_bwd_sum(const float* __restrict__ parts, float* __restrict__ out,
                    int blocks, int cols) {
-  __shared__ float red[kSumWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  const float* p = parts + static_cast<int64_t>(blockIdx.y) * blocks * cols;
-  float s = 0.f;
-  if (c < cols) {
-    for (int b0 = warp; b0 < blocks; b0 += 8 * kSumWarps) {
-      float v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int b = b0 + k * kSumWarps;
-        v[k] = b < blocks ? p[static_cast<int64_t>(b) * cols + c] : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s += v[k];
-    }
-  }
-  red[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && c < cols) {
-    float t = 0.f;
-    for (int w = 0; w < kSumWarps; ++w) t += red[w][lane];
-    out[static_cast<int64_t>(blockIdx.y) * cols + c] = t;
-  }
+  __shared__ float red[mx::kSumWarps][32];
+  mx::partial_rows_sum(
+      parts + static_cast<int64_t>(blockIdx.y) * blocks * cols,
+      out + static_cast<int64_t>(blockIdx.y) * cols, blocks, cols, red);
 }
 
 // The shared memory a block may opt in to on `device`, queried once per
@@ -410,52 +405,112 @@ cudaError_t smem_optin(int device, int* out) {
   return err;
 }
 
-template <typename T>
-cudaError_t launch_fwd(int device, const void* x, const void* gamma,
-                       const void* beta, void* y, void* mean, void* rstd,
-                       int64_t rows, int cols, float eps,
-                       cudaStream_t stream) {
-  int threads_per_row, block;
-  if (cols <= kSmallRow) {
-    threads_per_row = 32;
-    block = kWarpRowsBlock;
-  } else {
-    const int want = ((cols + 3) / 4 + 31) / 32 * 32;  // ~4 values a thread
-    threads_per_row = want < 1024 ? want : 1024;
-    block = threads_per_row;
-  }
-  const int rows_per_block = block / threads_per_row;
-  const int64_t grid = (rows + rows_per_block - 1) / rows_per_block;
-  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+template <typename T, typename P>
+struct FwdArgs {
+  const T* x;
+  const P* gamma;
+  const P* beta;
+  T* y;
+  float* mean;
+  float* rstd;
+  int64_t rows;
+  int cols;
+  float eps;
+};
 
+template <typename T, typename P, int NC, bool kVec>
+cudaError_t fwd_warp(const FwdArgs<T, P>& a, int warps,
+                     cudaStream_t stream) {
+  const int64_t grid = (a.rows + warps - 1) / warps;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  layer_norm_fwd_warp<T, P, NC, kVec>
+      <<<static_cast<unsigned>(grid), 32 * warps, 0, stream>>>(
+          a.x, a.gamma, a.beta, a.y, a.mean, a.rstd, a.rows, a.cols, a.eps);
+  return cudaGetLastError();
+}
+
+// One warp a row: 16-byte chunks where x, y, gamma and beta start on 16
+// bytes (NC chunks a lane, 1-8), else single values (NC a power of two,
+// 1-32).
+template <typename T, typename P>
+cudaError_t launch_fwd_warp(const FwdArgs<T, P>& a, int warps,
+                            cudaStream_t s) {
+  constexpr int E = 16 / sizeof(T);
+  if (a.cols % E == 0 && mx::aligned16(a.x) && mx::aligned16(a.y) &&
+      mx::aligned16(a.gamma) && mx::aligned16(a.beta)) {
+    switch ((a.cols + 32 * E - 1) / (32 * E)) {
+      case 1: return fwd_warp<T, P, 1, true>(a, warps, s);
+      case 2: return fwd_warp<T, P, 2, true>(a, warps, s);
+      case 3: return fwd_warp<T, P, 3, true>(a, warps, s);
+      case 4: return fwd_warp<T, P, 4, true>(a, warps, s);
+    }
+    if constexpr (E == 4) {  // float32 rows take up to 8 chunks of 4
+      switch ((a.cols + 127) / 128) {
+        case 5: return fwd_warp<T, P, 5, true>(a, warps, s);
+        case 6: return fwd_warp<T, P, 6, true>(a, warps, s);
+        case 7: return fwd_warp<T, P, 7, true>(a, warps, s);
+        case 8: return fwd_warp<T, P, 8, true>(a, warps, s);
+      }
+    }
+    return cudaErrorInvalidValue;  // wider than kWarpRow
+  }
+  switch (mx::lane_values(a.cols)) {
+    case 1: return fwd_warp<T, P, 1, false>(a, warps, s);
+    case 2: return fwd_warp<T, P, 2, false>(a, warps, s);
+    case 4: return fwd_warp<T, P, 4, false>(a, warps, s);
+    case 8: return fwd_warp<T, P, 8, false>(a, warps, s);
+    case 16: return fwd_warp<T, P, 16, false>(a, warps, s);
+    default: return fwd_warp<T, P, 32, false>(a, warps, s);
+  }
+}
+
+// A whole block a row: about four values of a row a thread, whole
+// warps, at most 1024; the row staged in shared memory where it fits.
+template <typename T, typename P>
+cudaError_t launch_fwd_wide(int device, const FwdArgs<T, P>& a,
+                            cudaStream_t stream) {
+  if (a.rows > 0x7fffffff) return cudaErrorInvalidValue;
+  const int want = ((a.cols + 3) / 4 + 31) / 32 * 32;
+  const int block = want < 1024 ? want : 1024;
   int optin = 0;
   cudaError_t err = smem_optin(device, &optin);
   if (err != cudaSuccess) return err;
-
-  const T* xp = static_cast<const T*>(x);
-  const T* gp = static_cast<const T*>(gamma);
-  const T* bp = static_cast<const T*>(beta);
-  T* yp = static_cast<T*>(y);
-  float* mp = static_cast<float*>(mean);
-  float* rp = static_cast<float*>(rstd);
-  const size_t cached =
-      (32 + static_cast<size_t>(rows_per_block) * cols) * sizeof(float);
+  const unsigned grid = static_cast<unsigned>(a.rows);
+  const size_t cached = (32 + static_cast<size_t>(a.cols)) * sizeof(float);
   if (cached <= static_cast<size_t>(optin)) {
     if (cached > 48 * 1024) {
-      err = cudaFuncSetAttribute(layer_norm_fwd_kernel<T, true>,
+      err = cudaFuncSetAttribute(layer_norm_fwd_kernel<T, P, true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(cached));
       if (err != cudaSuccess) return err;
     }
-    layer_norm_fwd_kernel<T, true>
-        <<<static_cast<unsigned>(grid), block, cached, stream>>>(
-            xp, gp, bp, yp, mp, rp, rows, cols, eps, threads_per_row);
+    layer_norm_fwd_kernel<T, P, true><<<grid, block, cached, stream>>>(
+        a.x, a.gamma, a.beta, a.y, a.mean, a.rstd, a.cols, a.eps);
   } else {
-    layer_norm_fwd_kernel<T, false>
-        <<<static_cast<unsigned>(grid), block, 32 * sizeof(float), stream>>>(
-            xp, gp, bp, yp, mp, rp, rows, cols, eps, threads_per_row);
+    layer_norm_fwd_kernel<T, P, false>
+        <<<grid, block, 32 * sizeof(float), stream>>>(
+            a.x, a.gamma, a.beta, a.y, a.mean, a.rstd, a.cols, a.eps);
   }
   return cudaGetLastError();
+}
+
+template <typename T, typename P>
+cudaError_t launch_fwd(int device, const void* x, const void* gamma,
+                       const void* beta, void* y, void* mean, void* rstd,
+                       int64_t rows, int cols, float eps, int warps,
+                       cudaStream_t stream) {
+  const FwdArgs<T, P> a{static_cast<const T*>(x),
+                        static_cast<const P*>(gamma),
+                        static_cast<const P*>(beta),
+                        static_cast<T*>(y),
+                        static_cast<float*>(mean),
+                        static_cast<float*>(rstd),
+                        rows,
+                        cols,
+                        eps};
+  if (cols > kWarpRow) return launch_fwd_wide(device, a, stream);
+  if (warps < 1 || warps > kFwdMaxWarps) return cudaErrorInvalidValue;
+  return launch_fwd_warp(a, warps, stream);
 }
 
 template <typename T>
@@ -482,10 +537,6 @@ cudaError_t bwd_warp(const BwdArgs<T>& a, unsigned grid,
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // One warp a row: 16-byte chunks where every row of x, g and dx starts
 // on 16 bytes (NC chunks a lane, 1-8), else single values (NC a power
 // of two, 1-32).
@@ -493,8 +544,8 @@ template <typename T>
 cudaError_t launch_bwd_warp(const BwdArgs<T>& a, unsigned grid,
                             cudaStream_t s) {
   constexpr int E = 16 / sizeof(T);
-  if (a.cols % E == 0 && aligned16(a.x) && aligned16(a.g) &&
-      aligned16(a.dx)) {
+  if (a.cols % E == 0 && mx::aligned16(a.x) && mx::aligned16(a.g) &&
+      mx::aligned16(a.dx)) {
     const int nc = (a.cols + 32 * E - 1) / (32 * E);
     switch (nc) {
       case 1: return bwd_warp<T, 1, true>(a, grid, s);
@@ -510,7 +561,7 @@ cudaError_t launch_bwd_warp(const BwdArgs<T>& a, unsigned grid,
         case 8: return bwd_warp<T, 8, true>(a, grid, s);
       }
     }
-    return cudaErrorInvalidValue;  // wider than kBwdWarpRow
+    return cudaErrorInvalidValue;  // wider than kWarpRow
   }
   switch (mx::lane_values(a.cols)) {
     case 1: return bwd_warp<T, 1, false>(a, grid, s);
@@ -576,41 +627,42 @@ cudaError_t launch_bwd(int device, const void* x, const void* g,
                      cols,
                      rows_per_block};
   const unsigned grid = static_cast<unsigned>(blocks);
-  cudaError_t err = cols <= kBwdWarpRow
+  cudaError_t err = cols <= kWarpRow
                         ? launch_bwd_warp(a, grid, stream)
                         : launch_bwd_wide(device, a, grid, stream);
   if (err != cudaSuccess) return err;
   const dim3 sum_grid((cols + 31) / 32, 2);
-  layer_norm_bwd_sum<<<sum_grid, 32 * kSumWarps, 0, stream>>>(
+  layer_norm_bwd_sum<<<sum_grid, 32 * mx::kSumWarps, 0, stream>>>(
       pg, static_cast<float*>(out), blocks, cols);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x and y are (rows, cols), row-major
-// and contiguous; gamma and beta are (cols,) in x's type; mean and rstd
-// are (rows,) float32.  Launches on `stream` without synchronising and
-// returns the cudaError_t of the launch.
-extern "C" int mx_layer_norm_fwd(int dtype, int device, const void* x,
-                                 const void* gamma, const void* beta,
-                                 void* y, void* mean, void* rstd,
-                                 long long rows, int cols, float eps,
-                                 void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; pdtype the same for gamma and beta,
+// float32 or x's.  x and y are (rows, cols), row-major and contiguous;
+// gamma and beta are (cols,), rounded to x's type as they are read;
+// mean and rstd are (rows,) float32.  A row of at most 1024 values takes
+// one warp, `warps` (1-8) rows a block.  Launches on `stream` without
+// synchronising and returns the cudaError_t of the launch.
+extern "C" int mx_layer_norm_fwd(int dtype, int pdtype, int device,
+                                 const void* x, const void* gamma,
+                                 const void* beta, void* y, void* mean,
+                                 void* rstd, long long rows, int cols,
+                                 float eps, int warps, void* stream) {
   if (rows < 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_fwd<float>(device, x, gamma, beta, y,
-                                                mean, rstd, rows, cols, eps,
-                                                s));
-    case 1:
-      return static_cast<int>(launch_fwd<__nv_bfloat16>(
-          device, x, gamma, beta, y, mean, rstd, rows, cols, eps, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == 0 && pdtype == 0)
+    return static_cast<int>(launch_fwd<float, float>(
+        device, x, gamma, beta, y, mean, rstd, rows, cols, eps, warps, s));
+  if (dtype == 1 && pdtype == 0)
+    return static_cast<int>(launch_fwd<__nv_bfloat16, float>(
+        device, x, gamma, beta, y, mean, rstd, rows, cols, eps, warps, s));
+  if (dtype == 1 && pdtype == 1)
+    return static_cast<int>(launch_fwd<__nv_bfloat16, __nv_bfloat16>(
+        device, x, gamma, beta, y, mean, rstd, rows, cols, eps, warps, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dtype as above.  x, g and dx are (rows, cols) in x's type, contiguous;

@@ -33,8 +33,12 @@ _count_lock = threading.Lock()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _P = ctypes.c_int, ctypes.c_void_p
 # the C entries' arguments (csrc/layer_norm.cu)
-_FWD_ARGS = [_I, _I] + [_P] * 6 + [ctypes.c_longlong, _I, ctypes.c_float, _P]
+_FWD_ARGS = ([_I, _I, _I] + [_P] * 6
+             + [ctypes.c_longlong, _I, ctypes.c_float, _I, _P])
 _BWD_ARGS = [_I, _I] + [_P] * 8 + [ctypes.c_longlong, _I, _I, _I, _P]
+# the forward's blocks (csrc/layer_norm.cu): a row of at most 1024
+# values takes one warp, _FWD_WARPS rows a block
+_FWD_WARPS = 4
 # the backward's blocks (csrc/layer_norm.cu): a row of at most
 # _BWD_WARP_ROW values takes one warp, _BWD_WARPS warps a block, about
 # _BWD_BLOCKS_PER_SM blocks on each SM; a wider row takes a whole block,
@@ -104,14 +108,19 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
 
     On a CUDA tensor: the hand-written kernel, on the current stream.
     x must be contiguous float32 or bfloat16; gamma and beta are
-    ``(cols,)`` on the same device and are cast to x's dtype first, as
-    the TPU wrapper does.  On a CPU tensor: the plain version."""
+    ``(cols,)`` on the same device.  The kernel reads them in their own
+    dtype where both are float32 or both x's and rounds them to x's
+    dtype as it reads them, as the TPU wrapper casts them; others are
+    cast to x's dtype first.  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return layer_norm_fwd_reference(x, gamma, beta, eps)
     cols = x.shape[-1] if x.dim() else 0
     _check("layer_norm_fwd", x, cols, gamma=(gamma, cols), beta=(beta, cols))
-    gamma = gamma.to(x.dtype).contiguous()
-    beta = beta.to(x.dtype).contiguous()
+    if (gamma.dtype != beta.dtype
+            or gamma.dtype not in (x.dtype, torch.float32)):
+        gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
+    gamma = gamma.contiguous()
+    beta = beta.contiguous()
     rows = x.numel() // cols
     y = torch.empty_like(x)
     mean = torch.empty(rows, dtype=torch.float32, device=x.device)
@@ -121,9 +130,10 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     fn = _build.launcher("layer_norm", "mx_layer_norm_fwd", _FWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(_DTYPE_CODES[x.dtype], x.device.index, x.data_ptr(),
-           gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
-           rstd.data_ptr(), rows, cols, float(eps), stream)
+        fn(_DTYPE_CODES[x.dtype], _DTYPE_CODES[gamma.dtype], x.device.index,
+           x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+           mean.data_ptr(), rstd.data_ptr(), rows, cols, float(eps),
+           _FWD_WARPS, stream)
     global launches
     with _count_lock:
         launches += 1

@@ -19,10 +19,11 @@ import threading
 import torch
 
 from . import _build
+from ._fused_common import sms as _sms
 
 __all__ = ["rms_norm_fwd", "rms_norm_fwd_reference", "rms_norm_bwd",
-           "rms_norm_bwd_reference", "RMSNormFunction", "fwd_launches",
-           "bwd_launches"]
+           "rms_norm_bwd_reference", "bwd_plan", "RMSNormFunction",
+           "fwd_launches", "bwd_launches"]
 
 #: Launches of the forward and the backward kernel so far; each wrapper
 #: adds one per launch and nothing else touches them (a caller may reset
@@ -36,7 +37,17 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 # the C entries' arguments (csrc/rms_norm.cu)
 _FWD_ARGS = [_I, _I] + [_P] * 4 + [ctypes.c_longlong, _I, ctypes.c_float,
                                    _P]
-_BWD_ARGS = [_I, _I] + [_P] * 6 + [ctypes.c_longlong, _I, _I, _P]
+_BWD_ARGS = [_I, _I, _I] + [_P] * 7 + [ctypes.c_longlong, _I, _I, _I, _P]
+# the backward's blocks (csrc/rms_norm.cu): a row of at most _WARP_ROW
+# values takes one warp, _WARPS warps a block, at most _BWD_BLOCKS_PER_SM
+# blocks on each SM for rows of at most _TWO_BLOCK_ROW values and one
+# above (what the kernel's registers let stay resident); a wider row
+# takes a whole block, about _WIDE_BLOCKS_PER_SM on each SM
+_WARP_ROW = 1024
+_TWO_BLOCK_ROW = 512
+_WARPS = 8
+_BWD_BLOCKS_PER_SM = 2
+_WIDE_BLOCKS_PER_SM = 4
 
 
 def rms_norm_fwd_reference(x, gamma, eps=1e-6):
@@ -117,12 +128,22 @@ def rms_norm_fwd(x, gamma, eps=1e-6):
     return y, rrms
 
 
-def _rows_per_block(rows, device):
-    """Rows each backward block takes: enough blocks for about four on
-    every SM, and no more, since each block writes one partial row of
-    dgamma that the wrapper sums."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, -(-rows // (4 * sms)))
+def bwd_plan(rows, cols, sms):
+    """``(rows_per_block, blocks)`` of the backward kernel for ``rows``
+    rows of ``cols`` values on a card of ``sms`` SMs.  Each block writes
+    one partial row of dgamma, which a second kernel sums: enough blocks
+    to fill every SM once, and no more.  With one warp a row, at most one
+    block for every eight rows (its warps) and at most the blocks that
+    stay resident on an SM: two of eight warps for rows of at most 512
+    values (at most 128 registers a thread), one above; a wider row, at
+    most four blocks of 512 threads an SM."""
+    if cols <= _WARP_ROW:
+        per_sm = _BWD_BLOCKS_PER_SM if cols <= _TWO_BLOCK_ROW else 1
+        want = min(-(-rows // _WARPS), per_sm * sms)
+    else:
+        want = _WIDE_BLOCKS_PER_SM * sms
+    per_block = max(1, -(-rows // want))
+    return per_block, -(-rows // per_block)
 
 
 def rms_norm_bwd(x, g, gamma, rrms):
@@ -131,9 +152,13 @@ def rms_norm_bwd(x, g, gamma, rrms):
     ``x`` is the forward's input and ``rrms`` its float32 statistic; ``g``
     is the gradient of y, cast to x's dtype first, as the TPU wrapper
     does.  dx comes out in x's dtype, dgamma in gamma's.  On a CUDA
-    tensor: the hand-written kernel, which writes per-block partial rows
-    of dgamma that this wrapper sums, as the TPU wrapper sums its
-    per-row-block partials.  On a CPU tensor: the plain version."""
+    tensor: the hand-written kernel, which reads gamma in its own dtype
+    where that is float32 or x's (another is rounded to x's and held in
+    float32 first) and rounds it to x's as the TPU wrapper casts it, and
+    writes per-block partial rows of dgamma; then the file's second
+    kernel, which sums them in a fixed order and writes dgamma in the
+    dtype it read gamma in (the TPU wrapper sums its per-row-block
+    partials the same way).  On a CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return rms_norm_bwd_reference(x, g, gamma, rrms)
     _check("rms_norm_bwd", x, gamma)
@@ -146,22 +171,26 @@ def rms_norm_bwd(x, g, gamma, rrms):
         raise ValueError(f"rms_norm_bwd: rrms must be float32 ({rows},), got "
                          f"{rrms.dtype} {tuple(rrms.shape)}")
     g = g.to(x.dtype).contiguous()
-    gam = gamma.to(x.dtype).contiguous()
+    # another dtype is rounded to x's as the plain version rounds it,
+    # then held exactly in float32
+    gam = (gamma if gamma.dtype in (x.dtype, torch.float32)
+           else gamma.to(x.dtype).float()).contiguous()
     rrms = rrms.contiguous()
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros(cols, dtype=gamma.dtype, device=x.device)
-    per_block = _rows_per_block(rows, x.device)
-    parts = torch.empty(-(-rows // per_block), cols, dtype=torch.float32,
-                        device=x.device)
+    per_block, blocks = bwd_plan(rows, cols, _sms(x.device.index))
+    parts = torch.empty(blocks, cols, dtype=torch.float32, device=x.device)
+    dgamma = torch.empty(cols, dtype=gam.dtype, device=x.device)
     _launch("mx_rms_norm_bwd", _BWD_ARGS, x.device, _DTYPE_CODES[x.dtype],
-            x.device.index, x.data_ptr(), g.data_ptr(), gam.data_ptr(),
-            rrms.data_ptr(), dx.data_ptr(), parts.data_ptr(), rows, cols,
-            per_block)
+            _DTYPE_CODES[gam.dtype], x.device.index, x.data_ptr(),
+            g.data_ptr(), gam.data_ptr(), rrms.data_ptr(), dx.data_ptr(),
+            parts.data_ptr(), dgamma.data_ptr(), rows, cols, per_block,
+            blocks)
     global bwd_launches
     with _count_lock:
         bwd_launches += 1
-    return dx, parts.sum(dim=0).to(gamma.dtype)
+    return dx, dgamma.to(gamma.dtype)
 
 
 class RMSNormFunction(torch.autograd.Function):

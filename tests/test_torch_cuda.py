@@ -98,17 +98,37 @@ def _inputs(shape, dtype, dev, seed=0):
     return tuple(a.to(dev, getattr(torch, dtype)) for a in (x, gamma, beta))
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((1024, 768), "float32"),     # BERT-base serving batch, B=8 T=128
-    ((1024, 768), "bfloat16"),
-    ((2048, 768), "float32"),     # BERT-base training batch, B=16 T=128
-    ((1000, 100), "float32"),     # one warp per row, ragged last block
-    ((3, 4096), "bfloat16"),      # one block per row
-    ((8, 3, 513), "float32"),     # just past the one-warp width
-    ((2, 70000), "float32"),      # too wide for shared memory: re-reads x
+def _offset(a, offset):
+    """``a`` copied ``offset`` elements into a buffer: contiguous, but for
+    an odd offset no longer on 16 bytes, so the row kernels load it
+    element by element."""
+    if not offset:
+        return a
+    buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=a.device)
+    return buf[offset:].view(a.shape).copy_(a)
+
+
+@pytest.mark.parametrize("shape,dtype,pdtype,offset", [
+    ((1024, 768), "float32", "float32", 0),   # BERT-base serving, B=8 T=128
+    ((1024, 768), "bfloat16", "bfloat16", 0),
+    ((1024, 768), "bfloat16", "float32", 0),  # amp: float32 gamma and beta
+    ((2048, 768), "float32", "float32", 0),   # BERT-base training, B=16
+    ((2048, 768), "bfloat16", "float32", 0),
+    ((1000, 100), "float32", "float32", 0),   # one warp a row, ragged block
+    ((64, 1000), "float32", "float32", 0),    # part of the last chunks
+    ((64, 1000), "bfloat16", "bfloat16", 0),
+    ((64, 770), "bfloat16", "bfloat16", 0),   # no multiple of a bf16 chunk
+    ((64, 768), "float32", "float32", 1),     # x off 16 bytes: element loads
+    ((64, 768), "bfloat16", "float32", 1),
+    ((3, 4096), "bfloat16", "bfloat16", 0),   # one block a row
+    ((8, 3, 513), "float32", "float32", 0),   # warp path, element loads
+    ((8, 3, 1025), "float32", "float32", 0),  # just past the one-warp width
+    ((2, 70000), "float32", "float32", 0),    # too wide for shared memory
 ])
-def test_layer_norm_kernel_matches_plain(dev, shape, dtype):
-    x, g, b = _inputs(shape, dtype, dev)
+def test_layer_norm_kernel_matches_plain(dev, shape, dtype, pdtype, offset):
+    x, _, _ = _inputs(shape, dtype, dev)
+    _, g, b = _inputs(shape, pdtype, dev)
+    x = _offset(x, offset)
     before = ln.launches
     y, mean, rstd = ln.layer_norm_fwd(x, g, b)
     ry, rmean, rrstd = ln.layer_norm_fwd_reference(x, g, b)
@@ -1074,19 +1094,27 @@ def test_softmax_kernels_match_plain(dev, dtype, rows, cols):
     _row_close(dx, rdx, "dx")
 
 
+@pytest.mark.parametrize("variant", ["", "float32 gamma", "x offset 1"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,cols", [
     (32768, 512),      # the TransformerLM's rows, B=32 T=1024
     (1000, 7), (10, 300), (6, 129), (100, 1000),
+    (64, 768),         # BERT's width: 6 float32 or 3 bf16 chunks a lane
+    (64, 1001),        # no multiple of a chunk: single values
     (64, 1025),        # just past the one-warp width
     (3, 16385), (2, 70000),
 ])
-def test_rms_norm_kernels_match_plain(dev, dtype, rows, cols):
+def test_rms_norm_kernels_match_plain(dev, dtype, rows, cols, variant):
+    """Kernels 8 and 9 against their plain versions; also with a float32
+    gamma (dgamma then comes out in float32) and with x off 16 bytes
+    (element loads)."""
     g = torch.Generator(device=dev).manual_seed(1)
     dt = getattr(torch, dtype)
+    gdt = torch.float32 if variant == "float32 gamma" else dt
     x = (torch.randn(rows, cols, generator=g, device=dev) * 2 + 0.3).to(dt)
-    gamma = (torch.rand(cols, generator=g, device=dev) + 0.5).to(dt)
+    gamma = (torch.rand(cols, generator=g, device=dev) + 0.5).to(gdt)
     gy = torch.randn(rows, cols, generator=g, device=dev).to(dt)
+    x = _offset(x, 1 if variant == "x offset 1" else 0)
     before = (rn.fwd_launches, rn.bwd_launches)
     y, rrms = rn.rms_norm_fwd(x, gamma)
     dx, dgamma = rn.rms_norm_bwd(x, gy, gamma, rrms)
@@ -1099,6 +1127,25 @@ def test_rms_norm_kernels_match_plain(dev, dtype, rows, cols):
     _row_close(rrms, rrrms, "rrms")
     _row_close(dx, rdx, "dx")
     _row_close(dgamma, rdgamma, "dgamma")
+
+
+@pytest.mark.parametrize("rows,cols,dtype", [
+    (32768, 512, "bfloat16"), (32768, 512, "float32"), (1000, 1024, "float32"),
+    (100, 1001, "bfloat16"), (5, 20000, "float32")])
+def test_rms_norm_bwd_is_bit_for_bit_repeatable(dev, rows, cols, dtype):
+    """No atomics: the blocks' partial rows of dgamma are summed by the
+    file's second kernel in a fixed order, so two calls give the same
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, dtype)
+    x = (torch.randn(rows, cols, generator=g, device=dev) * 2 + 0.3).to(dt)
+    gamma = (torch.rand(cols, generator=g, device=dev) + 0.5).to(dt)
+    gy = torch.randn(rows, cols, generator=g, device=dev).to(dt)
+    rrms = rn.rms_norm_fwd_reference(x, gamma)[1]
+    first, second = (rn.rms_norm_bwd(x, gy, gamma, rrms) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_small_transformer_step_on_the_card_matches_cpu(dev, no_tf32):

@@ -324,3 +324,104 @@ def test_bwd_plan_gives_every_row_one_block(rows, cols, sms):
         assert blocks <= min(2 * sms, -(-rows // 8))
     else:
         assert blocks <= 4 * sms
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's order of sums, emulated
+# ---------------------------------------------------------------------------
+
+def _kernel_ln_fwd(x, gamma, beta, eps):
+    """(y, mean, rstd) in float32 by ``csrc/layer_norm.cu``'s forward
+    for float32 rows of at most 1024 values: lane l holds values (l + 32
+    j) * E + e, with E = 4 (16-byte chunks) where the width is a multiple
+    of 4 and E = 1 (single values l + 32 j) elsewhere, sums them in that
+    order, and the warp adds the lanes' sums by shuffles (xor 16, 8, 4,
+    2, 1): mean = Σx / D; then the same for Σ(x − mean)² from the same
+    registers: var = Σ / D, rstd = 1 / sqrt(var + eps); y = (x − mean)·
+    rstd·gamma + beta with one rounding for the last multiply-add."""
+    rows, cols = x.shape
+    assert cols <= 1024
+    e = 4 if cols % 4 == 0 else 1
+    nc = -(-cols // (32 * e))
+    order = [[(lane + 32 * j) * e + k for j in range(nc) for k in range(e)]
+             for lane in range(32)]
+
+    def warp_sum(lanes):
+        v = np.array(lanes, np.float32)
+        for off in (16, 8, 4, 2, 1):
+            v = (v[:off] + v[off:2 * off]).astype(np.float32)
+        return v[0]
+
+    n = _f32(cols)
+    y = np.zeros((rows, cols), np.float32)
+    mean = np.zeros(rows, np.float32)
+    rstd = np.zeros(rows, np.float32)
+    for r in range(rows):
+        xr = x[r].astype(np.float32)
+        lanes = []
+        for cs in order:
+            s = _f32(0)
+            for c in cs:
+                if c < cols:
+                    s = _f32(s + xr[c])
+            lanes.append(s)
+        mean[r] = _f32(warp_sum(lanes) / n)
+        d = (xr - mean[r]).astype(np.float32)
+        lanes = []
+        for cs in order:
+            s = _f32(0)
+            for c in cs:
+                if c < cols:
+                    s = _fma(d[c], d[c], s)
+            lanes.append(s)
+        var = _f32(warp_sum(lanes) / n)
+        rstd[r] = _f32(_f32(1) / np.sqrt(_f32(var + _f32(eps))))
+        y[r] = _fma((d * rstd[r]).astype(np.float32), gamma, beta)
+    return y, mean, rstd
+
+
+@pytest.mark.parametrize("shape", [(16, 768), (7, 100), (5, 301)])
+def test_kernel_fwd_order_matches_ln_fwd(shape, monkeypatch):
+    """The forward kernel's order of sums (``_kernel_ln_fwd``; width 301
+    takes single values) against the JAX package's ``_ln_fwd`` (the
+    Pallas kernel in interpret mode), float32: y, mean and rstd each
+    within 1e-6 of its largest value."""
+    monkeypatch.setenv("MXNET_USE_PALLAS", "1")
+    x, gamma, beta = _inputs(shape, seed=10)
+    jy, jmean, jrstd = pk._ln_fwd(jnp.asarray(x), jnp.asarray(gamma),
+                                  jnp.asarray(beta), 1e-5)
+    y, mean, rstd = _kernel_ln_fwd(x, gamma, beta, 1e-5)
+    _close_scaled(y, np.asarray(jy), 1e-6, "y")
+    _close_scaled(mean, np.asarray(jmean)[:shape[0], 0], 1e-6, "mean")
+    _close_scaled(rstd, np.asarray(jrstd)[:shape[0], 0], 1e-6, "rstd")
+
+
+@pytest.mark.parametrize("shape", [(16, 768), (7, 100)])
+def test_plain_with_float32_params_on_bf16_x_matches_jax(shape, monkeypatch):
+    """float32 gamma and beta on bfloat16 x, as amp leaves BERT's
+    LayerNorm: the port's plain forward (what its wrapper runs on a CPU
+    tensor, and what the kernel does in registers) rounds them to x's
+    dtype, as ``_ln_fwd`` casts them; held against ``_ln_fwd`` and the
+    op against the JAX op on its kernel, at the bfloat16 tolerance (y)
+    and 1e-5 (the float32 statistics)."""
+    monkeypatch.setenv("MXNET_USE_PALLAS", "1")
+    x, gamma, beta = _inputs(shape, seed=11)
+    tx, jx = _both(x, "bfloat16")
+    tg, jg = _both(gamma, "float32")
+    tb, jb = _both(beta, "float32")
+    y, mean, rstd = ln.layer_norm_fwd(tx, tg, tb, 1e-5)
+    jy, jmean, jrstd = pk._ln_fwd(jx, jg, jb, 1e-5)
+    assert y.dtype == torch.bfloat16 and jy.dtype == jnp.bfloat16
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jy.astype(jnp.float32)),
+                               **TOL["bfloat16"])
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean)[:shape[0], 0],
+                               **STAT_TOL)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd)[:shape[0], 0],
+                               **STAT_TOL)
+    got = nn_ops.layer_norm(tx, tg, tb, eps=1e-5)
+    want = jax_nn_ops.layer_norm(jx, jg, jb, eps=1e-5)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **TOL["bfloat16"])
