@@ -113,7 +113,29 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    time, samples/s and 5 steps profiled by kernel family; (c) 60 Adam
    steps on one fixed batch, whose loss must fall from about ln 10 to
    below 1.0 and whose training accuracy must pass 0.9;
-13. the kernels line (JSON), then the last line
+13. train the LSTM language model (``models/lstm_lm.py``, BASELINE
+   config 5, ``example/rnn/word_lm``'s medium run: vocab 10000, embed
+   and hidden 650, 2 layers, dropout 0.5, float32 with TF32 off, which
+   cuDNN's RNN reads too) — (a) ``fused_rnn`` (cuDNN's LSTM, fed views
+   of the one flat parameter) against ``fused_rnn_reference`` at the
+   phase's width, T=35, B=32: out, hN, cN and the gradients of the
+   data, the flat parameter and the states; its forward + backward time
+   beside ``torch.nn.LSTM``'s on a weight buffer in cuDNN's own layout
+   (the difference is the per-call copy of the views); (b) 20 steps of
+   truncated BPTT at T=35, B=32 (SGD lr 1.0, gradients clipped to a
+   global norm of 0.25, the state carried across windows and detached)
+   over a token stream from a seed whose windows repeat every 4, with
+   exactly one launch of each cross-entropy kernel a step at (1120,
+   10000), every gradient finite and nonzero, the first step's update
+   of every parameter of the model (``rnn.params_flat`` among them)
+   equal to ``-lr·min(0.25/(norm + 1e-12), 1)·grad`` within float32
+   rounding, and the predict-mode loss of the first window lower after
+   the run than before; the median step time, tokens/s, the peak device
+   memory of steps 2-20 above what was allocated as they started, one
+   step profiled by kernel family, cuDNN's share of it (the kernels
+   under its ops), and the cross-entropy kernels timed at (1120,
+   10000);
+14. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -123,7 +145,8 @@ BERT training over phase 6 (b) and (c), ResNet training over phase 7
 bench path over phase 8 (b)'s warm-up and timed steps, the
 TransformerLM over phase 9 (b) and (c) and, with flash attention, over
 phase 10 (b) and (c), the user kernels over phase 11's compiles and
-launches, and LeNet over phase 12 (b).  A graph replay
+launches, LeNet over phase 12 (b) and the LSTM language model over
+phase 13 (b).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
@@ -189,10 +212,26 @@ LN_BWD_SHAPES = [((ROWS, HIDDEN), "float32"), ((ROWS, HIDDEN), "bfloat16"),
 # largest value
 LN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PARAM_TOL = 1e-5
+# the LSTM language model (phase 13): example/rnn/word_lm's medium run
+# (Penn Treebank's vocabulary of 10000, embed and hidden 650, 2 layers,
+# dropout 0.5, bptt 35, batch 32), float32; SGD lr 1.0 without
+# momentum, the gradients clipped to a global norm of 0.25; 20 steps
+# over a stream whose windows repeat every LSTM_DISTINCT
+LSTM_VOCAB, LSTM_UNITS, LSTM_LAYERS, LSTM_DROPOUT = 10000, 650, 2, 0.5
+LSTM_T, LSTM_B, LSTM_STEPS, LSTM_DISTINCT = 35, 32, 20, 4
+LSTM_LR, LSTM_CLIP = 1.0, 0.25
+LSTM_ROWS = LSTM_T * LSTM_B             # 1120 rows of logits a step
+# cuDNN's LSTM against fused_rnn_reference, float32 with TF32 off: out,
+# hN and cN within 1e-5 (values in (-1, 1)), every gradient within 1e-4
+# of its largest value (the same products summed in another order,
+# over the 35-step recurrence)
+LSTM_OUT_TOL, LSTM_GRAD_TOL = 1e-5, 1e-4
 # the MLM and NSP shapes of the training steps in both dtypes (phase 6's
-# float32 run and its bfloat16 pass (c)), then ragged shapes
+# float32 run and its bfloat16 pass (c)), the LSTM's logits (phase 13),
+# then ragged shapes
 XENT_SHAPES = [((ROWS, VOCAB), "float32"), ((ROWS, VOCAB), "bfloat16"),
                ((TRAIN_B, 2), "float32"), ((TRAIN_B, 2), "bfloat16"),
+               ((LSTM_ROWS, LSTM_VOCAB), "float32"),
                ((1000, 100), "float32"), ((3, 16385), "float32")]
 # loss and lse: float32 in both versions, 1e-5; dx: float32 rtol 1e-5,
 # atol 1e-6 (one float32 ulp of a row's logsumexp, about 15 here, moves
@@ -424,6 +463,10 @@ OVERFIT_STEPS, OVERFIT_LOSS, OVERFIT_ACC = 60, 1.0, 0.9
 
 def phase(name):
     print(f"== {name}", flush=True)
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        print(f"device memory allocated as the phase starts: "
+              f"{torch.cuda.memory_allocated()} bytes", flush=True)
 
 
 def nvidia_smi():
@@ -691,14 +734,15 @@ def check_softmax_xent(torch, sx, dev):
     return errs_at_train
 
 
-def time_softmax_xent(torch, sx, dev, dtype, rate):
-    """Times at the MLM shape (2048, 30522), cycling 3 input sets of
-    250 MB each (five times L2).  The library calls are
+def time_softmax_xent(torch, sx, dev, dtype, rate, shape=(ROWS, VOCAB)):
+    """Times at ``shape``, by default the MLM shape (2048, 30522),
+    cycling 3 input sets (250 MB each there, five times L2; 45 MB each
+    at the LSTM's (1120, 10000)).  The library calls are
     ``F.cross_entropy(reduction="none")`` and, for the backward, the two
     ATen ops its autograd runs (``nll_loss_backward`` and
     ``_log_softmax_backward_data``) on its saved log-probabilities."""
     import torch.nn.functional as F
-    rows, cols = ROWS, VOCAB
+    rows, cols = shape
     sets, fwd_sets, lib_sets = [], [], []
     for s in range(3):
         x, labels, g = xent_inputs(torch, (rows, cols), dtype, s, dev)
@@ -1893,7 +1937,7 @@ def step_breakdown(torch, fwd_bwd, update, families=_FAMILIES):
     the wall times."""
     total_wall = total_busy = 0.0
     for name, part in (("fwd+bwd", fwd_bwd), ("optimizer", update)):
-        wall, busy = profile_window(torch, name, part, families)
+        wall, busy, _ = profile_window(torch, name, part, families)
         total_wall += wall
         total_busy += busy
     print(f"  profiled step, whole: wall {total_wall:.3f} ms, device busy "
@@ -1905,7 +1949,7 @@ def profile_window(torch, name, part, families):
     """Run ``part()`` (which ends in a synchronise) under the profiler and
     print its wall and device-busy ms, idle share, busy ms by kernel
     family and the six device kernels (or copies) that took longest, by
-    name; returns ``(wall, busy)``."""
+    name; returns ``(wall, busy, {kernel name: (count, ms)})``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1925,7 +1969,7 @@ def profile_window(torch, name, part, families):
             by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     for k, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
         print(f"    {ms:.4f} ms in {n} x {k[:110]}", flush=True)
-    return wall, busy
+    return wall, busy, by_name
 
 
 def resnet_forward_backward(torch, net, x, y):
@@ -2811,6 +2855,325 @@ def time_lenet_xent(torch, sx, dev):
           f"{lib[1]:.6f} ms", flush=True)
 
 
+# the LSTM language model's kernels: the port's cross-entropy pair, then
+# cuDNN's RNN kernels (their names carry RNN or LSTM), then the products
+# (cuDNN's input projections and the decoder, cuBLAS), the embedding's
+# gather and scatter, and PyTorch's elementwise kernels and reductions
+# (dropout, the weight copy into cuDNN's layout, the gradient norm, SGD)
+_LSTM_FAMILIES = (
+    ("xent", ("xent",)),
+    ("cudnn_rnn", ("rnn", "lstm", "persist")),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "splitk", "sm90")),
+    ("embedding", ("embedding", "index", "gather", "scatter", "sort",
+                   "radix")),
+    ("elementwise", ("elementwise", "reduce", "fill", "copy", "dropout",
+                     "bernoulli", "distribution")),
+    ("memcpy", ("memcpy", "memset")))
+
+
+def lstm_args(torch, seed):
+    """The LSTM layer's inputs at the phase's width on the CPU: data (T,
+    B, 650), a flat parameter drawn U(±1/sqrt(H)) (PyTorch's LSTM
+    default: gates away from their linear range), h0 and c0, and head
+    gradients for out, hN and cN."""
+    from incubator_mxnet_tpu_torch.ops.sequence_ops import rnn_param_size
+    g = torch.Generator().manual_seed(seed)
+    h, layers = LSTM_UNITS, LSTM_LAYERS
+    n = rnn_param_size(LSTM_UNITS, h, layers, "lstm")
+    args = [torch.randn(LSTM_T, LSTM_B, LSTM_UNITS, generator=g),
+            (torch.rand(n, generator=g) * 2 - 1) / h ** 0.5,
+            torch.randn(layers, LSTM_B, h, generator=g) * 0.5,
+            torch.randn(layers, LSTM_B, h, generator=g) * 0.5]
+    heads = [torch.randn(LSTM_T, LSTM_B, h, generator=g),
+             torch.randn(layers, LSTM_B, h, generator=g),
+             torch.randn(layers, LSTM_B, h, generator=g)]
+    return args, heads
+
+
+def check_cudnn_lstm(torch, dev):
+    """Phase 13 (a): ``fused_rnn`` (cuDNN's LSTM on views of the flat
+    parameter) against ``fused_rnn_reference`` (the JAX scan as a loop)
+    on the card, two layers at T=35, B=32, 650 units: out, hN, cN and
+    the gradients of the data, the flat parameter and the states.
+    Returns the worst output error and gradient ratio."""
+    import warnings
+    from incubator_mxnet_tpu_torch.ops import sequence_ops as so
+    args, heads = lstm_args(torch, 11)
+    kw = dict(state_size=LSTM_UNITS, num_layers=LSTM_LAYERS, mode="lstm")
+    res = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for fn in (so.fused_rnn, so.fused_rnn_reference):
+            leaves = [a.to(dev).requires_grad_() for a in args]
+            outs = fn(*leaves, **kw)
+            torch.autograd.backward(outs, [hd.to(dev) for hd in heads])
+            torch.cuda.synchronize()
+            res.append(([o.detach() for o in outs],
+                        [a.grad for a in leaves]))
+    print(f"warnings of the first fused_rnn calls: "
+          f"{sorted({str(w.message)[:100] for w in caught})}", flush=True)
+    (outs, grads), (routs, rgrads) = res
+    out_err = max((a - b).abs().max().item() for a, b in zip(outs, routs))
+    ratios = [((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(grads, rgrads)]
+    assert grads[1].shape == args[1].shape, grads[1].shape
+    print(f"cuDNN LSTM (fused_rnn) against fused_rnn_reference, T={LSTM_T} "
+          f"B={LSTM_B} {LSTM_UNITS}/{LSTM_UNITS} x {LSTM_LAYERS} layers, "
+          f"float32: out/hN/cN max|d| {out_err:.3e} (tol {LSTM_OUT_TOL:g}); "
+          f"gradients max|d|/max|g| data {ratios[0]:.3e}, params_flat "
+          f"{ratios[1]:.3e} (one tensor of {grads[1].numel()}), h0 "
+          f"{ratios[2]:.3e}, c0 {ratios[3]:.3e} (tol {LSTM_GRAD_TOL:g})",
+          flush=True)
+    assert out_err <= LSTM_OUT_TOL, out_err
+    assert max(ratios) <= LSTM_GRAD_TOL, ratios
+    return out_err, max(ratios)
+
+
+def time_cudnn_lstm(torch, dev):
+    """Forward + backward of the two-layer LSTM at the phase's shape:
+    ``fused_rnn`` (the JAX layout's views, which cuDNN copies into its
+    own layout each call) against ``torch.nn.LSTM`` on a weight buffer
+    already in cuDNN's layout, CUDA-event ms over 20 calls, then each
+    once under the profiler: the difference is the copy and the
+    gradient's way back into the flat vector."""
+    from incubator_mxnet_tpu_torch.ops import sequence_ops as so
+    args, heads = lstm_args(torch, 12)
+    x, p, h0, c0 = (a.to(dev) for a in args)
+    x.requires_grad_()
+    p.requires_grad_()
+    heads = [hd.to(dev) for hd in heads]
+    lib = torch.nn.LSTM(LSTM_UNITS, LSTM_UNITS, LSTM_LAYERS).to(dev)
+
+    def ours():
+        outs = so.fused_rnn(x, p, h0, c0, state_size=LSTM_UNITS,
+                            num_layers=LSTM_LAYERS, mode="lstm")
+        torch.autograd.backward(outs, heads)
+
+    def library():
+        out, (hn, cn) = lib(x, (h0, c0))
+        torch.autograd.backward([out, hn, cn], heads)
+
+    times = {}
+    for name, fn in (("fused_rnn", ours), ("nn.LSTM", library)):
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / 20
+    print(f"LSTM forward + backward at T={LSTM_T}, B={LSTM_B}, "
+          f"{LSTM_UNITS} units, {LSTM_LAYERS} layers, CUDA events over 20 "
+          f"calls: fused_rnn {times['fused_rnn']:.4f} ms, torch.nn.LSTM "
+          f"(weights in cuDNN's layout) {times['nn.LSTM']:.4f} ms",
+          flush=True)
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    tables = [profile_window(torch, name, synced(fn), _LSTM_FAMILIES)[2]
+              for name, fn in (("fused_rnn fwd+bwd", ours),
+                               ("nn.LSTM fwd+bwd", library))]
+    extra = {k: (tables[0].get(k, (0, 0.0)), tables[1].get(k, (0, 0.0)))
+             for k in set(tables[0]) | set(tables[1])
+             if tables[0].get(k, (0,))[0] != tables[1].get(k, (0,))[0]}
+    print("kernels whose count differs, fused_rnn (n, ms) against nn.LSTM "
+          "(n, ms): " + "; ".join(
+              f"{k[:80]}: {a[0]}, {a[1]:.4f} / {b[0]}, {b[1]:.4f}"
+              for k, (a, b) in sorted(extra.items())), flush=True)
+    return times
+
+
+def lstm_stream(np):
+    """``(windows, eval window)``: a (T·DISTINCT·reps + 1, B) time-major
+    token matrix from ``RandomState(0)`` whose B columns each repeat a
+    random sequence of T·DISTINCT tokens, cut into word_lm's windows
+    (inputs rows i..i+T, targets rows i+1..i+T+1)."""
+    rs = np.random.RandomState(0)
+    base = rs.randint(0, LSTM_VOCAB, (LSTM_T * LSTM_DISTINCT, LSTM_B))
+    reps = LSTM_STEPS // LSTM_DISTINCT
+    corpus = np.concatenate([base] * reps + [base[:1]]).astype(np.int64)
+    return [(corpus[i:i + LSTM_T], corpus[i + 1:i + 1 + LSTM_T])
+            for i in range(0, LSTM_T * LSTM_DISTINCT * reps, LSTM_T)]
+
+
+def train_lstm_lm(torch, np, dev, smi):
+    """Phase 13 (b); returns the path's launch counts."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.gluon.utils import clip_global_norm
+    from incubator_mxnet_tpu_torch.models import LSTMLanguageModel
+    print(f"float32 with TF32 off: matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} (cuDNN's RNN reads the "
+          "latter: FMA math, no TF32)", flush=True)
+    model = LSTMLanguageModel(LSTM_VOCAB, LSTM_UNITS, LSTM_UNITS,
+                              LSTM_LAYERS, dropout=LSTM_DROPOUT)
+    model.initialize(device=dev, generator=torch.Generator().manual_seed(0))
+    model.drop.generator = torch.Generator(device=dev).manual_seed(1)
+    params = list(model.collect_params().values())
+    trainer = Trainer(params, "sgd", {"learning_rate": LSTM_LR,
+                                      "momentum": 0.0})
+    loss_fn = SoftmaxCrossEntropyLoss()
+    windows = [tuple(torch.from_numpy(a).to(dev) for a in w)
+               for w in lstm_stream(np)]
+
+    def eval_loss(x, y):
+        with autograd.predict_mode(), torch.no_grad():
+            out = model(x, model.begin_state(LSTM_B, device=dev))[0]
+            return loss_fn(out.reshape(-1, LSTM_VOCAB), y.reshape(-1)).mean(
+            ).item()
+
+    def step(x, y, state, check=False):
+        state = [s.detach() for s in state]
+        with autograd.record():
+            out, state = model(x, state)
+            loss = loss_fn(out.reshape(-1, LSTM_VOCAB), y.reshape(-1)).mean()
+        autograd.backward(loss)
+        grads = [p.grad for p in params]
+        sizes = torch.stack([g.abs().max() for g in grads])
+        if check:
+            raw = {k: p.grad.clone() for k, p in
+                   model.collect_params().items()}
+            old = {k: p.detach().clone() for k, p in
+                   model.collect_params().items()}
+        norm = clip_global_norm(grads, LSTM_CLIP)
+        trainer.step(1)
+        if check:
+            check_update(old, raw, norm)
+        return loss, state, norm, sizes
+
+    def check_update(old, raw, norm):
+        """Each of the model's own parameters (read from the model
+        afresh, ``rnn.params_flat`` among them) moved by exactly
+        ``-lr · min(clip / (norm + 1e-12), 1) · grad``, within float32
+        rounding: the clipped SGD step reached the weights the model
+        runs, not a copy."""
+        scale = min(LSTM_CLIP / (norm + 1e-12), 1.0)
+        for k, p in model.collect_params().items():
+            want = old[k] - LSTM_LR * (raw[k] * scale)
+            moved = (p.detach() - old[k]).abs().max().item()
+            err = (p.detach() - want).abs().max().item()
+            tol = 4 * torch.finfo(torch.float32).eps * max(
+                old[k].abs().max().item(), (LSTM_LR * scale * raw[k]).abs()
+                .max().item())
+            print(f"  step 1 update of {k}: max|moved| {moved:.3e}, "
+                  f"max|d| from -lr*{scale:.4f}*grad {err:.3e} (tol "
+                  f"{tol:.3e})", flush=True)
+            assert moved > 0 and err <= tol, (k, moved, err, tol)
+
+    before = eval_loss(*windows[0])
+    state = model.begin_state(LSTM_B, device=dev)
+    xent = ("softmax_xent.fwd_launches", "softmax_xent.bwd_launches")
+    losses, norms, sizes, bad, step_ms = [], [], [], [], []
+    torch.cuda.synchronize()
+    zero_launches()                                     # path starts
+    last = kernel_launches()
+    for i, (x, y) in enumerate(windows):
+        t0 = time.monotonic()
+        loss, state, norm, size = step(x, y, state, check=i == 0)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        if i == 0:          # the peak of steps 2-20, without the check's
+            torch.cuda.reset_peak_memory_stats(dev)     # copies
+            base = torch.cuda.memory_allocated(dev)
+        now = kernel_launches()
+        if any(now[k] - last[k] != 1 for k in xent):
+            bad.append({k: now[k] - last[k] for k in xent})
+        last = now
+        losses.append(loss)
+        norms.append(norm)
+        sizes.append(size)
+    launched = kernel_launches()                        # path ends
+    peak = torch.cuda.max_memory_allocated(dev)
+    held = sum(p.numel() * p.element_size() for p in params)
+    after = eval_loss(*windows[0])
+    losses = [v.item() for v in losses]
+    sizes = torch.stack(sizes).cpu()
+    print(f"{LSTM_STEPS} steps, SGD lr {LSTM_LR}, clip {LSTM_CLIP}, dropout "
+          f"{LSTM_DROPOUT}, windows repeating every {LSTM_DISTINCT}: losses "
+          f"{[round(v, 4) for v in losses]}; gradient norms before clipping "
+          f"{[round(v, 4) for v in norms]}", flush=True)
+    print(f"predict-mode loss of window 0 (ln {LSTM_VOCAB} = "
+          f"{math.log(LSTM_VOCAB):.4f}): before {before:.6f}, after "
+          f"{after:.6f} ({after - before:+.6f})", flush=True)
+    assert not bad, f"cross-entropy launches a step: {bad[:3]}"
+    assert np.isfinite(losses).all() and np.isfinite(norms).all(), losses
+    assert torch.isfinite(sizes).all() and (sizes > 0).all(), \
+        f"a gradient is zero or not finite: {sizes}"
+    assert abs(losses[0] - math.log(LSTM_VOCAB)) < 0.5, losses[0]
+    assert after < before, (before, after)
+    tokens = LSTM_T * LSTM_B
+    h, e, v = LSTM_UNITS, LSTM_UNITS, LSTM_VOCAB
+    # the two layers' input and recurrent products at every step and the
+    # decoder, forward; the backward twice that
+    flops = 3 * 2 * tokens * (4 * h * (e + h) + 4 * h * (h + h) + h * v)
+    med = statistics.median(step_ms[2:])
+    counts = {"softmax_xent_fwd": launched[xent[0]],
+              "softmax_xent_bwd": launched[xent[1]]}
+    print(f"training path launches: {counts} (1/1 a step)", flush=True)
+    print(f"LSTM LM step, host clock around a step ending in a "
+          f"synchronise (the clip's float() waits mid-step): median over "
+          f"steps 3-{LSTM_STEPS} {med:.3f} ms ({tokens / med * 1e3:.0f} "
+          f"tokens/s), min {min(step_ms[2:]):.3f} ms, all "
+          f"{[round(v, 3) for v in step_ms]}; {flops / 1e9:.2f} GFLOP of "
+          f"products a step, {flops / med / 1e9:.2f} TFLOP/s achieved, "
+          f"float32 FMA floor {flops / FP32_PEAK * 1e3:.3f} ms; peak device "
+          f"memory of steps 2-{LSTM_STEPS} {peak - base} bytes "
+          f"({(peak - base) / 2**30:.3f} GiB) above the {base} bytes "
+          f"allocated as step 2 starts ({held} of them the model's "
+          f"parameters; the rest its data and state and what earlier "
+          f"phases still hold); {smi}", flush=True)
+
+    def one_step():
+        step(*windows[0], state)
+        torch.cuda.synchronize()
+
+    profile_window(torch, "LSTM LM step", one_step, _LSTM_FAMILIES)
+    lstm_share(torch, one_step)
+    del model, trainer, windows
+    return counts
+
+
+def lstm_share(torch, part):
+    """Profile ``part()`` (one training step ending in a synchronise)
+    with the host's ops as well, and print the device time of the
+    kernels that cuDNN's LSTM launches (those under ``aten::_cudnn_rnn``
+    and ``aten::_cudnn_rnn_backward``, its products included) against
+    the step's busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        part()
+    events = prof.events()
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    ops = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in (
+                "aten::_cudnn_rnn", "aten::_cudnn_rnn_backward"):
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = e.cuda_time_total
+            ops[e.name] = ops.get(e.name, 0.0) + t / 1e3
+    lstm = sum(ops.values())
+    print(f"  LSTM LM step with host ops profiled: device busy {busy:.3f} "
+          f"ms; cuDNN's LSTM (kernels under the op) "
+          f"{({k: round(v, 4) for k, v in sorted(ops.items())})}, "
+          f"{lstm:.3f} ms, {lstm / busy:.3f} of busy", flush=True)
+    assert len(ops) == 2 and 0 < lstm < busy, ops
+
+
 def post(port, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/models/bert:predict",
@@ -3044,7 +3407,21 @@ def main():
     tf = {k: v + lenet[k] for k, v in tf.items()}
     time_lenet_xent(torch, sx, dev)
 
-    phase("13 kernels")
+    phase("13 train the LSTM language model")
+    lstm_err = check_cudnn_lstm(torch, dev)
+    time_cudnn_lstm(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lstm = train_lstm_lm(torch, np, dev, smi)
+    tf = {k: v + lstm.get(k, 0) for k, v in tf.items()}
+    time_softmax_xent(torch, sx, dev, "float32", rate,
+                      (LSTM_ROWS, LSTM_VOCAB))
+    print(f"phase 13: cuDNN LSTM max|d| {lstm_err[0]:.3e}, worst gradient "
+          f"ratio {lstm_err[1]:.3e}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("14 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"

@@ -48,7 +48,11 @@ order, over up to 1025 keys); dq and dk within 1e-5 of the size of the
 two terms whose difference ds is (scale·max|delta|·max|k| or |q|) where
 that is larger: with one key they cancel exactly; bfloat16 one bf16 ulp
 of each value more.  Run-time-compiled CUDA C (``rtc``) and the LeNet
-step state theirs in their own section below.
+step state theirs in their own section below.  The fused RNN (cuDNN's,
+through ``fused_rnn``) against ``fused_rnn_reference``, float32 with
+TF32 off: outputs and states 1e-5 absolute (values in (-1, 1)), every
+gradient 1e-4 of its largest value (the same products summed in
+another order over the recurrence).
 """
 import copy
 
@@ -1556,3 +1560,89 @@ def test_lenet_step_on_the_card_matches_cpu(dev, no_tf32):
         large = np.abs(g) > 1e-2 * scale
         assert np.abs(d_card[name] - d_cpu[name])[large].max() <= 3e-5, name
         assert np.abs(w_card[name] - w_cpu[name]).max() <= 6e-3, name
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_fused_rnn_cudnn_matches_reference(dev, no_tf32, mode,
+                                           bidirectional):
+    """``fused_rnn`` on the card (cuDNN's RNN, fed views of the one flat
+    parameter) against the plain loop: out, hN, cN and the gradients of
+    the data, the flat parameter (one tensor of its shape) and the
+    states, two layers."""
+    from incubator_mxnet_tpu_torch.ops import sequence_ops as so
+    t, b, i, h, layers = 9, 5, 12, 16, 2
+    d = 2 if bidirectional else 1
+    g = torch.Generator().manual_seed(0)
+    n = so.rnn_param_size(i, h, layers, mode, bidirectional)
+    args = [torch.randn(t, b, i, generator=g),
+            (torch.rand(n, generator=g) * 2 - 1) / h ** 0.5,
+            torch.randn(layers * d, b, h, generator=g),
+            torch.randn(layers * d, b, h, generator=g)]
+    if mode != "lstm":
+        args[3] = None
+    kw = dict(state_size=h, num_layers=layers, mode=mode,
+              bidirectional=bidirectional)
+    res = []
+    for fn in (so.fused_rnn, so.fused_rnn_reference):
+        leaves = [a.to(dev).requires_grad_() if a is not None else None
+                  for a in args]
+        outs = fn(*leaves, **kw)
+        heads = [torch.randn(o.shape, generator=torch.Generator()
+                             .manual_seed(k)).to(dev)
+                 for k, o in enumerate(outs)]
+        torch.autograd.backward(outs, heads)
+        res.append(([o.detach() for o in outs],
+                    [a.grad for a in leaves if a is not None]))
+    (outs, grads), (routs, rgrads) = res
+    assert grads[1].shape == (n,)
+    for got, want in zip(outs, routs):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    for got, want in zip(grads, rgrads):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_fused_rnn_refuses_what_cudnn_does_not_take(dev):
+    """No fallback on the card: a dtype cuDNN's RNN lacks raises."""
+    from incubator_mxnet_tpu_torch.ops import sequence_ops as so
+    n = so.rnn_param_size(4, 8, 1, "gru")
+    x = torch.zeros(3, 2, 4, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cuDNN"):
+        so.fused_rnn(x, torch.zeros(n, device=dev, dtype=torch.bfloat16),
+                     torch.zeros(1, 2, 8, device=dev, dtype=torch.bfloat16),
+                     state_size=8, mode="gru")
+
+
+def test_lstm_lm_step_on_the_card_matches_cpu(dev, no_tf32):
+    """A small LSTM language model (vocab 50, 24/32 units, 2 layers,
+    dropout 0): one SGD step with the state carried in, card against
+    CPU from the same weights: loss 1e-5 relative, every gradient 1e-4
+    of its largest value, the cross-entropy kernels launched once each."""
+    from incubator_mxnet_tpu_torch.convert import (params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.models import LSTMLanguageModel
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 50, (7, 4), generator=g)
+    y = torch.randint(0, 50, (28,), generator=g)
+    cpu = LSTMLanguageModel(50, 24, 32, 2, dropout=0.0)
+    cpu.initialize(device="cpu", generator=torch.Generator().manual_seed(1))
+    card = LSTMLanguageModel(50, 24, 32, 2, dropout=0.0).initialize(
+        device=dev)
+    params_from_jax(params_to_numpy(cpu), card)
+    out = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        state = net.begin_state(4, device=where)
+        before = sx.fwd_launches, sx.bwd_launches
+        with autograd.record():
+            logits, _ = net(x.to(where), state)
+            loss = SoftmaxCrossEntropyLoss()(logits.reshape(28, -1),
+                                             y.to(where)).mean()
+        autograd.backward(loss)
+        launched = (sx.fwd_launches - before[0], sx.bwd_launches - before[1])
+        out.append((loss.item(), grads_to_numpy(net), launched))
+    (l_cpu, g_cpu, n_cpu), (l_card, g_card, n_card) = out
+    assert n_cpu == (0, 0) and n_card == (1, 1)
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name, gr in g_cpu.items():
+        assert np.abs(g_card[name] - gr).max() <= 1e-4 * np.abs(gr).max(), \
+            name
