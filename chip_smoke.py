@@ -13,7 +13,8 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    with ``nvcc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (and, for the row kernels 3-4 and 8-9, at
-   ragged widths, a width past 16384 and a row with -inf entries; for
+   ragged widths, a width past 16384 and a row with -inf entries, and
+   kernel 3 at SSD's class rows (32·119276, 21) as well; for
    flash attention, kernel 5 and its dk/dv and dq kernels, at one row,
    cross lengths, ragged tiles, T = 1025, head widths 16 to 128 (40 and
    72 among them), B·H = 1 and a q whose rows the bfloat16 kernels
@@ -135,7 +136,30 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    step profiled by kernel family, cuDNN's share of it (the kernels
    under its ops), and the cross-entropy kernels timed at (1120,
    10000);
-14. the kernels line (JSON), then the last line
+14. train SSD and decode its detections (``models/ssd.py``, BASELINE
+   config 4: ``ssd_300()``, 20 classes, five scales, 4 anchors a pixel,
+   base width 16, 300x300, float32 with TF32 off) — (a) one Adam step
+   at B=2 on the card against the same step on the CPU, the card's
+   layers deferred and given the CPU model's weights: the targets, the
+   loss, every gradient, the updates and the weights; (b) the detection
+   ops at B=32 over the 119276 anchors, card against CPU from seeded
+   inputs: ``multibox_target`` with 3:1 hard negative mining and
+   ``multibox_detection`` (NMS 0.45, threshold 0.01, top 400), integer
+   outputs equal but for counted near-ties, floats within 1e-5; (c) 20
+   Adam steps (lr 5e-3) at B=32 on one batch of synthetic VOC-like
+   scenes (1-3 boxes an image, 3 label rows, classes 0-19), whose loss
+   must be finite and fall, every gradient finite and nonzero at the
+   first and last steps, with no kernel launched in a training step and
+   kernel 3 exactly once in ``SSD.detections`` on the last batch; the
+   median step time, img/s, the peak device memory above what was
+   allocated as the steps started, one step profiled by kernel family
+   with its idle share, BatchNorm's layers profiled alone, and the
+   detections split into the softmax, ``multibox_detection`` and its
+   NMS loop; (d) ``examples/train_ssd.py`` at its defaults (200 steps
+   at 96x96, B=16), whose loss must halve, and at the JAX suite's size
+   (40 steps at 32x32, B=2), where image 0's best detection must be its
+   box's class above 0.5 within 0.1 of the box;
+15. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -145,8 +169,8 @@ BERT training over phase 6 (b) and (c), ResNet training over phase 7
 bench path over phase 8 (b)'s warm-up and timed steps, the
 TransformerLM over phase 9 (b) and (c) and, with flash attention, over
 phase 10 (b) and (c), the user kernels over phase 11's compiles and
-launches, LeNet over phase 12 (b) and the LSTM language model over
-phase 13 (b).  A graph replay
+launches, LeNet over phase 12 (b), the LSTM language model over phase
+13 (b) and SSD over phase 14 (c)'s steps and detections.  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
@@ -160,6 +184,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -342,6 +367,34 @@ TF_B_CPU, TF_T_CPU = 2, 129
 # RMSNorm rows (B·T, D), bfloat16; then ragged widths and one past the
 # TPU kernels' 16384, a few rows each, in both dtypes
 SM_PATH = (TF_B * TF_H * (TF_T - 1), TF_T - 1)
+# SSD (phase 14): ssd_300() (BASELINE config 4: 20 classes, five scales,
+# 4 anchors a pixel, base width 16) at 300x300, float32; (a) one Adam
+# step at B=2 card vs CPU; (b) the detection ops at B=32 card vs CPU;
+# (c) 20 Adam steps (lr 5e-3) at B=32 on one batch of synthetic scenes,
+# then the detections of the last batch; (d) examples/train_ssd.py
+SSD_IMAGE, SSD_B, SSD_B_CPU, SSD_STEPS, SSD_LR = 300, 32, 2, 20, 5e-3
+SSD_M = 3               # label rows an image: 1-3 boxes, the rest -1
+SSD_MAPS = (150, 75, 37, 18, 1)          # the five stages' feature maps
+SSD_ANCHORS = 4 * sum(s * s for s in SSD_MAPS)           # 119276
+# kernel 3 in SSD.detections: the class axis of (B, 21, N), moved last
+SSD_SM_PATH = (SSD_B * SSD_ANCHORS, 21)
+SSD_DET = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+# card against CPU: float outputs (boxes, scores, location targets up to
+# about 10) within 1e-5; class targets, masks, class ids and the kept
+# rows equal, except at a near-tie, where the two devices' roundings may
+# decide either way: an anchor whose mining score 1 - p(background) lies
+# within 1e-6 of the cut-off (the 3·#pos-th largest) when the next score
+# does too, or whose best IoU lies within 1e-6 of the 0.5 threshold; an
+# image where two boxes of one class among the 400 best overlap within
+# 1e-6 of the NMS threshold.  Near-ties are counted and printed.  The
+# step (a): loss 1e-5 relative (fed the CPU's targets on both devices),
+# every gradient max|d| <= 1e-3 of its largest value (12 convolution
+# layers and 8 BatchNorms over 300x300 maps in another order of sums),
+# updates and weights as phase 6's; the convolution biases in front of
+# a BatchNorm get a gradient that is 0 in exact arithmetic and rounding
+# noise on either device: each below 1e-4 of its convolution weight's
+# largest gradient
+SSD_FLOAT_TOL, SSD_NEAR, SSD_GRAD_TOL, SSD_NOISE_TOL = 1e-5, 1e-6, 1e-3, 1e-4
 RMS_PATH = (TF_B * (TF_T - 1), TF_D)
 ROW_WIDTHS = [1, 7, 300, 1000, 1024, 16385]
 # kernels 8-9's other instances, (rows, cols, x dtype, gamma dtype,
@@ -814,10 +867,11 @@ def softmax_inputs(torch, rows, cols, dtype, dev, seed):
 
 
 def check_softmax(torch, sm, dev):
-    """Kernels 3 and 4 against their plain versions at every case; returns
-    the max |d y| and |d dx| at the path's shape, float32."""
+    """Kernels 3 and 4 against their plain versions at every case (the
+    attention rows, the ragged widths, then SSD.detections' class rows);
+    returns the max |d y| and |d dx| at the attention shape, float32."""
     path_err = None
-    for rows, cols, dtype in row_cases(SM_PATH):
+    for rows, cols, dtype in row_cases(SM_PATH) + [SSD_SM_PATH + ("float32",)]:
         x, g = softmax_inputs(torch, rows, cols, dtype, dev, 0)
         y = sm.softmax_fwd(x)
         dx = sm.softmax_bwd(y, g)
@@ -862,6 +916,41 @@ def time_softmax(torch, sm, dev, rate):
     out = (report(f"softmax_fwd ({rows}, {cols}) float32", fwd, 2 * n, rate),
            report(f"softmax_bwd ({rows}, {cols}) float32", bwd, 3 * n, rate))
     del fwd_sets, bwd_sets
+    return out
+
+
+def time_softmax_ssd(torch, sm, dev, rate):
+    """Kernel 3 at SSD.detections' rows (32·119276, 21) float32, cycling 2
+    input sets of 321 MB: the kernel, its plain version and
+    ``torch.softmax(x, -1)`` on the rows; then the whole op on the class
+    axis of (32, 21, 119276): the port's ``nn_ops.softmax(x, axis=1)``
+    (movedim, kernel, movedim) against ``torch.softmax(x, 1)``, on the
+    layout the model gives it (a transposed view of (32, 119276, 21),
+    whose movedim copies nothing) and on a contiguous (32, 21, 119276)
+    tensor (whose movedim copies it)."""
+    from incubator_mxnet_tpu_torch.ops import nn_ops
+    rows, cols = SSD_SM_PATH
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sets = [(torch.randn(rows, cols, generator=gen, device=dev) * 3,)
+            for _ in range(2)]
+    fwd = {"ms": time_ms(torch, sm.softmax_fwd, sets),
+           "plain_ms": time_ms(torch, sm.softmax_fwd_reference, sets),
+           "library_ms": time_ms(torch, lambda x: torch.softmax(x, -1),
+                                 sets)}
+    out = report(f"softmax_fwd ({rows}, {cols}) float32 (SSD.detections' "
+                 "rows)", fwd, 2 * rows * cols * 4, rate)
+    layouts = {"model's layout": [(x.view(SSD_B, SSD_ANCHORS, cols)
+                                   .transpose(1, 2),) for (x,) in sets]}
+    layouts["contiguous"] = [(v.contiguous(),)
+                             for (v,) in layouts["model's layout"]]
+    for name, args in layouts.items():
+        port = time_ms(torch, lambda v: nn_ops.softmax(v, axis=1), args)
+        lib = time_ms(torch, lambda v: torch.softmax(v, 1), args)
+        print(f"  softmax over axis 1 of ({SSD_B}, {cols}, {SSD_ANCHORS}), "
+              f"{name}: the port's nn_ops.softmax device {port[0]} stream "
+              f"{port[1]:.6f} ms; torch.softmax device {lib[0]} stream "
+              f"{lib[1]:.6f} ms", flush=True)
+    del sets, layouts
     return out
 
 
@@ -3174,6 +3263,443 @@ def lstm_share(torch, part):
     assert len(ops) == 2 and 0 < lstm < busy, ops
 
 
+# SSD's kernels: cuDNN's convolutions (their names carry fprop, dgrad or
+# wgrad, or implicit, winograd, fft), max pooling, the sorts, scatters
+# and gathers of the targets and the loss's pick, the softmaxes (the
+# loss's log_softmax and the mining softmax are PyTorch's; kernel 3 runs
+# only in the detections), PyTorch's reductions (BatchNorm's statistics
+# and its backward's sums, the loss's sums) and elementwise kernels
+# (BatchNorm's normalize, ReLU, the loss, Adam)
+_SSD_FAMILIES = (
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "winograd",
+              "implicit", "fft", "xmma", "gemm", "nvjet")),
+    ("pooling", ("pool",)),
+    ("sort_scatter", ("sort", "radix", "scatter", "gather", "index",
+                      "cub", "argsort")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "fill", "copy", "foreach")),
+    ("memcpy", ("memcpy", "memset")))
+
+
+def ssd_labels(np, rng, batch):
+    """(B, SSD_M, 5) float32 rows ``[cls, x0, y0, x1, y1]``: 1-3 boxes an
+    image, sides 0.1-0.9 of the image, classes 0-19, the rest -1."""
+    labels = np.full((batch, SSD_M, 5), -1.0, np.float32)
+    for b in range(batch):
+        for j in range(rng.randint(1, SSD_M + 1)):
+            w, h = rng.uniform(0.1, 0.9, 2)
+            x0, y0 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            labels[b, j] = [rng.randint(0, 20), x0, y0, x0 + w, y0 + h]
+    return labels
+
+
+def ssd_scenes(np, batch, seed):
+    """Synthetic VOC-like scenes → ``(images (B, 3, 300, 300) float32 in
+    [0, 1], labels)``: noise, with each object's box painted half in a
+    colour of its class."""
+    rng = np.random.RandomState(seed)
+    colours = rng.rand(20, 3).astype(np.float32)
+    labels = ssd_labels(np, rng, batch)
+    x = rng.rand(batch, 3, SSD_IMAGE, SSD_IMAGE).astype(np.float32)
+    for b, j in zip(*np.nonzero(labels[..., 0] >= 0)):
+        cls, x0, y0, x1, y1 = labels[b, j]
+        r0, r1, c0, c1 = (int(v * SSD_IMAGE) for v in (y0, y1, x0, x1))
+        x[b, :, r0:r1, c0:c1] = (x[b, :, r0:r1, c0:c1] + colours[int(cls)]
+                                 [:, None, None]) / 2
+    return x, labels
+
+
+def ssd_anchors(torch, co):
+    """``ssd_300()``'s anchors (1, 119276, 4) on the CPU, from its five
+    feature maps."""
+    from incubator_mxnet_tpu_torch.models import ssd_300
+    net = ssd_300()
+    return torch.cat([co.multibox_prior(torch.zeros(1, 1, m, m), sizes=sz,
+                                        ratios=r)
+                      for m, sz, r in zip(SSD_MAPS, net.sizes, net.ratios)],
+                     dim=1)
+
+
+def ssd_targets_agree(torch, np, co, got, want, anchors, labels, cls_preds):
+    """Card targets ``got`` against CPU targets ``want`` (each ``(loc_t,
+    loc_m, cls_t)``, all from CPU copies of the inputs): location targets
+    within SSD_FLOAT_TOL, masks equal, class targets equal except at
+    near-ties (module notes) → ``(max |d loc_t|, near-ties, anchors that
+    differ)``."""
+    got = [t.cpu().numpy() for t in got]
+    want = [t.numpy() for t in want]
+    cls_t = want[2]
+    probs = torch.softmax(cls_preds, dim=1)[:, 0].numpy()
+    best_iou = co.box_iou(anchors, labels[..., 1:5]).numpy()
+    best_iou = np.where(labels[:, None, :, 0].numpy() >= 0, best_iou,
+                        -1.0).max(axis=2)
+    near = np.abs(best_iou - 0.5) <= SSD_NEAR
+    for b in range(cls_t.shape[0]):
+        cand = cls_t[b] <= 0
+        score = np.where(cand, 1.0 - probs[b], -1.0)
+        k = int(np.float32((cls_t[b] > 0).sum()) * np.float32(3.0))
+        ranked = np.sort(score[cand])[::-1]
+        if 0 < k < len(ranked) and ranked[k - 1] - ranked[k] <= SSD_NEAR:
+            near[b] |= cand & (np.abs(score - ranked[k - 1]) <= SSD_NEAR)
+    loc_near = np.repeat(near, 4, axis=1)
+    assert ((got[1] == want[1]) | loc_near).all(), "loc_mask"
+    err = float(np.where(loc_near, 0.0, np.abs(got[0] - want[0])).max())
+    assert err <= SSD_FLOAT_TOL, err
+    differ = got[2] != cls_t
+    assert not (differ & ~near).any(), np.argwhere(differ & ~near)[:5]
+    return err, int(near.sum()), int(differ.sum())
+
+
+def ssd_detections_agree(torch, np, co, got, want, cls_prob, loc, anchors):
+    """Card detections ``got`` against the CPU's ``want`` (B, N, 6): in
+    every image without an NMS near-tie (two boxes of one class among the
+    400 best overlapping within SSD_NEAR of the threshold, counted on the
+    CPU's boxes), class ids and dropped rows equal and every value within
+    SSD_FLOAT_TOL → ``(max |d|, images with a near-tie)``."""
+    got, want = got.cpu().numpy(), want.numpy()
+    # the 400 best rows, nothing suppressed
+    best = co.multibox_detection(cls_prob, loc, anchors, **{
+        **SSD_DET, "nms_threshold": 2.0})[:, :SSD_DET["nms_topk"]]
+    iou = co.box_iou(best[..., 2:], best[..., 2:])
+    same = (best[..., None, 0] == best[..., None, :, 0]) & (
+        best[..., None, 1] > 0) & (best[..., None, :, 1] > 0)
+    tied = ((iou - SSD_DET["nms_threshold"]).abs() <= SSD_NEAR) & same
+    tied_images = set(np.nonzero(tied.flatten(1).any(1).numpy())[0])
+    err = 0.0
+    for b in range(want.shape[0]):
+        if b in tied_images:
+            continue
+        np.testing.assert_array_equal(got[b, :, 0], want[b, :, 0])
+        np.testing.assert_array_equal(got[b, :, 1] == -1, want[b, :, 1] == -1)
+        err = max(err, float(np.abs(got[b] - want[b]).max()))
+    assert err <= SSD_FLOAT_TOL, err
+    assert (want[..., 1] > 0).any()
+    return err, len(tied_images)
+
+
+def compare_ssd_step(torch, np, dev):
+    """Phase 14 (a): one Adam step of ``ssd_300()`` at B=2, 300x300, on
+    the CPU and on the card from the same weights (carried by
+    ``params_from_jax`` into the card's deferred layers): the targets,
+    the loss and gradients (both from the CPU's targets, so that a
+    near-tie cannot move them), the updates and the weights."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
+                                                   params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.models import SSDLoss, ssd_300
+    from incubator_mxnet_tpu_torch.ops import contrib_ops as co
+    x, labels = (torch.from_numpy(a) for a in ssd_scenes(np, SSD_B_CPU, 1))
+    cpu = ssd_300()
+    cpu.initialize(device="cpu", generator=torch.Generator().manual_seed(0))
+    with autograd.pause():
+        cpu(x)                                  # materialise the weights
+    card = ssd_300()
+    card.initialize(device=dev)
+    params_from_jax(params_to_numpy(cpu), card)
+    results, targets = [], []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        trainer = Trainer(net.collect_params(), "adam",
+                          {"learning_rate": SSD_LR})
+        xb, lb = x.to(where), labels.to(where)
+        t0 = time.monotonic()
+        with autograd.record():
+            anchors, cls_preds, box_preds = net(xb)
+            targets.append(net.targets(anchors, lb, cls_preds))
+            loc_t, loc_m, cls_t = (t.to(where) for t in targets[0])
+            loss = SSDLoss()(cls_preds, box_preds, cls_t, loc_t, loc_m)
+        autograd.backward(loss)
+        grads = grads_to_numpy(net)
+        before = params_to_numpy(net)
+        trainer.step(SSD_B_CPU)
+        after = params_to_numpy(net)
+        results.append((loss.sum().item(), grads, after,
+                        {k: after[k] - before[k] for k in after},
+                        time.monotonic() - t0))
+        if where == "cpu":
+            cpu_anchors, cpu_cls = anchors, cls_preds.detach()
+    print(f"SSD-300 step at B={SSD_B_CPU}, {SSD_IMAGE}x{SSD_IMAGE}: CPU "
+          f"{results[0][4]:.2f} "
+          f"s, card {results[1][4]:.3f} s (deferred init and cuDNN's first "
+          "calls included)", flush=True)
+    err, near, differ = ssd_targets_agree(torch, np, co, targets[1],
+                                          targets[0], cpu_anchors, labels,
+                                          cpu_cls)
+    print(f"targets card vs CPU: loc_target max|d| {err:.3e}; class targets "
+          f"differ at {differ} anchors, near-ties {near}; matched "
+          f"{int((targets[0][2] > 0).sum())}, ignored "
+          f"{int((targets[0][2] < 0).sum())} of {targets[0][2].numel()}",
+          flush=True)
+    # the convolution biases in front of a BatchNorm (module notes)
+    noise = [k for k in results[0][1]
+             if re.fullmatch(r"stage\d+\.[03]\.bias", k)]
+    for (_, grads, *_rest), where in zip(results, ("cpu", "card")):
+        for k in noise:
+            bound = SSD_NOISE_TOL * np.abs(
+                grads[k.replace("bias", "weight")]).max()
+            assert np.abs(grads[k]).max() <= bound, (where, k)
+    held = [tuple({k: v for k, v in d.items() if k not in noise}
+                  if isinstance(d, dict) else d for d in r) for r in results]
+    print(f"{len(noise)} convolution biases in front of a BatchNorm: "
+          f"gradient noise below {SSD_NOISE_TOL:g} of their weights' on "
+          "both devices", flush=True)
+    return check_step(np, held, SSD_GRAD_TOL, SSD_LR)
+
+
+def compare_detection_ops(torch, np, dev):
+    """Phase 14 (b): ``multibox_target`` (mining 3:1) and
+    ``multibox_detection`` (SSD's settings) at B=32 over ssd_300()'s
+    119276 anchors, card against CPU, from seeded inputs."""
+    from incubator_mxnet_tpu_torch.ops import contrib_ops as co
+    rng = np.random.RandomState(3)
+    anchors = ssd_anchors(torch, co)
+    labels = torch.from_numpy(ssd_labels(np, rng, SSD_B))
+    gen = torch.Generator().manual_seed(3)
+    cls_preds = torch.randn(SSD_B, 21, SSD_ANCHORS, generator=gen)
+    loc = torch.randn(SSD_B, SSD_ANCHORS * 4, generator=gen) * 0.5
+    cls_prob = torch.softmax(cls_preds, dim=1)
+    t0 = time.monotonic()
+    want_t = co.multibox_target(anchors, labels, cls_preds,
+                                negative_mining_ratio=3.0)
+    t1 = time.monotonic()
+    want_d = co.multibox_detection(cls_prob, loc, anchors, **SSD_DET)
+    t2 = time.monotonic()
+    args = [a.to(dev) for a in (anchors, labels, cls_preds, cls_prob, loc)]
+    got_t = co.multibox_target(*args[:3], negative_mining_ratio=3.0)
+    got_d = co.multibox_detection(args[3], args[4], args[0], **SSD_DET)
+    torch.cuda.synchronize()
+    err_t, near_t, differ = ssd_targets_agree(torch, np, co, got_t, want_t,
+                                              anchors, labels, cls_preds)
+    err_d, tied = ssd_detections_agree(torch, np, co, got_d, want_d,
+                                       cls_prob, loc, anchors)
+    times = {}
+    for name, fn in (("multibox_target", lambda: co.multibox_target(
+            *args[:3], negative_mining_ratio=3.0)),
+            ("multibox_detection", lambda: co.multibox_detection(
+                args[3], args[4], args[0], **SSD_DET))):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t) * 1e3)
+        times[name] = round(min(runs), 3)
+    kept = int((want_d[..., 1] > 0).sum())
+    print(f"detection ops at B={SSD_B}, N={SSD_ANCHORS}, card vs CPU: "
+          f"multibox_target loc max|d| {err_t:.3e}, class targets differ at "
+          f"{differ} anchors (near-ties {near_t}); multibox_detection "
+          f"max|d| {err_d:.3e}, {kept} rows kept, images with an NMS "
+          f"near-tie {tied}; CPU {t1 - t0:.2f} s and {t2 - t1:.2f} s; card "
+          f"ms (host clock, best of 3) {times}", flush=True)
+    assert tied <= 2, tied
+
+
+def ssd_step(torch, net, trainer, lossfn, x, labels):
+    """One SSD training step → ``(loss (B,), anchors, cls_preds,
+    box_preds)``, the gradients left in ``.grad`` until
+    ``trainer.step``."""
+    from incubator_mxnet_tpu_torch import autograd
+    with autograd.record():
+        anchors, cls_preds, box_preds = net(x)
+        loc_t, loc_m, cls_t = net.targets(anchors, labels, cls_preds)
+        loss = lossfn(cls_preds, box_preds, cls_t, loc_t, loc_m)
+    autograd.backward(loss)
+    return loss, anchors, cls_preds, box_preds
+
+
+def train_ssd_300(torch, np, dev):
+    """Phase 14 (c); returns the SSD path's launch counts."""
+    from incubator_mxnet_tpu_torch import random
+    from incubator_mxnet_tpu_torch.convert import grads_to_numpy
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.models import SSDLoss, ssd_300
+    from incubator_mxnet_tpu_torch.ops import contrib_ops as co
+    from incubator_mxnet_tpu_torch.ops import nn_ops
+    random.seed(0)
+    net = ssd_300()
+    net.initialize(device=dev)
+    x, labels = (torch.from_numpy(a).to(dev)
+                 for a in ssd_scenes(np, SSD_B, 2))
+    trainer = Trainer(net.collect_params(), "adam",
+                      {"learning_rate": SSD_LR})
+    lossfn = SSDLoss()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                                     # main path starts
+    losses, stamps = [], [time.perf_counter()]
+    for i in range(SSD_STEPS):
+        loss, anchors, cls_preds, box_preds = ssd_step(
+            torch, net, trainer, lossfn, x, labels)
+        if i in (0, SSD_STEPS - 1):
+            grads = grads_to_numpy(net)
+            bad = [k for k, p in net.named_parameters() if p.requires_grad
+                   and not (np.isfinite(grads[k]).all()
+                            and np.abs(grads[k]).max() > 0)]
+            assert not bad, (i, bad)
+        trainer.step(SSD_B)
+        losses.append(loss.mean().item())
+        stamps.append(time.perf_counter())
+    train_launches = dict(kernel_launches())
+    peak = torch.cuda.max_memory_allocated() - start
+    det = net.detections(cls_preds, box_preds, anchors)
+    torch.cuda.synchronize()
+    launched = kernel_launches()                        # main path ends
+    assert not any(train_launches.values()), (
+        f"a kernel launched in the training steps: {train_launches}")
+    assert launched["softmax.fwd_launches"] == 1, launched
+    assert sum(launched.values()) == 1, launched
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    det = det.cpu().numpy()
+    assert det.shape == (SSD_B, SSD_ANCHORS, 6) and np.isfinite(det).all()
+    assert (det[..., 1] > 0).any()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    med = statistics.median(step_ms)
+    print(f"SSD-300 training, B={SSD_B}, {SSD_IMAGE}x{SSD_IMAGE}, float32, "
+          f"Adam lr "
+          f"{SSD_LR}: {SSD_STEPS} steps on one batch, losses finite, "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (all: "
+          f"{[round(v, 4) for v in losses]}); every parameter's gradient "
+          f"finite and nonzero at steps 1 and {SSD_STEPS}; no kernel "
+          "launched in a training step, kernel 3 once in the detections",
+          flush=True)
+    print(f"SSD-300 step: median {med:.3f} ms over steps 2-{SSD_STEPS} "
+          f"(host clock, the loss read back each step), "
+          f"{SSD_B / med * 1e3:.1f} img/s; peak device memory "
+          f"{peak} bytes above the {start} allocated as the steps "
+          f"started; detections {int((det[..., 1] > 0).sum())} rows kept",
+          flush=True)
+
+    def one_step():
+        ssd_step(torch, net, trainer, lossfn, x, labels)[0].mean().item()
+        trainer.step(SSD_B)
+        torch.cuda.synchronize()
+
+    profile_window(torch, "SSD-300 step", one_step, _SSD_FAMILIES)
+    # the detections split: the class softmax (kernel 3 and its movedim
+    # copies), the NMS loop, and the rest of multibox_detection (decode,
+    # the best class, the top-400 sort, the compaction)
+    nms_ms = []
+    real_keep = co._nms_keep
+
+    def timed_keep(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_keep(*args, **kwargs)
+        torch.cuda.synchronize()
+        nms_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    parts = []
+    co._nms_keep = timed_keep
+    try:
+        for _ in range(3):
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                probs = nn_ops.softmax(cls_preds, axis=1)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                co.multibox_detection(probs, box_preds, anchors, **SSD_DET)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            parts.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    finally:
+        co._nms_keep = real_keep
+    sm_ms, det_ms = (min(p[i] for p in parts) for i in (0, 1))
+    loop_ms = min(nms_ms)
+    print(f"SSD.detections at B={SSD_B} (host clock, best of 3): softmax "
+          f"{sm_ms:.3f} ms, multibox_detection {det_ms:.3f} ms, of which "
+          f"the NMS loop ({SSD_DET['nms_topk']} iterations) {loop_ms:.3f} "
+          "ms", flush=True)
+
+    # several calls in one window: a trace may lack a call's first
+    # records, so the kernel-3 records are counted against the launches
+    calls = 5
+
+    def detections():
+        for _ in range(calls):
+            net.detections(cls_preds, box_preds, anchors)
+        torch.cuda.synchronize()
+
+    _, _, by_name = profile_window(torch, f"SSD.detections, {calls} calls",
+                                   detections, _SSD_FAMILIES)
+    seen = [(n, ms) for k, (n, ms) in by_name.items() if "softmax_fwd" in k]
+    print(f"  SSD.detections: {sum(n for n, _ in by_name.values()) / calls} "
+          f"device kernels and copies a call; kernel 3 records "
+          f"{sum(n for n, _ in seen)} of {calls} launches, "
+          f"{sum(ms for _, ms in seen) / max(1, sum(n for n, _ in seen)):.6f} "
+          "ms each", flush=True)
+    bn_share(torch, net, x)
+    return {name: launched[key] for name, key in _KERNEL_COUNTERS.items()}
+
+
+def bn_share(torch, net, x):
+    """BatchNorm's own busy time in one step: the 8 BatchNorm layers of
+    ``net`` in training mode, forward and backward, on the inputs they
+    see in a forward of ``x``, profiled alone (in the step's trace their
+    kernels are PyTorch's reductions and elementwise kernels, which the
+    ReLUs, the loss and Adam launch too)."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.gluon import nn
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: inputs.append((m, a[0].detach())))
+        for m in net.modules() if isinstance(m, nn.BatchNorm)]
+    try:
+        with autograd.pause():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def fwd_bwd():
+        for m, a in inputs:
+            a = a.requires_grad_()
+            with autograd.record():
+                out = m(a)
+            autograd.backward(out)
+        torch.cuda.synchronize()
+
+    fwd_bwd()
+    profile_window(torch, f"the {len(inputs)} BatchNorm layers alone, "
+                   "forward + backward", fwd_bwd, _SSD_FAMILIES)
+
+
+def ssd_example(torch, np):
+    """Phase 14 (d): ``examples/train_ssd.py`` on the card at its defaults
+    (200 steps at 96x96, B=16), whose loss must fall by half, and at the
+    JAX suite's size (40 steps at 32x32, B=2), where image 0's best
+    detection must be its box's class (0) above 0.5 within 0.1 of the
+    box (``tests/test_contrib_det.py``'s check)."""
+    from incubator_mxnet_tpu_torch.examples import train_ssd
+    t0 = time.monotonic()
+    out = train_ssd.main([])
+    secs = time.monotonic() - t0
+    losses, det = out["losses"], out["detections"][0]
+    top = det[det[:, 1] > 0]
+    print(f"train_ssd.py at its defaults: {len(losses)} steps in "
+          f"{secs:.2f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f} (must "
+          f"halve); image 0's best detection {top[:1].round(4).tolist()}",
+          flush=True)
+    assert np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0]
+    out = train_ssd.main(["--batch-size", "2", "--image-size", "32",
+                          "--steps", "40"])
+    losses, det = out["losses"], out["detections"][0]
+    top = det[det[:, 1] > 0.5]
+    print(f"train_ssd.py at the JAX suite's size: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; image 0's detections above 0.5: "
+          f"{top[:3].round(4).tolist()}", flush=True)
+    assert losses[-1] < 0.5 * losses[0], losses
+    assert len(top) >= 1 and top[0][0] == 0, top
+    np.testing.assert_allclose(top[0][2:], [.1, .1, .45, .45], atol=0.1)
+
+
 def post(port, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/models/bert:predict",
@@ -3253,6 +3779,7 @@ def main():
     torch.cuda.empty_cache()
     sm_err = check_softmax(torch, sm, dev)
     sm_times = time_softmax(torch, sm, dev, rate)
+    time_softmax_ssd(torch, sm, dev, rate)
     rms_err = check_rms_norm(torch, rn, dev)
     rms_times = time_rms_norm(torch, rn, dev, rate)
     gc.collect()
@@ -3421,7 +3948,24 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("14 kernels")
+    phase("14 train SSD and decode its detections")
+    ssd_t0 = time.monotonic()
+    compare_ssd_step(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    compare_detection_ops(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd = train_ssd_300(torch, np, dev)
+    tf = {k: v + ssd.get(k, 0) for k, v in tf.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_example(torch, np)
+    print(f"phase 14: {time.monotonic() - ssd_t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("15 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"

@@ -1,6 +1,6 @@
 """Convolution and pooling layers (subset of
 ``incubator_mxnet_tpu/gluon/nn/conv_layers.py``): ``Conv2D``,
-``MaxPool2D`` and ``GlobalAvgPool2D``.
+``MaxPool2D``, ``GlobalAvgPool2D`` and ``GlobalMaxPool2D``.
 
 Without ``in_channels``, ``Conv2D`` defers its weight to the first
 forward, which gives the input's channels.  Its weight is
@@ -14,7 +14,7 @@ from ... import initializer as init_mod
 from ...ops import nn_ops
 from ..block import HybridBlock
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D", "GlobalMaxPool2D"]
 
 
 def _tuple(v, n):
@@ -89,3 +89,8 @@ class MaxPool2D(_Pool2D):
 class GlobalAvgPool2D(_Pool2D):
     def __init__(self, layout=None):
         super().__init__(1, 1, 0, True, "avg", layout=layout)
+
+
+class GlobalMaxPool2D(_Pool2D):
+    def __init__(self, layout=None):
+        super().__init__(1, 1, 0, True, "max", layout=layout)

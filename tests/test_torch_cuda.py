@@ -52,7 +52,14 @@ step state theirs in their own section below.  The fused RNN (cuDNN's,
 through ``fused_rnn``) against ``fused_rnn_reference``, float32 with
 TF32 off: outputs and states 1e-5 absolute (values in (-1, 1)), every
 gradient 1e-4 of its largest value (the same products summed in
-another order over the recurrence).
+another order over the recurrence).  The detection ops (SSD), card
+against CPU on the same inputs: floats within 1e-5; class targets,
+masks, class ids and kept rows equal (these data have no near-tie at
+the mining cut-off or a threshold: ``tests/test_torch_contrib_det.py``
+states the rule).  The small SSD step, card against CPU: loss 1e-5
+relative, every gradient 1e-4 of its largest value but the convolution
+biases in front of a BatchNorm, whose gradient is rounding noise on
+both devices (below 1e-4 of their weights' largest).
 """
 import copy
 
@@ -1075,6 +1082,8 @@ def _row_close(got, want, what, tol=1e-6, terms=0.0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,cols", [
     (4096, 1024),      # the attention rows' width (T = 1024)
+    (4096, 21),        # SSD's class axis (20 classes + background)
+    (32 * 119276, 21),  # SSD.detections at B=32, ssd_300()'s anchors
     (1000, 1), (1000, 7), (1000, 300), (100, 1000),   # ragged warp rows
     (8, 1025),         # just past the one-warp width
     (3, 16385),        # past the TPU kernel's width limit
@@ -1646,3 +1655,103 @@ def test_lstm_lm_step_on_the_card_matches_cpu(dev, no_tf32):
     for name, gr in g_cpu.items():
         assert np.abs(g_card[name] - gr).max() <= 1e-4 * np.abs(gr).max(), \
             name
+
+
+def _ssd_inputs(bsz, maps, seed):
+    """Anchors of an SSD over feature maps ``maps`` (4 a pixel), labels
+    (B, 3, 5) with 1-3 boxes an image, class scores (B, 21, N) and box
+    offsets (B, N·4), on the CPU."""
+    from incubator_mxnet_tpu_torch.ops import contrib_ops as co
+    anchors = torch.cat([co.multibox_prior(
+        torch.zeros(1, 1, m, m), sizes=(0.2 + 0.17 * i, 0.27 + 0.17 * i),
+        ratios=(1, 2, 0.5)) for i, m in enumerate(maps)], dim=1)
+    rng = np.random.RandomState(seed)
+    labels = np.full((bsz, 3, 5), -1.0, np.float32)
+    for b in range(bsz):
+        for j in range(1 + b % 3):
+            w, h = rng.uniform(0.1, 0.9, 2)
+            x0, y0 = rng.uniform(0, 1 - w), rng.uniform(0, 1 - h)
+            labels[b, j] = [rng.randint(0, 20), x0, y0, x0 + w, y0 + h]
+    g = torch.Generator().manual_seed(seed)
+    n = anchors.shape[1]
+    return (anchors, torch.from_numpy(labels),
+            torch.randn(bsz, 21, n, generator=g),
+            torch.randn(bsz, n * 4, generator=g) * 0.5)
+
+
+def test_detection_ops_on_the_card_match_cpu(dev):
+    """``multibox_target`` (3:1 mining) and ``multibox_detection`` (SSD's
+    settings) at B=8 over 38x38, 19x19, 10x10, 5x5 and 1x1 maps (7,884
+    anchors), card against CPU."""
+    from incubator_mxnet_tpu_torch.ops import contrib_ops as co
+    anchors, labels, cls_preds, loc = _ssd_inputs(8, (38, 19, 10, 5, 1), 0)
+    cls_prob = torch.softmax(cls_preds, dim=1)
+    det_kw = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+    want_t = co.multibox_target(anchors, labels, cls_preds,
+                                negative_mining_ratio=3.0)
+    want_d = co.multibox_detection(cls_prob, loc, anchors, **det_kw)
+    got_t = co.multibox_target(anchors.to(dev), labels.to(dev),
+                               cls_preds.to(dev), negative_mining_ratio=3.0)
+    got_d = co.multibox_detection(cls_prob.to(dev), loc.to(dev),
+                                  anchors.to(dev), **det_kw)
+    assert all(t.device == dev for t in (*got_t, got_d))
+    torch.testing.assert_close(got_t[0].cpu(), want_t[0], rtol=0, atol=1e-5)
+    assert torch.equal(got_t[1].cpu(), want_t[1])
+    assert torch.equal(got_t[2].cpu(), want_t[2])
+    assert (want_t[2] == -1).any() and (want_t[2] > 0).any()
+    got_d = got_d.cpu()
+    assert torch.equal(got_d[..., :2] == -1, want_d[..., :2] == -1)
+    assert torch.equal(got_d[..., 0], want_d[..., 0])
+    torch.testing.assert_close(got_d, want_d, rtol=0, atol=1e-5)
+    assert (want_d[..., 1] > 0).any()
+
+
+def test_small_ssd_step_on_the_card_matches_cpu(dev, no_tf32):
+    """The JAX suite's small SSD (2 classes, two scales, base width 8) at
+    B=2, 64x64: one step card against CPU from the same weights; the
+    softmax kernel launches in neither the step nor its backward, and
+    once in ``detections``, whose rows match the CPU's."""
+    from incubator_mxnet_tpu_torch.convert import (params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.models import SSDLoss
+    from incubator_mxnet_tpu_torch.examples.train_ssd import (
+        ssd_net, synthetic_labels)
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    labels = torch.from_numpy(synthetic_labels(2))
+    cpu = ssd_net()
+    cpu.initialize(device="cpu", generator=torch.Generator().manual_seed(0))
+    with autograd.pause():
+        cpu(x)
+    card = ssd_net()
+    card.initialize(device=dev)
+    params_from_jax(params_to_numpy(cpu), card)
+    out = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        before = (sm.fwd_launches, sm.bwd_launches)
+        with autograd.record():
+            anchors, cls_preds, box_preds = net(x.to(where))
+            loc_t, loc_m, cls_t = net.targets(anchors, labels.to(where),
+                                              cls_preds)
+            loss = SSDLoss()(cls_preds, box_preds, cls_t, loc_t, loc_m)
+        autograd.backward(loss)
+        step = (sm.fwd_launches - before[0], sm.bwd_launches - before[1])
+        det = net.detections(cls_preds, box_preds, anchors)
+        launched = (sm.fwd_launches - before[0], sm.bwd_launches - before[1])
+        out.append((loss.sum().item(), grads_to_numpy(net), cls_t.cpu(),
+                    det.cpu(), step, launched))
+    (l_cpu, g_cpu, t_cpu, d_cpu, s_cpu, n_cpu), \
+        (l_card, g_card, t_card, d_card, s_card, n_card) = out
+    assert (s_cpu, n_cpu) == ((0, 0), (0, 0))
+    assert s_card == (0, 0) and n_card == (1, 0)
+    assert torch.equal(t_card, t_cpu)
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name, gr in g_cpu.items():
+        if name in ("stage0.0.bias", "stage0.3.bias"):
+            wscale = np.abs(g_cpu[name.replace("bias", "weight")]).max()
+            assert np.abs(gr).max() <= 1e-4 * wscale, name
+            assert np.abs(g_card[name]).max() <= 1e-4 * wscale, name
+            continue
+        assert np.abs(g_card[name] - gr).max() <= 1e-4 * np.abs(gr).max(), \
+            name
+    assert torch.equal(d_card[..., 0], d_cpu[..., 0])
+    torch.testing.assert_close(d_card, d_cpu, rtol=0, atol=1e-5)
