@@ -14,7 +14,12 @@ Phases (any failure raises, prints its traceback and exits non-zero):
 3. kernels — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (and, for the row kernels 3-4 and 8-9, at
    ragged widths, a width past 16384 and a row with -inf entries, and
-   kernel 3 at SSD's class rows (32·119276, 21) as well; for
+   kernel 3 at SSD's class rows (32·119276, 21) in both dtypes, at the
+   narrow widths 2-33 and with x off 16 bytes, its kernel by name at
+   SSD's and the attention rows; the cross-entropy forward at the LSTM
+   LM's (1120, 10000) in both dtypes, at (7, 10001) and with the
+   logits off 16 bytes and far below 0, its wide kernel by name and two
+   calls bit for bit; for
    flash attention, kernel 5 and its dk/dv and dq kernels, at one row,
    cross lengths, ragged tiles, T = 1025, head widths 16 to 128 (40 and
    72 among them), B·H = 1 and a q whose rows the bfloat16 kernels
@@ -257,7 +262,19 @@ LSTM_OUT_TOL, LSTM_GRAD_TOL = 1e-5, 1e-4
 XENT_SHAPES = [((ROWS, VOCAB), "float32"), ((ROWS, VOCAB), "bfloat16"),
                ((TRAIN_B, 2), "float32"), ((TRAIN_B, 2), "bfloat16"),
                ((LSTM_ROWS, LSTM_VOCAB), "float32"),
-               ((1000, 100), "float32"), ((3, 16385), "float32")]
+               ((LSTM_ROWS, LSTM_VOCAB), "bfloat16"),
+               ((1000, 100), "float32"), ((3, 16385), "float32"),
+               ((7, 10001), "bfloat16")]
+# and the MLM shape with the logits one element past 16 bytes: the wide
+# kernel's rows start off its 16-byte pieces
+XENT_OFFSET_SHAPES = [((ROWS, VOCAB), "float32"), ((ROWS, VOCAB), "bfloat16")]
+# the forward on logits far below 0 (x - 100, or the first half of
+# every odd row's columns at -1e4 and row 2 at -1e9), where a thread's
+# first values all lie below exp's range; loss and lse at XENT_LOSS_TOL
+XENT_FAR_CASES = [(shape, dtype, variant)
+                  for shape in ((LSTM_ROWS, LSTM_VOCAB), (7, 10001))
+                  for dtype in ("float32", "bfloat16")
+                  for variant in ("x - 100", "masked")]
 # loss and lse: float32 in both versions, 1e-5; dx: float32 rtol 1e-5,
 # atol 1e-6 (one float32 ulp of a row's logsumexp, about 15 here, moves
 # exp(x - lse) by about 1e-6 of itself), bfloat16 rtol 8e-3 (one bf16
@@ -397,6 +414,12 @@ SSD_DET = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
 SSD_FLOAT_TOL, SSD_NEAR, SSD_GRAD_TOL, SSD_NOISE_TOL = 1e-5, 1e-6, 1e-3, 1e-4
 RMS_PATH = (TF_B * (TF_T - 1), TF_D)
 ROW_WIDTHS = [1, 7, 300, 1000, 1024, 16385]
+# kernel 3's narrow rows (softmax_fwd_narrow, up to 32 values; 33 is the
+# first one-warp row) at 1000 rows, no multiple of its 256-row tile, in
+# both dtypes; then x off 16 bytes by `offset` elements, (rows, cols,
+# offset)
+SM_NARROW_WIDTHS = [2, 10, 16, 20, 21, 31, 32, 33]
+SM_OFFSET_CASES = [(4096, 21, 1), (1000, 32, 1)]
 # kernels 8-9's other instances, (rows, cols, x dtype, gamma dtype,
 # offset of x in elements): BERT's width in both dtypes, a width that is
 # no multiple of a chunk (element loads), float32 gamma on bfloat16 x
@@ -649,6 +672,7 @@ def report(label, times, nbytes, rate, flops=0, peak=FP32_PEAK):
             print(f"  {k}: profiler saw no device time; reporting CUDA-"
                   "event time", flush=True)
         out[k] = device if device is not None else stream
+    print(f"  the kernel at {bound / out['ms']:.3f} of its bound", flush=True)
     return out
 
 
@@ -761,11 +785,17 @@ def xent_inputs(torch, shape, dtype, seed, dev):
 
 
 def check_softmax_xent(torch, sx, dev):
-    """Both kernels against their plain versions at every shape; returns
-    the max |d loss| and max |d dx| at the MLM shape, float32."""
+    """Both kernels against their plain versions at every shape (and with
+    the logits off 16 bytes), the forward on logits far below 0, then
+    the forward's kernel by the profiler's name at the LSTM LM's and the
+    MLM shape, and two calls' bits; returns the max |d loss| and max
+    |d dx| at the MLM shape, float32."""
     errs_at_train = None
-    for shape, dtype in XENT_SHAPES:
+    cases = ([(shape, dtype, 0) for shape, dtype in XENT_SHAPES]
+             + [(shape, dtype, 1) for shape, dtype in XENT_OFFSET_SHAPES])
+    for shape, dtype, offset in cases:
         x, labels, g = xent_inputs(torch, shape, dtype, 0, dev)
+        x = offset_copy(torch, x, offset)
         loss, lse = sx.softmax_xent_fwd(x, labels)
         dx = sx.softmax_xent_bwd(x, labels, lse, g)
         rloss, rlse = sx.softmax_xent_fwd_reference(x, labels)
@@ -778,12 +808,40 @@ def check_softmax_xent(torch, sx, dev):
         torch.testing.assert_close(dx.float(), rdx.float(), **tol)
         e_loss = (loss - rloss).abs().max().item()
         e_dx = (dx.float() - rdx.float()).abs().max().item()
-        print(f"softmax_xent {shape} {dtype}: max|d loss|={e_loss:.3e} "
+        print(f"softmax_xent {shape} {dtype}, x offset {offset}: max|d "
+              f"loss|={e_loss:.3e} "
               f"max|d lse|={(lse - rlse).abs().max().item():.3e} "
               f"(tol {XENT_LOSS_TOL:g}) max|d dx|={e_dx:.3e} (tol {tol}) "
               "ok", flush=True)
-        if shape == (ROWS, VOCAB) and dtype == "float32":
+        if shape == (ROWS, VOCAB) and dtype == "float32" and not offset:
             errs_at_train = e_loss, e_dx
+    for shape, dtype, variant in XENT_FAR_CASES:
+        x, labels, _ = xent_inputs(torch, shape, dtype, 5, dev)
+        if variant == "x - 100":
+            x = x - 100
+        else:
+            x[1::2, :shape[1] // 2] = -1e4
+            x[2] = -1e9
+        loss, lse = sx.softmax_xent_fwd(x, labels)
+        rloss, rlse = sx.softmax_xent_fwd_reference(x, labels)
+        torch.cuda.synchronize()
+        for a, b in ((loss, rloss), (lse, rlse)):
+            torch.testing.assert_close(a, b, rtol=XENT_LOSS_TOL,
+                                       atol=XENT_LOSS_TOL)
+        print(f"softmax_xent_fwd {shape} {dtype}, {variant}: max|d loss|="
+              f"{(loss - rloss).abs().max().item():.3e} max|d lse|="
+              f"{(lse - rlse).abs().max().item():.3e} (tol "
+              f"{XENT_LOSS_TOL:g} of each) ok", flush=True)
+    for shape in ((LSTM_ROWS, LSTM_VOCAB), (ROWS, VOCAB)):
+        x, labels, _ = xent_inputs(torch, shape, "float32", 1, dev)
+        names = kernel_names(torch, sx.softmax_xent_fwd, (x, labels))
+        first, second = (sx.softmax_xent_fwd(x, labels) for _ in range(2))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        print(f"softmax_xent_fwd {shape} float32 runs {names}; two calls "
+              f"give the same bits: {same}", flush=True)
+        assert (len(names) == 1 and "softmax_xent_fwd_wide" in names[0]
+                and same), (names, same)
     return errs_at_train
 
 
@@ -793,7 +851,8 @@ def time_softmax_xent(torch, sx, dev, dtype, rate, shape=(ROWS, VOCAB)):
     at the LSTM's (1120, 10000)).  The library calls are
     ``F.cross_entropy(reduction="none")`` and, for the backward, the two
     ATen ops its autograd runs (``nll_loss_backward`` and
-    ``_log_softmax_backward_data``) on its saved log-probabilities."""
+    ``_log_softmax_backward_data``) on its saved log-probabilities, with
+    the loss's gradient in the logits' dtype, as autograd gives it."""
     import torch.nn.functional as F
     rows, cols = shape
     sets, fwd_sets, lib_sets = [], [], []
@@ -802,9 +861,9 @@ def time_softmax_xent(torch, sx, dev, dtype, rate, shape=(ROWS, VOCAB)):
         lse = sx.softmax_xent_fwd_reference(x, labels)[1]
         sets.append((x, labels, lse, g))
         fwd_sets.append((x, labels))
-        lib_sets.append((x, labels.long().clamp(0, cols - 1), g,
+        lib_sets.append((x, labels.long().clamp(0, cols - 1), g.to(x.dtype),
                          torch.log_softmax(x, 1)))
-    zero = torch.zeros((), device=dev)
+    zero = torch.zeros((), device=dev, dtype=getattr(torch, dtype))
     fwd_times = {
         "ms": time_ms(torch, sx.softmax_xent_fwd, fwd_sets),
         "plain_ms": time_ms(torch, sx.softmax_xent_fwd_reference, fwd_sets),
@@ -868,26 +927,44 @@ def softmax_inputs(torch, rows, cols, dtype, dev, seed):
 
 def check_softmax(torch, sm, dev):
     """Kernels 3 and 4 against their plain versions at every case (the
-    attention rows, the ragged widths, then SSD.detections' class rows);
-    returns the max |d y| and |d dx| at the attention shape, float32."""
+    attention rows, the ragged widths, SSD.detections' class rows in both
+    dtypes, the narrow widths, then x off 16 bytes), then kernel 3 by the
+    profiler's name at SSD's and the attention rows; returns the max
+    |d y| and |d dx| at the attention shape, float32."""
     path_err = None
-    for rows, cols, dtype in row_cases(SM_PATH) + [SSD_SM_PATH + ("float32",)]:
+    cases = [case + (0,) for case in
+             row_cases(SM_PATH) + row_cases(SSD_SM_PATH)[:2]
+             + [(1000, c, dt) for c in SM_NARROW_WIDTHS
+                for dt in ("float32", "bfloat16")]]
+    cases += [(rows, cols, dt, offset) for rows, cols, offset in
+              SM_OFFSET_CASES for dt in ("float32", "bfloat16")]
+    for rows, cols, dtype, offset in cases:
         x, g = softmax_inputs(torch, rows, cols, dtype, dev, 0)
+        x = offset_copy(torch, x, offset)
         y = sm.softmax_fwd(x)
         dx = sm.softmax_bwd(y, g)
         ry = sm.softmax_fwd_reference(x)
         rdx = sm.softmax_bwd_reference(y, g)
         torch.cuda.synchronize()
         (ey, oky), (edx, okdx) = row_err(torch, y, ry), row_err(torch, dx, rdx)
-        print(f"softmax ({rows}, {cols}) {dtype}: max|d|/max|ref| y={ey:.2e} "
+        print(f"softmax ({rows}, {cols}) {dtype}, x offset {offset}: "
+              f"max|d|/max|ref| y={ey:.2e} "
               f"dx={edx:.2e} (tol {ROW_TOL:g} of max"
               f"{', + 1 bf16 ulp' if dtype == 'bfloat16' else ''})",
               flush=True)
-        assert oky and okdx, ((rows, cols, dtype), ey, edx)
+        assert oky and okdx, ((rows, cols, dtype, offset), ey, edx)
         if (rows, cols) == SM_PATH and dtype == "float32":
             path_err = ((y.float() - ry.float()).abs().max().item(),
                         (dx.float() - rdx.float()).abs().max().item())
         del x, g, y, dx, ry, rdx
+    for (rows, cols), want in ((SSD_SM_PATH, "softmax_fwd_narrow"),
+                               (SM_PATH, "softmax_fwd_warp")):
+        x, _ = softmax_inputs(torch, rows, cols, "float32", dev, 1)
+        names = kernel_names(torch, sm.softmax_fwd, (x,))
+        print(f"softmax_fwd ({rows}, {cols}) float32 runs {names}",
+              flush=True)
+        assert len(names) == 1 and want in names[0], names
+        del x
     return path_err
 
 
@@ -920,9 +997,10 @@ def time_softmax(torch, sm, dev, rate):
 
 
 def time_softmax_ssd(torch, sm, dev, rate):
-    """Kernel 3 at SSD.detections' rows (32·119276, 21) float32, cycling 2
-    input sets of 321 MB: the kernel, its plain version and
-    ``torch.softmax(x, -1)`` on the rows; then the whole op on the class
+    """Kernel 3 (softmax_fwd_narrow) at SSD.detections' rows (32·119276,
+    21) float32, cycling 2 input sets of 321 MB: the kernel, its plain
+    version and ``torch.softmax(x, -1)`` on the rows, and the same in
+    bfloat16 (2 sets of 160 MB); then the whole op on the class
     axis of (32, 21, 119276): the port's ``nn_ops.softmax(x, axis=1)``
     (movedim, kernel, movedim) against ``torch.softmax(x, 1)``, on the
     layout the model gives it (a transposed view of (32, 119276, 21),
@@ -939,6 +1017,13 @@ def time_softmax_ssd(torch, sm, dev, rate):
                                  sets)}
     out = report(f"softmax_fwd ({rows}, {cols}) float32 (SSD.detections' "
                  "rows)", fwd, 2 * rows * cols * 4, rate)
+    bf16 = [(x.to(torch.bfloat16),) for (x,) in sets]
+    report(f"softmax_fwd ({rows}, {cols}) bfloat16", {
+        "ms": time_ms(torch, sm.softmax_fwd, bf16),
+        "plain_ms": time_ms(torch, sm.softmax_fwd_reference, bf16),
+        "library_ms": time_ms(torch, lambda x: torch.softmax(x, -1), bf16)},
+        2 * rows * cols * 2, rate)
+    del bf16
     layouts = {"model's layout": [(x.view(SSD_B, SSD_ANCHORS, cols)
                                    .transpose(1, 2),) for (x,) in sets]}
     layouts["contiguous"] = [(v.contiguous(),)
@@ -3941,8 +4026,9 @@ def main():
     torch.cuda.empty_cache()
     lstm = train_lstm_lm(torch, np, dev, smi)
     tf = {k: v + lstm.get(k, 0) for k, v in tf.items()}
-    time_softmax_xent(torch, sx, dev, "float32", rate,
-                      (LSTM_ROWS, LSTM_VOCAB))
+    for dtype in ("float32", "bfloat16"):   # softmax_xent_fwd_wide
+        time_softmax_xent(torch, sx, dev, dtype, rate,
+                          (LSTM_ROWS, LSTM_VOCAB))
     print(f"phase 13: cuDNN LSTM max|d| {lstm_err[0]:.3e}, worst gradient "
           f"ratio {lstm_err[1]:.3e}", flush=True)
     gc.collect()
@@ -3986,6 +4072,7 @@ def main():
              source=src + "softmax_xent.cu", replaces=pk + ":545",
              launches=train["softmax_xent_fwd"] + resnet["softmax_xent_fwd"]
              + tf["softmax_xent_fwd"],
+             cuda_kernels=["softmax_xent_fwd_wide", "softmax_xent_fwd_warp"],
              max_abs_err=xent_fwd_err, **xent_fwd_times),
         dict(name="softmax_xent_bwd", route="cuda",
              source=src + "softmax_xent.cu", replaces=pk + ":558",
@@ -3994,6 +4081,8 @@ def main():
              max_abs_err=xent_bwd_err, **xent_bwd_times),
         dict(name="softmax_fwd", route="cuda", source=src + "softmax.cu",
              replaces=pk + ":127", launches=tf["softmax_fwd"],
+             cuda_kernels=["softmax_fwd_narrow", "softmax_fwd_warp",
+                           "softmax_fwd_wide"],
              max_abs_err=sm_err[0], **sm_times[0]),
         dict(name="softmax_bwd", route="cuda", source=src + "softmax.cu",
              replaces=pk + ":137", launches=tf["softmax_bwd"],

@@ -21,18 +21,45 @@
 //
 // Bound: memory traffic.  The forward reads each logit once and does
 // one exp a logit (about 10 operations); the backward reads each once
-// and writes dx once.  Both stream the row once: the forward keeps a
-// running (max, sum) pair per thread, rescaling the sum when the max
-// grows, so no second pass and no staging is needed, and a row of any
-// width fits (the TPU kernel is limited to 16384 columns by its on-chip
+// and writes dx once.  Both stream the row once, keeping a running
+// (max, sum) pair per thread and rescaling the sum when the max grows,
+// so no second pass and no staging is needed and a row of any width
+// fits (the TPU kernel is limited to 16384 columns by its on-chip
 // memory; the JAX package computes wider rows by composition, which is
-// the same function).  The label's logit is read once, by thread 0.
+// the same function).  The forward's bound at the LSTM LM's (1120,
+// 10000) float32 is 44.8 MB at 3.35 TB/s, 0.0134 ms; at BERT's (2048,
+// 30522) 250 MB, 0.0746 ms.
 //
-// Layout: a row of at most 1024 values gets one warp (eight rows to a
-// block of 256 threads); a wider row gets a block of 512 threads.
-// Threads stride over the row, so neighbouring threads touch
-// neighbouring addresses; the forward issues four loads before it uses
-// any, to keep more bytes in flight.
+// Forward dispatch by the row's width C:
+//
+//   C <= 1024    softmax_xent_fwd_warp: one warp a row (eight rows to a
+//                block of 256 threads), loads strided over the row, four
+//                in flight a lane; the label's logit read by lane 0.
+//   C > 1024     softmax_xent_fwd_wide: one CTA of 128 threads a row.
+//
+// What held the old wide path back: a block of 512 threads a row, scalar
+// 4-byte loads and a branchy expf a logit (mx::ms_add) gave the LSTM
+// LM's 1120 rows 1120 blocks, 4 resident on each of 132 SMs: 2.12 waves,
+// the third 64 blocks on 64 SMs with 8 KB in flight each (46 % of the
+// bound overall).  The wide kernel loads 16-byte chunks (4 float32 or 8
+// bf16 values), 32 values a thread at a time, and folds each round into
+// its running pair with one rescale for the round's max and, per value,
+// one subtraction, one multiply, one ex2.approx and one add (exp(v - m)
+// = 2^((v - m) log2 e); about 2 ulp, against the 20-odd instructions of
+// expf).  With 128 threads a CTA every one of the LSTM LM's 1120 rows is
+// resident at once, so there is no second wave; measured on the card,
+// that and the cheaper exp decided it.  The row is cut on 16-byte
+// boundaries inside it, so any row start takes the same path: the
+// values before its first boundary and after its last whole chunk are
+// read one a thread.  The block's pairs merge in a fixed order
+// (mx::row_ms), so two runs give the same bits.  Splitting a row over a
+// thread-block cluster lost on the card at every shape a ported path
+// runs (PERF.md, Findings) and is not built.
+
+// Backward layout: a row of at most 1024 values gets one warp (eight
+// rows to a block of 256 threads); a wider row gets a block of 512
+// threads.  Threads stride over the row, so neighbouring threads touch
+// neighbouring addresses.
 
 #include <math.h>
 
@@ -48,48 +75,130 @@ using mx::to_float;
 constexpr int kSmallRow = 1024;       // widest row that gets one warp
 constexpr int kWarpRowsBlock = 256;   // block size in one-warp-per-row mode
 constexpr int kWideBlock = 512;       // block size for a wider row
+constexpr int kRowBlock = 128;        // the wide forward's CTA
 
 __device__ __forceinline__ int clip_label(int l, int cols) {
   return l < 0 ? 0 : (l >= cols ? cols - 1 : l);
 }
 
+// One warp a row, eight rows a block.
 template <typename T>
-__global__ void __launch_bounds__(kWideBlock)
-softmax_xent_fwd_kernel(const T* __restrict__ x,
-                        const int* __restrict__ labels,
-                        float* __restrict__ loss, float* __restrict__ lse,
-                        int64_t rows, int cols, int threads_per_row) {
-  __shared__ float red[64];
-  const bool whole_block = threads_per_row > 32;
-  const int slot = threadIdx.x / threads_per_row;
-  const int t = threadIdx.x % threads_per_row;
+__global__ void __launch_bounds__(kWarpRowsBlock)
+softmax_xent_fwd_warp(const T* __restrict__ x, const int* __restrict__ labels,
+                      float* __restrict__ loss, float* __restrict__ lse,
+                      int64_t rows, int cols) {
+  const int lane = threadIdx.x & 31;
   const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * (blockDim.x / threads_per_row) +
-      slot;
-  // Only whole warps leave here (one warp per row, no block barrier);
-  // with a block per row every row exists.
-  if (row >= rows) return;
+      static_cast<int64_t>(blockIdx.x) * (kWarpRowsBlock / 32) +
+      (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps only; no block barrier here
   const T* xr = x + row * cols;
-  const int tpr = threads_per_row;
-
   float m = -INFINITY, s = 0.f;
-  int i = t;
-  for (; i + 3 * tpr < cols; i += 4 * tpr) {
+  int i = lane;
+  for (; i + 3 * 32 < cols; i += 4 * 32) {
     const float v0 = to_float(xr[i]);
-    const float v1 = to_float(xr[i + tpr]);
-    const float v2 = to_float(xr[i + 2 * tpr]);
-    const float v3 = to_float(xr[i + 3 * tpr]);
+    const float v1 = to_float(xr[i + 32]);
+    const float v2 = to_float(xr[i + 2 * 32]);
+    const float v3 = to_float(xr[i + 3 * 32]);
     ms_add(m, s, v0);
     ms_add(m, s, v1);
     ms_add(m, s, v2);
     ms_add(m, s, v3);
   }
-  for (; i < cols; i += tpr) ms_add(m, s, to_float(xr[i]));
-  row_ms(m, s, red, whole_block);
-  if (t == 0) {
+  for (; i < cols; i += 32) ms_add(m, s, to_float(xr[i]));
+  row_ms(m, s, nullptr, false);
+  if (lane == 0) {
     const float l = m + logf(s);
     lse[row] = l;
     loss[row] = l - to_float(xr[clip_label(labels[row], cols)]);
+  }
+}
+
+// 2^x by the SFU (ex2.approx, about 2 ulp; results below 2^-126 flush
+// to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The running pair of the wide kernel: m, the max so far, and s, the
+// sum of exp(x - shift(m)), where shift(m) is m where finite and 0 else
+// (so that a row of -inf sums to 0 and a NaN or +inf logit carries
+// through to lse).
+__device__ __forceinline__ float shift(float m) {
+  return isfinite(m) ? m : 0.f;
+}
+
+// Folds K values into (m, s), rescaling s once for their max.  While m
+// is -inf, s holds only terms of -inf (0, or NaN to carry) and is not
+// rescaled: exp(-inf - cm) would be 0, and for cm below about -88 the
+// ex2 of shift(-inf) - cm overflows, giving 0 * inf.
+template <int K>
+__device__ __forceinline__ void fold(float& m, float& s, const float* v) {
+  float cm = v[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) cm = fmaxf(cm, v[k]);
+  if (cm > m) {
+    if (m != -INFINITY) s *= exp2_approx((m - shift(cm)) * kLog2e);
+    m = cm;
+  }
+  const float sm = shift(m);
+#pragma unroll
+  for (int k = 0; k < K; ++k) s += exp2_approx((v[k] - sm) * kLog2e);
+}
+
+// One CTA of kRowBlock threads a row, each thread with K 16-byte chunks
+// in flight at a time; see the head of this file.
+template <typename T>
+__global__ void __launch_bounds__(kRowBlock)
+softmax_xent_fwd_wide(const T* __restrict__ x, const int* __restrict__ labels,
+                      float* __restrict__ loss, float* __restrict__ lse,
+                      int cols) {
+  constexpr int E = 16 / sizeof(T);  // values a chunk
+  constexpr int K = 32 / E;          // chunks a round: 32 values a thread
+  __shared__ float red[64];
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * cols;
+  const int t = threadIdx.x;
+
+  // the row's 16-byte chunks, from the first 16-byte boundary in the row
+  const int off = static_cast<int>(reinterpret_cast<uintptr_t>(xr) & 15);
+  const int head = min(cols, ((16 - off) & 15) / static_cast<int>(sizeof(T)));
+  const int chunks = (cols - head) / E;
+  const int tail = head + chunks * E;
+  const T* xa = xr + head;
+  // in flight with the first round: the label's logit and the values
+  // before the first boundary and after the last whole chunk, one a
+  // thread
+  float picked = 0.f, ends[2] = {-INFINITY, -INFINITY};
+  if (t == 0) picked = to_float(xr[clip_label(labels[row], cols)]);
+  if (t < head) ends[0] = to_float(xr[t]);
+  if (t < cols - tail) ends[1] = to_float(xr[tail + t]);
+
+  float m = -INFINITY, s = 0.f;
+  for (int c = t; c < chunks; c += K * kRowBlock) {
+    float v[K * E];
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const int chunk = c + u * kRowBlock;
+      if (chunk < chunks) {
+        mx::load16(xa + static_cast<int64_t>(chunk) * E, v + u * E);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[u * E + e] = -INFINITY;  // adds 0
+      }
+    }
+    fold<K * E>(m, s, v);
+  }
+  fold<2>(m, s, ends);
+  row_ms(m, s, red, true);
+  if (t == 0) {
+    const float l = m + logf(s);
+    lse[row] = l;
+    loss[row] = l - picked;
   }
 }
 
@@ -142,12 +251,19 @@ template <typename T>
 cudaError_t launch_fwd(const void* x, const int* labels, float* loss,
                        float* lse, int64_t rows, int cols,
                        cudaStream_t stream) {
-  Geometry geo;
-  cudaError_t err = geometry(rows, cols, &geo);
-  if (err != cudaSuccess) return err;
-  softmax_xent_fwd_kernel<T><<<geo.grid, geo.block, 0, stream>>>(
-      static_cast<const T*>(x), labels, loss, lse, rows, cols,
-      geo.threads_per_row);
+  if (cols > kSmallRow) {
+    if (rows > 0x7fffffff) return cudaErrorInvalidValue;
+    softmax_xent_fwd_wide<T>
+        <<<static_cast<unsigned>(rows), kRowBlock, 0, stream>>>(
+            static_cast<const T*>(x), labels, loss, lse, cols);
+    return cudaGetLastError();
+  }
+  constexpr int kRows = kWarpRowsBlock / 32;
+  const int64_t grid = (rows + kRows - 1) / kRows;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  softmax_xent_fwd_warp<T>
+      <<<static_cast<unsigned>(grid), kWarpRowsBlock, 0, stream>>>(
+          static_cast<const T*>(x), labels, loss, lse, rows, cols);
   return cudaGetLastError();
 }
 
@@ -183,7 +299,8 @@ extern "C" int mx_softmax_xent_fwd(int dtype, int device, const void* x,
   float* ls = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_fwd<float>(x, lp, lo, ls, rows, cols, s));
+      return static_cast<int>(
+          launch_fwd<float>(x, lp, lo, ls, rows, cols, s));
     case 1:
       return static_cast<int>(
           launch_fwd<__nv_bfloat16>(x, lp, lo, ls, rows, cols, s));

@@ -202,15 +202,20 @@ def _xent_inputs(shape, dtype, dev, seed=0):
     return x, labels.to(dev), g.to(dev)
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((2048, 30522), "float32"),   # BERT-base MLM head, B=16 T=128
-    ((2048, 30522), "bfloat16"),
-    ((16, 2), "float32"),         # NSP head
-    ((1000, 100), "float32"),
-    ((3, 16385), "float32"),      # past the TPU kernel's width limit
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((2048, 30522), "float32", 0),   # BERT-base MLM head, B=16 T=128
+    ((2048, 30522), "bfloat16", 0),
+    ((2048, 30522), "float32", 1),   # logits one element off 16 bytes
+    ((16, 2), "float32", 0),         # NSP head
+    ((1000, 100), "float32", 0),
+    ((3, 16385), "float32", 0),      # past the TPU kernel's width limit
+    ((1120, 10000), "float32", 0),   # the LSTM LM's logits, T=35 B=32
+    ((1120, 10000), "bfloat16", 0),
+    ((7, 10001), "bfloat16", 0),     # odd rows start off 16 bytes
 ])
-def test_softmax_xent_kernels_match_plain(dev, shape, dtype):
+def test_softmax_xent_kernels_match_plain(dev, shape, dtype, offset):
     x, labels, g = _xent_inputs(shape, dtype, dev)
+    x = _offset(x, offset)
     before = (sx.fwd_launches, sx.bwd_launches)
     loss, lse = sx.softmax_xent_fwd(x, labels)
     dx = sx.softmax_xent_bwd(x, labels, lse, g)
@@ -224,6 +229,49 @@ def test_softmax_xent_kernels_match_plain(dev, shape, dtype):
     tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
            else dict(rtol=8e-3, atol=1e-6))
     torch.testing.assert_close(dx.float(), rdx.float(), **tol)
+
+
+def _far_below_zero(x, variant):
+    """``x - 100``, or ``x`` with the first half of every odd row's
+    columns at -1e4 and row 2 at -1e9: logits whose exp underflows."""
+    if variant == "x - 100":
+        return x - 100
+    x = x.clone()
+    x[1::2, :x.shape[1] // 2] = -1e4
+    x[2] = -1e9
+    return x
+
+
+@pytest.mark.parametrize("variant", ["x - 100", "masked"])
+@pytest.mark.parametrize("shape,dtype", [
+    ((1120, 10000), "float32"), ((1120, 10000), "bfloat16"),
+    ((7, 10001), "float32"), ((7, 10001), "bfloat16")])
+def test_softmax_xent_fwd_far_below_zero(dev, shape, dtype, variant):
+    """The forward is shift-invariant: logits far below 0, where a
+    thread's first values all lie below exp's range, give the plain
+    version's loss and lse."""
+    x, labels, _ = _xent_inputs(shape, dtype, dev, seed=5)
+    x = _far_below_zero(x, variant)
+    before = sx.fwd_launches
+    loss, lse = sx.softmax_xent_fwd(x, labels)
+    rloss, rlse = sx.softmax_xent_fwd_reference(x, labels)
+    torch.cuda.synchronize()
+    assert sx.fwd_launches == before + 1
+    torch.testing.assert_close(loss, rloss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1120, 10000), "float32"), ((1120, 10000), "bfloat16"),
+    ((2048, 30522), "float32"), ((5, 1025), "float32")])
+def test_softmax_xent_fwd_is_bit_for_bit_repeatable(dev, shape, dtype):
+    """The wide kernel merges its threads' pairs in a fixed order, so two
+    calls give the same bits."""
+    x, labels, _ = _xent_inputs(shape, dtype, dev, seed=3)
+    first, second = (sx.softmax_xent_fwd(x, labels) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_small_bert_gets_every_gradient_on_the_card(dev):
@@ -1084,6 +1132,11 @@ def _row_close(got, want, what, tol=1e-6, terms=0.0):
     (4096, 1024),      # the attention rows' width (T = 1024)
     (4096, 21),        # SSD's class axis (20 classes + background)
     (32 * 119276, 21),  # SSD.detections at B=32, ssd_300()'s anchors
+    (4099, 21),        # a last tile of 3 rows
+    # narrow rows: odd and even widths (skewed reads), 32 (the widest),
+    # then 33 (the first one-warp row)
+    (1000, 2), (1000, 10), (1000, 16), (1000, 20), (1000, 21), (1000, 31),
+    (1000, 32), (1000, 33),
     (1000, 1), (1000, 7), (1000, 300), (100, 1000),   # ragged warp rows
     (8, 1025),         # just past the one-warp width
     (3, 16385),        # past the TPU kernel's width limit
@@ -1105,6 +1158,26 @@ def test_softmax_kernels_match_plain(dev, dtype, rows, cols):
                                                   before[1] + 1)
     _row_close(y, ry, "y")
     _row_close(dx, rdx, "dx")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols,offset", [
+    (4096, 21, 1), (1000, 32, 1), (1000, 21, 3), (5, 3, 1), (1, 2, 1)])
+def test_softmax_fwd_narrow_rows_off_16_bytes(dev, dtype, rows, cols,
+                                              offset):
+    """x ``offset`` elements past 16 bytes (y starts on them): every tile
+    starts off its 16-byte pieces, and y is staged at another offset
+    than x; down to tiles shorter than one piece."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn(rows, cols, generator=g, device=dev) * 3).to(
+        getattr(torch, dtype))
+    x = _offset(x, offset)
+    before = sm.fwd_launches
+    y = sm.softmax_fwd(x)
+    ry = sm.softmax_fwd_reference(x)
+    torch.cuda.synchronize()
+    assert sm.fwd_launches == before + 1
+    _row_close(y, ry, "y")
 
 
 @pytest.mark.parametrize("variant", ["", "float32 gamma", "x offset 1"])

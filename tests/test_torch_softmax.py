@@ -35,7 +35,9 @@ from incubator_mxnet_tpu_torch.ops import nn_ops
 from incubator_mxnet_tpu_torch.ops import softmax as sm
 
 CASES = [((4, 7), -1), ((10, 300), -1), ((2, 3, 129), -1), ((3, 16385), -1),
-         ((6, 5, 4), 0), ((2, 3, 129), 1)]
+         ((6, 5, 4), 0), ((2, 3, 129), 1),
+         ((64, 21), -1),        # SSD's class rows (20 classes + background)
+         ((2, 21, 119), 1)]     # SSD's layout: the class axis of (B, 21, N)
 F32 = dict(rtol=1e-5, atol=1e-6)
 
 

@@ -26,7 +26,8 @@ from incubator_mxnet_tpu.ops import pallas_kernels as pk
 from incubator_mxnet_tpu_torch.ops import nn_ops
 from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
 
-SHAPES = [(7, 100), (16, 2), (9, 1000), (3, 16384), (3, 16385)]
+SHAPES = [(7, 100), (16, 2), (9, 1000), (3, 16384), (3, 16385),
+          (35, 10000)]    # the LSTM LM's vocabulary, one batch row of T=35
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 DX_TOL = {"float32": dict(rtol=0, atol=1e-6),
           "bfloat16": dict(rtol=8e-3, atol=1e-6)}
