@@ -164,7 +164,26 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    at 96x96, B=16), whose loss must halve, and at the JAX suite's size
    (40 steps at 32x32, B=2), where image 0's best detection must be its
    box's class above 0.5 within 0.1 of the box;
-15. the kernels line (JSON), then the last line
+15. the optimizer stack — (a) one update of a (1024, 1024) weight by
+   each of the 18 optimizers (RMSProp in both ``centered`` modes), in
+   float32 and in bfloat16 with a float32 master (``multi_precision``),
+   on the card against the CPU; (b) BERT-base pretraining in bfloat16
+   (``amp.convert_block``, dropout 0, B=16, T=128) with LAMB,
+   ``multi_precision``, a PolyScheduler with 2 warm-up steps and weight
+   decay 0.01 (none on LayerNorm parameters and biases): the
+   uninterrupted 10 steps twice (the card's repeat spread), whose
+   losses must be finite and not rise and whose float32 predict-mode
+   loss must fall, with the scheduler's learning rates; then 5 steps,
+   ``save_parameters`` and ``save_states``, a fresh model and trainer
+   (``begin_num_update=5``) loading both, and 5 more steps, which must
+   equal the uninterrupted run's within the repeat spread, with exactly
+   25 / 25 / 2 / 2 launches of the LayerNorm and cross-entropy kernels
+   a step; the median LAMB step and optimizer time, the bytes of the
+   master copies and moments and the peak device memory above the
+   weights, and one step profiled in two windows (forward + backward,
+   optimizer); (c) the ``.params`` file written from the card read back
+   on the CPU, every tensor equal in its dtype;
+16. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -175,7 +194,8 @@ bench path over phase 8 (b)'s warm-up and timed steps, the
 TransformerLM over phase 9 (b) and (c) and, with flash attention, over
 phase 10 (b) and (c), the user kernels over phase 11's compiles and
 launches, LeNet over phase 12 (b), the LSTM language model over phase
-13 (b) and SSD over phase 14 (c)'s steps and detections.  A graph replay
+13 (b), SSD over phase 14 (c)'s steps and detections, and LAMB's
+BERT-base over phase 15 (b)'s saved and resumed run.  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture.  The kernels line gives each kernel's launches summed over the
@@ -535,6 +555,47 @@ RTC_BROKEN = 'extern "C" __global__ void broken(float *x) { x[0] = 1.0f }\n'
 MNIST_B, MNIST_LR, MNIST_N, MNIST_EPOCHS = 64, 3e-3, 8192, 2
 MNIST_GRAD_TOL = 1e-4
 OVERFIT_STEPS, OVERFIT_LOSS, OVERFIT_ACC = 60, 1.0, 0.9
+
+# phase 15, the optimizer stack.  (a) one update of a (1024, 1024)
+# weight by each optimizer, float32 and bfloat16 with a float32 master
+# (weight decay 0.01 on top of each case's own settings), card against
+# CPU on the same inputs: both run the same elementwise float32
+# operations in the same order, so every tensor agrees within 1e-6 of
+# its largest value (LAMB and LARS 1e-5: their norms are sums in another
+# order), the bfloat16 weights (each device's master rounded) within one
+# bf16 ulp of each value, or where the master ends near 0 by
+# cancellation, within the masters' own tolerance
+OPT_SHAPE = (1024, 1024)
+OPT_CASES = [("sgd", "sgd", dict(learning_rate=0.1, momentum=0.9)),
+             ("sgld", "sgld", dict(learning_rate=0.01)),
+             ("signum", "signum", dict(learning_rate=0.01, wd_lh=0.01)),
+             ("dcasgd", "dcasgd", dict(learning_rate=0.1, momentum=0.9)),
+             ("nag", "nag", dict(learning_rate=0.1, momentum=0.9)),
+             ("adagrad", "adagrad", dict(learning_rate=0.1)),
+             ("adadelta", "adadelta", dict()),
+             ("adam", "adam", dict(learning_rate=0.01)),
+             ("adamw", "adamw", dict(learning_rate=0.01)),
+             ("adamax", "adamax", dict(learning_rate=0.01)),
+             ("nadam", "nadam", dict(learning_rate=0.01)),
+             ("ftrl", "ftrl", dict(learning_rate=0.1, lamda1=0.01)),
+             ("ftml", "ftml", dict(learning_rate=0.01)),
+             ("lars", "lars", dict(learning_rate=0.1, momentum=0.9)),
+             ("lamb", "lamb", dict(learning_rate=0.01)),
+             ("rmsprop", "rmsprop", dict(learning_rate=0.01)),
+             ("rmsprop_centered", "rmsprop",
+              dict(learning_rate=0.01, centered=True, clip_weights=2.0)),
+             ("lbsgd", "lbsgd", dict(learning_rate=0.1, momentum=0.9)),
+             ("test", "test", dict())]
+OPT_TOL, OPT_NORM_TOL = 1e-6, 1e-5
+# (b) BERT-base pretraining as gluon-nlp runs it (BASELINE config 3,
+# AMP): bfloat16 by amp.convert_block, LAMB with float32 masters, lr
+# 1e-4 through a PolyScheduler (2 warm-up steps, linear decay to 0 at
+# 2·LAMB_N), weight decay 0.01 but none on LayerNorm parameters and
+# biases; dropout 0, so the resumed run can be held to the uninterrupted
+# one.  LAMB_N steps, save, a fresh model and trainer load both files,
+# LAMB_N more steps (begin_num_update=LAMB_N)
+LAMB_N = 5
+LAMB_LR = 1e-4
 
 
 def phase(name):
@@ -3785,6 +3846,245 @@ def ssd_example(torch, np):
     np.testing.assert_allclose(top[0][2:], [.1, .1, .45, .45], atol=0.1)
 
 
+
+def _flat_state(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _flat_state(s)]
+    return [state]
+
+
+def bf16_ulp(np, x):
+    """One bfloat16 ulp at each value of ``x`` (8 significant bits)."""
+    _, e = np.frexp(np.abs(x).astype(np.float64))
+    return np.ldexp(1.0, np.maximum(e, -125) - 8)
+
+
+def check_optimizers(torch, np, dev):
+    """Phase 15 (a): one update of an OPT_SHAPE weight by each optimizer,
+    float32 and bfloat16 with a float32 master, on the card against the
+    CPU.  SGLD draws its noise from a CPU generator of one seed on both
+    devices.  Returns the worst float32 error over the largest value."""
+    from incubator_mxnet_tpu_torch import optimizer as opt_mod
+    gen = torch.Generator().manual_seed(0)
+    w0 = torch.randn(OPT_SHAPE, generator=gen)
+    g0 = 0.1 * torch.randn(OPT_SHAPE, generator=gen)
+    worst = 0.0
+    for case, name, kw in OPT_CASES:
+        line = []
+        for dtype, master in ((torch.float32, False), (torch.bfloat16, True)):
+            outs = []
+            for where in (torch.device("cpu"), dev):
+                kwargs = dict(kw, wd=0.01, multi_precision=master)
+                if name == "sgld":
+                    kwargs["generator"] = torch.Generator().manual_seed(1)
+                up = opt_mod.get_updater(opt_mod.create(name, **kwargs))
+                w = w0.to(where, dtype).clone()
+                up(0, g0.to(where, dtype).clone(), w)
+                assert w.device == where and w.dtype == dtype, case
+                outs.append([t.float().cpu().numpy() for t in
+                             [w] + _flat_state(up.states[0])])
+            (cpu, card), tol = outs, (OPT_NORM_TOL if name in ("lamb", "lars")
+                                      else OPT_TOL)
+            assert len(cpu) == len(card), case
+            errs, differ = [], []
+            for i, (a, b) in enumerate(zip(card, cpu)):
+                assert np.isfinite(a).all(), (case, i)
+                differ.append(int((a != b).sum()))
+                if master and i == 0:       # the bfloat16 weight
+                    continue
+                err = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+                assert err <= tol, (case, str(dtype), i, err)
+                errs.append(err)
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            if master:
+                # the bfloat16 weight is its master rounded on each device:
+                # one bf16 ulp apart, or, where the master ends near 0 by
+                # cancellation, as far apart as the masters may be
+                a, b = card[0], cpu[0]
+                near = tol * np.abs(cpu[1]).max()
+                assert (np.abs(a - b) <= np.maximum(bf16_ulp(np, b),
+                                                    near)).all(), case
+            line.append(f"{str(dtype)[6:]}: {len(cpu)} tensors, "
+                        + ("bit for bit" if not any(differ) else
+                           f"elements that differ {differ}, max|d|/max "
+                           f"{max(errs):.2e}"))
+        print(f"  {case}: {'; '.join(line)}", flush=True)
+    print(f"{len(OPT_CASES)} optimizer cases (18 optimizers, RMSProp both "
+          f"ways), card against CPU at {OPT_SHAPE}: worst float32 "
+          f"max|d|/max {worst:.3e} (tol {OPT_TOL:g}; LAMB, LARS "
+          f"{OPT_NORM_TOL:g}); bfloat16 weights within one bf16 ulp, or "
+          f"the masters' tolerance where they end near 0",
+          flush=True)
+    return worst
+
+
+def lamb_bert(torch, np, dev, tmp):
+    """Phase 15 (b) and (c): BERT-base pretraining in bfloat16 with LAMB,
+    saved after LAMB_N steps and resumed in a fresh model and trainer;
+    returns the resumed run's launch counts."""
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch import ndarray as nd
+    from incubator_mxnet_tpu_torch.examples.train_bert import synthetic_batch
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
+    from incubator_mxnet_tpu_torch.optimizer.lr_scheduler import (
+        PolyScheduler)
+    batch = [torch.from_numpy(a).to(dev)
+             for a in synthetic_batch(TRAIN_B, T, VOCAB)]
+    ce = SoftmaxCrossEntropyLoss()
+
+    def build(seed):
+        net = BERTModel(vocab_size=VOCAB, dropout=0.0).initialize(
+            device=dev, generator=torch.Generator().manual_seed(seed))
+        return amp.convert_block(net, "bfloat16")
+
+    def no_decay(net):
+        for k, p in net.collect_params().items():
+            if k.endswith(("gamma", "beta", "bias")):
+                p.wd_mult = 0.0
+
+    def lamb(net, begin=0):
+        return Trainer(net.collect_params(), "lamb", {
+            "learning_rate": LAMB_LR, "multi_precision": True, "wd": 0.01,
+            "begin_num_update": begin,
+            "lr_scheduler": PolyScheduler(max_update=2 * LAMB_N,
+                                          base_lr=LAMB_LR, pwr=1,
+                                          warmup_steps=2)})
+
+    def run(net, trainer, n, times=None):
+        fwd_bwd, update = bert_step_parts(torch, net, trainer, ce, batch)
+        losses, lrs = [], []
+        for _ in range(n):
+            t0 = time.monotonic()
+            loss = fwd_bwd()
+            t1 = time.monotonic()
+            update()
+            if times is not None:
+                times.append(((time.monotonic() - t0) * 1e3,
+                              (time.monotonic() - t1) * 1e3))
+            losses.append(loss.float().item())
+            lrs.append(trainer.learning_rate)
+        return losses, lrs
+
+    def eval_loss(net):
+        from incubator_mxnet_tpu_torch.examples.train_bert import (
+            pretraining_loss)
+        with torch.no_grad(), autograd.predict_mode():
+            return float(pretraining_loss(
+                net, lambda z, y: ce(z.float(), y), *batch))
+
+    def spread(a, b):
+        return max((x.float() - y.float()).abs().max().item()
+                   / max(y.float().abs().max().item(), 1e-30)
+                   for x, y in zip(a, b))
+
+    # the uninterrupted run, twice: the card's own repeat spread
+    finals, logs = [], []
+    for rep in range(2):
+        net = build(1)
+        no_decay(net)
+        trainer = lamb(net)
+        if rep == 0:
+            before = eval_loss(net)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        logs.append(run(net, trainer, 2 * LAMB_N, times))
+        if rep == 0:
+            peak = torch.cuda.max_memory_allocated() - base
+            held = torch.cuda.memory_allocated() - base
+            states = trainer._updater.states.values()
+            masters = sum(s[0].numel() * 4 for s in states
+                          if isinstance(s[1], tuple))
+            moments = sum(t.numel() * t.element_size() for s in states
+                          for t in _flat_state(s)) - masters
+            after = eval_loss(net)
+            step_ms = [a for a, _ in times]
+            opt_ms = [b for _, b in times]
+        finals.append([p.detach().clone() for p in net.parameters()])
+        del net, trainer
+        gc.collect()
+    losses, lrs = logs[0]
+    repeat = spread(finals[1], finals[0])
+    print(f"LAMB, multi_precision, bfloat16 BERT-base at B={TRAIN_B}, "
+          f"T={T}: {2 * LAMB_N} steps, lrs {lrs}, training losses "
+          f"(bfloat16) {losses}; float32 predict-mode loss {before:.6f} -> "
+          f"{after:.6f}", flush=True)
+    print(f"repeat of the uninterrupted run: losses "
+          f"{'equal' if logs[1] == logs[0] else logs[1]}, weights "
+          f"{'bit for bit' if repeat == 0 else 'max|d|/max %.3e' % repeat}",
+          flush=True)
+    assert np.isfinite(losses).all() and losses[-1] <= losses[0], losses
+    assert after < before, (before, after)
+    want_lrs = [PolyScheduler(max_update=2 * LAMB_N, base_lr=LAMB_LR, pwr=1,
+                              warmup_steps=2)(n)
+                for n in range(1, 2 * LAMB_N + 1)]
+    assert lrs == want_lrs, (lrs, want_lrs)
+    print(f"LAMB step, host clock around a synchronised step: median over "
+          f"steps 3-{2 * LAMB_N} {statistics.median(step_ms[2:]):.3f} ms "
+          f"(optimizer {statistics.median(opt_ms[2:]):.3f} ms), all "
+          f"{[round(v, 3) for v in step_ms]}", flush=True)
+    print(f"master copies {masters} bytes, moments {moments} bytes; held "
+          f"after the run above the weights {held} bytes, peak above them "
+          f"{peak} bytes (torch.cuda.max_memory_allocated)", flush=True)
+
+    # the main path: LAMB_N steps, save, a fresh model loads, LAMB_N more
+    pf, sf = os.path.join(tmp, "bert.params"), os.path.join(tmp, "bert.states")
+    ln.launches = ln.bwd_launches = 0   # training path starts here
+    sx.fwd_launches = sx.bwd_launches = 0
+    net = build(1)
+    no_decay(net)
+    trainer = lamb(net)
+    first = run(net, trainer, LAMB_N)
+    net.save_parameters(pf)
+    trainer.save_states(sf)
+    loaded = nd.load(pf)               # (c): the card's file on the CPU
+    params = net.collect_params()
+    assert list(loaded) == list(params)
+    for k, p in params.items():
+        assert loaded[k].dtype == p.dtype and torch.equal(
+            loaded[k], p.detach().cpu()), k
+    print(f"(c) {len(loaded)} parameters written from the card "
+          f"({os.path.getsize(pf)} bytes) read back on the CPU: equal, "
+          f"dtypes kept", flush=True)
+    del net, trainer, loaded, params
+    gc.collect()
+    fresh = build(2)
+    fresh.load_parameters(pf)
+    no_decay(fresh)
+    trainer = lamb(fresh, begin=LAMB_N)
+    trainer.load_states(sf)
+    rest = run(fresh, trainer, LAMB_N)
+    counts = {"layer_norm_fwd": ln.launches, "layer_norm_bwd": ln.bwd_launches,
+              "softmax_xent_fwd": sx.fwd_launches,
+              "softmax_xent_bwd": sx.bwd_launches}   # training path ends
+    resumed = [p.detach() for p in fresh.parameters()]
+    gap = spread(resumed, finals[0])
+    print(f"resumed after {LAMB_N} steps: losses {first[0] + rest[0]}, "
+          f"lrs {first[1] + rest[1]}; weights against the uninterrupted "
+          f"run {'bit for bit' if gap == 0 else 'max|d|/max %.3e' % gap} "
+          f"(repeat spread {repeat:.3e}); launches {counts}", flush=True)
+    assert (first[1] + rest[1]) == lrs
+    assert gap <= repeat, (gap, repeat)
+    if repeat == 0:
+        assert first[0] + rest[0] == losses
+    want = {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+            "softmax_xent_fwd": 2, "softmax_xent_bwd": 2}
+    for k, n in want.items():
+        assert counts[k] == n * 2 * LAMB_N, (k, counts[k])
+    fwd_bwd, update = bert_step_parts(torch, fresh, trainer, ce, batch)
+    step_breakdown(torch, fwd_bwd, update)
+    del fresh, trainer, finals, resumed
+    gc.collect()
+    return counts
+
 def post(port, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/models/bert:predict",
@@ -4051,7 +4351,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("15 kernels")
+    phase("15 the optimizer stack: 18 optimizers, LAMB BERT-base, resume")
+    check_optimizers(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        lamb = lamb_bert(torch, np, dev, tmp)
+    train = {k: v + lamb[k] for k, v in train.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("16 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"

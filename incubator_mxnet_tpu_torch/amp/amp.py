@@ -51,7 +51,11 @@ def init(target_dtype="bfloat16"):
     if dtype == torch.float16:
         raise NotImplementedError(
             "AMP in float16 needs the dynamic LossScaler, which is not "
-            "ported yet; use target_dtype='bfloat16'")
+            "ported yet, and the JAX package it is held against cannot "
+            "train in float16: its eager backward refuses float16 "
+            "cotangents, and its hybridized loss overflows under the "
+            "2**16 scale while the trainer never skips that update "
+            "(ROADMAP §C); use target_dtype='bfloat16'")
     _state["initialized"] = True
     _state["dtype"] = dtype
     return _state

@@ -14,6 +14,10 @@ recorded, as the JAX package's deferred initialisation does
 (``gluon/parameter.py``, ``_finish_deferred_init``).  It is the same
 object before and after, so a ``Trainer`` built from
 ``collect_params()`` before the first batch holds the trained tensors.
+
+``save_parameters``/``load_parameters`` write and read the ``.params``
+format (``ndarray/params_io.py``) under the structural names, so a file
+written by the JAX package's block loads here and the reverse.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
 from .. import initializer as init_mod
+from .. import ndarray as nd
 from .. import random as random_mod
 from ..amp import amp as amp_mod
 from ..context import resolve_device
@@ -147,6 +152,98 @@ class HybridBlock(nn.Module):
                 else:
                     ini(name, p.data, generator)
         return self.to(device)
+
+    def _named_slots(self):
+        """``{structural name: (module, attribute name)}`` of every
+        parameter, in ``collect_params()``'s order."""
+        slots = {}
+        for name in self.collect_params():
+            prefix, _, attr = name.rpartition(".")
+            slots[name] = (self.get_submodule(prefix), attr)
+        return slots
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter to ``filename`` in the ``.params``
+        format, under its structural name, in its dtype."""
+        arrays = {}
+        for name, p in self.collect_params().items():
+            if isinstance(p, UninitializedParameter):
+                raise RuntimeError(f"parameter {name} has no shape yet: run "
+                                   "a forward before saving")
+            arrays[name] = p.detach()
+        nd.save(filename, arrays)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a ``.params`` file written by :meth:`save_parameters` or
+        by the JAX package.  Each value is converted to its parameter's
+        dtype and device (``dtype_source="current"``, what the JAX
+        package does whatever it is given).  A deferred parameter takes
+        the file's shape and is materialised on ``ctx`` (its own device
+        without it).  A parameter missing from the file raises
+        ``KeyError`` unless ``allow_missing``, a name the block lacks
+        unless ``ignore_extra``; a shape that differs raises
+        ``ValueError``.  Everything is checked before anything is
+        written."""
+        if cast_dtype and dtype_source != "current":
+            raise NotImplementedError(
+                f"dtype_source={dtype_source!r}: the port loads values in "
+                "each parameter's current dtype, as the JAX package does")
+        loaded = nd.load(filename)
+        if isinstance(loaded, list):
+            raise ValueError("expected dict-of-arrays params file")
+        slots = self._named_slots()
+        missing = [n for n in slots if n not in loaded]
+        if missing and not allow_missing:
+            raise KeyError(f"parameter {missing[0]} missing in {filename}")
+        extra = sorted(set(loaded) - set(slots))
+        if extra and not ignore_extra:
+            raise KeyError(f"extra params in file: {extra}")
+        for name, (mod, attr) in slots.items():
+            if name not in loaded:
+                continue
+            p, value = getattr(mod, attr), loaded[name]
+            if value is None:
+                raise ValueError(f"{name}: the file holds no value")
+            if isinstance(p, UninitializedParameter):
+                want = getattr(mod, "_deferred", {}).get(
+                    attr, (0,) * value.dim())
+            else:
+                want = tuple(p.shape)
+            if len(want) != value.dim() or any(
+                    w and w != v for w, v in zip(want, value.shape)):
+                raise ValueError(f"{name}: the file's shape "
+                                 f"{tuple(value.shape)}, the parameter's "
+                                 f"{want}")
+        device = None if ctx is None else resolve_device(ctx)
+        with torch.no_grad():
+            for name, (mod, attr) in slots.items():
+                if name not in loaded:
+                    continue
+                p, value = getattr(mod, attr), loaded[name]
+                if isinstance(p, UninitializedParameter):
+                    p.materialize(tuple(value.shape), device=device)
+                    getattr(mod, "_pending", {}).pop(attr, None)
+                p.copy_(value)
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def cast(self, dtype):
+        """Cast every parameter (and its gradient) to ``dtype`` in place:
+        the parameter objects stay, so a trainer built on them keeps
+        working.  A deferred parameter is materialised in ``dtype``."""
+        dtype = as_dtype(dtype)
+        with torch.no_grad():
+            for p in self.collect_params().values():
+                if isinstance(p, UninitializedParameter):
+                    p.data = torch.empty(0, dtype=dtype, device=p.device)
+                    continue
+                p.data = p.data.to(dtype)
+                if p.grad is not None:
+                    p.grad = p.grad.to(dtype)
+        return self
 
     def hybridize(self, active=True, **kwargs):
         """No-op, kept so code written for the JAX package runs: the

@@ -19,6 +19,12 @@ update.
 
 On one device there is nothing to reduce: ``kvstore`` may be ``None``,
 ``"device"`` or ``"local"``, and anything else raises.
+
+``save_states``/``load_states`` write and read the optimizer's states
+(``Updater.get_states``: a pickled ``{index: numpy state}``, the JAX
+package's format).  The update counts are not in that file: a resumed
+run passes ``begin_num_update`` (the steps already taken) to its
+optimizer, as with the JAX package.
 """
 from __future__ import annotations
 
@@ -70,12 +76,14 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def step(self, batch_size):
+    def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by ``1 / batch_size``, update, and clear the
-        gradients.  (One device: no gradient reduction.)"""
-        self.update(batch_size)
+        gradients.  (One device: no gradient reduction.)
+        ``ignore_stale_grad`` is taken and not read, as in the JAX
+        package: a gradient ``backward()`` did not reach is zero."""
+        self.update(batch_size, ignore_stale_grad)
 
-    def update(self, batch_size):
+    def update(self, batch_size, ignore_stale_grad=False):
         self._optimizer.rescale_grad = self._scale / batch_size
         for i, p in enumerate(self._params):
             if isinstance(p, UninitializedParameter):
@@ -92,3 +100,15 @@ class Trainer:
         ones."""
         for p in self._params:
             p.grad = None
+
+    def save_states(self, fname):
+        """Write the optimizer's states to ``fname``."""
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer=False))
+
+    def load_states(self, fname):
+        """Read states written by :meth:`save_states` (of either package);
+        each parameter's next update continues from them."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer

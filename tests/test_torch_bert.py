@@ -203,3 +203,129 @@ def test_bfloat16_bert_predicts_and_trains_like_jax(jax_amp_model):
     assert str(loss.dtype).replace("torch.", "") == ref["loss_dtype"]
     np.testing.assert_allclose(loss.detach().float().numpy(), ref["loss"],
                                rtol=AMP_TOL)
+
+
+
+LAMB_UPDATE_TOL = 5e-2
+
+
+def _masters(trainer_states, weights):
+    """Each parameter's float32 master where the state holds one (a
+    bfloat16 weight under ``multi_precision``), else the weight itself,
+    as numpy."""
+    out = []
+    for i, w in enumerate(weights):
+        st = trainer_states[i]
+        if isinstance(st[1], tuple):
+            w = st[0]
+        w = w.data if hasattr(w, "ctx") else w
+        out.append(np.array(w, np.float32) if not isinstance(
+            w, torch.Tensor) else w.detach().float().numpy().copy())
+    return out
+
+
+def test_bfloat16_lamb_multi_precision_steps_match_jax():
+    """Three steps of the BERT pretraining recipe in bfloat16: the model
+    converted by ``amp.convert_block``, LAMB with ``multi_precision``
+    (float32 masters), a PolyScheduler with 2 warm-up steps, weight decay
+    0.01 with ``wd_mult = 0`` on LayerNorm parameters and biases.  The
+    JAX model is hybridized (its eager tape does not differentiate
+    ``NDArray`` indexing; ``tests/test_torch_training.py``).
+
+    Held: the learning rates equal; each step's loss, and the
+    predict-mode logits after the last step, within AMP_TOL of JAX's;
+    the weights' dtypes equal (bfloat16, LayerNorm float32).  The update
+    of every float32 master (or float32 weight) on the elements whose
+    JAX gradient was above 0.1 of its tensor's largest at every step so
+    far within LAMB_UPDATE_TOL of the JAX step's largest move (a skipped
+    or halved update is off by 0.5 or more; 1.4e-2 was the largest over
+    the three steps when the bound was set).  Elsewhere a gradient at bfloat16's noise
+    may take either sign, and the first LAMB steps move an element by
+    up to lr·ratio either way; there each master is held within twice
+    the sum of the JAX steps' largest moves."""
+    from incubator_mxnet_tpu.optimizer.lr_scheduler import (
+        PolyScheduler as JaxPoly)
+
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.optimizer.lr_scheduler import PolyScheduler
+
+    tokens, types, valid = _inputs()
+    rng = np.random.default_rng(2)
+    y_mlm = rng.integers(0, CFG["vocab_size"], tokens.size).astype(np.int32)
+    y_nsp = rng.integers(0, 2, tokens.shape[0]).astype(np.int32)
+    opt = {"learning_rate": 1e-2, "multi_precision": True, "wd": 0.01}
+    sched = dict(max_update=10, base_lr=1e-2, pwr=1, warmup_steps=2)
+
+    mx.random.seed(0)
+    jnet = JaxBERT(dropout=0.0, **CFG)
+    jnet.initialize()
+    jax_amp.convert_block(jnet, "bfloat16")
+    jnet.hybridize()
+    port = amp.convert_block(BERTModel(dropout=0.0, **CFG), "bfloat16")
+    params_from_jax({k: np.asarray(p.data().data)
+                     for k, p in jnet.collect_params().items()}, port)
+    for net in (jnet, port):
+        for k, p in net.collect_params().items():
+            if k.endswith(("gamma", "beta", "bias")):
+                p.wd_mult = 0.0
+    jtrainer = jax_gluon.Trainer(jnet.collect_params(), "lamb",
+                                 dict(opt, lr_scheduler=JaxPoly(**sched)))
+    trainer = Trainer(port.collect_params(), "lamb",
+                      dict(opt, lr_scheduler=PolyScheduler(**sched)))
+    jargs = (nd.array(tokens, dtype="int32"), nd.array(types, dtype="int32"),
+             nd.array(valid, dtype="int32"))
+    args = [torch.from_numpy(a) for a in (tokens, types, valid)]
+    ce, jce = SoftmaxCrossEntropyLoss(), jax_gluon.loss.SoftmaxCrossEntropyLoss()
+    names = list(port.collect_params())
+    jparams = list(jnet.collect_params().values())
+    pparams = list(port.collect_params().values())
+    start = [np.asarray(p.data().data).astype(np.float32) for p in jparams]
+    before, jbefore = start, start
+    lrs, steady, moved = [], None, [0.0] * len(names)
+    for step in range(3):
+        with jax_autograd.record():
+            jmlm, jnsp = jnet(*jargs)
+            jloss = _pretraining_loss(jce, jmlm, jnsp, nd.array(y_mlm),
+                                      nd.array(y_nsp))
+        jloss.backward()
+        jgrads = [np.abs(p.grad().asnumpy().astype(np.float32))
+                  for p in jparams]
+        jtrainer.step(tokens.shape[0])
+        with autograd.record():
+            mlm, nsp = port(*args)
+            loss = _pretraining_loss(ce, mlm, nsp, torch.from_numpy(y_mlm),
+                                     torch.from_numpy(y_nsp))
+        autograd.backward(loss)
+        trainer.step(tokens.shape[0])
+        np.testing.assert_allclose(loss.detach().float().numpy(),
+                                   jloss.asnumpy().astype(np.float32),
+                                   rtol=AMP_TOL, err_msg=f"step {step}")
+        assert trainer.learning_rate == jtrainer.learning_rate
+        lrs.append(trainer.learning_rate)
+        large = [g > 0.1 * g.max() for g in jgrads]
+        steady = large if steady is None else [
+            a & b for a, b in zip(steady, large)]
+        after = _masters(trainer._updater.states, pparams)
+        jafter = _masters(jtrainer._updaters[0].states,
+                          [p.data() for p in jparams])
+        for i, k in enumerate(names):
+            assert pparams[i].dtype == {
+                "bfloat16": torch.bfloat16, "float32": torch.float32}[
+                    str(jparams[i].data().dtype)], k
+            dj = jafter[i] - jbefore[i]
+            dp = after[i] - before[i]
+            top = np.abs(dj).max()
+            moved[i] += top
+            if steady[i].any():
+                err = np.abs(dp - dj)[steady[i]].max()
+                assert err <= LAMB_UPDATE_TOL * top, (k, step, err / top)
+            assert np.abs(after[i] - jafter[i]).max() <= 2 * moved[i], k
+        before, jbefore = after, jafter
+    assert lrs == [0.005, 0.01, 0.00875]
+    assert sum(int(m.sum()) for m in steady) > 1000
+    port.eval()
+    with torch.inference_mode():
+        got = port(*args)
+    want = [o.asnumpy().astype(np.float32) for o in jnet(*jargs)]
+    for g, w in zip(got, want):
+        assert _rel(g.float().numpy(), w) <= AMP_TOL

@@ -59,7 +59,15 @@ the mining cut-off or a threshold: ``tests/test_torch_contrib_det.py``
 states the rule).  The small SSD step, card against CPU: loss 1e-5
 relative, every gradient 1e-4 of its largest value but the convolution
 biases in front of a BatchNorm, whose gradient is rounding noise on
-both devices (below 1e-4 of their weights' largest).
+both devices (below 1e-4 of their weights' largest).  The optimizers,
+card against CPU from the same weight and gradients: every float32
+tensor within 1e-6 of its largest value (LAMB and LARS 1e-5, their
+norms summed in another order), a bfloat16 weight with a float32 master
+within one bf16 ulp of each value, or where its master ends near 0 by
+cancellation, within the masters' own tolerance.  A ``.params`` file written from the
+card reads back on the CPU equal, and a small bfloat16 BERT trained with
+LAMB and saved and resumed on the card equals its uninterrupted run
+within the card's own spread between two uninterrupted runs.
 """
 import copy
 
@@ -1828,3 +1836,155 @@ def test_small_ssd_step_on_the_card_matches_cpu(dev, no_tf32):
             name
     assert torch.equal(d_card[..., 0], d_cpu[..., 0])
     torch.testing.assert_close(d_card, d_cpu, rtol=0, atol=1e-5)
+
+
+OPT_CASES = [("sgd", "sgd", dict(learning_rate=0.1, momentum=0.9)),
+             ("sgld", "sgld", dict(learning_rate=0.01)),
+             ("signum", "signum", dict(learning_rate=0.01, wd_lh=0.01)),
+             ("dcasgd", "dcasgd", dict(learning_rate=0.1, momentum=0.9)),
+             ("nag", "nag", dict(learning_rate=0.1, momentum=0.9)),
+             ("adagrad", "adagrad", dict(learning_rate=0.1)),
+             ("adadelta", "adadelta", dict()),
+             ("adam", "adam", dict(learning_rate=0.01)),
+             ("adamw", "adamw", dict(learning_rate=0.01)),
+             ("adamax", "adamax", dict(learning_rate=0.01)),
+             ("nadam", "nadam", dict(learning_rate=0.01)),
+             ("ftrl", "ftrl", dict(learning_rate=0.1, lamda1=0.01)),
+             ("ftml", "ftml", dict(learning_rate=0.01)),
+             ("lars", "lars", dict(learning_rate=0.1, momentum=0.9)),
+             ("lamb", "lamb", dict(learning_rate=0.01)),
+             ("rmsprop", "rmsprop", dict(learning_rate=0.01)),
+             ("rmsprop_centered", "rmsprop",
+              dict(learning_rate=0.01, centered=True, clip_weights=2.0)),
+             ("lbsgd", "lbsgd", dict(learning_rate=0.1, momentum=0.9)),
+             ("test", "test", dict())]
+
+
+def _flat(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _flat(s)]
+    return [state]
+
+
+def _bf16_ulp(x):
+    _, e = np.frexp(np.abs(x).astype(np.float64))
+    return np.ldexp(1.0, np.maximum(e, -125) - 8)
+
+
+@pytest.mark.parametrize("master", [False, True], ids=["float32",
+                                                       "bfloat16_master"])
+@pytest.mark.parametrize("case,name,kw", OPT_CASES,
+                         ids=[c for c, _, _ in OPT_CASES])
+def test_optimizer_on_the_card_matches_cpu(dev, case, name, kw, master):
+    """Three updates of a (256, 64) weight, weight decay 0.01, float32 or
+    bfloat16 with a float32 master, on the card and on the CPU."""
+    from incubator_mxnet_tpu_torch import optimizer as opt_mod
+    gen = torch.Generator().manual_seed(0)
+    w0 = torch.randn(256, 64, generator=gen)
+    grads = [0.1 * torch.randn(256, 64, generator=gen) for _ in range(3)]
+    dtype = torch.bfloat16 if master else torch.float32
+    outs = []
+    for where in ("cpu", dev):
+        kwargs = dict(kw, wd=0.01, multi_precision=master)
+        if name == "sgld":
+            kwargs["generator"] = torch.Generator().manual_seed(1)
+        up = opt_mod.get_updater(opt_mod.create(name, **kwargs))
+        w = w0.to(where, dtype).clone()
+        for g in grads:
+            up(0, g.to(where, dtype), w)
+        assert w.dtype == dtype
+        outs.append([t.float().cpu().numpy() for t in
+                     [w] + _flat(up.states[0])])
+    tol = 1e-5 if name in ("lamb", "lars") else 1e-6
+    for i, (a, b) in enumerate(zip(*reversed(outs))):
+        if master and i == 0:   # each device's master rounded to bf16
+            near = tol * np.abs(outs[0][1]).max()
+            assert (np.abs(a - b) <= np.maximum(_bf16_ulp(b), near)).all()
+        else:
+            assert np.abs(a - b).max() <= tol * np.abs(b).max(), i
+
+
+def test_params_file_from_the_card_reads_back_on_the_cpu(dev, tmp_path):
+    from incubator_mxnet_tpu_torch import ndarray as nd
+    gen = torch.Generator().manual_seed(0)
+    arrays = {"w": torch.randn(33, 7, generator=gen).to(dev),
+              "h": torch.randn(5, generator=gen).to(dev, torch.bfloat16),
+              "i": torch.arange(9, device=dev, dtype=torch.int32)}
+    f = str(tmp_path / "a.params")
+    nd.save(f, arrays)
+    back = nd.load(f)
+    for k, v in arrays.items():
+        assert back[k].device.type == "cpu" and back[k].dtype == v.dtype
+        assert torch.equal(back[k], v.cpu())
+
+
+def test_bert_lamb_resume_on_the_card_equals_the_uninterrupted_run(
+        dev, tmp_path):
+    """A small bfloat16 BERT (2 layers), LAMB with ``multi_precision``, a
+    PolyScheduler with warm-up, wd 0.01 but none on LayerNorm parameters
+    and biases, B=4, T=32: 2 steps, save, a fresh model and trainer
+    (``begin_num_update=2``) load both files, 2 more steps; equal to the
+    uninterrupted 4 steps within the spread of two uninterrupted runs,
+    with 5 LayerNorm forward and backward launches a step."""
+    from incubator_mxnet_tpu_torch.optimizer.lr_scheduler import (
+        PolyScheduler)
+    cfg = dict(vocab_size=300, num_layers=2, units=64, hidden_size=256,
+               num_heads=4, max_length=32, dropout=0.0)
+    batch = [torch.from_numpy(a).to(dev) for a in synthetic_batch(4, 32, 300)]
+    ce = SoftmaxCrossEntropyLoss()
+
+    def build(seed):
+        net = BERTModel(**cfg).initialize(
+            device=dev, generator=torch.Generator().manual_seed(seed))
+        amp.convert_block(net, "bfloat16")
+        for k, p in net.collect_params().items():
+            if k.endswith(("gamma", "beta", "bias")):
+                p.wd_mult = 0.0
+        return net
+
+    def lamb(net, begin=0):
+        return Trainer(net.collect_params(), "lamb", {
+            "learning_rate": 1e-2, "multi_precision": True, "wd": 0.01,
+            "begin_num_update": begin,
+            "lr_scheduler": PolyScheduler(max_update=5, base_lr=1e-2, pwr=1,
+                                          warmup_steps=2)})
+
+    def steps(net, trainer, n):
+        out = []
+        for _ in range(n):
+            with autograd.record():
+                loss = pretraining_loss(net, ce, *batch)
+            autograd.backward(loss)
+            trainer.step(4)
+            out.append(loss.float().item())
+        return out
+
+    runs = []
+    for _ in range(2):
+        net = build(1)
+        runs.append((steps(net, lamb(net), 4),
+                     [p.detach().float() for p in net.parameters()]))
+
+    def spread(a, b):
+        return max(((x - y).abs().max() / y.abs().max()).item()
+                   for x, y in zip(a, b))
+
+    repeat = spread(runs[1][1], runs[0][1])
+    net = build(1)
+    trainer = lamb(net)
+    before = ln.launches
+    first = steps(net, trainer, 2)
+    assert ln.launches - before == 2 * 5
+    net.save_parameters(str(tmp_path / "b.params"))
+    trainer.save_states(str(tmp_path / "b.states"))
+    fresh = build(2)
+    fresh.load_parameters(str(tmp_path / "b.params"))
+    resumed = lamb(fresh, begin=2)
+    resumed.load_states(str(tmp_path / "b.states"))
+    rest = steps(fresh, resumed, 2)
+    assert spread([p.detach().float() for p in fresh.parameters()],
+                  runs[0][1]) <= repeat
+    if repeat == 0:
+        assert first + rest == runs[0][0]
