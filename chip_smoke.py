@@ -183,7 +183,29 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    weights, and one step profiled in two windows (forward + backward,
    optimizer); (c) the ``.params`` file written from the card read back
    on the CPU, every tensor equal in its dtype;
-16. the kernels line (JSON), then the last line
+16. the chunked training loop (``fuse_loop.ChunkedTrainLoop``: K fused
+   steps in one CUDA graph replay) — (a) ResNet-50 float32 at B=8 with
+   cuDNN deterministic, K=4 over 10 batches against 10 per-step calls:
+   every step's loss, the chunk means and every parameter, moving
+   statistic and momentum bit for bit, the 4-step capture 4x a step's
+   launches; (b) Dense(16) → ReLU → Dropout(0.5) → Dense(5), K=4 over 8
+   batches against 8 per-step calls bit for bit, with the default and a
+   private generator, and two replayed chunks that draw different
+   masks; (c) ``remat`` "dots" and "nothing" against None on one bf16
+   step at B=128: the loss and every tensor, the peak memory and the
+   replay time of each; (d) the path: 2176 raw 224x224 records written
+   to a ``.rec`` file, ``RecordFileDataset`` and 4 process workers,
+   ``DevicePrefetchRing``, ``resnet50_v1`` bf16 (bench.py's model and
+   SGD) with ``chunk_steps=8`` over 3 epochs of two chunks and a tail,
+   a checkpoint at every chunk boundary: every loss finite and the last
+   chunk's mean below the first's, the step time over chunk replays
+   beside phase 8 (b)'s, img/s, the wait on the ring, the peak memory,
+   one chunk profiled, the 8-step capture 8x a step's launches; (e) a
+   fresh model resumed from the checkpoint after the last epoch's first
+   chunk, bit for bit the uninterrupted run, and a checkpoint with a
+   flipped byte that falls back to the older step; (f)
+   ``examples/train_resnet_fused.py --chunk-steps 2`` at its defaults;
+17. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -194,15 +216,18 @@ bench path over phase 8 (b)'s warm-up and timed steps, the
 TransformerLM over phase 9 (b) and (c) and, with flash attention, over
 phase 10 (b) and (c), the user kernels over phase 11's compiles and
 launches, LeNet over phase 12 (b), the LSTM language model over phase
-13 (b), SSD over phase 14 (c)'s steps and detections, and LAMB's
-BERT-base over phase 15 (b)'s saved and resumed run.  A graph replay
+13 (b), SSD over phase 14 (c)'s steps and detections, LAMB's
+BERT-base over phase 15 (b)'s saved and resumed run, and the chunked
+loop over phase 16 (d) and (e).  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
-capture.  The kernels line gives each kernel's launches summed over the
+capture, and on the chunked loop's the eager chunk, the K-step capture
+and the tail's warm-up step and capture, in the first epoch and in the
+resume.  The kernels line gives each kernel's launches summed over the
 paths it ran on; kernels 10-14 and 16 have an entry for each instance,
 the float32 3xTF32 tensor-core tile (``..._tf32``) with phase 7's
-launches and the bfloat16 tensor-core tile (``..._mma``) with phase
-8's.
+launches and the bfloat16 tensor-core tile (``..._mma``) with phases
+8's and 16's.
 """
 import copy
 import gc
@@ -596,6 +621,24 @@ OPT_TOL, OPT_NORM_TOL = 1e-6, 1e-5
 # LAMB_N more steps (begin_num_update=LAMB_N)
 LAMB_N = 5
 LAMB_LR = 1e-4
+# phase 16, the chunked training loop.  (a) ResNet-50 in float32 at
+# B=CHUNK_B, cuDNN deterministic: K=CHUNK_K over CHUNK_N batches (two
+# chunks and a tail) against CHUNK_N per-step calls, bit for bit; (b) the
+# JAX suite's Dense(16) -> ReLU -> Dropout(0.5) -> Dense(5) net, K=4 over
+# 8 batches against 8 per-step calls, bit for bit, then 3 chunks of one
+# batch at lr 0, whose two replays must draw different masks; (c) one
+# bf16 step at B=128 with remat "dots" and "nothing" against None
+# (cuDNN deterministic): losses and every tensor within GRAPH_TOL of the
+# largest value, a lower peak of device memory, the replay times;
+# (d) the path: LOOP_RECORDS raw 224x224 records written to a .rec file,
+# read by LOOP_WORKERS process workers, B=128, K=LOOP_K, LOOP_EPOCHS
+# epochs (the first captures, the others replay), bf16, cuDNN
+# deterministic so that (e) can hold the resume bit for bit; a
+# checkpoint at every chunk boundary
+CHUNK_B, CHUNK_K, CHUNK_N = 8, 4, 10
+REMAT_REPLAYS = 5
+LOOP_B, LOOP_K, LOOP_RECORDS, LOOP_WORKERS, LOOP_EPOCHS = (128, 8, 2176, 4,
+                                                           3)
 
 
 def phase(name):
@@ -2509,7 +2552,7 @@ def compare_graph_to_eager(torch, np, dev):
 
 def bench_path(torch, np, dev, smi):
     """Phase 8; returns the bench path's launch counts (the eager warm-up
-    step and the capture)."""
+    step and the capture) and its median step ms."""
     from torch.profiler import ProfilerActivity, profile
     from incubator_mxnet_tpu_torch import bench
     from incubator_mxnet_tpu_torch.fuse import kernel_launches
@@ -2571,7 +2614,7 @@ def bench_path(torch, np, dev, smi):
           f"{1 - busy / wall:.3f}; by family (ms): "
           f"{({k: round(v, 4) for k, v in sorted(fams.items())})}",
           flush=True)
-    return counts
+    return counts, res["step_ms_median"]
 
 
 def compare_transformer_step(torch, np, dev, attention):
@@ -4085,6 +4128,403 @@ def lamb_bert(torch, np, dev, tmp):
     gc.collect()
     return counts
 
+def decode_record(payload):
+    """A raw 224x224 record → (float32 HWC image / 255, int32 label), with
+    numpy only (it runs in the DataLoader's worker processes)."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch import recordio
+    header, img = recordio.unpack_raw(payload)
+    return img.astype(np.float32) / 255.0, np.int32(header.label)
+
+
+def bitwise_diff(torch, got, want):
+    """Names of the tensors of ``want`` that ``got`` does not equal bit
+    for bit."""
+    return [k for k, w in want.items() if not torch.equal(got[k], w)]
+
+
+def tree_on_card(step):
+    return {k: v.detach().clone() for k, v in step.state_tree().items()}
+
+
+def launches_times(counts, n):
+    return {_KERNEL_COUNTERS[k]: v * n for k, v in counts.items()}
+
+
+def chunked_against_sequential(torch, np, dev):
+    """Phase 16 (a): ResNet-50 float32 at B=CHUNK_B, cuDNN deterministic,
+    K=CHUNK_K over CHUNK_N batches against CHUNK_N per-step calls."""
+    from incubator_mxnet_tpu_torch import bench
+    rng = np.random.RandomState(1)
+    batches = [(torch.from_numpy(rng.rand(CHUNK_B, IMAGE, IMAGE, 3).astype(
+        np.float32)).to(dev), torch.from_numpy(rng.randint(
+            0, CLASSES, CHUNK_B).astype(np.int32)).to(dev))
+        for _ in range(CHUNK_N)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        seq, _, _ = bench.build(CHUNK_B, "float32", dev)
+        losses = [seq(x, y).float() for x, y in batches]
+        ch, _, _ = bench.build(CHUNK_B, "float32", dev, chunk_steps=CHUNK_K)
+        loop = ch.chunked_loop()
+        recs = loop.run_epoch(batches)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    kinds = [(r["kind"], r["steps"]) for r in recs]
+    tail = CHUNK_N % CHUNK_K
+    assert kinds == [("chunk", CHUNK_K)] * (CHUNK_N // CHUNK_K) + [
+        ("tail", tail)], kinds
+    got = torch.cat([r["losses"] for r in recs])
+    want = torch.stack(losses)
+    means_ok = all(torch.equal(r["loss"], sum(
+        losses[i * CHUNK_K + 1:(i + 1) * CHUNK_K], losses[i * CHUNK_K])
+        / CHUNK_K) for i, r in enumerate(recs[:-1]))
+    per_step = launches_times(resnet_step_launches(), 1)
+    (captured,) = loop.capture_launches.values()
+    (seq_captured,) = seq.capture_launches.values()
+    a, b = tree_on_card(ch), tree_on_card(seq)
+    diff = bitwise_diff(torch, a, b)
+    worst = worst_ratio(np, {k: v.float().cpu().numpy() for k, v in a.items()},
+                        {k: v.float().cpu().numpy() for k, v in b.items()})
+    print(f"(a) chunked K={CHUNK_K} against sequential, float32, B={CHUNK_B}, "
+          f"{CHUNK_N} batches ({kinds}): per-step losses bit for bit "
+          f"{torch.equal(got, want)} ({[round(v, 5) for v in got.tolist()]}), "
+          f"chunk means bit for bit {means_ok}; {len(b)} parameters, moving "
+          f"statistics and momenta, {len(diff)} not bit for bit "
+          f"{diff[:4]}, worst max|d|/max {worst[0]:.3e} ({worst[1]}); "
+          f"capture launches {captured} (per step {seq_captured})",
+          flush=True)
+    assert seq_captured == per_step, (seq_captured, per_step)
+    assert captured == launches_times(resnet_step_launches(), CHUNK_K), \
+        captured
+    assert loop.compile_count == 1 and torch.isfinite(got).all()
+    assert torch.equal(got, want) and means_ok and not diff, diff
+
+
+def dropout_chunked(torch, np, dev):
+    """Phase 16 (b): the Dense(16) -> ReLU -> Dropout(0.5) -> Dense(5) net
+    chunked against sequential on the card, with the default generator
+    and with a private one; then two replays' masks."""
+    from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
+    from incubator_mxnet_tpu_torch.gluon import nn
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    def net(gen):
+        n = nn.HybridSequential()
+        drop = nn.Dropout(0.5)
+        drop.generator = gen
+        n.add(nn.Dense(16, in_units=8, activation="relu"), drop,
+              nn.Dense(5, in_units=16))
+        return n.initialize(device=dev,
+                            generator=torch.Generator().manual_seed(0))
+
+    rng = np.random.RandomState(1)
+    batches = [(torch.from_numpy(rng.rand(4, 8).astype("f")).to(dev),
+                torch.from_numpy(rng.randint(0, 5, 4).astype("i4")).to(dev))
+               for _ in range(8)]
+    for private in (False, True):
+        runs = []
+        for k in (None, 4):
+            torch.cuda.manual_seed(3)
+            gen = (torch.Generator(device=dev).manual_seed(5) if private
+                   else None)
+            step = make_fused_train_step(
+                net(gen), SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": 0.1, "momentum": 0.9}, device=dev,
+                chunk_steps=k)
+            if k is None:
+                losses = torch.stack([step(x, y).float() for x, y in batches])
+            else:
+                losses = torch.cat([r["losses"] for r in
+                                    step.chunked_loop().run_epoch(batches)])
+            runs.append((losses, tree_on_card(step),
+                         torch.rand(2, device=dev, generator=gen)))
+        diff = bitwise_diff(torch, runs[1][1], runs[0][1])
+        print(f"(b) Dropout(0.5), {'private' if private else 'default'} "
+              f"generator: chunked K=4 against 8 per-step calls: losses bit "
+              f"for bit {torch.equal(runs[0][0], runs[1][0])}, state "
+              f"{len(diff)} tensors off, next draws equal "
+              f"{torch.equal(runs[0][2], runs[1][2])}", flush=True)
+        assert torch.equal(runs[0][0], runs[1][0]) and not diff
+        assert torch.equal(runs[0][2], runs[1][2])
+    step = make_fused_train_step(net(None), SoftmaxCrossEntropyLoss(), "sgd",
+                                 {"learning_rate": 0.0}, device=dev,
+                                 chunk_steps=4)
+    x = torch.rand(64, 8, device=dev)
+    y = torch.randint(0, 5, (64,), device=dev, dtype=torch.int32)
+    recs = step.chunked_loop().run_epoch([(x, y)] * 12)
+    first, second = recs[1]["losses"], recs[2]["losses"]
+    print(f"(b) lr 0, one batch, chunks 2 and 3 (replays): losses "
+          f"{[round(v, 5) for v in first.tolist()]} and "
+          f"{[round(v, 5) for v in second.tolist()]}", flush=True)
+    assert not torch.equal(first, second)
+    assert len(set(torch.cat([first, second]).tolist())) == 8
+
+
+def remat_compare(torch, np, dev):
+    """Phase 16 (c): one bf16 step at B=128 with remat "dots" and
+    "nothing" against None, cuDNN deterministic."""
+    from incubator_mxnet_tpu_torch import bench
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (None, "dots", "nothing"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            step, x, y = bench.build(BENCH_B, "bfloat16", dev, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            loss = step.step_fn(x, y)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            state = tree_on_card(step)
+            step(x, y)                       # warm-up and capture
+            times = []
+            for _ in range(REMAT_REPLAYS):
+                t0 = time.monotonic()
+                step(x, y)
+                torch.cuda.synchronize()
+                times.append((time.monotonic() - t0) * 1e3)
+            out[remat] = (loss.float().item(), state, peak,
+                          statistics.median(times))
+            del step, x, y
+    finally:
+        torch.backends.cudnn.deterministic = False
+    plain = out[None]
+    for remat in ("dots", "nothing"):
+        loss, state, peak, ms = out[remat]
+        diff = bitwise_diff(torch, state, plain[1])
+        worst = max(((state[k].float() - plain[1][k].float()).abs().max()
+                     / plain[1][k].float().abs().max().clamp_min(1e-30))
+                    .item() for k in plain[1])
+        print(f"(c) remat={remat!r} against None, bf16, B={BENCH_B}, one "
+              f"eager step: loss {loss!r} against {plain[0]!r}; "
+              f"{len(diff)} of {len(state)} tensors not bit for bit, worst "
+              f"max|d|/max {worst:.3e} (tol {GRAPH_TOL:g}); peak above the "
+              f"state {peak} against {plain[2]} bytes "
+              f"({peak / plain[2]:.3f}); replay median {ms:.3f} ms against "
+              f"{plain[3]:.3f} ms", flush=True)
+        assert abs(loss - plain[0]) <= GRAPH_TOL * abs(plain[0]), loss
+        assert worst <= GRAPH_TOL and peak < plain[2], (worst, peak)
+
+
+def loop_path(torch, np, dev, smi, tmp, bench_ms):
+    """Phase 16 (d) and (e): records on disk → process workers → the
+    ring → K-step replays → a checkpoint at every chunk boundary; then
+    the resume from the checkpoint after a chunk.  Returns the path's
+    launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import bench, recordio
+    from incubator_mxnet_tpu_torch.checkpoint import AsyncCheckpointManager
+    from incubator_mxnet_tpu_torch.error import CheckpointCorruptError
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.gluon import data
+    rec = os.path.join(tmp, "train.rec")
+    t0 = time.monotonic()
+    rng = np.random.default_rng(0)
+    writer = recordio.MXIndexedRecordIO(os.path.join(tmp, "train.idx"), rec,
+                                        "w")
+    for i in range(LOOP_RECORDS):
+        img = rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8)
+        label = float(rng.integers(0, CLASSES))
+        writer.write_idx(i, recordio.pack_raw(
+            recordio.IRHeader(0, label, i, 0), img))
+    writer.close()
+    print(f"(d) wrote {LOOP_RECORDS} raw {IMAGE}x{IMAGE} records, "
+          f"{os.path.getsize(rec)} bytes, in {time.monotonic() - t0:.2f} s",
+          flush=True)
+    dataset = data.RecordFileDataset(rec).transform(decode_record)
+
+    def loader(start=0):
+        return data.DataLoader(
+            dataset, batch_sampler=data.BatchSampler(
+                data.SequentialSampler(LOOP_RECORDS - start, start=start),
+                LOOP_B, "keep"), num_workers=LOOP_WORKERS, thread_pool=False)
+
+    nb = -(-LOOP_RECORDS // LOOP_B)
+    # the feed alone, without training: the loader, then loader and ring
+    for what, feed in (("the loader", lambda: loader()),
+                       ("the loader and the ring", lambda: (
+                           b for b in data.DevicePrefetchRing(
+                               loader(), LOOP_K, device=dev)))):
+        t0 = time.monotonic()
+        for _ in feed():
+            pass
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        print(f"(d) {what} alone: one epoch of {nb} batches in "
+              f"{dt * 1e3:.1f} ms ({LOOP_RECORDS / dt:.1f} img/s)", flush=True)
+    kinds = [("chunk", LOOP_K)] * (nb // LOOP_K) + (
+        [("tail", nb % LOOP_K)] if nb % LOOP_K else [])
+    ckpt = AsyncCheckpointManager(os.path.join(tmp, "ckpt"), keep=5)
+    torch.backends.cudnn.deterministic = True
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        step, _, _ = bench.build(LOOP_B, "bfloat16", dev, chunk_steps=LOOP_K)
+        loop = step.chunked_loop()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()                                 # path starts
+        epochs, saved = [], {}
+        for epoch in range(LOOP_EPOCHS):
+            marks = [torch.cuda.Event(enable_timing=True)]
+            marks[0].record()
+            host = [0.0]
+
+            def on_chunk(record):
+                t1 = time.monotonic()
+                ckpt.save(loop.steps_run, step.state_tree())
+                saved[(epoch, len(marks) - 1)] = loop.steps_run
+                host[0] += time.monotonic() - t1
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+
+            t0 = time.monotonic()
+            recs = loop.run_epoch(loader(), on_chunk=on_chunk)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            epochs.append((recs, ms, wall, loop.ring.wait_s, host[0]))
+            if epoch == 0:
+                peak = torch.cuda.max_memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            assert [(r["kind"], r["steps"]) for r in recs] == kinds
+        ckpt.wait()
+        timed_peak = torch.cuda.max_memory_allocated(dev)
+        final = tree_on_card(step)
+        # chunk replays on one block, each timed by the host clock around
+        # the replay and a synchronise (as phase 8 (b) times a step)
+        block = next(b for b in data.DevicePrefetchRing(loader(), LOOP_K,
+                                                        device=dev))
+        torch.cuda.synchronize()
+        replay_ms = []
+        for _ in range(REMAT_REPLAYS):
+            t0 = time.monotonic()
+            loop.run_chunk(block[1], block[2])
+            torch.cuda.synchronize()
+            replay_ms.append((time.monotonic() - t0) * 1e3 / LOOP_K)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            loop.run_chunk(block[1], block[2])
+            torch.cuda.synchronize()
+            prof_wall = (time.monotonic() - t0) * 1e3
+        del block
+        (captured,) = loop.capture_launches.values()
+        del step, loop
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (e) a fresh model, step and loop resume from the checkpoint
+        # saved after the last epoch's first chunk
+        resume_at = saved[(LOOP_EPOCHS - 1, 0)]
+        fresh, _, _ = bench.build(LOOP_B, "bfloat16", dev,
+                                  chunk_steps=LOOP_K, seed=1)
+        fresh.load_state_tree(ckpt.restore(resume_at))
+        floop = fresh.chunked_loop()
+        rrecs = floop.run_epoch(loader(start=LOOP_K * LOOP_B))
+        torch.cuda.synchronize()
+        launched = kernel_launches()                    # path ends
+        resumed = tree_on_card(fresh)
+        del fresh, floop
+    finally:
+        torch.backends.cudnn.deterministic = False
+    counts = {k: launched[_KERNEL_COUNTERS[k]]
+              for k in resnet_step_launches()}
+    per_step = launches_times(resnet_step_launches(), 1)
+    losses = torch.cat([r["losses"] for e in epochs for r in e[0]])
+    assert torch.isfinite(losses).all(), losses
+    first_mean = epochs[0][0][0]["loss"].item()
+    last_mean = epochs[-1][0][-2]["loss"].item()
+    print(f"(d) {LOOP_EPOCHS} epochs of {nb} batches ({kinds}), bf16, "
+          f"B={LOOP_B}, K={LOOP_K}, {LOOP_WORKERS} process workers: chunk "
+          f"means {[[round(r['loss'].item(), 4) for r in e[0]] for e in epochs]}"
+          f"; first chunk's mean {first_mean:.4f}, last chunk's "
+          f"{last_mean:.4f}", flush=True)
+    assert last_mean < first_mean, (first_mean, last_mean)
+    med = statistics.median(replay_ms)
+    for i, (recs, ms, wall, wait_s, host_s) in enumerate(epochs):
+        print(f"(d) epoch {i}: wall {wall * 1e3:.1f} ms ("
+              f"{nb * LOOP_B / wall:.1f} img/s end to end); device time "
+              f"between consecutive chunk boundaries "
+              f"{[round(v, 3) for v in ms]} ms (the first from the epoch's "
+              f"start, with the ring's first fill); the consumer waited on "
+              f"the ring "
+              f"{wait_s * 1e3:.1f} ms; checkpoint saves took "
+              f"{host_s * 1e3:.1f} ms of host time", flush=True)
+    in_loop = [e[1][k] / LOOP_K for e in epochs[1:]
+               for k in range(1, nb // LOOP_K)]
+    busy = sum(device_families(prof, _RESNET_FAMILIES).values())
+    print(f"(d) step time over chunk replays (host clock around a replay "
+          f"and a synchronise / {LOOP_K}): median {med:.3f} ms "
+          f"({LOOP_B / med * 1e3:.1f} img/s), all "
+          f"{[round(v, 3) for v in replay_ms]}; in the loop, the device "
+          f"time between the chunk boundaries after an epoch's first / "
+          f"{LOOP_K}: {[round(v, 3) for v in in_loop]} ms; phase 8 "
+          f"(b)'s per-step replay median {bench_ms:.3f} ms; one profiled "
+          f"chunk: wall {prof_wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"share {1 - busy / prof_wall:.3f}; peak device memory "
+          f"{peak} bytes over the capturing epoch ({peak / 2**30:.2f} GiB), "
+          f"{timed_peak} over the replayed ones; {smi}", flush=True)
+    print(f"(d) the {LOOP_K}-step capture's launches {captured} (a step's "
+          f"{per_step}); path launches {counts}", flush=True)
+    assert captured == launches_times(resnet_step_launches(), LOOP_K)
+    # eager chunk + its capture + the tail's eager step + its capture, in
+    # the first epoch and again in the resume
+    n = 2 * (2 * LOOP_K + 2)
+    assert counts == {k: v * n for k, v in resnet_step_launches().items()}
+    diff = bitwise_diff(torch, resumed, final)
+    want = [r["losses"] for r in epochs[-1][0][1:]]
+    same = all(torch.equal(a["losses"], b) for a, b in zip(rrecs, want))
+    print(f"(e) resumed from step {resume_at} in a fresh model: "
+          f"{[(r['kind'], r['steps']) for r in rrecs]}, losses bit for bit "
+          f"{same}; {len(diff)} of {len(final)} tensors not bit for bit "
+          f"{diff[:4]}", flush=True)
+    assert same and not diff
+    steps = ckpt.all_steps()
+    newest = os.path.join(ckpt.directory, f"step_{steps[-1]:08d}")
+    victim = os.path.join(newest, sorted(
+        f for f in os.listdir(newest) if f.endswith(".npy"))[0])
+    with open(victim, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0x01]))
+    try:
+        ckpt.restore(steps[-1])
+        raise AssertionError("a flipped byte loaded")
+    except CheckpointCorruptError:
+        pass
+    older = ckpt.restore()
+    want = ckpt.restore(steps[-2])
+    assert all(torch.equal(older[k], want[k]) for k in want)
+    print(f"(e) steps on disk {steps}; one byte of {os.path.basename(victim)}"
+          f" flipped in step {steps[-1]}: strict restore raises, restore() "
+          f"falls back to step {steps[-2]}", flush=True)
+    return counts
+
+
+def example_chunked(np):
+    """Phase 16 (f): examples/train_resnet_fused.py --chunk-steps 2 at its
+    defaults, in a process of its own."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m",
+         "incubator_mxnet_tpu_torch.examples.train_resnet_fused",
+         "--chunk-steps", "2"], cwd=root, env=env, capture_output=True,
+        text=True, timeout=300)
+    print(f"(f) train_resnet_fused --chunk-steps 2: rc {out.returncode} in "
+          f"{time.monotonic() - t0:.1f} s; {out.stdout.strip()[-600:]}",
+          flush=True)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-2])
+    assert (res["chunk_steps"], res["chunks"], res["tail_steps"],
+            res["loop_compiles"]) == (2, 2, 0, 1), res
+    assert np.isfinite(res["step_losses"]).all()
+
+
 def post(port, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/models/bert:predict",
@@ -4285,7 +4725,7 @@ def main():
     torch.cuda.empty_cache()
 
     phase("8 bench path: bfloat16 AMP, FusedTrainStep as a CUDA graph")
-    bench = bench_path(torch, np, dev, smi)
+    bench, bench_ms = bench_path(torch, np, dev, smi)
     # kernels 10-14's and 16's counters move for either of their
     # instances: phase 7 runs only float32 (the 3xTF32 tiles), the bench
     # path only bfloat16 (the bf16 tensor-core tiles)
@@ -4361,7 +4801,27 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("16 kernels")
+    phase("16 the chunked training loop")
+    chunk_t0 = time.monotonic()
+    chunked_against_sequential(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dropout_chunked(torch, np, dev)
+    remat_compare(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        loop16 = loop_path(torch, np, dev, smi, tmp, bench_ms)
+    for k in _MMA_INSTANCES:
+        mma_launches[k] += loop16[k]
+    for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
+        resnet[k] += loop16[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    example_chunked(np)
+    print(f"phase 16: {time.monotonic() - chunk_t0:.1f} s", flush=True)
+
+    phase("17 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"

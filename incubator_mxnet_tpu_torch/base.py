@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["get_env"]
+__all__ = ["get_env", "resolve_chunk_steps"]
 
 
 def get_env(name: str, default, dtype=str):
@@ -20,3 +20,14 @@ def get_env(name: str, default, dtype=str):
                 return val not in ("0", "false", "False", "")
             return dtype(val)
     return default
+
+
+def resolve_chunk_steps(chunk_steps=None):
+    """K, the steps of the chunked training loop (``fuse_loop.py``): an
+    explicit value wins, else ``MXNET_TRAIN_CHUNK_STEPS`` (default 1,
+    the per-step fused path).  Below 1 raises ``ValueError``."""
+    k = int(chunk_steps if chunk_steps is not None
+            else get_env("MXNET_TRAIN_CHUNK_STEPS", 1, int))
+    if k < 1:
+        raise ValueError(f"chunk_steps must be >= 1, got {k}")
+    return k

@@ -76,9 +76,10 @@ def nvidia_smi():
 
 
 def build(batch, dtype="bfloat16", device=None, image=224, classes=1000,
-          seed=0):
+          seed=0, **step_kwargs):
     """``(step, x, y)``: the bench path's fused step on ``device`` and its
-    fixed batch, x NHWC in ``dtype``, y int32."""
+    fixed batch, x NHWC in ``dtype``, y int32.  ``step_kwargs`` go to
+    ``make_fused_train_step`` (``chunk_steps``, ``remat``, ``donate``)."""
     device = resolve_device(device)
     net = resnet50_v1(classes=classes, layout="NHWC", fused=True)
     net.initialize(device=device,
@@ -89,7 +90,8 @@ def build(batch, dtype="bfloat16", device=None, image=224, classes=1000,
     elif dtype != "float32":
         raise ValueError(f"dtype must be bfloat16 or float32, got {dtype!r}")
     step = make_fused_train_step(net, SoftmaxCrossEntropyLoss(), "sgd",
-                                 dict(OPTIMIZER_PARAMS), device=device)
+                                 dict(OPTIMIZER_PARAMS), device=device,
+                                 **step_kwargs)
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(rng.rand(batch, image, image, 3).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, classes, batch).astype(np.int32))

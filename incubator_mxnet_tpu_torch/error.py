@@ -1,7 +1,8 @@
 """Error types (counterpart of ``incubator_mxnet_tpu/error.py``)."""
 from __future__ import annotations
 
-__all__ = ["MXNetError", "DeviceUnavailableError", "KernelError"]
+__all__ = ["MXNetError", "DeviceUnavailableError", "KernelError",
+           "CheckpointCorruptError", "CheckpointWriteError"]
 
 
 class MXNetError(Exception):
@@ -15,3 +16,14 @@ class DeviceUnavailableError(MXNetError, RuntimeError):
 
 class KernelError(MXNetError, RuntimeError):
     """A hand-written kernel failed to build or to launch."""
+
+
+class CheckpointCorruptError(MXNetError):
+    """A checkpoint failed its integrity check (a CRC mismatch, a
+    truncated file, a missing index): it must not load silently."""
+
+
+class CheckpointWriteError(MXNetError, RuntimeError):
+    """The asynchronous checkpoint writer failed.  The error is kept by
+    the manager and raised, as this type and chained to the original,
+    at the next ``save()`` or ``wait()``."""

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
+from .. import _remat
 from .. import initializer as init_mod
 from .. import ndarray as nd
 from .. import random as random_mod
@@ -50,8 +51,11 @@ def register_state_update(param, new_value):
     """BatchNorm's moving-statistic update: copy ``new_value`` into
     ``param`` in place, under ``torch.no_grad()``, so the update is not
     recorded.  The JAX package defers the update while it traces a
-    hybridized graph; the port runs eagerly, so it always applies it at
-    once."""
+    hybridized graph; the port runs eagerly, so it applies it at once,
+    except in a rematerialized region's recompute (``FusedTrainStep(
+    remat=...)``), which must not apply it a second time."""
+    if _remat.recomputing():
+        return
     with torch.no_grad():
         param.copy_(new_value)
 

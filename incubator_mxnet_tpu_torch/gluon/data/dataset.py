@@ -98,10 +98,18 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """Not ported yet: it waits for RecordIO (ROADMAP §A item 3)."""
+    """The records of a RecordIO file: sample ``i`` is the payload bytes
+    of the ``i``-th key of the ``.idx`` file beside ``filename`` (the
+    same name with ``.idx`` for its extension).  Decode them with
+    :meth:`transform` (``recordio.unpack_raw`` for decoded images)."""
 
     def __init__(self, filename):
-        raise NotImplementedError(
-            "RecordFileDataset is not ported yet (ROADMAP §A item 3's "
-            "remainder: RecordIO, DataLoader workers and the device "
-            "prefetch ring)")
+        from ... import recordio
+        idx_file = filename[:filename.rfind(".")] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import autograd
+from ... import _remat, autograd
 from ... import initializer as init_mod
 from ...ops import nn_ops
 from ..block import HybridBlock
@@ -224,9 +224,10 @@ class ZoneoutCell(ModifierCell):
         return self.base_cell.begin_state(batch_size, **kwargs)
 
     def _keep(self, rate, like):
-        draw = torch.rand(like.shape, generator=self.generator,
-                          device=like.device)
-        return draw < 1.0 - rate
+        # a rematerialized region's recompute takes its first run's mask
+        return _remat.keep("random", lambda: torch.rand(
+            like.shape, generator=self.generator,
+            device=like.device) < 1.0 - rate)
 
     def forward(self, inputs, states):
         out, new_states = self.base_cell(inputs, states)

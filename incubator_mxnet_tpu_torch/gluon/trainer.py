@@ -25,6 +25,12 @@ On one device there is nothing to reduce: ``kvstore`` may be ``None``,
 package's format).  The update counts are not in that file: a resumed
 run passes ``begin_num_update`` (the steps already taken) to its
 optimizer, as with the JAX package.
+
+``checkpoint_dir`` builds a ``checkpoint.AsyncCheckpointManager`` there
+(keeping ``checkpoint_keep`` steps), and ``chunk_steps`` resolves the
+chunk budget (``MXNET_TRAIN_CHUNK_STEPS``, default 1), as the JAX
+trainer does; its elastic runtime (``elastic=True``: heartbeats,
+eviction, rejoin) is not ported yet (ROADMAP §A item 11) and raises.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from torch.nn.parameter import UninitializedParameter
 
 from .. import optimizer as opt_mod
+from ..base import resolve_chunk_steps
 
 __all__ = ["Trainer"]
 
@@ -40,7 +47,13 @@ _ONE_DEVICE_KVSTORES = (None, "device", "local")
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device"):
+                 kvstore="device", elastic=False, checkpoint_dir=None,
+                 checkpoint_keep=5, chunk_steps=None):
+        if elastic:
+            raise NotImplementedError(
+                "Trainer(elastic=True) is not ported yet: the elastic "
+                "runtime (heartbeats, eviction, rejoin) comes with "
+                "distribution (ROADMAP §A item 11)")
         if hasattr(params, "values"):
             params = list(params.values())
         self._params = list(params)
@@ -64,6 +77,13 @@ class Trainer:
                                              **(optimizer_params or {}))
         self._optimizer.param_dict = dict(enumerate(self._params))
         self._updater = opt_mod.get_updater(self._optimizer)
+        self._ckpt = None
+        if checkpoint_dir is not None:
+            from ..checkpoint import AsyncCheckpointManager
+            self._ckpt = AsyncCheckpointManager(checkpoint_dir,
+                                                keep=checkpoint_keep)
+        # the chunk budget: checkpoints land between K-step chunks
+        self._chunk_steps = resolve_chunk_steps(chunk_steps)
 
     @property
     def optimizer(self):

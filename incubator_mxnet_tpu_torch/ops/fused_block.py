@@ -50,6 +50,7 @@ import functools
 
 import torch
 
+from .. import _remat
 from . import _build
 from . import _fused_common as _fc
 from ._fused_common import vec16 as _vec16
@@ -366,7 +367,9 @@ class FusedMatmulBNFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, scale, bias):
-        y, s1, s2 = fused_matmul_bn_fwd(x, w, scale, bias)
+        # under remat="dots" the recompute takes the first run's product
+        y, s1, s2 = (t.detach() for t in _remat.keep(
+            "product", lambda: fused_matmul_bn_fwd(x, w, scale, bias)))
         ctx.save_for_backward(x, w, scale, bias, y)
         ctx.set_materialize_grads(False)
         return y, s1, s2

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import _remat
 from ..amp.amp import cast_args
 from .layer_norm import LayerNormFunction
 from .rms_norm import RMSNormFunction
@@ -223,9 +224,12 @@ def dropout(x, p=0.5, mode="training", axes=(), generator=None):
     shape = list(x.shape)
     for a in axes:
         shape[a] = 1
-    keep = torch.rand(shape, generator=generator, device=x.device) >= p
-    # 1 - p rounded to x's dtype first, as JAX rounds the weak-typed scalar
-    kept = x / torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    # a rematerialized region's recompute takes its first run's mask
+    keep = _remat.keep("random", lambda: torch.rand(
+        shape, generator=generator, device=x.device) >= p)
+    # 1 - p rounded to x's dtype first, as JAX rounds the weak-typed
+    # scalar; filled on the device, so a CUDA graph can capture it
+    kept = x / torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
 
@@ -239,7 +243,7 @@ def softmax(x, axis=-1, temperature=None, length=None):
     it."""
     (x,) = cast_args("softmax", x)
     if temperature is not None and temperature != 1.0:
-        x = x / torch.tensor(temperature, dtype=x.dtype, device=x.device)
+        x = x / torch.full((), temperature, dtype=x.dtype, device=x.device)
     if length is not None:
         ax = axis % x.dim()
         shape = [1] * x.dim()
@@ -255,7 +259,7 @@ def log_softmax(x, axis=-1, temperature=None):
     rounded to x's dtype as in :func:`softmax`."""
     (x,) = cast_args("log_softmax", x)
     if temperature is not None and temperature != 1.0:
-        x = x / torch.tensor(temperature, dtype=x.dtype, device=x.device)
+        x = x / torch.full((), temperature, dtype=x.dtype, device=x.device)
     return torch.log_softmax(x, dim=axis)
 
 

@@ -80,7 +80,7 @@ from incubator_mxnet_tpu_torch.convert import grads_to_numpy
 from incubator_mxnet_tpu_torch.examples.train_bert import (pretraining_loss,
                                                            synthetic_batch)
 from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
-from incubator_mxnet_tpu_torch.gluon import Trainer, nn
+from incubator_mxnet_tpu_torch.gluon import Trainer, data, nn
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
     BottleneckV1, ResNetV1)
@@ -1110,12 +1110,191 @@ def test_fused_train_step_replay_matches_eager(dev, no_tf32, dtype):
     assert (graph.params["output.weight"] != net.output.weight).any()
 
 
-def test_fused_train_step_refuses_dropout_on_the_card(dev):
+def _small_resnet(dev, dtype):
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                   classes=10, layout="NHWC", fused=True).initialize(
+        device=dev, generator=torch.Generator().manual_seed(0))
+    if dtype == "bfloat16":
+        amp.convert_block(net, "bfloat16")
+    return net
+
+
+def _resnet_batches(dev, dtype, n, batch=4, seed=0):
+    rng = np.random.RandomState(seed)
+    return [(torch.from_numpy(rng.rand(batch, 64, 64, 3).astype(np.float32))
+             .to(dev, getattr(torch, dtype)),
+             torch.from_numpy(rng.randint(0, 10, batch).astype(np.int32))
+             .to(dev)) for _ in range(n)]
+
+
+def _state_bits(step):
+    return {k: v.detach().clone() for k, v in step.state_tree().items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_capture_launches_k_times_a_step_and_equals_sequential(
+        dev, no_tf32, dtype):
+    """The small fused ResNet, K=3 over 8 batches (two chunks, the second
+    a replay of the K-step graph, and a tail of 2): the K-step capture
+    holds 3x one step's launches, and the run equals 8 per-step calls
+    from the same weights within 1e-6 of each tensor's largest value
+    (cuDNN deterministic: the same kernels on the same inputs)."""
+    params = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    batches = _resnet_batches(dev, dtype, 8)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        seq = make_fused_train_step(_small_resnet(dev, dtype),
+                                    SoftmaxCrossEntropyLoss(), "sgd",
+                                    dict(params), device=dev)
+        losses = [seq(x, y) for x, y in batches]
+        ch = make_fused_train_step(_small_resnet(dev, dtype),
+                                   SoftmaxCrossEntropyLoss(), "sgd",
+                                   dict(params), device=dev, chunk_steps=3)
+        loop = ch.chunked_loop()
+        recs = loop.run_epoch(batches)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    assert [r["kind"] for r in recs] == ["chunk", "chunk", "tail"]
+    assert loop.compile_count == 1 and len(loop.capture_launches) == 1
+    (per_step,) = seq.capture_launches.values()
+    (captured,) = loop.capture_launches.values()
+    assert captured == {k: 3 * v for k, v in per_step.items()}
+    assert per_step["fused_block.fwd_launches"] == 12
+    want = torch.stack([v.float() for v in losses[3:6]]).mean()
+    _within(recs[1]["loss"], want, 1e-6, "chunk loss")
+    mine, ref = _state_bits(ch), _state_bits(seq)
+    for k, v in ref.items():
+        assert mine[k].dtype == v.dtype, k
+        _within(mine[k], v, 1e-6, k)
+
+
+def _dense_net(dev, dropout, generator=None):
     net = nn.HybridSequential()
-    net.add(nn.Dense(4, in_units=3), nn.Dropout(0.1))
-    with pytest.raises(ValueError, match="Dropout"):
-        make_fused_train_step(net.initialize(device=dev),
-                              SoftmaxCrossEntropyLoss(), device=dev)
+    net.add(nn.Dense(16, in_units=8, activation="relu"))
+    if dropout:
+        drop = nn.Dropout(dropout)
+        drop.generator = generator
+        net.add(drop)
+    net.add(nn.Dense(5, in_units=16))
+    return net.initialize(device=dev,
+                          generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("dropout,private", [(0.0, False), (0.5, False),
+                                             (0.5, True)])
+def test_dense_chunked_equals_sequential_on_the_card(dev, dropout,
+                                                     private):
+    """The JAX suite's Dense(8→16→5) net, K=4 over 10 batches, against 10
+    per-step calls, bit for bit: with Dropout the K-step replay draws the
+    masks that 4 per-step replays draw, from the default generator or
+    from the Dropout's own (registered with each graph)."""
+    rng = np.random.RandomState(1)
+    batches = [(torch.from_numpy(rng.rand(4, 8).astype("f")).to(dev),
+                torch.from_numpy(rng.randint(0, 5, 4).astype("i4")).to(dev))
+               for _ in range(10)]
+    runs = []
+    for k in (None, 4):
+        torch.cuda.manual_seed(3)
+        gen = (torch.Generator(device=dev).manual_seed(5) if private
+               else None)
+        step = make_fused_train_step(
+            _dense_net(dev, dropout, gen), SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9}, device=dev,
+            chunk_steps=k)
+        if k is None:
+            losses = [step(x, y).float() for x, y in batches]
+            recs = None
+        else:
+            recs = step.chunked_loop().run_epoch(batches)
+        runs.append((step, losses if k is None else recs,
+                     torch.rand(2, device=dev, generator=gen)))
+    (seq, losses, after_seq), (ch, recs, after_ch) = runs
+    assert torch.equal(recs[1]["loss"],
+                       (losses[4] + losses[5] + losses[6] + losses[7]) / 4)
+    a, b = _state_bits(seq), _state_bits(ch)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(after_seq, after_ch)    # the generators advanced alike
+
+
+@pytest.mark.parametrize("private", [False, True])
+def test_fused_step_takes_dropout_and_replays_draw_new_masks(dev, private):
+    """Two replays of the captured step on the same batch at lr 0 draw
+    different masks, so their losses differ; an eager run of the same
+    step from the same generator state gives the replay's loss."""
+    gen = torch.Generator(device=dev).manual_seed(9) if private else None
+    net = _dense_net(dev, 0.5, gen)
+    step = make_fused_train_step(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                 {"learning_rate": 0.0}, device=dev)
+    eager = make_fused_train_step(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                  {"learning_rate": 0.0}, device=dev)
+    x = torch.rand(64, 8, device=dev)
+    y = torch.randint(0, 5, (64,), device=dev, dtype=torch.int32)
+    step(x, y)                          # eager warm-up, then the capture
+    assert len(step._graphs) == 1
+    source = gen if private else torch.cuda.default_generators[0]
+    state = source.get_state()
+    first, second = step(x, y).item(), step(x, y).item()
+    assert first != second
+    source.set_state(state)
+    assert eager.step_fn(x, y).item() == first
+
+
+def test_ring_blocks_arrive_right_when_pinned_buffers_cycle(dev):
+    """depth 1: two pinned buffers cycle under a consumer that is slower
+    than the copies (a 20 ms sleep on its stream for each block); every
+    block holds its batches' values."""
+    rng = np.random.RandomState(0)
+    batches = [(rng.rand(64, 1024).astype(np.float32),
+                np.full((64,), i, np.int32)) for i in range(24)]
+    ring = data.DevicePrefetchRing(batches, 2, depth=1, device=dev)
+    got = []
+    for kind, xs, ys in ring:
+        assert kind == "chunk" and xs.device == dev
+        torch.cuda._sleep(20_000_000)
+        got.append((xs * 1.0, ys.clone()))
+    torch.cuda.synchronize()
+    assert len(got) == 12 and len(ring._slots) == 2
+    for i, (xs, ys) in enumerate(got):
+        for k in range(2):
+            np.testing.assert_array_equal(xs[k].cpu().numpy(),
+                                          batches[2 * i + k][0])
+            assert (ys[k] == 2 * i + k).all()
+
+
+@pytest.mark.parametrize("remat", ["dots", "nothing"])
+def test_remat_matches_the_plain_step_on_a_small_bf16_resnet(dev, remat):
+    """The small fused ResNet in bf16 at B=16: an eager step, then the
+    graph's warm-up and a replay, with remat against without: losses and
+    every tensor within 1e-6 of its largest value (cuDNN deterministic),
+    and the eager step's peak of device memory lower."""
+    batches = _resnet_batches(dev, "bfloat16", 2, batch=16)
+    params = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for r in (None, remat):
+            step = make_fused_train_step(_small_resnet(dev, "bfloat16"),
+                                         SoftmaxCrossEntropyLoss(), "sgd",
+                                         dict(params), device=dev, remat=r)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            losses = [step.step_fn(*batches[0])]
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            losses += [step(*batches[1]) for _ in range(2)]
+            out[r] = (losses, _state_bits(step), peak)
+            del step
+    finally:
+        torch.backends.cudnn.deterministic = old
+    for a, b in zip(out[remat][0], out[None][0]):
+        _within(a, b, 1e-6, "loss")
+    for k, v in out[None][1].items():
+        _within(out[remat][1][k], v, 1e-6, k)
+    assert out[remat][2] < out[None][2], (out[remat][2], out[None][2])
 
 
 def _row_close(got, want, what, tol=1e-6, terms=0.0):

@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from incubator_mxnet_tpu.gluon import data as jdata
-from incubator_mxnet_tpu_torch import random
-from incubator_mxnet_tpu_torch.gluon import data
+from incubator_mxnet_tpu_torch import random, recordio
+from incubator_mxnet_tpu_torch.gluon import Trainer, data
 
 
 def _np(batch):
@@ -151,10 +151,8 @@ def test_shuffle_is_a_fresh_permutation_repeated_by_seed():
 
 
 def test_what_is_not_ported_yet_raises():
-    x = np.zeros(4, np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        data.DataLoader(x, batch_size=2, num_workers=2)
+        recordio.pack_img(recordio.IRHeader(0, 0.0, 0, 0),
+                          np.zeros((2, 2, 3), np.uint8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        data.DevicePrefetchRing([], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        data.RecordFileDataset("x.rec")
+        Trainer([torch.zeros(2, requires_grad=True)], "sgd", elastic=True)
