@@ -50,7 +50,10 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    B=16, T=128, whose loss must be finite and fall, with exactly 25
    LayerNorm forward and backward and 2 cross-entropy forward and
    backward launches a step; the median step time; one step profiled
-   by kernel family; (c) 3 steps of the model converted to bfloat16 by
+   by kernel family; what the grad_req bookkeeping costs: the backward
+   through ``autograd.backward`` against ``torch.autograd.backward``
+   with the parameters' hooks idle and without them, in turns; (c) 3
+   steps of the model converted to bfloat16 by
    ``amp.convert_block``, as ``examples/train_bert.py --amp`` builds
    it, whose losses must be finite, with the same launches a step, and
    whose LayerNorm and cross-entropy kernels must run their bfloat16
@@ -205,7 +208,33 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    chunk, bit for bit the uninterrupted run, and a checkpoint with a
    flipped byte that falls back to the older step; (f)
    ``examples/train_resnet_fused.py --chunk-steps 2`` at its defaults;
-17. the kernels line (JSON), then the last line
+17. the imperative training API — (a) each of the seven kernel
+   Functions at a phase 3 shape: a backward with ``create_graph=True``
+   gives the first gradients of ``create_graph=False`` bit for bit, and
+   differentiating them again raises ``HigherOrderGradientError``
+   naming the kernel; (b) a gradient penalty on LeNet
+   (``examples/train_mnist.py``'s network without its loss, 28x28,
+   B=64, float32): mean(critic(real)) - mean(critic(fake)) + 10 ·
+   mean((‖∂critic(x̂)/∂x̂‖₂ - 1)²), the inner gradient from
+   ``autograd.grad(create_graph=True)``, one step on the card against
+   the same step on the CPU, then 20 Adam steps and their step time;
+   (c) BERT-base gradient accumulation (float32, dropout 0, T=128): every
+   parameter at ``grad_req "add"`` but the word embedding at ``"null"``,
+   a step of four micro-batches of 4 through ``autograd.backward``,
+   ``Trainer.step(16)`` and ``zero_grad()``, 3 steps: the accumulated
+   gradient against one B=16 batch's ``"write"`` gradient, every weight
+   after each step against ``nd.adam_update`` on the weight and
+   accumulated gradient it had, the embedding untouched with no
+   gradient and no optimizer state, two ``"write"`` backwards leaving
+   the second's gradient, 100 / 100 / 8 / 8 LayerNorm and
+   cross-entropy launches a step, the step time;
+   (d) every update op at (1024, 1024), card against CPU, in float32 and
+   bfloat16 (the ``mp_*`` ones with float32 masters), and
+   ``multi_mp_sgd_mom_update`` and ``multi_mp_adamw_update`` over
+   BERT-base's parameters in bfloat16 with float32 masters against the
+   loop of single ops bit for bit, with each path's wall and busy time
+   and launches;
+18. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -217,8 +246,9 @@ TransformerLM over phase 9 (b) and (c) and, with flash attention, over
 phase 10 (b) and (c), the user kernels over phase 11's compiles and
 launches, LeNet over phase 12 (b), the LSTM language model over phase
 13 (b), SSD over phase 14 (c)'s steps and detections, LAMB's
-BERT-base over phase 15 (b)'s saved and resumed run, and the chunked
-loop over phase 16 (d) and (e).  A graph replay
+BERT-base over phase 15 (b)'s saved and resumed run, the chunked
+loop over phase 16 (d) and (e), and BERT-base's gradient accumulation
+over phase 17 (c)'s steps.  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture, and on the chunked loop's the eager chunk, the K-step capture
@@ -249,6 +279,10 @@ VALID = [128, 100, 77, 64, 33, 16, 5, 1]
 HIDDEN = 768
 # training: BERT-base at B=16, T=128 (2048 tokens a step)
 TRAIN_B, TRAIN_B_CPU, TRAIN_STEPS = 16, 4, 10
+# phase 6 (b): the backward through autograd.backward against
+# torch.autograd.backward with the grad_req hooks idle and without them,
+# in turns
+BOOK_ROUNDS = 30
 AMP_STEPS = 3   # phase 6 (c): BERT-base converted to bfloat16
 ROWS = TRAIN_B * T
 # the LayerNorm forward at the serving shapes, then the training step's
@@ -639,6 +673,42 @@ CHUNK_B, CHUNK_K, CHUNK_N = 8, 4, 10
 REMAT_REPLAYS = 5
 LOOP_B, LOOP_K, LOOP_RECORDS, LOOP_WORKERS, LOOP_EPOCHS = (128, 8, 2176, 4,
                                                            3)
+# phase 17, the imperative training API.  (a) the seven kernel
+# Functions at phase 3's shapes, float32: (name of the guarded kernel,
+# what the case builds)
+HO_CASES = [("layer_norm_bwd", ((ROWS, HIDDEN),)),
+            ("softmax_bwd", (SM_PATH,)),
+            ("rms_norm_bwd", (RMS_PATH,)),
+            ("softmax_xent_bwd", ((ROWS, VOCAB),)),
+            ("flash_attention_bwd", (FLASH_PATH,)),
+            ("fused_matmul_bn_bwd", (FMM_REP,)),
+            ("fused_conv3_bn_bwd", (CONV_REP,))]
+# (b) the gradient penalty's weight and LeNet's batch; card step against
+# CPU step, float32 with TF32 off: the loss within 1e-5 relative, each
+# gradient max|d| <= GP_GRAD_TOL of its largest value (phase 12 (a)'s
+# bound: the same float32 convolutions, here also their double backward,
+# summed in another order); 20 Adam steps at lr 1e-4
+GP_LAMBDA, GP_STEPS, GP_LR, GP_GRAD_TOL = 10.0, 20, 1e-4, 1e-4
+# (c) four micro-batches of ACC_MICRO rows make one step of ACC_MICRO *
+# ACC_PARTS; the accumulated float32 gradient against one batch's, each
+# tensor within ACC_TOL of its largest value (the same rows, summed in
+# four parts)
+ACC_MICRO, ACC_PARTS, ACC_STEPS, ACC_TOL = 4, 4, 3, 1e-5
+# each Adam step's new weights against nd.adam_update on the same weight
+# and gradient: within 4 float32 ulps of each tensor's largest value plus
+# 1e-6 of the learning rate (the same formula, but the optimizer scales
+# the gradient before it squares it and the op after, so a step may move
+# by a few ulps of itself); a missed, doubled or stale update moves a
+# weight by about the learning rate
+ACC_UPD_ULPS, ACC_UPD_STEP = 4.0, 1e-6
+# (d) the update ops card against CPU: bit for bit where an op takes no
+# square root and sums nothing (tests/torch_update_op_cases.py's EXACT),
+# else within 5e-7 of each float32 tensor's largest value (the card's
+# sqrt differs from the CPU's by one ulp in about 0.6 % of values, the
+# sums run in another order; FTRL's cancelling sigma 5e-6, as that file
+# says) and, in bfloat16, one bf16 ulp of each value more: phase 15
+# (a)'s rule
+UPD_SHAPE = (1024, 1024)
 
 
 def phase(name):
@@ -2148,9 +2218,65 @@ def train_bert_base(torch, np, dev):
           f"min {min(step_ms[2:]):.3f} ms, all "
           f"{[round(v, 3) for v in step_ms]}", flush=True)
     step_breakdown(torch, fwd_bwd, update)
+    backward_bookkeeping(torch, net, SoftmaxCrossEntropyLoss(), batch)
     for k, n in amp_bert_steps(torch, np, dev, batch).items():
         counts[k] += n
     return counts
+
+
+def backward_bookkeeping(torch, net, ce, batch):
+    """What the grad_req bookkeeping costs on this step's graph: the
+    backward alone (after a synchronised forward), three ways in turns,
+    BOOK_ROUNDS rounds in a rotating order: through
+    ``autograd.backward``; through ``torch.autograd.backward`` with the
+    parameters' grad_req hooks idle (what PyTorch's own backward pays
+    for them); through ``torch.autograd.backward`` with the hooks taken
+    off for the call (the parent's path).  Each way's median and,
+    against the last way in the same round, the quartiles of the
+    difference."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.examples.train_bert import pretraining_loss
+    hooked = [(p, dict(p._backward_hooks)) for p in net.parameters()
+              if p._backward_hooks]
+
+    def plain(h):
+        torch.autograd.backward([h], [torch.ones_like(h)])
+
+    runs = {"autograd.backward": autograd.backward,
+            "torch, hooks idle": plain, "torch, no hooks": plain}
+    names = list(runs)
+    times = {k: [] for k in runs}
+    for r in range(BOOK_ROUNDS):
+        for name in names[r % 3:] + names[:r % 3]:
+            for p in net.parameters():
+                p.grad = None
+            with autograd.record():
+                loss = pretraining_loss(net, ce, *batch)
+            if name == "torch, no hooks":
+                for p, _ in hooked:
+                    p._backward_hooks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name](loss)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            for p, hooks in hooked:
+                p._backward_hooks.update(hooks)
+            del loss
+    for p in net.parameters():
+        p.grad = None
+    base = times[names[-1]]
+    parts = []
+    for k in runs:
+        part = f"{k} {statistics.median(times[k]):.3f} ms"
+        if k != names[-1]:
+            diffs = [a - b for a, b in zip(times[k], base)]
+            part += (" (less the last, quartiles "
+                     f"{[round(q, 3) for q in statistics.quantiles(diffs, n=4)]})")
+        parts.append(part)
+    print(f"grad_req bookkeeping, {len(hooked)} parameters with the hook: "
+          f"the backward alone, {BOOK_ROUNDS} rounds in turns, median: "
+          + "; ".join(parts), flush=True)
 
 
 def amp_bert_steps(torch, np, dev, batch):
@@ -4536,6 +4662,431 @@ def post(port, body):
     return out, (time.monotonic() - t0) * 1e3
 
 
+def _first_and_second(torch, autograd, fn, args, diff):
+    """First gradients of a kernel op's sum(sin(out)) (plus a small part
+    of its other outputs) with ``create_graph=True`` and without, from
+    one graph; returns both and the loss of their squares."""
+    for i in diff:
+        args[i].requires_grad_(True)
+    wrt = [args[i] for i in diff]
+    out = fn(*args)
+    outs = out if isinstance(out, tuple) else (out,)
+    loss = torch.sin(outs[0].float()).sum()
+    for k, o in enumerate(outs[1:]):
+        loss = loss + (0.01 / (k + 1)) * torch.square(o).sum()
+    first = autograd.grad(loss, wrt, create_graph=True, retain_graph=True)
+    plain = torch.autograd.grad(loss, wrt, retain_graph=True)
+    return first, plain, wrt
+
+
+def _ho_case(torch, name, shape, dev):
+    """(the op, its float32 inputs on ``dev``, the inputs it is
+    differentiated in) for phase 17 (a)."""
+    from incubator_mxnet_tpu_torch.ops import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops import fused_block as fb
+    from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+    from incubator_mxnet_tpu_torch.ops import nn_ops
+    g = torch.Generator().manual_seed(17)
+
+    def rand(*s, scale=1.0):
+        return (scale * torch.randn(s, generator=g)).to(dev)
+
+    if name == "layer_norm_bwd":
+        cols = shape[1]
+        return nn_ops.layer_norm, [rand(*shape), 1 + rand(cols, scale=0.1),
+                                   rand(cols, scale=0.1)], (0, 1, 2)
+    if name == "softmax_bwd":
+        return nn_ops.softmax, [rand(*shape)], (0,)
+    if name == "rms_norm_bwd":
+        return nn_ops.rms_norm, [rand(*shape), 1 + rand(shape[1],
+                                                        scale=0.1)], (0, 1)
+    if name == "softmax_xent_bwd":
+        labels = torch.randint(0, shape[1], (shape[0],), generator=g).to(dev)
+        return (lambda x: nn_ops.softmax_xent(x, labels)), [rand(*shape)], \
+            (0,)
+    if name == "flash_attention_bwd":
+        b, h, tq, tk, d, causal = shape
+        return (lambda q, k, v: fa.flash_attention(q, k, v, causal=causal)), \
+            [rand(b, h, tq, d), rand(b, h, tk, d), rand(b, h, tk, d)], \
+            (0, 1, 2)
+    if name == "fused_matmul_bn_bwd":
+        m, k, n, prologue = shape
+        args = [rand(m, k, scale=0.5), rand(k, n, scale=0.1)]
+        if prologue:
+            args += [1 + rand(k, scale=0.1), rand(k, scale=0.1)]
+        return fb.fused_matmul_bn, args, tuple(range(len(args)))
+    n, h, w, c, co = shape
+    return fc.fused_conv3_bn, [rand(n, h, w, c, scale=0.5),
+                               rand(3, 3, c, co, scale=0.1),
+                               1 + rand(c, scale=0.1), rand(c, scale=0.1)], \
+        (0, 1, 2, 3)
+
+
+def check_second_derivatives(torch, dev):
+    """Phase 17 (a): each kernel Function's first gradients under
+    ``create_graph`` bit for bit those without it; a second derivative
+    through its backward raises, naming the kernel."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.ops._higher_order import \
+        HigherOrderGradientError
+    for name, (shape,) in HO_CASES:
+        fn, args, diff = _ho_case(torch, name, shape, dev)
+        first, plain, wrt = _first_and_second(torch, autograd, fn, args,
+                                              diff)
+        same = all(torch.equal(a.detach(), b) for a, b in zip(first, plain))
+        assert same, name
+        try:
+            autograd.grad(sum((t * t).sum() for t in first), wrt)
+        except HigherOrderGradientError as e:
+            assert name in str(e), (name, str(e))
+            raised = str(e).split(":")[0]
+        else:
+            raise AssertionError(f"{name}: a second derivative through the "
+                                 "kernel's backward did not raise")
+        print(f"  {name} at {shape}: first gradients under create_graph "
+              f"bit for bit; the second derivative raises "
+              f"HigherOrderGradientError({raised!r})", flush=True)
+        del first, plain, wrt, args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gp_step(torch, autograd, critic, real, fake, eps):
+    """The gradient-penalty loss, recorded, and its backward."""
+    with autograd.record():
+        xhat = (eps * real + (1 - eps) * fake).requires_grad_(True)
+        (dx,) = autograd.grad(critic(xhat).sum(), [xhat], create_graph=True)
+        norm = dx.flatten(1).norm(dim=1)
+        loss = (critic(real).mean() - critic(fake).mean()
+                + GP_LAMBDA * ((norm - 1) ** 2).mean())
+    autograd.backward(loss)
+    return loss
+
+
+def gp_inputs(torch, np):
+    from incubator_mxnet_tpu_torch.examples.train_mnist import synthetic_data
+    real, _ = synthetic_data(MNIST_B, seed=17)
+    rng = np.random.RandomState(18)
+    fake = 0.5 * rng.rand(MNIST_B, 1, 28, 28).astype(np.float32)
+    eps = rng.rand(MNIST_B, 1, 1, 1).astype(np.float32)
+    return [torch.from_numpy(a) for a in (real, fake, eps)]
+
+
+def gradient_penalty(torch, np, dev):
+    """Phase 17 (b): the gradient-penalty step on LeNet, card against
+    CPU, then GP_STEPS Adam steps on the card."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
+                                                   params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.examples.train_mnist import lenet
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    real, fake, eps = gp_inputs(torch, np)
+    cpu = lenet()
+    cpu.initialize(device="cpu", generator=torch.Generator().manual_seed(3))
+    with autograd.pause():
+        cpu(real)                               # materialise the weights
+    card = lenet()
+    card.initialize(device=dev)
+    params_from_jax(params_to_numpy(cpu), card)
+    out = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        args = [a.to(where) for a in (real, fake, eps)]
+        loss = gp_step(torch, autograd, net, *args)
+        out.append((loss.item(), grads_to_numpy(net)))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    assert np.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), \
+        (l_card, l_cpu)
+    worst = 0.0
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        assert np.isfinite(got).all(), name
+        err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+        assert err <= GP_GRAD_TOL, (name, err)
+        worst = max(worst, err)
+    print(f"gradient penalty step: loss card {l_card:.7f} cpu {l_cpu:.7f}; "
+          f"{len(g_cpu)} gradients, worst max|d|/max|g| {worst:.3e} (tol "
+          f"{GP_GRAD_TOL:g})", flush=True)
+    trainer = Trainer(card.collect_params(), "adam", {"learning_rate": GP_LR})
+    args = [a.to(dev) for a in (real, fake, eps)]
+    losses, step_ms = [], []
+    for _ in range(GP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = gp_step(torch, autograd, card, *args)
+        trainer.step(MNIST_B)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(loss.item())
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    print(f"{GP_STEPS} gradient-penalty Adam steps (lr {GP_LR:g}, B="
+          f"{MNIST_B}): losses {[round(v, 4) for v in losses]}; step time "
+          f"median over steps 3-{GP_STEPS} "
+          f"{statistics.median(step_ms[2:]):.3f} ms, min "
+          f"{min(step_ms[2:]):.3f} ms (host clock around a synchronised "
+          f"step)", flush=True)
+
+
+def _bert_grads(torch, net):
+    return {k: p.grad.detach().clone() for k, p in
+            net.collect_params().items() if p.grad is not None}
+
+
+def check_adam_step(torch, nd, params, before, ref_state, step, rescale):
+    """Phase 17 (c): hold each weight that ``Trainer.step`` just updated
+    to ``nd.adam_update`` on the weight and accumulated gradient it had
+    (``before``), with the reference's own moments (``ref_state``) and
+    Adam's bias-corrected rate at ``step``.  Returns the worst difference
+    over its tolerance."""
+    from incubator_mxnet_tpu_torch.optimizer.optimizer import Adam
+    ada = Adam()
+    coef = LR * math.sqrt(1 - ada.beta2 ** step) / (1 - ada.beta1 ** step)
+    worst = 0.0
+    for k, (w, g) in before.items():
+        m, v = ref_state.get(k) or (torch.zeros_like(w), torch.zeros_like(w))
+        want, m, v = nd.adam_update(w, g, m, v, lr=coef, beta1=ada.beta1,
+                                    beta2=ada.beta2, epsilon=ada.epsilon,
+                                    rescale_grad=rescale)
+        ref_state[k] = (m, v)
+        tol = ACC_UPD_ULPS * 2.0 ** -23 * want.abs().max().item() + (
+            ACC_UPD_STEP * LR)
+        err = (params[k].detach() - want).abs().max().item() / tol
+        assert err <= 1.0, (k, step, err)
+        worst = max(worst, err)
+    return worst
+
+
+def accumulate_bert(torch, np, dev):
+    """Phase 17 (c): BERT-base gradient accumulation; returns the path's
+    launch counts."""
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch import ndarray as nd
+    from incubator_mxnet_tpu_torch.examples.train_bert import (
+        pretraining_loss, synthetic_batch)
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    from incubator_mxnet_tpu_torch.ops import layer_norm as ln
+    from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
+    net = BERTModel(vocab_size=VOCAB, dropout=0.0).initialize(
+        device=dev, generator=torch.Generator().manual_seed(5))
+    params, ce = net.collect_params(), SoftmaxCrossEntropyLoss()
+    batch_b = ACC_MICRO * ACC_PARTS
+    x, y_mlm, y_nsp = (torch.from_numpy(a).to(dev) for a in
+                       synthetic_batch(batch_b, T, VOCAB, seed=9))
+
+    def micro(i):
+        rows = slice(i * ACC_MICRO, (i + 1) * ACC_MICRO)
+        return x[rows], y_mlm.view(batch_b, T)[rows].reshape(-1), y_nsp[rows]
+
+    def backward(batch, scale=1.0):
+        with autograd.record():
+            loss = pretraining_loss(net, ce, *batch) * scale
+        autograd.backward(loss)
+        return loss
+
+    embed = params["word_embed.weight"]
+    embed.grad_req = "null"
+    # two "write" backwards in a row leave the second's gradient
+    backward(micro(0))
+    first = _bert_grads(torch, net)
+    backward(micro(1))
+    twice = _bert_grads(torch, net)
+    params.zero_grad()
+    backward(micro(1))
+    second = _bert_grads(torch, net)
+    for k, g in second.items():
+        scale = g.abs().max().item()
+        assert (twice[k] - g).abs().max().item() <= 1e-6 * scale, k
+    moved = max((first[k] - second[k]).abs().max().item() for k in second)
+    assert moved > 0, "the two micro-batches gave one gradient"
+    # one B=16 batch with "write", the reference for the accumulation
+    backward((x, y_mlm, y_nsp))
+    want = _bert_grads(torch, net)
+    for name, p in params.items():
+        if p is not embed:
+            p.grad_req = "add"
+    params.zero_grad()
+    for i in range(ACC_PARTS):
+        backward(micro(i), 1.0 / ACC_PARTS)
+    got = _bert_grads(torch, net)
+    assert embed.grad is None and sorted(got) == sorted(want)
+    worst = 0.0
+    for k, g in want.items():
+        err = (got[k] - g).abs().max().item() / max(g.abs().max().item(),
+                                                    1e-30)
+        assert err <= ACC_TOL, (k, err)
+        worst = max(worst, err)
+    print(f"accumulated gradient of {ACC_PARTS} micro-batches of "
+          f"{ACC_MICRO} against one batch of {batch_b} with \"write\": "
+          f"{len(want)} tensors, worst max|d|/max|g| {worst:.3e} (tol "
+          f"{ACC_TOL:g}); two \"write\" backwards leave the second's "
+          f"gradient", flush=True)
+    params.zero_grad()
+    trainer = Trainer(params, "adam", {"learning_rate": LR})
+    embed_before = embed.detach().clone()
+    ref_state = {}
+    torch.cuda.synchronize()
+    ln.launches = ln.bwd_launches = 0   # the accumulation path starts here
+    sx.fwd_launches = sx.bwd_launches = 0
+    losses, step_ms, upd_ulps = [], [], []
+    for step in range(1, ACC_STEPS + 1):
+        t0 = time.monotonic()
+        total = sum(backward(micro(i), 1.0 / ACC_PARTS).item()
+                    for i in range(ACC_PARTS))
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        before = {k: (p.detach().clone(), p.grad.clone())
+                  for k, p in params.items() if p.grad is not None}
+        t0 = time.monotonic()
+        trainer.step(batch_b)
+        params.zero_grad()
+        torch.cuda.synchronize()
+        step_ms.append(ms + (time.monotonic() - t0) * 1e3)
+        losses.append(total)
+        upd_ulps.append(check_adam_step(torch, nd, params, before, ref_state,
+                                        step, 1.0 / batch_b))
+        del before
+    counts = {"layer_norm_fwd": ln.launches, "layer_norm_bwd": ln.bwd_launches,
+              "softmax_xent_fwd": sx.fwd_launches,
+              "softmax_xent_bwd": sx.bwd_launches}  # the path ends here
+    # finite, not falling: BERT-base's first Adam steps raise the loss
+    # (phase 6 (b): 11.59 -> 12.94 at step 3, then down); each update is
+    # held to the update op instead (check_adam_step)
+    assert np.isfinite(losses).all(), losses
+    assert torch.equal(embed, embed_before) and embed.grad is None
+    idx = list(params).index("word_embed.weight")
+    assert idx not in trainer._updater.states
+    norms = 2 * len(list(net.encoder.children())) + 1   # 25 in BERT-base
+    want_counts = {"layer_norm_fwd": norms * ACC_PARTS,
+                   "layer_norm_bwd": norms * ACC_PARTS,
+                   "softmax_xent_fwd": 2 * ACC_PARTS,
+                   "softmax_xent_bwd": 2 * ACC_PARTS}
+    for k, n in want_counts.items():
+        assert counts[k] == n * ACC_STEPS, (k, counts[k])
+    print(f"{ACC_STEPS} accumulation steps (Adam lr {LR:g}): losses "
+          f"{[round(v, 4) for v in losses]}; every updated weight against "
+          f"nd.adam_update on the same weight and accumulated gradient, "
+          f"worst max|d| / tol by step {[round(v, 4) for v in upd_ulps]} "
+          f"(tol {ACC_UPD_ULPS:g} ulps of the largest value + "
+          f"{ACC_UPD_STEP:g} lr); word "
+          f"embedding unchanged, no gradient, no optimizer state; launches "
+          f"{counts} ({want_counts} a step); step time median "
+          f"{statistics.median(step_ms):.3f} ms, all "
+          f"{[round(v, 3) for v in step_ms]} (host clock around a "
+          f"synchronised step, less the copies the check takes)", flush=True)
+    del net, trainer, params
+    return counts
+
+
+def _update_cases():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_update_op_cases as cases
+    return cases
+
+
+def check_update_ops(torch, np, dev):
+    """Phase 17 (d), first part: every update op at UPD_SHAPE, card
+    against CPU, float32 and bfloat16."""
+    from incubator_mxnet_tpu_torch import ndarray as nd
+    cases = _update_cases()
+    line = []
+    for name in cases.CANONICAL:
+        differ = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            specs, kw = cases.case(name, seed=21, shape=UPD_SHAPE)
+            outs = []
+            for where in ("cpu", dev):
+                res = getattr(nd, name)(*cases.to_torch(torch, specs, dtype,
+                                                        where), **kw)
+                res = res if isinstance(res, tuple) else (res,)
+                outs.append([r.float().cpu().numpy() for r in res])
+            n_differ = 0
+            for i, (want, got) in enumerate(zip(*outs)):
+                assert np.isfinite(got).all(), (name, i)
+                n_differ += int((got != want).sum())
+                if name in cases.EXACT:
+                    assert np.array_equal(got, want), (name, str(dtype), i)
+                    continue
+                allow = cases.card_tolerance(name) * max(
+                    np.abs(want).max(), 1e-30)
+                if dtype == torch.bfloat16:
+                    allow = allow + bf16_ulp(np, want)
+                assert (np.abs(got - want) <= allow).all(), (name, str(dtype),
+                                                             i)
+            differ[str(dtype)[6:]] = n_differ
+        line.append(f"{name} {differ}")
+    print(f"{len(cases.CANONICAL)} update ops at {UPD_SHAPE}, card against "
+          f"CPU, elements that differ (float32, bfloat16): " +
+          "; ".join(line), flush=True)
+
+
+def multi_update_paths(torch, np, dev, smi):
+    """Phase 17 (d), second part: the multi-tensor updates over
+    BERT-base's parameters in bfloat16 with float32 masters, against the
+    loop of single ops, with each path's time and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import ndarray as nd
+    from incubator_mxnet_tpu_torch.models.bert import BERTModel
+    shapes = [tuple(p.shape) for p in BERTModel(
+        vocab_size=VOCAB).collect_params().values()]
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def rand(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    n = len(shapes)
+    lrs = tuple(1e-3 * (1 + i % 3) for i in range(n))
+    wds = tuple(0.01 * (i % 2) for i in range(n))
+    bf, f32 = torch.bfloat16, torch.float32
+    paths = {
+        "multi_mp_sgd_mom_update": (
+            [(rand(s, bf), rand(s, bf, 0.01), rand(s, f32, 0.01),
+              rand(s, f32)) for s in shapes],
+            dict(lrs=lrs, wds=wds, momentum=0.9), "mp_sgd_mom_update",
+            lambda i: dict(lr=lrs[i], wd=wds[i], momentum=0.9)),
+        "multi_mp_adamw_update": (
+            [(rand(s, bf), rand(s, bf, 0.01), rand(s, f32, 0.01),
+              rand(s, f32, 0.01).abs(), rand(s, f32)) for s in shapes],
+            dict(lrs=lrs, wds=wds, etas=1.0), "mp_adamw_update",
+            lambda i: dict(lr=lrs[i], wd=wds[i], eta=1.0)),
+    }
+    elements = sum(math.prod(s) for s in shapes)
+    for name, (groups, kw, single, kw_i) in paths.items():
+        flat = [t for grp in groups for t in grp]
+        multi = getattr(nd, name)(*flat, **kw)
+        loop = [getattr(nd, single)(*grp, **kw_i(i))
+                for i, grp in enumerate(groups)]
+        want = [o[j] for j in range(len(loop[0])) for o in loop]
+        assert len(multi) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(multi, want)), name
+        del multi, loop, want
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            getattr(nd, name)(*flat, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            getattr(nd, name)(*flat, **kw)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        print(f"{name} over BERT-base's {n} tensors ({elements} elements, "
+              f"bf16 weights, float32 masters): bit for bit the loop of "
+              f"{single}; wall median {statistics.median(walls):.3f} ms "
+              f"(all {[round(v, 3) for v in walls]}), device busy "
+              f"{busy:.3f} ms, {len(kernels)} kernel launches; {smi}",
+              flush=True)
+        del groups, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4821,7 +5372,21 @@ def main():
     example_chunked(np)
     print(f"phase 16: {time.monotonic() - chunk_t0:.1f} s", flush=True)
 
-    phase("17 kernels")
+    phase("17 the imperative training API")
+    api_t0 = time.monotonic()
+    check_second_derivatives(torch, dev)
+    gradient_penalty(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc = accumulate_bert(torch, np, dev)
+    train = {k: v + acc[k] for k, v in train.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_update_ops(torch, np, dev)
+    multi_update_paths(torch, np, dev, smi)
+    print(f"phase 17: {time.monotonic() - api_t0:.1f} s", flush=True)
+
+    phase("18 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"

@@ -62,6 +62,7 @@ import torch
 from torch.func import functional_call
 
 from . import _remat, autograd
+from .autograd import grad_req_of
 from .amp import amp as amp_mod
 from .base import resolve_chunk_steps
 from .context import resolve_device
@@ -239,10 +240,11 @@ class FusedTrainStep:
 
     ``device`` is where the step's state lives and runs: ``cuda:0``
     unless given (raises without CUDA), or ``"cpu"``.  The block is not
-    touched until :meth:`write_back`.  Trainable parameters
-    (``requires_grad``) go to the optimizer; the others (BatchNorm's
-    moving statistics) are the step's aux state, which the block's
-    forward updates in place through ``register_state_update``.  The
+    touched until :meth:`write_back`.  Trainable parameters (``grad_req``
+    not ``"null"``) go to the optimizer; the others (BatchNorm's moving
+    statistics, frozen parameters) are the step's aux state, which the
+    block's forward updates in place through ``register_state_update``
+    where it is a moving statistic and leaves alone otherwise.  The
     loss is the mean of ``loss_fn`` over the batch.  ``chunk_steps``
     (resolved by ``base.resolve_chunk_steps``) is the K that
     :meth:`chunked_loop` takes by default; ``remat`` and ``donate`` as
@@ -275,8 +277,9 @@ class FusedTrainStep:
         self.chunk_steps = resolve_chunk_steps(chunk_steps)
         named = block.collect_params()
         self._trainable_names = [n for n, p in named.items()
-                                 if p.requires_grad]
-        self._aux_names = [n for n, p in named.items() if not p.requires_grad]
+                                 if grad_req_of(p) != "null"]
+        self._aux_names = [n for n, p in named.items()
+                           if grad_req_of(p) == "null"]
         # the working state: what the step (and its graphs) update
         self._params = {n: named[n].detach().to(self.device, copy=True)
                         .requires_grad_(True) for n in self._trainable_names}

@@ -18,6 +18,14 @@ object before and after, so a ``Trainer`` built from
 ``save_parameters``/``load_parameters`` write and read the ``.params``
 format (``ndarray/params_io.py``) under the structural names, so a file
 written by the JAX package's block loads here and the reverse.
+
+``collect_params()`` returns a ``ParameterDict`` (``parameter.py``).
+Forward hooks follow the JAX package: ``hook(block, args)`` before and
+``hook(block, args, out)`` after the forward, in the order registered;
+what a hook returns is ignored (a PyTorch hook that returns something
+would replace the input or the output).  :meth:`HybridBlock.summary`
+prints the JAX package's table of layers, output shapes and parameter
+counts.
 """
 from __future__ import annotations
 
@@ -30,9 +38,10 @@ from torch.nn.parameter import UninitializedParameter
 from .. import _remat
 from .. import initializer as init_mod
 from .. import ndarray as nd
-from .. import random as random_mod
 from ..amp import amp as amp_mod
+from ..autograd import track
 from ..context import resolve_device
+from .parameter import ParameterDict, fill
 
 __all__ = ["HybridBlock", "as_dtype", "register_state_update"]
 
@@ -118,20 +127,21 @@ class HybridBlock(nn.Module):
         ini, generator = self._pending.pop(name)
         p.materialize(tuple(shape))
         ini(name, p.data, generator)
+        track(p)
 
     def register_child(self, block, name=None):
         self.add_module(name or str(len(self._modules)), block)
         return block
 
-    def collect_params(self, select=None) -> dict[str, nn.Parameter]:
+    def collect_params(self, select=None) -> ParameterDict:
         """``{structural name: parameter}`` of this block and its
-        children, in the JAX package's order; ``select`` is a regex
-        the names must match."""
-        out = dict(self.named_parameters())
+        children, in the JAX package's order, as a ``ParameterDict``;
+        ``select`` is a regex the names must match."""
+        out = self.named_parameters()
         if select is not None:
             pat = re.compile(select)
-            out = {k: v for k, v in out.items() if pat.match(k)}
-        return out
+            out = ((k, v) for k, v in out if pat.match(k))
+        return ParameterDict(out, block=self)
 
     def initialize(self, init=None, device=None, generator=None):
         """Fill every parameter, then move the block to ``device``
@@ -142,19 +152,12 @@ class HybridBlock(nn.Module):
         gives the same weights every time; without one, they come from
         ``random.generator()``, which ``random.seed`` seeds.  A deferred
         parameter records its initializer and generator here, and is
-        filled at the layer's first forward."""
+        filled at the layer's first forward.  A ``Constant`` keeps its
+        value."""
         device = resolve_device(device)
-        default = init_mod.create(init)
-        if generator is None:
-            generator = random_mod.generator()
-        for mod in self.modules():
-            own = getattr(mod, "_inits", {})
-            for name, p in mod.named_parameters(recurse=False):
-                ini = default or own.get(name) or init_mod.Uniform()
-                if isinstance(p, UninitializedParameter):
-                    mod._pending[name] = (ini, generator)
-                else:
-                    ini(name, p.data, generator)
+        fill([(mod, name, p) for mod in self.modules()
+              for name, p in mod.named_parameters(recurse=False)],
+             init, generator)
         return self.to(device)
 
     def _named_slots(self):
@@ -194,42 +197,8 @@ class HybridBlock(nn.Module):
             raise NotImplementedError(
                 f"dtype_source={dtype_source!r}: the port loads values in "
                 "each parameter's current dtype, as the JAX package does")
-        loaded = nd.load(filename)
-        if isinstance(loaded, list):
-            raise ValueError("expected dict-of-arrays params file")
-        slots = self._named_slots()
-        missing = [n for n in slots if n not in loaded]
-        if missing and not allow_missing:
-            raise KeyError(f"parameter {missing[0]} missing in {filename}")
-        extra = sorted(set(loaded) - set(slots))
-        if extra and not ignore_extra:
-            raise KeyError(f"extra params in file: {extra}")
-        for name, (mod, attr) in slots.items():
-            if name not in loaded:
-                continue
-            p, value = getattr(mod, attr), loaded[name]
-            if value is None:
-                raise ValueError(f"{name}: the file holds no value")
-            if isinstance(p, UninitializedParameter):
-                want = getattr(mod, "_deferred", {}).get(
-                    attr, (0,) * value.dim())
-            else:
-                want = tuple(p.shape)
-            if len(want) != value.dim() or any(
-                    w and w != v for w, v in zip(want, value.shape)):
-                raise ValueError(f"{name}: the file's shape "
-                                 f"{tuple(value.shape)}, the parameter's "
-                                 f"{want}")
-        device = None if ctx is None else resolve_device(ctx)
-        with torch.no_grad():
-            for name, (mod, attr) in slots.items():
-                if name not in loaded:
-                    continue
-                p, value = getattr(mod, attr), loaded[name]
-                if isinstance(p, UninitializedParameter):
-                    p.materialize(tuple(value.shape), device=device)
-                    getattr(mod, "_pending", {}).pop(attr, None)
-                p.copy_(value)
+        self.collect_params().load(filename, ctx, allow_missing,
+                                   ignore_extra)
 
     save_params = save_parameters
     load_params = load_parameters
@@ -249,8 +218,75 @@ class HybridBlock(nn.Module):
                     p.grad = p.grad.to(dtype)
         return self
 
+    def register_forward_pre_hook(self, hook):
+        """Run ``hook(block, args)`` before every forward, after the
+        hooks registered before it; its return value is ignored.
+        Returns a handle whose ``detach()`` removes it.  PyTorch's own
+        hook, whose return value replaces the input, stays reachable as
+        ``nn.Module.register_forward_pre_hook(block, ...)``."""
+
+        def run(block, args):
+            hook(block, args)
+        return _HookHandle(super().register_forward_pre_hook(run))
+
+    def register_forward_hook(self, hook):
+        """Run ``hook(block, args, out)`` after every forward, after the
+        hooks registered before it; its return value is ignored.
+        Returns a handle whose ``detach()`` removes it."""
+
+        def run(block, args, out):
+            hook(block, args, out)
+        return _HookHandle(super().register_forward_hook(run))
+
+    def summary(self, *inputs):
+        """Run a forward on ``inputs`` and print, for each block as its
+        forward ends, its name, the shapes of its tensor outputs and the
+        count of its own parameters, then the block's total: the JAX
+        package's table."""
+        rows, handles = [], []
+
+        def add_hooks(block, prefix):
+            def hook(blk, args, out):
+                outs = out if isinstance(out, (list, tuple)) else [out]
+                shapes = [tuple(o.shape) for o in outs
+                          if isinstance(o, torch.Tensor)]
+                own = sum(p.numel() for p in blk.parameters(recurse=False)
+                          if not isinstance(p, UninitializedParameter))
+                rows.append((prefix or type(blk).__name__, shapes, own))
+            handles.append(block.register_forward_hook(hook))
+            for name, child in block.named_children():
+                add_hooks(child, f"{prefix}.{name}" if prefix else name)
+
+        add_hooks(self, "")
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        print(f"{'Layer':<40} {'Output shape':<24} {'Params':>12}")
+        print("-" * 78)
+        for name, shapes, own in rows:
+            print(f"{name:<40} {str(shapes):<24} {own:>12}")
+        total = sum(p.numel() for p in self.collect_params().values()
+                    if not isinstance(p, UninitializedParameter))
+        print("-" * 78)
+        print(f"Total params: {total}")
+
     def hybridize(self, active=True, **kwargs):
         """No-op, kept so code written for the JAX package runs: the
         port runs eagerly, and the JAX package's whole-graph compile
         has no counterpart here."""
         return self
+
+
+class _HookHandle:
+    """A registered hook: ``detach()`` (or PyTorch's ``remove()``) takes
+    it off its block."""
+
+    def __init__(self, handle):
+        self._handle = handle
+
+    def detach(self):
+        self._handle.remove()
+
+    remove = detach

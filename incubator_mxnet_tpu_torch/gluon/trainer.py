@@ -2,14 +2,20 @@
 an optimizer to a set of parameters on one device.
 
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
-``scale / batch_size`` and updates every parameter that requires a
-gradient.  The JAX package's parameters have ``grad_req "write"``: each
-``backward()`` overwrites the gradient.  PyTorch adds into ``.grad``
-instead, so after its update the trainer sets every ``.grad`` to
-``None``; the next ``backward()`` then writes fresh gradients, and two
-steps in a row compute what the JAX package computes.  A parameter that
-``backward()`` did not reach is updated with a zero gradient, which is
-what the JAX package's zero-initialised gradient buffer gives it.
+``scale / batch_size`` and updates every parameter whose ``grad_req``
+is not ``"null"`` (``gluon/parameter.py``).  With ``grad_req "write"``
+(the default) each ``autograd.backward`` overwrites the gradient, but
+PyTorch's own ``.backward()`` adds into ``.grad``, so after its update
+the trainer sets the ``.grad`` of every ``"write"`` parameter to
+``None``; the next backward of either kind then writes fresh
+gradients, and two steps in a row compute what the JAX package
+computes.  The ``"add"`` gradients stay for the user's
+``zero_grad()``, as in the JAX package, and ``"null"`` parameters are
+skipped.  A parameter that the backward did not reach is updated with a
+zero gradient, which is what the JAX package's zero-initialised
+gradient buffer gives it.  One difference remains: a second
+``update()`` without a fresh backward reapplies the JAX package's stale
+``"write"`` gradient, while here it applies zeros.
 
 The trainer may be built before a deferred parameter has its shape
 (``Trainer(net.collect_params(), ...)`` before the first batch): it
@@ -38,6 +44,7 @@ import torch
 from torch.nn.parameter import UninitializedParameter
 
 from .. import optimizer as opt_mod
+from ..autograd import grad_req_of
 from ..base import resolve_chunk_steps
 
 __all__ = ["Trainer"]
@@ -101,23 +108,35 @@ class Trainer:
         gradients.  (One device: no gradient reduction.)
         ``ignore_stale_grad`` is taken and not read, as in the JAX
         package: a gradient ``backward()`` did not reach is zero."""
+        self.allreduce_grads()
         self.update(batch_size, ignore_stale_grad)
 
+    def allreduce_grads(self):
+        """Sum the gradients across devices: nothing to do on one device,
+        as in the JAX package."""
+
     def update(self, batch_size, ignore_stale_grad=False):
+        """Rescale by ``1 / batch_size`` and update every parameter that
+        takes a gradient; then clear the ``"write"`` gradients."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        writes = []
         for i, p in enumerate(self._params):
             if isinstance(p, UninitializedParameter):
                 raise RuntimeError(f"parameter {i} has no shape yet: run a "
                                    "forward before the first step")
-            if not p.requires_grad:
+            req = grad_req_of(p)
+            if req == "null":
                 continue
             grad = p.grad if p.grad is not None else torch.zeros_like(p)
             self._updater(i, grad, p)
-        self.zero_grad()
+            if req == "write":
+                writes.append(p)
+        for p in writes:
+            p.grad = None
 
     def zero_grad(self):
-        """Drop every gradient, so the next ``backward()`` writes fresh
-        ones."""
+        """Drop every gradient, so the next backward writes fresh ones
+        (to an ``"add"`` parameter, as to zeros)."""
         for p in self._params:
             p.grad = None
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..autograd import track
 from ..context import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.nn_ops import rms_norm, softmax
@@ -114,10 +115,12 @@ class TransformerLM(nn.Module):
 
     def _set(self, name, tensor):
         _, _, leaf = name.partition(".")
+        p = nn.Parameter(tensor)
+        track(p)
         if leaf:
-            self.layers[leaf] = nn.Parameter(tensor)
+            self.layers[leaf] = p
         else:
-            setattr(self, name, nn.Parameter(tensor))
+            setattr(self, name, p)
 
     def init(self, generator=None, device=None):
         """Draw the weights with the JAX ``init``'s scales: N(0, 1)·0.02

@@ -7,6 +7,15 @@ The port has no NDArray class: an array is a ``torch.Tensor``.
 arrays, so files cross between the two packages (and reference MXNet)
 both ways.  :func:`load` also reads the JAX package's first private
 container, ``MXTPU001``.  Loaded tensors are on the CPU.
+
+The optimizer update ops (``ops/optimizer_ops.py``) are here under the
+JAX package's names and aliases (``sgd_update``, ``adam_update``,
+``multi_mp_sgd_mom_update``, ``_contrib_adamw_update``, ...).  Each
+takes ``out=``: a tensor, or a tuple for an op with several results,
+that the results are written into in place and returned, as in
+``nd.sgd_update(w, g, lr=0.1, out=w)``.  A single tensor given to an op
+with several results receives the first, the new weight (the JAX
+package ignores it there).
 """
 from __future__ import annotations
 
@@ -16,8 +25,9 @@ import numpy as np
 import torch
 
 from . import params_io
+from ..ops import optimizer_ops as _optimizer_ops
 
-__all__ = ["save", "load", "params_io"]
+__all__ = ["save", "load", "params_io"] + sorted(_optimizer_ops.OPS)
 
 _MAGIC = b"MXTPU001"
 
@@ -91,3 +101,44 @@ def _load_mxtpu001(raw):
     if arrays and all(k for k, _ in arrays):
         return dict(arrays)
     return [v for _, v in arrays]
+
+
+def _write_out(result, out):
+    """Write ``result`` (a tensor or a tuple) into ``out`` in place and
+    return what was written."""
+    if out is None:
+        return result
+    if not isinstance(result, tuple):
+        with torch.no_grad():
+            out.copy_(result)
+        return out
+    targets = (list(out) if isinstance(out, (tuple, list))
+               else [out] + [None] * (len(result) - 1))
+    if len(targets) != len(result):
+        raise ValueError(f"out= holds {len(targets)} tensors, the op "
+                         f"returns {len(result)}")
+    written = []
+    with torch.no_grad():
+        for r, t in zip(result, targets):
+            if t is not None:
+                t.copy_(r)
+            written.append(r if t is None else t)
+    return tuple(written)
+
+
+def _update_op(name, fn):
+    grad_free = name in _optimizer_ops.NON_DIFFERENTIABLE
+
+    def op(*args, out=None, **kwargs):
+        if grad_free:
+            with torch.no_grad():
+                return _write_out(fn(*args, **kwargs), out)
+        return _write_out(fn(*args, **kwargs), out)
+
+    op.__name__ = op.__qualname__ = name
+    op.__doc__ = fn.__doc__ or f"The update op {name}."
+    return op
+
+
+for _name, _fn in _optimizer_ops.OPS.items():
+    globals()[_name] = _update_op(_name, _fn)

@@ -66,7 +66,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, _higher_order
 
 __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "FlashAttentionFunction",
@@ -295,7 +295,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     gradient, the forward writes O in float32, saves it with lse, q, k
     and v, and returns O in q's dtype; the backward is :func:`flash_bwd`.
     Both run the kernels on the card and the plain versions on the
-    CPU."""
+    CPU.  A second derivative through it raises on either device
+    (``_higher_order.py``), as the JAX package's flash attention raises
+    under a second ``jax.grad`` on its CPU path too."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal):
@@ -310,9 +312,11 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.sm_scale,
-                               ctx.causal)
-        return dq, dk, dv, None, None
+        grads = flash_bwd(q, k, v, o, lse, do, ctx.sm_scale, ctx.causal)
+        if torch.is_grad_enabled():
+            grads = _higher_order.guard("flash_attention_bwd", grads,
+                                        (q, k, v, do))
+        return (*grads, None, None)
 
 
 def flash_attention(q, k, v, sm_scale=None, causal=False):

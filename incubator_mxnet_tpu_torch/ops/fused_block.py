@@ -51,7 +51,7 @@ import functools
 import torch
 
 from .. import _remat
-from . import _build
+from . import _build, _higher_order
 from . import _fused_common as _fc
 from ._fused_common import vec16 as _vec16
 from .fused_conv import fused_conv3_bn
@@ -363,7 +363,10 @@ class FusedMatmulBNFunction(torch.autograd.Function):
     forward saves x, w, scale, bias and y, as ``_fmm_fwd`` does; the
     backward takes ``(dy, ds1, ds2)``, reads a None as zeros, runs
     :func:`fused_matmul_bn_dx` and :func:`fused_matmul_bn_dw`, and
-    returns gradients for scale and bias only with a prologue."""
+    returns gradients for scale and bias only with a prologue.  Under
+    ``create_graph`` the backward is differentiable on the CPU (y
+    recomputed from the inputs, so that it carries the graph) and
+    refuses a second derivative on the card (``_higher_order.py``)."""
 
     @staticmethod
     def forward(ctx, x, w, scale, bias):
@@ -385,9 +388,15 @@ class FusedMatmulBNFunction(torch.autograd.Function):
         ds1 = zeros() if ds1 is None else ds1
         ds2 = zeros() if ds2 is None else ds2
         dy = dy.to(y.dtype)
+        if torch.is_grad_enabled() and x.device.type == "cpu":
+            y = matmul_bn_reference(x, w, scale, bias)[0]
         dx, dsc, dbi = fused_matmul_bn_dx(x, w, scale, bias, y, dy, ds1, ds2)
         dw = fused_matmul_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
-        return dx, dw, dsc, dbi
+        grads = dx, dw, dsc, dbi
+        if torch.is_grad_enabled() and x.device.type != "cpu":
+            grads = _higher_order.guard("fused_matmul_bn_bwd", grads,
+                                        (x, w, scale, bias, dy, ds1, ds2))
+        return grads
 
 
 def fused_matmul_bn(x, w, scale=None, bias=None):

@@ -50,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _remat
-from . import _build
+from . import _build, _higher_order
 from . import _fused_common as _fc
 
 __all__ = ["conv3_bn_reference", "conv3_bn_dx_reference",
@@ -467,7 +467,10 @@ class FusedConv3BNFunction(torch.autograd.Function):
     forward saves x, w, scale, bias and y, as ``_fc3_fwd`` does; the
     backward takes ``(dy, ds1, ds2)``, reads a None as zeros, runs
     :func:`fused_conv3_bn_dx` and :func:`fused_conv3_bn_dw`, and returns
-    gradients for scale and bias only with a prologue."""
+    gradients for scale and bias only with a prologue.  Under
+    ``create_graph`` the backward is differentiable on the CPU (y
+    recomputed from the inputs, so that it carries the graph) and
+    refuses a second derivative on the card (``_higher_order.py``)."""
 
     @staticmethod
     def forward(ctx, x, w, scale, bias):
@@ -488,11 +491,15 @@ class FusedConv3BNFunction(torch.autograd.Function):
         ds1 = zeros() if ds1 is None else ds1
         ds2 = zeros() if ds2 is None else ds2
         dy = dy.to(y.dtype)
+        if torch.is_grad_enabled() and x.device.type == "cpu":
+            y = conv3_bn_reference(x, w, scale, bias)[0]
         dx, dsc, dbi = fused_conv3_bn_dx(x, w, scale, bias, y, dy, ds1, ds2)
         dw = fused_conv3_bn_dw(x, w, scale, bias, y, dy, ds1, ds2)
-        if scale is None:
-            return dx, dw, None, None
-        return dx, dw, dsc, dbi
+        grads = (dx, dw, None, None) if scale is None else (dx, dw, dsc, dbi)
+        if torch.is_grad_enabled() and x.device.type != "cpu":
+            grads = _higher_order.guard("fused_conv3_bn_bwd", grads,
+                                        (x, w, scale, bias, dy, ds1, ds2))
+        return grads
 
 
 def fused_conv3_bn(x, w, scale=None, bias=None):

@@ -16,7 +16,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, _higher_order
 from ._fused_common import sms as _sms
 
 __all__ = ["layer_norm_fwd", "layer_norm_fwd_reference", "layer_norm_bwd",
@@ -206,16 +206,26 @@ class LayerNormFunction(torch.autograd.Function):
     counterpart of the JAX package's ``fused_layer_norm`` custom VJP.
     The forward saves x, gamma and the float32 statistics, as
     ``_fused_ln_fwd`` does; the backward is :func:`layer_norm_bwd`.  Both
-    run the kernels on the card and the plain versions on the CPU."""
+    run the kernels on the card and the plain versions on the CPU.
+    Under ``create_graph`` the backward is differentiable on the CPU and
+    refuses a second derivative on the card (``_higher_order.py``)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
         y, mean, rstd = layer_norm_fwd(x, gamma, beta, eps)
         ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.eps = eps
         return y
 
     @staticmethod
     def backward(ctx, gy):
         x, gamma, mean, rstd = ctx.saved_tensors
-        dx, dgamma, dbeta = layer_norm_bwd(x, gy, gamma, mean, rstd)
-        return dx, dgamma, dbeta, None
+        if torch.is_grad_enabled() and x.device.type == "cpu":
+            # the statistics again, carrying the graph
+            _, mean, rstd = layer_norm_fwd_reference(x, gamma, gamma,
+                                                     ctx.eps)
+        grads = layer_norm_bwd(x, gy, gamma, mean, rstd)
+        if torch.is_grad_enabled() and x.device.type != "cpu":
+            grads = _higher_order.guard("layer_norm_bwd", grads,
+                                        (x, gamma, gy))
+        return (*grads, None)

@@ -18,7 +18,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, _higher_order
 from ._fused_common import sms as _sms
 
 __all__ = ["rms_norm_fwd", "rms_norm_fwd_reference", "rms_norm_bwd",
@@ -198,16 +198,24 @@ class RMSNormFunction(torch.autograd.Function):
     of the JAX package's ``_fused_rms_core`` custom VJP.  The forward
     saves x, gamma and the float32 rrms, as ``_rms_fwd`` does; the
     backward is :func:`rms_norm_bwd`.  Both run the kernels on the card
-    and the plain versions on the CPU."""
+    and the plain versions on the CPU.  Under ``create_graph`` the
+    backward is differentiable on the CPU and refuses a second
+    derivative on the card (``_higher_order.py``)."""
 
     @staticmethod
     def forward(ctx, x, gamma, eps):
         y, rrms = rms_norm_fwd(x, gamma, eps)
         ctx.save_for_backward(x, gamma, rrms)
+        ctx.eps = eps
         return y
 
     @staticmethod
     def backward(ctx, gy):
         x, gamma, rrms = ctx.saved_tensors
-        dx, dgamma = rms_norm_bwd(x, gy, gamma, rrms)
-        return dx, dgamma, None
+        if torch.is_grad_enabled() and x.device.type == "cpu":
+            _, rrms = rms_norm_fwd_reference(x, gamma, ctx.eps)
+        grads = rms_norm_bwd(x, gy, gamma, rrms)
+        if torch.is_grad_enabled() and x.device.type != "cpu":
+            grads = _higher_order.guard("rms_norm_bwd", grads,
+                                        (x, gamma, gy))
+        return (*grads, None)

@@ -21,7 +21,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, _higher_order
 
 __all__ = ["softmax_fwd", "softmax_fwd_reference", "softmax_bwd",
            "softmax_bwd_reference", "SoftmaxFunction", "fwd_launches",
@@ -133,18 +133,24 @@ class SoftmaxFunction(torch.autograd.Function):
     last for the kernels and back afterwards.  The forward saves its
     output as stored, in x's dtype, because the JAX backward reads the
     rounded y; the backward is :func:`softmax_bwd`.  Both run the kernels
-    on the card and the plain versions on the CPU."""
+    on the card and the plain versions on the CPU.  The output is saved
+    as returned, so under ``create_graph`` it carries the graph and the
+    plain backward on the CPU is differentiable; on the card a second
+    derivative is refused (``_higher_order.py``)."""
 
     @staticmethod
     def forward(ctx, x, axis=-1):
         ax = axis % x.dim()
-        y = softmax_fwd(x.movedim(ax, -1).contiguous())
-        ctx.save_for_backward(y)
+        out = softmax_fwd(x.movedim(ax, -1).contiguous()).movedim(-1, ax)
+        ctx.save_for_backward(out)
         ctx.axis = ax
-        return y.movedim(-1, ax)
+        return out
 
     @staticmethod
     def backward(ctx, gy):
-        (y,) = ctx.saved_tensors
+        (out,) = ctx.saved_tensors
+        y = out.movedim(ctx.axis, -1)      # the kernel's contiguous y
         dx = softmax_bwd(y, gy.movedim(ctx.axis, -1).contiguous())
+        if torch.is_grad_enabled() and y.device.type != "cpu":
+            (dx,) = _higher_order.guard("softmax_bwd", (dx,), (out, gy))
         return dx.movedim(-1, ctx.axis), None

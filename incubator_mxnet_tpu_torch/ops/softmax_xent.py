@@ -23,7 +23,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, _higher_order
 
 __all__ = ["softmax_xent_fwd", "softmax_xent_fwd_reference",
            "softmax_xent_bwd", "softmax_xent_bwd_reference",
@@ -151,7 +151,10 @@ class SoftmaxXentFunction(torch.autograd.Function):
     """Per-row softmax cross-entropy with its own backward: the
     counterpart of the JAX package's ``fused_softmax_xent`` custom VJP.
     ``apply(logits (N, C), labels (N,) int)`` → float32 loss (N,); labels
-    get no gradient."""
+    get no gradient.  Under ``create_graph`` the backward is
+    differentiable on the CPU (lse recomputed from the logits, so that it
+    carries the graph) and refuses a second derivative on the card
+    (``_higher_order.py``)."""
 
     @staticmethod
     def forward(ctx, logits, labels):
@@ -162,4 +165,10 @@ class SoftmaxXentFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         logits, labels, lse = ctx.saved_tensors
-        return softmax_xent_bwd(logits, labels, lse, g), None
+        if torch.is_grad_enabled() and logits.device.type == "cpu":
+            _, lse = softmax_xent_fwd_reference(logits, labels)
+        dx = softmax_xent_bwd(logits, labels, lse, g)
+        if torch.is_grad_enabled() and logits.device.type != "cpu":
+            (dx,) = _higher_order.guard("softmax_xent_bwd", (dx,),
+                                        (logits, g))
+        return dx, None

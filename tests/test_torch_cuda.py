@@ -95,6 +95,8 @@ from incubator_mxnet_tpu_torch.ops import rms_norm as rn
 from incubator_mxnet_tpu_torch.ops import softmax as sm
 from incubator_mxnet_tpu_torch.ops import softmax_xent as sx
 
+import torch_update_op_cases as update_cases
+
 pytestmark = pytest.mark.cuda
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
@@ -2167,3 +2169,117 @@ def test_bert_lamb_resume_on_the_card_equals_the_uninterrupted_run(
                   runs[0][1]) <= repeat
     if repeat == 0:
         assert first + rest == runs[0][0]
+
+
+# ---------------------------------------------------------------------------
+# The imperative training API on the card: a second derivative through a
+# kernel's backward raises, naming the kernel (first gradients under
+# create_graph equal those without it, bit for bit); the update ops,
+# card against CPU: bit for bit where an op takes no square root and sums
+# nothing, else within 5e-7 of the largest value of each float32 tensor
+# (the card's sqrt differs from the CPU's by one ulp in about 0.6 % of
+# values; FTRL 5e-6, tests/torch_update_op_cases.py says why) and, in
+# bfloat16, within one bf16 ulp of each value plus that.
+# ---------------------------------------------------------------------------
+
+def _second_order_case(name, dev):
+    """(the op on tensors, its inputs, the indices that take gradients)
+    at a small shape on the card."""
+    from incubator_mxnet_tpu_torch.ops import nn_ops
+    g = torch.Generator().manual_seed(11)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dev)
+
+    if name == "layer_norm_bwd":
+        return nn_ops.layer_norm, [rand(64, 768), 1 + rand(768, scale=0.1),
+                                   rand(768, scale=0.1)], (0, 1, 2)
+    if name == "softmax_bwd":
+        return nn_ops.softmax, [rand(64, 1000)], (0,)
+    if name == "rms_norm_bwd":
+        return nn_ops.rms_norm, [rand(64, 512), 1 + rand(512, scale=0.1)], \
+            (0, 1)
+    if name == "softmax_xent_bwd":
+        labels = torch.arange(64, device=dev) * 7 % 1000
+        return (lambda x: nn_ops.softmax_xent(x, labels)), [rand(64, 1000)], \
+            (0,)
+    if name == "flash_attention_bwd":
+        return (lambda q, k, v: fa.flash_attention(q, k, v, causal=True)), \
+            [rand(1, 2, 128, 64) for _ in range(3)], (0, 1, 2)
+    if name == "fused_matmul_bn_bwd":
+        return fb.fused_matmul_bn, [rand(256, 64, scale=0.5),
+                                    rand(64, 128, scale=0.5)], (0, 1)
+    return fc.fused_conv3_bn, [rand(2, 8, 8, 16, scale=0.5),
+                               rand(3, 3, 16, 32, scale=0.5)], (0, 1)
+
+
+def _second_order_head(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    total = torch.sin(outs[0].float()).sum()
+    for k, o in enumerate(outs[1:]):
+        total = total + (0.01 / (k + 1)) * torch.square(o).sum()
+    return total
+
+
+@pytest.mark.parametrize("name", [
+    "layer_norm_bwd", "softmax_bwd", "rms_norm_bwd", "softmax_xent_bwd",
+    "flash_attention_bwd", "fused_matmul_bn_bwd", "fused_conv3_bn_bwd"])
+def test_kernel_backward_refuses_a_second_derivative(dev, no_tf32, name):
+    from incubator_mxnet_tpu_torch.ops._higher_order import \
+        HigherOrderGradientError
+    fn, args, diff = _second_order_case(name, dev)
+    for i in diff:
+        args[i].requires_grad_(True)
+    wrt = [args[i] for i in diff]
+    loss = _second_order_head(fn(*args))
+    first = autograd.grad(loss, wrt, create_graph=True, retain_graph=True)
+    plain = torch.autograd.grad(loss, wrt, retain_graph=True)
+    for a, b in zip(first, plain):
+        assert torch.equal(a.detach(), b)
+    with pytest.raises(HigherOrderGradientError, match=name):
+        autograd.grad(sum((t * t).sum() for t in first), wrt)
+
+
+def _update_op_inputs(name, dtype, where):
+    specs, kw = update_cases.case(name, seed=2, shape=(64, 48))
+    return update_cases.to_torch(torch, specs, dtype, where), kw
+
+
+def _bf16_ulp(x):
+    _, e = np.frexp(np.abs(x).astype(np.float64))
+    return np.ldexp(1.0, np.maximum(e, -125) - 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", [
+    "sgd_update", "sgd_mom_update", "nag_mom_update", "mp_sgd_update",
+    "mp_sgd_mom_update", "mp_nag_mom_update", "signsgd_update",
+    "signum_update", "adam_update", "adamw_update", "mp_adamw_update",
+    "rmsprop_update", "rmspropalex_update", "ftrl_update",
+    "lamb_update_phase1", "lamb_update_phase2", "mp_lamb_update_phase1",
+    "mp_lamb_update_phase2", "group_adagrad_update", "sparse_adagrad_update",
+    "multi_sgd_update", "multi_sgd_mom_update", "multi_mp_sgd_update",
+    "multi_mp_sgd_mom_update", "multi_adamw_update", "multi_mp_adamw_update",
+    "multi_lamb_update", "multi_mp_lamb_update", "ftml_update",
+    "multi_sum_sq", "multi_lars", "preloaded_multi_sgd_update",
+    "preloaded_multi_sgd_mom_update", "preloaded_multi_mp_sgd_update",
+    "preloaded_multi_mp_sgd_mom_update"])
+def test_update_op_on_the_card_matches_cpu(dev, name, dtype):
+    from incubator_mxnet_tpu_torch import ndarray as nd
+    outs = []
+    for where in ("cpu", dev):
+        args, kw = _update_op_inputs(name, dtype, where)
+        res = getattr(nd, name)(*args, **kw)
+        res = res if isinstance(res, tuple) else (res,)
+        assert all(r.device.type == torch.device(where).type for r in res)
+        outs.append([r.float().cpu().numpy() for r in res])
+    for i, (want, got) in enumerate(zip(*outs)):
+        assert np.isfinite(got).all(), (name, i)
+        if name in update_cases.EXACT:
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} {i}")
+            continue
+        near = (update_cases.card_tolerance(name)
+                * max(np.abs(want).max(), 1e-30))
+        allow = near + (_bf16_ulp(want) if dtype == torch.bfloat16 else 0)
+        assert (np.abs(got - want) <= allow).all(), (name, i)
