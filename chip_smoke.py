@@ -234,7 +234,32 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    BERT-base's parameters in bfloat16 with float32 masters against the
    loop of single ops bit for bit, with each path's wall and busy time
    and launches;
-18. the kernels line (JSON), then the last line
+18. the vision model zoo (``gluon/model_zoo/vision``) — (a) every
+   distinct fused 1x1 instance of a ResNet-50 v2 step at B=128 (15
+   shapes, each with a prologue, K up to 2048, 11 of them in no v1
+   call) in float32 and bfloat16, kernels 10-12 against their plain
+   versions at phase 3's tolerances and timed beside their bounds, and
+   the stride-1 3x3 shapes (kernels 13-16, v1's four); (b) one float32
+   training step of ``resnet50_v2(layout="NHWC", fused=True)`` at
+   B=128 against the same net and weights with ``fused=False``, both on
+   the card: the loss, the logits, every moving statistic and every
+   gradient, then 5 timed steps of each, with exactly 36 launches of
+   each fused 1x1 kernel, 13 of each fused 3x3 kernel and one of each
+   cross-entropy kernel a fused step; (c) the same net in bfloat16 as
+   one ``FusedTrainStep`` (SGD, momentum 0.9, wd 1e-4) replayed as a
+   CUDA graph: 2 warm-up and 20 timed steps, the capture's launches
+   36/13/1 and the path's twice that, the loss finite and falling, the
+   step time, img/s, peak memory and one replay's idle share; (d) one
+   member of each family (ResNet 18 v1 and v2, ResNet-50 v2, AlexNet,
+   VGG-11 BN, SqueezeNet 1.1, MobileNet 1.0 and v2 1.0, DenseNet-121,
+   Inception v3 at 299x299), float32 predict-mode logits at B=2 on the
+   card against the same weights on the CPU; (e)
+   ``examples/benchmark_score.score`` for the JAX script's eight default
+   models in bfloat16 at batch 1 and 128, img/s, and ``inception_v3``
+   at 224x224 raising; (f) phase 13's LSTM LM converted to bfloat16, 8
+   steps: the loss finite, cuDNN's bf16 RNN kernels by the profiler's
+   names, one launch of each cross-entropy kernel a step, the step time;
+19. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -247,8 +272,10 @@ phase 10 (b) and (c), the user kernels over phase 11's compiles and
 launches, LeNet over phase 12 (b), the LSTM language model over phase
 13 (b), SSD over phase 14 (c)'s steps and detections, LAMB's
 BERT-base over phase 15 (b)'s saved and resumed run, the chunked
-loop over phase 16 (d) and (e), and BERT-base's gradient accumulation
-over phase 17 (c)'s steps.  A graph replay
+loop over phase 16 (d) and (e), BERT-base's gradient accumulation
+over phase 17 (c)'s steps, and the model zoo's ResNet-50 v2 over phase
+18 (b)'s fused timed steps and (c)'s steps, and its bf16 LSTM LM over
+(f)'s.  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture, and on the chunked loop's the eager chunk, the K-step capture
@@ -257,7 +284,11 @@ resume.  The kernels line gives each kernel's launches summed over the
 paths it ran on; kernels 10-14 and 16 have an entry for each instance,
 the float32 3xTF32 tensor-core tile (``..._tf32``) with phase 7's
 launches and the bfloat16 tensor-core tile (``..._mma``) with phases
-8's and 16's.
+8's and 16's; the 3x3's entries also count phase 18 (b)'s and (c)'s
+(v2 runs v1's four 3x3 shapes).  Kernels 10-12 have two more entries,
+``..._tf32_v2`` and ``..._mma_v2``, for ResNet-50 v2's instances (a
+prologue on every call), with phase 18 (b)'s and (c)'s launches and
+times at stage 4's conv1.
 """
 import copy
 import gc
@@ -1560,6 +1591,42 @@ def fmm_inputs(torch, m, k, n, dtype, dev, seed):
     return x, w, scale, bias, dy, rnd(n) * 0.01, rnd(n) * 0.001
 
 
+def fmm_case(torch, fb, dev, m, k, n, pro, dtype):
+    """Kernels 10-12 against their plain versions at one shape → ``{output:
+    max|d|}``, each within FMM_TOL of its largest plain value."""
+    x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype, dev, 0)
+    if not pro:
+        scale = bias = None
+    got = dict(zip(("y", "s1", "s2"), fb.fused_matmul_bn_fwd(x, w, scale,
+                                                             bias)))
+    want = dict(zip(("y", "s1", "s2"), fb.matmul_bn_reference(x, w, scale,
+                                                              bias)))
+    args = (x, w, scale, bias, want["y"], dy, ds1, ds2)
+    got.update(zip(("dx", "dscale", "dbias"), fb.fused_matmul_bn_dx(*args)))
+    want.update(zip(("dx", "dscale", "dbias"),
+                    fb.matmul_bn_dx_reference(*args)))
+    got["dw"] = fb.fused_matmul_bn_dw(*args)
+    want["dw"] = fb.matmul_bn_dw_reference(*args)
+    torch.cuda.synchronize()
+    tol = FMM_TOL[dtype]
+    ratios, abs_err = {}, {}
+    for name, ref in want.items():
+        if ref is None:
+            assert got[name] is None, name
+            continue
+        assert got[name].dtype == ref.dtype, (name, got[name].dtype)
+        err = (got[name].float() - ref.float()).abs().max().item()
+        scale_ = ref.float().abs().max().item()
+        assert err <= tol * max(scale_, 1e-30), (
+            (m, k, n, pro), dtype, name, err, scale_)
+        ratios[name], abs_err[name] = err / max(scale_, 1e-30), err
+    print(f"fused_matmul_bn ({m}, {k}, {n}) prologue={pro} {dtype}: "
+          f"max|d|/max|ref| " + " ".join(
+              f"{k_}={v:.2e}" for k_, v in ratios.items())
+          + f" (tol {tol:g}) ok", flush=True)
+    return abs_err
+
+
 def check_fused_matmul_bn(torch, fb, dev):
     """Kernels 10-12 against their plain versions at every shape the
     ResNet-50 path gives them at B=128 and at the JAX tests' shapes, in
@@ -1574,43 +1641,12 @@ def check_fused_matmul_bn(torch, fb, dev):
     path_err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "fwd_mma": 0.0,
                 "dx_mma": 0.0, "dw_mma": 0.0}
     for (m, k, n, pro), dtype in cases:
-        x, w, scale, bias, dy, ds1, ds2 = fmm_inputs(torch, m, k, n, dtype,
-                                                     dev, 0)
-        if not pro:
-            scale = bias = None
-        got = dict(zip(("y", "s1", "s2"),
-                       fb.fused_matmul_bn_fwd(x, w, scale, bias)))
-        want = dict(zip(("y", "s1", "s2"),
-                        fb.matmul_bn_reference(x, w, scale, bias)))
-        args = (x, w, scale, bias, want["y"], dy, ds1, ds2)
-        got.update(zip(("dx", "dscale", "dbias"), fb.fused_matmul_bn_dx(*args)))
-        want.update(zip(("dx", "dscale", "dbias"),
-                        fb.matmul_bn_dx_reference(*args)))
-        got["dw"] = fb.fused_matmul_bn_dw(*args)
-        want["dw"] = fb.matmul_bn_dw_reference(*args)
-        torch.cuda.synchronize()
-        tol = FMM_TOL[dtype]
-        ratios, abs_err = {}, {}
-        for name, ref in want.items():
-            if ref is None:
-                assert got[name] is None, name
-                continue
-            assert got[name].dtype == ref.dtype, (name, got[name].dtype)
-            err = (got[name].float() - ref.float()).abs().max().item()
-            scale_ = ref.float().abs().max().item()
-            assert err <= tol * max(scale_, 1e-30), (
-                (m, k, n, pro), dtype, name, err, scale_)
-            ratios[name], abs_err[name] = err / max(scale_, 1e-30), err
-        print(f"fused_matmul_bn ({m}, {k}, {n}) prologue={pro} {dtype}: "
-              f"max|d|/max|ref| " + " ".join(
-                  f"{k_}={v:.2e}" for k_, v in ratios.items())
-              + f" (tol {tol:g}) ok", flush=True)
+        abs_err = fmm_case(torch, fb, dev, m, k, n, pro, dtype)
         if (m, k, n, pro) in path:
             tile = "" if dtype == "float32" else "_mma"
             for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
                 path_err[key + tile] = max(path_err[key + tile],
                                            abs_err[name])
-        del x, w, dy, got, want, args
     return path_err
 
 
@@ -1695,13 +1731,23 @@ def check_fmm_mma(torch, fb, dev):
             del args
 
 
-def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
-    """Times of kernels 10, 11 and 12 at the representative launch
-    (stage 1's c3 at B=128, with the prologue), cycling 2 input sets of
-    about 0.9 GB each in float32.  The library call for each is cuBLAS's
-    product alone (``torch.matmul``): no PyTorch call computes the fused
-    function."""
-    m, k, n, _ = FMM_REP
+def fmm_bytes(m, k, n, es):
+    """Bytes kernels 10, 11 and 12 must move at (m, k, n) with a
+    prologue: each input read once, each output written once; scale,
+    bias, ds1, ds2 and the column sums float32."""
+    return ((m * k + k * n + m * n) * es + 2 * k * 4 + 2 * n * 4,
+            (2 * m * n + k * n + 2 * m * k) * es + 4 * k * 4 + 2 * n * 4,
+            (m * k + 2 * m * n + k * n) * es + 2 * k * 4 + 2 * n * 4)
+
+
+def time_fused_matmul_bn(torch, fb, dev, dtype, rate, shape=FMM_REP[:3],
+                         note=""):
+    """Times of kernels 10, 11 and 12 at ``(M, K, N)`` with the prologue
+    (by default the representative launch, stage 1's c3 at B=128),
+    cycling 2 input sets (about 0.9 GB each in float32 at the default).
+    The library call for each is cuBLAS's product alone
+    (``torch.matmul``): no PyTorch call computes the fused function."""
+    m, k, n = shape
     sets = [fmm_inputs(torch, m, k, n, dtype, dev, s) for s in range(2)]
     fwd_sets = [a[:4] for a in sets]
     bwd_sets = [a[:4] + (fb.matmul_bn_reference(*a[:4])[0],) + a[4:]
@@ -1722,19 +1768,12 @@ def time_fused_matmul_bn(torch, fb, dev, dtype, rate):
           "library_ms": time_ms(torch, lambda x, w, sc, bi, y, dy, a, b:
                                 torch.matmul(x.t(), dy), bwd_sets, **kw)}
     es = sets[0][0].element_size()
-    flops = 2 * m * k * n
-    # each input read once, each output written once; scale, bias, ds1,
-    # ds2 and the column sums are float32
-    fwd_bytes = (m * k + k * n + m * n) * es + 2 * k * 4 + 2 * n * 4
-    dx_bytes = (2 * m * n + k * n + 2 * m * k) * es + 4 * k * 4 + 2 * n * 4
-    dw_bytes = (m * k + 2 * m * n + k * n) * es + 2 * k * 4 + 2 * n * 4
-    label = f"({m}, {k}, {n}) prologue {dtype}"
+    label = f"({m}, {k}, {n}) prologue {dtype}{note}"
     out = tuple(
         report(f"fused_matmul_bn_{part}{tile_suffix(dtype)} {label}",
-               times, nbytes, rate, *bound_operations(dtype, flops))
-        for part, times, nbytes in (("fwd", fwd, fwd_bytes),
-                                    ("dx", dx, dx_bytes),
-                                    ("dw", dw, dw_bytes)))
+               times, nbytes, rate, *bound_operations(dtype, 2 * m * k * n))
+        for part, times, nbytes in zip(("fwd", "dx", "dw"), (fwd, dx, dw),
+                                       fmm_bytes(m, k, n, es)))
     del sets, fwd_sets, bwd_sets
     return out
 
@@ -5087,6 +5126,664 @@ def multi_update_paths(torch, np, dev, smi):
         torch.cuda.empty_cache()
 
 
+# ---- phase 18: the vision model zoo -------------------------------------
+
+# ResNet-50 v2 (NHWC, fused) at B=128, 224x224, 1000 classes: (b) the
+# float32 eager step fused against unfused, each timed over
+# V2_TIMED steps after one; (c) the bf16 CUDA-graph step, V2_WARMUP
+# warm-up and V2_STEPS replays
+V2_TIMED, V2_WARMUP, V2_STEPS = 5, 2, 20
+# (b) fused against unfused on the card from the same weights and batch:
+# the loss V2_LOSS_TOL relative; the logits and every moving statistic
+# max|d| <= V2_FWD_TOL * max|unfused|; every gradient but the stem BN's
+# gamma max|d| <= V2_GRAD_MAX_TOL * max|unfused| and ||d|| <=
+# V2_GRAD_NORM_TOL * ||unfused|| of its tensor.  These bounds are fixed.
+# The gradients of this random-initialised net at B=128 move by 1-7 % of
+# their largest value under a perturbation at rounding level: a 1e-6
+# move of the input, which once rounded to float32 moves each pixel by
+# 1e-6 plus up to half an ulp, moves the unfused path's gradients by a
+# median 1.6 % (worst 6.8 %) in float32 and by 1.0 % (worst 5.4 %) with
+# the net in float64, so the net's own sensitivity, not float32
+# arithmetic, sets that size; the two paths round differently everywhere
+# (3xTF32 tiles against cuDNN's float32 products, one-pass BN statistics
+# from the kernels' sums against the layers') and differ by as much
+# (PERF.md §6, on an H100).  The stem BN's gamma has an exact gradient
+# of zero but for BN's eps (with beta at 0, ReLU and max-pool commute
+# with its scale, and stage 1's bn1 normalizes it away): 3e-3 of the stem
+# beta's in float64, and run to run on the same input its value moves by
+# 43 %.  It is held to V2_GRAD_MAX_TOL of the stem beta's largest
+# gradient.
+V2_LOSS_TOL, V2_FWD_TOL = 1e-5, 1e-3
+V2_GRAD_MAX_TOL, V2_GRAD_NORM_TOL = 0.15, 0.05
+V2_STEM = "features.2"
+# (d) one member of each family, float32 predict-mode logits at B=2 on
+# the card against the same weights on the CPU (TF32 off): max|d| <=
+# ZOO_CARD_TOL * max|CPU logit|.  cuDNN and oneDNN sum the products in
+# other orders and may pick other algorithms (Winograd, FFT) through up
+# to 121 layers.
+ZOO_CARD_B, ZOO_CARD_TOL = 2, 1e-4
+ZOO_CARD = [("resnet18_v1", 224), ("resnet18_v2", 224), ("resnet50_v2", 224),
+            ("alexnet", 224), ("vgg11_bn", 224), ("squeezenet1.1", 224),
+            ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+            ("densenet121", 224), ("inceptionv3", 299)]
+# (e) examples/benchmark_score.py's eight default models, bfloat16
+SCORE_MODELS = ["alexnet", "vgg16", "inception_v3", "resnet50_v1",
+                "resnet152_v1", "mobilenet1_0", "densenet121",
+                "squeezenet1_1"]
+SCORE_BATCHES, SCORE_STEPS, SCORE_WARMUP = (1, 128), 20, 3
+# (f) phase 13's LSTM LM converted to bfloat16: LSTM_BF16_STEPS steps.
+# Its step-1 gradients (dropout off) against the float32 model's on the
+# same bf16-rounded weights: ||d|| <= LSTM_BF16_GRAD_TOL * ||float32||
+# for each tensor, a few bf16 roundings (2^-8 each) through 35 steps
+LSTM_BF16_STEPS, LSTM_BF16_GRAD_TOL = 8, 5e-2
+
+
+def resnet_v2_fmm_shapes(batch):
+    """``(M, K, N, prologue)`` of every fused matmul + BN call in one
+    ResNet-50 v2 forward at ``batch`` (224x224 input), in order: per
+    bottleneck conv1 (bn1's prologue, from the block input's own
+    statistics) at the block's input size, conv3 (bn3's prologue) at its
+    output size and, in a stage's first block, the projection (bn1's
+    prologue, strided in stages 2-4) at the output size.  Every call has
+    a prologue."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        resnet_spec)
+    _, layers, channels = resnet_spec[50]
+    shapes, cin, side = [], channels[0], IMAGE // 4
+    for i, (n_blocks, ch) in enumerate(zip(layers, channels[1:])):
+        for b in range(n_blocks):
+            side_in = side
+            if i > 0 and b == 0:
+                side //= 2
+            k_in = cin if b == 0 else ch
+            shapes += [(batch * side_in * side_in, k_in, ch // 4, True),
+                       (batch * side * side, ch // 4, ch, True)]
+            if b == 0:
+                shapes.append((batch * side * side, k_in, ch, True))
+        cin = ch
+    return shapes
+
+
+def resnet_v2_conv3_shapes(batch):
+    """``(N, H, W, C, C_out)`` of every fused 3x3 call in one ResNet-50 v2
+    forward at ``batch``: the stride-1 blocks' (every block but a stage's
+    first in stages 2-4, whose stride-2 3x3 is PyTorch's convolution),
+    each with bn2's prologue."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
+        resnet_spec)
+    _, layers, channels = resnet_spec[50]
+    shapes, side = [], IMAGE // 4
+    for i, (n_blocks, ch) in enumerate(zip(layers, channels[1:])):
+        side = side if i == 0 else side // 2
+        strided = 0 if i == 0 else 1
+        shapes += [(batch, side, side, ch // 4, ch // 4)] * (
+            n_blocks - strided)
+    return shapes
+
+
+def resnet_v2_step_launches():
+    """Launches of each kernel in one ResNet-50 v2 training step: 36 of
+    each fused 1x1, 13 of each fused 3x3, one of each cross-entropy
+    kernel."""
+    mm = len(resnet_v2_fmm_shapes(RESNET_B))
+    c3 = len(resnet_v2_conv3_shapes(RESNET_B))
+    return {"fused_matmul_bn_fwd": mm, "fused_matmul_bn_dx": mm,
+            "fused_matmul_bn_dw": mm, "fused_conv3_bn_fwd": c3,
+            "fused_conv3_bn_dx": c3, "fused_conv3_bn_dw": c3,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+
+
+def check_v2_kernels(torch, fb, dev, rate):
+    """Phase 18 (a): every distinct kernel 10-12 instance of a ResNet-50
+    v2 step at B=128 in both dtypes against its plain version (all 15
+    with a prologue; 11 of them in no v1 call, the other four v1's
+    conv3), and its kernel time (CUDA events) beside its bound.  The
+    stride-1 3x3 shapes (kernels 13-16) are the four that v1 runs, which
+    phase 3 holds against their plain versions already.  Returns the max
+    |d| of y, dx and dw over the 15 shapes by tile."""
+    shapes = list(dict.fromkeys(resnet_v2_fmm_shapes(RESNET_B)))
+    v1 = set(resnet_fmm_shapes(RESNET_B))
+    new = [s for s in shapes if s not in v1]
+    print(f"ResNet-50 v2 at B={RESNET_B}: {len(shapes)} distinct fused 1x1 "
+          f"shapes of {len(resnet_v2_fmm_shapes(RESNET_B))} calls, "
+          f"{len(new)} of them not in v1's path", flush=True)
+    err = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "fwd_mma": 0.0, "dx_mma": 0.0,
+           "dw_mma": 0.0}
+    for m, k, n, pro in shapes:
+        for dtype in FMM_TOL:
+            abs_err = fmm_case(torch, fb, dev, m, k, n, pro, dtype)
+            tile = "" if dtype == "float32" else "_mma"
+            for key, name in (("fwd", "y"), ("dx", "dx"), ("dw", "dw")):
+                err[key + tile] = max(err[key + tile], abs_err[name])
+            gc.collect()
+            torch.cuda.empty_cache()
+    for m, k, n, pro in shapes:
+        for dtype in FMM_TOL:
+            sets = [fmm_inputs(torch, m, k, n, dtype, dev, s)
+                    for s in range(2)]
+            fwd_sets = [a[:4] for a in sets]
+            bwd_sets = [a[:4] + (fb.matmul_bn_reference(*a[:4])[0],) + a[4:]
+                        for a in sets]
+            es = sets[0][0].element_size()
+            ops, peak = bound_operations(dtype, 2 * m * k * n)
+            line = []
+            for part, fn, argsets, nbytes in zip(
+                    ("fwd", "dx", "dw"),
+                    (fb.fused_matmul_bn_fwd, fb.fused_matmul_bn_dx,
+                     fb.fused_matmul_bn_dw),
+                    (fwd_sets, bwd_sets, bwd_sets), fmm_bytes(m, k, n, es)):
+                _, ms = time_ms(torch, fn, argsets, iters=20, warmup=3)
+                bound = max(nbytes / rate, ops / peak) * 1e3
+                line.append(f"{part} {ms:.4f} ms (bound {bound:.4f}, "
+                            f"{bound / ms:.2f})")
+            print(f"  ({m}, {k}, {n}) {dtype}{' new' if (m, k, n, pro) in new else ''}"
+                  f": " + "; ".join(line), flush=True)
+            del sets, fwd_sets, bwd_sets
+            gc.collect()
+            torch.cuda.empty_cache()
+    for shape in dict.fromkeys(resnet_v2_conv3_shapes(RESNET_B)):
+        assert shape in resnet_conv3_shapes(RESNET_B), shape
+    return err
+
+
+def v2_net(torch, dev, fused, seed=0):
+    """ResNet-50 v2, NHWC, 1000 classes, weights from ``seed`` on ``dev``,
+    its deferred input BatchNorm resolved."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v2
+    net = resnet50_v2(classes=CLASSES, layout="NHWC", fused=fused)
+    net.initialize(device=dev, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net(torch.zeros(1, IMAGE, IMAGE, 3, device=dev))
+    return net
+
+
+def v2_grad_spread(np, got, want):
+    """``{name: (max|d| / max|want|, ||d|| / ||want||)}`` over the
+    gradients of two ResNet v2 states, in float64."""
+    out = {}
+    for k, w in want["grads"].items():
+        g = got["grads"][k]
+        assert g.shape == w.shape and np.isfinite(g).all(), k
+        d, w = g.astype(np.float64) - w, w.astype(np.float64)
+        out[k] = (np.abs(d).max() / max(np.abs(w).max(), 1e-300),
+                  np.linalg.norm(d) / max(np.linalg.norm(w), 1e-300))
+    return out
+
+
+def _spread_line(np, spread):
+    """Median and worst of each ratio over every gradient but the stem
+    BN's gamma, then the stem gamma's own."""
+    rest = [v for k, v in spread.items() if k != V2_STEM + ".gamma"]
+    worst = [max(rest, key=lambda v: v[i]) for i in (0, 1)]
+    names = [next(k for k, v in spread.items() if v is w) for w in worst]
+    return (f"max-relative median {np.median([v[0] for v in rest]):.3e}, "
+            f"worst {worst[0][0]:.3e} ({names[0]}); norm-relative median "
+            f"{np.median([v[1] for v in rest]):.3e}, worst {worst[1][1]:.3e} "
+            f"({names[1]}); stem gamma {spread[V2_STEM + '.gamma'][0]:.3e} / "
+            f"{spread[V2_STEM + '.gamma'][1]:.3e}")
+
+
+def compare_v2_fused(torch, np, dev):
+    """Phase 18 (b): one float32 training forward + backward of
+    ``resnet50_v2(layout="NHWC", fused=True)`` at B=128 against the same
+    net and weights with ``fused=False``, both on the card; beside it,
+    how far the unfused path moves on its own: again on the same input,
+    under a 1e-6 move of the input in float32 and in float64, and
+    against float64; then each path timed.  Returns the fused
+    path's launch counts over its timed steps."""
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
+                                                   params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.examples.train_resnet_fused import (
+        synthetic_batch)
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    xb, yb = synthetic_batch(RESNET_B, IMAGE, CLASSES)
+    weights = params_to_numpy(v2_net(torch, dev, True))
+
+    def state(fused, xs, float64=False):
+        net = v2_net(torch, dev, fused)
+        params_from_jax(weights, net)
+        if not float64:
+            out = resnet_state(torch, net, xs, yb, dev)
+        else:       # kernel 6 takes no float64: PyTorch's loss
+            net.cast("float64")
+            y = torch.from_numpy(yb).to(dev).long()
+            with autograd.record():
+                loss = F.cross_entropy(net(torch.from_numpy(xs).to(
+                    dev, torch.float64)), y, reduction="none")
+            autograd.backward(loss)
+            out = dict(grads={k: v for k, v in grads_to_numpy(net).items()
+                              if "running" not in k})
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    moved = xb + np.float32(1e-6)
+    unfused = state(False, xb)
+    fused = state(True, xb)
+    spread = {
+        "fused against unfused": v2_grad_spread(np, fused, unfused),
+        "unfused again, the same input": v2_grad_spread(
+            np, state(False, xb), unfused),
+        "unfused, input moved by 1e-6": v2_grad_spread(
+            np, state(False, moved), unfused)}
+    d64 = state(False, xb, float64=True)
+    spread["float64 unfused, input moved by 1e-6"] = v2_grad_spread(
+        np, state(False, moved, float64=True), d64)
+    spread["unfused against float64"] = v2_grad_spread(np, unfused, d64)
+    spread["fused against float64"] = v2_grad_spread(np, fused, d64)
+    errs = resnet_errors(np, fused, unfused)
+    loss_d = abs(float(fused["loss"].mean())
+                 - float(unfused["loss"].mean())) / abs(
+        float(unfused["loss"].mean()))
+    print(f"ResNet-50 v2 float32 B={RESNET_B}, {len(unfused['grads'])} "
+          f"gradients (float64: convolutions, products and elementwise in "
+          f"float64; the BN layer takes its statistics in float32 in any "
+          f"dtype):", flush=True)
+    for name, sp in spread.items():
+        print(f"  {name}: {_spread_line(np, sp)}", flush=True)
+    gamma, beta = V2_STEM + ".gamma", V2_STEM + ".beta"
+    ratio64 = np.abs(d64["grads"][gamma]).max() / np.abs(
+        d64["grads"][beta]).max()
+    print(f"  stem BN (float64): max|d gamma| / max|d beta| {ratio64:.3e}",
+          flush=True)
+    print(f"fused against unfused: loss {loss_d:.3e} (tol {V2_LOSS_TOL:g}); "
+          f"logits {errs['logits'][0]:.3e}, running {errs['running'][0]:.3e} "
+          f"({errs['running'][1]}) (tol {V2_FWD_TOL:g}); gradients: "
+          f"{len(unfused['grads']) - 1} held to max-relative "
+          f"{V2_GRAD_MAX_TOL:g} and norm-relative {V2_GRAD_NORM_TOL:g}, the "
+          f"stem gamma to {V2_GRAD_MAX_TOL:g} of the stem beta's largest "
+          f"gradient", flush=True)
+    assert loss_d <= V2_LOSS_TOL, loss_d
+    assert errs["logits"][0] <= V2_FWD_TOL, errs
+    assert errs["running"][0] <= V2_FWD_TOL, errs
+    for k, (r_max, r_norm) in spread["fused against unfused"].items():
+        if k == gamma:
+            d = np.abs(fused["grads"][k] - unfused["grads"][k]).max()
+            assert d <= V2_GRAD_MAX_TOL * np.abs(
+                unfused["grads"][beta]).max(), (k, d)
+        else:
+            assert r_max <= V2_GRAD_MAX_TOL and r_norm <= V2_GRAD_NORM_TOL, (
+                k, r_max, r_norm)
+    assert ratio64 <= 1e-2, ratio64     # the stem gamma's gradient cancels
+    del fused, unfused, d64
+
+    x, y = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+    times, counts = {}, None
+    for fused in (False, True):
+        net = v2_net(torch, dev, fused)
+        trainer = Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.01, "momentum": 0.9})
+        loss_fn = SoftmaxCrossEntropyLoss()
+
+        def one():
+            from incubator_mxnet_tpu_torch import autograd
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            autograd.backward(loss)
+            trainer.step(RESNET_B)
+            torch.cuda.synchronize()
+
+        one()
+        if fused:
+            zero_launches()                             # path starts
+        ms = []
+        for _ in range(V2_TIMED):
+            t0 = time.monotonic()
+            one()
+            ms.append((time.monotonic() - t0) * 1e3)
+        if fused:
+            launched = kernel_launches()                # path ends
+            counts = {k: launched[_KERNEL_COUNTERS[k]]
+                      for k in resnet_v2_step_launches()}
+        times[fused] = ms
+        del net, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k, n in resnet_v2_step_launches().items():
+        assert counts[k] == n * V2_TIMED, (k, counts[k])
+    for fused in (False, True):
+        med = statistics.median(times[fused])
+        print(f"ResNet-50 v2 float32 eager step (forward, backward, SGD), "
+              f"B={RESNET_B}, {'fused' if fused else 'unfused'}: median "
+              f"{med:.3f} ms ({RESNET_B / med * 1e3:.2f} img/s), all "
+              f"{[round(v, 3) for v in times[fused]]} (host clock around a "
+              f"synchronised step)", flush=True)
+    print(f"fused float32 path launches over {V2_TIMED} steps: {counts}",
+          flush=True)
+    return counts
+
+
+def v2_graph_step(torch, np, dev, smi):
+    """Phase 18 (c): ``resnet50_v2`` in bfloat16 (``amp.convert_block``)
+    as one ``FusedTrainStep`` (SGD lr 0.1, momentum 0.9, wd 1e-4) at
+    B=128, replayed as a CUDA graph.  Returns the launch counts (the
+    eager warm-up step and the capture) and the median step ms."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import amp, bench
+    from incubator_mxnet_tpu_torch.fuse import (kernel_launches,
+                                                make_fused_train_step)
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    net = v2_net(torch, dev, True)
+    amp.init("bfloat16")
+    amp.convert_block(net, "bfloat16")
+    step = make_fused_train_step(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                 dict(bench.OPTIMIZER_PARAMS), device=dev)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(RESNET_B, IMAGE, IMAGE, 3).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, CLASSES, RESNET_B).astype(
+        np.int32)).to(dev)
+    want = {_KERNEL_COUNTERS[k]: n for k, n in
+            resnet_v2_step_launches().items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()                                     # path starts
+    losses = [float(step(x, y)) for _ in range(V2_WARMUP)]
+    ms = []
+    for _ in range(V2_STEPS):
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launched = kernel_launches()                        # path ends
+    counts = {k: launched[_KERNEL_COUNTERS[k]]
+              for k in resnet_v2_step_launches()}
+    (captured,) = step.capture_launches.values()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"ResNet-50 v2 bfloat16 graph step, B={RESNET_B}: capture's "
+          f"launches {captured}; losses {[round(v, 4) for v in losses]}",
+          flush=True)
+    assert captured == want, (captured, want)
+    for k, v in counts.items():
+        assert v == 2 * want[_KERNEL_COUNTERS[k]], (k, v)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    med = statistics.median(ms)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    fams = device_families(prof, _RESNET_FAMILIES)
+    busy = sum(fams.values())
+    print(f"ResNet-50 v2 bfloat16 graph step: median {med:.3f} ms over "
+          f"{V2_STEPS} replays ({RESNET_B / med * 1e3:.2f} img/s), min "
+          f"{min(ms):.3f} ms, all {[round(v, 3) for v in ms]} (host clock "
+          f"around a replay and a synchronise); peak device memory {peak} "
+          f"bytes ({peak / 2**30:.2f} GiB); profiled replay: wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}; by family (ms): "
+          f"{({k: round(v, 4) for k, v in sorted(fams.items())})}; {smi}",
+          flush=True)
+    del step, net, x, y
+    return counts, med
+
+
+def zoo_weights(torch, net, seed=0):
+    """Draw ``net``'s parameters from ``seed`` so that its activations
+    keep their scale through its depth: conv and dense weights N(0,
+    1/fan_in), gammas 1 + N(0, 0.1²), betas, biases and moving means
+    N(0, 0.1²), moving variances U(0.5, 1.5)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, p in net.collect_params().items():
+            if k.endswith("running_var"):
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+            elif k.endswith("gamma"):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=g))
+            elif k.endswith(("bias", "beta", "running_mean")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(torch.randn(p.shape, generator=g)
+                        / math.prod(p.shape[1:]) ** 0.5)
+
+
+def zoo_on_card(torch, np, dev):
+    """Phase 18 (d): one member of each family, float32 predict-mode
+    logits at B=2 on the card against the same weights on the CPU."""
+    from incubator_mxnet_tpu_torch.convert import (params_from_jax,
+                                                   params_to_numpy)
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    for name, side in ZOO_CARD:
+        x = torch.from_numpy(np.random.RandomState(0).rand(
+            ZOO_CARD_B, 3, side, side).astype(np.float32))
+        cpu = vision.get_model(name).initialize(device="cpu")
+        with torch.no_grad():
+            cpu(x[:1])
+        zoo_weights(torch, cpu)
+        t0 = time.monotonic()
+        with torch.no_grad():
+            want = cpu(x).numpy()
+        cpu_s = time.monotonic() - t0
+        card = vision.get_model(name).initialize(device=dev)
+        params_from_jax(params_to_numpy(cpu), card)
+        del cpu
+        with torch.no_grad():
+            got = card(x.to(dev)).cpu().numpy()
+        err = np.abs(got - want).max() / np.abs(want).max()
+        print(f"{name} at {side}x{side}, B={ZOO_CARD_B}, float32: card "
+              f"against CPU max|d|/max|CPU| {err:.3e} (tol {ZOO_CARD_TOL:g}); "
+              f"max|logit| {np.abs(want).max():.4g}; CPU forward "
+              f"{cpu_s:.2f} s", flush=True)
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        assert err <= ZOO_CARD_TOL, (name, err)
+        del card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def score_zoo(torch, dev, smi):
+    """Phase 18 (e): ``benchmark_score.score`` for the JAX script's eight
+    default models in bfloat16 at batch 1 and 128 (Inception at
+    3x299x299); ``inception_v3`` at 3x224x224 must raise."""
+    from incubator_mxnet_tpu_torch.examples.benchmark_score import score
+    out = {}
+    for model in SCORE_MODELS:
+        shape = (3, 299, 299) if model == "inception_v3" else (3, 224, 224)
+        for bs in SCORE_BATCHES:
+            out[(model, bs)] = score(model, bs, shape, "bfloat16",
+                                     SCORE_STEPS, SCORE_WARMUP, dev)
+            print(f"score {model:14s} bs={bs:4d} {shape}: "
+                  f"{out[(model, bs)]:10.1f} img/s (bfloat16, {SCORE_STEPS} "
+                  f"eager forwards, the read-back inside the window)",
+                  flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    try:
+        score("inception_v3", 1, (3, 224, 224), "bfloat16", 1, 0, dev)
+    except ValueError as e:
+        print(f"inception_v3 at (3, 224, 224) raises: {e}", flush=True)
+    else:
+        raise AssertionError("inception_v3 at 224x224 returned logits")
+    print(f"scores on {smi}", flush=True)
+    return out
+
+
+def lstm_bf16_grads(torch, np, dev, x, y):
+    """Phase 18 (f), first part: one forward + backward of the LSTM LM
+    (dropout off) converted to bfloat16, against the float32 model on
+    the same weights (the bf16 ones, widened) and the same window, both
+    through cuDNN's RNN; each gradient held to LSTM_BF16_GRAD_TOL."""
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.models import LSTMLanguageModel
+    models = []
+    for _ in range(2):
+        m = LSTMLanguageModel(LSTM_VOCAB, LSTM_UNITS, LSTM_UNITS,
+                              LSTM_LAYERS, dropout=0.0)
+        m.initialize(device=dev, generator=torch.Generator().manual_seed(0))
+        models.append(m)
+    amp.convert_block(models[0], "bfloat16")
+    with torch.no_grad():
+        for k, p in models[1].collect_params().items():
+            p.copy_(models[0].collect_params()[k].float())
+    grads = []
+    for m in models:
+        with autograd.record():
+            out, _ = m(x, m.begin_state(LSTM_B, device=dev))
+            loss = SoftmaxCrossEntropyLoss()(out.reshape(-1, LSTM_VOCAB),
+                                             y.reshape(-1)).mean()
+        autograd.backward(loss)
+        grads.append({k: p.grad.float() for k, p in
+                      m.collect_params().items()})
+    line = []
+    for k, want in grads[1].items():
+        got = grads[0][k]
+        assert torch.isfinite(got).all() and got.abs().max() > 0, k
+        r_norm = ((got - want).norm() / want.norm()).item()
+        r_max = ((got - want).abs().max() / want.abs().max()).item()
+        line.append(f"{k} {r_norm:.3e} / {r_max:.3e}")
+        assert r_norm <= LSTM_BF16_GRAD_TOL, (k, r_norm)
+    print(f"bf16 LSTM LM, step-1 gradients (dropout off) against float32 on "
+          f"the same weights, norm- / max-relative: {'; '.join(line)} (tol "
+          f"norm {LSTM_BF16_GRAD_TOL:g})", flush=True)
+
+
+def lstm_lm_bf16(torch, np, dev, smi):
+    """Phase 18 (f): phase 13's LSTM LM converted to bfloat16 by
+    ``amp.convert_block``, LSTM_BF16_STEPS steps of phase 13's loop (SGD
+    lr 1.0, clip 0.25, the state carried); the RNN's route by the
+    profiler's kernel names (cuDNN's bf16 cell kernels); the step-1
+    gradients against float32; step 1's update bit for bit the bf16 SGD
+    step; the loss finite and, read in float32, falling; one launch of
+    each cross-entropy kernel a step.  Returns the path's launch
+    counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import amp, autograd
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.gluon.utils import clip_global_norm
+    from incubator_mxnet_tpu_torch.models import LSTMLanguageModel
+    windows = [tuple(torch.from_numpy(a).to(dev) for a in w)
+               for w in lstm_stream(np)]
+    lstm_bf16_grads(torch, np, dev, *windows[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LSTMLanguageModel(LSTM_VOCAB, LSTM_UNITS, LSTM_UNITS,
+                              LSTM_LAYERS, dropout=LSTM_DROPOUT)
+    model.initialize(device=dev, generator=torch.Generator().manual_seed(0))
+    model.drop.generator = torch.Generator(device=dev).manual_seed(1)
+    amp.convert_block(model, "bfloat16")
+    named = model.collect_params()
+    params = list(named.values())
+    assert model.rnn.params_flat.dtype == torch.bfloat16
+    trainer = Trainer(params, "sgd", {"learning_rate": LSTM_LR,
+                                      "momentum": 0.0})
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def eval_loss(x, y):
+        """The predict-mode loss of a window, the logits read in float32
+        (the bf16 loss resolves 2^-5 at ln 10000)."""
+        with autograd.predict_mode(), torch.no_grad():
+            out = model(x, model.begin_state(LSTM_B, device=dev))[0]
+            return loss_fn(out.float().reshape(-1, LSTM_VOCAB),
+                           y.reshape(-1)).mean().item()
+
+    def step(x, y, state, check=False):
+        state = [s.detach() for s in state]
+        with autograd.record():
+            out, state = model(x, state)
+            loss = loss_fn(out.reshape(-1, LSTM_VOCAB), y.reshape(-1)).mean()
+        autograd.backward(loss)
+        clip_global_norm([p.grad for p in params], LSTM_CLIP)
+        if check:
+            old = {k: p.detach().clone() for k, p in named.items()}
+            want = {k: p.detach() - LSTM_LR * p.grad for k, p in
+                    named.items()}
+        trainer.step(1)
+        if check:   # the weights the model runs took the bf16 SGD step
+            line = []
+            for k, p in model.collect_params().items():
+                assert p.dtype == torch.bfloat16, k
+                assert torch.equal(p.detach(), want[k]), k
+                share = (p.detach() != old[k]).float().mean().item()
+                line.append(f"{k} {share:.4f}")
+            print(f"bf16 LSTM LM step 1: every parameter bit for bit "
+                  f"w - lr*clipped grad in bf16; share of elements moved: "
+                  f"{'; '.join(line)} (an update under half a bf16 ulp "
+                  f"of its weight is lost to rounding)", flush=True)
+        return loss, state
+
+    before = eval_loss(*windows[0])
+    state = model.begin_state(LSTM_B, device=dev)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    zero_launches()                                     # path starts
+    for i in range(LSTM_BF16_STEPS):
+        t0 = time.monotonic()
+        loss, state = step(*windows[i % len(windows)], state, check=i == 0)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(loss.float().item())
+    launched = kernel_launches()                        # path ends
+    counts = {"softmax_xent_fwd": launched["softmax_xent.fwd_launches"],
+              "softmax_xent_bwd": launched["softmax_xent.bwd_launches"]}
+    after = eval_loss(*windows[0])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(*windows[0], state)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    rnn = sorted(n for n in names if "elementWise" in n and (
+        "LSTM" in n or "GENERIC" in n))
+    print(f"bf16 LSTM LM: {LSTM_BF16_STEPS} steps, losses "
+          f"{[round(v, 4) for v in losses]}; predict-mode loss of window 0 "
+          f"read in float32: before {before:.6f}, after {after:.6f} "
+          f"({after - before:+.6f}); route: cuDNN's RNN, its cell "
+          f"kernels {[n[:60] for n in rnn]}; xent launches {counts}",
+          flush=True)
+    assert rnn and all("bfloat16" in n for n in rnn), rnn
+    assert not any("lstm_cell" in n for n in names), names
+    assert np.isfinite(losses).all(), losses
+    assert abs(losses[0] - math.log(LSTM_VOCAB)) < 0.5, losses[0]
+    assert after < before, (before, after)
+    for k, v in counts.items():
+        assert v == LSTM_BF16_STEPS, (k, v)
+    med = statistics.median(ms[2:])
+    print(f"bf16 LSTM LM step: median over steps 3-{LSTM_BF16_STEPS} "
+          f"{med:.3f} ms ({LSTM_T * LSTM_B / med * 1e3:.0f} tokens/s), all "
+          f"{[round(v, 3) for v in ms]} (host clock around a step ending in "
+          f"a synchronise; step 1 holds the update check's copies); {smi}",
+          flush=True)
+    del model, trainer, windows
+    return counts
+
+
+def zoo_phase(torch, np, fb, dev, rate, smi):
+    """Phase 18 → ``(path launch counts by tile, the kernels line's
+    entries' times and errors)``."""
+    t0 = time.monotonic()
+    err = check_v2_kernels(torch, fb, dev, rate)
+    times = {dt: time_fused_matmul_bn(torch, fb, dev, dt, rate,
+                                      (RESNET_B * 7 * 7, 2048, 512),
+                                      " (v2 stage-4 conv1, the widest "
+                                      "prologue)")
+             for dt in FMM_TOL}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 18 (a): {time.monotonic() - t0:.1f} s", flush=True)
+    f32 = compare_v2_fused(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16, _ = v2_graph_step(torch, np, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_on_card(torch, np, dev)
+    score_zoo(torch, dev, smi)
+    lstm = lstm_lm_bf16(torch, np, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.monotonic() - t0:.1f} s", flush=True)
+    return dict(f32=f32, bf16=bf16, lstm=lstm, err=err, times=times)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5385,8 +6082,18 @@ def main():
     check_update_ops(torch, np, dev)
     multi_update_paths(torch, np, dev, smi)
     print(f"phase 17: {time.monotonic() - api_t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    phase("18 kernels")
+    phase("18 the vision model zoo")
+    zoo = zoo_phase(torch, np, fb, dev, rate, smi)
+    for k in ("fused_conv3_bn_fwd", "fused_conv3_bn_dx", "fused_conv3_bn_dw"):
+        resnet[k] += zoo["f32"][k]
+        mma_launches[k] += zoo["bf16"][k]
+    for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
+        resnet[k] += zoo["f32"][k] + zoo["bf16"][k] + zoo["lstm"][k]
+
+    phase("19 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"
@@ -5469,6 +6176,18 @@ def main():
             ("fwd", "dx", "dw"),
             (f"{fck}:139", f"{fck}:217, {fck}:180", f"{fck}:244"),
             conv_mma_times)
+    ] + [
+        dict(name=f"fused_matmul_bn_{part}{tile}_v2", route="cuda",
+             source=src + "fused_matmul_bn.cu", replaces=f"{fbk}:{line}",
+             instance="ResNet-50 v2: a prologue on every call, K up to "
+                      "2048; timed at (6272, 2048, 512)",
+             launches=zoo[path][f"fused_matmul_bn_{part}"],
+             max_abs_err=zoo["err"][part + tile.replace("_tf32", "")],
+             **zoo["times"][dtype][i])
+        for tile, path, dtype in (("_tf32", "f32", "float32"),
+                                  ("_mma", "bf16", "bfloat16"))
+        for i, (part, line) in enumerate(zip(("fwd", "dx", "dw"),
+                                             (83, 154, 181)))
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

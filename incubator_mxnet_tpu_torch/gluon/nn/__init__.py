@@ -1,7 +1,10 @@
 from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
-                           Flatten, HybridSequential, LayerNorm)
-from .conv_layers import Conv2D, GlobalAvgPool2D, GlobalMaxPool2D, MaxPool2D
+                           Flatten, HybridLambda, HybridSequential, Lambda,
+                           LayerNorm)
+from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D,
+                          GlobalMaxPool2D, MaxPool2D)
 
-__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense", "Dropout",
-           "Embedding", "Flatten", "GlobalAvgPool2D", "GlobalMaxPool2D",
-           "HybridSequential", "LayerNorm", "MaxPool2D"]
+__all__ = ["Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense",
+           "Dropout", "Embedding", "Flatten", "GlobalAvgPool2D",
+           "GlobalMaxPool2D", "HybridLambda", "HybridSequential", "Lambda",
+           "LayerNorm", "MaxPool2D"]

@@ -13,7 +13,8 @@ from ...ops import index_ops, nn_ops
 from ..block import HybridBlock, register_state_update
 
 __all__ = ["HybridSequential", "Dense", "Embedding", "Dropout",
-           "Activation", "BatchNorm", "LayerNorm", "Flatten"]
+           "Activation", "BatchNorm", "LayerNorm", "Flatten", "Lambda",
+           "HybridLambda"]
 
 
 class HybridSequential(HybridBlock):
@@ -164,3 +165,26 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+class HybridLambda(HybridBlock):
+    """A block around a function of its inputs, such as MobileNet's relu6
+    ``HybridLambda(lambda x: x.clip(0, 6))``.  The JAX package also takes
+    the name of an ``nd`` function; the port has no ``nd`` namespace of
+    ops, so a name raises."""
+
+    def __init__(self, function):
+        super().__init__()
+        if not callable(function):
+            raise NotImplementedError(
+                f"HybridLambda({function!r}): give a callable; functions "
+                "by name are not ported")
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class Lambda(HybridLambda):
+    """The JAX package's imperative ``Lambda``: the port runs every block
+    eagerly, so it is :class:`HybridLambda`."""

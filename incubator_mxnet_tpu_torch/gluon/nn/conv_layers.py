@@ -1,12 +1,17 @@
 """Convolution and pooling layers (subset of
 ``incubator_mxnet_tpu/gluon/nn/conv_layers.py``): ``Conv2D``,
-``MaxPool2D``, ``GlobalAvgPool2D`` and ``GlobalMaxPool2D``.
+``MaxPool2D``, ``AvgPool2D``, ``GlobalAvgPool2D`` and
+``GlobalMaxPool2D``.
 
 Without ``in_channels``, ``Conv2D`` defers its weight to the first
 forward, which gives the input's channels.  Its weight is
 ``(channels, in/groups, kh, kw)`` in the default ``"NCHW"`` layout and
 ``(channels, kh, kw, in/groups)`` in a channel-minor one (``"NHWC"``),
 as in the JAX package.
+
+``ceil_mode=True`` raises: the JAX pooling takes the flag and pools in
+floor mode all the same (ROADMAP §C), and the port builds no layer
+whose result contradicts its arguments.
 """
 from __future__ import annotations
 
@@ -14,7 +19,8 @@ from ... import initializer as init_mod
 from ...ops import nn_ops
 from ..block import HybridBlock
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D", "GlobalMaxPool2D"]
+__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D",
+           "GlobalMaxPool2D"]
 
 
 def _tuple(v, n):
@@ -63,8 +69,13 @@ class Conv2D(HybridBlock):
 
 class _Pool2D(HybridBlock):
     def __init__(self, pool_size, strides, padding, global_pool, pool_type,
-                 layout=None):
+                 layout=None, ceil_mode=False, count_include_pad=True):
         super().__init__()
+        if ceil_mode:
+            raise ValueError(
+                "ceil_mode=True is not ported: the JAX pooling pools in "
+                "floor mode whatever the flag says (ROADMAP §C); build the "
+                "layer without it for the JAX package's shapes")
         self._layout = layout
         self._kernel = _tuple(pool_size, 2)
         self._strides = _tuple(strides if strides is not None else pool_size,
@@ -72,18 +83,32 @@ class _Pool2D(HybridBlock):
         self._padding = _tuple(padding, 2)
         self._global = global_pool
         self._pool_type = pool_type
+        self._count_include_pad = count_include_pad
 
     def forward(self, x):
         return nn_ops.pooling(x, kernel=self._kernel,
                               pool_type=self._pool_type,
                               global_pool=self._global, stride=self._strides,
-                              pad=self._padding, layout=self._layout)
+                              pad=self._padding,
+                              count_include_pad=self._count_include_pad,
+                              layout=self._layout)
 
 
 class MaxPool2D(_Pool2D):
-    def __init__(self, pool_size=2, strides=None, padding=0, layout=None):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout=None,
+                 ceil_mode=False, count_include_pad=True):
         super().__init__(pool_size, strides, padding, False, "max",
-                         layout=layout)
+                         layout, ceil_mode, count_include_pad)
+
+
+class AvgPool2D(_Pool2D):
+    """Average pooling; padding counts as 0 and, by default, in the
+    divisor (``count_include_pad``)."""
+
+    def __init__(self, pool_size=2, strides=None, padding=0, layout=None,
+                 ceil_mode=False, count_include_pad=True):
+        super().__init__(pool_size, strides, padding, False, "avg",
+                         layout, ceil_mode, count_include_pad)
 
 
 class GlobalAvgPool2D(_Pool2D):

@@ -42,6 +42,13 @@ The bottleneck (:func:`fused_bottleneck_v1` and ``_proj``) runs its
 kernels with bn1's normalize + ReLU as their prologue: the JAX
 package's default configuration (``MXNET_FUSED_CONV3`` unset), with no
 switch and no geometry gate.
+
+The pre-activation bottleneck (:func:`fused_bottleneck_v2` and
+``_proj``, ResNet v2) puts a prologue on every 1x1: bn1's constants
+come from :func:`_bn_fold`, a float32 statistics pass over the block's
+raw input; bn2's and bn3's from the producing kernel's epilogue.  A
+stride-2 block runs its 3x3 as PyTorch's convolution, as the JAX block
+runs XLA's there (the fused 3x3 is stride 1 only).
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ __all__ = ["matmul_bn_reference", "matmul_bn_dx_reference",
            "fused_matmul_bn_fwd", "fused_matmul_bn_dx", "fused_matmul_bn_dw",
            "FusedMatmulBNFunction", "fused_matmul_bn", "bn_consts",
            "fused_bottleneck_v1", "fused_bottleneck_v1_proj",
+           "fused_bottleneck_v2", "fused_bottleneck_v2_proj",
            "dw_mma_split", "dw_tf32_split", "fwd_mma_tile", "fwd_mma_split",
            "fwd_launches", "dx_launches", "dw_launches"]
 
@@ -503,3 +511,96 @@ def fused_bottleneck_v1_proj(x, w1, g1, b1, rm1, rv1, w2, g2, b2, rm2, rv2,
     b = functools.partial(_blend, momentum)
     return (out, b(rm1, m1), b(rv1, v1), b(rm2, m2), b(rv2, v2),
             b(rm3, m3), b(rv3, v3), b(rmsc, msc), b(rvsc, vsc))
+
+
+def _bn_fold(x2, gamma, beta, eps):
+    """Batch statistics of a flat activation ``x2`` (M, C) that no kernel
+    epilogue produced (the pre-activation bn1 over a block's raw input):
+    float32 sums of x and x² over the rows, folded by :func:`bn_consts`
+    so that the numbers cannot drift from the epilogue-fed BNs →
+    ``(scale, bias, mean, var)``."""
+    xf = x2.float()
+    return bn_consts(xf.sum(dim=0), (xf * xf).sum(dim=0), x2.shape[0],
+                     gamma, beta, eps)
+
+
+def _bottleneck_v2_core(x, w1, g1, b1, w2, g2, b2, w3, g3, b3, wsc, stride,
+                        eps):
+    """Pre-activation BottleneckV2 body on the fused kernels (NHWC).
+
+    Every conv takes its preceding BN's normalize + ReLU as its prologue:
+    conv1 and the projection bn1's (from :func:`_bn_fold`), the 3x3
+    bn2's (from conv1's epilogue), conv3 bn3's (from the 3x3's epilogue,
+    or from :func:`_bn_fold` after a stride-2 3x3, which is PyTorch's
+    convolution on the normalized activation).  conv3 has no BN after
+    it, so its statistics are not used.  The projection reads
+    ``x[:, ::s, ::s, :]``, made contiguous.  Returns the block output and
+    bn1-3's batch means and variances."""
+    n, h, w_, _ = x.shape
+    s = int(stride)
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def mm(w4):  # (O, 1, 1, I) -> (I, O)
+        return w4.reshape(w4.shape[0], -1).t()
+
+    xf = flat(x)
+    sc1, of1, mean1, var1 = _bn_fold(xf, g1, b1, eps)
+    y1, a2, c2 = fused_matmul_bn(xf, mm(w1), sc1, of1)
+    sc2, of2, mean2, var2 = bn_consts(a2, c2, y1.shape[0], g2, b2, eps)
+    cm = y1.shape[-1]
+
+    if s == 1:
+        y2, a3, c3 = fused_conv3_bn(y1.reshape(n, h, w_, cm),
+                                    w2.permute(1, 2, 3, 0), sc2, of2)
+        hs, ws = h, w_
+        y2f = flat(y2)
+        sc3, of3, mean3, var3 = bn_consts(a3, c3, y2f.shape[0], g3, b3, eps)
+    else:
+        y1n = torch.relu(y1 * sc2.to(x.dtype) + of2.to(x.dtype))
+        y1n = y1n.reshape(n, h, w_, cm).permute(0, 3, 1, 2)
+        y2 = torch.nn.functional.conv2d(
+            y1n, w2.permute(0, 3, 1, 2), None, s, 1).to(x.dtype)
+        y2 = y2.permute(0, 2, 3, 1)
+        hs, ws = y2.shape[1], y2.shape[2]
+        y2f = flat(y2)
+        sc3, of3, mean3, var3 = _bn_fold(y2f, g3, b3, eps)
+
+    y3, _, _ = fused_matmul_bn(y2f, mm(w3), sc3, of3)
+
+    if wsc is not None:
+        xs = x[:, ::s, ::s, :].contiguous() if s > 1 else x
+        rsd, _, _ = fused_matmul_bn(flat(xs), mm(wsc), sc1, of1)
+    else:
+        rsd = xf
+    out = (y3 + rsd).reshape(n, hs, ws, y3.shape[-1])
+    return out, mean1, var1, mean2, var2, mean3, var3
+
+
+def fused_bottleneck_v2(x, w1, g1, b1, rm1, rv1, w2, g2, b2, rm2, rv2,
+                        w3, g3, b3, rm3, rv3, stride=1, eps=1e-5,
+                        momentum=0.9):
+    """Identity-shortcut fused pre-activation bottleneck (see
+    :func:`_bottleneck_v2_core`) → the output and bn1-3's moving
+    statistics blended with the batch ones, as
+    :func:`fused_bottleneck_v1` returns them."""
+    out, m1, v1, m2, v2, m3, v3 = _bottleneck_v2_core(
+        x, w1, g1, b1, w2, g2, b2, w3, g3, b3, None, stride, eps)
+    b = functools.partial(_blend, momentum)
+    return (out, b(rm1, m1), b(rv1, v1), b(rm2, m2), b(rv2, v2),
+            b(rm3, m3), b(rv3, v3))
+
+
+def fused_bottleneck_v2_proj(x, w1, g1, b1, rm1, rv1, w2, g2, b2, rm2, rv2,
+                             w3, g3, b3, rm3, rv3, wsc, stride=1, eps=1e-5,
+                             momentum=0.9):
+    """Projection-shortcut fused pre-activation bottleneck: v2's
+    projection is a bare 1x1 on relu(bn1(x)), with no BN of its own, so
+    the moving statistics are bn1-3's, as in
+    :func:`fused_bottleneck_v2`."""
+    out, m1, v1, m2, v2, m3, v3 = _bottleneck_v2_core(
+        x, w1, g1, b1, w2, g2, b2, w3, g3, b3, wsc, stride, eps)
+    b = functools.partial(_blend, momentum)
+    return (out, b(rm1, m1), b(rv1, v1), b(rm2, m2), b(rv2, v2),
+            b(rm3, m3), b(rv3, v3))

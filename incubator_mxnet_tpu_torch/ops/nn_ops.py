@@ -86,9 +86,10 @@ def pooling(x, kernel=None, pool_type="max", global_pool=False, stride=None,
     and as 0 for average; ``count_include_pad=False`` divides by the
     window's in-image size instead of its full size.  Average pooling of
     a low-precision input accumulates in float32 and returns x's dtype,
-    as the JAX package does.  ``pooling_convention`` other than
-    ``"valid"`` and ``pool_type`` other than max and avg are not
-    ported."""
+    as the JAX package does.  A window larger than the padded map
+    raises (the JAX pooling returns an empty map there, which a later
+    layer trips over).  ``pooling_convention`` other than ``"valid"``
+    and ``pool_type`` other than max and avg are not ported."""
     if pool_type not in ("max", "avg"):
         raise ValueError(f"pool_type {pool_type!r} is not ported (max, avg)")
     if pooling_convention != "valid":
@@ -107,6 +108,10 @@ def pooling(x, kernel=None, pool_type="max", global_pool=False, stride=None,
     stride = _tuple(stride or kernel, nd)
     pad = _tuple(pad or 0, nd)
     x_ = x.movedim(-1, 1) if last else x
+    sides = tuple(x_.shape[2:])
+    if any(s + 2 * p < k for s, p, k in zip(sides, pad, kernel)):
+        raise ValueError(f"pooling: the window {kernel} is larger than the "
+                         f"padded map {sides} (padding {pad}): no output")
     if pool_type == "max":
         y = getattr(F, f"max_pool{nd}d")(x_, kernel, stride, pad)
     else:

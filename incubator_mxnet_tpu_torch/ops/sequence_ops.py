@@ -6,7 +6,7 @@
 that XLA generates, no Pallas kernel; on the card the port hands it to
 PyTorch's own RNN op (``torch._VF.lstm``/``gru``/``rnn_tanh``/
 ``rnn_relu``, the call ``nn.LSTM`` makes), which runs cuDNN's RNN, the
-op the reference used.  The weights stay in the JAX package's one flat
+op the reference used, in float32 and in bfloat16 alike.  The weights stay in the JAX package's one flat
 vector: the op cuts it into views (no copy), so autograd's gradient
 lands in that one tensor, in that layout.  cuDNN wants its own layout
 (each layer's ``w_ih, w_hh, b_ih, b_hh`` side by side), so on the card
@@ -29,6 +29,9 @@ __all__ = ["sequence_mask", "sequence_last", "sequence_reverse",
 # gates a cell of each mode computes (rows of its weights per unit); the
 # modes are also the names of PyTorch's RNN ops in torch._VF
 _NGATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+# what cuDNN's RNN takes on the card
+_CUDNN_DTYPES = (torch.float64, torch.float32, torch.float16,
+                 torch.bfloat16)
 
 
 def _time_mask(steps, sequence_length, axis, ndim):
@@ -128,9 +131,15 @@ def fused_rnn(data, params, state, state_cell=None, *, state_size,
     ``h·W_hn + b_hn``.
 
     ``p`` is taken and not applied, as the JAX op takes and ignores it:
-    no dropout between layers.  A CPU tensor runs PyTorch's CPU RNN; a
-    CUDA tensor runs cuDNN's, or raises where cuDNN does not take it
-    (cuDNN off, or a dtype it lacks, such as bfloat16)."""
+    no dropout between layers.  A CPU tensor runs PyTorch's CPU RNN.  A
+    CUDA tensor in float64, float32, float16 or bfloat16 runs cuDNN's
+    RNN, one route for every dtype: a bfloat16 input keeps bfloat16 operands
+    (cuDNN's ``*_elementWise_*<__nv_bfloat16>`` cell kernels, float32
+    inside), as the JAX scan keeps its dtype.  ``_VF`` hands a bfloat16
+    input to cuDNN although ``torch.backends.cudnn.is_acceptable``, a
+    list kept in Python, leaves bfloat16 out.  With cuDNN off, or in
+    another dtype, a CUDA tensor raises: PyTorch would run its own
+    step-by-step RNN there, and the port does not fall back to it."""
     del p   # the JAX op applies no dropout between layers
     if mode not in _NGATES:
         raise ValueError(f"fused_rnn: unknown mode {mode!r}; have "
@@ -140,7 +149,9 @@ def fused_rnn(data, params, state, state_cell=None, *, state_size,
                          "and taken by no other mode")
     data, params, state, state_cell = cast_args("RNN", data, params, state,
                                                 state_cell)
-    if data.is_cuda and not torch.backends.cudnn.is_acceptable(data):
+    if data.is_cuda and not (torch.backends.cudnn.enabled
+                            and torch.backends.cudnn.is_available()
+                            and data.dtype in _CUDNN_DTYPES):
         raise RuntimeError(
             f"fused_rnn: cuDNN does not take this input ({data.dtype}, "
             f"cudnn.enabled={torch.backends.cudnn.enabled}); the port "

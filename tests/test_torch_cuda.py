@@ -52,7 +52,11 @@ step state theirs in their own section below.  The fused RNN (cuDNN's,
 through ``fused_rnn``) against ``fused_rnn_reference``, float32 with
 TF32 off: outputs and states 1e-5 absolute (values in (-1, 1)), every
 gradient 1e-4 of its largest value (the same products summed in
-another order over the recurrence).  The detection ops (SSD), card
+another order over the recurrence); in bfloat16 (cuDNN's bf16 cell
+kernels) against the plain loop in float32 on the same bf16-rounded
+inputs, outputs and states 3e-2 absolute and every gradient 5e-2 of
+its largest value (bf16 operands and bf16 states between steps, about
+eight bits, through a recurrence of 9 steps and two layers).  The detection ops (SSD), card
 against CPU on the same inputs: floats within 1e-5; class targets,
 masks, class ids and kept rows equal (these data have no near-tie at
 the mining cut-off or a threshold: ``tests/test_torch_contrib_det.py``
@@ -83,7 +87,7 @@ from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
 from incubator_mxnet_tpu_torch.gluon import Trainer, data, nn
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import (
-    BottleneckV1, ResNetV1)
+    BottleneckV1, BottleneckV2, ResNetV1, ResNetV2)
 from incubator_mxnet_tpu_torch.models.bert import BERTModel
 from incubator_mxnet_tpu_torch.models.transformer import (TransformerConfig,
                                                           TransformerLM)
@@ -1874,14 +1878,134 @@ def test_fused_rnn_cudnn_matches_reference(dev, no_tf32, mode,
 
 
 def test_fused_rnn_refuses_what_cudnn_does_not_take(dev):
-    """No fallback on the card: a dtype cuDNN's RNN lacks raises."""
+    """No fallback on the card: with cuDNN off, where PyTorch would run
+    its own step-by-step RNN, the op raises, in float32 and bfloat16."""
     from incubator_mxnet_tpu_torch.ops import sequence_ops as so
     n = so.rnn_param_size(4, 8, 1, "gru")
-    x = torch.zeros(3, 2, 4, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="cuDNN"):
-        so.fused_rnn(x, torch.zeros(n, device=dev, dtype=torch.bfloat16),
-                     torch.zeros(1, 2, 8, device=dev, dtype=torch.bfloat16),
-                     state_size=8, mode="gru")
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.zeros(3, 2, 4, device=dev, dtype=dt)
+        with torch.backends.cudnn.flags(enabled=False):
+            with pytest.raises(RuntimeError, match="cuDNN"):
+                so.fused_rnn(x, torch.zeros(n, device=dev, dtype=dt),
+                             torch.zeros(1, 2, 8, device=dev, dtype=dt),
+                             state_size=8, mode="gru")
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
+def test_fused_rnn_bfloat16_runs_cudnn(dev, no_tf32, mode):
+    """bfloat16 on the card: ``fused_rnn`` runs cuDNN's RNN (its bf16
+    cell kernels by the profiler's names, no PyTorch cell kernel) and
+    keeps bf16 outputs and gradients, against the plain loop in float32
+    on the same bf16-rounded inputs."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.ops import sequence_ops as so
+    t, b, i, h, layers = 9, 5, 12, 16, 2
+    g = torch.Generator().manual_seed(0)
+    n = so.rnn_param_size(i, h, layers, mode)
+    args = [torch.randn(t, b, i, generator=g),
+            (torch.rand(n, generator=g) * 2 - 1) / h ** 0.5,
+            torch.randn(layers, b, h, generator=g) * 0.5,
+            torch.randn(layers, b, h, generator=g) * 0.5]
+    args = [a.bfloat16() for a in args]
+    if mode != "lstm":
+        args[3] = None
+    kw = dict(state_size=h, num_layers=layers, mode=mode)
+    res = []
+    for fn, dt in ((so.fused_rnn, torch.bfloat16),
+                   (so.fused_rnn_reference, torch.float32)):
+        leaves = [a.to(dev, dt).requires_grad_() if a is not None else None
+                  for a in args]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs = fn(*leaves, **kw)
+            heads = [torch.randn(o.shape, generator=torch.Generator()
+                                 .manual_seed(k)).to(dev, o.dtype)
+                     for k, o in enumerate(outs)]
+            torch.autograd.backward(outs, heads)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"}
+        res.append(([o.detach() for o in outs],
+                    [a.grad for a in leaves if a is not None], names))
+    (outs, grads, names), (routs, rgrads, _) = res
+    cells = [nm for nm in names if "elementWise" in nm]
+    assert cells and all("bfloat16" in nm for nm in cells), names
+    assert not any("_cell_" in nm for nm in names), names
+    assert all(o.dtype == torch.bfloat16 for o in outs + grads)
+    for got, want in zip(outs, routs):
+        assert (got.float() - want).abs().max() <= 3e-2
+    for got, want in zip(grads, rgrads):
+        assert (got.float() - want).abs().max() <= 5e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [
+    # ResNet-50 v2's 1x1 shapes at B=2 that no v1 call runs, each with a
+    # prologue: conv1 (bn1's, from the block input), the projection
+    (6272, 64, 64), (6272, 256, 64), (6272, 256, 128), (1568, 256, 512),
+    (1568, 512, 128), (1568, 512, 256), (392, 512, 1024), (392, 1024, 256),
+    (392, 1024, 512), (98, 1024, 2048), (98, 2048, 512)])
+def test_fused_matmul_bn_v2_instances_match_plain(dev, no_tf32, dtype, m, k,
+                                                  n):
+    x, w, scale, bias, dy, ds1, ds2 = _fmm_inputs(m, k, n, dtype, dev)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    y, s1, s2 = fb.fused_matmul_bn_fwd(x, w, scale, bias)
+    ry, rs1, rs2 = fb.matmul_bn_reference(x, w, scale, bias)
+    args = (x, w, scale, bias, ry, dy, ds1, ds2)
+    got = (y, s1, s2) + fb.fused_matmul_bn_dx(*args) + (
+        fb.fused_matmul_bn_dw(*args),)
+    want = (ry, rs1, rs2) + fb.matmul_bn_dx_reference(*args) + (
+        fb.matmul_bn_dw_reference(*args),)
+    torch.cuda.synchronize()
+    for what, a, r in zip(("y", "s1", "s2", "dx", "dscale", "dbias", "dw"),
+                          got, want):
+        _within(a, r, tol, what)
+
+
+def test_small_fused_resnet_v2_step_on_the_card_matches_cpu(dev, no_tf32):
+    """A fused ResNet v2 (one bottleneck a stage, each with a projection,
+    strided in stages 2-4) on the card against the same weights and batch
+    on the CPU: 12 launches of each fused 1x1 kernel, one of each fused
+    3x3 (stage 1's block; the others' 3x3 is strided), the loss, every
+    gradient and every moving statistic."""
+    cpu = ResNetV2(BottleneckV2, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                   classes=10, layout="NHWC", fused=True).initialize(
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, 4).astype(np.int32))
+    with torch.no_grad():
+        cpu(x[:1])                  # the input BatchNorm is deferred
+    card = copy.deepcopy(cpu).to(dev)
+    out = []
+    for net, where in ((cpu, "cpu"), (card, dev)):
+        counters = (fb.fwd_launches, fb.dx_launches, fb.dw_launches,
+                    fc.fwd_launches, fc.dx_launches, fc.dw_launches)
+        with autograd.record():
+            loss = SoftmaxCrossEntropyLoss()(net(x.to(where)),
+                                             y.to(where))
+        autograd.backward(loss)
+        launched = [a - b for a, b in zip(
+            (fb.fwd_launches, fb.dx_launches, fb.dw_launches,
+             fc.fwd_launches, fc.dx_launches, fc.dw_launches), counters)]
+        running = {k: v.detach().cpu().numpy()
+                   for k, v in net.collect_params().items()
+                   if "running" in k}
+        out.append((loss.mean().item(), grads_to_numpy(net), launched,
+                    running))
+    (l_cpu, g_cpu, n_cpu, r_cpu), (l_card, g_card, n_card, r_card) = out
+    assert n_cpu == [0] * 6 and n_card == [12, 12, 12, 1, 1, 1]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), (l_card, l_cpu)
+    for name, want in g_cpu.items():
+        # the stem BN's gamma gets a cancelling gradient (with beta at 0
+        # the first block's bn1 normalizes its scale away): held to the
+        # stem beta's largest gradient
+        scale = np.abs(g_cpu["features.2.beta" if name == "features.2.gamma"
+                             else name]).max()
+        err = np.abs(g_card[name] - want).max()
+        assert err <= 1e-3 * scale, (name, err, scale)
+    for name, want in r_cpu.items():
+        assert np.abs(r_card[name] - want).max() <= 1e-4 * np.abs(
+            want).max(), name
 
 
 def test_lstm_lm_step_on_the_card_matches_cpu(dev, no_tf32):

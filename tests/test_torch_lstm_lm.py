@@ -15,19 +15,26 @@ within 1e-2·lr, and every weight within 2·lr (Adam moves a weight by
 about lr·g/(|g| + eps), so a gradient at rounding level may move it by
 another fraction of lr).  Dropout's random stream differs between the
 packages, so it is held by its properties.
+
+bfloat16 (both models converted by ``amp.convert_block``, the converted
+JAX weights carried across): the port's loss and each gradient within
+twice the JAX model's own bfloat16-vs-float32 distance of the JAX
+bfloat16 ones (relative to the largest |JAX| value of each tensor):
+the two round at other places (the RNN's cell, the loss).
 """
 import numpy as np
 import pytest
 import torch
 
 import incubator_mxnet_tpu as mx
+from incubator_mxnet_tpu import amp as jax_amp
 from incubator_mxnet_tpu import autograd as jax_autograd
 from incubator_mxnet_tpu import gluon as jax_gluon
 from incubator_mxnet_tpu import nd
 from incubator_mxnet_tpu.models.lstm_lm import (
     LSTMLanguageModel as JaxLSTMLanguageModel)
 
-from incubator_mxnet_tpu_torch import autograd
+from incubator_mxnet_tpu_torch import amp, autograd
 from incubator_mxnet_tpu_torch.convert import (grads_to_numpy,
                                                params_from_jax,
                                                params_to_numpy)
@@ -238,3 +245,32 @@ def test_tie_weights_raises():
     refuses it rather than build an untied model."""
     with pytest.raises(NotImplementedError, match="tie_weights"):
         LSTMLanguageModel(V, E, H, tie_weights=True)
+
+
+def _rel(got, want):
+    return np.abs(np.asarray(got, np.float64) - want).max() / max(
+        np.abs(want).max(), 1e-30)
+
+
+def test_bfloat16_step_matches_jax():
+    """One training step of the model converted to bfloat16 (the RNN's
+    operands in bfloat16, as ``amp.convert_block`` casts the ``RNN``
+    op): the loss and every gradient, the JAX model hybridized."""
+    jnet, _ = _models()
+    jnet.hybridize()
+    x, y = _batch()
+    want32 = _jax_step(jnet, x, y)
+    jax_amp.convert_block(jnet, "bfloat16")
+    want = _jax_step(jnet, x, y)
+    port = LSTMLanguageModel(V, E, H, L, dropout=0.0)
+    port.initialize(device="cpu")
+    amp.convert_block(port, "bfloat16")
+    params_from_jax(_named(jnet), port)
+    assert port.rnn.params_flat.dtype == torch.bfloat16
+    loss, grads = _port_step(port, x, y)
+    own = abs(want[0] - want32[0]) / abs(want32[0])
+    assert 0 < own and abs(loss - want[0]) / abs(want[0]) <= 2 * own
+    for k, g in want[1].items():
+        own = _rel(g, want32[1][k])
+        assert 0 < own, k
+        assert _rel(grads[k], g) <= 2 * own, (k, _rel(grads[k], g), own)
