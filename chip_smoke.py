@@ -259,7 +259,34 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    at 224x224 raising; (f) phase 13's LSTM LM converted to bfloat16, 8
    steps: the loss finite, cuDNN's bf16 RNN kernels by the profiler's
    names, one launch of each cross-entropy kernel a step, the step time;
-19. the kernels line (JSON), then the last line
+19. the image data path — (a) the ``image_batch`` kernel (resize, crop,
+   mirror, normalize) against its plain version bit for bit at B=128
+   into 3x224x224 from the fixtures' sizes resized to a short side of
+   256 with crops and mirrors, and upscaling, ``resize=0``, a source at
+   the output size (the bytes pass through), a 1-pixel output height and
+   one channel; its time beside the plain version's and its bound;
+   (b) nvJPEG with the ``ycc_rgb`` colour kernel against PIL's pixels
+   of the committed 4:4:4, 4:2:0 and grey fixtures, a truncated JPEG and
+   a PNG raising with the process living on, the decode time an image,
+   and ``ycc_rgb`` against its plain version, timed; (c) a ``.rec`` of
+   2048 JPEG records made from the photo fixtures through
+   ``io.ImageRecordIter`` (3x224x224, B=128, short side 256, random
+   crops and mirrors, shuffled, ImageNet mean and std, seed 0):
+   ``prefetch_buffer`` 0 against 4 bit for bit, 2 epochs of the
+   iterator alone with exactly one ``image_batch`` launch and 128 nvJPEG
+   decodes a batch, then 16 steps of phase 8's bf16 ``FusedTrainStep``
+   fed by it (NCHW to NHWC on the card), every loss finite, with the
+   iterator's img/s, the fed img/s, the step time beside phase 8 (b)'s
+   replay, the wait on the iterator and two fed steps' idle share; (d)
+   ``ImageFolderDataset`` over the photo fixtures decoded on the card,
+   ``Compose([RandomResizedCrop(224), RandomFlipLeftRight(), ToTensor(),
+   Normalize])`` card against CPU on the same image and draws, then a
+   ``DataLoader`` into 5 eager float32 SGD steps of ``resnet18_v1``
+   with finite losses; (e) ``ImageDetIter`` with
+   ``CreateDetAugmenter(rand_crop=0.5, rand_mirror=True, ...)`` over
+   phase 14's scenes at 300x300, labels padded with -1 rows to
+   ``label_shape``, into 5 Adam steps of ``ssd_300()``, losses finite;
+20. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each main path runs with the launch counters set to 0 just before it
@@ -275,7 +302,8 @@ BERT-base over phase 15 (b)'s saved and resumed run, the chunked
 loop over phase 16 (d) and (e), BERT-base's gradient accumulation
 over phase 17 (c)'s steps, and the model zoo's ResNet-50 v2 over phase
 18 (b)'s fused timed steps and (c)'s steps, and its bf16 LSTM LM over
-(f)'s.  A graph replay
+(f)'s, and the image path over phase 19 (c)'s two epochs of the
+iterator and its fed steps.  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture, and on the chunked loop's the eager chunk, the K-step capture
@@ -284,11 +312,15 @@ resume.  The kernels line gives each kernel's launches summed over the
 paths it ran on; kernels 10-14 and 16 have an entry for each instance,
 the float32 3xTF32 tensor-core tile (``..._tf32``) with phase 7's
 launches and the bfloat16 tensor-core tile (``..._mma``) with phases
-8's and 16's; the 3x3's entries also count phase 18 (b)'s and (c)'s
+8's, 16's and 19's; the 3x3's entries also count phase 18 (b)'s and (c)'s
 (v2 runs v1's four 3x3 shapes).  Kernels 10-12 have two more entries,
 ``..._tf32_v2`` and ``..._mma_v2``, for ResNet-50 v2's instances (a
 prologue on every call), with phase 18 (b)'s and (c)'s launches and
-times at stage 4's conv1.
+times at stage 4's conv1.  ``image_batch`` and ``jpeg_ycc_rgb`` replace
+no Pallas kernel (they are the native image iterator's C++ batch
+assembly and libjpeg's colour step on the card); the ``image_batch``
+entry also gives phase 19 (c)'s nvJPEG decodes and the decode time an
+image.
 """
 import copy
 import gc
@@ -740,6 +772,32 @@ ACC_UPD_ULPS, ACC_UPD_STEP = 4.0, 1e-6
 # says) and, in bfloat16, one bf16 ulp of each value more: phase 15
 # (a)'s rule
 UPD_SHAPE = (1024, 1024)
+# phase 19, the image data path.  (a) image_batch against its plain
+# version bit for bit at B=128 into 3x224x224 from the fixtures' sizes
+# resized to a short side of 256, and the corner cases; (b) nvJPEG and
+# the colour kernel against PIL's pixels of the fixtures: the mean
+# |difference| at most IMG_DECODE_MEAN and the largest IMG_DECODE_MAX
+# grey levels (only the inverse DCTs differ once the colour kernel
+# upsamples chroma as libjpeg does; measured on the card: means
+# 0.014-0.033, largest 3); (c) IMG_RECORDS JPEG records through
+# ImageRecordIter, 2 epochs alone, then IMG_FED_STEPS steps of phase 8's
+# bf16 FusedTrainStep fed by it; (d) the vision transforms card against
+# CPU on the same decoded image and draws: the uint8 crop-resize-flip
+# equal but for one level where the value before the truncating cast
+# lies within VISION_TIE of an integer (the resize's sums run in another
+# order: a flat region's exact integer lands either side), ToTensor +
+# Normalize within 1e-6 on the same uint8, the whole chain within one
+# level through Normalize; then VISION_STEPS eager SGD steps of
+# resnet18_v1; (e)
+# ImageDetIter over phase 14's scenes into DET_STEPS Adam steps of SSD
+IMG_B, IMG_RECORDS, IMG_RESIZE, IMG_FED_STEPS = 128, 2048, 256, 16
+IMG_MEAN, IMG_STD = (123.68, 116.28, 103.53), (58.395, 57.12, 57.375)
+IMG_DECODE_MEAN, IMG_DECODE_MAX = 0.1, 4
+IMG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "torch_jpeg")
+VISION_MEAN, VISION_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+VISION_B, VISION_STEPS, VISION_TIE = 8, 5, 1e-3
+DET_B, DET_STEPS = 8, 5
 
 
 def phase(name):
@@ -5784,6 +5842,443 @@ def zoo_phase(torch, np, fb, dev, rate, smi):
     return dict(f32=f32, bf16=bf16, lstm=lstm, err=err, times=times)
 
 
+def _photos():
+    """The photo-sized JPEG fixtures' bytes, by file name."""
+    names = sorted(f for f in os.listdir(IMG_FIXTURES)
+                   if f.startswith("photo_") and f.endswith(".jpg"))
+    out = {}
+    for n in names:
+        with open(os.path.join(IMG_FIXTURES, n), "rb") as f:
+            out[n] = f.read()
+    return out
+
+
+def image_batch_case(torch, np, ib, rng, sizes, shape, resize, rand, dev):
+    """``(src, table, source bytes the crops touch)`` of random images of
+    ``sizes`` for an output of ``shape``, on ``dev``."""
+    _, _, height, width = shape
+    rows, chunks, off, touched = [], [], 0, 0
+    for h, w in sizes:
+        chunks.append(rng.randint(0, 256, h * w * 3).astype(np.uint8))
+        rh, rw = ib.resized_size(h, w, height, width, resize)
+        y0 = rng.randint(0, rh - height + 1) if rand else (rh - height) // 2
+        x0 = rng.randint(0, rw - width + 1) if rand else (rw - width) // 2
+        rows.append(ib.sample_row(off, h, w, rh, rw, y0, x0,
+                                  rand and rng.randint(0, 2)))
+        off += h * w * 3
+        ys = np.float32(h - 1) / np.float32(rh - 1) if rh > 1 else 0
+        xs = np.float32(w - 1) / np.float32(rw - 1) if rw > 1 else 0
+        r0, r1 = int(np.float32(y0) * ys), int(np.float32(y0 + height - 1)
+                                               * ys)
+        c0, c1 = int(np.float32(x0) * xs), int(np.float32(x0 + width - 1)
+                                               * xs)
+        touched += (min(r1 + 1, h - 1) - r0 + 1) * \
+            (min(c1 + 1, w - 1) - c0 + 1) * 3
+    src = torch.from_numpy(np.concatenate(chunks)).to(dev)
+    return src, torch.tensor(rows, device=dev), touched
+
+
+def check_image_batch(torch, np, ib, dev, rate):
+    """Phase 19 (a): image_batch against its plain version on the card,
+    bit for bit, at the path's shape and the corner cases; its time
+    beside the plain version's and the bound.  → (max |d|, times)."""
+    rng = np.random.RandomState(19)
+    photo = [(375, 500), (500, 375), (480, 640), (500, 333)]
+    norm = (IMG_MEAN, IMG_STD, 1.0)
+    cases = [
+        ("B=128 into 3x224x224, the fixtures' sizes, short side 256, crops "
+         "and mirrors", photo * (IMG_B // 4), (IMG_B, 3, 224, 224),
+         IMG_RESIZE, True),
+        ("upscaling sources smaller than the output", [(100, 150), (60, 60),
+                                                       (223, 224), (17, 300)],
+         (4, 3, 224, 224), IMG_RESIZE, True),
+        ("resize=0 (straight to the output size)", photo, (4, 3, 224, 224),
+         0, False),
+        ("a source at the output size (bytes pass through)",
+         [(224, 224)] * 3, (3, 3, 224, 224), 0, False),
+        ("dh = 1", [(1, 300), (5, 400), (1, 224)], (3, 3, 1, 224), 0, False),
+        ("C = 1", photo * 2, (8, 1, 224, 224), IMG_RESIZE, True),
+    ]
+    main = None
+    for label, sizes, shape, resize, rand in cases:
+        src, table, touched = image_batch_case(torch, np, ib, rng, sizes,
+                                               shape, resize, rand, dev)
+        want = ib.image_batch_reference(src, table, shape, *norm)
+        got = ib.image_batch(src, table, shape, *norm)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        print(f"(a) image_batch, {label}: bit for bit its plain version "
+              f"{same}", flush=True)
+        assert same, label
+        if "pass through" in label:
+            plain = src.view(3, 224, 224, 3).permute(0, 3, 1, 2).float()
+            want_pt = (plain - torch.tensor(IMG_MEAN, device=dev)
+                       .view(1, 3, 1, 1)) / torch.tensor(
+                           IMG_STD, device=dev).view(1, 3, 1, 1)
+            assert torch.equal(got, want_pt), "the bytes did not pass through"
+        if main is None:
+            main = (src, table, shape, touched)
+    src, table, shape, touched = main
+    out_bytes = math.prod(shape) * 4
+    times = {"ms": time_ms(torch, lambda: ib.image_batch(src, table, shape,
+                                                         *norm), [()],
+                           iters=100, warmup=5),
+             "plain_ms": time_ms(torch, lambda: ib.image_batch_reference(
+                 src, table, shape, *norm), [()], iters=3, warmup=1)}
+    out = report(f"(a) image_batch at {shape}, {touched} source bytes "
+                 f"touched", times, out_bytes + touched, rate)
+    out["library_ms"] = None
+    return 0.0, out
+
+
+def check_nvjpeg(torch, np, jd, dev, rate):
+    """Phase 19 (b): nvJPEG + the colour kernel against PIL's pixels of
+    the fixtures; a truncated JPEG and a PNG raise and the process lives
+    on; decode time per image; the colour kernel against its plain
+    version, timed.  → (colour kernel's max |d|, its times, ms an
+    image)."""
+    pixels = np.load(os.path.join(IMG_FIXTURES, "small_pixels.npz"))
+    for name in ("small_444", "small_420", "small_grey"):
+        with open(os.path.join(IMG_FIXTURES, name + ".jpg"), "rb") as f:
+            got = jd.decode(f.read(), dev).cpu().numpy().astype(np.int32)
+        d = np.abs(got - pixels[name].astype(np.int32))
+        print(f"(b) nvJPEG {name} {got.shape} against PIL's pixels: mean "
+              f"|d| {d.mean():.4f}, max {d.max()}, share differing "
+              f"{(d > 0).mean():.4f} (tolerance mean {IMG_DECODE_MEAN}, max "
+              f"{IMG_DECODE_MAX})", flush=True)
+        assert d.mean() <= IMG_DECODE_MEAN and d.max() <= IMG_DECODE_MAX, name
+    photos = _photos()
+    first = next(iter(photos.values()))
+    with open(os.path.join(IMG_FIXTURES, "small.png"), "rb") as f:
+        png = f.read()
+    for what, buf in (("a truncated JPEG", first[:len(first) // 2]),
+                      ("a PNG", png)):
+        try:
+            jd.decode(buf, dev)
+        except ValueError as e:
+            print(f"(b) {what} raises: {e}", flush=True)
+        else:
+            raise AssertionError(f"{what} decoded on the card")
+    again = jd.decode(first, dev)
+    torch.cuda.synchronize()
+    print(f"(b) the process lives on: decoded {tuple(again.shape)} after "
+          "both", flush=True)
+    ms = []
+    for _ in range(4):
+        for buf in photos.values():
+            t0 = time.perf_counter()
+            jd.decode(buf, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"(b) nvJPEG decode + colour kernel of the {len(photos)} photo "
+          f"fixtures, host clock to the synchronised image: median "
+          f"{statistics.median(ms):.3f} ms an image, min {min(ms):.3f}",
+          flush=True)
+    # the colour kernel at a 500x375 4:2:0 image's planes
+    rng = np.random.RandomState(5)
+    h, w = 375, 500
+    ch, cw = jd._chroma_size(h, w, 2)
+    argsets = []
+    for _ in range(8):
+        planes = [torch.tensor(rng.randint(0, 256, s).astype(np.uint8),
+                               device=dev) for s in ((h, w), (ch, cw),
+                                                     (ch, cw))]
+        argsets.append(planes)
+    err = 0
+    for y, cb, cr in argsets[:2]:
+        got = jd.ycc_rgb(y, cb, cr, 2)
+        want = jd.ycc_rgb_reference(y, cb, cr, 2)
+        err = max(err, int((got.int() - want.int()).abs().max()))
+    print(f"(b) ycc_rgb (4:2:0, {h}x{w}) against its plain version: max |d| "
+          f"{err}", flush=True)
+    assert err == 0
+    times = {"ms": time_ms(torch, lambda y, cb, cr: jd.ycc_rgb(y, cb, cr, 2),
+                           argsets),
+             "plain_ms": time_ms(torch, lambda y, cb, cr:
+                                 jd.ycc_rgb_reference(y, cb, cr, 2), argsets,
+                                 iters=20, warmup=2)}
+    out = report(f"(b) ycc_rgb at {h}x{w} 4:2:0", times,
+                 h * w + 2 * ch * cw + 3 * h * w, rate)
+    out["library_ms"] = None
+    return float(err), out, statistics.median(ms)
+
+
+def image_record_path(torch, np, dev, smi, tmp, bench_ms):
+    """Phase 19 (c): the ImageNet-style path.  Returns its launch
+    counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch import bench, io, recordio
+    from incubator_mxnet_tpu_torch.fuse import kernel_launches
+    from incubator_mxnet_tpu_torch.ops import image_batch as ib
+    from incubator_mxnet_tpu_torch.ops import jpeg_decode as jd
+    photos = list(_photos().values())
+    rec = os.path.join(tmp, "train.rec")
+    writer = recordio.MXRecordIO(rec, "w")
+    for i in range(IMG_RECORDS):
+        writer.write(recordio.pack(recordio.IRHeader(0, float(i % CLASSES),
+                                                     i, 0),
+                                   photos[i % len(photos)]))
+    writer.close()
+    print(f"(c) wrote {IMG_RECORDS} JPEG records ({len(photos)} photo "
+          f"fixtures, 333-640 px), {os.path.getsize(rec)} bytes", flush=True)
+    kw = dict(data_shape=(3, 224, 224), batch_size=IMG_B, resize=IMG_RESIZE,
+              rand_crop=True, rand_mirror=True, shuffle=True,
+              mean_r=IMG_MEAN[0], mean_g=IMG_MEAN[1], mean_b=IMG_MEAN[2],
+              std_r=IMG_STD[0], std_g=IMG_STD[1], std_b=IMG_STD[2], seed=0,
+              device=dev)
+    nb = IMG_RECORDS // IMG_B
+    sync = io.ImageRecordIter(rec, prefetch_buffer=0, **kw)
+    ahead = io.ImageRecordIter(rec, prefetch_buffer=4, **kw)
+    n = 0
+    for a, b in zip(sync, ahead):
+        assert torch.equal(a.data[0], b.data[0]), n
+        assert torch.equal(a.label[0], b.label[0]) and a.pad == b.pad == 0
+        assert a.data[0].shape == (IMG_B, 3, 224, 224)
+        assert bool(torch.isfinite(a.data[0]).all())
+        n += 1
+    assert n == nb, n
+    print(f"(c) prefetch_buffer 0 against 4, seed 0: {n} batches bit for "
+          "bit", flush=True)
+    del sync, ahead
+    step, _, _ = bench.build(IMG_B, "bfloat16", dev)
+    want = {_KERNEL_COUNTERS[k]: n for k, n in resnet_step_launches().items()}
+    gc.collect()
+    torch.cuda.synchronize()
+    zero_launches()                                     # path starts
+    jd.decodes = 0
+    it = io.ImageRecordIter(rec, prefetch_buffer=4, **kw)
+    t0 = time.monotonic()
+    batches = 0
+    for epoch in range(2):
+        for batch in it:
+            batches += 1
+        it.reset()
+    torch.cuda.synchronize()
+    alone = time.monotonic() - t0
+    print(f"(c) the iterator alone: 2 epochs, {batches} batches in "
+          f"{alone:.3f} s, {batches * IMG_B / alone:.1f} img/s; image_batch "
+          f"launches {ib.launches}, nvJPEG decodes {jd.decodes}, ycc_rgb "
+          f"launches {jd.ycc_launches}", flush=True)
+    assert batches == 2 * nb and ib.launches == batches
+    assert jd.decodes == jd.ycc_launches == IMG_B * batches
+    losses, step_ms, waits, walls = [], [], [], []
+    t0 = time.monotonic()
+    for s in range(IMG_FED_STEPS):
+        t1 = time.monotonic()
+        batch = next(it)
+        waits.append(time.monotonic() - t1)
+        x = batch.data[0].to(torch.bfloat16).permute(0, 2, 3, 1) \
+            .contiguous()
+        y = batch.label[0].to(torch.int32)
+        t1 = time.monotonic()
+        losses.append(float(step(x, y)))
+        step_ms.append((time.monotonic() - t1) * 1e3)
+        walls.append(waits[-1] + step_ms[-1] / 1e3)
+    torch.cuda.synchronize()
+    fed = time.monotonic() - t0
+    try:
+        next(it)
+        raise AssertionError("the epoch did not end")
+    except StopIteration:
+        pass
+    launched = kernel_launches()                        # path ends
+    counts = {k: launched[_KERNEL_COUNTERS[k]]
+              for k in resnet_step_launches()}
+    counts["image_batch"] = ib.launches
+    counts["decodes"] = jd.decodes
+    counts["ycc_rgb"] = jd.ycc_launches
+    assert ib.launches == batches + IMG_FED_STEPS, ib.launches
+    assert jd.decodes == IMG_B * ib.launches
+    for k in resnet_step_launches():
+        assert counts[k] == 2 * want[_KERNEL_COUNTERS[k]], (k, counts[k])
+    print(f"(c) {IMG_FED_STEPS} steps of the bf16 FusedTrainStep fed by the "
+          f"iterator, losses {[round(v, 4) for v in losses]}", flush=True)
+    assert np.isfinite(losses).all(), losses
+    med = statistics.median(step_ms[2:])
+    steady = (IMG_FED_STEPS - 2) * IMG_B / sum(walls[2:])
+    print(f"(c) fed training: {steady:.1f} img/s over steps 3-"
+          f"{IMG_FED_STEPS} (wait + step), {IMG_FED_STEPS * IMG_B / fed:.1f} "
+          f"img/s over all {IMG_FED_STEPS} with the first step's capture "
+          f"({fed:.3f} s); step (host clock around the step's call, "
+          f"which reads its loss) median over steps 3-{IMG_FED_STEPS} "
+          f"{med:.3f} ms against phase 8 (b)'s replay {bench_ms:.3f} ms; wait "
+          f"on the iterator {sum(waits):.3f} s in all, median "
+          f"{statistics.median(waits) * 1e3:.3f} ms a batch, all "
+          f"{[round(v * 1e3, 1) for v in waits]}; {smi}", flush=True)
+    print(f"(c) path launches: {counts}", flush=True)
+    it.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(2):
+            batch = next(it)
+            x = batch.data[0].to(torch.bfloat16).permute(0, 2, 3, 1) \
+                .contiguous()
+            step(x, batch.label[0].to(torch.int32))
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    fams = device_families(prof, _RESNET_FAMILIES + (
+        ("image_batch", ("image_batch",)), ("ycc_rgb", ("ycc_rgb",)),
+        ("nvjpeg", ("nvjpeg", "jpeg"))))
+    busy = sum(fams.values())
+    print(f"(c) two fed steps profiled: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; by family (ms): "
+          f"{({k: round(v, 4) for k, v in sorted(fams.items())})}",
+          flush=True)
+    del it, step
+    return counts
+
+
+def vision_path(torch, np, dev, tmp):
+    """Phase 19 (d): ImageFolderDataset over the fixtures on the card, the
+    transforms card against CPU, then DataLoader into eager SGD steps of
+    resnet18_v1."""
+    import shutil
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.gluon import Trainer, data
+    from incubator_mxnet_tpu_torch.gluon.data.vision import (
+        ImageFolderDataset, transforms as T)
+    from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    root = os.path.join(tmp, "folder")
+    names = sorted(_photos())
+    for k in range(4):
+        os.makedirs(os.path.join(root, f"class{k}"))
+        for i, n in enumerate(names):
+            shutil.copy(os.path.join(IMG_FIXTURES, n),
+                        os.path.join(root, f"class{k}", f"{i}_{n}"))
+    ds = ImageFolderDataset(root, device=dev)
+
+    def compose(seed):
+        r = np.random.RandomState(seed)
+        return T.Compose([T.RandomResizedCrop(224, rng=r),
+                          T.RandomFlipLeftRight(rng=r), T.ToTensor(),
+                          T.Normalize(VISION_MEAN, VISION_STD)])
+
+    def augment(seed):
+        r = np.random.RandomState(seed)
+        return T.Compose([T.RandomResizedCrop(224, rng=r),
+                          T.RandomFlipLeftRight(rng=r)])
+
+    tail = T.Compose([T.ToTensor(), T.Normalize(VISION_MEAN, VISION_STD)])
+    level = 1 / 255 / min(VISION_STD)
+    worst, tail_worst, ties, total = 0.0, 0.0, 0, 0
+    for i in range(len(names)):
+        img, _ = ds[i]
+        assert img.device == dev and img.dtype == torch.uint8
+        card, cpu = augment(i)(img), augment(i)(img.cpu())
+        before = augment(i)(img.cpu().float())    # the same draws, uncast
+        d = (card.cpu().int() - cpu.int()).abs()
+        differ = d > 0
+        near = (before - before.round()).abs() <= VISION_TIE
+        assert int(d.max()) <= 1 and bool(near[differ].all()), i
+        ties, total = ties + int(differ.sum()), total + d.numel()
+        tail_worst = max(tail_worst, float(
+            (tail(card).cpu() - tail(card.cpu())).abs().max()))
+        worst = max(worst, float((compose(i)(img).cpu()
+                                  - compose(i)(img.cpu())).abs().max()))
+    print(f"(d) transforms card against CPU over {len(names)} decoded "
+          f"fixtures, the same draws: the uint8 crop-resize-flip differs in "
+          f"{ties} of {total} values ({ties / total:.4f}), each by one "
+          f"level where the uncast value lies within {VISION_TIE} of an "
+          f"integer (the truncating cast of a flat region's exact "
+          f"integer, summed in another order); ToTensor + Normalize on the "
+          f"same uint8 max |d| {tail_worst:.3e}; the whole Compose max |d| "
+          f"{worst:.3e} (one level through Normalize {level:.3e})",
+          flush=True)
+    assert tail_worst <= 1e-6 and worst <= level + 1e-6
+    loader = data.DataLoader(ds.transform_first(compose(0)),
+                             batch_size=VISION_B, shuffle=True,
+                             last_batch="discard")
+    net = get_model("resnet18_v1", classes=4)
+    net.initialize(device=dev, generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.01, "momentum": 0.9})
+    loss_fn = SoftmaxCrossEntropyLoss()
+    losses, t0 = [], time.monotonic()
+    while len(losses) < VISION_STEPS:
+        for x, y in loader:
+            y = y.to(dev)
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            autograd.backward(loss)
+            trainer.step(x.shape[0])
+            losses.append(float(loss.detach().mean()))
+            if len(losses) == VISION_STEPS:
+                break
+    torch.cuda.synchronize()
+    print(f"(d) {VISION_STEPS} eager float32 SGD steps of resnet18_v1 at "
+          f"B={VISION_B} from the DataLoader, losses "
+          f"{[round(v, 4) for v in losses]}, {time.monotonic() - t0:.2f} s",
+          flush=True)
+    assert np.isfinite(losses).all(), losses
+
+
+def detection_path(torch, np, dev):
+    """Phase 19 (e): ImageDetIter with the detection augmenters over phase
+    14's scenes into Adam steps of phase 14's SSD."""
+    from incubator_mxnet_tpu_torch import image, random
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+    from incubator_mxnet_tpu_torch.models import SSDLoss, ssd_300
+    x, labels = ssd_scenes(np, 2 * DET_B, 3)
+    items = [((x[b].transpose(1, 2, 0) * 255).astype(np.uint8),
+              labels[b][labels[b, :, 0] >= 0]) for b in range(len(x))]
+    rng = np.random.RandomState(0)
+    augs = image.CreateDetAugmenter((3, SSD_IMAGE, SSD_IMAGE), rand_crop=0.5,
+                                    rand_mirror=True, mean=(0.0, 0.0, 0.0),
+                                    std=(255.0, 255.0, 255.0), rng=rng)
+    it = image.ImageDetIter(DET_B, (3, SSD_IMAGE, SSD_IMAGE), items, augs,
+                            shuffle=True, label_shape=(SSD_M, 5), device=dev,
+                            rng=rng)
+    random.seed(0)
+    net = ssd_300()
+    net.initialize(device=dev)
+    trainer = Trainer(net.collect_params(), "adam", {"learning_rate": SSD_LR})
+    lossfn = SSDLoss()
+    losses = []
+    while len(losses) < DET_STEPS:
+        for batch in it:
+            data, lab = batch.data[0], batch.label[0]
+            assert data.shape == (DET_B, 3, SSD_IMAGE, SSD_IMAGE)
+            assert lab.shape == (DET_B, SSD_M, 5) and lab.device == dev
+            real = lab[..., 0] >= 0
+            assert bool(real.any(1).all())
+            assert bool((lab[~real] == -1).all()), "a label row not padded"
+            loss, *_ = ssd_step(torch, net, trainer, lossfn, data, lab)
+            trainer.step(DET_B)
+            losses.append(float(loss.detach().mean()))
+            if len(losses) == DET_STEPS:
+                break
+        it.reset()
+    torch.cuda.synchronize()
+    print(f"(e) ImageDetIter (crop 0.5, mirror, pad rows to {SSD_M}) into "
+          f"{DET_STEPS} Adam steps of ssd_300() at B={DET_B}, 300x300: "
+          f"losses {[round(v, 4) for v in losses]}", flush=True)
+    assert np.isfinite(losses).all(), losses
+
+
+def image_phase(torch, np, dev, rate, smi, bench_ms):
+    """Phase 19 → ``(path launch counts, image_batch's (err, times),
+    ycc_rgb's (err, times), ms an nvJPEG decode)``."""
+    from incubator_mxnet_tpu_torch.ops import image_batch as ib
+    from incubator_mxnet_tpu_torch.ops import jpeg_decode as jd
+    t0 = time.monotonic()
+    batch = check_image_batch(torch, np, ib, dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ycc_err, ycc_times, decode_ms = check_nvjpeg(torch, np, jd, dev, rate)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = image_record_path(torch, np, dev, smi, tmp, bench_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        vision_path(torch, np, dev, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    detection_path(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 19: {time.monotonic() - t0:.1f} s", flush=True)
+    return counts, batch, (ycc_err, ycc_times), decode_ms
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6093,7 +6588,15 @@ def main():
     for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
         resnet[k] += zoo["f32"][k] + zoo["bf16"][k] + zoo["lstm"][k]
 
-    phase("19 kernels")
+    phase("19 the image data path")
+    img, (batch_err, batch_times), (ycc_err, ycc_times), decode_ms = \
+        image_phase(torch, np, dev, rate, smi, bench_ms)
+    for k in _MMA_INSTANCES:
+        mma_launches[k] += img[k]
+    for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
+        resnet[k] += img[k]
+
+    phase("20 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
     fck = "incubator_mxnet_tpu/ops/fused_conv.py"
@@ -6188,6 +6691,19 @@ def main():
                                   ("_mma", "bf16", "bfloat16"))
         for i, (part, line) in enumerate(zip(("fwd", "dx", "dw"),
                                              (83, 154, 181)))
+    ] + [
+        dict(name="image_batch", route="cuda", source=src + "image_batch.cu",
+             replaces="none: the native iterator's C++ ProcessSample, "
+                      "src/image_iter.cc:334-435 (no Pallas kernel)",
+             launches=img["image_batch"], nvjpeg_decodes=img["decodes"],
+             nvjpeg_ms_per_image=decode_ms, max_abs_err=batch_err,
+             **batch_times),
+        dict(name="jpeg_ycc_rgb", route="cuda",
+             source=src + "jpeg_decode.cu",
+             replaces="none: libjpeg's chroma upsampling and colour "
+                      "conversion in the native decode, "
+                      "src/image_iter.cc:55-80 (no Pallas kernel)",
+             launches=img["ycc_rgb"], max_abs_err=ycc_err, **ycc_times),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,7 +73,8 @@ __all__ = ["FusedTrainStep", "make_fused_train_step", "sgd_init",
 
 # modules whose kernel wrappers keep launch counters (``*launches``)
 _KERNEL_MODULES = ("layer_norm", "softmax_xent", "fused_block",
-                   "fused_conv", "softmax", "rms_norm", "flash_attention")
+                   "fused_conv", "softmax", "rms_norm", "flash_attention",
+                   "image_batch", "jpeg_decode")
 
 
 def kernel_launches():

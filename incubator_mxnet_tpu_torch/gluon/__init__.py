@@ -1,6 +1,16 @@
-from . import data, loss, metric, nn, rnn, utils
-from .block import HybridBlock
-from .trainer import Trainer
+"""Gluon (counterpart of ``incubator_mxnet_tpu/gluon``).
 
-__all__ = ["HybridBlock", "Trainer", "data", "loss", "metric", "nn", "rnn",
-           "utils"]
+``Block`` names :class:`HybridBlock`: the port's blocks all run eagerly
+and have no separate non-hybrid base.  Parameters are ``nn.Parameter``s
+(``Constant`` a frozen one), collected in a ``ParameterDict``."""
+from . import data, loss, metric, model_zoo, nn, rnn, utils
+from .block import HybridBlock
+from .parameter import Constant, ParameterDict
+from .trainer import Trainer
+from .utils import split_and_load
+
+Block = HybridBlock
+
+__all__ = ["Block", "HybridBlock", "Trainer", "Constant", "ParameterDict",
+           "data", "loss", "metric", "model_zoo", "nn", "rnn", "utils",
+           "split_and_load"]

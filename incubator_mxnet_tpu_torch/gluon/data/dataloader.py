@@ -178,6 +178,16 @@ def _worker_loop(dataset, batchify_fn, key_queue, result_queue):
             result_queue.put((seq, "error", traceback.format_exc()))
 
 
+def _decodes_on_cuda(dataset):
+    """Whether reading ``dataset`` (or the dataset a transform wraps)
+    uses the card."""
+    while dataset is not None:
+        if getattr(dataset, "decodes_on_cuda", False):
+            return True
+        dataset = getattr(dataset, "_data", None)
+    return False
+
+
 class DataLoader:
     """Iterates over ``dataset`` in batches.
 
@@ -211,6 +221,11 @@ class DataLoader:
               or last_batch is not None):
             raise ValueError("batch_size, shuffle, sampler and last_batch "
                              "must be unset with a batch_sampler")
+        if num_workers and not thread_pool and _decodes_on_cuda(dataset):
+            raise ValueError(
+                "DataLoader: this dataset decodes on the card, and a forked "
+                "process worker must not use CUDA; use num_workers=0 or "
+                "thread workers (thread_pool=True)")
         self._batch_sampler = batch_sampler
         self._batchify_fn = batchify_fn or default_batchify_fn
         self._pin_memory = pin_memory

@@ -1,11 +1,12 @@
 """Gluon utilities (subset of ``incubator_mxnet_tpu/gluon/utils.py``;
 reference ``python/mxnet/gluon/utils.py``).  ``split_and_load`` over
-several devices waits for the port's multi-device slice."""
+several devices waits for the port's multi-device slice (ROADMAP §A
+item 11)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["split_data", "clip_global_norm"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -20,6 +21,20 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
     return [data.narrow(batch_axis, i * step,
                         step if i < num_slice - 1 else size - i * step)
             for i in range(num_slice)]
+
+
+def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
+    """``[data]`` on the one device of ``ctx_list`` (a ``Context``,
+    string or ``torch.device``); numpy data becomes a tensor.  Several
+    devices raise until the port's multi-device slice."""
+    from ..context import resolve_device
+    if len(ctx_list) != 1:
+        raise NotImplementedError(
+            "split_and_load over several devices is not ported yet "
+            "(ROADMAP §A item 11); give one device")
+    if not isinstance(data, torch.Tensor):
+        data = torch.as_tensor(data)
+    return [data.to(resolve_device(ctx_list[0]))]
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.
 A library is built at first use into ``_build/`` beside ``csrc/`` and
-named by a hash of every source in ``csrc/`` and of the flags, so an
-edited source builds afresh and an unchanged one is reused.
+named by a hash of every source in ``csrc/`` and of the flags (the
+common ones and each source's own, :data:`SOURCE_FLAGS`), so an edited
+source or flag builds afresh and an unchanged one is reused.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import: this module is imported where there is no
@@ -21,14 +22,22 @@ import threading
 
 from ..error import KernelError
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path",
-           "library_path", "kernel_names", "build", "load", "launcher"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCE_FLAGS",
+           "nvcc_path", "source_flags", "library_path", "kernel_names",
+           "build", "load", "launcher"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: Flags of one source only: ``image_batch`` contracts no ``a*b + c``
+#: into an FMA (its values must be the native iterator's, bit for bit);
+#: ``jpeg_decode`` links the CUDA toolkit's nvJPEG, found at run time
+#: through an rpath to the toolkit's library directory ("{cuda_lib}").
+SOURCE_FLAGS = {"image_batch": ("-fmad=false",),
+                "jpeg_decode": ("-lnvjpeg", "-Xlinker",
+                                "-rpath={cuda_lib}")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _launchers: dict[tuple[str, str], object] = {}
@@ -44,8 +53,18 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def source_flags(name: str) -> tuple:
+    """The extra nvcc flags of ``csrc/<name>.cu``."""
+    cuda_lib = os.path.join(os.path.dirname(os.path.dirname(nvcc_path())),
+                            "lib64")
+    return tuple(f.format(cuda_lib=cuda_lib)
+                 for f in SOURCE_FLAGS.get(name, ()))
+
+
 def _sources_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(SOURCE_FLAGS):
+        h.update(" ".join((name,) + source_flags(name)).encode())
     for fname in sorted(os.listdir(CSRC_DIR)):
         h.update(fname.encode())
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
@@ -75,7 +94,7 @@ def build(names) -> dict[str, str]:
             continue
         tmp = f"{dst}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, name + ".cu")]
+               os.path.join(CSRC_DIR, name + ".cu"), *source_flags(name)]
         try:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)

@@ -8,26 +8,42 @@ their draws repeat.  The samplers below draw on the device they are
 asked for, from that device's generator.  The streams are PyTorch's
 (Philox on the card, Mersenne Twister on the CPU), not the JAX package's
 threefry: the same seed gives other numbers by design.
+
+The host-side image code draws where the JAX package draws from
+Python's and numpy's global streams: ``image.py``'s crops and flips from
+:data:`py_rng` (a ``random.Random``), the vision transforms and the
+detection augmenters from :data:`np_rng` (a
+``numpy.random.RandomState``), unless they are given their own.  Both
+are seeded by :func:`seed`, so that ``random.Random(n)`` and
+``RandomState(n)``, or the JAX package's globals seeded with ``n``, draw
+the same numbers call for call.
 """
 from __future__ import annotations
 
+import random as _pyrandom
 import threading
 
+import numpy as np
 import torch
 
 from .context import resolve_device
 
 __all__ = ["seed", "current_seed", "generator", "uniform", "normal",
-           "randint"]
+           "randint", "py_rng", "np_rng"]
 
 _lock = threading.Lock()
 _seed = 0
 _generators: dict[torch.device, torch.Generator] = {}
+#: The host streams of ``image.py`` (Python's) and of the vision
+#: transforms and detection augmenters (numpy's).
+py_rng = _pyrandom.Random(0)
+np_rng = np.random.RandomState(0)
 
 
 def seed(seed_state: int, ctx=None):
     """Reseed the streams (reference ``mx.random.seed``): the CPU
-    generator, and the generator of the device ``ctx`` names, or without
+    generator, the host streams :data:`py_rng` and :data:`np_rng`, and
+    the generator of the device ``ctx`` names, or without
     ``ctx`` (or with ``"all"``) every CUDA generator, present and to
     come."""
     global _seed
@@ -35,6 +51,8 @@ def seed(seed_state: int, ctx=None):
     device = None if ctx is None or ctx == "all" else resolve_device(ctx)
     with _lock:
         _seed = seed_state
+        py_rng.seed(seed_state)
+        np_rng.seed(seed_state % 2**32)
         if device is None:
             _generators.clear()
             return

@@ -13,9 +13,10 @@ it (a forked ``DataLoader`` worker must not share a file offset with its
 parent), and :meth:`MXIndexedRecordIO.read_idx` seeks and reads under a
 lock, so thread workers may share one reader.
 
-``pack_img``/``unpack_img`` need ``image.py``'s codec, which is not
-ported yet (ROADMAP §A item 3); ``pack_raw``/``unpack_raw`` carry a
-decoded HWC uint8 image.  Remote URIs (``s3://``, ``hdfs://``) wait for
+``pack_img``/``unpack_img`` carry an encoded image through
+``image.py``'s codec (encoding on the host only; decoding on the card
+by nvJPEG or on the CPU by cv2/PIL); ``pack_raw``/``unpack_raw`` carry
+a decoded HWC uint8 image.  Remote URIs (``s3://``, ``hdfs://``) wait for
 ``filesystem.py`` (ROADMAP §A item 12).
 """
 from __future__ import annotations
@@ -246,15 +247,19 @@ def unpack(s: bytes):
 
 
 def pack_img(header, img, quality=95, img_fmt=".jpg"):
-    raise NotImplementedError(
-        "recordio.pack_img needs image.py's encoder, which is not ported "
-        "yet (ROADMAP §A item 3); pack_raw stores a decoded image")
+    """``header`` and the HWC uint8 image encoded as ``img_fmt`` (on the
+    host: cv2, else PIL; a CUDA tensor raises)."""
+    from . import image
+    return pack(header, image.imencode(img, img_fmt, quality))
 
 
-def unpack_img(s, iscolor=1):
-    raise NotImplementedError(
-        "recordio.unpack_img needs image.py's decoder, which is not ported "
-        "yet (ROADMAP §A item 3); unpack_raw reads a decoded image")
+def unpack_img(s, iscolor=1, device=None):
+    """``(IRHeader, image)`` of a record packed by :func:`pack_img`: the
+    image a uint8 HWC tensor decoded on ``device`` (``cuda:0`` unless
+    given)."""
+    from . import image
+    header, buf = unpack(s)
+    return header, image.imdecode(buf, iscolor, device=device)
 
 
 def pack_raw(header, img):

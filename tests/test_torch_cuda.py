@@ -74,6 +74,7 @@ LAMB and saved and resumed on the card equals its uninterrupted run
 within the card's own spread between two uninterrupted runs.
 """
 import copy
+import os
 
 import numpy as np
 import pytest
@@ -2407,3 +2408,119 @@ def test_update_op_on_the_card_matches_cpu(dev, name, dtype):
                 * max(np.abs(want).max(), 1e-30))
         allow = near + (_bf16_ulp(want) if dtype == torch.bfloat16 else 0)
         assert (np.abs(got - want) <= allow).all(), (name, i)
+
+
+# ---- the image data path: image_batch, nvJPEG, ImageRecordIter --------
+# image_batch and the colour kernel bit for bit against their plain
+# versions (integer and explicitly rounded float32 arithmetic, no FMA);
+# nvJPEG + the colour kernel against PIL's pixels of the fixtures within
+# a mean of 0.1 and a largest difference of 4 grey levels (the inverse
+# DCTs differ; measured on the card: means 0.014-0.033, largest 3);
+# ImageRecordIter on the card against its CPU path on raw records, and
+# with prefetch 0 against 4, bit for bit.
+
+_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "fixtures", "torch_jpeg")
+
+
+@pytest.mark.parametrize("channels,size,resize,rand", [
+    (3, 224, 256, True), (3, 224, 0, False), (1, 16, 20, True),
+    (3, 1, 0, False)])
+def test_image_batch_matches_plain(dev, channels, size, resize, rand):
+    from incubator_mxnet_tpu_torch.ops import image_batch as ib
+    rng = np.random.RandomState(channels + size)
+    sizes = [(375, 500), (500, 375), (224, 224), (50, 70), (1, 9)]
+    H, W = (1, 8) if size == 1 else (size, size)
+    rows, chunks, off = [], [], 0
+    for h, w in sizes:
+        chunks.append(rng.randint(0, 256, h * w * 3).astype(np.uint8))
+        rh, rw = ib.resized_size(h, w, H, W, resize)
+        y0 = rng.randint(0, rh - H + 1) if rand else (rh - H) // 2
+        x0 = rng.randint(0, rw - W + 1) if rand else (rw - W) // 2
+        rows.append(ib.sample_row(off, h, w, rh, rw, y0, x0,
+                                  rand and rng.randint(0, 2)))
+        off += h * w * 3
+    rows.append([0] * 8)
+    src = torch.from_numpy(np.concatenate(chunks))
+    table = torch.tensor(rows)
+    args = ((len(rows), channels, H, W), (123.68, 116.28, 103.53),
+            (58.395, 57.12, 57.375), 1.0)
+    want = ib.image_batch_reference(src, table, *args)
+    before = ib.launches
+    got = ib.image_batch(src.to(dev), table.to(dev), *args)
+    torch.cuda.synchronize()
+    assert ib.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_jpeg_decode_matches_pil(dev):
+    from incubator_mxnet_tpu_torch.ops import jpeg_decode as jd
+    pixels = np.load(os.path.join(_FIXTURES, "small_pixels.npz"))
+    for name in ("small_444", "small_420", "small_grey"):
+        with open(os.path.join(_FIXTURES, name + ".jpg"), "rb") as f:
+            buf = f.read()
+        got = jd.decode(buf, dev).cpu().numpy().astype(np.int32)
+        d = np.abs(got - pixels[name].astype(np.int32))
+        assert d.mean() <= 0.1 and d.max() <= 4, (name, d.mean(), d.max())
+    with open(os.path.join(_FIXTURES, "photo_0_500x375.jpg"), "rb") as f:
+        buf = f.read()
+    with pytest.raises(ValueError, match="truncated"):
+        jd.decode(buf[:len(buf) // 2], dev)
+    with open(os.path.join(_FIXTURES, "small.png"), "rb") as f:
+        with pytest.raises(ValueError, match="PNG"):
+            jd.decode(f.read(), dev)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
+def test_ycc_rgb_matches_plain(dev, mode):
+    from incubator_mxnet_tpu_torch.ops import jpeg_decode as jd
+    rng = np.random.RandomState(mode)
+    for h, w in ((45, 67), (2, 3), (375, 500)):
+        ch, cw = jd._chroma_size(h, w, mode)
+        y = torch.tensor(rng.randint(0, 256, (h, w)).astype(np.uint8))
+        c = [None if mode == 4 else torch.tensor(
+            rng.randint(0, 256, (ch, cw)).astype(np.uint8)) for _ in "bc"]
+        want = jd.ycc_rgb_reference(y, *c, mode)
+        got = jd.ycc_rgb(y.to(dev), *(None if p is None else p.to(dev)
+                                      for p in c), mode)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_image_record_iter_on_the_card(dev, tmp_path):
+    """Raw records: the card's batches equal the CPU path's bit for bit.
+    Raw and JPEG records mixed: prefetch 0 and 4 give the same batches
+    bit for bit (the same draws; the event hands each batch over)."""
+    from incubator_mxnet_tpu_torch import io, recordio
+    rng = np.random.RandomState(0)
+    raw, mixed = str(tmp_path / "raw.rec"), str(tmp_path / "mixed.rec")
+    wr, wm = recordio.MXRecordIO(raw, "w"), recordio.MXRecordIO(mixed, "w")
+    names = sorted(f for f in os.listdir(_FIXTURES)
+                   if f.startswith("photo_"))
+    for i in range(10):
+        h, ww = rng.randint(20, 60, 2)
+        img = rng.randint(0, 256, (h, ww, 3)).astype(np.uint8)
+        rec = recordio.pack_raw(recordio.IRHeader(0, float(i), i, 0), img)
+        wr.write(rec)
+        wm.write(rec)
+        with open(os.path.join(_FIXTURES, names[i % len(names)]), "rb") as f:
+            wm.write(recordio.pack(recordio.IRHeader(0, 100.0 + i, i, 0),
+                                   f.read()))
+    wr.close()
+    wm.close()
+    kw = dict(data_shape=(3, 32, 32), batch_size=6, resize=40, shuffle=True,
+              rand_crop=True, rand_mirror=True, seed=3, mean_r=120.0,
+              std_r=60.0)
+
+    def batches(path, device, prefetch=4):
+        it = io.ImageRecordIter(path, device=device,
+                                prefetch_buffer=prefetch, **kw)
+        return [(b.data[0].cpu(), b.label[0].cpu(), b.pad) for b in it]
+
+    for (dc, lc, pc), (dd, ld, pd) in zip(batches(raw, "cpu"),
+                                          batches(raw, dev)):
+        assert torch.equal(dc.view(torch.int32), dd.view(torch.int32))
+        assert torch.equal(lc, ld) and pc == pd
+    sync, ahead = batches(mixed, dev, 0), batches(mixed, dev, 4)
+    for (d0, l0, p0), (d4, l4, p4) in zip(sync, ahead):
+        assert torch.equal(d0, d4) and torch.equal(l0, l4) and p0 == p4
+    assert [b[2] for b in ahead] == [0, 0, 0, 4]

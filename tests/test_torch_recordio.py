@@ -157,8 +157,12 @@ def test_readers_survive_pickling_threads_and_forks(tmp_path):
 
 
 def test_image_codec_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        recordio.unpack_img(b"")
+    # decoding is ported (nvJPEG on the card, cv2/PIL on the CPU); JPEG
+    # encoding on the card is not, and raises naming nvJPEG's encoder
+    with pytest.raises(NotImplementedError, match="nvJPEG"):
+        recordio.pack_img(recordio.IRHeader(0, 0.0, 0, 0),
+                          torch.empty((2, 2, 3), dtype=torch.uint8,
+                                      device="meta"))
     with pytest.raises(NotImplementedError, match="item 12"):
         recordio.MXRecordIO("s3://bucket/x.rec", "r")
     with pytest.raises(ValueError, match="invalid flag"):
