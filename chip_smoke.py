@@ -255,8 +255,9 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    Inception v3 at 299x299), float32 predict-mode logits at B=2 on the
    card against the same weights on the CPU; (e)
    ``examples/benchmark_score.score`` for the JAX script's eight default
-   models in bfloat16 at batch 1 and 128, img/s, and ``inception_v3``
-   at 224x224 raising; (f) phase 13's LSTM LM converted to bfloat16, 8
+   models in bfloat16 at batch 1 and 128, img/s eager and hybridized
+   (one CUDA graph a model and batch), and ``inception_v3`` at 224x224
+   raising; (f) phase 13's LSTM LM converted to bfloat16, 8
    steps: the loss finite, cuDNN's bf16 RNN kernels by the profiler's
    names, one launch of each cross-entropy kernel a step, the step time;
 19. the image data path — (a) the ``image_batch`` kernel (resize, crop,
@@ -286,6 +287,25 @@ Phases (any failure raises, prints its traceback and exits non-zero):
    ``CreateDetAugmenter(rand_crop=0.5, rand_mirror=True, ...)`` over
    phase 14's scenes at 300x300, labels padded with -1 rows to
    ``label_shape``, into 5 Adam steps of ``ssd_300()``, losses finite;
+21. int8 quantization of ResNet-50 (run before phase 20, whose line
+   counts its launches) — (a) the int8 convolution bit for bit its
+   plain version at ResNet-50's stem, stage-1 1x1 and 3x3, strided
+   downsample and stage-4 3x3 (B=32) and as the head Dense (32, 2048) x
+   (1000, 2048), each timed beside its bound, the plain version, cuDNN
+   in bfloat16 and float32 (TF32 off) or ``torch._int_mm``, from
+   channels-last codes as the path gives them (and from NCHW codes, the
+   wrapper's copy included); quantize with a range and without one, in
+   both layouts, and dequantize from int32 and int8, bit for bit, timed
+   beside the torch expression; (b) float32
+   ``resnet50_v1`` hybridized against eager at B=1 and 32: the first
+   call and the replays bit for bit, one capture a batch, a held result
+   unchanged, the host ms of a call eager against replay; (c)
+   ``examples/quantize_resnet50.py`` at its defaults (naive and entropy,
+   its two JSON lines), the launches of one eager forward (53 of each
+   kernel), the card's int8 logits against the same net on the CPU over
+   128 images, one replay of the float and the int8 net profiled by
+   kernel family, then the ``--fuse-bn`` run's line (naive mode: the
+   entropy search is host numpy, ~1 s a layer, shown once above);
 20. the kernels line (JSON), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -302,8 +322,9 @@ BERT-base over phase 15 (b)'s saved and resumed run, the chunked
 loop over phase 16 (d) and (e), BERT-base's gradient accumulation
 over phase 17 (c)'s steps, and the model zoo's ResNet-50 v2 over phase
 18 (b)'s fused timed steps and (c)'s steps, and its bf16 LSTM LM over
-(f)'s, and the image path over phase 19 (c)'s two epochs of the
-iterator and its fed steps.  A graph replay
+(f)'s, the image path over phase 19 (c)'s two epochs of the
+iterator and its fed steps, and the int8 path over phase 21 (c)'s
+example run.  A graph replay
 launches the captured kernels without passing through their wrappers,
 so on the bench path the counters hold the eager warm-up step and the
 capture, and on the chunked loop's the eager chunk, the K-step capture
@@ -320,7 +341,8 @@ times at stage 4's conv1.  ``image_batch`` and ``jpeg_ycc_rgb`` replace
 no Pallas kernel (they are the native image iterator's C++ batch
 assembly and libjpeg's colour step on the card); the ``image_batch``
 entry also gives phase 19 (c)'s nvJPEG decodes and the decode time an
-image.
+image.  ``int8_conv``, ``quantize_int8`` and ``dequantize`` replace no
+Pallas kernel either (the JAX package computes them with XLA ops).
 """
 import copy
 import gc
@@ -335,6 +357,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 B, T = 8, 128
 BUCKETS = [1, 2, 4, 8]
@@ -798,6 +821,35 @@ IMG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 VISION_MEAN, VISION_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 VISION_B, VISION_STEPS, VISION_TIE = 8, 5, 1e-3
 DET_B, DET_STEPS = 8, 5
+# phase 21: int8 post-training quantization of resnet50_v1 at B=32,
+# 224x224 (examples/quantize_resnet50.py's defaults).  (a) the int8
+# convolution at five of ResNet-50's shapes (N, C, H, W, C_out, k,
+# stride, pad) and the head Dense (M, K, N); INT8_REP's numbers go into
+# the kernels line; quantize and dequantize at a stage-1 activation
+INT8_PEAK = 1979e12    # dense int8 tensor-core operations/s (H100 SXM)
+INT8_CONV_SHAPES = [("stem", (32, 3, 224, 224, 64, 7, 2, 3)),
+                    ("stage-1 1x1", (32, 64, 56, 56, 64, 1, 1, 0)),
+                    ("stage-1 3x3", (32, 64, 56, 56, 64, 3, 1, 1)),
+                    ("strided downsample", (32, 256, 56, 56, 512, 1, 2, 0)),
+                    ("stage-4 3x3", (32, 512, 7, 7, 512, 3, 1, 1))]
+INT8_HEAD = (32, 2048, 1000)
+INT8_REP = "stage-1 3x3"
+INT8_ACT = (32, 256, 56, 56)
+# (b) hybridized float32 resnet50_v1 against eager at these batches
+HYB_BATCHES, HYB_CALLS = (1, 32), 20
+# (c) the card's int8 logits against the same int8 net moved to the CPU,
+# over the example's 4 x 32 images: the same top-1 on all but
+# INT8_TOP1_MISS, every logit within INT8_LOGIT_TOL of the largest.  The
+# int8 products are exact on both; the float layers between them
+# (BatchNorm, the residual sums, pooling, dequantize) round differently
+# in cuDNN and oneDNN, and a last-bit move of a layer's input at a tie
+# moves its code by one, 1/127 of the layer's range, damped after it.
+INT8_TOP1_MISS, INT8_LOGIT_TOL = 1, 1e-2
+INT8_FORWARD_LAUNCHES = 53    # resnet50_v1's Conv2Ds, the head excluded
+# (c) the example's img/s reads a window of 4 forwards; the float and the
+# int8 nets are read again, interleaved, over SPREAD_REPEATS windows of
+# SPREAD_PASSES passes over the 4 batches, for the spread
+SPREAD_REPEATS, SPREAD_PASSES = 5, 8
 
 
 def phase(name):
@@ -2131,6 +2183,19 @@ _TF_FAMILIES = (
     ("embedding", ("embedding", "index", "gather", "scatter", "sort",
                    "radix")),
     ("elementwise", ("elementwise", "reduce", "fill", "copy", "gelu")),
+    ("memcpy", ("memcpy", "memset")))
+
+
+# the int8 path's kernels: the port's three (dequantize before quantize,
+# whose kernel name it contains), then cuDNN's convolutions (the float
+# net's), the layout copies, pooling and PyTorch's elementwise kernels
+_INT8_FAMILIES = (
+    ("int8_conv", ("int8_conv",)), ("dequantize", ("dequantize",)),
+    ("quantize", ("quantize", "minmax")),
+    ("conv", ("fprop", "conv", "cudnn", "winograd", "xmma", "implicit")),
+    ("gemm", ("gemm", "nvjet", "cutlass")), ("copy", ("copy",)),
+    ("pooling", ("pool",)),
+    ("bn_elementwise", ("elementwise", "reduce", "batch_norm")),
     ("memcpy", ("memcpy", "memset")))
 
 
@@ -5638,20 +5703,24 @@ def zoo_on_card(torch, np, dev):
 def score_zoo(torch, dev, smi):
     """Phase 18 (e): ``benchmark_score.score`` for the JAX script's eight
     default models in bfloat16 at batch 1 and 128 (Inception at
-    3x299x299); ``inception_v3`` at 3x224x224 must raise."""
+    3x299x299), eager and hybridized (one CUDA graph a model and batch,
+    the script's default); ``inception_v3`` at 3x224x224 must raise."""
     from incubator_mxnet_tpu_torch.examples.benchmark_score import score
     out = {}
     for model in SCORE_MODELS:
         shape = (3, 299, 299) if model == "inception_v3" else (3, 224, 224)
         for bs in SCORE_BATCHES:
-            out[(model, bs)] = score(model, bs, shape, "bfloat16",
-                                     SCORE_STEPS, SCORE_WARMUP, dev)
-            print(f"score {model:14s} bs={bs:4d} {shape}: "
-                  f"{out[(model, bs)]:10.1f} img/s (bfloat16, {SCORE_STEPS} "
-                  f"eager forwards, the read-back inside the window)",
-                  flush=True)
-            gc.collect()
-            torch.cuda.empty_cache()
+            for hyb in (False, True):
+                out[(model, bs, hyb)] = score(model, bs, shape, "bfloat16",
+                                              SCORE_STEPS, SCORE_WARMUP, dev,
+                                              hybridize=hyb)
+                gc.collect()
+                torch.cuda.empty_cache()
+            print(f"score {model:14s} bs={bs:4d} {shape}: eager "
+                  f"{out[(model, bs, False)]:10.1f} img/s, hybridized "
+                  f"{out[(model, bs, True)]:10.1f} img/s (bfloat16, "
+                  f"{SCORE_STEPS} forwards, the read-back inside the "
+                  "window)", flush=True)
     try:
         score("inception_v3", 1, (3, 224, 224), "bfloat16", 1, 0, dev)
     except ValueError as e:
@@ -6279,6 +6348,331 @@ def image_phase(torch, np, dev, rate, smi, bench_ms):
     return counts, batch, (ycc_err, ycc_times), decode_ms
 
 
+def _codes(torch, g, shape, dev):
+    return torch.randint(-127, 128, shape, generator=g,
+                         dtype=torch.int8).to(dev)
+
+
+def _max_abs(torch, got, want):
+    """max |got - want|, exact for integers (in int64) and floats (in
+    float64)."""
+    wide = torch.float64 if got.is_floating_point() else torch.int64
+    return (got.to(wide) - want.to(wide)).abs().max().item()
+
+
+def int8_conv_check(torch, k8, dev, rate, g):
+    """Phase 21 (a), the int8 convolution: bit for bit its plain version
+    at ResNet-50's five shapes and the head Dense, each timed beside its
+    bound, the plain version and cuDNN (bf16; float32 printed) or
+    ``torch._int_mm`` (the head).  → (max |d| over every shape,
+    INT8_REP's times)."""
+    import torch.nn.functional as F
+    out, err = {}, 0
+    for label, (n, c, h, w, co, k, st, pad) in INT8_CONV_SHAPES:
+        # the codes channels-last, as the path's quantize writes them
+        x = _codes(torch, g, (n, c, h, w), dev).contiguous(
+            memory_format=torch.channels_last)
+        wt = _codes(torch, g, (co, c, k, k), dev).contiguous(
+            memory_format=torch.channels_last)
+        got = k8.int8_conv(x, wt, None, st, pad)
+        want = k8.int8_conv_reference(x, wt, None, st, pad)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = max(err, _max_abs(torch, got, want))
+        print(f"(a) int8_conv {label} {(n, c, h, w)} x {(co, c, k, k)} "
+              f"stride {st} pad {pad} -> {tuple(got.shape)}: bit for bit "
+              f"its plain version {same}", flush=True)
+        assert same, label
+        m = got.numel() // co
+        ops, nbytes = 2 * m * c * k * k * co, x.numel() + wt.numel() + \
+            got.numel() * 4
+        xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16).contiguous()
+        xf, wf = x.float(), wt.float().contiguous()
+        times = {
+            "ms": time_ms(torch, lambda: k8.int8_conv(x, wt, None, st, pad),
+                          [()], iters=100, warmup=10),
+            "plain_ms": time_ms(torch, lambda: k8.int8_conv_reference(
+                x, wt, None, st, pad), [()], iters=5, warmup=1),
+            "library_ms": time_ms(torch, lambda: F.conv2d(xb, wb, None, st,
+                                                          pad),
+                                  [()], iters=100, warmup=10)}
+        f32 = time_ms(torch, lambda: F.conv2d(xf, wf, None, st, pad), [()],
+                      iters=50, warmup=5)
+        xn = x.contiguous()
+        nchw = time_ms(torch, lambda: k8.int8_conv(xn, wt, None, st, pad),
+                       [()], iters=100, warmup=10)
+        out[label] = report(f"(a) int8_conv {label} (library: cuDNN bf16)",
+                            times, nbytes, rate, ops, INT8_PEAK)
+        print(f"  cuDNN float32 (TF32 off) at the same shape: device "
+              f"{f32[0]} stream {f32[1]:.6f} ms; int8 at "
+              f"{ops / out[label]['ms'] / 1e9:.1f} TOP/s; from NCHW codes "
+              f"(the wrapper's channels-last copy first): device {nchw[0]} "
+              f"stream {nchw[1]:.6f} ms", flush=True)
+        del x, xn, wt, got, want, xb, wb, xf, wf
+        torch.cuda.empty_cache()
+    mh, kh, nh = INT8_HEAD
+    x, wt = _codes(torch, g, (mh, kh), dev), _codes(torch, g, (nh, kh), dev)
+    xc, wc = x.reshape(mh, kh, 1, 1), wt.reshape(nh, kh, 1, 1)
+    got = k8.int8_conv(xc, wc).reshape(mh, nh)
+    lib = torch._int_mm(x, wt.t())
+    torch.cuda.synchronize()
+    want = k8.int8_conv_reference(xc, wc).reshape(mh, nh)
+    same = torch.equal(got, want)
+    err = max(err, _max_abs(torch, got, want))
+    print(f"(a) int8_conv as the head Dense {INT8_HEAD}: bit for bit its "
+          f"plain version {same}, equal to torch._int_mm "
+          f"{torch.equal(got, lib)}", flush=True)
+    assert same and torch.equal(got, lib)
+    times = {"ms": time_ms(torch, lambda: k8.int8_conv(xc, wc), [()]),
+             "plain_ms": time_ms(torch, lambda: k8.int8_conv_reference(
+                 xc, wc), [()], iters=20, warmup=2),
+             "library_ms": time_ms(torch, lambda: torch._int_mm(x, wt.t()),
+                                   [()])}
+    report("(a) int8_conv, the head Dense (library: torch._int_mm)", times,
+           x.numel() + wt.numel() + got.numel() * 4, rate,
+           2 * mh * kh * nh, INT8_PEAK)
+    return err, out[INT8_REP]
+
+
+def quantize_check(torch, k8, dev, rate, g):
+    """Phase 21 (a), quantize and dequantize: bit for bit their plain
+    versions at a stage-1 activation (with a range and without one, in
+    both layouts; from int32 sums and from int8 codes), timed beside the
+    bound, the plain version and the torch expression.  → ((quantize's
+    max |d|, its times with a range, channels-last), (dequantize's max
+    |d|, its times from int32))."""
+    x = (torch.randn(INT8_ACT, generator=g) * 3).to(dev)
+    n = x.numel()
+    acc = torch.randint(-2 ** 30, 2 ** 30, INT8_ACT, generator=g,
+                        dtype=torch.int32).to(dev)
+    q_err = d_err = 0
+    for rng in ((-3.3333, 5.123), (None, None)):
+        q, lo, hi = k8.quantize_int8(x, *rng)
+        want = k8.quantize_int8_reference(x, *rng)[0]
+        cl = k8.quantize_int8(x, *rng, channels_last=True)[0]
+        torch.cuda.synchronize()
+        same = torch.equal(q, want) and torch.equal(cl, want)
+        q_err = max(q_err, _max_abs(torch, q, want),
+                    _max_abs(torch, cl, want))
+        print(f"(a) quantize_int8 {INT8_ACT}, range {rng}, and channels-"
+              f"last: bit for bit its plain version {same}; range "
+              f"({float(lo)}, {float(hi)})", flush=True)
+        assert same, rng
+        for codes in (acc, q):
+            got = k8.dequantize(codes, lo, hi)
+            want = k8.dequantize_reference(codes, lo, hi)
+            same = torch.equal(got, want)
+            d_err = max(d_err, _max_abs(torch, got, want))
+            print(f"(a) dequantize {codes.dtype}: bit for bit its plain "
+                  f"version {same}", flush=True)
+            assert same
+    scale = torch.full((), float(k8.range_scale(-3.3333, 5.123, 127.0)),
+                       device=dev)
+    out = {}
+    for label, fn, plain, lib, nbytes in (
+            ("quantize_int8, a range, channels-last (the conv layers' "
+             "call)", lambda: k8.quantize_int8(
+                 x, -3.3333, 5.123, channels_last=True),
+             lambda: k8.quantize_int8_reference(
+                 x, -3.3333, 5.123, channels_last=True),
+             lambda: torch.round(x / scale).clamp_(-127, 127).to(
+                 torch.int8).contiguous(memory_format=torch.channels_last),
+             5 * n),
+            ("quantize_int8, a range", lambda: k8.quantize_int8(
+                x, -3.3333, 5.123), lambda: k8.quantize_int8_reference(
+                x, -3.3333, 5.123), lambda: torch.round(x / scale).clamp_(
+                -127, 127).to(torch.int8), 5 * n),
+            ("quantize_int8, no range", lambda: k8.quantize_int8(x),
+             lambda: k8.quantize_int8_reference(x), None, 5 * n),
+            ("dequantize from int32", lambda: k8.dequantize(acc, -3.0, 3.0),
+             lambda: k8.dequantize_reference(acc, -3.0, 3.0),
+             lambda: acc.float() * scale, 8 * n),
+            ("dequantize from int8", lambda: k8.dequantize(q, -3.0, 3.0),
+             lambda: k8.dequantize_reference(q, -3.0, 3.0),
+             lambda: q.float() * scale, 5 * n)):
+        times = {"ms": time_ms(torch, fn, [()], iters=100, warmup=10),
+                 "plain_ms": time_ms(torch, plain, [()], iters=20,
+                                     warmup=2)}
+        if lib is not None:
+            times["library_ms"] = time_ms(torch, lib, [()], iters=100,
+                                          warmup=10)
+        out[label] = report(f"(a) {label} at {INT8_ACT} (library: the torch "
+                            "expression)", times, nbytes, rate)
+        out[label].setdefault("library_ms", None)
+    return ((q_err, out["quantize_int8, a range, channels-last (the conv "
+                        "layers' call)"]),
+            (d_err, out["dequantize from int32"]))
+
+
+def host_ms(torch, fn, calls=HYB_CALLS):
+    """``(host ms to enqueue a call, wall ms a call)`` over ``calls`` calls
+    after one more, the wall time ending in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return enqueue, (time.perf_counter() - t0) / calls * 1e3
+
+
+def hybridize_check(torch, np, dev):
+    """Phase 21 (b): float32 resnet50_v1 hybridized against eager at B=1
+    and 32: the first call (warm-up and capture) and the replays bit for
+    bit the eager forward, one capture a batch, a held result unchanged
+    by the next call; the host ms of a call eager against replay."""
+    from incubator_mxnet_tpu_torch import random as mx_random
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    mx_random.seed(0)
+    net = vision.resnet50_v1()
+    net.initialize(device=dev)
+    for b in HYB_BATCHES:
+        x = torch.tensor(np.random.RandomState(b).rand(b, 3, IMAGE, IMAGE)
+                         .astype(np.float32), device=dev)
+        with torch.no_grad():
+            net.hybridize(active=False)
+            eager = net(x)
+            net.hybridize()
+            first, replay = net(x), net(x)
+            held = replay.clone()
+            net(x * 0.5)
+            op = net._cached_op
+            same = [torch.equal(first, eager), torch.equal(replay, eager),
+                    torch.equal(replay, held)]
+            print(f"(b) hybridized resnet50_v1 float32 B={b}: first call, "
+                  f"replay bit for bit eager {same[:2]}; a held result "
+                  f"unchanged after the next call {same[2]}; captures "
+                  f"{op.captures}, replays {op.replays}, cache "
+                  f"{op.stats()}", flush=True)
+            assert all(same) and op.captures == 1 and op.replays == 2
+            net.hybridize(active=False)
+            eager_ms = host_ms(torch, lambda: net(x))
+            net.hybridize()
+            replay_ms = host_ms(torch, lambda: net(x))
+        print(f"(b) B={b}: host ms to enqueue a call / wall ms a call "
+              f"({HYB_CALLS} calls): eager {eager_ms[0]:.3f} / "
+              f"{eager_ms[1]:.3f}, replay {replay_ms[0]:.3f} / "
+              f"{replay_ms[1]:.3f}", flush=True)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def img_s_spread(torch, qr, keep, lines):
+    """The hybridized float and int8 nets' img/s over SPREAD_REPEATS
+    interleaved windows of SPREAD_PASSES passes over the example's eval
+    batches, by the example's own timer: each net's min, median and max,
+    and the int8/float speedup's, printed beside the example's own."""
+    from statistics import median
+    batches = keep["eval"] * SPREAD_PASSES
+    nets = {"float": keep["float"], "naive": keep["naive"],
+            "entropy": keep["entropy"]}
+    reads = {k: [] for k in nets}
+    for _ in range(SPREAD_REPEATS):
+        for k, net in nets.items():
+            reads[k].append(qr.imgs_per_sec(net, batches))
+    for k, v in reads.items():
+        print(f"(c) {k} img/s over {SPREAD_REPEATS} windows of "
+              f"{len(batches)} forwards: min {min(v)}, median {median(v)}, "
+              f"max {max(v)} (all: {v})", flush=True)
+    for r in lines:
+        mode = r["calib_mode"]
+        ratio = [i / f for i, f in zip(reads[mode], reads["float"])]
+        print(f"(c) {mode} int8/float speedup, window by window: min "
+              f"{min(ratio)}, median {median(ratio)}, max {max(ratio)}; "
+              f"the example's own 4-forward window: {r['speedup']}",
+              flush=True)
+
+
+def example_int8(torch, np, dev, k8):
+    """Phase 21 (c): examples/quantize_resnet50.py at its defaults (both
+    modes, its two JSON lines), the launch counters set to 0 just before
+    and read just after; then the launches of one eager forward of the
+    naive net, the card's int8 logits against the same net on the CPU,
+    one profiled replay of the float and the int8 net, and the
+    ``--fuse-bn`` run in naive mode.  → the path's launches."""
+    from incubator_mxnet_tpu_torch.examples import quantize_resnet50 as qr
+    keep = {}
+    zero_launches()
+    t0 = time.monotonic()
+    lines = qr.run(qr.parse_args([]), keep)
+    path = {"int8_conv": k8.conv_launches,
+            "quantize_int8": k8.quantize_launches,
+            "dequantize": k8.dequantize_launches}
+    print(f"(c) the example at its defaults: {time.monotonic() - t0:.1f} s; "
+          f"launches on its path {path} (53 weight quantizations a "
+          "conversion, then each net's first call: an eager warm-up and a "
+          "capture; a replay passes no wrapper)", flush=True)
+    assert [r["calib_mode"] for r in lines] == ["naive", "entropy"]
+    for r in lines:
+        assert r["platform"] == "gpu" and r["float_img_per_sec"] > 0 \
+            and r["int8_img_per_sec"] > 0, r
+    qnet, batches = keep["naive"], keep["eval"]
+    img_s_spread(torch, qr, keep, lines)
+    with torch.no_grad():
+        for label, net in (("float32", keep["float"]), ("int8 naive", qnet)):
+            profile_window(torch, f"{label} resnet50_v1, one replay at "
+                           f"B={len(batches[0])}", lambda: (
+                               net(batches[0]), torch.cuda.synchronize()),
+                           _INT8_FAMILIES)
+    qnet.hybridize(active=False)
+    before = dict(path)
+    with torch.no_grad():
+        qnet(batches[0])
+    torch.cuda.synchronize()
+    per = {"int8_conv": k8.conv_launches - before["int8_conv"],
+           "quantize_int8": k8.quantize_launches - before["quantize_int8"],
+           "dequantize": k8.dequantize_launches - before["dequantize"]}
+    print(f"(c) launches in one eager forward of the int8 resnet50_v1: "
+          f"{per}", flush=True)
+    assert set(per.values()) == {INT8_FORWARD_LAUNCHES}, per
+    t0 = time.monotonic()
+    cpu = copy.deepcopy(qnet).to("cpu")
+    got, want = [], []
+    with torch.no_grad():
+        for x in batches:
+            got.append(qnet(x).cpu())
+            want.append(cpu(x.cpu()))
+    got, want = torch.cat(got), torch.cat(want)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    agree = (got.argmax(1) == want.argmax(1)).sum().item()
+    print(f"(c) int8 logits, card against the same net on the CPU over "
+          f"{len(got)} images ({time.monotonic() - t0:.1f} s): same top-1 "
+          f"on {agree}, max|d|/max|CPU| {err:.3e} (tol {INT8_LOGIT_TOL:g}; "
+          f"share of logits differing "
+          f"{(got != want).float().mean().item():.4f})", flush=True)
+    assert agree >= len(got) - INT8_TOP1_MISS and err <= INT8_LOGIT_TOL
+    del keep, qnet, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fused = qr.run(qr.parse_args(["--fuse-bn", "--modes", "naive"]))
+    print(f"(c) --fuse-bn: {time.monotonic() - t0:.1f} s", flush=True)
+    assert all(r["int8_img_per_sec"] > 0 for r in fused)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path
+
+
+def int8_phase(torch, np, dev, rate):
+    """Phase 21 → ``(the path's launches, {kernel: (max |d|, times)})``."""
+    from incubator_mxnet_tpu_torch.ops import int8_conv as k8
+    t0 = time.monotonic()
+    g = torch.Generator().manual_seed(21)
+    conv = int8_conv_check(torch, k8, dev, rate, g)
+    quant, dequant = quantize_check(torch, k8, dev, rate, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybridize_check(torch, np, dev)
+    path = example_int8(torch, np, dev, k8)
+    print(f"phase 21: {time.monotonic() - t0:.1f} s", flush=True)
+    return path, {"int8_conv": conv, "quantize_int8": quant,
+                  "dequantize": dequant}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6596,6 +6990,11 @@ def main():
     for k in ("softmax_xent_fwd", "softmax_xent_bwd"):
         resnet[k] += img[k]
 
+    phase("21 int8 quantization of ResNet-50")
+    int8_path, int8_kernels = int8_phase(torch, np, dev, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("20 kernels")
     pk = "incubator_mxnet_tpu/ops/pallas_kernels.py"
     fbk = "incubator_mxnet_tpu/ops/fused_block.py"
@@ -6704,6 +7103,21 @@ def main():
                       "conversion in the native decode, "
                       "src/image_iter.cc:55-80 (no Pallas kernel)",
              launches=img["ycc_rgb"], max_abs_err=ycc_err, **ycc_times),
+    ] + [
+        dict(name=name, route="cuda", source=src + source,
+             replaces="none: " + where + " (XLA ops, no Pallas kernel)",
+             launches=int8_path[name], max_abs_err=int8_kernels[name][0],
+             **int8_kernels[name][1])
+        for name, source, where in (
+            ("int8_conv", "int8_conv.cu",
+             "incubator_mxnet_tpu/ops/quantization_ops.py:116-122 "
+             "(conv_general_dilated to int32), :91-93 (dot_general); timed "
+             f"at ResNet-50's {INT8_REP}, B=32"),
+            ("quantize_int8", "quantize.cu",
+             "incubator_mxnet_tpu/ops/quantization_ops.py:34-48; timed "
+             f"channels-last at {INT8_ACT}, as the conv layers call it"),
+            ("dequantize", "quantize.cu",
+             "incubator_mxnet_tpu/ops/quantization_ops.py:51-61"))
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

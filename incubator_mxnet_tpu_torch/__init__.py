@@ -14,7 +14,8 @@ PyTorch version, which is what the tests compare against the JAX
 package.
 
 The JAX package's module names and aliases are bound here for every
-ported module (``mx.nd``, ``mx.gluon``, ``mx.io``, ``mx.image``, ...);
+ported module (``mx.nd``, ``mx.gluon``, ``mx.io``, ``mx.image``,
+``mx.contrib.quantization``, ...);
 names with no port yet (``sym``, ``mod``, ``kv``, ``np``, ``npx``,
 ``parallel``, ...) stay unbound.  Importing the package builds no
 kernel.
@@ -41,9 +42,10 @@ from . import checkpoint
 from . import deploy
 from . import serving
 from . import models
+from . import contrib
 
 __all__ = ["Context", "cpu", "gpu", "default_device", "resolve_device",
            "MXNetError", "error", "ndarray", "nd", "autograd", "random",
            "initializer", "init", "optimizer", "lr_scheduler", "gluon",
            "recordio", "image", "io", "amp", "metric", "rtc", "checkpoint",
-           "deploy", "serving", "models"]
+           "deploy", "serving", "models", "contrib"]

@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by the kernels that multiply on Hopper's
-// tensor cores with mma.sync (flash_attention.cu, and the forward, dx
-// and dw of fused_matmul_bn.cu and of fused_conv3_bn.cu in both dtypes):
+// tensor cores with mma.sync (flash_attention.cu, the forward, dx
+// and dw of fused_matmul_bn.cu and of fused_conv3_bn.cu in both dtypes,
+// and int8_conv.cu's int8 product with int32 sums):
 // ldmatrix from shared memory, the bf16 m16n8k16 product with float32
 // sums, where each lane reads for ldmatrix, cp.async into shared
 // memory, the staging of the fused kernels'
@@ -39,6 +40,30 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(ptr))
       : "memory");
+}
+
+// The same four 8x8 b16 matrices read from int8 data: each b16 is two
+// int8 values, so a 16 x 32 int8 block is a 16 x 16 b16 block.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const int8_t* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr))
+      : "memory");
+}
+
+// c += a . b over one m16n8k32 tile, int8 operands, int32 sums (which
+// wrap: no .satfinite).  The fragments hold the same bytes as the bf16
+// m16n8k16 product's: lane l = 4 g + t holds A at (g, 4t..4t+3), (g + 8,
+// 4t..), (g, 16 + 4t..), (g + 8, 16 + 4t..), B (32 x 8, k by n) at
+// (4t..4t+3, g) and (16 + 4t.., g), and C at (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c += a . b over one m16n8k16 tile, bf16 operands, float32 sums.

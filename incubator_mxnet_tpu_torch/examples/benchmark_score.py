@@ -8,9 +8,11 @@ seed 0, resolves its deferred shapes with one forward, converts it to
 bfloat16 by ``amp.convert_block`` (``--dtype bfloat16``, the default),
 and times ``--steps`` eval forwards under ``torch.inference_mode()``
 after ``--warmup`` ones, reading one value back to the host inside the
-timed window, as the JAX script does.  The nets run eagerly.  A model
-that fails prints a ``FAILED`` line and the sweep goes on, as in the
-reference; ``inception_v3`` wants ``--image-shape 3,299,299`` and fails
+timed window, as the JAX script does.  Each net is hybridized, as the
+JAX script hybridizes it: its first call captures one CUDA graph per
+(model, batch) and the others replay it.  A model that fails prints a
+``FAILED`` line and the sweep goes on, as in the reference;
+``inception_v3`` wants ``--image-shape 3,299,299`` and fails
 at the default 224x224, in the JAX package too.
 
 Usage:
@@ -38,12 +40,13 @@ __all__ = ["score", "main"]
 
 
 def score(model_name, batch_size, image_shape, dtype, steps, warmup,
-          device=None):
+          device=None, hybridize=True):
     """img/s of ``steps`` eval forwards of the zoo's ``model_name`` (a
     factory name, as ``resnet50_v1``) at ``(batch_size,) + image_shape``
     in ``dtype`` (``"float32"`` or ``"bfloat16"``) on ``device``
-    (``cuda:0`` unless given), from the first forward's launch to the
-    host read of one output value after the last."""
+    (``cuda:0`` unless given), hybridized unless ``hybridize`` is False,
+    from the first forward's launch to the host read of one output value
+    after the last."""
     device = resolve_device(device)
     net = getattr(vision, model_name)()
     net.initialize(device=device, generator=torch.Generator().manual_seed(0))
@@ -53,6 +56,8 @@ def score(model_name, batch_size, image_shape, dtype, steps, warmup,
                          device=device))
     if dtype == "bfloat16":
         amp.convert_block(net, "bfloat16")
+    if hybridize:
+        net.hybridize()
     x = torch.tensor(rng.rand(batch_size, *image_shape),
                      dtype=getattr(torch, dtype), device=device)
     with torch.inference_mode():

@@ -74,7 +74,7 @@ __all__ = ["FusedTrainStep", "make_fused_train_step", "sgd_init",
 # modules whose kernel wrappers keep launch counters (``*launches``)
 _KERNEL_MODULES = ("layer_norm", "softmax_xent", "fused_block",
                    "fused_conv", "softmax", "rms_norm", "flash_attention",
-                   "image_batch", "jpeg_decode")
+                   "image_batch", "jpeg_decode", "int8_conv")
 
 
 def kernel_launches():

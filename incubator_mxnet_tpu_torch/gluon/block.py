@@ -19,6 +19,18 @@ object before and after, so a ``Trainer`` built from
 format (``ndarray/params_io.py``) under the structural names, so a file
 written by the JAX package's block loads here and the reverse.
 
+:meth:`HybridBlock.hybridize` makes the outermost block's forward one
+CUDA graph per call signature (``_cached_op.py``), the JAX package's
+``CachedOp``: a call on CUDA tensors that records no gradient replays
+it.  Under ``autograd.record()``, on CPU tensors, while a parameter is
+still deferred, or inside another capture, the block runs eagerly.  The
+JAX package differentiates its compiled program (a ``jax.vjp``); the
+port's whole-step graph with a backward is ``FusedTrainStep``
+(ROADMAP §C).  The block's own pre- and forward hooks run around each
+replay; its children's run only on the calls that run eagerly (the
+first call of a signature: its warm-up and its capture), as the JAX
+ones run only while the JAX package traces.
+
 ``collect_params()`` returns a ``ParameterDict`` (``parameter.py``).
 Forward hooks follow the JAX package: ``hook(block, args)`` before and
 ``hook(block, args, out)`` after the forward, in the order registered;
@@ -36,11 +48,13 @@ from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
 from .. import _remat
+from .. import autograd
 from .. import initializer as init_mod
 from .. import ndarray as nd
 from ..amp import amp as amp_mod
 from ..autograd import track
 from ..context import resolve_device
+from ._cached_op import CachedOp
 from .parameter import ParameterDict, fill
 
 __all__ = ["HybridBlock", "as_dtype", "register_state_update"]
@@ -70,11 +84,13 @@ def register_state_update(param, new_value):
 
 
 class HybridBlock(nn.Module):
-    """Base of every layer and model.  ``forward`` runs eagerly.  What a
-    layer computes depends on ``autograd.is_training()`` (dropout is on
-    only inside ``autograd.record()``), as in the JAX package, and not on
+    """Base of every layer and model.  ``forward`` runs eagerly unless the
+    block is hybridized (:meth:`hybridize`).  What a layer computes
+    depends on ``autograd.is_training()`` (dropout is on only inside
+    ``autograd.record()``), as in the JAX package, and not on
     ``nn.Module.train()``/``eval()``.  A block converted by
-    ``amp.convert_block`` runs its forward under its AMP policy."""
+    ``amp.convert_block`` runs its forward under its AMP policy (a
+    capture included)."""
 
     def __init__(self):
         super().__init__()
@@ -83,13 +99,66 @@ class HybridBlock(nn.Module):
         # and the (initializer, generator) that initialize() recorded
         self._deferred: dict[str, tuple] = {}
         self._pending: dict[str, tuple] = {}
+        self._active = False
+        self._flags: dict = {}
+        self._cached_op: CachedOp | None = None
 
     def __call__(self, *args, **kwargs):
         policy = getattr(self, "_amp_policy", None)
         if policy is None:
-            return super().__call__(*args, **kwargs)
+            return self._call(args, kwargs)
         with amp_mod.policy_scope(policy):
-            return super().__call__(*args, **kwargs)
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
+        if self._active and not kwargs and self._graphable(args):
+            op = self._get_cached_op()
+            state = op.state()
+            if state is not None:         # no parameter deferred
+                for hook in list(self._forward_pre_hooks.values()):
+                    hook(self, args)
+                out = op(args, state)
+                for hook in list(self._forward_hooks.values()):
+                    hook(self, args, out)
+                return out
+        return super().__call__(*args, **kwargs)
+
+    @staticmethod
+    def _graphable(args):
+        """Whether this call may replay (or capture) a graph: CUDA tensors
+        in, no gradient recorded, no capture running already."""
+        if not args or not all(isinstance(a, torch.Tensor)
+                               and a.device.type == "cuda" for a in args):
+            return False
+        if autograd.is_recording() or (torch.is_grad_enabled() and any(
+                a.requires_grad for a in args)):
+            return False
+        return not torch.cuda.is_current_stream_capturing()
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Compile the forward: with ``active`` (the default) each call on
+        CUDA tensors that records no gradient runs one CUDA graph per
+        signature (see the module docstring); ``active=False`` turns it
+        off.  Only the outermost block compiles: every block under it
+        is deactivated.  A new call drops the graphs captured so far.
+        ``static_alloc`` and ``static_shape`` are recorded, as the JAX
+        package takes them; a graph holds its buffers already, so they
+        change nothing else."""
+        self._active = bool(active)
+        self._flags = {"static_alloc": static_alloc,
+                       "static_shape": static_shape}
+        self._cached_op = None
+        for mod in self.modules():
+            if mod is not self and isinstance(mod, HybridBlock):
+                mod._active = False
+                mod._cached_op = None
+        return self
+
+    def _get_cached_op(self) -> CachedOp:
+        if self._cached_op is None:
+            self._cached_op = CachedOp(self, **self._flags)
+        return self._cached_op
 
     def new_param(self, name, shape, init=None, dtype="float32",
                   requires_grad=True):
@@ -271,12 +340,6 @@ class HybridBlock(nn.Module):
                     if not isinstance(p, UninitializedParameter))
         print("-" * 78)
         print(f"Total params: {total}")
-
-    def hybridize(self, active=True, **kwargs):
-        """No-op, kept so code written for the JAX package runs: the
-        port runs eagerly, and the JAX package's whole-graph compile
-        has no counterpart here."""
-        return self
 
 
 class _HookHandle:

@@ -13,8 +13,8 @@ from ...ops import index_ops, nn_ops
 from ..block import HybridBlock, register_state_update
 
 __all__ = ["HybridSequential", "Dense", "Embedding", "Dropout",
-           "Activation", "BatchNorm", "LayerNorm", "Flatten", "Lambda",
-           "HybridLambda"]
+           "Activation", "BatchNorm", "LayerNorm", "Flatten", "Identity",
+           "Lambda", "HybridLambda"]
 
 
 class HybridSequential(HybridBlock):
@@ -119,6 +119,7 @@ class BatchNorm(HybridBlock):
         self._momentum = momentum
         self._epsilon = epsilon
         self._scale = scale
+        self._center = center
         self._use_global_stats = use_global_stats
         c = in_channels
         self.new_param("gamma", (c,), "ones", requires_grad=scale)
@@ -165,6 +166,14 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+class Identity(HybridBlock):
+    """Returns its input: what ``gluon.contrib.fuse_conv_bn`` puts in
+    place of each BatchNorm it folds into the convolution before it."""
+
+    def forward(self, x):
+        return x
 
 
 class HybridLambda(HybridBlock):

@@ -8,6 +8,10 @@ arrays, so files cross between the two packages (and reference MXNet)
 both ways.  :func:`load` also reads the JAX package's first private
 container, ``MXTPU001``.  Loaded tensors are on the CPU.
 
+The quantization ops (``ops/quantization_ops.py``) are here under the
+JAX registry's names and aliases (``_contrib_quantize_v2`` and
+``quantize``, ``_contrib_quantized_conv`` and ``quantized_conv2d``, ...).
+
 The optimizer update ops (``ops/optimizer_ops.py``) are here under the
 JAX package's names and aliases (``sgd_update``, ``adam_update``,
 ``multi_mp_sgd_mom_update``, ``_contrib_adamw_update``, ...).  Each
@@ -26,8 +30,10 @@ import torch
 
 from . import params_io
 from ..ops import optimizer_ops as _optimizer_ops
+from ..ops import quantization_ops as _quantization_ops
 
-__all__ = ["save", "load", "params_io"] + sorted(_optimizer_ops.OPS)
+__all__ = (["save", "load", "params_io"] + sorted(_optimizer_ops.OPS)
+           + sorted(_quantization_ops.OPS))
 
 _MAGIC = b"MXTPU001"
 
@@ -142,3 +148,5 @@ def _update_op(name, fn):
 
 for _name, _fn in _optimizer_ops.OPS.items():
     globals()[_name] = _update_op(_name, _fn)
+
+globals().update(_quantization_ops.OPS)

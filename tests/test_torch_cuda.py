@@ -71,7 +71,16 @@ within one bf16 ulp of each value, or where its master ends near 0 by
 cancellation, within the masters' own tolerance.  A ``.params`` file written from the
 card reads back on the CPU equal, and a small bfloat16 BERT trained with
 LAMB and saved and resumed on the card equals its uninterrupted run
-within the card's own spread between two uninterrupted runs.
+within the card's own spread between two uninterrupted runs.  The int8
+kernels (the int8 convolution, quantize and dequantize) equal their
+plain versions bit for bit: the products are exact integer sums and the
+float32 steps the same rounded operations.  A hybridized block's graph
+replay equals its eager forward bit for bit (the same kernels on the
+same inputs, TF32 off), and a quantized small ResNet on the card agrees
+with the same net moved to the CPU within INT8_NET_TOL of the largest
+logit (the float layers between the int8 products round differently in
+cuDNN and oneDNN, and a last-bit move at a tie moves one code), with
+the same top-1.
 """
 import copy
 import os
@@ -95,6 +104,7 @@ from incubator_mxnet_tpu_torch.models.transformer import (TransformerConfig,
 from incubator_mxnet_tpu_torch.ops import flash_attention as fa
 from incubator_mxnet_tpu_torch.ops import fused_block as fb
 from incubator_mxnet_tpu_torch.ops import fused_conv as fc
+from incubator_mxnet_tpu_torch.ops import int8_conv as k8
 from incubator_mxnet_tpu_torch.ops import layer_norm as ln
 from incubator_mxnet_tpu_torch.ops import rms_norm as rn
 from incubator_mxnet_tpu_torch.ops import softmax as sm
@@ -2524,3 +2534,184 @@ def test_image_record_iter_on_the_card(dev, tmp_path):
     for (d0, l0, p0), (d4, l4, p4) in zip(sync, ahead):
         assert torch.equal(d0, d4) and torch.equal(l0, l4) and p0 == p4
     assert [b[2] for b in ahead] == [0, 0, 0, 4]
+
+
+# -- int8 quantization and hybridize ----------------------------------------
+
+INT8_NET_TOL = 1e-2
+INT8_CONV_CASES = [  # (N, C, H, W, C_out, k, stride, pad, dilate, bias)
+    (2, 3, 224, 224, 64, 7, 2, 3, 1, False),     # ResNet-50's stem
+    (4, 64, 56, 56, 64, 1, 1, 0, 1, False),      # stage 1, 1x1
+    (4, 64, 56, 56, 64, 3, 1, 1, 1, True),       # stage 1, 3x3
+    (4, 256, 56, 56, 512, 1, 2, 0, 1, False),    # the strided downsample
+    (4, 512, 7, 7, 512, 3, 1, 1, 1, False),      # stage 4, 3x3
+    (3, 5, 9, 11, 10, 3, 2, 1, 2, True),         # ragged, dilated
+    (2, 32, 13, 7, 70, 3, 1, 2, 3, True),
+]
+
+
+def _int8_codes(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("case", INT8_CONV_CASES)
+def test_int8_conv_matches_plain(dev, case):
+    n, c, h, w, co, k, stride, pad, dil, with_bias = case
+    x = _int8_codes((n, c, h, w), 0).to(dev)
+    wt = _int8_codes((co, c, k, k), 1).to(dev)
+    bias = (torch.randint(-2 ** 31, 2 ** 31 - 1, (co,), dtype=torch.int64)
+            .to(torch.int32).to(dev) if with_bias else None)
+    before = k8.conv_launches
+    got = k8.int8_conv(x, wt, bias, stride, pad, dil)
+    assert k8.conv_launches == before + 1
+    want = k8.int8_conv_reference(x, wt, bias, stride, pad, dil)
+    assert torch.equal(got, want)
+    cl = wt.contiguous(memory_format=torch.channels_last)
+    assert torch.equal(k8.int8_conv(x, cl, bias, stride, pad, dil), want)
+
+
+def test_int8_dense_sums_wrap_like_plain(dev):
+    """140000 * 127^2 > 2^31: the int32 sums wrap, as XLA's do."""
+    x = torch.full((2, 140000, 1, 1), 127, dtype=torch.int8, device=dev)
+    w = torch.full((8, 140000, 1, 1), 127, dtype=torch.int8, device=dev)
+    got = k8.int8_conv(x, w)
+    assert torch.equal(got, k8.int8_conv_reference(x, w))
+    assert (got < 0).all()
+
+
+@pytest.mark.parametrize("rng", [None, (-3.3333, 5.123), (-0.5, 0.5)])
+def test_quantize_and_dequantize_match_plain(dev, rng):
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randn(3, 37, 29, 31, generator=g) * 3).to(dev)
+    lo, hi = rng if rng else (None, None)
+    q, qlo, qhi = k8.quantize_int8(x, lo, hi)
+    want, _, _ = k8.quantize_int8_reference(x, lo, hi)
+    assert torch.equal(q, want)
+    if rng is None:
+        assert qlo.item() == x.min().item() and qhi.item() == x.max().item()
+    acc = torch.randint(-2 ** 30, 2 ** 30, (5, 7, 3), device=dev,
+                        dtype=torch.int32)
+    for codes in (q, acc):
+        for a, b in ((qlo, qhi), (-7.5, 7.5)):
+            assert torch.equal(k8.dequantize(codes, a, b),
+                               k8.dequantize_reference(codes, a, b))
+    odd = x.reshape(-1)[1:].clone()[:1001]     # off 16 bytes, ragged
+    view = torch.empty(1002, device=dev)[1:].copy_(odd)
+    assert torch.equal(k8.quantize_int8(view, -1.0, 1.0)[0],
+                       k8.quantize_int8_reference(view, -1.0, 1.0)[0])
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 56, 56), (2, 3, 224, 224),
+                                   (3, 70, 7, 7), (2, 512, 7, 7),
+                                   (1, 16, 1, 130)])
+def test_quantize_channels_last_matches_plain(dev, shape):
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(shape, generator=g) * 3).to(dev)
+    for rng in ((-3.3333, 5.123), (None, None)):
+        got = k8.quantize_int8(x, *rng, channels_last=True)[0]
+        want = k8.quantize_int8_reference(x, *rng, channels_last=True)[0]
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want)
+        assert torch.equal(got, k8.quantize_int8(x, *rng)[0])
+
+
+def _graph_resnet(dev, seed=0):
+    net = ResNetV1(BottleneckV1, [1, 1], [16, 64, 128], classes=10,
+                   thumbnail=True)
+    net.initialize(device=dev, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 32, 32, device=dev))
+    return net
+
+
+def test_hybridize_replays_bit_for_bit(dev, no_tf32):
+    net = _graph_resnet(dev)
+    xs = [torch.rand(b, 3, 32, 32, device=dev) for b in (2, 2, 4, 2, 4)]
+    with torch.no_grad():
+        eager = [net(x) for x in xs]
+        net.hybridize()
+        got = [net(x) for x in xs]
+        held = [g.clone() for g in got]
+        again = net(xs[0])
+    op = net._cached_op
+    assert op.captures == 2 and op.replays == 4      # one graph a batch
+    for g, e, h in zip(got, eager, held):
+        assert torch.equal(g, e) and torch.equal(g, h)
+    assert torch.equal(again, eager[0])
+    with autograd.record():          # recording: eager, with a gradient
+        out = net(xs[0])
+    assert out.requires_grad and op.replays == 4
+
+
+def test_hybridize_reads_loaded_parameters_and_rebuilds_after_cast(
+        dev, no_tf32, tmp_path):
+    """``load_parameters`` writes in place: the graph replays and reads
+    the new values.  ``cast`` replaces the storage: a new capture."""
+    net, other = _graph_resnet(dev, 0), _graph_resnet(dev, 1)
+    other.save_parameters(str(tmp_path / "other.params"))
+    x = torch.rand(2, 3, 32, 32, device=dev)
+    with torch.no_grad():
+        want = other(x)
+        net.hybridize()
+        net(x)
+        net(x)
+        op = net._get_cached_op()
+        assert op.captures == 1 and op.replays == 1
+        net.load_parameters(str(tmp_path / "other.params"))
+        got = net(x)                # a replay of the same graph
+        assert torch.equal(got, want)
+        assert op.captures == 1 and op.replays == 2
+        net.cast("float64")
+        got64 = net(x.double())
+        assert op.captures == 2 and got64.dtype == torch.float64
+        assert torch.equal(net(x.double()), got64) and op.replays == 3
+
+
+def test_hybridize_updates_moving_stats_and_draws_like_eager(dev, no_tf32):
+    """BatchNorm's moving statistics under ``train_mode`` (no recording)
+    equal the eager calls' after each replay; Dropout draws fresh numbers
+    each replay."""
+    nets = [_graph_resnet(dev), _graph_resnet(dev)]
+    nets[1].hybridize()
+    x = torch.rand(4, 3, 32, 32, device=dev)
+    with torch.no_grad(), autograd.train_mode():
+        for _ in range(3):
+            outs = [n(x) for n in nets]
+            assert torch.equal(outs[0], outs[1])
+    for (k, a), b in zip(nets[0].collect_params().items(),
+                         nets[1].collect_params().values()):
+        assert torch.equal(a, b), k
+    drop = nn.HybridSequential()
+    drop.add(nn.Dropout(0.5))
+    drop.hybridize()
+    ones = torch.ones(4096, device=dev)
+    with torch.no_grad(), autograd.train_mode():
+        masks = [drop(ones) for _ in range(3)]
+    assert drop._cached_op.replays == 2
+    assert not torch.equal(masks[1], masks[2])
+    assert 0.4 < (masks[2] == 0).float().mean().item() < 0.6
+
+
+def test_quantized_net_on_the_card_matches_cpu(dev, no_tf32):
+    from incubator_mxnet_tpu_torch.contrib.quantization import quantize_net
+    net = _graph_resnet(dev)
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(8, 3, 32, 32, generator=g)
+    quantize_net(net, calib_data=[x], calib_mode="naive")
+    before = (k8.conv_launches, k8.quantize_launches, k8.dequantize_launches)
+    with torch.no_grad():
+        eager = net(x.to(dev))
+        after = (k8.conv_launches, k8.quantize_launches,
+                 k8.dequantize_launches)
+        assert [a - b for a, b in zip(after, before)] == [10, 10, 10]
+        net.hybridize()
+        net(x.to(dev))
+        replay = net(x.to(dev))
+        assert torch.equal(replay, eager)
+        cpu = copy.deepcopy(net).to("cpu")
+        want = cpu(x)
+    got = eager.cpu()
+    assert (got - want).abs().max() <= INT8_NET_TOL * want.abs().max()
+    assert torch.equal(got.argmax(1), want.argmax(1))
+

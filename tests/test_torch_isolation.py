@@ -19,7 +19,8 @@ import torch
 from incubator_mxnet_tpu_torch import bench, context, random, rtc
 from incubator_mxnet_tpu_torch.deploy import load_predictor
 from incubator_mxnet_tpu_torch.error import DeviceUnavailableError
-from incubator_mxnet_tpu_torch.examples import (train_bert, train_mnist,
+from incubator_mxnet_tpu_torch.examples import (quantize_resnet50,
+                                                train_bert, train_mnist,
                                                 train_resnet_fused,
                                                 train_transformer_lm)
 from incubator_mxnet_tpu_torch.fuse import make_fused_train_step
@@ -76,7 +77,10 @@ def test_importing_the_port_loads_no_jax():
                 "rtc", "_cuda_driver", "random", "gluon.data",
                 "gluon.data.dataset", "gluon.data.sampler",
                 "gluon.data.dataloader", "gluon.metric",
-                "examples.train_mnist"):
+                "examples.train_mnist", "examples.quantize_resnet50",
+                "contrib.quantization", "gluon.contrib.fuse_bn",
+                "gluon._cached_op", "ops.int8_conv",
+                "ops.quantization_ops"):
         assert "incubator_mxnet_tpu_torch." + mod in names, mod
 
 
@@ -126,6 +130,9 @@ def no_cuda(monkeypatch):
     lambda: train_mnist.lenet().initialize(),
     lambda: random.uniform(shape=(2,)),
     lambda: random.seed(0, ctx=context.gpu(0)),
+    lambda: quantize_resnet50.main([]),
+    lambda: quantize_resnet50.main(["--model", "resnet18_v1", "--modes",
+                                    "naive"]),
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):

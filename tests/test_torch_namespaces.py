@@ -2,7 +2,9 @@
 incubator_mxnet_tpu_torch as mx`` every ported module is bound under the
 JAX package's names and aliases, with no ``jax`` module loaded and no
 kernel built; ``gluon`` binds ``model_zoo``, ``ParameterDict``,
-``Constant``, ``split_and_load`` and ``data.vision``;
+``Constant``, ``split_and_load``, ``data.vision`` and ``contrib``;
+``mx.contrib.quantization`` and ``mx.gluon.contrib.fuse_conv_bn`` hold
+the JAX package's names;
 ``mx.random.seed`` seeds the host streams the image code draws from as
 ``random.Random`` and ``numpy.random.RandomState`` would be seeded.
 """
@@ -20,10 +22,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOP = ["nd", "ndarray", "autograd", "random", "initializer", "init",
        "optimizer", "lr_scheduler", "gluon", "io", "recordio", "image", "amp",
        "metric", "rtc", "deploy", "serving", "checkpoint", "models", "cpu",
-       "gpu", "Context", "MXNetError"]
+       "gpu", "Context", "MXNetError", "contrib"]
 GLUON = ["model_zoo", "ParameterDict", "Constant", "split_and_load", "data",
          "nn", "rnn", "loss", "metric", "utils", "Trainer", "HybridBlock",
-         "Block"]
+         "Block", "contrib"]
 
 
 def test_bare_import_binds_every_name():
@@ -55,6 +57,17 @@ def test_bare_import_binds_every_name():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_contrib_namespaces_hold_the_jax_names():
+    import incubator_mxnet_tpu_torch as mx
+    for name in ("quantize_net", "CalibrationCollector",
+                 "optimal_threshold_kl", "QuantizedDense", "QuantizedConv2D"):
+        assert hasattr(mx.contrib.quantization, name), name
+    assert mx.gluon.contrib.fuse_conv_bn is \
+        mx.gluon.contrib.fuse_bn.fuse_conv_bn
+    assert mx.gluon.nn.Identity()(torch.ones(2)).tolist() == [1.0, 1.0]
+    assert mx.nd.quantize is mx.nd._contrib_quantize_v2
 
 
 def test_unported_names_stay_unbound():
